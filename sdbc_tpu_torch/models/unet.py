@@ -1,0 +1,321 @@
+"""UNet2DCondition — SD-1.x denoiser (counterpart of ``sdbc_tpu/models/unet.py``).
+
+conv_in(4→320); [cos|sin] time embedding → MLP → 1280; down blocks of two
+ResBlocks (+ spatial transformer in the cross-attention blocks); mid
+ResBlock/transformer/ResBlock; up blocks of three ResBlocks on the skip
+connections; GroupNorm+SiLU head conv.  Activations are NHWC as in the JAX
+package.  Parameter names follow the JAX tree (``down.0.attns.1.attn1.q.weight``).
+
+Sampling only: ``apply`` covers the plain forward with ``attn_impl`` set to
+"inference" (the fixed-cap flash kernel and the fused GEGLU kernel on CUDA)
+or "auto" (plain attention, unfused feed-forward).  Gradient checkpointing,
+DeepCache, ControlNet residuals, the SDXL addition embedding, FreeU and
+depth>1 transformers (refused when the model is built) are not ported yet
+and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn as tnn
+
+from sdbc_tpu_torch.ops import geglu_ff as geglu_ff_mod
+from sdbc_tpu_torch.ops import nn
+from sdbc_tpu_torch.ops.attention import attention, attention_bshd_inference
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    attention_heads: int = 8
+    norm_groups: int = 32
+    cross_attn_blocks: Tuple[bool, ...] = (True, True, True, False)
+    transformer_depth: int = 1  # SD-1.x; the stacked depth>1 blocks wait
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    @staticmethod
+    def sd15() -> "UNetConfig":
+        return UNetConfig()
+
+    @staticmethod
+    def tiny() -> "UNetConfig":
+        return UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
+                          cross_attention_dim=32, attention_heads=4,
+                          norm_groups=8, cross_attn_blocks=(True, False))
+
+
+# ---------------------------------------------------------------------------
+# blocks
+
+
+class ResBlock(tnn.Module):
+    def __init__(self, cin, cout, temb_dim, **kw):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(cin, **kw)
+        self.conv1 = nn.Conv2d(cin, cout, 3, **kw)
+        self.temb = nn.Linear(temb_dim, cout, **kw)
+        self.norm2 = nn.GroupNorm(cout, **kw)
+        self.conv2 = nn.Conv2d(cout, cout, 3, **kw)
+        self.shortcut = nn.Conv2d(cin, cout, 1, **kw) if cin != cout else None
+
+    def forward(self, x, temb, groups, tproj=None):
+        # UNet norm eps 1e-5 (the transformer GroupNorm keeps 1e-6)
+        h = self.norm1(x, groups, eps=1e-5, act="silu")
+        h = self.conv1(h)
+        if tproj is None:
+            tproj = self.temb(F.silu(temb))[:, None, None, :]
+        h = h + tproj.to(h.dtype)
+        h = self.norm2(h, groups, eps=1e-5, act="silu")
+        h = self.conv2(h)
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        return x + h
+
+
+class MHA(tnn.Module):
+    def __init__(self, dim, kv_dim, **kw):
+        super().__init__()
+        self.q = nn.Linear(dim, dim, use_bias=False, **kw)
+        self.k = nn.Linear(kv_dim, dim, use_bias=False, **kw)
+        self.v = nn.Linear(kv_dim, dim, use_bias=False, **kw)
+        self.o = nn.Linear(dim, dim, **kw)
+
+    def forward(self, x, ctx, heads, impl="auto"):
+        b, s, dim = x.shape
+        hd = dim // heads
+        if impl == "inference":
+            # projection layout (b, s, h, d): the kernel reads the heads
+            # through its strides, no head split/merge copies
+            q4 = self.q(x).reshape(b, -1, heads, hd)
+            k4 = self.k(ctx).reshape(b, -1, heads, hd)
+            v4 = self.v(ctx).reshape(b, -1, heads, hd)
+            a = attention_bshd_inference(q4, k4, v4).reshape(b, s, dim)
+            return self.o(a)
+
+        def split(t):
+            return t.reshape(b, -1, heads, hd).transpose(1, 2)
+
+        a = attention(split(self.q(x)), split(self.k(ctx)), split(self.v(ctx)),
+                      impl=impl)
+        return self.o(a.transpose(1, 2).reshape(b, s, dim))
+
+
+class Transformer(tnn.Module):
+    """Spatial transformer, depth 1 (SD-1.x): the JAX package's flat layout."""
+
+    def __init__(self, dim, ctx_dim, **kw):
+        super().__init__()
+        self.norm = nn.GroupNorm(dim, **kw)
+        self.proj_in = nn.Conv2d(dim, dim, 1, **kw)
+        self.ln1 = nn.LayerNorm(dim, **kw)
+        self.attn1 = MHA(dim, dim, **kw)
+        self.ln2 = nn.LayerNorm(dim, **kw)
+        self.attn2 = MHA(dim, ctx_dim, **kw)
+        self.ln3 = nn.LayerNorm(dim, **kw)
+        self.geglu = nn.Linear(dim, 8 * dim, **kw)
+        self.ff_out = nn.Linear(4 * dim, dim, **kw)
+        self.proj_out = nn.Conv2d(dim, dim, 1, **kw)
+
+    def ff(self, y):
+        z = self.geglu(self.ln3(y))
+        val, gate = z.chunk(2, dim=-1)
+        return y + self.ff_out(val * F.gelu(gate))
+
+    def forward(self, x, ctx, heads, groups, attn_impl="auto"):
+        n, h, w, c = x.shape
+        y = self.norm(x, groups, eps=1e-6)
+        y = self.proj_in(y).reshape(n, h * w, c)
+        yn = self.ln1(y)
+        y = y + self.attn1(yn, yn, heads, attn_impl)
+        y = y + self.attn2(self.ln2(y), ctx, heads, attn_impl)
+        if attn_impl == "inference" and geglu_ff_mod.ff_fused_eligible(y):
+            # LN → up-proj → GELU gate → down-proj → residual in one kernel
+            y = geglu_ff_mod.geglu_ff(y, self.ln3, self.geglu, self.ff_out)
+        else:
+            y = self.ff(y)
+        return self.proj_out(y.reshape(n, h, w, c)) + x
+
+
+class _Block(tnn.Module):
+    def __init__(self):
+        super().__init__()
+        self.resnets = tnn.ModuleList()
+        self.attns = tnn.ModuleList()
+
+
+class _Mid(tnn.Module):
+    def __init__(self, ch, ctx_dim, ted, **kw):
+        super().__init__()
+        self.resnet1 = ResBlock(ch, ch, ted, **kw)
+        self.attn = Transformer(ch, ctx_dim, **kw)
+        self.resnet2 = ResBlock(ch, ch, ted, **kw)
+
+
+class _TimeMLP(tnn.Module):
+    def __init__(self, c0, ted, **kw):
+        super().__init__()
+        self.fc1 = nn.Linear(c0, ted, **kw)
+        self.fc2 = nn.Linear(ted, ted, **kw)
+
+
+class UNet(tnn.Module):
+    def __init__(self, cfg: UNetConfig, *, device, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if cfg.transformer_depth != 1:
+            raise NotImplementedError(
+                f"transformer_depth={cfg.transformer_depth} is not ported")
+        kw = dict(device=device, generator=generator, dtype=dtype)
+        self.cfg = cfg
+        ch = cfg.block_out_channels
+        ted = cfg.time_embed_dim
+        # construction order = the JAX init's key order (not its stream)
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, **kw)
+        self.time_mlp = _TimeMLP(ch[0], ted, **kw)
+        skip_ch = [ch[0]]
+        self.down = tnn.ModuleList()
+        cin = ch[0]
+        for i, cout in enumerate(ch):
+            blk = _Block()
+            for j in range(cfg.layers_per_block):
+                blk.resnets.append(ResBlock(cin if j == 0 else cout, cout,
+                                            ted, **kw))
+                if cfg.cross_attn_blocks[i]:
+                    blk.attns.append(Transformer(cout, cfg.cross_attention_dim,
+                                                 **kw))
+                skip_ch.append(cout)
+            if i < len(ch) - 1:
+                blk.downsample = nn.Conv2d(cout, cout, 3, **kw)
+                skip_ch.append(cout)
+            self.down.append(blk)
+            cin = cout
+        self.mid = _Mid(ch[-1], cfg.cross_attention_dim, ted, **kw)
+        self.up = tnn.ModuleList()
+        rev_cross = list(reversed(cfg.cross_attn_blocks))
+        prev = ch[-1]
+        for i, cout in enumerate(reversed(ch)):
+            blk = _Block()
+            for _ in range(cfg.layers_per_block + 1):
+                skip = skip_ch.pop()
+                blk.resnets.append(ResBlock(prev + skip, cout, ted, **kw))
+                if rev_cross[i]:
+                    blk.attns.append(Transformer(cout, cfg.cross_attention_dim,
+                                                 **kw))
+                prev = cout
+            if i < len(ch) - 1:
+                blk.upsample = nn.Conv2d(cout, cout, 3, **kw)
+            self.up.append(blk)
+        self.norm_out = nn.GroupNorm(ch[0], **kw)
+        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, **kw)
+
+
+def init(cfg: UNetConfig, *, device, generator=None,
+         dtype=torch.float32) -> UNet:
+    return UNet(cfg, device=device, generator=generator, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# time-embedding hoist
+
+
+def _temb_mlp(model: UNet, timesteps, dtype):
+    temb = nn.timestep_embedding(timesteps, model.cfg.block_out_channels[0],
+                                 dtype=dtype)
+    return model.time_mlp.fc2(F.silu(model.time_mlp.fc1(temb)))
+
+
+def precompute_temb(model: UNet, timesteps, dtype=torch.bfloat16):
+    """Every ResBlock's time projection for a whole timestep grid.
+
+    timesteps: (T,) → a tree mirroring the ResBlock nesting with (T, cout)
+    tables; ``index_temb(tree, i)`` slices step i.  Same math as the inline
+    path, evaluated once per grid instead of once per step."""
+    st = F.silu(_temb_mlp(model, timesteps, dtype))
+    return {"down": [{"resnets": [r.temb(st) for r in blk.resnets]}
+                     for blk in model.down],
+            "mid": {"resnet1": model.mid.resnet1.temb(st),
+                    "resnet2": model.mid.resnet2.temb(st)},
+            "up": [{"resnets": [r.temb(st) for r in blk.resnets]}
+                   for blk in model.up]}
+
+
+def index_temb(temb_proj, i):
+    """Slice step ``i``'s (cout,) vectors out of a ``precompute_temb`` tree."""
+    if isinstance(temb_proj, dict):
+        return {k: index_temb(v, i) for k, v in temb_proj.items()}
+    if isinstance(temb_proj, list):
+        return [index_temb(v, i) for v in temb_proj]
+    return temb_proj[i]
+
+
+# ---------------------------------------------------------------------------
+# apply
+
+
+_UNPORTED = ("remat", "cached_deep", "return_deep", "control_residuals",
+             "added_cond", "freeu")
+
+
+def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
+          attn_impl: str = "auto", temb_proj=None, **unported):
+    """latents (N,h,w,4), timesteps (N,), CLIP states (N,77,768) → eps (N,h,w,4).
+
+    ``temb_proj``: this step's slice of a ``precompute_temb`` tree, or None
+    to embed ``timesteps`` inline.  ``attn_impl``: "inference" or "auto"."""
+    for name, value in unported.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"apply() got an unexpected argument {name!r}")
+        if value not in (None, False):
+            raise NotImplementedError(f"unet.apply({name}=...) is not ported")
+    if attn_impl not in ("inference", "auto"):
+        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported")
+    cfg = model.cfg
+    g = cfg.norm_groups
+    heads = cfg.attention_heads
+    ctx = encoder_hidden_states
+
+    if temb_proj is None:
+        temb = _temb_mlp(model, timesteps, latents.dtype)
+        tp_down = [{"resnets": [None] * len(b.resnets)} for b in model.down]
+        tp_mid = {"resnet1": None, "resnet2": None}
+        tp_up = [{"resnets": [None] * len(b.resnets)} for b in model.up]
+    else:
+        temb = None
+        tp_down, tp_mid, tp_up = (temb_proj["down"], temb_proj["mid"],
+                                  temb_proj["up"])
+
+    h = model.conv_in(latents)
+    skips = [h]
+    for blk, tp in zip(model.down, tp_down):
+        for j, r in enumerate(blk.resnets):
+            h = r(h, temb, g, tp["resnets"][j])
+            if len(blk.attns):
+                h = blk.attns[j](h, ctx, heads, g, attn_impl)
+            skips.append(h)
+        if hasattr(blk, "downsample"):
+            h = blk.downsample(h, stride=2, padding=1)
+            skips.append(h)
+    h = model.mid.resnet1(h, temb, g, tp_mid["resnet1"])
+    h = model.mid.attn(h, ctx, heads, g, attn_impl)
+    h = model.mid.resnet2(h, temb, g, tp_mid["resnet2"])
+    for blk, tp in zip(model.up, tp_up):
+        for j, r in enumerate(blk.resnets):
+            h = torch.cat([h, skips.pop()], dim=-1)
+            h = r(h, temb, g, tp["resnets"][j])
+            if len(blk.attns):
+                h = blk.attns[j](h, ctx, heads, g, attn_impl)
+        if hasattr(blk, "upsample"):
+            h = nn.upsample_nearest_2x(h)
+            h = blk.upsample(h)
+    h = model.norm_out(h, g, eps=1e-5, act="silu")
+    return model.conv_out(h)

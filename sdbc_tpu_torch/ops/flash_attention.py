@@ -1,0 +1,109 @@
+"""Fixed-cap inference flash attention (counterpart of the inference entry
+points of ``sdbc_tpu/ops/flash_attention.py``).
+
+Math (the JAX package's ``_fixed_kernel_bshd``/``_fixed_kernel_raw``/
+``_fixed_kernel``): q is prescaled by scale·log2e in fp32 and rounded to the
+input dtype; s = q·kᵀ accumulates in fp32; p = exp2(min(s, 60)); l = Σp in
+fp32; o = (p → dtype)·v / max(l, 1e-37).  No running max: the cap makes this
+EXACT fp32 softmax while natural logits stay ≤ 60/log2e ≈ 41.6 (trained SD
+models stay O(10)); beyond that the softmax is distorted, not clipped.
+Non-causal, no LSE, no gradient — sampling only.
+
+Both entry points run ONE CUDA kernel (``csrc/flash_fixed.cu``) that takes
+(batch, seq, head) strides: the projection layout (B, S, H, D) and the
+head-major layout (B, H, S, D) differ only in strides, and ragged S / head
+dims that are not a multiple of 16 are handled by bounds masks and zero
+padding in shared memory.  On a CPU tensor the wrappers compute
+``fixed_cap_attention_ref``, the plain PyTorch version of the same math.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sdbc_tpu_torch.ops import _kernels
+
+LOG2E = 1.4426950408889634
+CAP = 60.0  # log2-space clamp; see module docstring
+
+
+def fixed_cap_attention_ref(q, k, v, scale: Optional[float] = None):
+    """Plain fixed-cap attention over head-major (B, H, S, D) tensors, with
+    the kernel's rounding points (q prescaled then rounded to the input
+    dtype, p rounded to v's dtype before the PV product)."""
+    dt = q.dtype
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    qp = (q.float() * (scale * LOG2E)).to(dt)
+    s = torch.matmul(qp.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(torch.clamp(s, max=CAP))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / torch.clamp(l, min=1e-37)).to(dt)
+
+
+def _check_cuda_inputs(q, k, v):
+    """What the kernel takes: bf16 on one CUDA device, 4-D (B, S, H, D)
+    logical views with a contiguous head dim, D ≤ 256 and a multiple of 8,
+    16-byte aligned rows."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_fixed: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_fixed kernel takes bfloat16, {name} is "
+                            f"{t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_fixed: {name} must be 4-D, got "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_fixed: {name} needs a contiguous head "
+                             f"dim and 16-byte aligned rows, strides "
+                             f"{t.stride()}")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h \
+            or k.shape[3] != d:
+        raise ValueError(f"flash_fixed: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if d > 256 or d % 8:
+        raise ValueError(f"flash_fixed kernel takes head dims ≤ 256 that are "
+                         f"a multiple of 8, got {d}")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("flash_fixed: empty sequence")
+
+
+def _launch(q, k, v, o, scale: float):
+    """q/k/v/o as (B, S, H, D) logical views of any stride."""
+    _check_cuda_inputs(q, k, v)
+    _kernels.flash_fixed(q, k, v, o, scale * LOG2E)
+    return o
+
+
+def _on_cpu(t) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"flash_fixed: no kernel for device {t.device}")
+    return False
+
+
+def flash_attention_fixed_bshd(q, k, v, *, scale: Optional[float] = None):
+    """Fixed-cap attention over (B, S, H, D) projection-layout inputs."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _on_cpu(q):
+        tr = lambda t: t.transpose(1, 2)
+        return tr(fixed_cap_attention_ref(tr(q), tr(k), tr(v), scale))
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, o, scale)
+
+
+def flash_attention_fixed(q, k, v, *, scale: Optional[float] = None):
+    """Fixed-cap attention over head-major (B, H, S, D) inputs."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _on_cpu(q):
+        return fixed_cap_attention_ref(q, k, v, scale)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tr = lambda t: t.transpose(1, 2)
+    _launch(tr(q), tr(k), tr(v), tr(o), scale)
+    return o
