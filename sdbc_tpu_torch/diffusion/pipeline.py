@@ -19,7 +19,7 @@ _BUILDERS = {"text_encoder": clip_mod.init, "unet": unet_mod.init,
              "vae": vae_mod.init}
 
 
-def _as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
+def as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
     """Modules as given, or modules built from JAX parameter trees (nested
     numpy, see ``models.convert``) kept in fp32 like the JAX masters."""
     sub_cfg = {"text_encoder": cfg.clip, "unet": cfg.unet, "vae": cfg.vae}
@@ -33,15 +33,16 @@ def _as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
 
 
 class SDPipeline:
-    """Tokenize → ``sample`` → numpy images, the diffusers-pipeline shape."""
+    """Tokenize → ``sample`` → numpy images, the diffusers-pipeline shape.
+    Runs on the card unless the caller passes ``device="cpu"``."""
 
     def __init__(self, params_or_modules: dict, cfg: PipelineConfig,
-                 tokenizer, device="cpu", compute_dtype=torch.bfloat16):
+                 tokenizer, device="cuda", compute_dtype=torch.bfloat16):
         self.device = torch.device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
-        self.models = _as_modules(params_or_modules, cfg, self.device)
+        self.models = as_modules(params_or_modules, cfg, self.device)
 
     def tokenize(self, prompts) -> torch.Tensor:
         ids = np.asarray(self.tokenizer.batch_encode(prompts,

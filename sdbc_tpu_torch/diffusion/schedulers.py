@@ -1,5 +1,5 @@
-"""DDIM scheduler (counterpart of the DDIM parts of
-``sdbc_tpu/diffusion/schedulers.py``).
+"""DDIM scheduler and the DDPM forward process (counterpart of those parts
+of ``sdbc_tpu/diffusion/schedulers.py``).
 
 SD-1.x schedule: scaled_linear betas (sqrt-space linear) from 0.00085 to
 0.012 over 1000 train steps, ``set_alpha_to_one=False``, ``steps_offset=0``,
@@ -75,3 +75,14 @@ def ddim_step(sched: Schedule, model_out, t: int, t_prev: int, x_t):
     x0 = (xf - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
     return (torch.sqrt(a_prev) * x0
             + torch.sqrt(1.0 - a_prev) * eps).to(x_t.dtype)
+
+
+def ddpm_add_noise(sched: Schedule, x0, noise, timesteps):
+    """Forward-process sample x_t = sqrt(ā_t)·x0 + sqrt(1−ā_t)·ε in fp32,
+    cast back to x0's dtype (DDPMScheduler.add_noise, the reference's
+    finetune_sd.py:473).  timesteps: (B,) ints in [0, T)."""
+    a = sched.alphas_cumprod[timesteps].float()
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    sqrt_a = torch.sqrt(a).reshape(shape)
+    sqrt_1ma = torch.sqrt(1.0 - a).reshape(shape)
+    return (sqrt_a * x0.float() + sqrt_1ma * noise.float()).to(x0.dtype)

@@ -5,12 +5,14 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
 
 - tree path → module path: dict keys and list indices joined by ``.``;
 - leaf names: ``w``/``scale``/``table`` → ``weight``, ``b``/``bias`` → ``bias``;
-- conv kernels HWIO → OIHW; linear weights stay (in, out);
+- conv kernels stay HWIO and linear weights (in, out);
 - CLIP's stacked ``layers`` tree (one leading layer axis per leaf) is split
   into ``layers.<i>.…``.
 
 Raises on any leaf without a parameter, any parameter left unset, and any
 shape that disagrees.
+
+``load_adam8_state`` carries an 8-bit AdamW state across the same way.
 """
 from __future__ import annotations
 
@@ -65,10 +67,38 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
                        f"left unset: {missing[:8]}")
     for name, arr in flat.items():
         p = params[name]
-        if p.dim() == 4 and arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} vs port "
                              f"{tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
     return module
+
+
+def load_adam8_state(jax_state, device="cpu"):
+    """The port's ``train.adam8bit.Adam8State`` from the JAX package's
+    ``Adam8State`` (as numpy: ``jax.tree.map(np.asarray, state)``).
+
+    ``count`` is kept; per leaf, in the JAX order, a ``Quant8State`` keeps
+    its int8 (rows, 2048) moments and drops the 128-lane broadcast of its
+    scales to (rows,), and ``FP32Moments`` are copied.  The port's leaves
+    (``trainer.optimizer_leaves``) stack the CLIP layers as the JAX tree
+    does, but list them in module order: the caller orders its leaves as
+    the JAX tree flattens them."""
+    from sdbc_tpu_torch.train import adam8bit
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a)).to(device, dtype)
+
+    per_leaf = []
+    for leaf in jax_state.per_leaf:
+        if hasattr(leaf, "mq"):
+            per_leaf.append(adam8bit.Quant8State(
+                mq=t(leaf.mq, torch.int8), ms=t(np.asarray(leaf.ms)[:, 0],
+                                                torch.float32),
+                vq=t(leaf.vq, torch.int8), vs=t(np.asarray(leaf.vs)[:, 0],
+                                                torch.float32)))
+        else:
+            per_leaf.append(adam8bit.FP32Moments(
+                m=t(leaf.m, torch.float32), v=t(leaf.v, torch.float32)))
+    return adam8bit.Adam8State(count=int(np.asarray(jax_state.count)),
+                               per_leaf=per_leaf)

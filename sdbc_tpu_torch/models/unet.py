@@ -6,12 +6,14 @@ ResBlock/transformer/ResBlock; up blocks of three ResBlocks on the skip
 connections; GroupNorm+SiLU head conv.  Activations are NHWC as in the JAX
 package.  Parameter names follow the JAX tree (``down.0.attns.1.attn1.q.weight``).
 
-Sampling only: ``apply`` covers the plain forward with ``attn_impl`` set to
-"inference" (the fixed-cap flash kernel and the fused GEGLU kernel on CUDA)
-or "auto" (plain attention, unfused feed-forward).  Gradient checkpointing,
-DeepCache, ControlNet residuals, the SDXL addition embedding, FreeU and
-depth>1 transformers (refused when the model is built) are not ported yet
-and raise ``NotImplementedError``.
+``apply`` covers the plain forward with ``attn_impl`` set to "inference"
+(sampling: the fixed-cap flash kernel and the fused GEGLU kernel on CUDA)
+or "auto" (training: differentiable, bf16 compute over fp32 masters; the
+spatial self-attention takes the training flash kernels on CUDA, the
+feed-forward stays unfused as in the JAX package).  Gradient checkpointing
+(``remat``), DeepCache, ControlNet residuals, the SDXL addition embedding,
+FreeU and depth>1 transformers (refused when the model is built) are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

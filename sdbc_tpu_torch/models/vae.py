@@ -2,9 +2,8 @@
 
 NHWC activations, GroupNorm(32, eps 1e-6) + SiLU, single-head mid-block
 attention (plain: d = 512 is past the flash kernel's head dims, as in the
-JAX package).  ``init`` builds the whole tree, encoder included, so the
-converter maps every leaf; only ``decode`` is ported so far (the encoder
-waits for img2img and training).
+JAX package).  ``decode`` serves sampling; ``encode_moments`` (batched or
+image by image), ``sample`` and ``encode`` serve training.
 """
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn as tnn
 
 from sdbc_tpu_torch.ops import nn
@@ -138,6 +138,60 @@ class VAE(tnn.Module):
 def init(cfg: VAEConfig, *, device, generator=None,
          dtype=torch.float32) -> VAE:
     return VAE(cfg, device=device, generator=generator, dtype=dtype)
+
+
+def prefer_chunked_encode(batch: int, h: int, w: int) -> bool:
+    """True when the trainer encodes image by image: 512²-class images with
+    a batch > 1 on one device (the JAX package's rule, so both packages
+    take the same graph shape for the same inputs)."""
+    return batch > 1 and h * w >= 262144
+
+
+def encode_moments(model: VAE, x):
+    """x: (N,H,W,3) in [-1,1] → (mean, logvar) each (N,H/8,W/8,latent),
+    logvar clipped to [-30, 20]."""
+    g = model.cfg.norm_groups
+    enc = model.encoder
+    h = enc.conv_in(x)
+    for blk in enc.down:
+        for r in blk.resnets:
+            h = r(h, g)
+        if hasattr(blk, "downsample"):
+            h = F.pad(h, (0, 0, 0, 1, 0, 1))  # asymmetric: bottom/right only
+            h = blk.downsample(h, stride=2, padding=0)
+    h = enc.mid.resnet1(h, g)
+    h = enc.mid.attn(h, g)
+    h = enc.mid.resnet2(h, g)
+    h = enc.norm_out(h, g, act="silu")
+    h = enc.conv_out(h)
+    mean, logvar = model.quant_conv(h).chunk(2, dim=-1)
+    return mean, torch.clamp(logvar, -30.0, 20.0)
+
+
+def encode_moments_chunked(model: VAE, x):
+    """``encode_moments`` computed image by image (``prefer_chunked_encode``
+    picks it)."""
+    parts = [encode_moments(model, x[i:i + 1]) for i in range(x.shape[0])]
+    return (torch.cat([m for m, _ in parts]),
+            torch.cat([lv for _, lv in parts]))
+
+
+def sample(mean, logvar, generator=None, eps=None):
+    """Reparameterised draw from the diagonal Gaussian posterior, in fp32,
+    cast back to mean's dtype.  The standard normal ``eps`` is given, or
+    drawn from ``generator``."""
+    std = torch.exp(0.5 * logvar.float())
+    if eps is None:
+        if generator is None:
+            raise ValueError("vae.sample needs a torch.Generator or eps")
+        eps = torch.randn(mean.shape, generator=generator,
+                          device=mean.device, dtype=torch.float32)
+    return (mean.float() + std * eps.float()).to(mean.dtype)
+
+
+def encode(model: VAE, x, generator=None, eps=None):
+    mean, logvar = encode_moments(model, x)
+    return sample(mean, logvar, generator=generator, eps=eps)
 
 
 def decode(model: VAE, z):

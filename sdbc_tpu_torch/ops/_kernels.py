@@ -1,19 +1,22 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled on first use with ``nvcc`` for ``sm_90a`` into one
+The sources are compiled on first use with ``nvcc`` for ``sm_90a``, one
+``nvcc -c`` per source file, all started together, then linked into one
 shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/sdbc_tpu_torch/libsdbc_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o <obj>/<name>.o csrc/<name>.cu        # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/sdbc_tpu_torch/libsdbc_kernels-<hash>.so <obj>/*.o
 
-The library's name carries a hash of the sources and the command, so an
+The library's name carries a hash of the sources and the commands, so an
 edit rebuilds it and an unchanged tree reuses it; a file lock keeps
 concurrent processes from building twice.  ``nvcc``'s ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside the library.
 
 Every launch adds one to ``launches[<kernel>]`` right after the kernel was
 enqueued without error, and nowhere else — a run reads the counts to show
-that the sampling path went through the kernels.
+that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sdbc_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v"]
+LINK_FLAGS = ARCH + ["-shared"]
 
-launches = {"flash_fixed": 0, "geglu_ff": 0}
+launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adam8": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -61,7 +67,7 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ["|"] + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,20 +87,43 @@ def build() -> Path:
             if lib.exists():  # another process built it while we waited
                 return lib
             t0 = time.perf_counter()
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-                   + [str(s) for s in sorted(CSRC.glob("*.cu"))])
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / "nvcc.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n"
-                                   f"{res.stderr[-4000:]}")
-            os.replace(tmp, lib)
+            _compile_and_link(_nvcc(), lib)
             build_seconds = time.perf_counter() - t0
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return lib
+
+
+def _compile_and_link(nvcc: str, lib: Path) -> None:
+    objdir = BUILD_DIR / f"obj-{os.getpid()}"
+    shutil.rmtree(objdir, ignore_errors=True)
+    objdir.mkdir()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = ([nvcc] + NVCC_FLAGS
+               + ["-c", "-o", str(objdir / f"{src.stem}.o"), str(src)])
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{err[-3000:]}")
+    if not failed:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ([nvcc] + LINK_FLAGS + ["-o", str(tmp)]
+               + [c[c.index("-o") + 1] for c, _ in jobs])
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link (rc {res.returncode}):\n{res.stderr[-3000:]}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, lib)
 
 
 def load():
@@ -110,6 +139,15 @@ def load():
     lib.sdbc_flash_fixed.restype = i
     lib.sdbc_geglu_ff.argtypes = [p] * 8 + [i, i, f, p]
     lib.sdbc_geglu_ff.restype = i
+    llp = ctypes.POINTER(ll)
+    lib.sdbc_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd.restype = i
+    lib.sdbc_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [llp, f, f, p]
+    lib.sdbc_flash_bwd_dq.restype = i
+    lib.sdbc_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_bwd_dkv.restype = i
+    lib.sdbc_adam8.argtypes = [p] * 6 + [ll] + [f] * 9 + [p]
+    lib.sdbc_adam8.restype = i
     lib.sdbc_error_string.argtypes = [i]
     lib.sdbc_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -157,3 +195,75 @@ def geglu_ff(y, gamma, beta, w1, b1, w2, b2, out, eps: float) -> None:
                                rows, c, float(eps), _stream(y))
     _check(lib, rc, "geglu_ff")
     launches["geglu_ff"] += 1
+
+
+def _bhs_strides(*tensors):
+    """(batch, head, seq) strides of (B, H, S, D) logical views, as the C
+    array the training kernels take."""
+    out = []
+    for t in tensors:
+        out += [t.stride(0), t.stride(1), t.stride(2)]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def flash_fwd(q, k, v, o, lse, qscale: float) -> None:
+    """Launch the training forward on (B, H, S, D) logical views (any
+    batch/head/seq strides, contiguous head dim); ``lse`` is a contiguous
+    (B, H, Sq) fp32 output.  The caller checks shapes and dtypes
+    (``ops.flash_attention``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.sdbc_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), lse.data_ptr(), b, h, sq,
+                                k.shape[2], d, _bhs_strides(q, k, v, o),
+                                float(qscale), _stream(q))
+    _check(lib, rc, "flash_fwd")
+    launches["flash_fwd"] += 1
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float,
+                 dq_mul: float) -> None:
+    """Launch the dq kernel (see ``flash_fwd`` for the layouts; ``delta``
+    is a contiguous (B, H, Sq) fp32 input)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.sdbc_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   do.data_ptr(), lse.data_ptr(),
+                                   delta.data_ptr(), dq.data_ptr(), b, h, sq,
+                                   k.shape[2], d,
+                                   _bhs_strides(q, k, v, do, dq),
+                                   float(scale), float(dq_mul), _stream(q))
+    _check(lib, rc, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
+    """Launch the dk/dv kernel (layouts as ``flash_bwd_dq``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.sdbc_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    do.data_ptr(), lse.data_ptr(),
+                                    delta.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), b, h, sq, k.shape[2], d,
+                                    _bhs_strides(q, k, v, do, dk, dv),
+                                    float(scale), _stream(q))
+    _check(lib, rc, "flash_bwd_dkv")
+    launches["flash_bwd_dkv"] += 1
+
+
+def adam8(p, g, mq, ms, vq, vs, lr: float, bc1: float, bc2: float, b1: float,
+          omb1: float, b2: float, omb2: float, eps: float, wd: float) -> None:
+    """Launch the fused 8-bit AdamW step on one leaf, in place.  The caller
+    checks shapes and dtypes (``train.adam8bit``)."""
+    lib = load()
+    with torch.cuda.device(p.device):
+        rc = lib.sdbc_adam8(p.data_ptr(), g.data_ptr(), mq.data_ptr(),
+                            ms.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                            p.numel(), float(lr), float(bc1), float(bc2),
+                            float(b1), float(omb1), float(b2), float(omb2),
+                            float(eps), float(wd), _stream(p))
+    _check(lib, rc, "adam8")
+    launches["adam8"] += 1

@@ -1,5 +1,17 @@
-"""Fixed-cap inference flash attention (counterpart of the inference entry
-points of ``sdbc_tpu/ops/flash_attention.py``).
+"""Flash attention (counterpart of ``sdbc_tpu/ops/flash_attention.py``):
+the fixed-cap inference kernel and the training kernel with its gradient.
+
+Training (``flash_attention``): the online-softmax forward of the JAX
+package's ``_fwd_kernel`` — q prescaled by scale·log2e in fp32 and rounded
+once to the input dtype, a running row max in log2 space, fp32
+accumulation, p rounded to v's dtype before the PV product — emitting the
+output and the natural-log LSE = m·ln2 + ln l.  ``_FlashAttention`` is the
+custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
+``flash_attention_bwd.flash_bwd``.  On CUDA both run the kernels of
+``csrc/flash_train.cu``; on a CPU tensor they compute the plain versions
+``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
+
+Inference (fixed cap):
 
 Math (the JAX package's ``_fixed_kernel_bshd``/``_fixed_kernel_raw``/
 ``_fixed_kernel``): q is prescaled by scale·log2e in fp32 and rounded to the
@@ -23,8 +35,10 @@ from typing import Optional
 import torch
 
 from sdbc_tpu_torch.ops import _kernels
+from sdbc_tpu_torch.ops.flash_attention_bwd import flash_bwd
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 CAP = 60.0  # log2-space clamp; see module docstring
 
 
@@ -84,7 +98,7 @@ def _on_cpu(t) -> bool:
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
-        raise ValueError(f"flash_fixed: no kernel for device {t.device}")
+        raise ValueError(f"flash attention: no kernel for device {t.device}")
     return False
 
 
@@ -107,3 +121,114 @@ def flash_attention_fixed(q, k, v, *, scale: Optional[float] = None):
     tr = lambda t: t.transpose(1, 2)
     _launch(tr(q), tr(k), tr(v), tr(o), scale)
     return o
+
+
+# ---------------------------------------------------------------------------
+# training flash attention (forward with LSE + custom gradient)
+
+
+def flash_attention_ref(q, k, v, scale: float):
+    """Plain training forward over head-major (B, H, S, D) tensors →
+    (out (B, H, Sq, D) in q's dtype, lse (B, H, Sq) fp32 natural log).
+
+    The kernel's rounding points: q prescaled in fp32 and rounded to the
+    input dtype, logits in log2 units, fp32 softmax statistics, p rounded
+    to v's dtype before the PV product.  The kernel rescales per 64-row KV
+    tile with a running max; this takes the row max at once, which is the
+    same math (the two round p at different offsets in bf16 only)."""
+    dt = q.dtype
+    qp = (q.float() * (scale * LOG2E)).to(dt)
+    s = torch.matmul(qp.float(), k.float().transpose(-1, -2))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    lse = (m * LN2 + torch.log(l))[..., 0]
+    return o.to(dt), lse
+
+
+def _check_train_inputs(q, k, v):
+    """What the training kernels take: bf16 (B, H, S, D) on one CUDA
+    device, matching batch/head/dim, D ≤ 256 and a multiple of 8."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention kernel takes bfloat16, {name} "
+                            f"is {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                             f"{tuple(t.shape)}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != h \
+            or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if d > 256 or d % 8:
+        raise ValueError(f"flash_attention kernel takes head dims ≤ 256 that "
+                         f"are a multiple of 8, got {d}")
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError("flash_attention: empty sequence")
+
+
+def kernel_view(t):
+    """``t`` itself when the kernels can read it through its strides (a
+    contiguous head dim, 16-byte aligned rows), else a contiguous copy."""
+    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+            and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
+def bhsd_empty_like(t):
+    """An uninitialised (B, H, S, D) view over (B, S, H, D) memory: the
+    projection layout the UNet splits heads from, so the caller's merge of
+    the heads is free."""
+    b, h, s, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def flash_fwd(q, k, v, scale: float):
+    """(out, lse) of the training forward: the kernel on CUDA, the plain
+    version on the CPU."""
+    if _on_cpu(q):
+        return flash_attention_ref(q, k, v, scale)
+    _check_train_inputs(q, k, v)
+    q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
+    o = bhsd_empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _kernels.flash_fwd(q, k, v, o, lse, scale * LOG2E)
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP ``_flash``: saves (q, k, v, out, lse); the backward
+    recomputes p from the LSE (``flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, g.to(out.dtype), lse, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: Optional[float] = None):
+    """Training flash attention over head-major (B, H, S, D) inputs, with
+    its gradient.  Causal attention goes to ``plain_attention``, as the JAX
+    package sends it to XLA."""
+    if causal:
+        from sdbc_tpu_torch.ops.attention import plain_attention
+
+        return plain_attention(q, k, v, causal=True, scale=scale)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    return _FlashAttention.apply(q, k, v, scale)

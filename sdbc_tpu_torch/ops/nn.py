@@ -1,9 +1,10 @@
 """NN primitives (counterpart of ``sdbc_tpu/ops/nn.py``).
 
 Public functions take and return NHWC activations, as the JAX package does.
-Linear weights are stored ``(in, out)`` and conv weights OIHW (the JAX
-package's HWIO, transposed by ``models/convert.py``).  Norm statistics are
-fp32; the result is cast back to the input dtype.
+Parameters keep the JAX package's layouts: linear weights ``(in, out)``,
+conv weights HWIO (so an optimizer that walks a leaf's elements in memory
+order, like the 8-bit AdamW's 2048-element blocks, sees the same order).
+Norm statistics are fp32; the result is cast back to the input dtype.
 
 These stay plain PyTorch (cuDNN convolutions, ``F.group_norm``): the JAX
 package leaves them to XLA too.  The ``nn.Module`` wrappers below name their
@@ -63,12 +64,17 @@ def linear(x, weight, bias=None):
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding="SAME"):
-    """NHWC conv with an OIHW weight.  padding: 'SAME' (stride 1) | int."""
+    """NHWC conv with an HWIO weight.  padding: 'SAME' (stride 1) | int.
+
+    The NHWC input is a channels-last NCHW view; the weight goes to the
+    convolution as a channels-last OIHW copy in the input's dtype."""
     if padding == "SAME":
         if stride != 1:
             raise ValueError("SAME padding is only defined here for stride 1")
-        padding = weight.shape[-1] // 2
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+        padding = weight.shape[0] // 2
+    w = weight.permute(3, 2, 0, 1).to(x.dtype,
+                                      memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w,
                  None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
@@ -150,7 +156,7 @@ class Conv2d(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
-        self.weight = nn.Parameter(_uniform((out_ch, in_ch, kernel, kernel),
+        self.weight = nn.Parameter(_uniform((kernel, kernel, in_ch, out_ch),
                                             bound, generator, device, dtype))
         self.bias = (nn.Parameter(_uniform((out_ch,), bound, generator,
                                            device, dtype))

@@ -19,3 +19,12 @@ def set_fp32_matmul_exact() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def cast_floating(x, dtype):
+    """``x`` with its floating-point tensors cast to ``dtype`` (integer
+    tensors untouched): an ``nn.Module`` is cast in place (its floating
+    parameters and buffers) and returned."""
+    if isinstance(x, torch.nn.Module):
+        return x.to(dtype)
+    return x.to(dtype) if x.is_floating_point() else x

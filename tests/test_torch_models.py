@@ -120,7 +120,7 @@ def test_parameter_names_follow_jax_tree(tmodels):
     names = dict(tmodels["unet"].named_parameters())
     assert "down.0.attns.0.attn1.q.weight" in names
     assert "up.1.resnets.1.shortcut.weight" in names
-    assert names["conv_in.weight"].shape == (32, 4, 3, 3)  # OIHW
+    assert names["conv_in.weight"].shape == (3, 3, 4, 32)  # HWIO, as JAX
     assert names["time_mlp.fc1.weight"].shape == (32, 128)  # (in, out)
     assert "layers.1.mlp.fc2.bias" in dict(
         tmodels["text_encoder"].named_parameters())

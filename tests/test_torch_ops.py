@@ -56,7 +56,7 @@ def test_conv2d_matches_jax(stride, padding, kernel):
     w, b = _rand(4, kernel, kernel, 6, 5, scale=0.3), _rand(5, 5)  # HWIO
     ref = jnn.conv2d({"w": jnp.asarray(w), "b": jnp.asarray(b)},
                      jnp.asarray(x), stride=stride, padding=padding)
-    out = tnn.conv2d(_t(x), _t(w.transpose(3, 2, 0, 1)), _t(b), stride,
+    out = tnn.conv2d(_t(x), _t(w), _t(b), stride,
                      padding)
     assert tuple(out.shape) == ref.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
@@ -226,4 +226,4 @@ def test_wrappers_refuse_devices_without_a_kernel():
     y = torch.zeros(32, 32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tgeglu.geglu_ff_rows(y, *([y] * 6))
-    assert _kernels.launches == {"flash_fixed": 0, "geglu_ff": 0}
+    assert set(_kernels.launches.values()) == {0}

@@ -48,7 +48,7 @@ def test_pipeline_golden(pipe):
     img = pipe(["golden prompt"], num_inference_steps=4, latents=latents)
     np.testing.assert_allclose(img, np.load(GOLDENS)["pipe_img"], atol=1e-3)
     # on the CPU the kernel wrappers take their plain versions
-    assert _kernels.launches == {"flash_fixed": 0, "geglu_ff": 0}
+    assert set(_kernels.launches.values()) == {0}
 
 
 def test_sample_matches_jax_with_negative_prompt(tiny_params, pipe, tokenizer):
@@ -69,7 +69,7 @@ def test_sample_matches_jax_with_negative_prompt(tiny_params, pipe, tokenizer):
                         torch.from_numpy(lat), 7.5, cfg=pipe.cfg,
                         num_inference_steps=4, compute_dtype=torch.float32)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
-    assert _kernels.launches == {"flash_fixed": 0, "geglu_ff": 0}
+    assert set(_kernels.launches.values()) == {0}
     # the SDPipeline route (negative prompts, NHWC latents) gives the same
     img = pipe(prompts, negative_prompt=negative, num_inference_steps=4,
                latents=lat)
