@@ -14,15 +14,23 @@ Phases, in order; each prints one or more lines, and any failure raises
                   it (bf16 inputs; the plain version in fp32 on the same
                   bf16 values), with CUDA-event medians of the kernel, the
                   plain version and the one PyTorch call computing the same
-                  function (where there is one);
+                  function (where there is one): the fixed-cap attention,
+                  GEGLU, the fused GroupNorm (the UNet's GroupNorm inputs at
+                  batch 8, one ragged case) and the int8-QK attention (also
+                  held to 4% of exact attention);
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, dq and
                   dk/dv at micro-batch 2, 8 heads, 64²/32²/16² tokens, one
                   ragged case; the 8-bit AdamW on a leaf with a ragged last
-                  row);
+                  row), the transposed-layout forward at the same cases plus
+                  the 77-key cross-attention, the 8² mid block and the VAE's
+                  512-wide head (also held to the forward's output), and the
+                  forward at the 512-wide head;
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
-                  on the CPU, with both sampling kernels launched;
+                  on the CPU, with both sampling kernels launched; then the
+                  same under SDBC_GN_FUSED=1, with exact fused GroupNorm
+                  launches;
 6. slice        — SD-1.5 at full width (random init from seed 0, bf16),
                   512², batch 4, DDIM-50, CFG 7.5, through
                   ``SDPipeline.__call__``: a warm-up call, then a timed call
@@ -31,25 +39,43 @@ Phases, in order; each prints one or more lines, and any failure raises
 7. profile      — device time by kernel over one UNet evaluation at full
                   width, its wall time (hence the device's idle share), and
                   the wall times of the text encode and the VAE decode;
-8. train-parity — one optimizer step of the tiny config (grad_accum 2,
+8. switches     — one full-width sampling call under SDBC_GN_FUSED=1, with
+                  exact fused GroupNorm launches;
+9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
-                  kernels launched;
-9. train        — the JAX package's bench mode C (``bench.py``): SD-1.5 at
+                  kernels launched; then the same with grad_ckpt (block)
+                  under SDBC_GN_FUSED=1 and SDBC_ATTN_IMPL=flash_tt;
+10. train       — the JAX package's bench mode C (``bench.py``): SD-1.5 at
                   full width (random init, fp32 masters, bf16 compute),
                   UNet + text encoder trained, 8-bit AdamW, 512², micro-batch
                   2, grad_accum 4, through ``init_train_state`` /
                   ``make_train_step``: a warm-up step, then timed steps with
                   finite losses, moved parameters and exact launch counts,
-                  and a device-time profile of one step.
+                  and a device-time profile of one step;
+11. train-ckpt  — the same with gradient checkpointing, remat_mode "block"
+                  and "selective", each with its own profiled step (s/step
+                  and peak memory beside the no-remat run; flash forwards
+                  doubled under "block" only);
+12. switches    — one mode-C step under SDBC_GN_FUSED=1 and
+                  SDBC_ATTN_IMPL=flash_tt: every attention call (the VAE
+                  encode's 512-wide head included) through the
+                  transposed-layout forward, none through the other.
 
-Then a JSON line of per-kernel results, the ``nvidia-smi`` line again, and
-the result line ``{"ok": true, "device": {...}}``.  No JAX is imported.
+Every environment variable a phase sets is restored after it.
+
+Then a JSON line of per-kernel results (each kernel's launches on its
+path, ``MAIN_PATH``, and on every full-width path, each counted over its
+own run), the ``nvidia-smi`` line again, and the result line
+``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -79,6 +105,14 @@ PARITY_TOL = 3e-2
 # contraction, sqrt/exp rounding): the parameters within 1e-6, the int8
 # moments off by one on ≤ 0.1% of entries.
 LSE_TOL = 1e-3
+# Fused GroupNorm, bf16 kernel vs the fp32 plain version on the same bf16
+# input: the kernel rounds its fp32 result to bf16 once (half an ulp,
+# 2^-9 relative), and sums in another order than the plain version (fp32,
+# ~1e-6 of the statistics); per element |err| ≤ 2^-8·|ref| + 1e-3.
+GN_REL_TOL, GN_ABS_TOL = 2.0 ** -8, 1e-3
+# int8-QK attention against exact (fp32 softmax) attention: JAX's test
+# bound, tests/test_ops.py (per-row int8 scales cost ~1-2% of the range).
+INT8_EXACT_TOL = 0.04
 ADAM_P_TOL = 1e-6
 ADAM_Q_SHARE = 1e-3
 # Tiny train step, bf16 on the card vs fp32 on the CPU: the loss within 2%
@@ -102,6 +136,7 @@ TRAIN_STEP_BOUND = 2.2  # × lr: Adam's first step is ≤ lr·(1 + wd·|p|)
 # clock (CUDA C programming guide, compute capability 9.0) × 132 SMs ×
 # 1.83 GHz (the clock behind the 989 TFLOP/s figure).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_EX2 = 16 * 132 * 1.83e9
 PEAK_FP32 = 67e12  # fp32 outside the tensor cores
@@ -200,6 +235,172 @@ def expected_launches(cfg, lat_hw: int, rows_batch: int):
         flash += tokens >= 256
         geglu += c <= _MAX_C and rows % min(_default_block(c), rows) == 0
     return flash, geglu
+
+
+def n_transformers(u) -> int:
+    """Spatial transformers of one UNet: each makes two attention calls."""
+    levels = sum(u.cross_attn_blocks)
+    return levels * u.layers_per_block + levels * (u.layers_per_block + 1) + 1
+
+
+def recorded_gn_sites(run):
+    """(shape, groups, act, recomputed) of every ``nn.group_norm`` call
+    ``run()`` makes, on the meta device (shapes only, nothing computed);
+    ``recomputed``: inside one of the UNet's gradient-checkpointed regions,
+    so called again in the backward pass.  The calls are recorded, not
+    dispatched; attention is left out (its output takes q's shape) and each
+    region runs inline once."""
+    import torch
+
+    from sdbc_tpu_torch.models import unet as unet_mod
+    from sdbc_tpu_torch.models import vae as vae_mod
+    from sdbc_tpu_torch.ops import nn
+
+    sites, depth = [], [0]
+
+    def record(x, weight, bias, num_groups=32, eps=1e-6, act=None):
+        sites.append((tuple(x.shape), num_groups, act, depth[0] > 0))
+        return x
+
+    def inline(fn, *args, **_):
+        depth[0] += 1
+        try:
+            return fn(*args)
+        finally:
+            depth[0] -= 1
+
+    def attend(q, k, v, **_):
+        return q
+
+    stubs = [(nn, "group_norm", record), (unet_mod, "checkpoint", inline),
+             (unet_mod, "attention", attend),
+             (unet_mod, "attention_bshd_inference", attend),
+             (vae_mod, "attention", attend)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stubs]
+    for mod, name, fn in stubs:
+        setattr(mod, name, fn)
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return sites
+
+
+def _fused(sites) -> int:
+    """Launches of the fused GroupNorm over recorded sites, by the dispatch
+    rule of ``nn.group_norm`` (each recomputed site twice)."""
+    from sdbc_tpu_torch.ops.pallas_groupnorm import fits
+
+    return sum((1 + ck) * (act in (None, "silu") and fits(shape, g))
+               for shape, g, act, ck in sites)
+
+
+def unet_gn_sites(cfg, lat_hw: int, remat_mode=None):
+    """The GroupNorm sites of one UNet forward at batch 1 (``remat_mode``:
+    with gradient checkpointing in that mode)."""
+    import torch
+
+    from sdbc_tpu_torch.models import unet as unet_mod
+
+    meta = dict(device="meta")
+    model = unet_mod.init(cfg.unet, **meta)
+    return recorded_gn_sites(lambda: unet_mod.apply(
+        model, torch.empty(1, lat_hw, lat_hw, cfg.unet.in_channels, **meta),
+        torch.zeros(1, dtype=torch.int64, **meta),
+        torch.empty(1, cfg.clip.ctx, cfg.unet.cross_attention_dim, **meta),
+        remat=remat_mode is not None, remat_mode=remat_mode or "block"))
+
+
+def vae_gn_sites(cfg, hw: int, part: str):
+    """The GroupNorm sites of one VAE encode (``hw``: the image side) or
+    decode (``hw``: the latent side) of one image."""
+    import torch
+
+    from sdbc_tpu_torch.models import vae as vae_mod
+
+    meta = dict(device="meta")
+    model = vae_mod.init(cfg.vae, **meta)
+    if part == "encode":
+        x = torch.empty(1, hw, hw, cfg.vae.in_channels, **meta)
+        return recorded_gn_sites(lambda: vae_mod.encode_moments(model, x))
+    z = torch.empty(1, hw, hw, cfg.vae.latent_channels, **meta)
+    return recorded_gn_sites(lambda: vae_mod.decode(model, z))
+
+
+def gn_launches(cfg, lat_hw: int, remat_mode=None) -> int:
+    """Fused GroupNorm launches of one UNet forward (and, under
+    ``remat_mode``, its recompute in the backward pass)."""
+    return _fused(unet_gn_sites(cfg, lat_hw, remat_mode))
+
+
+def vae_gn_launches(cfg, hw: int, part: str) -> int:
+    return _fused(vae_gn_sites(cfg, hw, part))
+
+
+def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
+                            switches: bool = False):
+    """Kernel launches of one optimizer step: ``switches`` = under
+    ``SWITCHES`` (the fused GroupNorm and the transposed-layout flash for
+    every attention call, the VAE encode's included), else the default
+    dispatch.  Under ``remat`` the GroupNorms of the checkpointed regions
+    (as recorded) run twice; only "block" recomputes the attention."""
+    from sdbc_tpu_torch.models.vae import prefer_chunked_encode
+    from sdbc_tpu_torch.ops import _kernels
+
+    lat = img_hw // cfg.vae_scale
+    micro, accum = tcfg.micro_batch, tcfg.grad_accum
+    encodes = micro if prefer_chunked_encode(micro, img_hw, img_hw) else 1
+    remat = tcfg.remat_mode if tcfg.grad_ckpt else None
+    attn_again = 2 if remat == "block" else 1
+    want = dict.fromkeys(_kernels.launches, 0)
+    want["adam8"] = n8
+    if switches:
+        calls = 2 * n_transformers(cfg.unet)
+        want["flash_tt"] = accum * (attn_again * calls + encodes)
+        want["gn_fused"] = accum * (
+            gn_launches(cfg, lat, remat)
+            + encodes * vae_gn_launches(cfg, img_hw, "encode"))
+    else:
+        calls, _ = expected_launches(cfg, lat, micro * cfg.unet.attention_heads)
+        # the VAE's single-head mid attention meets the flash rule only
+        # where its head is ≤ 256 wide (the tiny VAE, not SD-1.5's)
+        low = img_hw >> (len(cfg.vae.block_out_channels) - 1)
+        vae = encodes * (low * low >= 256 and cfg.vae.block_out_channels[-1]
+                         <= 256)
+        want["flash_fwd"] = accum * (attn_again * calls + vae)
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = accum * calls
+    return want
+
+
+SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
+# the path whose run gives each kernel's ``launches`` in the kernels line:
+# the sampling kernels' slice, the training kernels' step, the switches'
+# train step for the fused GroupNorm and the transposed-layout forward, and
+# this slice's gradient-checkpointed step for the int8-QK attention, which
+# no path of either package dispatches (each row also lists every path)
+MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
+             "flash_fwd": "train", "flash_bwd_dq": "train",
+             "flash_bwd_dkv": "train", "adam8": "train",
+             "gn_fused": "train switches", "flash_tt": "train switches",
+             "flash_fixed_int8": "train grad_ckpt block"}
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """Set environment variables for a phase and restore them after it,
+    whatever happens inside."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_device():
@@ -343,7 +544,125 @@ def phase_kernels():
                  "source": "sdbc_tpu_torch/csrc/geglu_ff.cu",
                  "replaces": "sdbc_tpu/ops/geglu_ff.py:98",
                  "max_abs_err": geglu_err, **first})
-    return rows
+    return rows + [kernel_group_norm(g), kernel_int8(g)]
+
+
+def kernel_group_norm(g):
+    """K8 at the UNet's GroupNorm inputs of sampling batch 8, and a ragged
+    case, against its plain version; the library call is F.group_norm
+    followed by F.silu (two calls) on the same bf16 input."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdbc_tpu_torch.ops import pallas_groupnorm as pgn
+
+    dev = torch.device("cuda")
+    cases = [("64^2x320 silu", (8, 64, 64, 320), 32, 1e-5, "silu"),
+             ("32^2x640 silu", (8, 32, 32, 640), 32, 1e-5, "silu"),
+             ("16^2x1280 silu", (8, 16, 16, 1280), 32, 1e-5, "silu"),
+             ("8^2x1280 silu", (8, 8, 8, 1280), 32, 1e-5, "silu"),
+             ("64^2x320 no act", (8, 64, 64, 320), 32, 1e-6, None),
+             ("ragged 200 rows x96", (2, 200, 96), 32, 1e-5, "silu")]
+    worst, first = 0.0, None
+    for label, shape, groups, eps, act in cases:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).bfloat16()
+        w = torch.randn(c, generator=g, device=dev) * 0.3 + 1.0
+        b = torch.randn(c, generator=g, device=dev) * 0.2
+        kern = lambda: pgn.fused_group_norm(x, w, b, groups, eps, act)
+        plain = lambda: pgn.group_norm_fused_ref(x.float(), w, b, groups, eps,
+                                                 act)
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out.float() - ref).abs()
+        if not (torch.isfinite(out).all()
+                and (err <= GN_REL_TOL * ref.abs() + GN_ABS_TOL).all()):
+            fail(f"gn_fused {label}: max abs err {err.max().item()}")
+        err = err.max().item()
+        # the library on the same NHWC tensor as an (N, C, H, W) view in
+        # channels-last layout (whatever layout work it does is in its
+        # time), and on a contiguous NCHW copy, its own layout
+        wb, bb = w.bfloat16(), b.bfloat16()
+        xcl = x.movedim(-1, 1)
+        xnchw = xcl.contiguous()
+
+        def library(xv):
+            if act == "silu":
+                return lambda: F.silu(F.group_norm(xv, groups, wb, bb, eps))
+            return lambda: F.group_norm(xv, groups, wb, bb, eps)
+        ms, pms = median_ms(kern, 20), median_ms(plain, 10)
+        lms, nchw_ms = median_ms(library(xcl), 20), \
+            median_ms(library(xnchw), 20)
+        # x read and y written once (bf16), scale and bias read (fp32)
+        bms, by = bound(4.0 * x.numel() + 8.0 * c, fp32_ops=6.0 * x.numel())
+        print(f"[kernels] gn_fused {label}: max_abs_err {err:.3e} kernel "
+              f"{ms:.4f} ms plain {pms:.4f} ms F.group_norm"
+              f"{'+F.silu' if act else ''} {lms:.4f} ms (channels-last "
+              f"view; on a contiguous NCHW copy {nchw_ms:.4f} ms) bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        worst = max(worst, err)
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=lms)
+        del x, out, ref, xnchw
+    return {"name": "gn_fused", "route": "cuda",
+            "source": "sdbc_tpu_torch/csrc/group_norm.cu",
+            "replaces": "sdbc_tpu/ops/pallas_groupnorm.py:79",
+            "max_abs_err": worst, **first}
+
+
+def kernel_int8(g):
+    """K10 at the sampling attention shapes, against its plain version and
+    against exact attention; SDPA (exact, not int8) as the yardstick."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import attention as attn
+    from sdbc_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    worst, first = 0.0, None
+    for b, h, s, d in ((8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160)):
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev)
+                   .bfloat16() for _ in range(3))
+        kern = lambda: fa.flash_attention_fixed_int8(q, k, v)
+        plain = lambda: fa.fixed_cap_int8_ref(q, k, v)
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, tol = attn_err(out, ref)
+        del ref
+        exact = attn.plain_attention(q.float(), k.float(), v.float())
+        rel = ((out.float() - exact).abs().max()
+               / exact.abs().max()).item()
+        del exact
+        if not torch.isfinite(out).all() or not err <= tol \
+                or not rel < INT8_EXACT_TOL:
+            fail(f"flash_fixed_int8 ({b},{h},{s},{d}): max abs err {err} "
+                 f"(tol {tol}), vs exact {rel} (tol {INT8_EXACT_TOL})")
+        ms, pms = median_ms(kern, 20), median_ms(plain, 5)
+        lms = median_ms(lambda: sdpa(q, k, v), 20)
+        # q, k, v read and o written once (bf16); the QKᵀ in int8 and P·V
+        # in bf16 on the tensor cores, one exp2 per score
+        ops = 2.0 * b * h * s * s * d
+        bms, by = bound(8.0 * b * h * s * d,
+                        ops + ops * PEAK_BF16_FLOPS / PEAK_INT8_OPS,
+                        float(b * h * s * s))
+        print(f"[kernels] flash_fixed_int8 ({b},{h},{s},{d}): max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}) vs exact {rel:.3e} (tol "
+              f"{INT8_EXACT_TOL}) kernel {ms:.4f} ms plain {pms:.4f} ms "
+              f"sdpa (exact, not int8) {lms:.4f} ms bound {bms:.4f} ms "
+              f"({by})", flush=True)
+        worst = max(worst, err)
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=lms)
+        del q, k, v, out
+    return {"name": "flash_fixed_int8", "route": "cuda",
+            "source": "sdbc_tpu_torch/csrc/flash_int8.cu",
+            "replaces": "sdbc_tpu/ops/flash_attention.py:457",
+            "max_abs_err": worst, **first}
 
 
 def phase_train_kernels():
@@ -460,7 +779,8 @@ def phase_train_kernels():
               f"(bound {dkv_b[0]:.4f}, {dkv_b[1]}); plain backward "
               f"{pms:.4f} ms; sdpa-flash backward {lms:.4f} ms", flush=True)
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
-    rows = []
+    rows = [kernel_flash_tt(g)]
+    kernel_flash_fwd_wide(g)
     for name, replaces in (
             ("flash_fwd", "sdbc_tpu/ops/flash_attention.py:81"),
             ("flash_bwd_dq", "sdbc_tpu/ops/flash_attention_bwd.py:163"),
@@ -520,6 +840,94 @@ def phase_train_kernels():
     return rows
 
 
+def kernel_flash_tt(g):
+    """K9 at K5's cases, the 77-key cross-attention and the VAE's 512-wide
+    head: against its plain version (output and LSE) and against K5's
+    output on the same inputs; SDPA's flash forward as the library call
+    (SDPA's default dispatch above its flash kernel's 256 head dims)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_tt as ftt
+
+    dev = torch.device("cuda")
+    cases = [("64^2 d40", 2, 8, 4096, 4096, 40),
+             ("32^2 d80", 2, 8, 1024, 1024, 80),
+             ("16^2 d160", 2, 8, 256, 256, 160),
+             ("ragged Sq200 Sk300 d40", 2, 8, 200, 300, 40),
+             ("64^2 cross Sk77 d40", 2, 8, 4096, 77, 40),
+             ("8^2 mid d160", 2, 8, 64, 64, 160),
+             ("VAE 64^2 d512", 1, 1, 4096, 4096, 512)]
+    worst, first = 0.0, None
+    for label, b, h, sq, sk, d in cases:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev)
+                   .bfloat16().transpose(1, 2) for s in (sq, sk, sk))
+        scale = d ** -0.5
+        kern = lambda: ftt.flash_fwd_tt(q, k, v, scale)
+        out, lse = kern()
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_ref(q, k, v, scale)
+        k5, _ = fa.flash_fwd(q, k, v, scale)
+        err, tol = attn_err(out, ref)
+        lerr = (lse - ref_lse).abs().max().item()
+        k5err, k5tol = attn_err(out, k5)
+        if not (torch.isfinite(out).all() and err <= tol and lerr <= LSE_TOL
+                and k5err <= k5tol):
+            fail(f"flash_tt {label}: out err {err} (tol {tol}), lse err "
+                 f"{lerr}, vs K5 {k5err} (tol {k5tol})")
+        ms = median_ms(kern, 20)
+        pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
+        if d <= 256:
+            lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, scale=scale)
+        else:
+            lib = lambda: sdpa(q, k, v, scale=scale)
+        lms = median_ms(lib, 20)
+        bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,),
+                             4.0 * b * h * sq)
+        print(f"[train-kernels] flash_tt {label}: out err {err:.3e} (tol "
+              f"{tol:.3e}) lse err {lerr:.3e} vs K5 {k5err:.3e} kernel "
+              f"{ms:.4f} ms plain {pms:.4f} ms sdpa{'-flash' if d <= 256 else ''}"
+              f" {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        worst = max(worst, err, lerr)
+        if first is None:
+            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=lms)
+        del q, k, v, out, ref, k5
+    return {"name": "flash_tt", "route": "cuda",
+            "source": "sdbc_tpu_torch/csrc/flash_train.cu",
+            "replaces": "sdbc_tpu/ops/flash_attention_tt.py:76",
+            "max_abs_err": worst, **first}
+
+
+def kernel_flash_fwd_wide(g):
+    """K5's forward at the VAE's 512-wide head (the ``flash`` override)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn((1, 4096, 1, 512), generator=g, device="cuda")
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    scale = 512 ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, scale)
+    err, tol = attn_err(out, ref)
+    lerr = (lse - ref_lse).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= tol and lerr <= LSE_TOL):
+        fail(f"flash_fwd d512: out err {err} (tol {tol}), lse err {lerr}")
+    ms = median_ms(lambda: fa.flash_fwd(q, k, v, scale), 20)
+    pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
+    lms = median_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+    bms, by = attn_bound(1, 1, 4096, 4096, 512, 2, (4096,) * 3, (4096,),
+                         4.0 * 4096)
+    print(f"[train-kernels] flash_fwd VAE 64^2 d512: out err {err:.3e} (tol "
+          f"{tol:.3e}) lse err {lerr:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
+          f"ms sdpa {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+
+
 def unfused_ff(y, gamma, beta, w1, b1, w2, b2):
     import torch.nn.functional as F
 
@@ -537,6 +945,8 @@ def _tokenizer(cfg):
 
 
 def phase_parity():
+    """The tiny sampling slice, bf16 on the card against fp32 on the CPU:
+    with the default dispatch, then with ``SDBC_GN_FUSED=1``."""
     import numpy as np
     import torch
 
@@ -557,11 +967,6 @@ def phase_parity():
     kw = dict(height=32, width=32, num_inference_steps=4, latents=lat)
     ref = SDPipeline(cpu, cfg, _tokenizer(cfg), "cpu", torch.float32)(
         prompts, **kw)
-    _kernels.reset_launch_counts()
-    out = SDPipeline(gpu, cfg, _tokenizer(cfg), "cuda", torch.bfloat16)(
-        prompts, **kw)
-    counts = dict(_kernels.launches)
-    err = float(np.abs(out - ref).max())
     flash, geglu = expected_launches(cfg, 16, 4)
     # the tiny VAE's single-head mid attention (16² tokens, 64 wide) meets
     # the training flash rule in the one batched decode; SD-1.5's (512
@@ -569,15 +974,29 @@ def phase_parity():
     want = dict.fromkeys(_kernels.launches, 0)
     want.update({"flash_fixed": 4 * flash, "geglu_ff": 4 * geglu,
                  "flash_fwd": int(cfg.vae.block_out_channels[-1] <= 256)})
-    print(f"[parity] tiny 32^2 batch 2 DDIM-4: image max abs err {err:.3e} "
-          f"(tol {PARITY_TOL}), launches {counts} (expected {want})",
-          flush=True)
-    if out.shape != (2, 32, 32, 3) or not np.isfinite(out).all():
-        fail(f"tiny slice output {out.shape} not finite")
-    if not err <= PARITY_TOL:
-        fail(f"tiny slice: card vs CPU max abs err {err} > {PARITY_TOL}")
-    if counts != want or min(want["flash_fixed"], want["geglu_ff"]) == 0:
-        fail(f"tiny slice launch counts {counts}, expected {want}")
+    for label, env in (("default", {}), ("SDBC_GN_FUSED=1",
+                                         {"SDBC_GN_FUSED": "1"})):
+        if env:  # every GroupNorm of the tiny slice is eligible
+            want["gn_fused"] = 4 * gn_launches(cfg, 16) \
+                + vae_gn_launches(cfg, 16, "decode")
+        with environment(**env):
+            _kernels.reset_launch_counts()
+            out = SDPipeline(gpu, cfg, _tokenizer(cfg), "cuda",
+                             torch.bfloat16)(prompts, **kw)
+            counts = dict(_kernels.launches)
+        err = float(np.abs(out - ref).max())
+        print(f"[parity] tiny 32^2 batch 2 DDIM-4 ({label}): image max abs "
+              f"err {err:.3e} (tol {PARITY_TOL}), launches {counts} "
+              f"(expected {want})", flush=True)
+        if out.shape != (2, 32, 32, 3) or not np.isfinite(out).all():
+            fail(f"tiny slice ({label}) output {out.shape} not finite")
+        if not err <= PARITY_TOL:
+            fail(f"tiny slice ({label}): card vs CPU max abs err {err} > "
+                 f"{PARITY_TOL}")
+        if counts != want or min(want["flash_fixed"], want["geglu_ff"]) == 0 \
+                or (env and want["gn_fused"] == 0):
+            fail(f"tiny slice ({label}) launch counts {counts}, expected "
+                 f"{want}")
 
 
 def _slice_setup():
@@ -715,9 +1134,10 @@ def _n8(state) -> int:
                for leaf in optimizer_leaves(state.trainable))
 
 
-def phase_train_parity():
+def phase_train_parity(label: str = "default", env=None, **tcfg_kw):
     """One optimizer step of the tiny config, bf16 on the card against fp32
-    on the CPU, from the same fp32 masters and the same injected draws."""
+    on the CPU, from the same fp32 masters and the same injected draws,
+    under the environment ``env`` on both sides."""
     import numpy as np
     import torch
 
@@ -731,7 +1151,7 @@ def phase_train_parity():
 
     cfg = PipelineConfig.tiny()
     tcfg = _train_cfg(grad_accum=2, micro_batch=2, learning_rate=1e-3,
-                      num_examples=100)
+                      num_examples=100, **tcfg_kw)
     base = init_models(cfg, device="cpu",
                        generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(11)
@@ -758,22 +1178,23 @@ def phase_train_parity():
         return out
 
     runs = {}
-    for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
-        state = init_train_state(copy.deepcopy(base), tcfg, compute_dtype=dt,
-                                 device=dev)
-        grads = micro_grads(state, dev, dt)
-        before = [p.detach().float().cpu().clone()
-                  for p in trainable_params(state.trainable)]
-        step = make_train_step(cfg, tcfg, compute_dtype=dt, device=dev)
-        _kernels.reset_launch_counts()
-        state, m = step(state, batch, draws=draws)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        counts = dict(_kernels.launches)
-        after = [p.detach().float().cpu()
-                 for p in trainable_params(state.trainable)]
-        runs[dev] = (m, [a - b for a, b in zip(after, before)], counts,
-                     state, grads)
+    with environment(**(env or {})):
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+            state = init_train_state(copy.deepcopy(base), tcfg,
+                                     compute_dtype=dt, device=dev)
+            grads = micro_grads(state, dev, dt)
+            before = [p.detach().float().cpu().clone()
+                      for p in trainable_params(state.trainable)]
+            step = make_train_step(cfg, tcfg, compute_dtype=dt, device=dev)
+            _kernels.reset_launch_counts()
+            state, m = step(state, batch, draws=draws)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            counts = dict(_kernels.launches)
+            after = [p.detach().float().cpu()
+                     for p in trainable_params(state.trainable)]
+            runs[dev] = (m, [a - b for a, b in zip(after, before)], counts,
+                         state, grads)
     (mc, dc, cc, _, gc), (mg, dg, cg, sg, gg) = runs["cpu"], runs["cuda"]
     grad_rel = {n: float((gg[n] - gc[n]).norm() / gc[n].norm()) for n in gc}
     worst_grad = max(grad_rel, key=grad_rel.get)
@@ -782,17 +1203,11 @@ def phase_train_parity():
                 / (sum((a * a).sum() for a in dg).sqrt()
                    * sum((b * b).sum() for b in dc).sqrt()))
     worst = max(float((a - b).abs().max()) for a, b in zip(dg, dc))
-    flash, _ = expected_launches(cfg, 16, 4)
-    # the VAE encoder's single-head mid attention (16² tokens, 64 wide)
-    # takes the flash forward too, without a gradient
-    vae_flash = int(cfg.vae.block_out_channels[-1] <= 256)
-    want = {"flash_fixed": 0, "geglu_ff": 0,
-            "flash_fwd": 2 * (flash + vae_flash),
-            "flash_bwd_dq": 2 * flash, "flash_bwd_dkv": 2 * flash,
-            "adam8": _n8(sg)}
-    print(f"[train-parity] tiny grad_accum 2 micro 2, 8-bit AdamW, one step: "
-          f"loss card {mg['loss']:.6f} cpu {mc['loss']:.6f} (rel err "
-          f"{lerr:.3e}, tol {TRAIN_LOSS_RTOL}); update cosine {cos:.5f} "
+    want = expected_train_launches(cfg, tcfg, 32, _n8(sg),
+                                   switches=bool(env))
+    print(f"[train-parity] tiny grad_accum 2 micro 2, 8-bit AdamW, one step "
+          f"({label}): loss card {mg['loss']:.6f} cpu {mc['loss']:.6f} (rel "
+          f"err {lerr:.3e}, tol {TRAIN_LOSS_RTOL}); update cosine {cos:.5f} "
           f"(tol {TRAIN_UPDATE_COS}), max |Δ| difference {worst:.3e} "
           f"(bound {TRAIN_STEP_BOUND * tcfg.learning_rate}); micro-batch "
           f"gradient rel err of {len(grad_rel)} self-attention projections: "
@@ -801,18 +1216,27 @@ def phase_train_parity():
           f"{TRAIN_GRAD_RTOL}); launches {cg} (expected {want}; CPU {cc})",
           flush=True)
     if not (mg["finite"] and mc["finite"] and np.isfinite(mg["loss"])):
-        fail("tiny train step not finite")
+        fail(f"tiny train step ({label}) not finite")
     if not grad_rel[worst_grad] <= TRAIN_GRAD_RTOL:
-        fail(f"tiny train step: micro-batch gradients card vs CPU {grad_rel}")
+        fail(f"tiny train step ({label}): micro-batch gradients card vs CPU "
+             f"{grad_rel}")
     if not (lerr <= TRAIN_LOSS_RTOL and cos >= TRAIN_UPDATE_COS
             and worst <= TRAIN_STEP_BOUND * tcfg.learning_rate):
-        fail("tiny train step: card vs CPU outside tolerance")
+        fail(f"tiny train step ({label}): card vs CPU outside tolerance")
     if cg != want or set(cc.values()) != {0}:
-        fail(f"tiny train step launch counts {cg}, expected {want}")
+        fail(f"tiny train step ({label}) launch counts {cg}, expected {want}")
+    used = (("gn_fused", "flash_tt") if env else ("flash_fwd",)) \
+        + ("flash_bwd_dq", "flash_bwd_dkv", "adam8")
+    if min(cg[k] for k in used) == 0 or (env and cg["flash_fwd"]):
+        fail(f"tiny train step ({label}) skipped a kernel: {cg}")
+    return cg
 
 
-def phase_train(smi: str, steps: int = 3):
-    """Bench mode C at full width: warm-up step, ``steps`` timed steps."""
+def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
+                profile: bool = True, **tcfg_kw):
+    """Bench mode C at full width: warm-up step, ``steps`` timed steps, with
+    ``tcfg_kw`` added to the train config and the environment ``env``;
+    returns (launches of the timed steps, median s/step, peak bytes)."""
     import torch
 
     from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
@@ -823,8 +1247,13 @@ def phase_train(smi: str, steps: int = 3):
 
     cfg = PipelineConfig.sd15()
     accum, micro = 4, 2
-    tcfg = _train_cfg(grad_accum=accum, micro_batch=micro, num_examples=1000)
+    tcfg = _train_cfg(grad_accum=accum, micro_batch=micro, num_examples=1000,
+                      **tcfg_kw)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # nothing of an earlier phase (a profiler's trace, a model) may hold
+    # device memory or leave the allocator's cache to this one
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(init_models(cfg, device="cuda", generator=gen),
                              tcfg)
@@ -838,54 +1267,107 @@ def phase_train(smi: str, steps: int = 3):
     watch = [params[0], params[len(params) // 2], params[-1]]
     start = [p.detach().clone() for p in watch]
     n_train = sum(p.numel() for p in params)
-    t0 = time.perf_counter()
-    state, m = step(state, batch, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    losses, times = [m["loss"]], []
-    _kernels.reset_launch_counts()
-    for _ in range(steps):
-        torch.cuda.synchronize()
+    with environment(**(env or {})):
         t0 = time.perf_counter()
-        state, m = step(state, batch, generator=gen)
+        state, m = step(state, batch, generator=gen)  # warm-up
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m["loss"])
-        if not m["finite"]:
-            fail(f"train step skipped (non-finite gradients), loss "
-                 f"{m['loss']}")
-    counts = dict(_kernels.launches)
+        warm = time.perf_counter() - t0
+        losses, times = [m["loss"]], []
+        _kernels.reset_launch_counts()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            if not m["finite"]:
+                fail(f"{label} step skipped (non-finite gradients), loss "
+                     f"{m['loss']}")
+        counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    flash, _ = expected_launches(cfg, 64, micro * 8)
     n8 = _n8(state)
-    want = {"flash_fixed": 0, "geglu_ff": 0,
-            "flash_fwd": steps * accum * flash,
-            "flash_bwd_dq": steps * accum * flash,
-            "flash_bwd_dkv": steps * accum * flash, "adam8": steps * n8}
+    want = {k: steps * v for k, v in expected_train_launches(
+        cfg, tcfg, 512, n8, switches=bool(env)).items()}
+    flash, _ = expected_launches(cfg, 64, micro * 8)
     moved = [float((p.detach() - s0).abs().max()) for p, s0 in
              zip(watch, start)]
     sps = statistics.median(times)
-    print(f"[train] mode C SD-1.5 512^2 micro 2 grad_accum 4 8-bit AdamW "
-          f"(UNet + text encoder, {n_train / 1e9:.3f} B trainable, {n8} "
-          f"8-bit leaves): {sps:.4f} s/step (median of {steps}: "
+    extra = "".join(f" {k}={v}" for k, v in tcfg_kw.items())
+    extra += "".join(f" {k}={v}" for k, v in (env or {}).items())
+    print(f"[{label}] mode C SD-1.5 512^2 micro 2 grad_accum 4 8-bit AdamW"
+          f"{extra} (UNet + text encoder, {n_train / 1e9:.3f} B trainable, "
+          f"{n8} 8-bit leaves): {sps:.4f} s/step (median of {steps}: "
           f"{[round(t, 4) for t in times]}), {8 / sps:.4f} images/s, warm-up "
           f"{warm:.3f} s, peak {peak / 2 ** 30:.2f} GiB, losses "
           f"{[round(x, 6) for x in losses]}, params moved {moved}, launches "
-          f"{counts} (expected {want}; per step flash {accum * flash} x{steps}, "
-          f"adam8 {n8}) | {smi}", flush=True)
+          f"{counts} (expected {want}) | {smi}", flush=True)
     if flash * accum != 60:
         fail(f"mode C implies {flash * accum} flash calls per step, not 60")
     if not all(x == x and abs(x) < float("inf") for x in losses):
-        fail(f"train losses not finite: {losses}")
+        fail(f"{label} losses not finite: {losses}")
     if not all(x > 0 for x in moved):
-        fail(f"trainable parameters did not move: {moved}")
+        fail(f"{label}: trainable parameters did not move: {moved}")
     if counts != want:
-        fail(f"train launch counts {counts}, expected {want}")
-    phase_train_profile(step, state, batch, gen, sps)
+        fail(f"{label} launch counts {counts}, expected {want}")
+    if profile:
+        phase_train_profile(step, state, batch, gen, sps, label)
+    return counts, sps, peak
+
+
+def phase_train_ckpt(smi: str, no_remat):
+    """Mode C with gradient checkpointing, per remat mode, beside the
+    no-remat train phase of the same run (``no_remat``: its s/step and
+    peak bytes): 3 timed steps and a device-time profile of one more."""
+    out = {}
+    for mode in ("block", "selective"):
+        counts, sps, peak = phase_train(smi, label=f"train-ckpt {mode}",
+                                        grad_ckpt=True, remat_mode=mode)
+        out[mode] = counts
+        print(f"[train-ckpt] remat_mode={mode}: {sps:.4f} s/step, "
+              f"{8 / sps:.4f} images/s, peak {peak / 2 ** 30:.2f} GiB; "
+              f"no remat: {no_remat[0]:.4f} s/step, {8 / no_remat[0]:.4f} "
+              f"images/s, peak {no_remat[1] / 2 ** 30:.2f} GiB", flush=True)
+    if out["block"]["flash_fwd"] != 2 * out["selective"]["flash_fwd"]:
+        fail(f"train-ckpt: flash forwards block {out['block']} vs selective "
+             f"{out['selective']}")
+    return out
+
+
+def phase_switches_sampling(cfg, pipe, smi: str):
+    """One full-width sampling call under ``SDBC_GN_FUSED=1``."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    lat = per_sample_fixed_latents(4, (4, 64, 64), 42)
+    flash, geglu = expected_launches(cfg, 64, 8)
+    want = dict.fromkeys(_kernels.launches, 0)
+    want.update({"flash_fixed": 50 * flash, "geglu_ff": 50 * geglu,
+                 "gn_fused": 50 * gn_launches(cfg, 64)
+                 + 4 * vae_gn_launches(cfg, 64, "decode")})
+    with environment(SDBC_GN_FUSED="1"):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = pipe(PROMPTS, height=512, width=512, num_inference_steps=50,
+                    guidance_scale=7.5, latents=lat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_kernels.launches)
+    print(f"[switches] sampling SD-1.5 512^2 batch 4 DDIM-50 SDBC_GN_FUSED=1: "
+          f"{secs:.3f} s/call, {4 / secs:.4f} images/s, launches {counts} "
+          f"(expected {want}) | {smi}", flush=True)
+    if imgs.shape != (4, 512, 512, 3) or not np.isfinite(imgs).all():
+        fail(f"switches sampling images {imgs.shape} not all finite")
+    if counts != want or want["gn_fused"] == 0:
+        fail(f"switches sampling launch counts {counts}, expected {want}")
     return counts
 
 
-def phase_train_profile(step, state, batch, gen, sps: float):
+def phase_train_profile(step, state, batch, gen, sps: float,
+                        label: str = "train"):
     """Device time by kernel over one mode-C optimizer step."""
     import torch
     from torch.autograd import DeviceType
@@ -904,8 +1386,8 @@ def phase_train_profile(step, state, batch, gen, sps: float):
               and getattr(e, "device_type", None) == DeviceType.CUDA]
     total = sum(dev_us(e) for e in events) / 1e3
     if total == 0:
-        print("[train-profile] device time not measured (profiler saw no "
-              "device time)", flush=True)
+        print(f"[train-profile] {label}: device time not measured "
+              f"(profiler saw no device time)", flush=True)
         return
     top = sorted(events, key=lambda e: -dev_us(e))[:12]
     summary = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count) for e in top]
@@ -920,7 +1402,7 @@ def phase_train_profile(step, state, batch, gen, sps: float):
     host_summary = [(e.key[:40], round(e.self_cpu_time_total / 1e3, 1),
                      e.count) for e in host]
     n_kernels = sum(e.count for e in events)
-    print(f"[train-profile] one step: kernels {total:.1f} ms of "
+    print(f"[train-profile] {label}, one step: kernels {total:.1f} ms of "
           f"{sps * 1e3:.1f} ms unprofiled wall (device idle "
           f"{100 * (1 - total / (sps * 1e3)):.1f}%), {n_kernels} kernel "
           f"launches; ours (ms) {ours}; top kernels (ms, calls): {summary}; "
@@ -935,22 +1417,39 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     rows = phase_kernels() + phase_train_kernels()
     phase_parity()
+    # launch counts of each full-width path, from its own run (the counts
+    # set to 0 just before it, read just after)
+    paths = {}
     cfg, pipe = _slice_setup()
-    counts, _ = phase_slice(cfg, pipe, smi)
+    paths["sampling"], _ = phase_slice(cfg, pipe, smi)
     phase_profile(pipe)
+    paths["sampling SDBC_GN_FUSED=1"] = phase_switches_sampling(cfg, pipe,
+                                                                smi)
     del pipe
     torch.cuda.empty_cache()
     phase_train_parity()
-    counts.update({k: v for k, v in phase_train(smi).items()
-                   if k not in ("flash_fixed", "geglu_ff")})
+    phase_train_parity("grad_ckpt block + switches", SWITCHES,
+                       grad_ckpt=True, remat_mode="block")
+    paths["train"], sps, peak = phase_train(smi)
+    ckpt = phase_train_ckpt(smi, (sps, peak))
+    paths["train grad_ckpt block"] = ckpt["block"]
+    paths["train grad_ckpt selective"] = ckpt["selective"]
+    paths["train switches"], _, _ = phase_train(
+        smi, steps=1, label="switches", env=SWITCHES, profile=False)
     if "jax" in sys.modules:
         fail("jax was imported")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["path"] = MAIN_PATH[row["name"]]
+        row["launches"] = paths[row["path"]][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in
+                                   paths.items()}
+    print(f"[done] all phases in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

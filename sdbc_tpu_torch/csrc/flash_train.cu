@@ -1,8 +1,9 @@
 // Training flash attention for Hopper (sm_90a), bf16: the forward that
-// emits the log-sum-exp and the two backward kernels.
+// emits the log-sum-exp (in two layouts) and the two backward kernels.
 //
 // Replaces the JAX package's Pallas kernels:
-//   flash_fwd_kernel     <- sdbc_tpu/ops/flash_attention.py      _fwd_kernel (via _flash_fwd)
+//   flash_fwd_kernel<.., false> <- sdbc_tpu/ops/flash_attention.py    _fwd_kernel    (via _flash_fwd)
+//   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt)
 //   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd)
 //   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd)
 //
@@ -21,6 +22,23 @@
 //            dq = (scale/log2e) * sum ds0.kl, dk = sum ds0^T.qs,
 //            dv = sum bf16(p)^T.dO.  Rows past Sq and columns past Sk
 //            contribute nothing (bounds masks set their p to 0).
+//
+// The transposed-layout forward (K9, TT = true) is the same function over
+// head-dim-major operands: each (batch, head) slice is D rows with the
+// sequence contiguous, the layout the TPU kernel used to keep the head dim
+// off its 128-wide lane axis; the output is written the same way.  It is a
+// layout variant of the K5 template and adds no math: the V^T tile is
+// already the (DP x 64) B operand of P.V and is copied straight into shared
+// memory, while q and K tiles are transposed on their way in (the staging
+// K5 does for V).  The sequence of a head-dim-major slice must be padded
+// to a multiple of 8 in memory (16-byte loads); the values past S are
+// masked in any case.
+//
+// Head dims above 256 (the VAE's single 512-wide head, forward only): the
+// scores need the whole head dim, but a 64 x 512 fp32 accumulator does not
+// fit a block's registers.  Each block then owns one 256-wide slice of the
+// output columns and recomputes the scores for it (DO = 256 of DP = 512;
+// two blocks per q tile); only the first slice writes the LSE.
 //
 // What bounds them on the H100: per score element the forward costs
 // 4*D tensor FLOPs and one exp2, the dq kernel 6*D and one exp2, the dkv
@@ -127,6 +145,58 @@ __device__ __forceinline__ void transpose_tile(bf16* dst, const bf16* src) {
   }
 }
 
+// Head-dim-major loaders (K9).  `src` is one (batch, head) slice: D rows
+// of row stride `d_stride` (a multiple of 8, 16-byte aligned) with the
+// sequence contiguous; sequence positions >= n are zero-filled.
+__device__ __forceinline__ void mask_tail(uint4& val, int s0, int n) {
+  if (s0 + 8 > n) {
+    bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (s0 + j >= n) e[j] = __float2bfloat16(0.f);
+  }
+}
+
+// Sequence positions [r0, r0 + 64) of a head-dim-major slice, transposed
+// into a (64 x DP) row tile (row stride ld<DP>()), columns >= D zero; with
+// SCALE each value is multiplied in fp32 and rounded once back to bf16.
+template <int DP, bool SCALE>
+__device__ __forceinline__ void load_cols(bf16* dst, const bf16* src,
+                                          long long d_stride, int r0, int n,
+                                          int D, float scale) {
+  for (int i = threadIdx.x; i < DP * 8; i += NTHREADS) {
+    const int d = i >> 3, c8 = i & 7, s0 = r0 + c8 * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (d < D && s0 < n) {
+      val = *reinterpret_cast<const uint4*>(src + (long long)d * d_stride + s0);
+      mask_tail(val, s0, n);
+    }
+    const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      dst[(c8 * 8 + j) * ld<DP>() + d] =
+          SCALE ? __float2bfloat16(__bfloat162float(e[j]) * scale) : e[j];
+  }
+}
+
+// Sequence positions [r0, r0 + 64) of head-dim rows [0, DO) of a
+// head-dim-major slice, as they are: the (DO x 64) transposed tile that
+// p_by_tile reads (row stride BKP); rows >= D zero.
+template <int DO>
+__device__ __forceinline__ void load_vt(bf16* dst, const bf16* src,
+                                        long long d_stride, int r0, int n,
+                                        int D) {
+  for (int i = threadIdx.x; i < DO * 8; i += NTHREADS) {
+    const int d = i >> 3, c8 = i & 7, s0 = r0 + c8 * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (d < D && s0 < n) {
+      val = *reinterpret_cast<const uint4*>(src + (long long)d * d_stride + s0);
+      mask_tail(val, s0, n);
+    }
+    *reinterpret_cast<uint4*>(dst + d * BKP + c8 * 8) = val;
+  }
+}
+
 // S (16 x 64) = A_w (16 x DP, rows of a row tile) . B^T, with B's 64 rows
 // from a row tile: the shape of every score-like product here.
 template <int DP>
@@ -188,6 +258,31 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
   }
 }
 
+// store_rows into a head-dim-major slice: column c of row r goes to
+// dst[c * d_stride + r] (two-byte stores).
+template <int DP>
+__device__ __forceinline__ void store_cols(bf16* dst, long long d_stride,
+                                           const float (&acc)[DP / 8][4],
+                                           int r0, int n, int D, int t,
+                                           float mul0, float mul1) {
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    if (col < D) {
+      bf16* c0 = dst + (long long)col * d_stride;
+      bf16* c1 = c0 + d_stride;
+      if (r0 < n) {
+        c0[r0] = __float2bfloat16(acc[nt][0] * mul0);
+        c1[r0] = __float2bfloat16(acc[nt][1] * mul0);
+      }
+      if (r0 + 8 < n) {
+        c0[r0 + 8] = __float2bfloat16(acc[nt][2] * mul1);
+        c1[r0 + 8] = __float2bfloat16(acc[nt][3] * mul1);
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -203,9 +298,12 @@ struct Strides {  // (batch, head, seq) strides in elements
 };
 
 // ---------------------------------------------------------------------------
-// K5: forward with the running max, emits out and the natural-log LSE
+// K5 / K9: forward with the running max, emits out and the natural-log LSE.
+// DP: padded head dim of the scores; DO: output columns per block (DP, or a
+// 256-wide slice of DP = 512); TT: head-dim-major operands and output (the
+// Strides' `s` is then the stride between head-dim rows).
 
-template <int DP>
+template <int DP, int DO, bool TT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -213,21 +311,27 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  Strides qs_, Strides ks_, Strides vs_, Strides os_,
                  float qscale) {
   constexpr int LD = ld<DP>();
-  constexpr int NT = DP / 8;
+  constexpr int NT = DO / 8;
+  constexpr int NS = DP / DO;  // output slices per q tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  bf16* Vt = Vs + BK * LD;
+  bf16* Vt = Ks + BK * LD;
+  bf16* Vs = Vt + DO * BKP;  // row-major V slice (not used with TT)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int slice = blockIdx.x % NS, q0 = (blockIdx.x / NS) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int d0 = slice * DO, Dv = min(D - d0, DO);
   const bf16* qb = q + b * qs_.b + h * qs_.h;
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs_.b + h * vs_.h;
 
-  load_rows<DP, true>(Qs, qb, qs_.s, q0, Sq, D, qscale);
+  if (TT)
+    load_cols<DP, true>(Qs, qb, qs_.s, q0, Sq, D, qscale);
+  else
+    load_rows<DP, true>(Qs, qb, qs_.s, q0, Sq, D, qscale);
   const bf16* Qw = Qs + warp * 16 * LD;
 
   float acc[NT][4];
@@ -241,10 +345,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<DP, false>(Ks, kb, ks_.s, k0, Sk, D, 1.f);
-    load_rows<DP, false>(Vs, vb, vs_.s, k0, Sk, D, 1.f);
+    if (TT) {
+      load_cols<DP, false>(Ks, kb, ks_.s, k0, Sk, D, 1.f);
+      load_vt<DO>(Vt, vb + (long long)d0 * vs_.s, vs_.s, k0, Sk, Dv);
+    } else {
+      load_rows<DP, false>(Ks, kb, ks_.s, k0, Sk, D, 1.f);
+      load_rows<DO, false>(Vs, vb + d0, vs_.s, k0, Sk, Dv, 1.f);
+    }
     __syncthreads();
-    transpose_tile<DP>(Vt, Vs);
+    if (!TT) transpose_tile<DO>(Vt, Vs);
 
     float s[BK / 8][4];  // log2 units
     rows_by_rows<DP>(s, Qw, Ks, g, t);
@@ -280,15 +389,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
     __syncthreads();  // Vt complete
-    p_by_tile<DP>(acc, pf, Vt, g, t);
+    p_by_tile<DO>(acc, pf, Vt, g, t);
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const int row0 = q0 + warp * 16 + g;
-  store_rows<DP>(o + b * os_.b + h * os_.h, os_.s, acc, row0, Sq, D, t,
-                 1.f / l0, 1.f / l1);
-  if (t == 0) {
+  bf16* ob = o + b * os_.b + h * os_.h;
+  if (TT)
+    store_cols<DO>(ob + (long long)d0 * os_.s, os_.s, acc, row0, Sq, Dv, t,
+                   1.f / l0, 1.f / l1);
+  else
+    store_rows<DO>(ob + d0, os_.s, acc, row0, Sq, Dv, t, 1.f / l0, 1.f / l1);
+  if (t == 0 && slice == 0) {
     float* lb = lse + ((long long)b * H + h) * Sq;
     if (row0 < Sq) lb[row0] = m0 * LN2 + logf(l0);
     if (row0 + 8 < Sq) lb[row0 + 8] = m1 * LN2 + logf(l1);
@@ -475,10 +588,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launchers
 
-template <int DP>
+template <int DP, int DO, bool TT>
 constexpr size_t fwd_smem() {
-  return ((size_t)BQ * ld<DP>() + 2 * (size_t)BK * ld<DP>()
-          + (size_t)DP * BKP) * sizeof(bf16);
+  return ((size_t)BQ * ld<DP>() + (size_t)BK * ld<DP>() + (size_t)DO * BKP
+          + (TT ? 0 : (size_t)BK * ld<DO>())) * sizeof(bf16);
 }
 template <int DP>
 constexpr size_t dq_smem() {
@@ -499,15 +612,15 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 Strides strides3(const long long* p) { return Strides{p[0], p[1], p[2]}; }
 
-template <int DP>
+template <int DP, int DO, bool TT>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int H, int Sq, int Sk, int D,
                        const long long* s, float qscale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DP>();
-  cudaError_t err = set_smem(flash_fwd_kernel<DP>, smem);
+  const size_t smem = fwd_smem<DP, DO, TT>();
+  cudaError_t err = set_smem(flash_fwd_kernel<DP, DO, TT>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((Sq + BQ - 1) / BQ * (DP / DO), H, B);
+  flash_fwd_kernel<DP, DO, TT><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Sq, Sk, D,
       strides3(s), strides3(s + 3), strides3(s + 6), strides3(s + 9), qscale);
@@ -550,23 +663,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // The padded head dim: the next of the instantiated widths (a wider zero
-// pad is exact, only slower); 0 for D the kernels do not take.
-int padded_dim(int D) {
-  if (D <= 0 || D > 256 || D % 8 != 0) return 0;
-  const int dims[] = {16, 32, 48, 64, 80, 128, 160, 256};
+// pad is exact, only slower); 0 for D the kernels do not take.  The
+// forward takes D up to 512, the backward up to 256.
+int padded_dim(int D, int max_d) {
+  if (D <= 0 || D > max_d || D % 8 != 0) return 0;
+  const int dims[] = {16, 32, 48, 64, 80, 128, 160, 256, 512};
   for (int dp : dims)
     if (D <= dp) return dp;
   return 0;
 }
 
-bool bad_shape(int B, int H, int Sq, int Sk, int D) {
-  return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || padded_dim(D) == 0;
+bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
+  return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || padded_dim(D, max_d) == 0;
 }
 
 }  // namespace
 
 #define SDBC_DP_SWITCH(CALL)                                              \
-  switch (padded_dim(D)) {                                                \
+  switch (padded_dim(D, 256)) {                                           \
     case 16: return (int)CALL(16); case 32: return (int)CALL(32);         \
     case 48: return (int)CALL(48); case 64: return (int)CALL(64);         \
     case 80: return (int)CALL(80); case 128: return (int)CALL(128);       \
@@ -574,28 +688,60 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D) {
     default: return (int)cudaErrorInvalidValue;                           \
   }
 
+// The forward's widths: the scores' padded head dim and the output columns
+// each block owns.
+#define SDBC_FWD_SWITCH(CALL)                                             \
+  switch (padded_dim(D, 512)) {                                           \
+    case 16: return (int)CALL(16, 16); case 32: return (int)CALL(32, 32); \
+    case 48: return (int)CALL(48, 48); case 64: return (int)CALL(64, 64); \
+    case 80: return (int)CALL(80, 80);                                    \
+    case 128: return (int)CALL(128, 128);                                 \
+    case 160: return (int)CALL(160, 160);                                 \
+    case 256: return (int)CALL(256, 256);                                 \
+    case 512: return (int)CALL(512, 256);                                 \
+    default: return (int)cudaErrorInvalidValue;                           \
+  }
+
 // All tensors bf16 with (batch, head, seq) strides in elements (`st`, three
 // per tensor in argument order) and a contiguous head dim; lse and delta are
-// contiguous (B, H, Sq) fp32.  D <= 256 and a multiple of 8.  Each returns
-// cudaGetLastError() after its launch.
+// contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512 for the
+// forward and 256 for the backward.  Each returns cudaGetLastError() after
+// its launch.
 extern "C" int sdbc_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int Sq, int Sk,
                               int D, const long long* st, float qscale,
                               void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDBC_CALL(DP) launch_fwd<DP>(q, k, v, o, static_cast<float*>(lse), B, \
-                                     H, Sq, Sk, D, st, qscale, s)
-  SDBC_DP_SWITCH(SDBC_CALL)
+#define SDBC_CALL(DP, DO) launch_fwd<DP, DO, false>(                        \
+      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale, s)
+  SDBC_FWD_SWITCH(SDBC_CALL)
 #undef SDBC_CALL
 }
+
+// K9: the same forward over head-dim-major (batch, head, D, S) operands and
+// output: `st` holds (batch, head, head-dim row) strides, three per tensor;
+// the sequence is contiguous, and the rows of q, k and v are 16-byte
+// aligned with a stride that is a multiple of 8.
+extern "C" int sdbc_flash_fwd_tt(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int H, int Sq,
+                                 int Sk, int D, const long long* st,
+                                 float qscale, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SDBC_CALL(DP, DO) launch_fwd<DP, DO, true>(                         \
+      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale, s)
+  SDBC_FWD_SWITCH(SDBC_CALL)
+#undef SDBC_CALL
+}
+#undef SDBC_FWD_SWITCH
 
 extern "C" int sdbc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int H,
                                  int Sq, int Sk, int D, const long long* st,
                                  float scale, float dq_mul, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Sq, Sk, D, 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SDBC_CALL(DP) launch_dq<DP>(q, k, v, dout,                           \
                                     static_cast<const float*>(lse),          \
@@ -611,7 +757,7 @@ extern "C" int sdbc_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int H, int Sq, int Sk, int D,
                                   const long long* st, float scale,
                                   void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, H, Sq, Sk, D, 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SDBC_CALL(DP) launch_dkv<DP>(q, k, v, dout,                           \
                                      static_cast<const float*>(lse),          \

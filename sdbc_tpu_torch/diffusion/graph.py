@@ -91,12 +91,15 @@ _UNPORTED = ("init_image", "init_latents", "mask", "masked_image",
 @torch.inference_mode()
 def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
            cfg: PipelineConfig, num_inference_steps: int = 50,
-           compute_dtype=torch.bfloat16, **unported):
+           compute_dtype=torch.bfloat16, attn_impl: str = "inference",
+           **unported):
     """Run the DDIM + CFG sampling path.
 
     models: {"text_encoder", "unet", "vae"} modules
     cond_ids/uncond_ids: (B, ctx) integer token ids on the models' device
     latents: (B, h/8, w/8, 4) NHWC initial noise
+    attn_impl: the UNet's attention dispatch ("inference" = the fixed-cap
+    kernel; "xla" forces plain attention; see ``ops.attention``)
     Returns (B, H, W, 3) fp32 images in [0, 1].
     """
     if cfg.scheduler != "ddim":
@@ -125,7 +128,7 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
     for i, t in enumerate(ts.tolist()):
         lat2 = torch.cat([lat, lat], dim=0)
         tb = torch.full((lat2.shape[0],), t, dtype=torch.int64, device=device)
-        out = unet_mod.apply(unet, lat2, tb, context, attn_impl="inference",
+        out = unet_mod.apply(unet, lat2, tb, context, attn_impl=attn_impl,
                              temb_proj=unet_mod.index_temb(tproj, i))
         out_u, out_c = out.float().chunk(2, dim=0)
         lat = sched_mod.ddim_step(sched, cfg_combine(out_u, out_c,

@@ -34,10 +34,14 @@ def as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
 
 class SDPipeline:
     """Tokenize → ``sample`` → numpy images, the diffusers-pipeline shape.
-    Runs on the card unless the caller passes ``device="cpu"``."""
+    Runs on the card unless the caller passes ``device="cpu"``.
+    ``attn_impl``: force the UNet's attention implementation ("xla",
+    ...; ``ops.attention``) instead of the sampling dispatch "inference"."""
 
     def __init__(self, params_or_modules: dict, cfg: PipelineConfig,
-                 tokenizer, device="cuda", compute_dtype=torch.bfloat16):
+                 tokenizer, device="cuda", compute_dtype=torch.bfloat16,
+                 attn_impl: Optional[str] = None):
+        self.attn_impl = attn_impl or "inference"
         self.device = torch.device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -96,5 +100,6 @@ class SDPipeline:
                       self.tokenize(negative_prompt), lat,
                       float(guidance_scale), cfg=self.cfg,
                       num_inference_steps=num_inference_steps,
-                      compute_dtype=self.compute_dtype)
+                      compute_dtype=self.compute_dtype,
+                      attn_impl=self.attn_impl)
         return imgs.cpu().numpy()

@@ -6,27 +6,40 @@ ResBlock/transformer/ResBlock; up blocks of three ResBlocks on the skip
 connections; GroupNorm+SiLU head conv.  Activations are NHWC as in the JAX
 package.  Parameter names follow the JAX tree (``down.0.attns.1.attn1.q.weight``).
 
-``apply`` covers the plain forward with ``attn_impl`` set to "inference"
-(sampling: the fixed-cap flash kernel and the fused GEGLU kernel on CUDA)
-or "auto" (training: differentiable, bf16 compute over fp32 masters; the
+``apply`` covers the forward with ``attn_impl`` set to "inference"
+(sampling: the fixed-cap flash kernel and the fused GEGLU kernel on CUDA),
+"auto" (training: differentiable, bf16 compute over fp32 masters; the
 spatial self-attention takes the training flash kernels on CUDA, the
-feed-forward stays unfused as in the JAX package).  Gradient checkpointing
-(``remat``), DeepCache, ControlNet residuals, the SDXL addition embedding,
-FreeU and depth>1 transformers (refused when the model is built) are not
-ported yet and raise ``NotImplementedError``.
+feed-forward stays unfused as in the JAX package) or the forced "xla",
+"flash" and "flash_tt" of ``ops.attention``.  ``remat=True`` is gradient
+checkpointing (the reference's enable_gradient_checkpointing):
+``remat_mode="block"`` recomputes every ResBlock and spatial transformer in
+the backward pass; "selective" recomputes the ResBlocks and, inside each
+transformer, only the GroupNorm/proj-in, feed-forward and proj-out regions,
+saving their matrix-product and convolution outputs (JAX's
+``dots_saveable``) and leaving the attention calls and their projections
+outside (the flash kernels keep O(S·D) residuals already).  Downsamplers,
+upsamplers and conv_in/out are not checkpointed, as in the JAX package.
+DeepCache, ControlNet residuals, the SDXL addition embedding, FreeU and
+depth>1 transformers (refused when the model is built) are not ported yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn as tnn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from sdbc_tpu_torch.ops import geglu_ff as geglu_ff_mod
 from sdbc_tpu_torch.ops import nn
-from sdbc_tpu_torch.ops.attention import attention, attention_bshd_inference
+from sdbc_tpu_torch.ops.attention import (IMPLS, attention,
+                                          attention_bshd_inference)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,24 +141,39 @@ class Transformer(tnn.Module):
         self.ff_out = nn.Linear(4 * dim, dim, **kw)
         self.proj_out = nn.Conv2d(dim, dim, 1, **kw)
 
+    def tfm_in(self, x, groups):
+        n, h, w, c = x.shape
+        y = self.norm(x, groups, eps=1e-6)
+        return self.proj_in(y).reshape(n, h * w, c)
+
+    def attend(self, y, ctx, heads, attn_impl):
+        yn = self.ln1(y)
+        y = y + self.attn1(yn, yn, heads, attn_impl)
+        return y + self.attn2(self.ln2(y), ctx, heads, attn_impl)
+
     def ff(self, y):
         z = self.geglu(self.ln3(y))
         val, gate = z.chunk(2, dim=-1)
         return y + self.ff_out(val * F.gelu(gate))
 
+    def tfm_out(self, y, x):
+        return self.proj_out(y.reshape(x.shape)) + x
+
     def forward(self, x, ctx, heads, groups, attn_impl="auto"):
-        n, h, w, c = x.shape
-        y = self.norm(x, groups, eps=1e-6)
-        y = self.proj_in(y).reshape(n, h * w, c)
-        yn = self.ln1(y)
-        y = y + self.attn1(yn, yn, heads, attn_impl)
-        y = y + self.attn2(self.ln2(y), ctx, heads, attn_impl)
+        y = self.attend(self.tfm_in(x, groups), ctx, heads, attn_impl)
         if attn_impl == "inference" and geglu_ff_mod.ff_fused_eligible(y):
             # LN → up-proj → GELU gate → down-proj → residual in one kernel
             y = geglu_ff_mod.geglu_ff(y, self.ln3, self.geglu, self.ff_out)
         else:
             y = self.ff(y)
-        return self.proj_out(y.reshape(n, h, w, c)) + x
+        return self.tfm_out(y, x)
+
+    def forward_selective(self, x, ctx, heads, groups, attn_impl="auto"):
+        """``forward`` under ``remat_mode="selective"`` (the JAX package's
+        ``_transformer_selective``): the same ops in the same order."""
+        y = _checkpoint_dots(self.tfm_in, x, groups)
+        y = self.attend(y, ctx, heads, attn_impl)
+        return _checkpoint_dots(self.tfm_out, _checkpoint_dots(self.ff, y), x)
 
 
 class _Block(tnn.Module):
@@ -261,26 +289,55 @@ def index_temb(temb_proj, i):
 
 
 # ---------------------------------------------------------------------------
+# gradient checkpointing
+
+# JAX's dots_saveable: matrix products and convolutions keep their outputs
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default, torch.ops.aten.convolution.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_dots(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _dots_saveable))
+
+
+def _checkpoint(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+# ---------------------------------------------------------------------------
 # apply
 
 
-_UNPORTED = ("remat", "cached_deep", "return_deep", "control_residuals",
-             "added_cond", "freeu")
+_UNPORTED = ("cached_deep", "return_deep", "control_residuals", "added_cond",
+             "freeu")
 
 
 def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
-          attn_impl: str = "auto", temb_proj=None, **unported):
+          attn_impl: str = "auto", temb_proj=None, remat: bool = False,
+          remat_mode: str = "block", **unported):
     """latents (N,h,w,4), timesteps (N,), CLIP states (N,77,768) → eps (N,h,w,4).
 
     ``temb_proj``: this step's slice of a ``precompute_temb`` tree, or None
-    to embed ``timesteps`` inline.  ``attn_impl``: "inference" or "auto"."""
+    to embed ``timesteps`` inline.  ``attn_impl``: one of
+    ``ops.attention.IMPLS``.  ``remat``/``remat_mode``: gradient
+    checkpointing, "block" or "selective" (module docstring)."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"apply() got an unexpected argument {name!r}")
         if value not in (None, False):
             raise NotImplementedError(f"unet.apply({name}=...) is not ported")
-    if attn_impl not in ("inference", "auto"):
-        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported")
+    if attn_impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {attn_impl!r}")
+    if remat_mode not in ("block", "selective"):
+        raise ValueError(f"unknown remat_mode {remat_mode!r}")
     cfg = model.cfg
     g = cfg.norm_groups
     heads = cfg.attention_heads
@@ -296,26 +353,38 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
         tp_down, tp_mid, tp_up = (temb_proj["down"], temb_proj["mid"],
                                   temb_proj["up"])
 
+    def res(r, h, tp):
+        if remat:
+            return _checkpoint(r, h, temb, g, tp)
+        return r(h, temb, g, tp)
+
+    def tfm(t, h):
+        if remat and remat_mode == "selective":
+            return t.forward_selective(h, ctx, heads, g, attn_impl)
+        if remat:
+            return _checkpoint(t, h, ctx, heads, g, attn_impl)
+        return t(h, ctx, heads, g, attn_impl)
+
     h = model.conv_in(latents)
     skips = [h]
     for blk, tp in zip(model.down, tp_down):
         for j, r in enumerate(blk.resnets):
-            h = r(h, temb, g, tp["resnets"][j])
+            h = res(r, h, tp["resnets"][j])
             if len(blk.attns):
-                h = blk.attns[j](h, ctx, heads, g, attn_impl)
+                h = tfm(blk.attns[j], h)
             skips.append(h)
         if hasattr(blk, "downsample"):
             h = blk.downsample(h, stride=2, padding=1)
             skips.append(h)
-    h = model.mid.resnet1(h, temb, g, tp_mid["resnet1"])
-    h = model.mid.attn(h, ctx, heads, g, attn_impl)
-    h = model.mid.resnet2(h, temb, g, tp_mid["resnet2"])
+    h = res(model.mid.resnet1, h, tp_mid["resnet1"])
+    h = tfm(model.mid.attn, h)
+    h = res(model.mid.resnet2, h, tp_mid["resnet2"])
     for blk, tp in zip(model.up, tp_up):
         for j, r in enumerate(blk.resnets):
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = r(h, temb, g, tp["resnets"][j])
+            h = res(r, h, tp["resnets"][j])
             if len(blk.attns):
-                h = blk.attns[j](h, ctx, heads, g, attn_impl)
+                h = tfm(blk.attns[j], h)
         if hasattr(blk, "upsample"):
             h = nn.upsample_nearest_2x(h)
             h = blk.upsample(h)

@@ -1,8 +1,9 @@
 """AutoencoderKL — SD-1.x VAE (counterpart of ``sdbc_tpu/models/vae.py``).
 
 NHWC activations, GroupNorm(32, eps 1e-6) + SiLU, single-head mid-block
-attention (plain: d = 512 is past the flash kernel's head dims, as in the
-JAX package).  ``decode`` serves sampling; ``encode_moments`` (batched or
+attention through the "auto" dispatch: plain attention for SD's 512-wide
+head, as in the JAX package, unless ``SDBC_ATTN_IMPL`` forces "flash" or
+"flash_tt", whose forward kernels take it.  ``decode`` serves sampling; ``encode_moments`` (batched or
 image by image), ``sample`` and ``encode`` serve training.
 """
 from __future__ import annotations

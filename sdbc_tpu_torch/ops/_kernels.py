@@ -39,7 +39,8 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 LINK_FLAGS = ARCH + ["-shared"]
 
 launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adam8": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adam8": 0, "gn_fused": 0,
+            "flash_tt": 0, "flash_fixed_int8": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -148,6 +149,12 @@ def load():
     lib.sdbc_flash_bwd_dkv.restype = i
     lib.sdbc_adam8.argtypes = [p] * 6 + [ll] + [f] * 9 + [p]
     lib.sdbc_adam8.restype = i
+    lib.sdbc_flash_fwd_tt.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd_tt.restype = i
+    lib.sdbc_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
+    lib.sdbc_group_norm.restype = i
+    lib.sdbc_flash_int8.argtypes = [p] * 6 + [i] * 6 + [llp, p]
+    lib.sdbc_flash_int8.restype = i
     lib.sdbc_error_string.argtypes = [i]
     lib.sdbc_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -267,3 +274,57 @@ def adam8(p, g, mq, ms, vq, vs, lr: float, bc1: float, bc2: float, b1: float,
                             float(eps), float(wd), _stream(p))
     _check(lib, rc, "adam8")
     launches["adam8"] += 1
+
+
+def flash_fwd_tt(q, k, v, o, lse, sk: int, qscale: float) -> None:
+    """Launch the transposed-layout forward on (B, H, D, S) head-dim-major
+    q/k/v/o (contiguous sequence; q, k, v rows 16-byte aligned with a
+    stride that is a multiple of 8, their sequences padded past Sq / ``sk``
+    keys); ``o`` is (B, H, D, Sq) and ``lse`` a contiguous (B, H, Sq) fp32
+    output.  The caller checks shapes and dtypes
+    (``ops.flash_attention_tt``)."""
+    lib = load()
+    b, h, d, sq = o.shape
+    with torch.cuda.device(q.device):
+        rc = lib.sdbc_flash_fwd_tt(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   o.data_ptr(), lse.data_ptr(), b, h, sq,
+                                   int(sk), d, _bhs_strides(q, k, v, o),
+                                   float(qscale), _stream(q))
+    _check(lib, rc, "flash_tt")
+    launches["flash_tt"] += 1
+
+
+def group_norm(x, scale, bias, y, part, ab, num_groups: int, chunk: int,
+               eps: float, silu: bool) -> None:
+    """Launch the fused GroupNorm(+SiLU) over contiguous (N, HW, C) ``x``
+    and ``y`` (bf16 or fp32); fp32 ``scale``/``bias`` (C,), scratch
+    ``part`` (N, ceil(HW / chunk), 2, C) and ``ab`` (N, 2, C) fp32.  The
+    caller checks shapes and dtypes (``ops.pallas_groupnorm``)."""
+    lib = load()
+    n, hw, c = x.shape
+    dtype = {torch.bfloat16: 0, torch.float32: 1}[x.dtype]
+    with torch.cuda.device(x.device):
+        rc = lib.sdbc_group_norm(x.data_ptr(), scale.data_ptr(),
+                                 bias.data_ptr(), y.data_ptr(),
+                                 part.data_ptr(), ab.data_ptr(), n, hw, c,
+                                 int(num_groups), int(chunk), float(eps),
+                                 int(silu), dtype, _stream(x))
+    _check(lib, rc, "gn_fused")
+    launches["gn_fused"] += 1
+
+
+def flash_fixed_int8(qi, qs, ki, ks, v, o) -> None:
+    """Launch the int8-QK fixed-cap kernel: contiguous int8 (B, H, S, Dq)
+    ``qi``/``ki`` (the head dim zero-padded to Dq = D rounded up to 32),
+    contiguous fp32 (B, H, S) row scales, bf16 (B, H, S, D) ``v``/``o``
+    views with a contiguous head dim.  The caller checks shapes and dtypes
+    (``ops.flash_attention``)."""
+    lib = load()
+    b, h, sq, d = o.shape
+    with torch.cuda.device(v.device):
+        rc = lib.sdbc_flash_int8(qi.data_ptr(), qs.data_ptr(), ki.data_ptr(),
+                                 ks.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                                 h, sq, ki.shape[2], d, qi.shape[3],
+                                 _bhs_strides(v, o), _stream(v))
+    _check(lib, rc, "flash_fixed_int8")
+    launches["flash_fixed_int8"] += 1

@@ -6,30 +6,46 @@ projection layout (B, S, H, D) for ``attention_bshd_inference``.
 impl:
   "auto"      — the training flash kernel (``flash_attention``, with its
                 gradient) for a tensor on CUDA that the JAX package's
-                ``_flash_eligible`` admits: non-causal, ≥ 256 KV tokens,
-                ≥ 128 queries, head dim ≤ 256 and B·H·Sq ≤ 300000 rows;
-                ``plain_attention`` otherwise (the 77-token
-                cross-attention, the 8² mid block, CLIP, the VAE's 512-wide
-                head, and every CPU tensor)
+                ``_flash_eligible`` admits: ≥ 256 KV tokens (or any with
+                ``SDBC_ATTN_CROSS`` set to other than "xla"), ≥ 128
+                queries, head dim ≤ 256 and B·H·Sq ≤ ``SDBC_FLASH_MAX_ROWS``
+                (300000) rows; ``plain_attention`` otherwise (the 77-token
+                cross-attention, the 8² mid block, the VAE's 512-wide head,
+                and every CPU tensor)
   "inference" — sampling dispatch: the fixed-cap flash kernel for a tensor on
                 CUDA with ≥ 256 non-causal KV tokens, ``plain_attention``
                 otherwise (the 77-token cross-attention, the 8² mid block,
                 CLIP, and every CPU tensor)
+  "xla"       — ``plain_attention`` (the JAX name, so one switch works in
+                both packages)
+  "flash"     — the training flash kernel, with no eligibility check
+  "flash_tt"  — the transposed-layout training flash kernel
+                (``flash_attention_tt``)
+
+``SDBC_ATTN_IMPL`` (read at call time) overrides "auto" and "inference"; an
+unknown value raises.  With it set, ``attention_bshd_inference`` leaves the
+projection-layout kernel for the head-major dispatch.  Causal attention
+reaches no kernel: the flash entry points send it to ``plain_attention``.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
-from sdbc_tpu_torch.ops import flash_attention
+from sdbc_tpu_torch.ops import flash_attention, flash_attention_tt
 
+IMPLS = ("auto", "inference", "xla", "flash", "flash_tt")
 # the flash kernels pay off for the UNet's spatial self-attention only
 _MIN_FLASH_KV = 256
 # training flash: the JAX package's _flash_eligible limits
 _MIN_FLASH_Q = 128
 _MAX_FLASH_D = 256
-_MAX_FLASH_ROWS = 300000
+
+
+def _on_cuda(t) -> bool:
+    return t.is_cuda
 
 
 def plain_attention(q, k, v, *, causal: bool = False,
@@ -50,33 +66,49 @@ def plain_attention(q, k, v, *, causal: bool = False,
 
 
 def _flash_dispatch(q, k, causal: bool, seq_dim: int) -> bool:
-    return q.is_cuda and not causal and k.shape[seq_dim] >= _MIN_FLASH_KV
+    """The fixed-cap (inference) rule."""
+    return _on_cuda(q) and not causal and k.shape[seq_dim] >= _MIN_FLASH_KV
 
 
-def _flash_eligible(q, k, causal: bool) -> bool:
+def _flash_eligible(q, k) -> bool:
     """The training flash rule over head-major (B, H, S, D) tensors."""
+    if not _on_cuda(q):
+        return False
     sq, d = q.shape[-2], q.shape[-1]
+    if k.shape[-2] < _MIN_FLASH_KV \
+            and os.environ.get("SDBC_ATTN_CROSS", "xla") == "xla":
+        return False
     rows = q.numel() // d
-    return (_flash_dispatch(q, k, causal, -2) and sq >= _MIN_FLASH_Q
-            and d <= _MAX_FLASH_D and rows <= _MAX_FLASH_ROWS)
+    if rows > int(os.environ.get("SDBC_FLASH_MAX_ROWS", "300000")):
+        return False
+    return sq >= _MIN_FLASH_Q and d <= _MAX_FLASH_D
 
 
 def attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None,
               impl: str = "auto"):
-    if impl not in ("auto", "inference"):
+    if impl in ("auto", "inference"):
+        impl = os.environ.get("SDBC_ATTN_IMPL", impl)
+    if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "inference" and _flash_dispatch(q, k, causal, -2):
-        return flash_attention.flash_attention_fixed(q, k, v, scale=scale)
-    if impl == "auto" and _flash_eligible(q, k, causal):
-        return flash_attention.flash_attention(q, k, v, scale=scale)
+    if impl == "inference":
+        if _flash_dispatch(q, k, causal, -2):
+            return flash_attention.flash_attention_fixed(q, k, v, scale=scale)
+        return plain_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "flash" or (impl == "auto" and _flash_eligible(q, k)):
+        return flash_attention.flash_attention(q, k, v, causal=causal,
+                                               scale=scale)
+    if impl == "flash_tt":
+        return flash_attention_tt.flash_attention_tt(q, k, v, causal=causal,
+                                                     scale=scale)
     return plain_attention(q, k, v, causal=causal, scale=scale)
 
 
 def attention_bshd_inference(q4, k4, v4, *, scale: Optional[float] = None):
     """Inference attention over (B, S, H, D) projection-layout tensors: the
-    fixed-cap kernel reads the heads in place through its strides; every
-    other case goes through the head-major dispatch (same math)."""
-    if _flash_dispatch(q4, k4, False, 1):
+    fixed-cap kernel reads the heads in place through its strides unless
+    ``SDBC_ATTN_IMPL`` is set; every other case goes through the head-major
+    dispatch (same math)."""
+    if _flash_dispatch(q4, k4, False, 1) and "SDBC_ATTN_IMPL" not in os.environ:
         return flash_attention.flash_attention_fixed_bshd(q4, k4, v4,
                                                           scale=scale)
     tr = lambda t: t.transpose(1, 2)

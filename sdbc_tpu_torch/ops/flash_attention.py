@@ -11,6 +11,10 @@ custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
 ``csrc/flash_train.cu``; on a CPU tensor they compute the plain versions
 ``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
 
+The forward also takes head dims up to 512 (the VAE's single head, which
+the ``SDBC_ATTN_IMPL=flash`` override sends here); the backward takes up to
+256, as the JAX package's ``_flash_eligible`` admits.
+
 Inference (fixed cap):
 
 Math (the JAX package's ``_fixed_kernel_bshd``/``_fixed_kernel_raw``/
@@ -147,9 +151,10 @@ def flash_attention_ref(q, k, v, scale: float):
     return o.to(dt), lse
 
 
-def _check_train_inputs(q, k, v):
+def _check_train_inputs(q, k, v, max_d: int = 256):
     """What the training kernels take: bf16 (B, H, S, D) on one CUDA
-    device, matching batch/head/dim, D ≤ 256 and a multiple of 8."""
+    device, matching batch/head/dim, D ≤ ``max_d`` (512 for the forward
+    kernels, 256 for the backward) and a multiple of 8."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
@@ -165,9 +170,9 @@ def _check_train_inputs(q, k, v):
             or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d > 256 or d % 8:
-        raise ValueError(f"flash_attention kernel takes head dims ≤ 256 that "
-                         f"are a multiple of 8, got {d}")
+    if d > max_d or d % 8:
+        raise ValueError(f"flash_attention kernel takes head dims ≤ {max_d} "
+                         f"that are a multiple of 8, got {d}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash_attention: empty sequence")
 
@@ -195,7 +200,7 @@ def flash_fwd(q, k, v, scale: float):
     version on the CPU."""
     if _on_cpu(q):
         return flash_attention_ref(q, k, v, scale)
-    _check_train_inputs(q, k, v)
+    _check_train_inputs(q, k, v, max_d=512)
     q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
     o = bhsd_empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -232,3 +237,57 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return plain_attention(q, k, v, causal=True, scale=scale)
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     return _FlashAttention.apply(q, k, v, scale)
+
+
+# ---------------------------------------------------------------------------
+# int8 QKᵀ fixed-cap attention (the JAX package's ``_flash_fixed_fwd_int8``;
+# nothing dispatches it, in either package)
+
+
+def quantize_rows(x):
+    """The JAX wrapper's ``quant``: per-row absmax over the head dim in fp32,
+    s = max(absmax, 1e-8)/127, round(x/s) half to even → (int8 values,
+    fp32 row scales of shape (..., S, 1))."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    return torch.round(xf / s).to(torch.int8), s
+
+
+def fixed_cap_int8_ref(q, k, v, scale: Optional[float] = None):
+    """Plain int8-QK fixed-cap attention over head-major (B, H, S, D):
+    s = int32(qi·kiᵀ)·qs·ks with scale·log2e folded into qs, p = exp2(min(s,
+    60)), l = Σp in fp32, o = (p → v's dtype)·v / max(l, 1e-37).  The int
+    product is exact in fp32 (and in TF32) while D·127² < 2²⁴."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    qi, qs = quantize_rows(q)
+    ki, ks = quantize_rows(k)
+    qs = qs * (scale * LOG2E)
+    exact = torch.float32 if q.shape[-1] * 127 * 127 < 2 ** 24 \
+        else torch.float64
+    si = torch.matmul(qi.to(exact), ki.to(exact).transpose(-1, -2)).float()
+    p = torch.exp2(torch.clamp(si * qs * ks.transpose(-1, -2), max=CAP))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / torch.clamp(l, min=1e-37)).to(q.dtype)
+
+
+def flash_attention_fixed_int8(q, k, v, *, scale: Optional[float] = None):
+    """int8-QK fixed-cap attention over head-major (B, H, S, D) inputs: q
+    and k quantized per row here (as the JAX wrapper does outside its
+    kernel), then the kernel of ``csrc/flash_int8.cu``; on the CPU,
+    ``fixed_cap_int8_ref``."""
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _on_cpu(q):
+        return fixed_cap_int8_ref(q, k, v, scale)
+    _check_train_inputs(q, k, v)
+    v = kernel_view(v)
+    d = q.shape[-1]
+    pad = -d % 32
+    qi, qs = quantize_rows(q)
+    ki, ks = quantize_rows(k)
+    qi = torch.nn.functional.pad(qi, (0, pad)).contiguous()
+    ki = torch.nn.functional.pad(ki, (0, pad)).contiguous()
+    qs = (qs * (scale * LOG2E))[..., 0].contiguous()
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _kernels.flash_fixed_int8(qi, qs, ki, ks[..., 0].contiguous(), v, o)
+    return o

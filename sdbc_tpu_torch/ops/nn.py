@@ -7,7 +7,9 @@ order, like the 8-bit AdamW's 2048-element blocks, sees the same order).
 Norm statistics are fp32; the result is cast back to the input dtype.
 
 These stay plain PyTorch (cuDNN convolutions, ``F.group_norm``): the JAX
-package leaves them to XLA too.  The ``nn.Module`` wrappers below name their
+package leaves them to XLA too.  ``SDBC_GN_FUSED=1`` (read at call time)
+sends the GroupNorms that ``pallas_groupnorm.eligible`` admits to the fused
+kernel, as it sends them to the Pallas kernel in the JAX package.  The ``nn.Module`` wrappers below name their
 parameters ``weight``/``bias`` so a module's ``state_dict`` keys follow the
 JAX tree paths (``down.0.resnets.1.conv1.weight`` ↔
 ``["down"][0]["resnets"][1]["conv1"]["w"]``).
@@ -19,11 +21,14 @@ Every initialiser takes an explicit ``torch.Generator`` (on ``device``); with
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sdbc_tpu_torch.ops import pallas_groupnorm
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +90,10 @@ def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
     """GroupNorm over contiguous channel groups of an NHWC tensor
     (channel ``ch`` → group ``ch // (C/G)``), fp32 statistics and affine,
     optional fused SiLU, cast back to the input dtype."""
+    if act in (None, "silu") and os.environ.get("SDBC_GN_FUSED", "0") == "1" \
+            and pallas_groupnorm.eligible(x, num_groups):
+        return pallas_groupnorm.fused_group_norm(x, weight, bias, num_groups,
+                                                 eps, act)
     dt = x.dtype
     xf = x.float().permute(0, 3, 1, 2)
     y = F.group_norm(xf, num_groups, weight.float(), bias.float(), eps)

@@ -22,7 +22,9 @@ On CUDA the UNet's spatial self-attention runs the training flash kernels
 (forward + both backward kernels) and the 8-bit optimizer runs the fused
 AdamW kernel once per leaf with ≥ ``min_8bit_size`` elements, leaves as
 the JAX tree has them (``optimizer_leaves``: the text encoder's layers
-stacked).  PyTorch
+stacked).  ``grad_ckpt`` checkpoints the UNet (``unet.apply``'s ``remat``,
+granularity ``remat_mode``: "block" or "selective"), as the reference's
+gradient checkpointing does.  PyTorch
 updates in place: the state's modules and moments are changed by ``step``,
 and ``init_train_state`` takes ownership of the modules it is given.
 
@@ -32,8 +34,8 @@ offset, ``offset``): the JAX package's ``jax.random`` streams cannot be
 reproduced here, so the parity tests hand the JAX draws over.
 
 Not ported yet (``TrainConfig`` raises ``NotImplementedError``): LoRA,
-textual inversion, prior preservation, ControlNet and SDXL training,
-gradient checkpointing; v-prediction waits for the SD-2 family.
+textual inversion, prior preservation, ControlNet and SDXL training;
+v-prediction waits for the SD-2 family.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from sdbc_tpu_torch.utils.dtypes import cast_floating
 
 _UNPORTED = {"lora_rank": 0, "ti_token": "", "prior_weight": 0.0,
              "train_controlnet": False, "dual_text_encoder": False,
-             "refiner": False, "grad_ckpt": False}
+             "refiner": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +69,11 @@ class TrainConfig:
     micro_batch: int = 1         # lr scaling only
     train_unet: bool = False
     train_text_encoder: bool = True
+    grad_ckpt: bool = False
+    # "block" = checkpoint whole ResBlocks/transformers (reference
+    # semantics); "selective" = keep the attention outside the checkpoint
+    # regions (models/unet.py)
+    remat_mode: str = "block"
     use_8bit_adam: bool = False
     max_grad_norm: float = 0.0   # 0 = off
     lr_scale_by_dp: bool = False
@@ -80,7 +87,6 @@ class TrainConfig:
     train_controlnet: bool = False
     dual_text_encoder: bool = False
     refiner: bool = False
-    grad_ckpt: bool = False
 
     def __post_init__(self):
         for name, default in _UNPORTED.items():
@@ -88,6 +94,8 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"TrainConfig.{name}={getattr(self, name)!r} is not "
                     "ported to sdbc_tpu_torch yet")
+        if self.remat_mode not in ("block", "selective"):
+            raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
 
     def trainable_keys(self):
         keys = []
@@ -366,7 +374,8 @@ def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
 
     ctx = clip_mod.apply(models["text_encoder"], batch["input_ids"],
                          compute_dtype=dt)
-    pred = unet_mod.apply(models["unet"], noisy, t, ctx, attn_impl="auto")
+    pred = unet_mod.apply(models["unet"], noisy, t, ctx, attn_impl="auto",
+                          remat=tcfg.grad_ckpt, remat_mode=tcfg.remat_mode)
     # fp32 MSE, mean over pixels then batch (reference :483)
     per_ex = torch.mean((pred.float() - noise) ** 2,
                         dim=tuple(range(1, pred.dim())))

@@ -11,8 +11,11 @@ import torch
 
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as tflash
+from sdbc_tpu_torch.ops import attention as tattn
 from sdbc_tpu_torch.ops import flash_attention_bwd as tbwd
+from sdbc_tpu_torch.ops import flash_attention_tt as ttt
 from sdbc_tpu_torch.ops import geglu_ff as tgeglu
+from sdbc_tpu_torch.ops import pallas_groupnorm as tpgn
 from sdbc_tpu_torch.train import adam8bit as tadam8
 from sdbc_tpu_torch.utils.dtypes import set_fp32_matmul_exact
 
@@ -249,3 +252,126 @@ def test_adam8_kernel_matches_plain_on_card(hopper, n):
     torch.testing.assert_close(st_k.vs, st_r.vs, rtol=1e-5, atol=0)
     if n % 2048:  # the ragged tail of the last row is never written
         assert st_k.mq.reshape(-1)[n:].abs().max().item() == 0
+
+
+# the kernels of the switches (csrc/group_norm.cu, the K9 variant of
+# csrc/flash_train.cu, csrc/flash_int8.cu) and the 512-wide forward
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,groups,act,dtype", [
+    ((2, 64, 64, 320), 32, "silu", torch.bfloat16),
+    ((2, 32, 32, 640), 32, "silu", torch.bfloat16),
+    ((2, 8, 8, 1280), 32, None, torch.bfloat16),
+    ((2, 10, 20, 96), 32, "silu", torch.bfloat16),
+    ((3, 7, 5, 40), 8, None, torch.float32)])
+def test_group_norm_kernel_matches_plain_on_card(hopper, shape, groups, act,
+                                                 dtype):
+    x = (torch.from_numpy(_rand(100, *shape)) * 2 + 0.5).to(hopper, dtype)
+    c = shape[-1]
+    w = torch.from_numpy(_rand(101, c) * 0.3 + 1.0).to(hopper)
+    b = torch.from_numpy(_rand(102, c) * 0.2).to(hopper)
+    before = _kernels.launches["gn_fused"]
+    y = tpgn.fused_group_norm(x, w, b, groups, 1e-5, act)
+    torch.cuda.synchronize()
+    assert _kernels.launches["gn_fused"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    ref = tpgn.group_norm_fused_ref(x.float(), w, b, groups, 1e-5, act)
+    # one rounding to the output type, plus fp32 summation order
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+    assert ((y.float() - ref).abs() <= ulp * ref.abs() + 1e-3).all()
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_gradient_on_card(hopper):
+    x = torch.from_numpy(_rand(103, 2, 16, 16, 64)).to(hopper)
+    w = torch.from_numpy(_rand(104, 64)).to(hopper)
+    b = torch.from_numpy(_rand(105, 64)).to(hopper)
+    xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ys = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    (tpgn.fused_group_norm(*xs, 16, 1e-6, "silu") ** 2).sum().backward()
+    (tpgn.group_norm_fused_ref(*ys, 16, 1e-6, "silu") ** 2).sum().backward()
+    for a, r in zip(xs, ys):
+        torch.testing.assert_close(a.grad, r.grad, atol=1e-3, rtol=1e-3)
+
+
+TT_SHAPES = [((1, 2, 256, 40), 256), ((1, 2, 140, 40), 77),
+             ((2, 8, 64, 160), 64), ((1, 2, 200, 80), 300),
+             ((1, 1, 256, 512), 256), ((1, 1, 100, 320), 77)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", TT_SHAPES)
+def test_flash_tt_kernel_matches_plain_on_card(hopper, qshape, sk):
+    q, k, v = _bshd_views(hopper, qshape, sk, 110)
+    scale = qshape[-1] ** -0.5
+    before = _kernels.launches["flash_tt"]
+    out, lse = ttt.flash_fwd_tt(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_tt"] == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert out.shape == ref.shape and _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    k5, _ = tflash.flash_fwd(q, k, v, scale)  # the same function
+    assert _attn_close(out, k5)
+
+
+@pytest.mark.gpu
+def test_flash_tt_autograd_on_card(hopper):
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in _bshd_views(hopper, (1, 2, 256, 40), 77, 120))
+    do = torch.from_numpy(_rand(125, 1, 2, 256, 40)).to(hopper,
+                                                        torch.bfloat16)
+    before = dict(_kernels.launches)
+    ttt.flash_attention_tt(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    for name in ("flash_tt", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.launches[name] == before[name] + 1
+    assert _kernels.launches["flash_fwd"] == before["flash_fwd"]
+    scale = 40 ** -0.5
+    o, lse = tflash.flash_attention_ref(q.detach(), k.detach(), v.detach(),
+                                        scale)
+    refs = tbwd.flash_bwd_ref(q.detach(), k.detach(), v.detach(), o, do, lse,
+                              scale)
+    for name, g, r in zip(("dq", "dk", "dv"), (q.grad, k.grad, v.grad),
+                          refs):
+        assert _attn_close(g, r), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((1, 1, 256, 512), 256),
+                                       ((1, 1, 100, 320), 77)])
+def test_flash_fwd_kernel_takes_wide_heads_on_card(hopper, qshape, sk):
+    """The VAE's 512-wide head under SDBC_ATTN_IMPL=flash."""
+    q, k, v = _bshd_views(hopper, qshape, sk, 130)
+    scale = qshape[-1] ** -0.5
+    before = _kernels.launches["flash_fwd"]
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fwd"] == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    with pytest.raises(ValueError, match="≤ 256"):
+        tbwd.flash_bwd(q, k, v, out, out, lse, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((2, 8, 1024, 80), 1024),
+                                       ((1, 2, 512, 40), 512),
+                                       ((1, 2, 200, 160), 300),
+                                       ((1, 2, 64, 16), 77)])
+def test_int8_kernel_matches_plain_on_card(hopper, qshape, sk):
+    b, h, sq, d = qshape
+    q = torch.from_numpy(_rand(140, *qshape)).to(hopper, torch.bfloat16)
+    k, v = (torch.from_numpy(_rand(s, b, h, sk, d)).to(hopper, torch.bfloat16)
+            for s in (141, 142))
+    before = _kernels.launches["flash_fixed_int8"]
+    out = tflash.flash_attention_fixed_int8(q, k, v)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fixed_int8"] == before + 1
+    ref = tflash.fixed_cap_int8_ref(q, k, v).float()
+    assert _attn_close(out, ref)
+    exact = tattn.plain_attention(q.float(), k.float(), v.float())
+    assert ((out.float() - exact).abs().max()
+            / exact.abs().max()).item() < 0.04

@@ -144,7 +144,7 @@ def test_deep_transformers_are_refused(tcfg):
                    device="cpu")
 
 
-@pytest.mark.parametrize("option", ["remat", "cached_deep", "return_deep",
+@pytest.mark.parametrize("option", ["cached_deep", "return_deep",
                                     "control_residuals", "added_cond",
                                     "freeu"])
 def test_unet_unported_options_raise(tcfg, tmodels, option):

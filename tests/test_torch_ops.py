@@ -168,7 +168,7 @@ def test_inference_dispatch_on_cpu_is_plain():
         tattn.attention(q, k, v, impl="inference").numpy(),
         tattn.plain_attention(q, k, v).numpy())
     with pytest.raises(ValueError):
-        tattn.attention(q, k, v, impl="flash_tt")
+        tattn.attention(q, k, v, impl="flash_tpu")
 
 
 # ---------------------------------------------------------------------------

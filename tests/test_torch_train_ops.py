@@ -94,7 +94,7 @@ def test_auto_dispatch_follows_the_flash_rule():
     q = torch.zeros(2, 8, 4096, 40)
     k = torch.zeros(2, 8, 4096, 40)
     elig = tattn._flash_eligible
-    assert not elig(q, k, False)  # a CPU tensor
+    assert not elig(q, k)  # a CPU tensor
     assert not tattn._flash_dispatch(q, k, False, -2)
 
 
