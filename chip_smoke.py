@@ -14,12 +14,16 @@ Phases, in order; each prints one or more lines, and any failure raises
                   it (bf16 inputs; the plain version in fp32 on the same
                   bf16 values), with CUDA-event medians of the kernel, the
                   plain version and the one PyTorch call computing the same
-                  function (where there is one): the fixed-cap attention,
-                  GEGLU, the fused GroupNorm (the UNet's GroupNorm inputs at
-                  batch 8, one ragged case) and the int8-QK attention (also
-                  held to 4% of exact attention);
+                  function (where there is one): the fixed-cap attention
+                  (timed against SDPA in alternating rounds, with its share
+                  of the bound), GEGLU, the fused GroupNorm (the UNet's
+                  GroupNorm inputs at batch 8, one ragged case) and the
+                  int8-QK attention (also held to 4% of exact attention);
+                  the build phase prints the wgmma kernel's registers,
+                  spills and SASS op counts;
 4. train-kernels — the same for the training kernels at the shapes the
-                  mode-C fine-tuning step gives them (flash forward, dq and
+                  mode-C fine-tuning step gives them (flash forward, timed
+                  like the fixed-cap attention, dq and
                   dk/dv at micro-batch 2, 8 heads, 64²/32²/16² tokens, one
                   ragged case; the 8-bit AdamW on a leaf with a ragged last
                   row), the transposed-layout forward at the same cases plus
@@ -197,6 +201,19 @@ def median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def paired_ms(fns, reps: int = 10, rounds: int = 4):
+    """``median_ms`` of each of ``fns`` (a kernel and the library call it
+    is held against), taken in alternating order over ``rounds`` rounds
+    (a, b, b, a, ...): the median over the rounds of each one's median, so
+    drift in the card's clocks during the phase favours neither."""
+    got = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            got[i].append(median_ms(fns[i], reps))
+    return [statistics.median(g) for g in got]
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -444,7 +461,62 @@ def phase_build():
     print(f"[build] {lib.name} in {secs:.1f} s ({built}); ptxas: "
           f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
           f"{len(spills)} spilling {spills[:4]}", flush=True)
+    for name, info in sm90_ptxas(lines).items():
+        print(f"[build] {name}: {info}", flush=True)
+    sm90_sass(lib)
     return secs
+
+
+def sm90_sass(lib):
+    """Counts, in the built SASS of each flash_fwd_sm90_kernel, the wgmma
+    products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and mma.sync
+    products (HMMA); fails if one has no HGMMA or no UTMALDG, or any HMMA."""
+    import re
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
+                                                     "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("[build] SASS: cuobjdump not found, not checked", flush=True)
+        return
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    found = {}
+    for part in res.stdout.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_fwd_sm90_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                     part)
+        if m:
+            found["<%s, %s, %s>" % m.groups()] = {
+                op: len(re.findall(rf"\b{op}\b", part))
+                for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+    print(f"[build] SASS of flash_fwd_sm90_kernel (HGMMA, UTMALDG, UTMASTG, "
+          f"HMMA): {found or 'no kernel found'}", flush=True)
+    for name, n in found.items():
+        if n["HGMMA"] == 0 or n["UTMALDG"] == 0 or n["HMMA"]:
+            fail(f"flash_fwd_sm90_kernel{name}: SASS counts {n}")
+
+
+def sm90_ptxas(lines):
+    """ptxas's registers and spills of each flash_fwd_sm90_kernel
+    instantiation (DP, KS, ONLINE) from the ``-Xptxas -v`` log, and any
+    warning about its register reallocation (setmaxnreg)."""
+    import re
+
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          ln)
+            cur = (f"flash_fwd_sm90_kernel<{m.group(1)}, {m.group(2)}, "
+                   f"{'true' if m.group(3) == '1' else 'false'}>"
+                   if m else None)
+        elif cur and ("registers" in ln or "spill" in ln):
+            out.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
+        elif "setmaxnreg" in ln:
+            out.setdefault("warning", []).append(ln.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def phase_kernels():
@@ -491,21 +563,24 @@ def phase_kernels():
         err, tol = attn_err(out, ref)
         if not torch.isfinite(out).all() or not err <= tol:
             fail(f"flash {label}: max abs err {err} > {tol}")
-        ms, pms = median_ms(kern, 20), median_ms(plain, 5)
+        pms = median_ms(plain, 5)
         del ref
         qh, kh, vh = (q, k, v) if layout == "bhsd" else (tr(q), tr(k), tr(v))
-        lms = median_ms(lambda: sdpa(qh, kh, vh), 20)
+        ms, lms = paired_ms([kern, lambda: sdpa(qh, kh, vh)])
         b, h, sq, d = qh.shape
         bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,))
         print(f"[kernels] flash_fixed {label}: max_abs_err {err:.3e} (tol "
               f"{tol:.3e}) kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lms:.4f} ms "
               f"bound {bms:.4f} ms ({by})", flush=True)
+        print(f"[kernels] flash_fixed {label}: kernel {ms:.4f} ms, sdpa "
+              f"{lms:.4f} ms (kernel/sdpa {ms / lms:.2f}), bound {bms:.4f} ms, "
+              f"{100 * bms / ms:.1f}% of the bound", flush=True)
         flash_err = max(flash_err, err)
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                          library_ms=lms)
     rows.append({"name": "flash_fixed", "route": "cuda",
-                 "source": "sdbc_tpu_torch/csrc/flash_fixed.cu",
+                 "source": "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
                  "replaces": "sdbc_tpu/ops/flash_attention.py:348",
                  "max_abs_err": flash_err, **first})
 
@@ -711,11 +786,10 @@ def phase_train_kernels():
                 and lerr <= LSE_TOL):
             fail(f"flash_fwd {label}: out err {err} (tol {tol}), lse err "
                  f"{lerr}")
-        ms = median_ms(lambda: fa.flash_fwd(q, k, v, scale), 20)
         pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
         lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
             q, k, v, scale=scale)
-        lms = median_ms(lib, 20)
+        ms, lms = paired_ms([lambda: fa.flash_fwd(q, k, v, scale), lib])
         bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,),
                              4.0 * b * h * sq)
         record("flash_fwd", max(err, lerr), ms=ms, plain_ms=pms,
@@ -723,6 +797,9 @@ def phase_train_kernels():
         print(f"[train-kernels] flash_fwd {label}: out err {err:.3e} (tol "
               f"{tol:.3e}) lse err {lerr:.3e} kernel {ms:.4f} ms plain {pms:.4f} ms sdpa-flash "
               f"{lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        print(f"[train-kernels] flash_fwd {label}: kernel {ms:.4f} ms, "
+              f"sdpa-flash {lms:.4f} ms (kernel/sdpa {ms / lms:.2f}), bound "
+              f"{bms:.4f} ms, {100 * bms / ms:.1f}% of the bound", flush=True)
 
         # backward: each kernel vs the plain backward, called directly and
         # through autograd (``_FlashAttention``: the forward kernel's out
@@ -781,14 +858,21 @@ def phase_train_kernels():
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
     rows = [kernel_flash_tt(g)]
     kernel_flash_fwd_wide(g)
-    for name, replaces in (
-            ("flash_fwd", "sdbc_tpu/ops/flash_attention.py:81"),
-            ("flash_bwd_dq", "sdbc_tpu/ops/flash_attention_bwd.py:163"),
-            ("flash_bwd_dkv", "sdbc_tpu/ops/flash_attention_bwd.py:187")):
-        rows.append({"name": name, "route": "cuda",
-                     "source": "sdbc_tpu_torch/csrc/flash_train.cu",
+    for name, source, replaces in (
+            ("flash_fwd", "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
+             "sdbc_tpu/ops/flash_attention.py:81"),
+            ("flash_bwd_dq", "sdbc_tpu_torch/csrc/flash_train.cu",
+             "sdbc_tpu/ops/flash_attention_bwd.py:163"),
+            ("flash_bwd_dkv", "sdbc_tpu_torch/csrc/flash_train.cu",
+             "sdbc_tpu/ops/flash_attention_bwd.py:187")):
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": res[name]["err"],
                      **res[name]["first"]})
+    next(r for r in rows if r["name"] == "flash_fwd")["serves"] = (
+        "head dims <= 256 (every main-path call): flash_fwd_sm90_kernel in "
+        "csrc/flash_fwd_sm90.cu; head dims above 256 (the VAE's 512-wide "
+        "head under SDBC_ATTN_IMPL=flash): flash_fwd_kernel<512, 256> in "
+        "csrc/flash_train.cu")
 
     # the fused 8-bit AdamW on a 3x3 1280-channel conv leaf less 1000
     # elements (a ragged last row), from a mid-training state
@@ -1392,7 +1476,8 @@ def phase_train_profile(step, state, batch, gen, sps: float,
     top = sorted(events, key=lambda e: -dev_us(e))[:12]
     summary = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count) for e in top]
     ours = {n: round(sum(dev_us(e) for e in events if n in e.key) / 1e3, 3)
-            for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+            for n in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+                      "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel", "adam8_kernel")}
     # host side: operators by their own CPU time (the profiler's, which
     # inflates it) and the number of device kernels launched

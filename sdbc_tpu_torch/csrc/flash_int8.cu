@@ -14,15 +14,16 @@
 // wrapper instead drops a ragged KV tail).
 //
 // What bounds it on the H100: like the bf16 fixed-cap kernel
-// (flash_fixed.cu), the exponentials.  Per score it costs 2*D int8
+// (flash_fwd_sm90.cu), the exponentials.  Per score it costs 2*D int8
 // operations (at 1979 TOP/s), 2*D bf16 FLOPs (989 TFLOP/s) and one exp2
 // (~3.9 T/s on the special-function units): at D = 40 the exp2 takes ~3x
 // the two products together, so int8 halves only the half that does not
 // bind.
 //
-// Design (flash_fixed.cu's): one block of 4 warps per (64-row q tile,
-// head, batch), each warp owning 16 q rows; the q fragments of
-// mma.sync.m16n8k32 (s8 x s8 -> s32) stay in registers across the KV loop.
+// Design (FlashAttention-2's register layout on mma.sync): one block of 4
+// warps per (64-row q tile, head, batch), each warp owning 16 q rows; the
+// q fragments of mma.sync.m16n8k32 (s8 x s8 -> s32) stay in registers
+// across the KV loop.
 // KV tiles of 64 rows: int8 K rows and their scales, and bf16 V transposed,
 // in shared memory.  The int8 head dim is zero-padded to a multiple of 32
 // (40 -> 64), the bf16 one to a multiple of 16.  The s32 accumulator layout

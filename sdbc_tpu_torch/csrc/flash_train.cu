@@ -2,7 +2,9 @@
 // emits the log-sum-exp (in two layouts) and the two backward kernels.
 //
 // Replaces the JAX package's Pallas kernels:
-//   flash_fwd_kernel<.., false> <- sdbc_tpu/ops/flash_attention.py    _fwd_kernel    (via _flash_fwd)
+//   flash_fwd_kernel<.., false> <- sdbc_tpu/ops/flash_attention.py    _fwd_kernel    (via _flash_fwd),
+//                                  head dims above 256 only (flash_fwd_sm90.cu
+//                                  takes the rest)
 //   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt)
 //   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd)
 //   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd)
@@ -47,8 +49,8 @@
 // clock), so at D = 40 all three are bound by the exponentials and the
 // scalar work around them, at D = 160 by the tensor cores.
 //
-// Design (the fixed-cap kernel's, flash_fixed.cu, plus the running max and
-// the backward products): blocks of 4 warps, each warp owning 16 rows of a
+// Design (FlashAttention-2's register layout, with the running max and the
+// backward products): blocks of 4 warps, each warp owning 16 rows of a
 // 64-row tile; mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with S and P in
 // registers, whose accumulator layout is the next product's A layout.  The
 // head dim is zero-padded to a multiple of 16 in shared memory (40 -> 48);
@@ -707,16 +709,19 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
 // contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512 for the
 // forward and 256 for the backward.  Each returns cudaGetLastError() after
 // its launch.
-extern "C" int sdbc_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int H, int Sq, int Sk,
-                              int D, const long long* st, float qscale,
-                              void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDBC_CALL(DP, DO) launch_fwd<DP, DO, false>(                        \
-      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale, s)
-  SDBC_FWD_SWITCH(SDBC_CALL)
-#undef SDBC_CALL
+//
+// The forward in the natural layout serves only head dims above 256 here
+// (the VAE's 512-wide head); up to 256 it is flash_fwd_sm90.cu's kernel.
+extern "C" int sdbc_flash_fwd_wide(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int H, int Sq, int Sk, int D,
+                                   const long long* st, float qscale,
+                                   void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, 512) || padded_dim(D, 512) != 512)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<512, 256, false>(
+      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K9: the same forward over head-dim-major (batch, head, D, S) operands and

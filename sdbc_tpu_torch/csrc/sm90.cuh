@@ -1,0 +1,254 @@
+// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads
+// and stores, named barriers, warpgroup register reallocation and the wgmma
+// products with their shared-memory descriptors.  Used by
+// flash_fwd_sm90.cu.
+//
+// Layout convention: every operand tile in shared memory is a stack of
+// "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
+// swizzle that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B (the 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8)); a column block starts on a
+// 1024-byte boundary.  wgmma reads the same layout through a descriptor of
+// layout type 1 (128B swizzle).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Blocks until the phase of parity `parity` has completed (a fresh barrier
+// counts the phase before its first as completed, parity 1).  A wait that
+// never ends (a lost arrival) traps after ~2^28 polls instead of hanging
+// the device, so the launch fails with an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA (4-D tensor maps; coordinates innermost first)
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma, TMA) of the threads that synchronise after it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// named barriers and register reallocation
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
+// (rows of 64-element column blocks, the contraction along the row): LBO
+// unused, SBO = 1024 (8 rows of 128 bytes); the k16 steps inside a column
+// block advance the start address by 32 bytes.  MN-major operands (the
+// contraction down the rows, N along the row): LBO = the byte distance
+// between 64-wide column blocks, SBO = 1024 (8 rows of the contraction).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Operand lists: "%0, ..., %n-1" and the matching "+f" accumulator
+// constraints, in groups of 8 registers.
+#define SM90_R8(a, b, c, d, e, f, g, h) \
+  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h
+#define SM90_REGS32                                                 \
+  SM90_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " SM90_R8(8, 9, 10, 11, 12, 13, 14, 15) \
+  ", " SM90_R8(16, 17, 18, 19, 20, 21, 22, 23) ", "                 \
+  SM90_R8(24, 25, 26, 27, 28, 29, 30, 31)
+#define SM90_REGS64                                                   \
+  SM90_REGS32 ", " SM90_R8(32, 33, 34, 35, 36, 37, 38, 39) ", "       \
+  SM90_R8(40, 41, 42, 43, 44, 45, 46, 47) ", "                        \
+  SM90_R8(48, 49, 50, 51, 52, 53, 54, 55) ", "                        \
+  SM90_R8(56, 57, 58, 59, 60, 61, 62, 63)
+#define SM90_REGS96                                                   \
+  SM90_REGS64 ", " SM90_R8(64, 65, 66, 67, 68, 69, 70, 71) ", "       \
+  SM90_R8(72, 73, 74, 75, 76, 77, 78, 79) ", "                        \
+  SM90_R8(80, 81, 82, 83, 84, 85, 86, 87) ", "                        \
+  SM90_R8(88, 89, 90, 91, 92, 93, 94, 95)
+#define SM90_REGS128                                                  \
+  SM90_REGS96 ", " SM90_R8(96, 97, 98, 99, 100, 101, 102, 103) ", "   \
+  SM90_R8(104, 105, 106, 107, 108, 109, 110, 111) ", "                \
+  SM90_R8(112, 113, 114, 115, 116, 117, 118, 119) ", "                \
+  SM90_R8(120, 121, 122, 123, 124, 125, 126, 127)
+
+#define SM90_REGS24                                                 \
+  SM90_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " SM90_R8(8, 9, 10, 11, 12, 13, 14, 15) \
+  ", " SM90_R8(16, 17, 18, 19, 20, 21, 22, 23)
+#define SM90_REGS40 SM90_REGS32 ", " SM90_R8(32, 33, 34, 35, 36, 37, 38, 39)
+#define SM90_REGS80                                                   \
+  SM90_REGS64 ", " SM90_R8(64, 65, 66, 67, 68, 69, 70, 71) ", "       \
+  SM90_R8(72, 73, 74, 75, 76, 77, 78, 79)
+
+#define SM90_F8(d, o)                                                  \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define SM90_F32(d, o) \
+  SM90_F8(d, o), SM90_F8(d, o + 8), SM90_F8(d, o + 16), SM90_F8(d, o + 24)
+#define SM90_F24(d) SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16)
+#define SM90_F40(d) SM90_F32(d, 0), SM90_F8(d, 32)
+#define SM90_F64(d) SM90_F32(d, 0), SM90_F32(d, 32)
+#define SM90_F80(d) SM90_F64(d), SM90_F8(d, 64), SM90_F8(d, 72)
+#define SM90_F96(d) SM90_F64(d), SM90_F32(d, 64)
+#define SM90_F128(d) SM90_F64(d), SM90_F32(d, 64), SM90_F32(d, 96)
+
+// D (64 x N, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x N, shared,
+// K-major); scale_d = 0 overwrites D.
+template <int N>
+struct WgmmaSS;
+
+#define SM90_SS(N, REGS, FN, IA, IB, IS)                                    \
+  template <>                                                              \
+  struct WgmmaSS<N> {                                                      \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               uint64_t a, uint64_t b,     \
+                                               int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" REGS "}, %" #IA ", %" #IB         \
+                   ", p, 1, 1, 0, 0;\n}\n"                                 \
+                   : FN(d)                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d));                        \
+    }                                                                      \
+  };
+#define SM90_F32_0(d) SM90_F32(d, 0)
+SM90_SS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
+SM90_SS(128, SM90_REGS64, SM90_F64, 64, 65, 66)
+
+// D (64 x N, fp32) += A (64 x 16, bf16 registers in the m16n8k16 A layout
+// of each warp's 16 rows) . B (16 x N, shared, MN-major: transposed read;
+// N need not fill the last 64-wide column block).
+template <int N>
+struct WgmmaRS;
+
+#define SM90_RS(N, REGS, FN, A0, A1, A2, A3, IB, IS)                        \
+  template <>                                                              \
+  struct WgmmaRS<N> {                                                      \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               const uint32_t (&a)[4],     \
+                                               uint64_t b) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" REGS "}, {%" #A0 ", %" #A1        \
+                   ", %" #A2 ", %" #A3 "}, %" #IB ", p, 1, 1, 1;\n}\n"      \
+                   : FN(d)                                                 \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
+                     "r"(1));                                              \
+    }                                                                      \
+  };
+SM90_RS(48, SM90_REGS24, SM90_F24, 24, 25, 26, 27, 28, 29)
+SM90_RS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34, 35, 36, 37)
+SM90_RS(80, SM90_REGS40, SM90_F40, 40, 41, 42, 43, 44, 45)
+SM90_RS(128, SM90_REGS64, SM90_F64, 64, 65, 66, 67, 68, 69)
+SM90_RS(160, SM90_REGS80, SM90_F80, 80, 81, 82, 83, 84, 85)
+SM90_RS(192, SM90_REGS96, SM90_F96, 96, 97, 98, 99, 100, 101)
+SM90_RS(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
+
+#undef SM90_SS
+#undef SM90_RS
+
+}  // namespace sm90

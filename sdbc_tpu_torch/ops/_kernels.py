@@ -20,6 +20,7 @@ that its path went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -141,8 +142,10 @@ def load():
     lib.sdbc_geglu_ff.argtypes = [p] * 8 + [i, i, f, p]
     lib.sdbc_geglu_ff.restype = i
     llp = ctypes.POINTER(ll)
-    lib.sdbc_flash_fwd.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
-    lib.sdbc_flash_fwd.restype = i
+    lib.sdbc_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd_sm90.restype = i
+    lib.sdbc_flash_fwd_wide.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd_wide.restype = i
     lib.sdbc_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [llp, f, f, p]
     lib.sdbc_flash_bwd_dq.restype = i
     lib.sdbc_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
@@ -169,7 +172,17 @@ def _check(lib, rc: int, what: str) -> None:
 
 
 def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _device(t):
+    """The device context for a launch on ``t``'s card: none when that card
+    is already the current one (entering ``torch.cuda.device`` costs host
+    time on every launch)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def flash_fixed(q, k, v, o, qscale: float) -> None:
@@ -179,10 +192,9 @@ def flash_fixed(q, k, v, o, qscale: float) -> None:
     lib = load()
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    strides = []
-    for t in (q, k, v, o):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    with torch.cuda.device(q.device):
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *o.stride()[:3]]
+    with _device(q):
         rc = lib.sdbc_flash_fixed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   o.data_ptr(), b, h, sq, sk, d, *strides,
                                   float(qscale), _stream(q))
@@ -195,7 +207,7 @@ def geglu_ff(y, gamma, beta, w1, b1, w2, b2, out, eps: float) -> None:
     shapes and dtypes (``ops.geglu_ff``)."""
     lib = load()
     rows, c = y.shape
-    with torch.cuda.device(y.device):
+    with _device(y):
         rc = lib.sdbc_geglu_ff(y.data_ptr(), gamma.data_ptr(),
                                beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
@@ -207,24 +219,34 @@ def geglu_ff(y, gamma, beta, w1, b1, w2, b2, out, eps: float) -> None:
 def _bhs_strides(*tensors):
     """(batch, head, seq) strides of (B, H, S, D) logical views, as the C
     array the training kernels take."""
-    out = []
-    for t in tensors:
-        out += [t.stride(0), t.stride(1), t.stride(2)]
+    out = [st for t in tensors for st in t.stride()[:3]]
     return (ctypes.c_longlong * len(out))(*out)
 
 
 def flash_fwd(q, k, v, o, lse, qscale: float) -> None:
-    """Launch the training forward on (B, H, S, D) logical views (any
-    batch/head/seq strides, contiguous head dim); ``lse`` is a contiguous
-    (B, H, Sq) fp32 output.  The caller checks shapes and dtypes
-    (``ops.flash_attention``)."""
+    """Launch the training forward for head dims up to 256 (the wgmma
+    kernel of ``csrc/flash_fwd_sm90.cu``) on (B, H, S, D) logical views (any
+    batch/head/seq strides that are multiples of 8, contiguous head dim);
+    ``lse`` is a contiguous (B, H, Sq) fp32 output.  The caller checks
+    shapes and dtypes (``ops.flash_attention``)."""
+    _launch_fwd("sdbc_flash_fwd_sm90", q, k, v, o, lse, qscale)
+
+
+def flash_fwd_wide(q, k, v, o, lse, qscale: float) -> None:
+    """``flash_fwd`` for head dims above 256 (the VAE's 512-wide head): the
+    ``mma.sync`` forward of ``csrc/flash_train.cu``.  Counted as a launch
+    of ``flash_fwd``: the same function."""
+    _launch_fwd("sdbc_flash_fwd_wide", q, k, v, o, lse, qscale)
+
+
+def _launch_fwd(entry: str, q, k, v, o, lse, qscale: float) -> None:
     lib = load()
     b, h, sq, d = q.shape
-    with torch.cuda.device(q.device):
-        rc = lib.sdbc_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), lse.data_ptr(), b, h, sq,
-                                k.shape[2], d, _bhs_strides(q, k, v, o),
-                                float(qscale), _stream(q))
+    with _device(q):
+        rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(), b, h, sq,
+                                 k.shape[2], d, _bhs_strides(q, k, v, o),
+                                 float(qscale), _stream(q))
     _check(lib, rc, "flash_fwd")
     launches["flash_fwd"] += 1
 
@@ -235,7 +257,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float,
     is a contiguous (B, H, Sq) fp32 input)."""
     lib = load()
     b, h, sq, d = q.shape
-    with torch.cuda.device(q.device):
+    with _device(q):
         rc = lib.sdbc_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    do.data_ptr(), lse.data_ptr(),
                                    delta.data_ptr(), dq.data_ptr(), b, h, sq,
@@ -250,7 +272,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
     """Launch the dk/dv kernel (layouts as ``flash_bwd_dq``)."""
     lib = load()
     b, h, sq, d = q.shape
-    with torch.cuda.device(q.device):
+    with _device(q):
         rc = lib.sdbc_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                     do.data_ptr(), lse.data_ptr(),
                                     delta.data_ptr(), dk.data_ptr(),
@@ -266,7 +288,7 @@ def adam8(p, g, mq, ms, vq, vs, lr: float, bc1: float, bc2: float, b1: float,
     """Launch the fused 8-bit AdamW step on one leaf, in place.  The caller
     checks shapes and dtypes (``train.adam8bit``)."""
     lib = load()
-    with torch.cuda.device(p.device):
+    with _device(p):
         rc = lib.sdbc_adam8(p.data_ptr(), g.data_ptr(), mq.data_ptr(),
                             ms.data_ptr(), vq.data_ptr(), vs.data_ptr(),
                             p.numel(), float(lr), float(bc1), float(bc2),
@@ -285,7 +307,7 @@ def flash_fwd_tt(q, k, v, o, lse, sk: int, qscale: float) -> None:
     (``ops.flash_attention_tt``)."""
     lib = load()
     b, h, d, sq = o.shape
-    with torch.cuda.device(q.device):
+    with _device(q):
         rc = lib.sdbc_flash_fwd_tt(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    o.data_ptr(), lse.data_ptr(), b, h, sq,
                                    int(sk), d, _bhs_strides(q, k, v, o),
@@ -303,7 +325,7 @@ def group_norm(x, scale, bias, y, part, ab, num_groups: int, chunk: int,
     lib = load()
     n, hw, c = x.shape
     dtype = {torch.bfloat16: 0, torch.float32: 1}[x.dtype]
-    with torch.cuda.device(x.device):
+    with _device(x):
         rc = lib.sdbc_group_norm(x.data_ptr(), scale.data_ptr(),
                                  bias.data_ptr(), y.data_ptr(),
                                  part.data_ptr(), ab.data_ptr(), n, hw, c,
@@ -321,7 +343,7 @@ def flash_fixed_int8(qi, qs, ki, ks, v, o) -> None:
     (``ops.flash_attention``)."""
     lib = load()
     b, h, sq, d = o.shape
-    with torch.cuda.device(v.device):
+    with _device(v):
         rc = lib.sdbc_flash_int8(qi.data_ptr(), qs.data_ptr(), ki.data_ptr(),
                                  ks.data_ptr(), v.data_ptr(), o.data_ptr(), b,
                                  h, sq, ki.shape[2], d, qi.shape[3],

@@ -7,9 +7,11 @@ once to the input dtype, a running row max in log2 space, fp32
 accumulation, p rounded to v's dtype before the PV product — emitting the
 output and the natural-log LSE = m·ln2 + ln l.  ``_FlashAttention`` is the
 custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
-``flash_attention_bwd.flash_bwd``.  On CUDA both run the kernels of
-``csrc/flash_train.cu``; on a CPU tensor they compute the plain versions
-``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
+``flash_attention_bwd.flash_bwd``.  On CUDA the forward runs the wgmma
+kernel of ``csrc/flash_fwd_sm90.cu`` (head dims up to 256) or the
+``mma.sync`` one of ``csrc/flash_train.cu`` (above 256), the backward the
+kernels of ``csrc/flash_train.cu``; on a CPU tensor they compute the plain
+versions ``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
 
 The forward also takes head dims up to 512 (the VAE's single head, which
 the ``SDBC_ATTN_IMPL=flash`` override sends here); the backward takes up to
@@ -25,11 +27,12 @@ EXACT fp32 softmax while natural logits stay ≤ 60/log2e ≈ 41.6 (trained SD
 models stay O(10)); beyond that the softmax is distorted, not clipped.
 Non-causal, no LSE, no gradient — sampling only.
 
-Both entry points run ONE CUDA kernel (``csrc/flash_fixed.cu``) that takes
-(batch, seq, head) strides: the projection layout (B, S, H, D) and the
-head-major layout (B, H, S, D) differ only in strides, and ragged S / head
-dims that are not a multiple of 16 are handled by bounds masks and zero
-padding in shared memory.  On a CPU tensor the wrappers compute
+Both entry points run ONE CUDA kernel (``csrc/flash_fwd_sm90.cu``, the
+training forward's template without the running max) that takes (batch,
+seq, head) strides: the projection layout (B, S, H, D) and the head-major
+layout (B, H, S, D) differ only in the TMA tensor maps built from them;
+rows past S and head-dim columns past D load as zeros (the head dim is
+padded to a multiple of 64) and stores past them are dropped.  On a CPU tensor the wrappers compute
 ``fixed_cap_attention_ref``, the plain PyTorch version of the same math.
 """
 from __future__ import annotations
@@ -63,22 +66,22 @@ def fixed_cap_attention_ref(q, k, v, scale: Optional[float] = None):
 def _check_cuda_inputs(q, k, v):
     """What the kernel takes: bf16 on one CUDA device, 4-D (B, S, H, D)
     logical views with a contiguous head dim, D ≤ 256 and a multiple of 8,
-    16-byte aligned rows."""
+    16-byte aligned rows.  (Runs on every launch: each test reads a
+    tensor attribute once.)"""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_fixed: {name} on {t.device}, q on "
-                             f"{q.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_fixed kernel takes bfloat16, {name} is "
                             f"{t.dtype}")
-        if t.dim() != 4:
+        st = t.stride()
+        if len(st) != 4:
             raise ValueError(f"flash_fixed: {name} must be 4-D, got "
                              f"{tuple(t.shape)}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if st[3] != 1 or (st[0] | st[1] | st[2]) % 8 or t.data_ptr() % 16:
             raise ValueError(f"flash_fixed: {name} needs a contiguous head "
-                             f"dim and 16-byte aligned rows, strides "
-                             f"{t.stride()}")
+                             f"dim and 16-byte aligned rows, strides {st}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_fixed: q on {q.device}, k on {k.device}, v "
+                         f"on {v.device}")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h \
             or k.shape[3] != d:
@@ -99,6 +102,8 @@ def _launch(q, k, v, o, scale: float):
 
 
 def _on_cpu(t) -> bool:
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
@@ -112,7 +117,7 @@ def flash_attention_fixed_bshd(q, k, v, *, scale: Optional[float] = None):
     if _on_cpu(q):
         tr = lambda t: t.transpose(1, 2)
         return tr(fixed_cap_attention_ref(tr(q), tr(k), tr(v), scale))
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
     return _launch(q, k, v, o, scale)
 
 
@@ -180,7 +185,8 @@ def _check_train_inputs(q, k, v, max_d: int = 256):
 def kernel_view(t):
     """``t`` itself when the kernels can read it through its strides (a
     contiguous head dim, 16-byte aligned rows), else a contiguous copy."""
-    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+    st = t.stride()
+    if st[3] == 1 and not (st[0] | st[1] | st[2]) % 8 \
             and t.data_ptr() % 16 == 0:
         return t
     return t.contiguous()
@@ -191,8 +197,8 @@ def bhsd_empty_like(t):
     projection layout the UNet splits heads from, so the caller's merge of
     the heads is free."""
     b, h, s, d = t.shape
-    return torch.empty((b, s, h, d), dtype=t.dtype,
-                       device=t.device).transpose(1, 2)
+    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                               dtype=t.dtype, device=t.device)
 
 
 def flash_fwd(q, k, v, scale: float):
@@ -204,7 +210,9 @@ def flash_fwd(q, k, v, scale: float):
     q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
     o = bhsd_empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _kernels.flash_fwd(q, k, v, o, lse, scale * LOG2E)
+    launch = _kernels.flash_fwd if q.shape[-1] <= 256 \
+        else _kernels.flash_fwd_wide
+    launch(q, k, v, o, lse, scale * LOG2E)
     return o, lse
 
 

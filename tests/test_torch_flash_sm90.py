@@ -1,0 +1,146 @@
+"""The cases the wgmma flash forward (``csrc/flash_fwd_sm90.cu``) can get
+wrong, held on the CPU: the plain versions of the fixed-cap attention and
+the training forward against the JAX package's Pallas kernels (interpret
+mode, as the JAX package's own tests run them) on the same numpy inputs at
+a ragged key count, and the wrappers' routing to the kernel entry points.
+The kernel itself meets the same cases on the card in
+``tests/test_torch_kernels.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdbc_tpu.ops import flash_attention as jflash
+from sdbc_tpu_torch.ops import _kernels
+from sdbc_tpu_torch.ops import flash_attention as tflash
+
+SK = 300  # not a multiple of the kernel's 64- or 128-key tiles
+# fp32 on both sides, summation order only.  Near the cap the logits reach
+# ~58 in log2 units, where one fp32 ulp of s (~4e-6) moves p by ~3e-6 of
+# itself: the outputs (|o| ≤ ~3) are held to 1e-4.
+NEAR_CAP_ATOL = 1e-4
+OUT_ATOL, LSE_ATOL = 2e-5, 1e-5  # test_torch_train_ops.py's K5 bounds
+
+
+def _rand(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _near_cap(b=1, h=2, sq=200, sk=SK, d=40, seed=0):
+    """Head-major q, k, v whose natural logits reach ~40 (the fixed cap is
+    60/log2e ≈ 41.6): q and the keys 250.. share a direction u with
+    scale·c² ≈ 36."""
+    u = _rand(seed, d)
+    u /= np.linalg.norm(u)
+    c = np.sqrt(36.0 * np.sqrt(d))
+    q = _rand(seed + 1, b, h, sq, d, scale=0.2) + c * u
+    k = _rand(seed + 2, b, h, sk, d, scale=0.2)
+    k[:, :, 250:] += c * u
+    return q, k, _rand(seed + 3, b, h, sk, d)
+
+
+def _late_max(b=1, h=2, sq=200, sk=SK, d=40, seed=10):
+    """Head-major q, k, v whose row maxima lie only in the last keys
+    (280..299, past every 64- and 128-key tile boundary): the running max
+    has to rescale the sums of all earlier tiles."""
+    u = _rand(seed, d)
+    u /= np.linalg.norm(u)
+    q = _rand(seed + 1, b, h, sq, d, scale=0.5) + 5.0 * u
+    k = _rand(seed + 2, b, h, sk, d, scale=0.5)
+    k[:, :, 280:] += 6.0 * u
+    return q, k, _rand(seed + 3, b, h, sk, d)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_near_cap_inputs_reach_the_cap():
+    q, k, _ = _near_cap()
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    assert 35.0 < s.max() < 60.0 / np.log2(np.e)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_fixed_cap_plain_matches_jax_near_the_cap(layout):
+    q, k, v = _near_cap()
+    if layout == "bhsd":
+        jout = jflash.flash_attention_fixed(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+        out = tflash.flash_attention_fixed(_t(q), _t(k), _t(v))
+    else:
+        tr = lambda a: np.swapaxes(a, 1, 2)
+        jout = np.swapaxes(np.asarray(jflash.flash_attention_fixed_bshd(
+            *(jnp.asarray(tr(a)) for a in (q, k, v)))), 1, 2)
+        out = tflash.flash_attention_fixed_bshd(
+            *(_t(tr(a)) for a in (q, k, v))).transpose(1, 2)
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                               atol=NEAR_CAP_ATOL)
+
+
+def test_training_forward_plain_matches_jax_with_a_late_max():
+    q, k, v = _late_max()
+    scale = q.shape[-1] ** -0.5
+    s = np.einsum("bhqd,bhkd->bhqk", q, k)
+    assert (s.argmax(-1) >= 280).all()  # every row's maximum is late
+    # 128-key blocks: the JAX kernel rescales across its KV loop too
+    jout, jlse = jflash._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), scale, block_q=128,
+                                   block_kv=128)
+    out, lse = tflash.flash_attention_ref(_t(q), _t(k), _t(v), scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=OUT_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=LSE_ATOL)
+
+
+@pytest.mark.parametrize("d,entry", [(8, "flash_fwd"), (40, "flash_fwd"),
+                                     (160, "flash_fwd"), (256, "flash_fwd"),
+                                     (512, "flash_fwd_wide")])
+def test_flash_fwd_routes_by_head_dim(monkeypatch, d, entry):
+    """Head dims up to 256 go to the wgmma kernel, wider ones to the
+    mma.sync template; both get the (B, H, S, D) views and an fp32 LSE."""
+    calls = []
+
+    def record(name):
+        def launch(q, k, v, o, lse, qscale):
+            calls.append((name, q.shape, o.shape, lse.shape, lse.dtype,
+                          qscale))
+        return launch
+
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    for name in ("flash_fwd", "flash_fwd_wide"):
+        monkeypatch.setattr(_kernels, name, record(name))
+    q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros(1, 77, 2, d, dtype=torch.bfloat16).transpose(1, 2)
+    tflash.flash_fwd(q, k, k, d ** -0.5)
+    assert len(calls) == 1
+    name, qs, os_, ls, ldt, qscale = calls[0]
+    assert name == entry
+    assert qs == os_ == (1, 2, 64, d) and ls == (1, 2, 64)
+    assert ldt == torch.float32
+    assert qscale == pytest.approx(d ** -0.5 * tflash.LOG2E)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_fixed_cap_hands_the_kernel_projection_layout_views(monkeypatch,
+                                                            layout):
+    """Both fixed-cap entry points launch one kernel over (B, S, H, D)
+    logical views: the head-major layout arrives as transposed views of
+    the caller's tensors, not as copies."""
+    calls = []
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(_kernels, "flash_fixed",
+                        lambda q, k, v, o, qscale: calls.append((q, k, o)))
+    shape = (2, 100, 4, 40) if layout == "bshd" else (2, 4, 100, 40)
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    k = torch.zeros(shape[:1] + ((SK, 4) if layout == "bshd" else (4, SK))
+                    + shape[3:], dtype=torch.bfloat16)
+    fn = tflash.flash_attention_fixed_bshd if layout == "bshd" \
+        else tflash.flash_attention_fixed
+    out = fn(q, k, k)
+    (qv, kv, ov), = calls
+    assert qv.shape == ov.shape == (2, 100, 4, 40)
+    assert kv.shape == (2, SK, 4, 40)
+    assert qv.data_ptr() == q.data_ptr() and ov.data_ptr() == out.data_ptr()

@@ -58,7 +58,7 @@ def test_library_name_tracks_the_sources(monkeypatch, tmp_path):
         (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_kernels, "CSRC", src)
     assert _kernels.library_path() == a
-    (src / "flash_fixed.cu").write_text("// edited\n")
+    (src / "flash_fwd_sm90.cu").write_text("// edited\n")
     assert _kernels.library_path() != a
 
 
@@ -97,7 +97,14 @@ def hopper():
     ("bshd", (2, 256, 4, 40), 256), ("bshd", (2, 200, 4, 40), 300),
     ("bshd", (1, 128, 2, 8), 256), ("bshd", (1, 64, 2, 160), 256),
     ("bshd", (1, 100, 2, 256), 77), ("bshd", (2, 4096, 8, 40), 4096),
-    ("bhsd", (1, 2, 256, 40), 256), ("bhsd", (2, 1, 128, 80), 300)])
+    ("bhsd", (1, 2, 256, 40), 256), ("bhsd", (2, 1, 128, 80), 300),
+    # the wgmma kernel's edges: each main-path head dim at key counts that
+    # are no multiple of its 64- or 128-key tile, in both layouts; a q tile
+    # of 100 rows (less than one 128-row block); D = 8 and 256
+    ("bshd", (1, 333, 2, 80), 333), ("bshd", (1, 300, 2, 160), 300),
+    ("bhsd", (1, 2, 300, 40), 300), ("bhsd", (1, 2, 333, 80), 333),
+    ("bhsd", (1, 2, 200, 160), 200), ("bshd", (1, 100, 2, 80), 130),
+    ("bhsd", (1, 2, 100, 8), 100), ("bhsd", (1, 2, 100, 256), 200)])
 def test_flash_kernel_matches_plain_on_card(hopper, layout, qshape, sk):
     kshape = list(qshape)
     kshape[1 if layout == "bshd" else 2] = sk
@@ -114,6 +121,39 @@ def test_flash_kernel_matches_plain_on_card(hopper, layout, qshape, sk):
         ref = tflash.fixed_cap_attention_ref(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     assert _kernels.launches["flash_fixed"] == before + 1
+    assert _attn_close(out, ref)
+
+
+def _aligned(seed, b, h, sq, sk, d, q_scale, k_scale, c, late):
+    """Head-major q, k, v where q and the keys ``late``.. share a direction
+    with weight ``c``: large logits at the end of the key sequence."""
+    u = _rand(seed, d)
+    u /= np.linalg.norm(u)
+    q = _rand(seed + 1, b, h, sq, d, scale=q_scale) + c * u
+    k = _rand(seed + 2, b, h, sk, d, scale=k_scale)
+    k[:, :, late:] += c * u
+    return q, k, _rand(seed + 3, b, h, sk, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_kernel_near_the_cap_on_card(hopper, layout):
+    """Natural logits up to ~40 (the cap is 60/log2e ≈ 41.6): p reaches
+    2^57, and the fp32 sums must not lose the smaller terms."""
+    d = 40
+    q, k, v = _aligned(80, 1, 2, 200, 300, d, 0.2, 0.2,
+                       np.sqrt(36.0 * np.sqrt(d)), 250)
+    q, k, v = (torch.from_numpy(a).to(hopper, torch.bfloat16)
+               for a in (q, k, v))
+    ref = tflash.fixed_cap_attention_ref(q.float(), k.float(), v.float())
+    if layout == "bshd":
+        tr = lambda t: t.transpose(1, 2).contiguous()
+        out = tflash.flash_attention_fixed_bshd(tr(q), tr(k),
+                                                tr(v)).transpose(1, 2)
+    else:
+        out = tflash.flash_attention_fixed(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
     assert _attn_close(out, ref)
 
 
@@ -171,8 +211,15 @@ def _bshd_views(hopper, qshape, sk, seed):
     return out
 
 
+# the forward's own edges on the wgmma kernel: main-path head dims at key
+# counts no 64- or 128-key tile divides, a 100-row q tile, D = 8 and 256
+FWD_SHAPES = TRAIN_SHAPES + [((1, 2, 333, 80), 333), ((1, 2, 300, 160), 300),
+                             ((1, 2, 100, 40), 130), ((1, 2, 100, 256), 100),
+                             ((1, 2, 100, 8), 70)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("qshape,sk", TRAIN_SHAPES)
+@pytest.mark.parametrize("qshape,sk", FWD_SHAPES)
 def test_flash_fwd_kernel_matches_plain_on_card(hopper, qshape, sk):
     q, k, v = _bshd_views(hopper, qshape, sk, 60)
     scale = qshape[-1] ** -0.5
@@ -183,6 +230,39 @@ def test_flash_fwd_kernel_matches_plain_on_card(hopper, qshape, sk):
     ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
     # the two round p at different offsets; the LSE is fp32 over the same
     # bf16 logits
+    assert _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((1, 2, 300, 40), 300),
+                                       ((1, 2, 100, 160), 333)])
+def test_flash_fwd_kernel_head_major_on_card(hopper, qshape, sk):
+    """The forward over contiguous head-major (B, H, S, D) tensors: the
+    tensor maps take the other stride order."""
+    b, h, sq, d = qshape
+    q, k, v = (torch.from_numpy(_rand(s, b, h, n, d)).to(hopper,
+                                                         torch.bfloat16)
+               for s, n in ((90, sq), (91, sk), (92, sk)))
+    out, lse = tflash.flash_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, d ** -0.5)
+    assert _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_flash_fwd_kernel_late_max_on_card(hopper, d):
+    """Every row's maximum lies in the last keys (280..299, past every tile
+    boundary): the running max must rescale all earlier tiles' sums."""
+    q, k, v = _aligned(85, 1, 2, 200, 300, d, 0.5, 0.5, 6.0, 280)
+    assert (np.einsum("bhqd,bhkd->bhqk", q, k).argmax(-1) >= 280).all()
+    q, k, v = (torch.from_numpy(a).to(hopper, torch.bfloat16)
+               for a in (q, k, v))
+    out, lse = tflash.flash_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, d ** -0.5)
     assert _attn_close(out, ref)
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
