@@ -19,13 +19,15 @@ Phases, in order; each prints one or more lines, and any failure raises
                   of the bound), GEGLU, the fused GroupNorm (the UNet's
                   GroupNorm inputs at batch 8, one ragged case) and the
                   int8-QK attention (also held to 4% of exact attention);
-                  the build phase prints the wgmma kernel's registers,
-                  spills and SASS op counts;
+                  the build phase prints the wgmma kernels' registers,
+                  spills and SASS op counts (forward and backward);
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
                   like the fixed-cap attention, dq and
                   dk/dv at micro-batch 2, 8 heads, 64²/32²/16² tokens, one
-                  ragged case; the 8-bit AdamW on a leaf with a ragged last
+                  ragged case, each kernel alone and the whole backward
+                  call against SDPA's flash backward in alternating rounds;
+                  the 8-bit AdamW on a leaf with a ragged last
                   row), the transposed-layout forward at the same cases plus
                   the 77-key cross-attention, the 8² mid block and the VAE's
                   512-wide head (also held to the forward's output), and the
@@ -214,6 +216,22 @@ def paired_ms(fns, reps: int = 10, rounds: int = 4):
         for i in order:
             got[i].append(median_ms(fns[i], reps))
     return [statistics.median(g) for g in got]
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Host microseconds per call of ``fn`` issued back to back without a
+    synchronize (the enqueue rate): the host's share of a launch-bound
+    call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e6
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -467,10 +485,24 @@ def phase_build():
     return secs
 
 
+# the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu): each
+# instantiation's mangled name and template arguments
+SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_bwd_dq_sm90_kernel|"
+                r"flash_bwd_dkv_sm90_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+
+
+def _sm90_name(m) -> str:
+    args = [m.group(2), m.group(3)]
+    if m.group(4) is not None:
+        args.append("true" if m.group(4) == "1" else "false")
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def sm90_sass(lib):
-    """Counts, in the built SASS of each flash_fwd_sm90_kernel, the wgmma
-    products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and mma.sync
-    products (HMMA); fails if one has no HGMMA or no UTMALDG, or any HMMA."""
+    """Counts, in the built SASS of each wgmma kernel instantiation, the
+    wgmma products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and
+    mma.sync products (HMMA); fails if one has no HGMMA or no UTMALDG, or
+    any HMMA."""
     import re
     import shutil
 
@@ -485,33 +517,34 @@ def sm90_sass(lib):
                          text=True, timeout=300)
     found = {}
     for part in res.stdout.split("Function : ")[1:]:
-        m = re.match(r"\S*flash_fwd_sm90_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                     part)
+        m = re.match(r"\S*?" + SM90_KERNELS, part)
         if m:
-            found["<%s, %s, %s>" % m.groups()] = {
+            found[_sm90_name(m)] = {
                 op: len(re.findall(rf"\b{op}\b", part))
                 for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
-    print(f"[build] SASS of flash_fwd_sm90_kernel (HGMMA, UTMALDG, UTMASTG, "
+    print(f"[build] SASS of the wgmma kernels (HGMMA, UTMALDG, UTMASTG, "
           f"HMMA): {found or 'no kernel found'}", flush=True)
+    names = {n.split("<")[0] for n in found}
+    for kernel in ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                   "flash_bwd_dkv_sm90_kernel"):
+        if kernel not in names:
+            fail(f"{kernel}: not in the built SASS")
     for name, n in found.items():
         if n["HGMMA"] == 0 or n["UTMALDG"] == 0 or n["HMMA"]:
-            fail(f"flash_fwd_sm90_kernel{name}: SASS counts {n}")
+            fail(f"{name}: SASS counts {n}")
 
 
 def sm90_ptxas(lines):
-    """ptxas's registers and spills of each flash_fwd_sm90_kernel
-    instantiation (DP, KS, ONLINE) from the ``-Xptxas -v`` log, and any
-    warning about its register reallocation (setmaxnreg)."""
+    """ptxas's registers and spills of each wgmma kernel instantiation from
+    the ``-Xptxas -v`` log, and any warning about its register reallocation
+    (setmaxnreg)."""
     import re
 
     out, cur = {}, None
     for ln in lines:
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                          ln)
-            cur = (f"flash_fwd_sm90_kernel<{m.group(1)}, {m.group(2)}, "
-                   f"{'true' if m.group(3) == '1' else 'false'}>"
-                   if m else None)
+            m = re.search(SM90_KERNELS, ln)
+            cur = _sm90_name(m) if m else None
         elif cur and ("registers" in ln or "spill" in ln):
             out.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
         elif "setmaxnreg" in ln:
@@ -747,7 +780,6 @@ def phase_train_kernels():
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from sdbc_tpu_torch.ops import _kernels
     from sdbc_tpu_torch.ops import flash_attention as fa
     from sdbc_tpu_torch.ops import flash_attention_bwd as fb
     from sdbc_tpu_torch.train import adam8bit
@@ -822,48 +854,62 @@ def phase_train_kernels():
                      f"autograd {ae} (tol {tol})")
             errs.append(max(e, ae))
         del ao, agrads
-        qv, kv, vv, dov = (fa.kernel_view(t) for t in (q, k, v, do))
-        lse_c = ref_lse.float().contiguous()
-        delta = (dov.float() * ref.float()).sum(dim=-1).contiguous()
-        dq = fa.bhsd_empty_like(q)
-        dk, dv = fa.bhsd_empty_like(k), fa.bhsd_empty_like(v)
-        dq_ms = median_ms(lambda: _kernels.flash_bwd_dq(
-            qv, kv, vv, dov, lse_c, delta, dq, scale, scale / fb.LOG2E), 20)
-        dkv_ms = median_ms(lambda: _kernels.flash_bwd_dkv(
-            qv, kv, vv, dov, lse_c, delta, dk, dv, scale), 20)
+        # the two kernels alone, on the inputs the wrapper prepares for
+        # them; then the whole call (folds, lse2/delta, both launches)
+        # against SDPA's flash backward (dq, dk and dv together, its own
+        # rowsum(dO∘O) included), in alternating rounds
+        dq_fn, dkv_fn = bwd_launches(q, k, v, ref, do, ref_lse, scale)
+        dq_ms, dkv_ms = median_ms(dq_fn, 20), median_ms(dkv_fn, 20)
         pms = median_ms(lambda: fb.flash_bwd_ref(q, k, v, ref, do, ref_lse,
                                                  scale), 5)
-        # one PyTorch call for the same backward: SDPA's flash backward
-        # (dq, dk and dv together)
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             lo = torch.nn.functional.scaled_dot_product_attention(
                 ql, kl, vl, scale=scale)
-        lms = median_ms(lambda: torch.autograd.grad(
-            lo, (ql, kl, vl), do, retain_graph=True), 20)
-        lse_bytes = 8.0 * b * h * sq  # lse and delta, fp32
+        call = lambda: fb.flash_bwd(q, k, v, ref, do, ref_lse, scale)
+        sdpa_bwd = lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                               retain_graph=True)
+        call_ms, lms = paired_ms([call, sdpa_bwd])
+        host = [host_us(f) for f in (
+            lambda: fb.prepare(q, k, ref, do, ref_lse, scale), call,
+            sdpa_bwd)]
+        lse_bytes = 8.0 * b * h * sq  # lse2 and delta, fp32
         dq_b = attn_bound(b, h, sq, sk, d, 3, (sq, sk, sk, sq), (sq,),
                           lse_bytes)
         dkv_b = attn_bound(b, h, sq, sk, d, 4, (sq, sk, sk, sq), (sk, sk),
                            lse_bytes)
+        # the whole backward as one function: q, k, v, o, dO and the LSE
+        # read, dq, dk, dv written; five products (S, dP, dq, dk, dv)
+        call_b = attn_bound(b, h, sq, sk, d, 5, (sq, sk, sk, sq, sq),
+                            (sq, sk, sk), 4.0 * b * h * sq)
         record("flash_bwd_dq", errs[0], ms=dq_ms, plain_ms=pms,
-               bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lms)
+               bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lms,
+               call_ms=call_ms, call_bound_ms=call_b[0])
         record("flash_bwd_dkv", max(errs[1:]), ms=dkv_ms, plain_ms=pms,
-               bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=lms)
+               bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=lms,
+               call_ms=call_ms, call_bound_ms=call_b[0])
         print(f"[train-kernels] flash_bwd {label}: err (direct and through "
               f"autograd) dq {errs[0]:.3e} dk "
               f"{errs[1]:.3e} dv {errs[2]:.3e}; dq kernel {dq_ms:.4f} ms "
-              f"(bound {dq_b[0]:.4f}, {dq_b[1]}), dkv kernel {dkv_ms:.4f} ms "
-              f"(bound {dkv_b[0]:.4f}, {dkv_b[1]}); plain backward "
-              f"{pms:.4f} ms; sdpa-flash backward {lms:.4f} ms", flush=True)
+              f"(bound {dq_b[0]:.4f}, {dq_b[1]}, {100 * dq_b[0] / dq_ms:.1f}%"
+              f"), dkv kernel {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f}, "
+              f"{dkv_b[1]}, {100 * dkv_b[0] / dkv_ms:.1f}%); plain backward "
+              f"{pms:.4f} ms", flush=True)
+        print(f"[train-kernels] flash_bwd {label}: kernels {dq_ms + dkv_ms:.4f}"
+              f" ms, whole call {call_ms:.4f} ms, sdpa-flash backward "
+              f"{lms:.4f} ms (call/sdpa {call_ms / lms:.2f}), bound "
+              f"{call_b[0]:.4f} ms ({call_b[1]}), {100 * call_b[0] / call_ms:.1f}"
+              f"% of the bound; host us per call: prepare {host[0]:.1f}, "
+              f"whole call {host[1]:.1f}, sdpa backward {host[2]:.1f}",
+              flush=True)
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
     rows = [kernel_flash_tt(g)]
     kernel_flash_fwd_wide(g)
     for name, source, replaces in (
             ("flash_fwd", "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
              "sdbc_tpu/ops/flash_attention.py:81"),
-            ("flash_bwd_dq", "sdbc_tpu_torch/csrc/flash_train.cu",
+            ("flash_bwd_dq", "sdbc_tpu_torch/csrc/flash_bwd_sm90.cu",
              "sdbc_tpu/ops/flash_attention_bwd.py:163"),
-            ("flash_bwd_dkv", "sdbc_tpu_torch/csrc/flash_train.cu",
+            ("flash_bwd_dkv", "sdbc_tpu_torch/csrc/flash_bwd_sm90.cu",
              "sdbc_tpu/ops/flash_attention_bwd.py:187")):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": res[name]["err"],
@@ -873,6 +919,12 @@ def phase_train_kernels():
         "csrc/flash_fwd_sm90.cu; head dims above 256 (the VAE's 512-wide "
         "head under SDBC_ATTN_IMPL=flash): flash_fwd_kernel<512, 256> in "
         "csrc/flash_train.cu")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        next(r for r in rows if r["name"] == name)["serves"] = (
+            f"head dims <= {fb.SM90_MAX_D} (every main-path call): "
+            f"{name}_sm90_kernel in csrc/flash_bwd_sm90.cu; head dims above "
+            f"{fb.SM90_MAX_D} up to 256 (no path of SD-1.5): {name}_kernel<256>"
+            f" in csrc/flash_train.cu")
 
     # the fused 8-bit AdamW on a 3x3 1280-channel conv leaf less 1000
     # elements (a ragged last row), from a mid-training state
@@ -922,6 +974,24 @@ def phase_train_kernels():
                  "max_abs_err": perr, "ms": ms, "plain_ms": pms,
                  "bound_ms": bms, "bound_by": by, "library_ms": None})
     return rows
+
+
+def bwd_launches(q, k, v, o, do, lse, scale: float):
+    """(dq launch, dk/dv launch) of ``flash_bwd``'s wgmma kernels at
+    head-major (B, H, S, D) inputs (D ≤ ``SM90_MAX_D``), on the inputs the
+    wrapper prepares for them, outputs allocated once."""
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+
+    dov = fa.kernel_view(do)
+    qs, kl, lse2, delta = fb.prepare(q, k, o, dov, lse, scale)
+    ins = (fa.kernel_view(qs), fa.kernel_view(kl), fa.kernel_view(v), dov,
+           lse2, delta)
+    dq = fa.bhsd_empty_like(q)
+    dk, dv = fa.bhsd_empty_like(k), fa.bhsd_empty_like(v)
+    return (lambda: _kernels.flash_bwd_dq(*ins, dq, scale / fb.LOG2E),
+            lambda: _kernels.flash_bwd_dkv(*ins, dk, dv))
 
 
 def kernel_flash_tt(g):
@@ -1477,8 +1547,9 @@ def phase_train_profile(step, state, batch, gen, sps: float,
     summary = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count) for e in top]
     ours = {n: round(sum(dev_us(e) for e in events if n in e.key) / 1e3, 3)
             for n in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
-                      "flash_bwd_dq_kernel",
-                      "flash_bwd_dkv_kernel", "adam8_kernel")}
+                      "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                      "adam8_kernel")}
     # host side: operators by their own CPU time (the profiler's, which
     # inflates it) and the number of device kernels launched
     host = sorted((e for e in prof.key_averages()

@@ -414,61 +414,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and launch
+// host side: tensor maps (sm90.cuh) and launch
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-struct View {  // a (B, S, H, D) logical view: strides in elements
-  const void* p;
-  long long sb, ss, sh;
-};
-
-// A 4-D (D, S, H, B) map of `v` with boxes of 64 head-dim columns by `rows`
-// sequence rows, 128-byte swizzle; reads past the bounds give zeros, stores
-// past them are dropped.  A dimension of size 1 is never stepped, so its
-// stride is replaced by a valid one.
-bool make_map(CUtensorMap* map, const View& v, int B, int S, int H, int D,
-              int rows) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  auto bytes = [](long long stride, int size) {
-    return (cuuint64_t)(size == 1 ? 16 : stride * 2);
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {bytes(v.ss, S), bytes(v.sh, H),
-                                 bytes(v.sb, B)};
-  const cuuint32_t box[4] = {(cuuint32_t)CB, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v.p),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using sm90::View;
+using sm90::make_map;
 
 template <int DP, int KS, bool ONLINE>
 cudaError_t launch(const View& q, const View& k, const View& v, const View& o,
@@ -481,18 +430,10 @@ cudaError_t launch(const View& q, const View& k, const View& v, const View& o,
       || !make_map(&tv, v, B, Sk, H, D, C::BK)
       || !make_map(&to, o, B, Sq, H, D, 64))
     return cudaErrorInvalidValue;
-  // the shared-memory limit is raised once per device
   static uint64_t raised = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = sm90::raise_smem(flash_fwd_sm90_kernel<DP, KS, ONLINE>,
+                                     C::SMEM, raised);
   if (err != cudaSuccess) return err;
-  if (!(raised >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DP, KS, ONLINE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
-    if (err != cudaSuccess) return err;
-    raised |= uint64_t(1) << dev;
-  }
   const Params prm{H, Sq, Sk, qscale, lse};
   dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
   flash_fwd_sm90_kernel<DP, KS, ONLINE>

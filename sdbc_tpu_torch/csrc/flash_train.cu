@@ -6,8 +6,10 @@
 //                                  head dims above 256 only (flash_fwd_sm90.cu
 //                                  takes the rest)
 //   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt)
-//   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd)
-//   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd)
+//   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd),
+//   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd),
+//                           head dims above 192 only (flash_bwd_sm90.cu
+//                           takes the rest)
 //
 // Math (as the TPU kernels):
 //   forward  q is prescaled by scale*log2e in fp32 and rounded to bf16, so
@@ -681,15 +683,6 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
 
 }  // namespace
 
-#define SDBC_DP_SWITCH(CALL)                                              \
-  switch (padded_dim(D, 256)) {                                           \
-    case 16: return (int)CALL(16); case 32: return (int)CALL(32);         \
-    case 48: return (int)CALL(48); case 64: return (int)CALL(64);         \
-    case 80: return (int)CALL(80); case 128: return (int)CALL(128);       \
-    case 160: return (int)CALL(160); case 256: return (int)CALL(256);     \
-    default: return (int)cudaErrorInvalidValue;                           \
-  }
-
 // The forward's widths: the scores' padded head dim and the output columns
 // each block owns.
 #define SDBC_FWD_SWITCH(CALL)                                             \
@@ -741,34 +734,35 @@ extern "C" int sdbc_flash_fwd_tt(const void* q, const void* k, const void* v,
 }
 #undef SDBC_FWD_SWITCH
 
-extern "C" int sdbc_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, int B, int H,
-                                 int Sq, int Sk, int D, const long long* st,
-                                 float scale, float dq_mul, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 256)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDBC_CALL(DP) launch_dq<DP>(q, k, v, dout,                           \
-                                    static_cast<const float*>(lse),          \
-                                    static_cast<const float*>(delta), dq, B, \
-                                    H, Sq, Sk, D, st, scale, dq_mul, s)
-  SDBC_DP_SWITCH(SDBC_CALL)
-#undef SDBC_CALL
+// The backward for head dims in (192, 256] (up to 192 it is
+// flash_bwd_sm90.cu's kernels); `lse` is the natural-log LSE and `delta`
+// rowsum(dO*O), both contiguous (B, H, Sq) fp32: q and k are folded and
+// the LSE scaled on the way into shared memory.
+extern "C" int sdbc_flash_bwd_dq_wide(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, int B, int H, int Sq, int Sk,
+                                      int D, const long long* st, float scale,
+                                      float dq_mul, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, 256) || D <= 192)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dq<256>(q, k, v, dout, static_cast<const float*>(lse),
+                             static_cast<const float*>(delta), dq, B, H, Sq,
+                             Sk, D, st, scale, dq_mul,
+                             static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int sdbc_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv, int B,
-                                  int H, int Sq, int Sk, int D,
-                                  const long long* st, float scale,
-                                  void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 256)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDBC_CALL(DP) launch_dkv<DP>(q, k, v, dout,                           \
-                                     static_cast<const float*>(lse),          \
-                                     static_cast<const float*>(delta), dk, dv, \
-                                     B, H, Sq, Sk, D, st, scale, s)
-  SDBC_DP_SWITCH(SDBC_CALL)
-#undef SDBC_CALL
+extern "C" int sdbc_flash_bwd_dkv_wide(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int H,
+                                       int Sq, int Sk, int D,
+                                       const long long* st, float scale,
+                                       void* stream) {
+  if (bad_shape(B, H, Sq, Sk, D, 256) || D <= 192)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dkv<256>(q, k, v, dout, static_cast<const float*>(lse),
+                              static_cast<const float*>(delta), dk, dv, B, H,
+                              Sq, Sk, D, st, scale,
+                              static_cast<cudaStream_t>(stream));
 }
-#undef SDBC_DP_SWITCH

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads
 // and stores, named barriers, warpgroup register reallocation and the wgmma
-// products with their shared-memory descriptors.  Used by
-// flash_fwd_sm90.cu.
+// products with their shared-memory descriptors; on the host, the 4-D
+// tensor maps of (B, S, H, D) views.  Used by flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -72,6 +73,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+      "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -176,6 +189,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   SM90_R8(112, 113, 114, 115, 116, 117, 118, 119) ", "                \
   SM90_R8(120, 121, 122, 123, 124, 125, 126, 127)
 
+#define SM90_REGS16 \
+  SM90_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " SM90_R8(8, 9, 10, 11, 12, 13, 14, 15)
 #define SM90_REGS24                                                 \
   SM90_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " SM90_R8(8, 9, 10, 11, 12, 13, 14, 15) \
   ", " SM90_R8(16, 17, 18, 19, 20, 21, 22, 23)
@@ -189,6 +204,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 #define SM90_F32(d, o) \
   SM90_F8(d, o), SM90_F8(d, o + 8), SM90_F8(d, o + 16), SM90_F8(d, o + 24)
+#define SM90_F16(d) SM90_F8(d, 0), SM90_F8(d, 8)
 #define SM90_F24(d) SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16)
 #define SM90_F40(d) SM90_F32(d, 0), SM90_F8(d, 32)
 #define SM90_F64(d) SM90_F32(d, 0), SM90_F32(d, 32)
@@ -216,6 +232,7 @@ struct WgmmaSS;
     }                                                                      \
   };
 #define SM90_F32_0(d) SM90_F32(d, 0)
+SM90_SS(32, SM90_REGS16, SM90_F16, 16, 17, 18)
 SM90_SS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
 SM90_SS(128, SM90_REGS64, SM90_F64, 64, 65, 66)
 
@@ -250,5 +267,76 @@ SM90_RS(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
 
 #undef SM90_SS
 #undef SM90_RS
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the CUDA runtime (no -lcuda)
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+struct View {  // a (B, S, H, D) logical view: strides in elements
+  const void* p;
+  long long sb, ss, sh;
+};
+
+// A 4-D (D, S, H, B) map of `v` with boxes of 64 head-dim columns by `rows`
+// sequence rows, 128-byte swizzle; reads past the bounds give zeros, stores
+// past them are dropped.  A dimension of size 1 is never stepped, so its
+// stride is replaced by a valid one.
+inline bool make_map(CUtensorMap* map, const View& v, int B, int S, int H,
+                     int D, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  auto bytes = [](long long stride, int size) {
+    return (cuuint64_t)(size == 1 ? 16 : stride * 2);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {bytes(v.ss, S), bytes(v.sh, H),
+                                 bytes(v.sb, B)};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v.p),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes`, once per device
+// (`raised` is the caller's per-kernel bit set of devices).
+template <typename K>
+inline cudaError_t raise_smem(K kernel, int bytes, uint64_t& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (raised >> dev & 1)) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) raised |= uint64_t(1) << dev;
+  return err;
+}
 
 }  // namespace sm90

@@ -146,10 +146,14 @@ def load():
     lib.sdbc_flash_fwd_sm90.restype = i
     lib.sdbc_flash_fwd_wide.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_wide.restype = i
-    lib.sdbc_flash_bwd_dq.argtypes = [p] * 7 + [i] * 5 + [llp, f, f, p]
-    lib.sdbc_flash_bwd_dq.restype = i
-    lib.sdbc_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
-    lib.sdbc_flash_bwd_dkv.restype = i
+    lib.sdbc_flash_bwd_dq_sm90.argtypes = [p] * 7 + [i] * 6 + [llp, f, p]
+    lib.sdbc_flash_bwd_dq_sm90.restype = i
+    lib.sdbc_flash_bwd_dkv_sm90.argtypes = [p] * 8 + [i] * 6 + [llp, p]
+    lib.sdbc_flash_bwd_dkv_sm90.restype = i
+    lib.sdbc_flash_bwd_dq_wide.argtypes = [p] * 7 + [i] * 5 + [llp, f, f, p]
+    lib.sdbc_flash_bwd_dq_wide.restype = i
+    lib.sdbc_flash_bwd_dkv_wide.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_bwd_dkv_wide.restype = i
     lib.sdbc_adam8.argtypes = [p] * 6 + [ll] + [f] * 9 + [p]
     lib.sdbc_adam8.restype = i
     lib.sdbc_flash_fwd_tt.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
@@ -251,34 +255,73 @@ def _launch_fwd(entry: str, q, k, v, o, lse, qscale: float) -> None:
     launches["flash_fwd"] += 1
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, dq, scale: float,
-                 dq_mul: float) -> None:
-    """Launch the dq kernel (see ``flash_fwd`` for the layouts; ``delta``
-    is a contiguous (B, H, Sq) fp32 input)."""
+def flash_bwd_dq(qs, kl, v, do, lse2, delta, dq, dq_mul: float) -> None:
+    """Launch the dq kernel for head dims up to 192 (the wgmma kernel of
+    ``csrc/flash_bwd_sm90.cu``) on the folded operands qs = scale·q and
+    kl = log2e·k (layouts as ``flash_fwd``); ``lse2`` and ``delta`` are
+    contiguous (B, H, Sq_pad) fp32, zero past Sq, Sq_pad a multiple of 128.
+    The caller prepares and checks them (``ops.flash_attention_bwd``)."""
     lib = load()
-    b, h, sq, d = q.shape
-    with _device(q):
-        rc = lib.sdbc_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   do.data_ptr(), lse.data_ptr(),
-                                   delta.data_ptr(), dq.data_ptr(), b, h, sq,
-                                   k.shape[2], d,
-                                   _bhs_strides(q, k, v, do, dq),
-                                   float(scale), float(dq_mul), _stream(q))
+    b, h, sq, d = qs.shape
+    with _device(qs):
+        rc = lib.sdbc_flash_bwd_dq_sm90(
+            qs.data_ptr(), kl.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq,
+            kl.shape[2], d, lse2.shape[-1], _bhs_strides(qs, kl, v, do, dq),
+            float(dq_mul), _stream(qs))
     _check(lib, rc, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale: float) -> None:
-    """Launch the dk/dv kernel (layouts as ``flash_bwd_dq``)."""
+def flash_bwd_dkv(qs, kl, v, do, lse2, delta, dk, dv) -> None:
+    """Launch the dk/dv kernel for head dims up to 192 (inputs as
+    ``flash_bwd_dq``)."""
+    lib = load()
+    b, h, sq, d = qs.shape
+    with _device(qs):
+        rc = lib.sdbc_flash_bwd_dkv_sm90(
+            qs.data_ptr(), kl.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, sq, kl.shape[2], d, lse2.shape[-1],
+            _bhs_strides(qs, kl, v, do, dk, dv), _stream(qs))
+    _check(lib, rc, "flash_bwd_dkv")
+    launches["flash_bwd_dkv"] += 1
+
+
+def flash_bwd_dq_wide(q, k, v, do, lse, delta, dq, scale: float,
+                      dq_mul: float) -> None:
+    """``flash_bwd_dq`` for head dims above 192: the ``mma.sync`` kernel of
+    ``csrc/flash_train.cu``, which folds q and k and scales the natural-log
+    ``lse`` itself (``lse`` and ``delta`` contiguous (B, H, Sq) fp32).
+    Counted as a launch of ``flash_bwd_dq``: the same function."""
     lib = load()
     b, h, sq, d = q.shape
     with _device(q):
-        rc = lib.sdbc_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    do.data_ptr(), lse.data_ptr(),
-                                    delta.data_ptr(), dk.data_ptr(),
-                                    dv.data_ptr(), b, h, sq, k.shape[2], d,
-                                    _bhs_strides(q, k, v, do, dk, dv),
-                                    float(scale), _stream(q))
+        rc = lib.sdbc_flash_bwd_dq_wide(q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), do.data_ptr(),
+                                        lse.data_ptr(), delta.data_ptr(),
+                                        dq.data_ptr(), b, h, sq, k.shape[2],
+                                        d, _bhs_strides(q, k, v, do, dq),
+                                        float(scale), float(dq_mul),
+                                        _stream(q))
+    _check(lib, rc, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+
+
+def flash_bwd_dkv_wide(q, k, v, do, lse, delta, dk, dv,
+                       scale: float) -> None:
+    """``flash_bwd_dkv`` for head dims above 192 (inputs as
+    ``flash_bwd_dq_wide``), counted as a launch of ``flash_bwd_dkv``."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_bwd_dkv_wide(q.data_ptr(), k.data_ptr(),
+                                         v.data_ptr(), do.data_ptr(),
+                                         lse.data_ptr(), delta.data_ptr(),
+                                         dk.data_ptr(), dv.data_ptr(), b, h,
+                                         sq, k.shape[2], d,
+                                         _bhs_strides(q, k, v, do, dk, dv),
+                                         float(scale), _stream(q))
     _check(lib, rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
 

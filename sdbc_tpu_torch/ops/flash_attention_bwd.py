@@ -2,21 +2,27 @@
 ``sdbc_tpu/ops/flash_attention_bwd.py``).
 
 Two kernels over the saved log-sum-exp rows, no S×S matrix in device
-memory: the dq kernel walks the KV sequence for each 64-row q tile, the
-dk/dv kernel walks the q sequence for each 64-row KV tile
-(``csrc/flash_train.cu``).  The JAX package's reformulation is kept:
+memory: the dq kernel walks the KV sequence for each q tile, the dk/dv
+kernel walks the q sequence for each KV tile.  The JAX package's
+reformulation is kept, and so is the split of the work between its
+wrapper and its kernels:
 
-- qs = scale·q and kl = log2e·k, each folded in fp32 and rounded ONCE to
-  the operand dtype (the kernels do it on the way into shared memory);
-- lse2 = lse·log2e and delta = Σ(dO∘O) in fp32 (delta is a plain torch
-  reduction here, as it is an XLA reduction outside the Pallas kernels);
-- p = exp2(qs·klᵀ − lse2) and ds0 = p∘(dO·Vᵀ − delta) rounded to the
-  operand dtype;
-- dq = (scale/log2e)·Σ ds0·kl, dk = Σ ds0ᵀ·qs, dv = Σ p̂ᵀ·dO with p̂
-  rounded to dO's dtype.
+- the wrapper (``prepare``, plain torch) folds qs = scale·q and
+  kl = log2e·k, each in fp32 and rounded ONCE to the operand dtype, and
+  computes lse2 = lse·log2e and delta = Σ(dO∘O) in fp32, zero-padded to a
+  whole number of 128-row q tiles (JAX's ``lse_p``/``delta_p``);
+- the kernels compute p = exp2(qs·klᵀ − lse2) and ds0 = p∘(dO·Vᵀ − delta)
+  rounded to the operand dtype, and
+  dq = (scale/log2e)·Σ ds0·kl, dk = Σ ds0ᵀ·qs, dv = Σ p̂ᵀ·dO with p̂ rounded
+  to dO's dtype.
 
-On a CPU tensor ``flash_bwd`` computes ``flash_bwd_ref``, the plain
-version of the same math.
+On CUDA, head dims up to ``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
+``csrc/flash_bwd_sm90.cu``; wider ones (up to 256) the ``mma.sync`` kernels
+of ``csrc/flash_train.cu``, which fold q and k and scale the LSE on the way
+into shared memory.  On a CPU tensor ``flash_bwd`` computes
+``flash_bwd_ref``, the plain version of the same math;
+``flash_bwd_prepared_ref`` is the plain version of what the kernels compute
+from ``prepare``'s padded inputs.
 """
 from __future__ import annotations
 
@@ -25,11 +31,17 @@ import torch
 from sdbc_tpu_torch.ops import _kernels
 
 LOG2E = 1.4426950408889634
+SM90_MAX_D = 192  # head dims of the wgmma kernels (csrc/flash_bwd_sm90.cu)
+Q_TILE = 128  # the dq kernel's q rows per block: lse2/delta pad to it
 
 
 def _fold(x, mult: float):
-    """x·mult in fp32, rounded once back to x's dtype."""
-    return (x.float() * mult).to(x.dtype)
+    """x·mult in fp32, rounded once back to x's dtype.  One multiply does
+    it: PyTorch multiplies a bf16 or fp16 tensor by a Python float in fp32
+    and rounds the product once, the values of ``(x.float() * mult).to(
+    x.dtype)`` in one kernel instead of three (held bitwise on the CPU and
+    on the card by the tests)."""
+    return x * mult
 
 
 def flash_bwd_ref(q, k, v, o, do, lse, scale: float):
@@ -49,6 +61,40 @@ def flash_bwd_ref(q, k, v, o, do, lse, scale: float):
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def prepare(q, k, o, do, lse, scale: float):
+    """The wgmma kernels' inputs, as the JAX wrapper prepares its Pallas
+    kernels': (qs, kl, lse2, delta) with qs and kl folded once (q's
+    layout), lse2 and delta contiguous (B, H, Sq_pad) fp32, zero past Sq,
+    Sq_pad a multiple of ``Q_TILE``."""
+    b, h, sq, _ = q.shape
+    pad = -sq % Q_TILE
+    # few launches: below 64² tokens the call is host-bound (zeros only
+    # where there is a pad; o promoted to fp32 exactly inside the multiply)
+    vec = (torch.zeros if pad else torch.empty)(
+        (2, b, h, sq + pad), dtype=torch.float32, device=q.device)
+    torch.mul(lse, LOG2E, out=vec[0, ..., :sq])
+    torch.sum(do.float() * o, dim=-1, out=vec[1, ..., :sq])
+    return _fold(q, scale), _fold(k, LOG2E), vec[0], vec[1]
+
+
+def flash_bwd_prepared_ref(qs, kl, v, do, lse2, delta, scale: float):
+    """Plain (dq, dk, dv) from ``prepare``'s inputs, as the kernels see
+    them: qs and dO rows past Sq zero (the tensor maps' fill) against the
+    zero pad of lse2 and delta, so those rows take p = 1 and ds0 = 0."""
+    dt = qs.dtype
+    sq, sq_pad = qs.shape[2], lse2.shape[-1]
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, 0, 0, sq_pad - sq))
+    qsp, dop = pad(qs), pad(do)
+    p = torch.exp2(torch.matmul(qsp, kl.float().transpose(-1, -2))
+                   - lse2[..., None])
+    dp = torch.matmul(dop, v.float().transpose(-1, -2))
+    ds0 = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.matmul(ds0, kl.float()) * (scale / LOG2E)
+    dk = torch.matmul(ds0.transpose(-1, -2), qsp)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dop)
+    return dq[..., :sq, :].to(dt), dk.to(kl.dtype), dv.to(v.dtype)
+
+
 def flash_bwd(q, k, v, o, do, lse, scale: float):
     """(dq, dk, dv) for non-causal flash attention: the two kernels on
     CUDA, ``flash_bwd_ref`` on the CPU.  The gradients come back as
@@ -62,11 +108,19 @@ def flash_bwd(q, k, v, o, do, lse, scale: float):
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} / o "
                          f"{tuple(o.shape)} vs q {tuple(q.shape)} {q.dtype}")
-    q, k, v, do = (fa.kernel_view(t) for t in (q, k, v, do))
-    lse = lse.float().contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    v, do = fa.kernel_view(v), fa.kernel_view(do)
     dq = fa.bhsd_empty_like(q)
     dk, dv = fa.bhsd_empty_like(k), fa.bhsd_empty_like(v)
-    _kernels.flash_bwd_dq(q, k, v, do, lse, delta, dq, scale, scale / LOG2E)
-    _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, scale)
+    if q.shape[-1] <= SM90_MAX_D:
+        qs, kl, lse2, delta = prepare(q, k, o, do, lse, scale)
+        qs, kl = fa.kernel_view(qs), fa.kernel_view(kl)
+        _kernels.flash_bwd_dq(qs, kl, v, do, lse2, delta, dq, scale / LOG2E)
+        _kernels.flash_bwd_dkv(qs, kl, v, do, lse2, delta, dk, dv)
+    else:
+        q, k = fa.kernel_view(q), fa.kernel_view(k)
+        lse = lse.float().contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        _kernels.flash_bwd_dq_wide(q, k, v, do, lse, delta, dq, scale,
+                                   scale / LOG2E)
+        _kernels.flash_bwd_dkv_wide(q, k, v, do, lse, delta, dk, dv, scale)
     return dq, dk, dv

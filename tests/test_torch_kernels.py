@@ -267,13 +267,18 @@ def test_flash_fwd_kernel_late_max_on_card(hopper, d):
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("qshape,sk", TRAIN_SHAPES)
-def test_flash_bwd_kernels_match_plain_on_card(hopper, qshape, sk):
-    q, k, v = _bshd_views(hopper, qshape, sk, 70)
-    scale = qshape[-1] ** -0.5
+# the backward's own edges on the wgmma kernels: each main-path head dim at
+# q and key counts no 32-, 64- or 128-row tile divides, fewer q rows than
+# one 128-row tile, 77 keys at d = 80
+BWD_SHAPES = TRAIN_SHAPES + [((1, 2, 333, 40), 300), ((1, 2, 200, 80), 333),
+                             ((1, 2, 300, 160), 130), ((1, 2, 100, 40), 130),
+                             ((1, 2, 90, 80), 77)]
+
+
+def _bwd_matches_plain(q, k, v, do, scale):
+    """flash_bwd on the card (one dq and one dk/dv launch) against the
+    plain backward on the same inputs."""
     o, lse = tflash.flash_attention_ref(q, k, v, scale)
-    do = torch.from_numpy(_rand(75, *qshape)).to(hopper, torch.bfloat16)
     before = (_kernels.launches["flash_bwd_dq"],
               _kernels.launches["flash_bwd_dkv"])
     grads = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
@@ -284,7 +289,68 @@ def test_flash_bwd_kernels_match_plain_on_card(hopper, qshape, sk):
     refs = tbwd.flash_bwd_ref(q, k, v, o, do, lse, scale)
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
         assert g.shape == r.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all(), name
         assert _attn_close(g, r), name
+    return lse
+
+
+@pytest.mark.gpu
+def test_fold_rounds_once_on_card(hopper):
+    """The backward's folds (one bf16 multiply by a Python float) give the
+    explicit fp32 round trip's values on the card, bit for bit."""
+    x = torch.from_numpy(_rand(76, 1 << 20) * np.exp(_rand(77, 1 << 20) * 3))
+    x = x.to(hopper, torch.bfloat16)
+    for mult in (40 ** -0.5, 80 ** -0.5, 160 ** -0.5, tbwd.LOG2E):
+        assert torch.equal(tbwd._fold(x, mult),
+                           (x.float() * mult).to(torch.bfloat16)), mult
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", BWD_SHAPES)
+def test_flash_bwd_kernels_match_plain_on_card(hopper, qshape, sk):
+    q, k, v = _bshd_views(hopper, qshape, sk, 70)
+    do = torch.from_numpy(_rand(75, *qshape)).to(hopper, torch.bfloat16)
+    _bwd_matches_plain(q, k, v, do, qshape[-1] ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((1, 2, 300, 40), 300),
+                                       ((2, 3, 200, 80), 77),
+                                       ((1, 2, 100, 160), 333)])
+def test_flash_bwd_kernels_head_major_on_card(hopper, qshape, sk):
+    """The backward over contiguous head-major (B, H, S, D) tensors: the
+    tensor maps take the other stride order."""
+    b, h, sq, d = qshape
+    q, k, v, do = (torch.from_numpy(_rand(s, b, h, n, d)).to(hopper,
+                                                             torch.bfloat16)
+                   for s, n in ((94, sq), (95, sk), (96, sk), (97, sq)))
+    _bwd_matches_plain(q, k, v, do, d ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_flash_bwd_kernels_far_negative_lse_on_card(hopper, d):
+    """Six q rows (across tiles and warps) whose every logit is far below 0
+    (lse2 near -185) among ordinary rows: a zero-filled key past Sk = 300
+    would give p = exp2(-lse2) = inf in those rows, so only the last KV
+    tile's mask keeps dq finite.  (Rows that are all far negative need
+    keys sharing one strong direction; dq then cancels that common part,
+    so only a few such rows keep the comparison well conditioned.)"""
+    rows = [0, 37, 64, 101, 150, 199]
+    scale = d ** -0.5
+    u = _rand(98, d)
+    u /= np.linalg.norm(u)
+    b = 20.0  # the keys' common part; those rows' logits ~ -150 natural
+    q = _rand(99, 1, 2, 200, d)
+    q[:, :, rows] = _rand(103, 1, 2, len(rows), d, scale=0.1) \
+        - 150.0 / (b * scale) * u
+    k = _rand(100, 1, 2, 300, d) + b * u
+    q, k, v, do = (torch.from_numpy(a).to(hopper, torch.bfloat16)
+                   for a in (q, k, _rand(101, 1, 2, 300, d),
+                             _rand(102, 1, 2, 200, d)))
+    lse = _bwd_matches_plain(q, k, v, do, scale)
+    # exp2(-lse2) overflows in those rows
+    assert lse[..., rows].max().item() * tbwd.LOG2E < -128
 
 
 @pytest.mark.gpu
