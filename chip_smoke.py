@@ -16,11 +16,14 @@ Phases, in order; each prints one or more lines, and any failure raises
                   plain version and the one PyTorch call computing the same
                   function (where there is one): the fixed-cap attention
                   (timed against SDPA in alternating rounds, with its share
-                  of the bound), GEGLU, the fused GroupNorm (the UNet's
+                  of the bound), GEGLU (timed against the unfused bf16
+                  feed-forward in alternating rounds, with its share of
+                  the bound), the fused GroupNorm (the UNet's
                   GroupNorm inputs at batch 8, one ragged case) and the
                   int8-QK attention (also held to 4% of exact attention);
                   the build phase prints the wgmma kernels' registers,
-                  spills and SASS op counts (forward and backward);
+                  spills and SASS op counts (flash forward and backward,
+                  GEGLU);
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
                   like the fixed-cap attention, dq and
@@ -31,7 +34,8 @@ Phases, in order; each prints one or more lines, and any failure raises
                   row), the transposed-layout forward at the same cases plus
                   the 77-key cross-attention, the 8² mid block and the VAE's
                   512-wide head (also held to the forward's output), and the
-                  forward at the 512-wide head;
+                  forward and the whole backward at the 512-wide head (the
+                  backward against SDPA's in alternating rounds);
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -485,14 +489,18 @@ def phase_build():
     return secs
 
 
-# the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu): each
-# instantiation's mangled name and template arguments
+# the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu,
+# csrc/geglu_ff_sm90.cu): each instantiation's mangled name and template
+# arguments
 SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_bwd_dq_sm90_kernel|"
-                r"flash_bwd_dkv_sm90_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+                r"flash_bwd_dkv_sm90_kernel|geglu_ff_sm90_kernel)ILi(\d+)E"
+                r"(?:Li(\d+)E)?(?:Lb([01])E)?")
+SM90_KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                     "flash_bwd_dkv_sm90_kernel", "geglu_ff_sm90_kernel")
 
 
 def _sm90_name(m) -> str:
-    args = [m.group(2), m.group(3)]
+    args = [a for a in (m.group(2), m.group(3)) if a is not None]
     if m.group(4) is not None:
         args.append("true" if m.group(4) == "1" else "false")
     return f"{m.group(1)}<{', '.join(args)}>"
@@ -525,8 +533,7 @@ def sm90_sass(lib):
     print(f"[build] SASS of the wgmma kernels (HGMMA, UTMALDG, UTMASTG, "
           f"HMMA): {found or 'no kernel found'}", flush=True)
     names = {n.split("<")[0] for n in found}
-    for kernel in ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                   "flash_bwd_dkv_sm90_kernel"):
+    for kernel in SM90_KERNEL_NAMES:
         if kernel not in names:
             fail(f"{kernel}: not in the built SASS")
     for name, n in found.items():
@@ -617,7 +624,7 @@ def phase_kernels():
                  "replaces": "sdbc_tpu/ops/flash_attention.py:348",
                  "max_abs_err": flash_err, **first})
 
-    geglu_err, first = 0.0, None
+    geglu_err, first, shapes = 0.0, None, []
     for rows_n, c in ((32768, 320), (8192, 640)):
         y = randn(rows_n, c)
         gamma = randn(c, scale=0.1, dtype=torch.float32) + 1.0
@@ -632,11 +639,12 @@ def phase_kernels():
         err = (out.float() - plain()).abs().max().item()
         if not torch.isfinite(out).all() or not err <= GEGLU_TOL:
             fail(f"geglu ({rows_n}, {c}): max abs err {err} > {GEGLU_TOL}")
-        ms, pms = median_ms(kern, 20), median_ms(plain, 10)
-        # the unfused bf16 feed-forward the model runs where the kernel
-        # does not apply (cuBLAS products, hidden through HBM)
+        pms = median_ms(plain, 10)
+        # the kernel and the unfused bf16 feed-forward the model runs where
+        # the kernel does not apply (cuBLAS products, hidden through HBM),
+        # in alternating rounds
         unfused = lambda: unfused_ff(*args)
-        ums = median_ms(unfused, 20)
+        ms, ums = paired_ms([kern, unfused], reps=20)
         # LN → (rows, c)·(c, 8c) → GEGLU → (rows, 4c)·(4c, c) → residual:
         # y read and out written once (bf16), the weights read once
         bms, by = bound(2.0 * (2 * rows_n * c + 12 * c * c + 9 * c)
@@ -644,14 +652,21 @@ def phase_kernels():
         print(f"[kernels] geglu_ff ({rows_n}, {c}): max_abs_err {err:.3e} "
               f"kernel {ms:.4f} ms plain {pms:.4f} ms unfused-bf16 "
               f"{ums:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        print(f"[kernels] geglu_ff ({rows_n}, {c}): kernel {ms:.4f} ms, "
+              f"unfused-bf16 {ums:.4f} ms (kernel/unfused {ms / ums:.2f}), "
+              f"bound {bms:.4f} ms, {100 * bms / ms:.1f}% of the bound",
+              flush=True)
         geglu_err = max(geglu_err, err)
+        shapes.append(dict(rows=rows_n, c=c, ms=ms, unfused_ms=ums,
+                           bound_share=bms / ms))
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         library_ms=None)
+                         library_ms=None, unfused_ms=ums,
+                         bound_share=bms / ms)
     rows.append({"name": "geglu_ff", "route": "cuda",
-                 "source": "sdbc_tpu_torch/csrc/geglu_ff.cu",
+                 "source": "sdbc_tpu_torch/csrc/geglu_ff_sm90.cu",
                  "replaces": "sdbc_tpu/ops/geglu_ff.py:98",
-                 "max_abs_err": geglu_err, **first})
+                 "max_abs_err": geglu_err, **first, "shapes": shapes})
     return rows + [kernel_group_norm(g), kernel_int8(g)]
 
 
@@ -904,6 +919,7 @@ def phase_train_kernels():
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
     rows = [kernel_flash_tt(g)]
     kernel_flash_fwd_wide(g)
+    kernel_flash_bwd_wide(g)
     for name, source, replaces in (
             ("flash_fwd", "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
              "sdbc_tpu/ops/flash_attention.py:81"),
@@ -923,8 +939,8 @@ def phase_train_kernels():
         next(r for r in rows if r["name"] == name)["serves"] = (
             f"head dims <= {fb.SM90_MAX_D} (every main-path call): "
             f"{name}_sm90_kernel in csrc/flash_bwd_sm90.cu; head dims above "
-            f"{fb.SM90_MAX_D} up to 256 (no path of SD-1.5): {name}_kernel<256>"
-            f" in csrc/flash_train.cu")
+            f"{fb.SM90_MAX_D} up to 512 (no path of SD-1.5): {name}_kernel<256"
+            f", 256> and <512, 256> in csrc/flash_train.cu")
 
     # the fused 8-bit AdamW on a 3x3 1280-channel conv leaf less 1000
     # elements (a ragged last row), from a mid-training state
@@ -1080,6 +1096,47 @@ def kernel_flash_fwd_wide(g):
     print(f"[train-kernels] flash_fwd VAE 64^2 d512: out err {err:.3e} (tol "
           f"{tol:.3e}) lse err {lerr:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
           f"ms sdpa {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+
+
+def kernel_flash_bwd_wide(g):
+    """K6 at the VAE's 512-wide head (the ``mma.sync`` backward, two
+    256-wide column slices per tile): the whole ``flash_bwd`` call against
+    the plain backward, and timed against SDPA's backward (its default
+    backend: the flash one stops at head dim 256) in alternating rounds.
+    Off every path of SD-1.5 (both trainers encode without a gradient)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do = (torch.randn((1, 4096, 1, 512), generator=g, device="cuda")
+                   .bfloat16().transpose(1, 2) for _ in range(4))
+    scale = 512 ** -0.5
+    o, lse = fa.flash_attention_ref(q, k, v, scale)
+    grads = fb.flash_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    refs = fb.flash_bwd_ref(q, k, v, o, do, lse, scale)
+    errs = []
+    for name, gr, rf in zip(("dq", "dk", "dv"), grads, refs):
+        err, tol = attn_err(gr, rf)
+        if not (torch.isfinite(gr).all() and err <= tol):
+            fail(f"flash_bwd d512 {name}: max abs err {err} (tol {tol})")
+        errs.append(err)
+    pms = median_ms(lambda: fb.flash_bwd_ref(q, k, v, o, do, lse, scale), 3)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lo = sdpa(ql, kl, vl, scale=scale)
+    call = lambda: fb.flash_bwd(q, k, v, o, do, lse, scale)
+    lib = lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                      retain_graph=True)
+    ms, lms = paired_ms([call, lib])
+    bms, by = attn_bound(1, 1, 4096, 4096, 512, 5, (4096,) * 5, (4096,) * 3,
+                         4.0 * 4096)
+    print(f"[train-kernels] flash_bwd VAE 64^2 d512: err dq {errs[0]:.3e} dk "
+          f"{errs[1]:.3e} dv {errs[2]:.3e}; whole call {ms:.4f} ms, sdpa "
+          f"backward {lms:.4f} ms (call/sdpa {ms / lms:.2f}), plain "
+          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / ms:.1f}% of the bound", flush=True)
 
 
 def unfused_ff(y, gamma, beta, w1, b1, w2, b2):

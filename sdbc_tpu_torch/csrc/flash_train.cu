@@ -9,7 +9,7 @@
 //   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd),
 //   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd),
 //                           head dims above 192 only (flash_bwd_sm90.cu
-//                           takes the rest)
+//                           takes the rest), up to 512
 //
 // Math (as the TPU kernels):
 //   forward  q is prescaled by scale*log2e in fp32 and rounded to bf16, so
@@ -38,11 +38,13 @@
 // to a multiple of 8 in memory (16-byte loads); the values past S are
 // masked in any case.
 //
-// Head dims above 256 (the VAE's single 512-wide head, forward only): the
-// scores need the whole head dim, but a 64 x 512 fp32 accumulator does not
-// fit a block's registers.  Each block then owns one 256-wide slice of the
+// Head dims above 256 (the VAE's single 512-wide head): the scores need
+// the whole head dim, but a 64 x 512 fp32 accumulator does not fit a
+// block's registers.  Each block then owns one 256-wide slice of the
 // output columns and recomputes the scores for it (DO = 256 of DP = 512;
-// two blocks per q tile); only the first slice writes the LSE.
+// two blocks per q or KV tile); only the forward's first slice writes the
+// LSE.  The backward kernels also stream their non-resident operands in
+// 256-wide column chunks, so that shared memory holds them at DP = 512.
 //
 // What bounds them on the H100: per score element the forward costs
 // 4*D tensor FLOPs and one exp2, the dq kernel 6*D and one exp2, the dkv
@@ -201,21 +203,26 @@ __device__ __forceinline__ void load_vt(bf16* dst, const bf16* src,
   }
 }
 
-// S (16 x 64) = A_w (16 x DP, rows of a row tile) . B^T, with B's 64 rows
-// from a row tile: the shape of every score-like product here.
-template <int DP>
-__device__ __forceinline__ void rows_by_rows(float (&s)[BK / 8][4],
-                                             const bf16* aw, const bf16* b,
-                                             int g, int t) {
-  constexpr int LD = ld<DP>();
-  constexpr int KS = DP / 16;
+// S (16 x 64) (+)= A_w (16 x W, from column 0 of a row tile of row stride
+// `lda`) . B^T, with B's 64 rows from a (64 x W) row tile: the shape of
+// every score-like product here, or one W-wide column chunk of it
+// (`accumulate` false zeroes S first).
+template <int W>
+__device__ __forceinline__ void rows_by_chunk(float (&s)[BK / 8][4],
+                                              const bf16* aw, int lda,
+                                              const bf16* b, bool accumulate,
+                                              int g, int t) {
+  constexpr int LD = ld<W>();
+  constexpr int KS = W / 16;
+  if (!accumulate) {
 #pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int nt = 0; nt < BK / 8; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  }
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     uint32_t a[4];
-    load_a(a, aw, LD, ks * 16, g, t);
+    load_a(a, aw, lda, ks * 16, g, t);
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
       const bf16* bp = b + (nt * 8 + g) * LD + ks * 16 + 2 * t;
@@ -360,7 +367,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!TT) transpose_tile<DO>(Vt, Vs);
 
     float s[BK / 8][4];  // log2 units
-    rows_by_rows<DP>(s, Qw, Ks, g, t);
+    rows_by_chunk<DP>(s, Qw, LD, Ks, false, g, t);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
@@ -413,9 +420,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K6a: dq for one 64-row q tile, streaming K/V tiles
+// K6a: dq for one 64-row q tile, streaming K/V tiles.  DO: output columns
+// per block (DP, or a 256-wide slice of DP = 512, two blocks per q tile,
+// as the forward splits its output).  K and V tiles arrive in DO-wide
+// column chunks through one buffer (a whole 64 x 512 K and V tile beside
+// the resident q and dO would not fit shared memory); the K chunk of the
+// block's own slice is transposed for ds0.kl.
 
-template <int DP>
+template <int DP, int DO>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -425,17 +437,19 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     Strides vs_, Strides dos_, Strides dqs_, float scale,
                     float dq_mul) {
   constexpr int LD = ld<DP>();
-  constexpr int NT = DP / 8;
+  constexpr int NT = DO / 8;
+  constexpr int NS = DP / DO;  // output slices per q tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // qs = bf16(scale * q)
   bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;                  // kl = bf16(log2e * k)
-  bf16* Vs = Ks + BK * LD;
-  bf16* Kt = Vs + BK * LD;
+  bf16* Cs = dOs + BQ * LD;   // one DO-wide chunk of kl = bf16(log2e * k) or V
+  bf16* Kt = Cs + BK * ld<DO>();  // this block's slice of kl, transposed
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int slice = blockIdx.x % NS, q0 = (blockIdx.x / NS) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int d0 = slice * DO, Dv = min(D - d0, DO);
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs_.b + h * vs_.h;
 
@@ -459,15 +473,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = (Sk + BK - 1) / BK;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
-    __syncthreads();
-    load_rows<DP, true>(Ks, kb, ks_.s, k0, Sk, D, LOG2E);
-    load_rows<DP, false>(Vs, vb, vs_.s, k0, Sk, D, 1.f);
-    __syncthreads();
-    transpose_tile<DP>(Kt, Ks);
-
     float s[BK / 8][4], dp[BK / 8][4];
-    rows_by_rows<DP>(s, Qw, Ks, g, t);
-    rows_by_rows<DP>(dp, dOw, Vs, g, t);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      __syncthreads();  // every warp is done with Cs (and Kt)
+      load_rows<DO, true>(Cs, kb + c * DO, ks_.s, k0, Sk, D - c * DO, LOG2E);
+      __syncthreads();
+      if (c == slice) transpose_tile<DO>(Kt, Cs);
+      rows_by_chunk<DO>(s, Qw + c * DO, LD, Cs, c > 0, g, t);
+    }
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      __syncthreads();
+      load_rows<DO, false>(Cs, vb + c * DO, vs_.s, k0, Sk, D - c * DO, 1.f);
+      __syncthreads();  // (also: Kt complete)
+      rows_by_chunk<DO>(dp, dOw + c * DO, LD, Cs, c > 0, g, t);
+    }
     uint32_t dsf[BK / 16][4];
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
@@ -482,19 +503,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dsf[nt >> 1][(nt & 1) * 2 + 1] =
           pack_bf16(p2 * (dp[nt][2] - dl1), p3 * (dp[nt][3] - dl1));
     }
-    __syncthreads();  // Kt complete
-    p_by_tile<DP>(acc, dsf, Kt, g, t);
+    p_by_tile<DO>(acc, dsf, Kt, g, t);
   }
-  store_rows<DP>(dq + b * dqs_.b + h * dqs_.h, dqs_.s, acc, row0, Sq, D, t,
-                 dq_mul, dq_mul);
+  store_rows<DO>(dq + b * dqs_.b + h * dqs_.h + d0, dqs_.s, acc, row0, Sq, Dv,
+                 t, dq_mul, dq_mul);
 }
 
 // ---------------------------------------------------------------------------
 // K6b: dk, dv for one 64-row KV tile, streaming q / dO tiles.  Each warp
 // owns 16 kv rows and computes the transposed products s^T = kl.qs^T and
-// dp^T = V.dO^T, so p^T and ds0^T land in A-fragment layout directly.
+// dp^T = V.dO^T, so p^T and ds0^T land in A-fragment layout directly.  DO
+// as in K6a: kl and V stay resident at the full DP, q and dO tiles arrive
+// in DO-wide column chunks through one buffer; the q chunk of the block's
+// slice is transposed for dk, then the dO chunk of that slice (streamed
+// last, so it is still in the buffer) for dv, through one transposed tile.
 
-template <int DP>
+template <int DP, int DO>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -504,20 +528,21 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      Strides qs_, Strides ks_, Strides vs_, Strides dos_,
                      Strides dks_, Strides dvs_, float scale) {
   constexpr int LD = ld<DP>();
-  constexpr int NT = DP / 8;
+  constexpr int NT = DO / 8;
+  constexpr int NS = DP / DO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // kl = bf16(log2e * k)
   bf16* Vs = Ks + BK * LD;
-  bf16* Qs = Vs + BK * LD;                   // qs = bf16(scale * q)
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Qt = dOs + BQ * LD;
-  bf16* dOt = Qt + DP * BKP;
-  float* lse2s = reinterpret_cast<float*>(dOt + DP * BKP);
+  bf16* Cs = Vs + BK * LD;  // one DO-wide chunk of qs = bf16(scale * q) or dO
+  bf16* Tt = Cs + BQ * ld<DO>();  // the slice's qs, then dO, transposed
+  float* lse2s = reinterpret_cast<float*>(Tt + DO * BKP);
   float* dls = lse2s + BQ;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int slice = blockIdx.x % NS, k0 = (blockIdx.x / NS) * BK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int d0 = slice * DO, Dv = min(D - d0, DO);
   const bf16* qb = q + b * qs_.b + h * qs_.h;
   const bf16* dob = dout + b * dos_.b + h * dos_.h;
   const long long bh = ((long long)b * H + h) * Sq;
@@ -537,56 +562,61 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = (Sq + BQ - 1) / BQ;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int r0 = tile * BQ;
-    __syncthreads();
-    load_rows<DP, true>(Qs, qb, qs_.s, r0, Sq, D, scale);
-    load_rows<DP, false>(dOs, dob, dos_.s, r0, Sq, D, 1.f);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const bool in = r0 + i < Sq;
-      lse2s[i] = in ? lse[bh + r0 + i] * LOG2E : 0.f;
-      dls[i] = in ? delta[bh + r0 + i] : 0.f;
+    // p^T (16 kv x 64 q) = kl . qs^T, chunk by chunk
+    float p[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int c = 0; c < NS; ++c) {
+      __syncthreads();  // every warp is done with Cs, Tt and the row stats
+      load_rows<DO, true>(Cs, qb + c * DO, qs_.s, r0, Sq, D - c * DO, scale);
+      if (c == 0) {
+        for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
+          const bool in = r0 + i < Sq;
+          lse2s[i] = in ? lse[bh + r0 + i] * LOG2E : 0.f;
+          dls[i] = in ? delta[bh + r0 + i] : 0.f;
+        }
+      }
+      __syncthreads();
+      if (c == slice) transpose_tile<DO>(Tt, Cs);
+      rows_by_chunk<DO>(p, Kw + c * DO, LD, Cs, c > 0, g, t);
     }
-    __syncthreads();
-    transpose_tile<DP>(Qt, Qs);
-    transpose_tile<DP>(dOt, dOs);
-
-    // p^T (16 kv x 64 q) = exp2(kl . qs^T - lse2[q]); q columns past Sq -> 0
-    float p[BQ / 8][4];
-    rows_by_rows<DP>(p, Kw, Qs, g, t);
-    uint32_t pf[BQ / 16][4];
+    // dp^T = V . dO^T, the slice's chunk last
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = (slice + 1 + i) % NS;
+      __syncthreads();
+      load_rows<DO, false>(Cs, dob + c * DO, dos_.s, r0, Sq, D - c * DO, 1.f);
+      __syncthreads();  // (also: Tt complete)
+      rows_by_chunk<DO>(dp, Vw + c * DO, LD, Cs, i > 0, g, t);
+    }
+    // p^T = exp2(s^T - lse2[q]), q columns past Sq -> 0;
+    // ds0^T = bf16(p^T * (dp^T - delta[q]))
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
 #pragma unroll
     for (int nt = 0; nt < BQ / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
       const bool in0 = r0 + c < Sq, in1 = r0 + c + 1 < Sq;
-      p[nt][0] = in0 ? exp2f(p[nt][0] - lse2s[c]) : 0.f;
-      p[nt][1] = in1 ? exp2f(p[nt][1] - lse2s[c + 1]) : 0.f;
-      p[nt][2] = in0 ? exp2f(p[nt][2] - lse2s[c]) : 0.f;
-      p[nt][3] = in1 ? exp2f(p[nt][3] - lse2s[c + 1]) : 0.f;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[nt][0], p[nt][1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[nt][2], p[nt][3]);
+      const float p0 = in0 ? exp2f(p[nt][0] - lse2s[c]) : 0.f;
+      const float p1 = in1 ? exp2f(p[nt][1] - lse2s[c + 1]) : 0.f;
+      const float p2 = in0 ? exp2f(p[nt][2] - lse2s[c]) : 0.f;
+      const float p3 = in1 ? exp2f(p[nt][3] - lse2s[c + 1]) : 0.f;
+      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+      dsf[nt >> 1][(nt & 1) * 2 + 0] =
+          pack_bf16(p0 * (dp[nt][0] - dls[c]), p1 * (dp[nt][1] - dls[c + 1]));
+      dsf[nt >> 1][(nt & 1) * 2 + 1] =
+          pack_bf16(p2 * (dp[nt][2] - dls[c]), p3 * (dp[nt][3] - dls[c + 1]));
     }
-    __syncthreads();  // Qt, dOt complete
-    p_by_tile<DP>(dva, pf, dOt, g, t);  // dv += bf16(p)^T . dO
-
-    // ds0^T = bf16(p^T * (V . dO^T - delta[q]))
-    float dp[BQ / 8][4];
-    rows_by_rows<DP>(dp, Vw, dOs, g, t);
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      pf[nt >> 1][(nt & 1) * 2 + 0] =
-          pack_bf16(p[nt][0] * (dp[nt][0] - dls[c]),
-                    p[nt][1] * (dp[nt][1] - dls[c + 1]));
-      pf[nt >> 1][(nt & 1) * 2 + 1] =
-          pack_bf16(p[nt][2] * (dp[nt][2] - dls[c]),
-                    p[nt][3] * (dp[nt][3] - dls[c + 1]));
-    }
-    p_by_tile<DP>(dka, pf, Qt, g, t);  // dk += ds0^T . qs
+    p_by_tile<DO>(dka, dsf, Tt, g, t);  // dk += ds0^T . qs
+    __syncthreads();  // every warp is done with the qs slice
+    transpose_tile<DO>(Tt, Cs);
+    __syncthreads();
+    p_by_tile<DO>(dva, pf, Tt, g, t);  // dv += bf16(p)^T . dO
   }
   const int row0 = k0 + warp * 16 + g;
-  store_rows<DP>(dk + b * dks_.b + h * dks_.h, dks_.s, dka, row0, Sk, D, t,
-                 1.f, 1.f);
-  store_rows<DP>(dv + b * dvs_.b + h * dvs_.h, dvs_.s, dva, row0, Sk, D, t,
-                 1.f, 1.f);
+  store_rows<DO>(dk + b * dks_.b + h * dks_.h + d0, dks_.s, dka, row0, Sk, Dv,
+                 t, 1.f, 1.f);
+  store_rows<DO>(dv + b * dvs_.b + h * dvs_.h + d0, dvs_.s, dva, row0, Sk, Dv,
+                 t, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,15 +627,15 @@ constexpr size_t fwd_smem() {
   return ((size_t)BQ * ld<DP>() + (size_t)BK * ld<DP>() + (size_t)DO * BKP
           + (TT ? 0 : (size_t)BK * ld<DO>())) * sizeof(bf16);
 }
-template <int DP>
+template <int DP, int DO>
 constexpr size_t dq_smem() {
-  return (2 * (size_t)BQ * ld<DP>() + 2 * (size_t)BK * ld<DP>()
-          + (size_t)DP * BKP) * sizeof(bf16);
+  return (2 * (size_t)BQ * ld<DP>() + (size_t)BK * ld<DO>()
+          + (size_t)DO * BKP) * sizeof(bf16);
 }
-template <int DP>
+template <int DP, int DO>
 constexpr size_t dkv_smem() {
-  return (2 * (size_t)BK * ld<DP>() + 2 * (size_t)BQ * ld<DP>()
-          + 2 * (size_t)DP * BKP) * sizeof(bf16) + 2 * BQ * sizeof(float);
+  return (2 * (size_t)BK * ld<DP>() + (size_t)BQ * ld<DO>()
+          + (size_t)DO * BKP) * sizeof(bf16) + 2 * BQ * sizeof(float);
 }
 
 template <typename K>
@@ -631,17 +661,17 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DO>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int H, int Sq, int Sk, int D,
                       const long long* s, float scale, float dq_mul,
                       cudaStream_t stream) {
-  const size_t smem = dq_smem<DP>();
-  cudaError_t err = set_smem(flash_bwd_dq_kernel<DP>, smem);
+  const size_t smem = dq_smem<DP, DO>();
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<DP, DO>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((Sq + BQ - 1) / BQ * (DP / DO), H, B);
+  flash_bwd_dq_kernel<DP, DO><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dq), H, Sq, Sk, D, strides3(s), strides3(s + 3), strides3(s + 6),
@@ -649,16 +679,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DO>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
                        const long long* s, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem<DP>();
-  cudaError_t err = set_smem(flash_bwd_dkv_kernel<DP>, smem);
+  const size_t smem = dkv_smem<DP, DO>();
+  cudaError_t err = set_smem(flash_bwd_dkv_kernel<DP, DO>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid((Sk + BK - 1) / BK * (DP / DO), H, B);
+  flash_bwd_dkv_kernel<DP, DO><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, D, strides3(s),
@@ -667,8 +697,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // The padded head dim: the next of the instantiated widths (a wider zero
-// pad is exact, only slower); 0 for D the kernels do not take.  The
-// forward takes D up to 512, the backward up to 256.
+// pad is exact, only slower); 0 for D the kernels do not take.  Both
+// the forward and the backward take D up to 512.
 int padded_dim(int D, int max_d) {
   if (D <= 0 || D > max_d || D % 8 != 0) return 0;
   const int dims[] = {16, 32, 48, 64, 80, 128, 160, 256, 512};
@@ -699,9 +729,8 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
 
 // All tensors bf16 with (batch, head, seq) strides in elements (`st`, three
 // per tensor in argument order) and a contiguous head dim; lse and delta are
-// contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512 for the
-// forward and 256 for the backward.  Each returns cudaGetLastError() after
-// its launch.
+// contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512.  Each
+// returns cudaGetLastError() after its launch.
 //
 // The forward in the natural layout serves only head dims above 256 here
 // (the VAE's 512-wide head); up to 256 it is flash_fwd_sm90.cu's kernel.
@@ -734,22 +763,26 @@ extern "C" int sdbc_flash_fwd_tt(const void* q, const void* k, const void* v,
 }
 #undef SDBC_FWD_SWITCH
 
-// The backward for head dims in (192, 256] (up to 192 it is
-// flash_bwd_sm90.cu's kernels); `lse` is the natural-log LSE and `delta`
-// rowsum(dO*O), both contiguous (B, H, Sq) fp32: q and k are folded and
-// the LSE scaled on the way into shared memory.
+// The backward for head dims in (192, 512] (up to 192 it is
+// flash_bwd_sm90.cu's kernels; above 256 each block owns one 256-wide
+// slice of the gradients' columns); `lse` is the natural-log LSE and
+// `delta` rowsum(dO*O), both contiguous (B, H, Sq) fp32: q and k are
+// folded and the LSE scaled on the way into shared memory.
 extern "C" int sdbc_flash_bwd_dq_wide(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int B, int H, int Sq, int Sk,
                                       int D, const long long* st, float scale,
                                       float dq_mul, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 256) || D <= 192)
+  if (bad_shape(B, H, Sq, Sk, D, 512) || D <= 192)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dq<256>(q, k, v, dout, static_cast<const float*>(lse),
-                             static_cast<const float*>(delta), dq, B, H, Sq,
-                             Sk, D, st, scale, dq_mul,
-                             static_cast<cudaStream_t>(stream));
+#define SDBC_DQ(DP, DO)                                                     \
+  (int)launch_dq<DP, DO>(q, k, v, dout, static_cast<const float*>(lse),     \
+                         static_cast<const float*>(delta), dq, B, H, Sq, Sk, \
+                         D, st, scale, dq_mul,                               \
+                         static_cast<cudaStream_t>(stream))
+  return D <= 256 ? SDBC_DQ(256, 256) : SDBC_DQ(512, 256);
+#undef SDBC_DQ
 }
 
 extern "C" int sdbc_flash_bwd_dkv_wide(const void* q, const void* k,
@@ -759,10 +792,13 @@ extern "C" int sdbc_flash_bwd_dkv_wide(const void* q, const void* k,
                                        int Sq, int Sk, int D,
                                        const long long* st, float scale,
                                        void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 256) || D <= 192)
+  if (bad_shape(B, H, Sq, Sk, D, 512) || D <= 192)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv<256>(q, k, v, dout, static_cast<const float*>(lse),
-                              static_cast<const float*>(delta), dk, dv, B, H,
-                              Sq, Sk, D, st, scale,
-                              static_cast<cudaStream_t>(stream));
+#define SDBC_DKV(DP, DO)                                                     \
+  (int)launch_dkv<DP, DO>(q, k, v, dout, static_cast<const float*>(lse),     \
+                          static_cast<const float*>(delta), dk, dv, B, H, Sq, \
+                          Sk, D, st, scale,                                   \
+                          static_cast<cudaStream_t>(stream))
+  return D <= 256 ? SDBC_DKV(256, 256) : SDBC_DKV(512, 256);
+#undef SDBC_DKV
 }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads
 // and stores, named barriers, warpgroup register reallocation and the wgmma
 // products with their shared-memory descriptors; on the host, the 4-D
-// tensor maps of (B, S, H, D) views.  Used by flash_fwd_sm90.cu and
-// flash_bwd_sm90.cu.
+// tensor maps of (B, S, H, D) views and maps of any rank.  Used by
+// flash_fwd_sm90.cu, flash_bwd_sm90.cu and geglu_ff_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -76,6 +76,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Fetches a tensor map into the TMA unit's cache ahead of its first use.
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from device memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -96,6 +102,27 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       " [%0, {%2, %3, %4, %5}], [%1];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 2-D loads and stores (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 
@@ -144,6 +171,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
          | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for operands in the 64-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_64B: rows of 32 bf16, the 16-byte chunk c of row r
+// at chunk c ^ ((r / 2) % 4), 512-byte aligned blocks).  MN-major: LBO =
+// the byte distance between 32-wide column blocks, SBO = 512 (8 rows).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -265,7 +302,32 @@ SM90_RS(160, SM90_REGS80, SM90_F80, 80, 81, 82, 83, 84, 85)
 SM90_RS(192, SM90_REGS96, SM90_F96, 96, 97, 98, 99, 100, 101)
 SM90_RS(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
 
+// D (64 x N, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x N, shared,
+// MN-major: N along the rows of 64-column blocks, read transposed as
+// WgmmaRS reads B); scale_d = 0 overwrites D.
+template <int N>
+struct WgmmaSSt;
+
+#define SM90_SST(N, REGS, FN, IA, IB, IS)                                   \
+  template <>                                                              \
+  struct WgmmaSSt<N> {                                                     \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               uint64_t a, uint64_t b,     \
+                                               int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" REGS "}, %" #IA ", %" #IB         \
+                   ", p, 1, 1, 0, 1;\n}\n"                                 \
+                   : FN(d)                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d));                        \
+    }                                                                      \
+  };
+SM90_SST(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
+SM90_SST(192, SM90_REGS96, SM90_F96, 96, 97, 98)
+SM90_SST(256, SM90_REGS128, SM90_F128, 128, 129, 130)
+
 #undef SM90_SS
+#undef SM90_SST
 #undef SM90_RS
 
 // ---------------------------------------------------------------------------
@@ -322,6 +384,24 @@ inline bool make_map(CUtensorMap* map, const View& v, int B, int S, int H,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v.p),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 map of rank `rank` (dims and box innermost first, `strides` the
+// byte strides of dims 1..rank-1), 128-byte swizzle unless `swizzle` says
+// otherwise (a box row narrower than the swizzle is not packed densely:
+// each takes a whole swizzle-wide row); reads past the bounds give zeros,
+// stores past them are dropped.
+inline bool make_map_nd(CUtensorMap* map, const void* p, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -10,12 +10,14 @@ custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
 ``flash_attention_bwd.flash_bwd``.  On CUDA the forward runs the wgmma
 kernel of ``csrc/flash_fwd_sm90.cu`` (head dims up to 256) or the
 ``mma.sync`` one of ``csrc/flash_train.cu`` (above 256), the backward the
-kernels of ``csrc/flash_train.cu``; on a CPU tensor they compute the plain
-versions ``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
+kernels of ``csrc/flash_bwd_sm90.cu`` (up to 192) or ``csrc/flash_train.cu``
+(above); on a CPU tensor they compute the plain versions
+``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
 
-The forward also takes head dims up to 512 (the VAE's single head, which
-the ``SDBC_ATTN_IMPL=flash`` override sends here); the backward takes up to
-256, as the JAX package's ``_flash_eligible`` admits.
+Both directions take head dims up to 512 (the VAE's single head, which
+the ``SDBC_ATTN_IMPL=flash`` override sends here), as the JAX backward
+pads any head dim; "auto" routes only up to 256, as the JAX package's
+``_flash_eligible`` admits.
 
 Inference (fixed cap):
 
@@ -37,6 +39,7 @@ padded to a multiple of 64) and stores past them are dropped.  On a CPU tensor t
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -121,9 +124,26 @@ def flash_attention_fixed_bshd(q, k, v, *, scale: Optional[float] = None):
     return _launch(q, k, v, o, scale)
 
 
+def logit_bound(q, k, scale: float) -> float:
+    """An upper bound on the natural logits, scale·max‖q‖·max‖k‖ over the
+    rows, in fp32 (the JAX package's ``SDBC_ATTN_DEBUG`` estimate)."""
+    qn = q.float().square().sum(-1).sqrt().max()
+    kn = k.float().square().sum(-1).sqrt().max()
+    return float(scale * qn * kn)
+
+
 def flash_attention_fixed(q, k, v, *, scale: Optional[float] = None):
-    """Fixed-cap attention over head-major (B, H, S, D) inputs."""
+    """Fixed-cap attention over head-major (B, H, S, D) inputs.
+
+    The cap makes it exact only while the natural logits stay ≤ 41.6:
+    ``SDBC_ATTN_DEBUG=1`` prints a per-call upper bound on them
+    (``logit_bound``), as the JAX package does; ``SDBC_ATTN_IMPL=xla``
+    bypasses the kernel."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if os.environ.get("SDBC_ATTN_DEBUG") == "1":
+        print(f"[sdbc flash-fixed] logit upper bound "
+              f"{logit_bound(q, k, scale):.1f} (exact while <= 41.6; if "
+              f"larger use SDBC_ATTN_IMPL=xla)")
     if _on_cpu(q):
         return fixed_cap_attention_ref(q, k, v, scale)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -159,7 +179,7 @@ def flash_attention_ref(q, k, v, scale: float):
 def _check_train_inputs(q, k, v, max_d: int = 256):
     """What the training kernels take: bf16 (B, H, S, D) on one CUDA
     device, matching batch/head/dim, D ≤ ``max_d`` (512 for the forward
-    kernels, 256 for the backward) and a multiple of 8."""
+    and backward kernels, 256 for the int8 one) and a multiple of 8."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "

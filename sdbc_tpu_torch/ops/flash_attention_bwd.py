@@ -17,9 +17,10 @@ wrapper and its kernels:
   to dO's dtype.
 
 On CUDA, head dims up to ``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
-``csrc/flash_bwd_sm90.cu``; wider ones (up to 256) the ``mma.sync`` kernels
-of ``csrc/flash_train.cu``, which fold q and k and scale the LSE on the way
-into shared memory.  On a CPU tensor ``flash_bwd`` computes
+``csrc/flash_bwd_sm90.cu``; wider ones (up to 512, the JAX backward pads
+any head dim) the ``mma.sync`` kernels of ``csrc/flash_train.cu``, which
+fold q and k and scale the LSE on the way into shared memory (above 256
+each block owns a 256-wide slice of the gradients' columns).  On a CPU tensor ``flash_bwd`` computes
 ``flash_bwd_ref``, the plain version of the same math;
 ``flash_bwd_prepared_ref`` is the plain version of what the kernels compute
 from ``prepare``'s padded inputs.
@@ -104,7 +105,7 @@ def flash_bwd(q, k, v, o, do, lse, scale: float):
 
     if fa._on_cpu(q):
         return flash_bwd_ref(q, k, v, o, do, lse, scale)
-    fa._check_train_inputs(q, k, v)
+    fa._check_train_inputs(q, k, v, max_d=512)
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} / o "
                          f"{tuple(o.shape)} vs q {tuple(q.shape)} {q.dtype}")

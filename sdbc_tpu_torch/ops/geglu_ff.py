@@ -3,9 +3,10 @@
 ``y + (val·gelu_erf(gate))·W2 + b2`` with ``[val, gate] = LN(y)·W1 + b1``:
 LayerNorm eps 1e-5 with fp32 statistics, the up-projection rounded to the
 compute dtype before ``+ b1``, val the first 4c columns of W1 and gate the
-last 4c.  On CUDA this is one kernel (``csrc/geglu_ff.cu``) that keeps the
-4c-wide hidden in shared memory; on a CPU tensor the wrappers compute
-``geglu_ff_ref``, the plain PyTorch version with the same rounding points.
+last 4c.  On CUDA this is one kernel (``csrc/geglu_ff_sm90.cu``: TMA-fed
+``wgmma``, the GEGLU in registers) that keeps the 4c-wide hidden on chip;
+on a CPU tensor the wrappers compute ``geglu_ff_ref``, the plain PyTorch
+version with the same rounding points.
 Sampling only: no gradient.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from sdbc_tpu_torch.ops import _kernels
 
-_MAX_C = 640  # the LN tile and one 64-row W2 slab share shared memory
+_MAX_C = 640  # the JAX package's rule: it does not fuse wider rows
 
 
 def _default_block(c: int) -> int:

@@ -105,11 +105,12 @@ def test_prepared_inputs_give_the_plain_gradients(dtype, atol):
 
 @pytest.mark.parametrize("d,route", [(8, "sm90"), (40, "sm90"), (80, "sm90"),
                                      (160, "sm90"), (192, "sm90"),
-                                     (200, "wide"), (256, "wide")])
+                                     (200, "wide"), (256, "wide"),
+                                     (320, "wide"), (512, "wide")])
 def test_flash_bwd_routes_by_head_dim(monkeypatch, d, route):
     """Head dims up to 192 go to the wgmma kernels with the folded
-    operands and the padded lse2/delta, wider ones to the mma.sync
-    template with q, k and the natural-log LSE; each launches dq once and
+    operands and the padded lse2/delta, wider ones (up to 512, as the JAX
+    backward pads any head dim) to the mma.sync template with q, k and the natural-log LSE; each launches dq once and
     dk/dv once into (B, H, S, D) views over (B, S, H, D) memory."""
     calls = []
 
@@ -148,3 +149,34 @@ def test_flash_bwd_routes_by_head_dim(monkeypatch, d, route):
         assert dq_args[0] is q and dq_args[1] is k
         assert dq_args[4].shape == (1, 2, 64)  # the natural-log LSE
         assert dq_args[7:] == (scale, scale / tbwd.LOG2E)
+
+
+def test_flash_bwd_refuses_head_dims_above_512(monkeypatch):
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    q = torch.zeros(1, 2, 64, 520, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="≤ 512"):
+        tbwd.flash_bwd(q, q, q, q, q, torch.zeros(1, 2, 64), 520 ** -0.5)
+
+
+def test_flash_attention_grad_at_head_dim_512_matches_jax():
+    """The VAE's 512-wide head: the port's ``flash_attention`` gradient
+    (autograd through ``_FlashAttention``, the plain backward on the CPU)
+    against the JAX ``flash_bwd`` (interpret mode, head dim padded as its
+    wrapper pads it) on a short ragged sequence, fp32 on both sides within
+    the bound of the other head dims (``GRAD_ATOL``)."""
+    d, sq, sk = 512, 40, 70
+    q, k, v, do = (_rand(s, 1, 1, n, d) for s, n in ((60, sq), (61, sk),
+                                                      (62, sk), (63, sq)))
+    scale = d ** -0.5
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, scale=scale)
+    out.backward(_t(do))
+    o, lse = tflash.flash_attention_ref(_t(q), _t(k), _t(v), scale)
+    torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
+    jg = jbwd.flash_bwd(*(jnp.asarray(a) for a in (q, k, v, o.numpy(), do,
+                                                   lse.numpy())), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                          jg):
+        assert a.shape == (1, 1, sq if name == "dq" else sk, d)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   err_msg=name)

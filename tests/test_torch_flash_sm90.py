@@ -144,3 +144,28 @@ def test_fixed_cap_hands_the_kernel_projection_layout_views(monkeypatch,
     assert qv.shape == ov.shape == (2, 100, 4, 40)
     assert kv.shape == (2, SK, 4, 40)
     assert qv.data_ptr() == q.data_ptr() and ov.data_ptr() == out.data_ptr()
+
+
+def test_attn_debug_prints_the_logit_bound(monkeypatch, capsys):
+    """``SDBC_ATTN_DEBUG=1`` makes the head-major fixed-cap entry print the
+    JAX package's per-call bound scale·max‖q‖·max‖k‖ (fp32); without the
+    switch nothing prints, and the output is the same either way."""
+    q, k, v = _near_cap()
+    scale = 40 ** -0.5
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    monkeypatch.delenv("SDBC_ATTN_DEBUG", raising=False)
+    quiet = tflash.flash_attention_fixed(tq, tk, tv, scale=scale)
+    assert capsys.readouterr().out == ""
+    monkeypatch.setenv("SDBC_ATTN_DEBUG", "1")
+    loud = tflash.flash_attention_fixed(tq, tk, tv, scale=scale)
+    printed = capsys.readouterr().out
+    assert torch.equal(quiet, loud)
+    want = scale * np.sqrt((q.astype(np.float64) ** 2).sum(-1)).max() \
+        * np.sqrt((k.astype(np.float64) ** 2).sum(-1)).max()
+    assert tflash.logit_bound(tq, tk, scale) == pytest.approx(want, rel=1e-5)
+    head, _, tail = printed.partition("logit upper bound ")
+    value, _, rest = tail.partition(" ")
+    assert head == "[sdbc flash-fixed] " and rest == (
+        "(exact while <= 41.6; if larger use SDBC_ATTN_IMPL=xla)\n")
+    assert abs(float(value) - want) <= 0.05 + 1e-4 * want  # printed .1f
+    assert 36.0 < want  # the near-cap inputs: q and the late keys aligned
