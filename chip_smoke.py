@@ -22,8 +22,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   GroupNorm inputs at batch 8, one ragged case) and the
                   int8-QK attention (also held to 4% of exact attention);
                   the build phase prints the wgmma kernels' registers,
-                  spills and SASS op counts (flash forward and backward,
-                  GEGLU);
+                  spills and SASS op counts (flash forward in both layouts
+                  and backward, GEGLU) and the 8-bit AdamW kernel's
+                  instructions per element;
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
                   like the fixed-cap attention, dq and
@@ -31,11 +32,16 @@ Phases, in order; each prints one or more lines, and any failure raises
                   ragged case, each kernel alone and the whole backward
                   call against SDPA's flash backward in alternating rounds;
                   the 8-bit AdamW on a leaf with a ragged last
-                  row), the transposed-layout forward at the same cases plus
-                  the 77-key cross-attention, the 8² mid block and the VAE's
-                  512-wide head (also held to the forward's output), and the
-                  forward and the whole backward at the 512-wide head (the
-                  backward against SDPA's in alternating rounds);
+                  row, then in one launch over all 289 8-bit leaves of a
+                  mode-C step at their real sizes, seven of them stacked,
+                  against the step's bytes bound), the transposed-layout
+                  forward at the same cases plus the 77-key
+                  cross-attention, the 8² mid block and the VAE's 512-wide
+                  head (also held to the forward's output; up to head dim
+                  256 timed against SDPA's flash forward and the forward in
+                  alternating rounds), and the forward and the whole
+                  backward at the 512-wide head (the backward against
+                  SDPA's in alternating rounds);
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -394,7 +400,7 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
     remat = tcfg.remat_mode if tcfg.grad_ckpt else None
     attn_again = 2 if remat == "block" else 1
     want = dict.fromkeys(_kernels.launches, 0)
-    want["adam8"] = n8
+    want["adam8"] = int(n8 > 0)  # one launch over every 8-bit leaf
     if switches:
         calls = 2 * n_transformers(cfg.unet)
         want["flash_tt"] = accum * (attn_again * calls + encodes)
@@ -466,6 +472,8 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels and checks their registers and SASS; returns the
+    8-bit AdamW kernel's instruction counts (``adam8_sass``)."""
     from sdbc_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -485,8 +493,7 @@ def phase_build():
           f"{len(spills)} spilling {spills[:4]}", flush=True)
     for name, info in sm90_ptxas(lines).items():
         print(f"[build] {name}: {info}", flush=True)
-    sm90_sass(lib)
-    return secs
+    return sm90_sass(lib)
 
 
 # the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu,
@@ -494,15 +501,19 @@ def phase_build():
 # arguments
 SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_bwd_dq_sm90_kernel|"
                 r"flash_bwd_dkv_sm90_kernel|geglu_ff_sm90_kernel)ILi(\d+)E"
-                r"(?:Li(\d+)E)?(?:Lb([01])E)?")
+                r"(?:Li(\d+)E)?((?:Lb[01]E)*)")
 SM90_KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                      "flash_bwd_dkv_sm90_kernel", "geglu_ff_sm90_kernel")
 
 
 def _sm90_name(m) -> str:
+    """``kernel<DP, KS, ONLINE, TT>`` (as many arguments as it has) of a
+    mangled instantiation name."""
+    import re
+
     args = [a for a in (m.group(2), m.group(3)) if a is not None]
-    if m.group(4) is not None:
-        args.append("true" if m.group(4) == "1" else "false")
+    args += ["true" if b == "1" else "false"
+             for b in re.findall(r"Lb([01])E", m.group(4) or "")]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -510,7 +521,9 @@ def sm90_sass(lib):
     """Counts, in the built SASS of each wgmma kernel instantiation, the
     wgmma products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and
     mma.sync products (HMMA); fails if one has no HGMMA or no UTMALDG, or
-    any HMMA."""
+    any HMMA, or if the transposed-layout forward (K9, ``TT``) was not
+    built.  Returns the 8-bit AdamW kernel's instruction counts
+    (``adam8_sass``)."""
     import re
     import shutil
 
@@ -536,22 +549,67 @@ def sm90_sass(lib):
     for kernel in SM90_KERNEL_NAMES:
         if kernel not in names:
             fail(f"{kernel}: not in the built SASS")
+    if not any(n.startswith("flash_fwd_sm90_kernel<")
+               and n.endswith(", true, true>") for n in found):
+        fail("flash_fwd_sm90_kernel: no transposed-layout (TT) "
+             "instantiation in the built SASS")
     for name, n in found.items():
         if n["HGMMA"] == 0 or n["UTMALDG"] == 0 or n["HMMA"]:
             fail(f"{name}: SASS counts {n}")
+    return adam8_sass(res.stdout)
+
+
+def adam8_sass(sass: str) -> dict:
+    """Counts the instructions of ``adam8_leaves_kernel`` in the built SASS
+    (NOPs of the alignment padding left out): the kernel's body, without
+    the out-of-line subroutines it CALLs (the slow paths of the IEEE
+    square root and reciprocal), in all, by kind and per element.  One
+    thread updates 16 elements of a row, so the body over 16 is an upper
+    bound on what a thread issues per element: the body also holds the
+    per-row set-up, the scalar path of ragged ends and the IEEE roots
+    taken near a rounding tie, which run once per 16 elements or rarely."""
+    import re
+
+    part = next((p for p in sass.split("Function : ")[1:]
+                 if "adam8_leaves_kernel" in p.split(None, 1)[0]), None)
+    if part is None:
+        fail("adam8_leaves_kernel: not in the built SASS")
+    inst = [(int(m.group(1), 16), m.group(2), m.group(0)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*",
+        part)]
+    calls = [int(t, 16) for _, op, text in inst if op == "CALL"
+             for t in re.findall(r"0x([0-9a-f]+)", text)[:1]]
+    end = min(calls) if calls else float("inf")
+    body = [op for addr, op, _ in inst if addr < end and op != "NOP"]
+    kinds = {"MUFU": ("MUFU",),
+             "fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP",
+                      "FRND"),
+             "conversions": ("I2F", "F2I", "F2F", "I2FP", "F2IP"),
+             "global memory": ("LDG", "STG")}
+    counts = dict(
+        instructions=len([op for _, op, _ in inst if op != "NOP"]),
+        body=len(body), body_per_element=len(body) / 16,
+        body_by_kind={k: sum(op in v for op in body)
+                      for k, v in kinds.items()})
+    print(f"[build] adam8_leaves_kernel SASS: {counts['instructions']} "
+          f"instructions, {len(body)} in the body ({len(body) / 16:.1f} per "
+          f"element, an upper bound: 16 elements a thread per row); body by "
+          f"kind {counts['body_by_kind']}", flush=True)
+    return counts
 
 
 def sm90_ptxas(lines):
-    """ptxas's registers and spills of each wgmma kernel instantiation from
-    the ``-Xptxas -v`` log, and any warning about its register reallocation
-    (setmaxnreg)."""
+    """ptxas's registers and spills of each wgmma kernel instantiation and
+    of the 8-bit AdamW kernel from the ``-Xptxas -v`` log, and any warning
+    about a register reallocation (setmaxnreg)."""
     import re
 
     out, cur = {}, None
     for ln in lines:
         if "Compiling entry function" in ln or "Function properties for" in ln:
             m = re.search(SM90_KERNELS, ln)
-            cur = _sm90_name(m) if m else None
+            cur = _sm90_name(m) if m else (
+                "adam8_leaves_kernel" if "adam8_leaves_kernel" in ln else None)
         elif cur and ("registers" in ln or "spill" in ln):
             out.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
         elif "setmaxnreg" in ln:
@@ -788,7 +846,7 @@ def kernel_int8(g):
             "max_abs_err": worst, **first}
 
 
-def phase_train_kernels():
+def phase_train_kernels(adam8_sass_counts=None):
     """The training kernels against their plain versions, at the shapes of
     the mode-C step (micro-batch 2, 8 heads; q/k/v as the (B, H, S, D)
     head-split views of the projection layout the UNet hands over)."""
@@ -972,24 +1030,156 @@ def phase_train_kernels():
             and serr <= 1e-5):
         fail(f"adam8: p err {perr}, int8 off-by-one share {qshare} (max "
              f"{qmax}), scale rel err {serr}")
-    ms = median_ms(lambda: adam8bit.adam8_update(pk, gr, st_k, 1e-4, 3,
-                                                 **kw), 20)
+    # the kernel alone (its table built once), and the whole one-leaf call
+    ms = median_ms(adam8_launch([([pk], [gr], st_k)], 3), 20)
+    call_ms = median_ms(lambda: adam8bit.adam8_update(pk, gr, st_k, 1e-4, 3,
+                                                      **kw), 20)
     pms = median_ms(lambda: adam8bit.adam8_update_ref(pr, gr, st_r, 1e-4, 3,
                                                       **kw), 5)
     rows_n = -(-n // adam8bit.BLOCK)
-    # p, g fp32 and the int8 moments: 16 bytes per element and the two row
-    # scales read and written; ~30 fp32 operations per element
-    bms, by = bound(16.0 * n + 16.0 * rows_n, fp32_ops=30.0 * n)
+    bms, by = adam8_bound(n, rows_n)
     print(f"[train-kernels] adam8 n={n} (ragged last row): p err {perr:.3e}, "
           f"int8 off-by-one share {qshare:.2e}, scale rel err {serr:.2e}; "
-          f"kernel {ms:.4f} ms plain {pms:.4f} ms bound {bms:.4f} ms ({by}) "
-          f"({16.0 * n / ms / 1e6:.1f} GB/s)", flush=True)
+          f"kernel {ms:.4f} ms (the whole call {call_ms:.4f} ms) plain "
+          f"{pms:.4f} ms bound {bms:.4f} ms ({by}) ({16.0 * n / ms / 1e6:.1f}"
+          f" GB/s, {100 * bms / ms:.1f}% of the bound)", flush=True)
+    del p0, pk, pr, st_k, st_r, gr
+    step = kernel_adam8_step(g)
     rows.append({"name": "adam8", "route": "cuda",
                  "source": "sdbc_tpu_torch/csrc/adam8bit.cu",
                  "replaces": "sdbc_tpu/train/adam8bit.py:86",
-                 "max_abs_err": perr, "ms": ms, "plain_ms": pms,
-                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+                 "max_abs_err": max(perr, step.pop("p_err")), "ms": ms,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": None, "step": step,
+                 "sass": adam8_sass_counts})
     return rows
+
+
+def adam8_launch(leaves, step: int):
+    """A launch of the 8-bit AdamW kernel alone over ``leaves`` (each (p
+    parts, g parts, Quant8State)), its table built and copied to the card
+    once (lr 1e-4, wd 1e-2, the bias corrections of ``step``); each call
+    steps the leaves again."""
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.train import adam8bit
+
+    words, rows = adam8bit.leaf_table(leaves)
+    table = torch.from_numpy(words).to(leaves[0][0][0].device)
+    bc1, bc2 = adam8bit.bias_corrections(step, 0.9, 0.999)
+    return lambda: _kernels.adam8(table, len(leaves), rows, 1e-4, bc1, bc2,
+                                  0.9, 0.1, 0.999, 0.001, 1e-8, 1e-2)
+
+
+def adam8_bound(n: int, rows: int):
+    """The 8-bit AdamW's bound over ``n`` elements in ``rows`` rows: p and g
+    fp32 read, p written, the int8 moments read and written (16 bytes an
+    element), each row's two fp32 scales read and written; ~30 fp32
+    operations an element."""
+    return bound(16.0 * n + 16.0 * rows, fp32_ops=30.0 * n)
+
+
+def mode_c_8bit_leaves():
+    """The part shapes of every 8-bit leaf of the mode-C step: SD-1.5's UNet
+    and text encoder as ``trainer.optimizer_leaves`` groups them (the text
+    encoder's layers stacked per name), built on the meta device."""
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+    from sdbc_tpu_torch.models import clip as clip_mod
+    from sdbc_tpu_torch.models import unet as unet_mod
+    from sdbc_tpu_torch.train.adam8bit import MIN_8BIT_SIZE
+    from sdbc_tpu_torch.train.trainer import optimizer_leaves
+
+    cfg = PipelineConfig.sd15()
+    leaves = optimizer_leaves({
+        "text_encoder": clip_mod.init(cfg.clip, device="meta"),
+        "unet": unet_mod.init(cfg.unet, device="meta")})
+    return [[tuple(p.shape) for p in leaf] for leaf in leaves
+            if sum(p.numel() for p in leaf) >= MIN_8BIT_SIZE]
+
+
+def kernel_adam8_step(g):
+    """K7 over one mode-C optimizer step: every 8-bit leaf at its real size
+    (the stacked ones as their parts, read and written in place), from a
+    mid-training state, in one launch; held leaf by leaf against the plain
+    version on stacked copies, and timed: the kernel alone on a table built
+    once, the whole ``adam8_update_leaves`` call as ``AdamW8bit.update``
+    makes it (the table built, checked and copied each call) and, as a
+    yardstick of the memory rate the card reaches, a
+    device-to-device copy of 2 GiB."""
+    import torch
+
+    from sdbc_tpu_torch.train import adam8bit
+
+    dev = torch.device("cuda")
+    shapes = mode_c_8bit_leaves()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
+    opt = adam8bit.adamw8bit(1e-4, weight_decay=1e-2)
+    parts = [[torch.randn(sh, generator=g, device=dev) * 0.05 for sh in leaf]
+             for leaf in shapes]
+    states = [opt.leaf_init(leaf) for leaf in parts]
+    n_el = sum(p.numel() for leaf in parts for p in leaf)
+    stacked = sum(len(leaf) > 1 for leaf in parts)
+
+    def grads():
+        return [[torch.randn(p.shape, generator=g, device=dev) * 1e-3
+                 for p in leaf] for leaf in parts]
+
+    stack = lambda ts: ts[0].clone() if len(ts) == 1 else torch.stack(ts)
+    for step in (1, 2):  # a mid-training state, through the kernel
+        adam8bit.adam8_update_leaves(list(zip(parts, grads(), states)), 1e-4,
+                                     step, **kw)
+    gr = grads()
+    ref = [(stack(leaf), adam8bit.Quant8State(*(t.clone() for t in (
+        st.mq, st.ms, st.vq, st.vs)))) for leaf, st in zip(parts, states)]
+    adam8bit.adam8_update_leaves(list(zip(parts, gr, states)), 1e-4, 3, **kw)
+    torch.cuda.synchronize()
+    perr = serr = 0.0
+    qmax, qoff, qn = 0, 0, 0
+    for leaf, gl, st, (p0, s0) in zip(parts, gr, states, ref):
+        adam8bit.adam8_update_ref(p0, stack(gl), s0, 1e-4, 3, **kw)
+        perr = max(perr, (stack(leaf) - p0).abs().max().item())
+        for a, b in ((st.mq, s0.mq), (st.vq, s0.vq)):
+            d = (a.int() - b.int()).abs()
+            qmax = max(qmax, d.max().item())
+            qoff += int((d > 0).sum())
+            qn += d.numel()
+        serr = max(serr, *(((a - b).abs() / b.abs().clamp(min=1e-30))
+                           .max().item() for a, b in ((st.ms, s0.ms),
+                                                      (st.vs, s0.vs))))
+    del ref
+    qshare = qoff / qn
+    if not (len(shapes) == 289 and stacked == 7 and perr <= ADAM_P_TOL
+            and qmax <= 1 and qshare <= ADAM_Q_SHARE and serr <= 1e-5):
+        fail(f"adam8 step: {len(shapes)} leaves ({stacked} stacked), p err "
+             f"{perr}, int8 off-by-one share {qshare} (max {qmax}), scale "
+             f"rel err {serr}")
+    leaves = list(zip(parts, gr, states))
+    rows = adam8bit.leaf_table(leaves)[1]
+    ms = median_ms(adam8_launch(leaves, 3), 10)
+    call = lambda: adam8bit.adam8_update_leaves(leaves, 1e-4, 3, **kw)
+    call_ms, host = median_ms(call, 10), host_us(call, 20)
+    del leaves
+    src = torch.empty(2 ** 29, device=dev)
+    dst = torch.empty_like(src)
+    copy_tbs = 2 * src.numel() * 4 / median_ms(lambda: dst.copy_(src),
+                                                10) / 1e9
+    del src, dst
+    bms, by = adam8_bound(n_el, rows)
+    print(f"[train-kernels] adam8 mode-C step: {len(shapes)} 8-bit leaves "
+          f"({stacked} stacked, in place), {n_el} elements in {rows} rows: "
+          f"p err {perr:.3e}, int8 off-by-one share {qshare:.2e} (max "
+          f"{qmax}), scale rel err {serr:.2e}; one launch {ms:.4f} ms, the "
+          f"whole call {call_ms:.4f} ms "
+          f"(host {host:.1f} us a call); step bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / ms:.1f}% of it ({16.0 * n_el / ms / 1e6:.1f} GB/s; "
+          f"a 2 GiB device-to-device copy moves {copy_tbs:.3f} TB/s)",
+          flush=True)
+    del parts, states, gr
+    return dict(leaves=len(shapes), stacked=stacked, elements=n_el,
+                rows=rows, ms=ms, call_ms=call_ms,
+                host_us=host, bound_ms=bms, copy_tbs=copy_tbs, p_err=perr,
+                int8_share=qshare)
 
 
 def bwd_launches(q, k, v, o, do, lse, scale: float):
@@ -1014,7 +1204,9 @@ def kernel_flash_tt(g):
     """K9 at K5's cases, the 77-key cross-attention and the VAE's 512-wide
     head: against its plain version (output and LSE) and against K5's
     output on the same inputs; SDPA's flash forward as the library call
-    (SDPA's default dispatch above its flash kernel's 256 head dims)."""
+    (SDPA's default dispatch above its flash kernel's 256 head dims).  Up to
+    head dim 256 the call (``to_tt``'s three copies included) is timed
+    against SDPA's flash forward and K5 in alternating rounds."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1046,28 +1238,38 @@ def kernel_flash_tt(g):
                 and k5err <= k5tol):
             fail(f"flash_tt {label}: out err {err} (tol {tol}), lse err "
                  f"{lerr}, vs K5 {k5err} (tol {k5tol})")
-        ms = median_ms(kern, 20)
         pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
+        bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,),
+                             4.0 * b * h * sq)
         if d <= 256:
             lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
                 q, k, v, scale=scale)
+            ms, lms, k5ms = paired_ms(
+                [kern, lib, lambda: fa.flash_fwd(q, k, v, scale)])
+            timing = (f"kernel {ms:.4f} ms, sdpa-flash {lms:.4f} ms "
+                      f"(kernel/sdpa {ms / lms:.2f}), K5 {k5ms:.4f} ms "
+                      f"(kernel/K5 {ms / k5ms:.2f}), in alternating rounds")
         else:
-            lib = lambda: sdpa(q, k, v, scale=scale)
-        lms = median_ms(lib, 20)
-        bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,),
-                             4.0 * b * h * sq)
+            ms = median_ms(kern, 20)
+            lms = median_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+            timing = f"kernel {ms:.4f} ms, sdpa {lms:.4f} ms"
         print(f"[train-kernels] flash_tt {label}: out err {err:.3e} (tol "
-              f"{tol:.3e}) lse err {lerr:.3e} vs K5 {k5err:.3e} kernel "
-              f"{ms:.4f} ms plain {pms:.4f} ms sdpa{'-flash' if d <= 256 else ''}"
-              f" {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+              f"{tol:.3e}) lse err {lerr:.3e} vs K5 {k5err:.3e}; {timing}; "
+              f"plain {pms:.4f} ms bound {bms:.4f} ms ({by}), "
+              f"{100 * bms / ms:.1f}% of the bound", flush=True)
         worst = max(worst, err, lerr)
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         library_ms=lms)
+                         library_ms=lms, k5_ms=k5ms)
         del q, k, v, out, ref, k5
     return {"name": "flash_tt", "route": "cuda",
-            "source": "sdbc_tpu_torch/csrc/flash_train.cu",
+            "source": "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
             "replaces": "sdbc_tpu/ops/flash_attention_tt.py:76",
+            "serves": "head dims <= 256 (every call of the switches' path "
+                      "but the VAE's): flash_fwd_sm90_kernel<DP, KS, true, "
+                      "true> in csrc/flash_fwd_sm90.cu; head dims above 256 "
+                      "(the VAE encode's 512-wide head): flash_fwd_kernel<512,"
+                      " 256, true> in csrc/flash_train.cu",
             "max_abs_err": worst, **first}
 
 
@@ -1606,7 +1808,7 @@ def phase_train_profile(step, state, batch, gen, sps: float,
             for n in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
                       "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                      "adam8_kernel")}
+                      "adam8_leaves_kernel")}
     # host side: operators by their own CPU time (the profiler's, which
     # inflates it) and the number of device kernels launched
     host = sorted((e for e in prof.key_averages()
@@ -1632,8 +1834,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     smi = phase_device()
-    phase_build()
-    rows = phase_kernels() + phase_train_kernels()
+    sass = phase_build()
+    rows = phase_kernels() + phase_train_kernels(sass)
     phase_parity()
     # launch counts of each full-width path, from its own run (the counts
     # set to 0 just before it, read just after)

@@ -8,6 +8,8 @@
 //                     _fixed_kernel (ragged sequences)
 //   ONLINE = true  <- sdbc_tpu/ops/flash_attention.py _fwd_kernel (via
 //                     _flash_fwd), for head dims up to 256
+//   ONLINE, TT     <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via
+//                     _flash_fwd_tt), for head dims up to 256
 //
 // Math (as the TPU kernels): q is prescaled by scale*log2e in fp32 and
 // rounded once to bf16, so s = q.k^T (fp32 accumulate) is in log2 units.
@@ -56,6 +58,23 @@
 //   past D; the online variant writes the LSE row from registers.
 // - Host side: the four tensor maps are encoded per launch and passed as
 //   __grid_constant__ parameters.
+//
+// The transposed layout (TT = true, K9): q, k, v and o are head-dim-major,
+// each (batch, head) slice D rows with the sequence contiguous (in memory
+// padded to a multiple of 8 positions: TMA's 16-byte row stride).  The
+// math is the online variant's; only the operand majors flip, and no
+// transposed copy is made:
+// - the maps are 4-D (S, D, H, B), D its own dimension, so rows past D
+//   arrive as zeros (a flattened (B.H.D, S) view would load the next
+//   head's rows); every tile is a stack of 64-position column blocks of
+//   R = 16 KS head-dim rows: the k16 steps past D are not loaded at all;
+// - S = Q.K^T reads both operands MN-major (the positions along the
+//   128-byte rows, the contraction down them): Q's column block is the
+//   consumer's 64 rows, K's the key tile;
+// - O += P.V reads the V^T tile K-major (the keys along the rows), as
+//   the natural layout reads K, with NV = R output columns;
+// - the epilogue writes O^T (R rows by the consumer's 64 positions) over
+//   its column block of the Q tile and TMA-stores it into (B, H, D, Sq).
 
 #include "sm90.cuh"
 
@@ -71,7 +90,7 @@ constexpr float NEG_INF = -1e30f;
 
 // The block's shape for padded head dim DP and KS k16 steps of Q.K^T
 // (ceil(D / 16): the zero columns past D are skipped).
-template <int DP, int KS>
+template <int DP, int KS, bool TT>
 struct Cfg {
   static_assert(DP % CB == 0 && KS * 16 <= DP, "bad head-dim padding");
   static constexpr int NWG = 2;  // consumer warpgroups
@@ -81,8 +100,10 @@ struct Cfg {
   // KV rows per tile: 128 at DP = 64, 64 above, where S, P and O together
   // would outgrow the registers (128 keys spill at DP = 128 and ran slower).
   static constexpr int BK = DP == 64 ? 128 : 64;
-  static constexpr int Q_BYTES = BQ * DP * 2;
-  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
+  // a tile's extent along the head dim: DP columns, or (TT) 16 KS rows
+  static constexpr int W = TT ? 16 * KS : DP;
+  static constexpr int Q_BYTES = BQ * W * 2;
+  static constexpr int KV_BYTES = BK * W * 2;  // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -146,22 +167,52 @@ __device__ __forceinline__ void gemm_pv(float (&o)[DP / 2],
                                                       BK * 128));
 }
 
+// The transposed layout's products (TT): S (64 x BK) = Q_w . K^T with both
+// operands MN-major (Q_w: the consumer's column block of R rows; K^T: BK/64
+// column blocks of R rows), KS k16 steps of 16 rows (2048 bytes) each.
+template <int KS, int BK>
+__device__ __forceinline__ void gemm_qk_tt(float (&s)[BK / 2],
+                                           const uint8_t* qw,
+                                           const uint8_t* kt) {
+  constexpr int R = 16 * KS;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    sm90::WgmmaSStt<BK>::run(s, sm90::desc_sw128(qw + ks * 2048, R * 128),
+                             sm90::desc_sw128(kt + ks * 2048, R * 128),
+                             ks > 0);
+}
+
+// O (64 x NV) += P (registers) . V, V read from the V^T tile (R = NV rows,
+// BK/64 column blocks of keys) K-major.
+template <int NV, int BK>
+__device__ __forceinline__ void gemm_pv_tt(float (&o)[NV / 2],
+                                           const uint32_t (&p)[BK / 16][4],
+                                           const uint8_t* vt) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    sm90::WgmmaRSk<NV>::run(
+        o, p[kk], sm90::desc_sw128(vt + (kk / 4) * NV * 128 + (kk % 4) * 32,
+                                   16));
+}
+
 struct Params {
   int H, Sq, Sk;
   float qscale;
   float* lse;  // (B, H, Sq) fp32, online only
 };
 
-template <int DP, int KS, bool ONLINE>
-__global__ void __launch_bounds__(Cfg<DP, KS>::NTHREADS, 1)
+template <int DP, int KS, bool ONLINE, bool TT>
+__global__ void __launch_bounds__(Cfg<DP, KS, TT>::NTHREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap to, Params prm) {
-  using L = Cfg<DP, KS>;
+  using L = Cfg<DP, KS, TT>;
+  static_assert(ONLINE || !TT, "the transposed layout is the online one");
   constexpr int BK = L::BK, BQ = L::BQ, NWG = L::NWG;
   constexpr int NV = 16 * KS;  // output columns computed (>= D)
   constexpr int NCB = DP / CB;
+  constexpr int R = L::W;  // TT: head-dim rows of a column block
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -194,8 +245,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::reg_dealloc<24>();
     if (threadIdx.x == NWG * 128) {
       sm90::mbar_expect_tx(full_q, L::Q_BYTES);
-      for (int c = 0; c < NCB; ++c)
-        sm90::tma_load_4d(sq + c * BQ * 128, &tq, full_q, c * CB, q0, h, b);
+      if (TT) {
+        for (int c = 0; c < BQ / CB; ++c)
+          sm90::tma_load_4d(sq + c * R * 128, &tq, full_q, q0 + c * CB, 0, h,
+                            b);
+      } else {
+        for (int c = 0; c < NCB; ++c)
+          sm90::tma_load_4d(sq + c * BQ * 128, &tq, full_q, c * CB, q0, h, b);
+      }
       for (int j = 0; j < nk; ++j) {
         const int s = j % STAGES;
         const uint32_t ph = (j / STAGES) & 1;
@@ -203,14 +260,26 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         uint8_t* vt = smem + L::V_OFF + s * L::KV_BYTES;
         sm90::mbar_wait(empty_k + s, ph ^ 1);
         sm90::mbar_expect_tx(full_k + s, L::KV_BYTES);
-        for (int c = 0; c < NCB; ++c)
-          sm90::tma_load_4d(kt + c * BK * 128, &tk, full_k + s, c * CB,
-                            j * BK, h, b);
+        if (TT) {
+          for (int c = 0; c < BK / CB; ++c)
+            sm90::tma_load_4d(kt + c * R * 128, &tk, full_k + s,
+                              j * BK + c * CB, 0, h, b);
+        } else {
+          for (int c = 0; c < NCB; ++c)
+            sm90::tma_load_4d(kt + c * BK * 128, &tk, full_k + s, c * CB,
+                              j * BK, h, b);
+        }
         sm90::mbar_wait(empty_v + s, ph ^ 1);
         sm90::mbar_expect_tx(full_v + s, L::KV_BYTES);
-        for (int c = 0; c < NCB; ++c)
-          sm90::tma_load_4d(vt + c * BK * 128, &tv, full_v + s, c * CB,
-                            j * BK, h, b);
+        if (TT) {
+          for (int c = 0; c < BK / CB; ++c)
+            sm90::tma_load_4d(vt + c * R * 128, &tv, full_v + s,
+                              j * BK + c * CB, 0, h, b);
+        } else {
+          for (int c = 0; c < NCB; ++c)
+            sm90::tma_load_4d(vt + c * BK * 128, &tv, full_v + s, c * CB,
+                              j * BK, h, b);
+        }
       }
     }
   } else {
@@ -222,13 +291,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // turns to issue products, round robin over the consumers: each waits
     // on its own barrier and, once it has issued, opens the next one's
     const int my_turn = 1 + NWG + wg, next_turn = 1 + NWG + (wg + 1) % NWG;
-    uint8_t* qw = sq + wg * 64 * 128;  // this consumer's 64 rows
+    // this consumer's 64 rows: in each column block, or (TT) its own block
+    uint8_t* qw = sq + wg * (TT ? R : 64) * 128;
 
     // Q: prescale by scale*log2e in fp32, round once to bf16
     sm90::mbar_wait(full_q, 0);
-    for (int i = t; i < NCB * 64 * 8; i += 128) {  // 16-byte chunks
+    for (int i = t; i < (TT ? R : NCB * 64) * 8; i += 128) {  // 16-byte chunks
       const int c = i / (64 * 8), r = (i / 8) % 64, ch = i % 8;
-      uint4* p = reinterpret_cast<uint4*>(qw + c * BQ * 128 + r * 128 + ch * 16);
+      uint4* p = reinterpret_cast<uint4*>(
+          TT ? qw + i * 16 : qw + c * BQ * 128 + r * 128 + ch * 16);
       uint4 val = *p;
       bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
@@ -324,6 +395,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     auto v_tile = [&](int j) {
       return smem + L::V_OFF + (j % STAGES) * L::KV_BYTES;
     };
+    auto qk = [&](const uint8_t* kt) {
+      if constexpr (TT) gemm_qk_tt<KS, BK>(s, qw, kt);
+      else gemm_qk<KS, BQ, BK>(s, qw, kt);
+    };
+    auto pv = [&](const uint8_t* vt) {
+      if constexpr (TT) gemm_pv_tt<NV, BK>(o, p, vt);
+      else gemm_pv<NV, BK>(o, p, vt);
+    };
 
     if (wg == NWG - 1) sm90::bar_arrive(1 + NWG, 256);  // consumer 0 first
 
@@ -331,7 +410,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::mbar_wait(full_k, 0);
     sm90::bar_sync(my_turn, 256);
     sm90::wgmma_fence();
-    gemm_qk<KS, BQ, BK>(s, qw, k_tile(0));
+    qk(k_tile(0));
     sm90::wgmma_commit();
     sm90::fence_regs(s);
     sm90::bar_arrive(next_turn, 256);
@@ -346,14 +425,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_wait(full_k + j % STAGES, ph);
       sm90::bar_sync(my_turn, 256);
       sm90::wgmma_fence();
-      gemm_qk<KS, BQ, BK>(s, qw, k_tile(j));
+      qk(k_tile(j));
       sm90::wgmma_commit();
       sm90::fence_regs(s);
       rescale();
       sm90::mbar_wait(full_v + (j - 1) % STAGES, pph);
       sm90::fence_regs(o);
       sm90::wgmma_fence();
-      gemm_pv<NV, BK>(o, p, v_tile(j - 1));
+      pv(v_tile(j - 1));
       sm90::wgmma_commit();
       sm90::fence_regs(o);
       sm90::bar_arrive(next_turn, 256);
@@ -372,7 +451,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::mbar_wait(full_v + (nk - 1) % STAGES, ((nk - 1) / STAGES) & 1);
     sm90::fence_regs(o);
     sm90::wgmma_fence();
-    gemm_pv<NV, BK>(o, p, v_tile(nk - 1));
+    pv(v_tile(nk - 1));
     sm90::wgmma_commit();
     sm90::fence_regs(o);
     sm90::wgmma_wait<0>();
@@ -390,17 +469,30 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int n = 0; n < NV / 8; ++n) {
       const int col = n * 8 + 2 * qd;
-      *reinterpret_cast<uint32_t*>(qw + swz(r0, col, BQ)) =
-          pack_bf16(o[4 * n] * i0, o[4 * n + 1] * i0);
-      *reinterpret_cast<uint32_t*>(qw + swz(r0 + 8, col, BQ)) =
-          pack_bf16(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
+      if constexpr (TT) {  // O^T: head-dim row col, position r0
+        bf16* ot = reinterpret_cast<bf16*>(qw);
+        ot[swz(col, r0, R) / 2] = __float2bfloat16(o[4 * n] * i0);
+        ot[swz(col + 1, r0, R) / 2] = __float2bfloat16(o[4 * n + 1] * i0);
+        ot[swz(col, r0 + 8, R) / 2] = __float2bfloat16(o[4 * n + 2] * i1);
+        ot[swz(col + 1, r0 + 8, R) / 2] =
+            __float2bfloat16(o[4 * n + 3] * i1);
+      } else {
+        *reinterpret_cast<uint32_t*>(qw + swz(r0, col, BQ)) =
+            pack_bf16(o[4 * n] * i0, o[4 * n + 1] * i0);
+        *reinterpret_cast<uint32_t*>(qw + swz(r0 + 8, col, BQ)) =
+            pack_bf16(o[4 * n + 2] * i1, o[4 * n + 3] * i1);
+      }
     }
     sm90::fence_proxy_async();
     sm90::bar_sync(wbar, 128);
     if (t == 0 && q0 + wg * 64 < prm.Sq) {
-      for (int c = 0; c < NCB; ++c)
-        sm90::tma_store_4d(&to, qw + c * BQ * 128, c * CB, q0 + wg * 64, h,
-                           b);
+      if (TT) {
+        sm90::tma_store_4d(&to, qw, q0 + wg * 64, 0, h, b);
+      } else {
+        for (int c = 0; c < NCB; ++c)
+          sm90::tma_store_4d(&to, qw + c * BQ * 128, c * CB, q0 + wg * 64, h,
+                             b);
+      }
       sm90::tma_store_commit_and_wait();
     }
     if (ONLINE && qd == 0) {
@@ -419,31 +511,52 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 using sm90::View;
 using sm90::make_map;
 
-template <int DP, int KS, bool ONLINE>
+// A 4-D (S, D, H, B) map of a head-dim-major view (`v.ss`: the stride of a
+// head-dim row, the sequence contiguous) with boxes of 64 positions by
+// `rows` head-dim rows, 128-byte swizzle; rows past D and positions past S
+// read as zeros, stores past them are dropped.
+inline bool make_map_tt(CUtensorMap* map, const View& v, int B, int S, int H,
+                        int D, int rows) {
+  auto bytes = [](long long stride, int size) {
+    return (cuuint64_t)(size == 1 ? 16 : stride * 2);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {bytes(v.ss, D), bytes(v.sh, H),
+                                 bytes(v.sb, B)};
+  const cuuint32_t box[4] = {(cuuint32_t)CB, (cuuint32_t)rows, 1, 1};
+  return sm90::make_map_nd(map, v.p, 4, dims, strides, box);
+}
+
+template <int DP, int KS, bool ONLINE, bool TT>
 cudaError_t launch(const View& q, const View& k, const View& v, const View& o,
                    float* lse, int B, int H, int Sq, int Sk, int D,
                    float qscale, cudaStream_t stream) {
-  using C = Cfg<DP, KS>;
+  using C = Cfg<DP, KS, TT>;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, B, Sq, H, D, C::BQ)
-      || !make_map(&tk, k, B, Sk, H, D, C::BK)
-      || !make_map(&tv, v, B, Sk, H, D, C::BK)
-      || !make_map(&to, o, B, Sq, H, D, 64))
-    return cudaErrorInvalidValue;
+  const bool ok = TT ? make_map_tt(&tq, q, B, Sq, H, D, C::W)
+                           && make_map_tt(&tk, k, B, Sk, H, D, C::W)
+                           && make_map_tt(&tv, v, B, Sk, H, D, C::W)
+                           && make_map_tt(&to, o, B, Sq, H, D, C::W)
+                     : make_map(&tq, q, B, Sq, H, D, C::BQ)
+                           && make_map(&tk, k, B, Sk, H, D, C::BK)
+                           && make_map(&tv, v, B, Sk, H, D, C::BK)
+                           && make_map(&to, o, B, Sq, H, D, 64);
+  if (!ok) return cudaErrorInvalidValue;
   static uint64_t raised = 0;
-  cudaError_t err = sm90::raise_smem(flash_fwd_sm90_kernel<DP, KS, ONLINE>,
-                                     C::SMEM, raised);
+  cudaError_t err = sm90::raise_smem(
+      flash_fwd_sm90_kernel<DP, KS, ONLINE, TT>, C::SMEM, raised);
   if (err != cudaSuccess) return err;
   const Params prm{H, Sq, Sk, qscale, lse};
   dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_fwd_sm90_kernel<DP, KS, ONLINE>
+  flash_fwd_sm90_kernel<DP, KS, ONLINE, TT>
       <<<grid, C::NTHREADS, C::SMEM, stream>>>(tq, tk, tv, to, prm);
   return cudaGetLastError();
 }
 
 // The instantiations: the padded head dim, and the k16 steps of Q.K^T
 // trimmed to the main path's head dims (40, 80, 160); others take all.
-template <bool ONLINE>
+template <bool ONLINE, bool TT = false>
 int dispatch(const View& q, const View& k, const View& v, const View& o,
              float* lse, int B, int H, int Sq, int Sk, int D, float qscale,
              void* stream) {
@@ -453,7 +566,8 @@ int dispatch(const View& q, const View& k, const View& v, const View& o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ks = (D + 15) / 16;
 #define SDBC_LAUNCH(DP, KS) \
-  (int)launch<DP, KS, ONLINE>(q, k, v, o, lse, B, H, Sq, Sk, D, qscale, s)
+  (int)launch<DP, KS, ONLINE, TT>(q, k, v, o, lse, B, H, Sq, Sk, D, qscale, \
+                                  s)
   if (ks <= 3) return SDBC_LAUNCH(64, 3);
   if (ks <= 4) return SDBC_LAUNCH(64, 4);
   if (ks <= 5) return SDBC_LAUNCH(128, 5);
@@ -494,6 +608,23 @@ extern "C" int sdbc_flash_fwd_sm90(const void* q, const void* k, const void* v,
   return dispatch<true>(view(q, 0), view(k, 1), view(v, 2), view(o, 3),
                         static_cast<float*>(lse), B, H, Sq, Sk, D, qscale,
                         stream);
+}
+
+// K9 for D <= 256: as sdbc_flash_fwd_sm90 over head-dim-major (batch, head,
+// D, S) q/k/v/o, `st` holding (batch, head, head-dim row) strides, three
+// per tensor; the sequence contiguous, every row 16-byte aligned with a
+// stride that is a multiple of 8 (the output's too).
+extern "C" int sdbc_flash_fwd_tt_sm90(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      int B, int H, int Sq, int Sk, int D,
+                                      const long long* st, float qscale,
+                                      void* stream) {
+  auto view = [&](const void* p, int i) {
+    return View{p, st[3 * i], st[3 * i + 2], st[3 * i + 1]};
+  };
+  return dispatch<true, true>(view(q, 0), view(k, 1), view(v, 2), view(o, 3),
+                              static_cast<float*>(lse), B, H, Sq, Sk, D,
+                              qscale, stream);
 }
 
 extern "C" const char* sdbc_error_string(int err) {

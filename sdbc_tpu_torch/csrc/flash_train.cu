@@ -5,7 +5,9 @@
 //   flash_fwd_kernel<.., false> <- sdbc_tpu/ops/flash_attention.py    _fwd_kernel    (via _flash_fwd),
 //                                  head dims above 256 only (flash_fwd_sm90.cu
 //                                  takes the rest)
-//   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt)
+//   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt),
+//                                  head dims above 256 only (flash_fwd_sm90.cu
+//                                  takes the rest)
 //   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd),
 //   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd),
 //                           head dims above 192 only (flash_bwd_sm90.cu
@@ -713,20 +715,6 @@ bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
 
 }  // namespace
 
-// The forward's widths: the scores' padded head dim and the output columns
-// each block owns.
-#define SDBC_FWD_SWITCH(CALL)                                             \
-  switch (padded_dim(D, 512)) {                                           \
-    case 16: return (int)CALL(16, 16); case 32: return (int)CALL(32, 32); \
-    case 48: return (int)CALL(48, 48); case 64: return (int)CALL(64, 64); \
-    case 80: return (int)CALL(80, 80);                                    \
-    case 128: return (int)CALL(128, 128);                                 \
-    case 160: return (int)CALL(160, 160);                                 \
-    case 256: return (int)CALL(256, 256);                                 \
-    case 512: return (int)CALL(512, 256);                                 \
-    default: return (int)cudaErrorInvalidValue;                           \
-  }
-
 // All tensors bf16 with (batch, head, seq) strides in elements (`st`, three
 // per tensor in argument order) and a contiguous head dim; lse and delta are
 // contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512.  Each
@@ -746,7 +734,8 @@ extern "C" int sdbc_flash_fwd_wide(const void* q, const void* k,
       static_cast<cudaStream_t>(stream));
 }
 
-// K9: the same forward over head-dim-major (batch, head, D, S) operands and
+// K9 for head dims above 256 (up to 256 it is flash_fwd_sm90.cu's kernel):
+// the same forward over head-dim-major (batch, head, D, S) operands and
 // output: `st` holds (batch, head, head-dim row) strides, three per tensor;
 // the sequence is contiguous, and the rows of q, k and v are 16-byte
 // aligned with a stride that is a multiple of 8.
@@ -754,14 +743,12 @@ extern "C" int sdbc_flash_fwd_tt(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int B, int H, int Sq,
                                  int Sk, int D, const long long* st,
                                  float qscale, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDBC_CALL(DP, DO) launch_fwd<DP, DO, true>(                         \
-      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale, s)
-  SDBC_FWD_SWITCH(SDBC_CALL)
-#undef SDBC_CALL
+  if (bad_shape(B, H, Sq, Sk, D, 512) || padded_dim(D, 512) != 512)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<512, 256, true>(
+      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale,
+      static_cast<cudaStream_t>(stream));
 }
-#undef SDBC_FWD_SWITCH
 
 // The backward for head dims in (192, 512] (up to 192 it is
 // flash_bwd_sm90.cu's kernels; above 256 each block owns one 256-wide

@@ -273,34 +273,66 @@ SM90_SS(32, SM90_REGS16, SM90_F16, 16, 17, 18)
 SM90_SS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
 SM90_SS(128, SM90_REGS64, SM90_F64, 64, 65, 66)
 
+// D (64 x N, fp32) (+)= A (64 x 16, shared, MN-major: the 64 rows along
+// a 128-byte row, the contraction down the rows) . B (16 x N, shared,
+// MN-major as WgmmaRS reads B): both operands read transposed;
+// scale_d = 0 overwrites D.
+template <int N>
+struct WgmmaSStt;
+
+#define SM90_SSTT(N, REGS, FN, IA, IB, IS)                                  \
+  template <>                                                              \
+  struct WgmmaSStt<N> {                                                    \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               uint64_t a, uint64_t b,     \
+                                               int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" REGS "}, %" #IA ", %" #IB         \
+                   ", p, 1, 1, 1, 1;\n}\n"                                 \
+                   : FN(d)                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d));                        \
+    }                                                                      \
+  };
+SM90_SSTT(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
+SM90_SSTT(128, SM90_REGS64, SM90_F64, 64, 65, 66)
+
 // D (64 x N, fp32) += A (64 x 16, bf16 registers in the m16n8k16 A layout
 // of each warp's 16 rows) . B (16 x N, shared, MN-major: transposed read;
 // N need not fill the last 64-wide column block).
 template <int N>
 struct WgmmaRS;
 
-#define SM90_RS(N, REGS, FN, A0, A1, A2, A3, IB, IS)                        \
+// WgmmaRSk: the same with B K-major (the contraction along the row, as
+// WgmmaSS reads it).
+template <int N>
+struct WgmmaRSk;
+
+#define SM90_RS(NAME, TB, N, REGS, FN, A0, A1, A2, A3, IB, IS)               \
   template <>                                                              \
-  struct WgmmaRS<N> {                                                      \
+  struct NAME<N> {                                                         \
     __device__ __forceinline__ static void run(float (&d)[N / 2],          \
                                                const uint32_t (&a)[4],     \
                                                uint64_t b) {               \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
                    "wgmma.mma_async.sync.aligned.m64n" #N                  \
                    "k16.f32.bf16.bf16 {" REGS "}, {%" #A0 ", %" #A1        \
-                   ", %" #A2 ", %" #A3 "}, %" #IB ", p, 1, 1, 1;\n}\n"      \
+                   ", %" #A2 ", %" #A3 "}, %" #IB ", p, 1, 1, " #TB        \
+                   ";\n}\n"                                                \
                    : FN(d)                                                 \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
                      "r"(1));                                              \
     }                                                                      \
   };
-SM90_RS(48, SM90_REGS24, SM90_F24, 24, 25, 26, 27, 28, 29)
-SM90_RS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34, 35, 36, 37)
-SM90_RS(80, SM90_REGS40, SM90_F40, 40, 41, 42, 43, 44, 45)
-SM90_RS(128, SM90_REGS64, SM90_F64, 64, 65, 66, 67, 68, 69)
-SM90_RS(160, SM90_REGS80, SM90_F80, 80, 81, 82, 83, 84, 85)
-SM90_RS(192, SM90_REGS96, SM90_F96, 96, 97, 98, 99, 100, 101)
-SM90_RS(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
+#define SM90_RS_BOTH(...) \
+  SM90_RS(WgmmaRS, 1, __VA_ARGS__) SM90_RS(WgmmaRSk, 0, __VA_ARGS__)
+SM90_RS_BOTH(48, SM90_REGS24, SM90_F24, 24, 25, 26, 27, 28, 29)
+SM90_RS_BOTH(64, SM90_REGS32, SM90_F32_0, 32, 33, 34, 35, 36, 37)
+SM90_RS_BOTH(80, SM90_REGS40, SM90_F40, 40, 41, 42, 43, 44, 45)
+SM90_RS_BOTH(128, SM90_REGS64, SM90_F64, 64, 65, 66, 67, 68, 69)
+SM90_RS_BOTH(160, SM90_REGS80, SM90_F80, 80, 81, 82, 83, 84, 85)
+SM90_RS_BOTH(192, SM90_REGS96, SM90_F96, 96, 97, 98, 99, 100, 101)
+SM90_RS_BOTH(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
 
 // D (64 x N, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x N, shared,
 // MN-major: N along the rows of 64-column blocks, read transposed as
@@ -328,7 +360,9 @@ SM90_SST(256, SM90_REGS128, SM90_F128, 128, 129, 130)
 
 #undef SM90_SS
 #undef SM90_SST
+#undef SM90_SSTT
 #undef SM90_RS
+#undef SM90_RS_BOTH
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps

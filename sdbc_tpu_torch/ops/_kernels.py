@@ -154,10 +154,12 @@ def load():
     lib.sdbc_flash_bwd_dq_wide.restype = i
     lib.sdbc_flash_bwd_dkv_wide.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_bwd_dkv_wide.restype = i
-    lib.sdbc_adam8.argtypes = [p] * 6 + [ll] + [f] * 9 + [p]
-    lib.sdbc_adam8.restype = i
+    lib.sdbc_adam8_leaves.argtypes = [p, i, ll] + [f] * 9 + [p]
+    lib.sdbc_adam8_leaves.restype = i
     lib.sdbc_flash_fwd_tt.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_tt.restype = i
+    lib.sdbc_flash_fwd_tt_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd_tt_sm90.restype = i
     lib.sdbc_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
     lib.sdbc_group_norm.restype = i
     lib.sdbc_flash_int8.argtypes = [p] * 6 + [i] * 6 + [llp, p]
@@ -326,35 +328,50 @@ def flash_bwd_dkv_wide(q, k, v, do, lse, delta, dk, dv,
     launches["flash_bwd_dkv"] += 1
 
 
-def adam8(p, g, mq, ms, vq, vs, lr: float, bc1: float, bc2: float, b1: float,
-          omb1: float, b2: float, omb2: float, eps: float, wd: float) -> None:
-    """Launch the fused 8-bit AdamW step on one leaf, in place.  The caller
-    checks shapes and dtypes (``train.adam8bit``)."""
+def adam8(table, nleaves: int, rows: int, lr: float, bc1: float, bc2: float,
+          b1: float, omb1: float, b2: float, omb2: float, eps: float,
+          wd: float) -> None:
+    """Launch the fused 8-bit AdamW step over every leaf of ``table`` (an
+    int64 tensor on the card, ``train.adam8bit.leaf_table``'s words),
+    ``rows`` global rows, in place.  The caller checks the leaves
+    (``train.adam8bit``)."""
     lib = load()
-    with _device(p):
-        rc = lib.sdbc_adam8(p.data_ptr(), g.data_ptr(), mq.data_ptr(),
-                            ms.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-                            p.numel(), float(lr), float(bc1), float(bc2),
-                            float(b1), float(omb1), float(b2), float(omb2),
-                            float(eps), float(wd), _stream(p))
+    with _device(table):
+        rc = lib.sdbc_adam8_leaves(table.data_ptr(), int(nleaves), int(rows),
+                                   float(lr), float(bc1), float(bc2),
+                                   float(b1), float(omb1), float(b2),
+                                   float(omb2), float(eps), float(wd),
+                                   _stream(table))
     _check(lib, rc, "adam8")
     launches["adam8"] += 1
 
 
 def flash_fwd_tt(q, k, v, o, lse, sk: int, qscale: float) -> None:
-    """Launch the transposed-layout forward on (B, H, D, S) head-dim-major
-    q/k/v/o (contiguous sequence; q, k, v rows 16-byte aligned with a
-    stride that is a multiple of 8, their sequences padded past Sq / ``sk``
-    keys); ``o`` is (B, H, D, Sq) and ``lse`` a contiguous (B, H, Sq) fp32
-    output.  The caller checks shapes and dtypes
-    (``ops.flash_attention_tt``)."""
+    """Launch the transposed-layout forward for head dims up to 256 (the
+    TMA-fed wgmma kernel of ``csrc/flash_fwd_sm90.cu``, its head-dim-major
+    variant) on (B, H, D, S) q/k/v/o (contiguous sequence; every row
+    16-byte aligned with a stride that is a multiple of 8, so q, k, v and o
+    are padded past Sq / ``sk`` in memory); ``o`` is the (B, H, D, Sq) view
+    and ``lse`` a contiguous (B, H, Sq) fp32 output.  The caller checks
+    shapes and dtypes (``ops.flash_attention_tt``)."""
+    _launch_tt("sdbc_flash_fwd_tt_sm90", q, k, v, o, lse, sk, qscale)
+
+
+def flash_fwd_tt_wide(q, k, v, o, lse, sk: int, qscale: float) -> None:
+    """``flash_fwd_tt`` for head dims above 256 (the VAE's 512-wide head):
+    the ``mma.sync`` forward of ``csrc/flash_train.cu``.  Counted as a
+    launch of ``flash_tt``: the same function."""
+    _launch_tt("sdbc_flash_fwd_tt", q, k, v, o, lse, sk, qscale)
+
+
+def _launch_tt(entry: str, q, k, v, o, lse, sk: int, qscale: float) -> None:
     lib = load()
     b, h, d, sq = o.shape
     with _device(q):
-        rc = lib.sdbc_flash_fwd_tt(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   o.data_ptr(), lse.data_ptr(), b, h, sq,
-                                   int(sk), d, _bhs_strides(q, k, v, o),
-                                   float(qscale), _stream(q))
+        rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 o.data_ptr(), lse.data_ptr(), b, h, sq,
+                                 int(sk), d, _bhs_strides(q, k, v, o),
+                                 float(qscale), _stream(q))
     _check(lib, rc, "flash_tt")
     launches["flash_tt"] += 1
 

@@ -7,10 +7,12 @@ scale·log2e in fp32 and rounded once to the input dtype, a running max in
 log2 units, p rounded to v's dtype before the PV product, the natural-log
 LSE = m·ln2 + ln l), from head-dim-major (B·H, D, S) operands built as the
 JAX package's ``to_tt`` builds them, and writes its output the same way;
-the caller gets the (B, H, Sq, D) view of it.  On CUDA that is the K9
-variant of ``csrc/flash_train.cu`` (head dims up to 512); on a CPU tensor
-it is ``flash_attention.flash_attention_ref``, the plain version of the
-same function.  ``_FlashTT``'s backward is the training backward
+the caller gets the (B, H, Sq, D) view of it.  On CUDA that is, for head
+dims up to 256, the head-dim-major variant of K5's TMA-fed wgmma kernel
+(``csrc/flash_fwd_sm90.cu``), and above (up to 512) the K9 variant of
+``csrc/flash_train.cu``'s ``mma.sync`` template; on a CPU tensor it is
+``flash_attention.flash_attention_ref``, the plain version of the same
+function.  ``_FlashTT``'s backward is the training backward
 (``flash_attention_bwd.flash_bwd``) over the unscaled q and the residuals
 in the natural layout.
 """
@@ -36,15 +38,21 @@ def to_tt(x):
 
 def flash_fwd_tt(q, k, v, scale: float):
     """(out (B, H, Sq, D), lse (B, H, Sq) fp32) of the transposed-layout
-    forward: the kernel on CUDA, the plain version on the CPU."""
+    forward: the kernel on CUDA (head dims up to 256 the wgmma kernel of
+    ``csrc/flash_fwd_sm90.cu``, wider ones ``csrc/flash_train.cu``'s), the
+    plain version on the CPU."""
     if fa._on_cpu(q):
         return fa.flash_attention_ref(q, k, v, scale)
     fa._check_train_inputs(q, k, v, max_d=512)
     b, h, sq, d = q.shape
-    ot = torch.empty((b, h, d, sq), dtype=q.dtype, device=q.device)
+    # the output rows padded to a multiple of 8 as well: TMA's 16-byte
+    # row stride; the caller sees the first Sq columns
+    ot = torch.empty((b, h, d, sq + (-sq) % 8), dtype=q.dtype,
+                     device=q.device)[..., :sq]
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _kernels.flash_fwd_tt(to_tt(q), to_tt(k), to_tt(v), ot, lse, k.shape[2],
-                          scale * fa.LOG2E)
+    launch = _kernels.flash_fwd_tt if d <= 256 else _kernels.flash_fwd_tt_wide
+    launch(to_tt(q), to_tt(k), to_tt(v), ot, lse, k.shape[2],
+           scale * fa.LOG2E)
     return ot.transpose(-1, -2), lse
 
 

@@ -123,6 +123,48 @@ def test_flash_fwd_routes_by_head_dim(monkeypatch, d, entry):
     assert qscale == pytest.approx(d ** -0.5 * tflash.LOG2E)
 
 
+@pytest.mark.parametrize("d,entry", [(8, "flash_fwd_tt"), (40, "flash_fwd_tt"),
+                                     (160, "flash_fwd_tt"),
+                                     (256, "flash_fwd_tt"),
+                                     (320, "flash_fwd_tt_wide"),
+                                     (512, "flash_fwd_tt_wide")])
+def test_flash_fwd_tt_routes_by_head_dim(monkeypatch, d, entry):
+    """The transposed-layout forward: head dims up to 256 go to the wgmma
+    kernel's head-dim-major variant, wider ones to the mma.sync template.
+    Both get ``to_tt``'s (B, H, D, S8) copies and the output as the first
+    Sq columns of a (B, H, D, Sq8) buffer (TMA's 16-byte row stride; Sq =
+    140 is no multiple of 8)."""
+    from sdbc_tpu_torch.ops import flash_attention_tt as ttt
+
+    calls = []
+
+    def record(name):
+        def launch(q, k, v, o, lse, sk, qscale):
+            calls.append((name, q, k, v, o, lse, sk, qscale))
+        return launch
+
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    for name in ("flash_fwd_tt", "flash_fwd_tt_wide"):
+        monkeypatch.setattr(_kernels, name, record(name))
+    q = torch.randn(1, 140, 2, d).bfloat16().transpose(1, 2)
+    k = torch.randn(1, 77, 2, d).bfloat16().transpose(1, 2)
+    out, lse = ttt.flash_fwd_tt(q, k, k, d ** -0.5)
+    assert len(calls) == 1
+    name, qt, kt, vt, o, ls, sk, qscale = calls[0]
+    assert name == entry
+    assert qt.shape == (1, 2, d, 144) and kt.shape == vt.shape == (1, 2, d, 80)
+    assert all(t.is_contiguous() for t in (qt, kt, vt))
+    assert torch.equal(qt[..., :140], q.transpose(-1, -2))
+    assert not qt[..., 140:].any() and not kt[..., 77:].any()
+    assert o.shape == (1, 2, d, 140) and o.stride() == (2 * d * 144, d * 144,
+                                                          144, 1)
+    assert o.data_ptr() % 16 == 0
+    assert ls.shape == (1, 2, 140) and ls.dtype == torch.float32
+    assert sk == 77 and qscale == pytest.approx(d ** -0.5 * tflash.LOG2E)
+    assert out.shape == (1, 2, 140, d) and out.data_ptr() == o.data_ptr()
+    assert lse is ls
+
+
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 def test_fixed_cap_hands_the_kernel_projection_layout_views(monkeypatch,
                                                             layout):

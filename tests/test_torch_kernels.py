@@ -479,6 +479,77 @@ def test_adam8_kernel_matches_plain_on_card(hopper, n):
         assert st_k.mq.reshape(-1)[n:].abs().max().item() == 0
 
 
+# the one-launch 8-bit AdamW over a list of leaves: a ragged last row, a
+# stacked leaf whose rows straddle its parts (the text encoder's 12 fc1
+# biases), one whose part length is no multiple of 16 (the kernel's
+# element-by-element path), full rows
+ADAM8_LEAVES = [(1, (2048 * 300 + 7,)), (12, (3072,)), (3, (3000,)),
+                (4, (16384,)), (1, (64, 2048))]
+
+
+def _adam8_leaves(hopper, seed):
+    opt = tadam8.adamw8bit(1e-3, weight_decay=1e-2, min_8bit_size=4096)
+    leaves = [[torch.from_numpy(_rand(seed + 20 * i + j, *shape,
+                                      scale=0.5)).to(hopper)
+               for j in range(parts)]
+              for i, (parts, shape) in enumerate(ADAM8_LEAVES)]
+    return leaves, [opt.leaf_init(leaf) for leaf in leaves]
+
+
+def _adam8_grads(hopper, leaves, seed):
+    return [[torch.from_numpy(_rand(seed + 20 * i + j, *p.shape,
+                                    scale=0.1)).to(hopper)
+             for j, p in enumerate(leaf)] for i, leaf in enumerate(leaves)]
+
+
+def _clone_leaves(leaves, states):
+    return ([[p.clone() for p in leaf] for leaf in leaves],
+            [tadam8.Quant8State(*(x.clone() for x in (st.mq, st.ms, st.vq,
+                                                      st.vs)))
+             for st in states])
+
+
+@pytest.mark.gpu
+def test_adam8_leaves_kernel_matches_plain_on_card(hopper):
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
+    pk, sk = _adam8_leaves(hopper, 200)
+    assert all(isinstance(s, tadam8.Quant8State) for s in sk)
+    pr, sr = _clone_leaves(pk, sk)
+    before = _kernels.launches["adam8"]
+    for step in range(1, 4):
+        g = _adam8_grads(hopper, pk, 300 + 10 * step)
+        tadam8.adam8_update_leaves(list(zip(pk, g, sk)), 1e-3, step, **kw)
+        tadam8.adam8_update_leaves_ref(list(zip(pr, g, sr)), 1e-3, step,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["adam8"] == before + 3  # one launch a step
+    # the K7 limits of chip_smoke.py (fp32 both sides; FMA contraction and
+    # the special-function unit's sqrt and reciprocal)
+    for lk, lr_ in zip(pk, pr):
+        for a, b in zip(lk, lr_):
+            assert (a - b).abs().max().item() < 1e-6
+    for a, b in zip(sk, sr):
+        for x, y in ((a.mq, b.mq), (a.vq, b.vq)):
+            d = (x.int() - y.int()).abs()
+            assert d.max().item() <= 1 and d.float().mean().item() <= 1e-3
+        torch.testing.assert_close(a.ms, b.ms, rtol=1e-5, atol=0)
+        torch.testing.assert_close(a.vs, b.vs, rtol=1e-5, atol=0)
+    n = ADAM8_LEAVES[0][1][0]  # the ragged tail of the last row stays 0
+    assert sk[0].mq.reshape(-1)[n:].abs().max().item() == 0
+
+
+@pytest.mark.gpu
+def test_adam8_leaves_refuses_a_misaligned_part_on_card(hopper):
+    parts, states = _adam8_leaves(hopper, 600)
+    g = _adam8_grads(hopper, parts, 700)
+    parts[1][5] = torch.zeros(3073, device=hopper)[1:]  # 4 bytes off
+    before = _kernels.launches["adam8"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tadam8.adam8_update_leaves(list(zip(parts, g, states)), 1e-3, 1,
+                                   b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
+    assert _kernels.launches["adam8"] == before
+
+
 # the kernels of the switches (csrc/group_norm.cu, the K9 variant of
 # csrc/flash_train.cu, csrc/flash_int8.cu) and the 512-wide forward
 
@@ -538,6 +609,25 @@ def test_flash_tt_kernel_matches_plain_on_card(hopper, qshape, sk):
     assert out.shape == ref.shape and _attn_close(out, ref)
     assert (lse - ref_lse).abs().max().item() < 1e-3
     k5, _ = tflash.flash_fwd(q, k, v, scale)  # the same function
+    assert _attn_close(out, k5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 24, 48, 64, 96, 128, 144, 192, 200, 256])
+def test_flash_tt_sm90_kernel_takes_every_head_dim_on_card(hopper, d):
+    """Each instantiation of the wgmma kernel's head-dim-major variant (the
+    k16 steps of Q.K^T, 16 KS head-dim rows a tile), at ragged q and key
+    counts over several heads: against the plain version and K5."""
+    q, k, v = _bshd_views(hopper, (2, 3, 130, d), 200, 140)
+    scale = d ** -0.5
+    before = _kernels.launches["flash_tt"]
+    out, lse = ttt.flash_fwd_tt(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_tt"] == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert out.shape == ref.shape and _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    k5, _ = tflash.flash_fwd(q, k, v, scale)
     assert _attn_close(out, k5)
 
 
