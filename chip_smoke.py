@@ -23,8 +23,8 @@ Phases, in order; each prints one or more lines, and any failure raises
                   int8-QK attention (also held to 4% of exact attention);
                   the build phase prints the wgmma kernels' registers,
                   spills and SASS op counts (flash forward in both layouts
-                  and backward, GEGLU) and the 8-bit AdamW kernel's
-                  instructions per element;
+                  up to head dim 256 and above, backward, GEGLU) and the
+                  8-bit AdamW kernel's instructions per element;
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
                   like the fixed-cap attention, dq and
@@ -37,11 +37,12 @@ Phases, in order; each prints one or more lines, and any failure raises
                   against the step's bytes bound), the transposed-layout
                   forward at the same cases plus the 77-key
                   cross-attention, the 8² mid block and the VAE's 512-wide
-                  head (also held to the forward's output; up to head dim
-                  256 timed against SDPA's flash forward and the forward in
-                  alternating rounds), and the forward and the whole
-                  backward at the 512-wide head (the backward against
-                  SDPA's in alternating rounds);
+                  head (also held to the forward's output, at 512 bit for
+                  bit; timed against SDPA — its flash forward up to head
+                  dim 256, its default dispatch at 512 — and the forward
+                  in alternating rounds), and the forward and the whole
+                  backward at the 512-wide head (each against SDPA's in
+                  alternating rounds, the backend named);
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -52,6 +53,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   ``SDPipeline.__call__``: a warm-up call, then a timed call
                   whose kernel launch counts must be exactly what the UNet's
                   shape implies;
+   decode       — one VAE decode of a 64² latent under
+                  SDBC_ATTN_IMPL=flash (one K5 launch at the 512-wide
+                  head) against the default decode on the same latent;
 7. profile      — device time by kernel over one UNet evaluation at full
                   width, its wall time (hence the device's idle share), and
                   the wall times of the text encode and the VAE decode;
@@ -226,6 +230,28 @@ def paired_ms(fns, reps: int = 10, rounds: int = 4):
         for i in order:
             got[i].append(median_ms(fns[i], reps))
     return [statistics.median(g) for g in got]
+
+
+def back_to_back_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Card ms per call of ``fn`` issued ``n`` times between two CUDA events
+    (the median over ``reps``): the host enqueues ahead of the card, so its
+    launch path is hidden wherever a call takes the card longer than the
+    host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
 
 
 def host_us(fn, reps: int = 100) -> float:
@@ -496,14 +522,16 @@ def phase_build():
     return sm90_sass(lib)
 
 
-# the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu,
-# csrc/geglu_ff_sm90.cu): each instantiation's mangled name and template
-# arguments
-SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_bwd_dq_sm90_kernel|"
-                r"flash_bwd_dkv_sm90_kernel|geglu_ff_sm90_kernel)ILi(\d+)E"
+# the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_fwd_wide_sm90.cu,
+# csrc/flash_bwd_sm90.cu, csrc/geglu_ff_sm90.cu): each instantiation's
+# mangled name and template arguments
+SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_fwd_wide_sm90_kernel|"
+                r"flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|"
+                r"geglu_ff_sm90_kernel)ILi(\d+)E"
                 r"(?:Li(\d+)E)?((?:Lb[01]E)*)")
-SM90_KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                     "flash_bwd_dkv_sm90_kernel", "geglu_ff_sm90_kernel")
+SM90_KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_sm90_kernel",
+                     "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+                     "geglu_ff_sm90_kernel")
 
 
 def _sm90_name(m) -> str:
@@ -521,9 +549,9 @@ def sm90_sass(lib):
     """Counts, in the built SASS of each wgmma kernel instantiation, the
     wgmma products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and
     mma.sync products (HMMA); fails if one has no HGMMA or no UTMALDG, or
-    any HMMA, or if the transposed-layout forward (K9, ``TT``) was not
-    built.  Returns the 8-bit AdamW kernel's instruction counts
-    (``adam8_sass``)."""
+    any HMMA, or if a transposed-layout forward (K9, ``TT``) was not
+    built, at head dims up to 256 and above.  Returns the 8-bit AdamW
+    kernel's instruction counts (``adam8_sass``)."""
     import re
     import shutil
 
@@ -549,10 +577,12 @@ def sm90_sass(lib):
     for kernel in SM90_KERNEL_NAMES:
         if kernel not in names:
             fail(f"{kernel}: not in the built SASS")
-    if not any(n.startswith("flash_fwd_sm90_kernel<")
-               and n.endswith(", true, true>") for n in found):
-        fail("flash_fwd_sm90_kernel: no transposed-layout (TT) "
-             "instantiation in the built SASS")
+    for kernel, tt in (("flash_fwd_sm90_kernel", ", true, true>"),
+                       ("flash_fwd_wide_sm90_kernel", ", true>")):
+        if not any(n.startswith(kernel + "<") and n.endswith(tt)
+                   for n in found):
+            fail(f"{kernel}: no transposed-layout (TT) instantiation in the "
+                 f"built SASS")
     for name, n in found.items():
         if n["HGMMA"] == 0 or n["UTMALDG"] == 0 or n["HMMA"]:
             fail(f"{name}: SASS counts {n}")
@@ -976,7 +1006,7 @@ def phase_train_kernels(adam8_sass_counts=None):
               flush=True)
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
     rows = [kernel_flash_tt(g)]
-    kernel_flash_fwd_wide(g)
+    wide = kernel_flash_fwd_wide(g)
     kernel_flash_bwd_wide(g)
     for name, source, replaces in (
             ("flash_fwd", "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
@@ -988,11 +1018,13 @@ def phase_train_kernels(adam8_sass_counts=None):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": res[name]["err"],
                      **res[name]["first"]})
-    next(r for r in rows if r["name"] == "flash_fwd")["serves"] = (
+    fwd_row = next(r for r in rows if r["name"] == "flash_fwd")
+    fwd_row["serves"] = (
         "head dims <= 256 (every main-path call): flash_fwd_sm90_kernel in "
         "csrc/flash_fwd_sm90.cu; head dims above 256 (the VAE's 512-wide "
-        "head under SDBC_ATTN_IMPL=flash): flash_fwd_kernel<512, 256> in "
-        "csrc/flash_train.cu")
+        "head under SDBC_ATTN_IMPL=flash): flash_fwd_wide_sm90_kernel<KS1, "
+        "false> in csrc/flash_fwd_wide_sm90.cu")
+    fwd_row["d512"] = wide
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         next(r for r in rows if r["name"] == name)["serves"] = (
             f"head dims <= {fb.SM90_MAX_D} (every main-path call): "
@@ -1200,13 +1232,23 @@ def bwd_launches(q, k, v, o, do, lse, scale: float):
             lambda: _kernels.flash_bwd_dkv(*ins, dk, dv))
 
 
+def sdpa_backend(q, k, v) -> str:
+    """The backend SDPA's default dispatch picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
 def kernel_flash_tt(g):
     """K9 at K5's cases, the 77-key cross-attention and the VAE's 512-wide
     head: against its plain version (output and LSE) and against K5's
-    output on the same inputs; SDPA's flash forward as the library call
-    (SDPA's default dispatch above its flash kernel's 256 head dims).  Up to
-    head dim 256 the call (``to_tt``'s three copies included) is timed
-    against SDPA's flash forward and K5 in alternating rounds."""
+    output on the same inputs (at the 512-wide head bit for bit: one kernel,
+    ``csrc/flash_fwd_wide_sm90.cu``, in two layouts).  The call
+    (``to_tt``'s three copies included) is timed against SDPA and K5 in
+    alternating rounds: SDPA's flash forward up to head dim 256, above it
+    SDPA's default dispatch (its flash kernel stops at 256), whose backend
+    is printed."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1221,7 +1263,7 @@ def kernel_flash_tt(g):
              ("64^2 cross Sk77 d40", 2, 8, 4096, 77, 40),
              ("8^2 mid d160", 2, 8, 64, 64, 160),
              ("VAE 64^2 d512", 1, 1, 4096, 4096, 512)]
-    worst, first = 0.0, None
+    worst, first, wide = 0.0, None, None
     for label, b, h, sq, sk, d in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev)
                    .bfloat16().transpose(1, 2) for s in (sq, sk, sk))
@@ -1234,33 +1276,43 @@ def kernel_flash_tt(g):
         err, tol = attn_err(out, ref)
         lerr = (lse - ref_lse).abs().max().item()
         k5err, k5tol = attn_err(out, k5)
+        same = torch.equal(out, k5)
         if not (torch.isfinite(out).all() and err <= tol and lerr <= LSE_TOL
-                and k5err <= k5tol):
+                and k5err <= k5tol and (same or d <= 256)):
             fail(f"flash_tt {label}: out err {err} (tol {tol}), lse err "
-                 f"{lerr}, vs K5 {k5err} (tol {k5tol})")
+                 f"{lerr}, vs K5 {k5err} (tol {k5tol}, bit for bit {same})")
         pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
         bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,),
                              4.0 * b * h * sq)
         if d <= 256:
             lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
                 q, k, v, scale=scale)
-            ms, lms, k5ms = paired_ms(
-                [kern, lib, lambda: fa.flash_fwd(q, k, v, scale)])
-            timing = (f"kernel {ms:.4f} ms, sdpa-flash {lms:.4f} ms "
-                      f"(kernel/sdpa {ms / lms:.2f}), K5 {k5ms:.4f} ms "
-                      f"(kernel/K5 {ms / k5ms:.2f}), in alternating rounds")
+            lname = "sdpa-flash"
         else:
-            ms = median_ms(kern, 20)
-            lms = median_ms(lambda: sdpa(q, k, v, scale=scale), 20)
-            timing = f"kernel {ms:.4f} ms, sdpa {lms:.4f} ms"
+            lib = lambda: sdpa(q, k, v, scale=scale)
+            lname = f"sdpa ({sdpa_backend(q, k, v)})"
+        ms, lms, k5ms = paired_ms(
+            [kern, lib, lambda: fa.flash_fwd(q, k, v, scale)])
         print(f"[train-kernels] flash_tt {label}: out err {err:.3e} (tol "
-              f"{tol:.3e}) lse err {lerr:.3e} vs K5 {k5err:.3e}; {timing}; "
-              f"plain {pms:.4f} ms bound {bms:.4f} ms ({by}), "
-              f"{100 * bms / ms:.1f}% of the bound", flush=True)
+              f"{tol:.3e}) lse err {lerr:.3e} vs K5 {k5err:.3e} (bit for bit "
+              f"{same}); kernel {ms:.4f} ms, {lname} {lms:.4f} ms "
+              f"(kernel/sdpa {ms / lms:.2f}), K5 {k5ms:.4f} ms (kernel/K5 "
+              f"{ms / k5ms:.2f}), in alternating rounds; plain {pms:.4f} ms "
+              f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of the "
+              f"bound", flush=True)
         worst = max(worst, err, lerr)
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                          library_ms=lms, k5_ms=k5ms)
+        if d > 256:
+            b2b = back_to_back_ms(kern)
+            print(f"[train-kernels] flash_tt {label}: 20 calls back to back "
+                  f"{b2b:.4f} ms a call, {100 * bms / b2b:.1f}% of the bound",
+                  flush=True)
+            wide = dict(ms=ms, library_ms=lms, library=lname, k5_ms=k5ms,
+                        back_to_back_ms=b2b, plain_ms=pms, bound_ms=bms,
+                        bound_by=by, max_abs_err=max(err, lerr),
+                        bit_equal_k5=same)
         del q, k, v, out, ref, k5
     return {"name": "flash_tt", "route": "cuda",
             "source": "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
@@ -1268,13 +1320,18 @@ def kernel_flash_tt(g):
             "serves": "head dims <= 256 (every call of the switches' path "
                       "but the VAE's): flash_fwd_sm90_kernel<DP, KS, true, "
                       "true> in csrc/flash_fwd_sm90.cu; head dims above 256 "
-                      "(the VAE encode's 512-wide head): flash_fwd_kernel<512,"
-                      " 256, true> in csrc/flash_train.cu",
-            "max_abs_err": worst, **first}
+                      "(the VAE encode's 512-wide head): "
+                      "flash_fwd_wide_sm90_kernel<KS1, true> in "
+                      "csrc/flash_fwd_wide_sm90.cu",
+            "max_abs_err": worst, **first, "d512": wide}
 
 
 def kernel_flash_fwd_wide(g):
-    """K5's forward at the VAE's 512-wide head (the ``flash`` override)."""
+    """K5's forward at the VAE's 512-wide head (the ``flash`` override; the
+    kernel of ``csrc/flash_fwd_wide_sm90.cu``): against its plain version,
+    and timed against SDPA's default dispatch (its flash kernel stops at
+    head dim 256; the backend is printed) in alternating rounds.  Returns
+    the numbers for the kernels line."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1290,14 +1347,23 @@ def kernel_flash_fwd_wide(g):
     lerr = (lse - ref_lse).abs().max().item()
     if not (torch.isfinite(out).all() and err <= tol and lerr <= LSE_TOL):
         fail(f"flash_fwd d512: out err {err} (tol {tol}), lse err {lerr}")
-    ms = median_ms(lambda: fa.flash_fwd(q, k, v, scale), 20)
     pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
-    lms = median_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+    backend = sdpa_backend(q, k, v)
+    ms, lms = paired_ms([lambda: fa.flash_fwd(q, k, v, scale),
+                         lambda: sdpa(q, k, v, scale=scale)])
+    b2b = back_to_back_ms(lambda: fa.flash_fwd(q, k, v, scale))
     bms, by = attn_bound(1, 1, 4096, 4096, 512, 2, (4096,) * 3, (4096,),
                          4.0 * 4096)
     print(f"[train-kernels] flash_fwd VAE 64^2 d512: out err {err:.3e} (tol "
-          f"{tol:.3e}) lse err {lerr:.3e} kernel {ms:.4f} ms plain {pms:.4f} "
-          f"ms sdpa {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+          f"{tol:.3e}) lse err {lerr:.3e}; kernel {ms:.4f} ms, sdpa "
+          f"({backend}) {lms:.4f} ms (kernel/sdpa {ms / lms:.2f}) in "
+          f"alternating rounds; 20 calls back to back {b2b:.4f} ms a call; "
+          f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / ms:.1f}% of the bound ({100 * bms / b2b:.1f}% back "
+          f"to back)", flush=True)
+    return dict(ms=ms, library_ms=lms, library=f"sdpa ({backend})",
+                back_to_back_ms=b2b, plain_ms=pms, bound_ms=bms, bound_by=by,
+                max_abs_err=max(err, lerr))
 
 
 def kernel_flash_bwd_wide(g):
@@ -1471,6 +1537,59 @@ def phase_slice(cfg, pipe, smi: str):
     if "jax" in sys.modules:
         fail("jax was imported")
     return counts, secs
+
+
+def phase_decode_flash(pipe):
+    """One VAE decode of a 64² latent under ``SDBC_ATTN_IMPL=flash``: the
+    mid block's 512-wide single head (4096 tokens) through K5's wide kernel
+    (one ``flash_fwd`` launch, nothing else), held to the default decode
+    (plain attention, fp32 logits) on the same latent.  Tolerance: both are
+    bf16 decodes, each about e = max|default - fp32 decode| (the fp32
+    decode of the same weights, measured here) from the exact image, so
+    two such roundings of one decode lie within 2e of each other."""
+    import torch
+
+    from sdbc_tpu_torch.models import vae as vae_mod
+    from sdbc_tpu_torch.ops import _kernels
+
+    vae = pipe.models["vae"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    z = (torch.randn((1, 64, 64, vae.cfg.latent_channels), generator=gen,
+                     device="cuda") / vae.cfg.scaling_factor).bfloat16()
+    none = dict.fromkeys(_kernels.launches, 0)
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        img = vae_mod.decode(vae, z)
+        torch.cuda.synchronize()
+        default_counts = dict(_kernels.launches)
+        with environment(SDBC_ATTN_IMPL="flash"):
+            _kernels.reset_launch_counts()
+            img_flash = vae_mod.decode(vae, z)
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launches)
+            flash_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
+        default_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
+        img32 = vae_mod.decode(copy.deepcopy(vae).float(), z.float())
+    err = (img_flash.float() - img.float()).abs().max().item()
+    e32 = (img.float() - img32).abs().max().item()
+    flash32 = (img_flash.float() - img32).abs().max().item()
+    tol = 2 * e32
+    want = dict(none, flash_fwd=1)
+    print(f"[decode] VAE decode 64^2 latent, SDBC_ATTN_IMPL=flash vs the "
+          f"default decode: max abs diff {err:.3e} (tol {tol:.3e}, twice the "
+          f"default bf16 decode's {e32:.3e} from the fp32 decode; the flash "
+          f"decode's {flash32:.3e}; image range "
+          f"{img32.abs().max().item():.3f}); launches {counts} (default "
+          f"decode {default_counts}); wall {flash_ms:.3f} ms (default "
+          f"{default_ms:.3f} ms)", flush=True)
+    if img_flash.shape != (1, 512, 512, 3) \
+            or not torch.isfinite(img_flash).all() or not err <= tol:
+        fail(f"decode under SDBC_ATTN_IMPL=flash: shape "
+             f"{tuple(img_flash.shape)}, max abs diff {err} (tol {tol})")
+    if counts != want or default_counts != none:
+        fail(f"decode launch counts {counts} (expected {want}), default "
+             f"decode {default_counts} (expected none)")
+    return counts
 
 
 def phase_profile(pipe):
@@ -1805,7 +1924,7 @@ def phase_train_profile(step, state, batch, gen, sps: float,
     top = sorted(events, key=lambda e: -dev_us(e))[:12]
     summary = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count) for e in top]
     ours = {n: round(sum(dev_us(e) for e in events if n in e.key) / 1e3, 3)
-            for n in ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+            for n in ("flash_fwd_sm90_kernel", "flash_fwd_wide_sm90_kernel",
                       "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                       "adam8_leaves_kernel")}
@@ -1842,6 +1961,7 @@ def main() -> int:
     paths = {}
     cfg, pipe = _slice_setup()
     paths["sampling"], _ = phase_slice(cfg, pipe, smi)
+    paths["decode SDBC_ATTN_IMPL=flash"] = phase_decode_flash(pipe)
     phase_profile(pipe)
     paths["sampling SDBC_GN_FUSED=1"] = phase_switches_sampling(cfg, pipe,
                                                                 smi)

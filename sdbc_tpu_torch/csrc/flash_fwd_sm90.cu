@@ -510,23 +510,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 using sm90::View;
 using sm90::make_map;
-
-// A 4-D (S, D, H, B) map of a head-dim-major view (`v.ss`: the stride of a
-// head-dim row, the sequence contiguous) with boxes of 64 positions by
-// `rows` head-dim rows, 128-byte swizzle; rows past D and positions past S
-// read as zeros, stores past them are dropped.
-inline bool make_map_tt(CUtensorMap* map, const View& v, int B, int S, int H,
-                        int D, int rows) {
-  auto bytes = [](long long stride, int size) {
-    return (cuuint64_t)(size == 1 ? 16 : stride * 2);
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)D, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {bytes(v.ss, D), bytes(v.sh, H),
-                                 bytes(v.sb, B)};
-  const cuuint32_t box[4] = {(cuuint32_t)CB, (cuuint32_t)rows, 1, 1};
-  return sm90::make_map_nd(map, v.p, 4, dims, strides, box);
-}
+using sm90::make_map_tt;
 
 template <int DP, int KS, bool ONLINE, bool TT>
 cudaError_t launch(const View& q, const View& k, const View& v, const View& o,

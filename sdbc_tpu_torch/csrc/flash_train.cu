@@ -1,72 +1,42 @@
-// Training flash attention for Hopper (sm_90a), bf16: the forward that
-// emits the log-sum-exp (in two layouts) and the two backward kernels.
+// Training flash attention backward for Hopper (sm_90a), bf16, at head dims
+// above 192 (flash_bwd_sm90.cu takes the rest), up to 512.
 //
 // Replaces the JAX package's Pallas kernels:
-//   flash_fwd_kernel<.., false> <- sdbc_tpu/ops/flash_attention.py    _fwd_kernel    (via _flash_fwd),
-//                                  head dims above 256 only (flash_fwd_sm90.cu
-//                                  takes the rest)
-//   flash_fwd_kernel<.., true>  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via _flash_fwd_tt),
-//                                  head dims above 256 only (flash_fwd_sm90.cu
-//                                  takes the rest)
 //   flash_bwd_dq_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py  _dq_kernel  (via flash_bwd),
 //   flash_bwd_dkv_kernel <- sdbc_tpu/ops/flash_attention_bwd.py  _dkv_kernel (via flash_bwd),
-//                           head dims above 192 only (flash_bwd_sm90.cu
-//                           takes the rest), up to 512
+//                           head dims above 192 only
+// (the forward at head dims above 256 is flash_fwd_wide_sm90.cu's).
 //
-// Math (as the TPU kernels):
-//   forward  q is prescaled by scale*log2e in fp32 and rounded to bf16, so
-//            s = q.k^T is in log2 units; a running row max m and sum l stay
-//            in fp32 registers, the accumulator is rescaled by exp2(m_old -
-//            m_new) per KV tile, p = exp2(s - m) is rounded to bf16 before
-//            the PV product; o = acc / l and the natural-log
-//            lse = m*ln2 + ln(l).  Padded kv columns are -1e30.
-//   backward qs = scale*q and kl = log2e*k, each folded in fp32 and rounded
-//            ONCE to bf16 (on the way into shared memory, exactly as the
-//            plain version rounds them); lse2 = lse*log2e; delta =
-//            rowsum(dO*O) comes from the caller in fp32;
-//            p = exp2(qs.kl^T - lse2), ds0 = bf16(p*(dO.V^T - delta));
-//            dq = (scale/log2e) * sum ds0.kl, dk = sum ds0^T.qs,
-//            dv = sum bf16(p)^T.dO.  Rows past Sq and columns past Sk
-//            contribute nothing (bounds masks set their p to 0).
+// Math (as the TPU kernels): qs = scale*q and kl = log2e*k, each folded in
+// fp32 and rounded ONCE to bf16 (on the way into shared memory, exactly as
+// the plain version rounds them); lse2 = lse*log2e; delta = rowsum(dO*O)
+// comes from the caller in fp32; p = exp2(qs.kl^T - lse2), ds0 =
+// bf16(p*(dO.V^T - delta)); dq = (scale/log2e) * sum ds0.kl, dk = sum
+// ds0^T.qs, dv = sum bf16(p)^T.dO.  Rows past Sq and columns past Sk
+// contribute nothing (bounds masks set their p to 0).
 //
-// The transposed-layout forward (K9, TT = true) is the same function over
-// head-dim-major operands: each (batch, head) slice is D rows with the
-// sequence contiguous, the layout the TPU kernel used to keep the head dim
-// off its 128-wide lane axis; the output is written the same way.  It is a
-// layout variant of the K5 template and adds no math: the V^T tile is
-// already the (DP x 64) B operand of P.V and is copied straight into shared
-// memory, while q and K tiles are transposed on their way in (the staging
-// K5 does for V).  The sequence of a head-dim-major slice must be padded
-// to a multiple of 8 in memory (16-byte loads); the values past S are
-// masked in any case.
-//
-// Head dims above 256 (the VAE's single 512-wide head): the scores need
-// the whole head dim, but a 64 x 512 fp32 accumulator does not fit a
-// block's registers.  Each block then owns one 256-wide slice of the
-// output columns and recomputes the scores for it (DO = 256 of DP = 512;
-// two blocks per q or KV tile); only the forward's first slice writes the
-// LSE.  The backward kernels also stream their non-resident operands in
+// Head dims above 256 (the VAE's single 512-wide head): a 64 x 512 fp32
+// accumulator does not fit a block's registers, so each block owns one
+// 256-wide slice of the gradients' columns (DO = 256 of DP = 512; two
+// blocks per q or KV tile), and streams its non-resident operands in
 // 256-wide column chunks, so that shared memory holds them at DP = 512.
 //
-// What bounds them on the H100: per score element the forward costs
-// 4*D tensor FLOPs and one exp2, the dq kernel 6*D and one exp2, the dkv
-// kernel 8*D and one exp2.  The card gives ~989 TFLOP/s of bf16 tensor
-// math against ~3.9 T exp2/s on its special-function units (16 per SM per
-// clock), so at D = 40 all three are bound by the exponentials and the
-// scalar work around them, at D = 160 by the tensor cores.
+// What bounds them on the H100: per score element the dq kernel costs 6*D
+// tensor FLOPs and one exp2, the dkv kernel 8*D and one exp2; at these
+// head dims the tensor cores (~989 TFLOP/s of bf16) set the bound.
 //
-// Design (FlashAttention-2's register layout, with the running max and the
-// backward products): blocks of 4 warps, each warp owning 16 rows of a
-// 64-row tile; mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with S and P in
-// registers, whose accumulator layout is the next product's A layout.  The
-// head dim is zero-padded to a multiple of 16 in shared memory (40 -> 48);
-// ragged sequence ends are bounds-masked.  Products that contract over the
-// sequence (P.V in the forward, ds0.kl in dq, p^T.dO and ds0^T.qs in dkv)
-// read their B operand from a transposed copy of the tile in shared memory.
-// The dq kernel walks KV tiles for one q tile; the dkv kernel walks q tiles
-// for one KV tile and keeps dk and dv in registers: the two partition the
-// work as the JAX grids do, so no atomics are needed.  wgmma, TMA and
-// overlapping loads with math are later work.
+// Design (FlashAttention-2's register layout with the backward products):
+// blocks of 4 warps, each warp owning 16 rows of a 64-row tile;
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with S and P in registers,
+// whose accumulator layout is the next product's A layout.  The head dim
+// is zero-padded to a multiple of 16 in shared memory; ragged sequence ends
+// are bounds-masked.  Products that contract over the sequence (ds0.kl in
+// dq, p^T.dO and ds0^T.qs in dkv) read their B operand from a transposed
+// copy of the tile in shared memory.  The dq kernel walks KV tiles for one
+// q tile; the dkv kernel walks q tiles for one KV tile and keeps dk and dv
+// in registers: the two partition the work as the JAX grids do, so no
+// atomics are needed.  wgmma, TMA and overlapping loads with math are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,8 +50,6 @@ constexpr int NWARPS = 4;   // 16 rows each
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int BKP = BK + 8; // padded row of a transposed (DP x 64) tile
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float NEG_INF = -1e30f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -153,58 +121,6 @@ __device__ __forceinline__ void transpose_tile(bf16* dst, const bf16* src) {
   }
 }
 
-// Head-dim-major loaders (K9).  `src` is one (batch, head) slice: D rows
-// of row stride `d_stride` (a multiple of 8, 16-byte aligned) with the
-// sequence contiguous; sequence positions >= n are zero-filled.
-__device__ __forceinline__ void mask_tail(uint4& val, int s0, int n) {
-  if (s0 + 8 > n) {
-    bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (s0 + j >= n) e[j] = __float2bfloat16(0.f);
-  }
-}
-
-// Sequence positions [r0, r0 + 64) of a head-dim-major slice, transposed
-// into a (64 x DP) row tile (row stride ld<DP>()), columns >= D zero; with
-// SCALE each value is multiplied in fp32 and rounded once back to bf16.
-template <int DP, bool SCALE>
-__device__ __forceinline__ void load_cols(bf16* dst, const bf16* src,
-                                          long long d_stride, int r0, int n,
-                                          int D, float scale) {
-  for (int i = threadIdx.x; i < DP * 8; i += NTHREADS) {
-    const int d = i >> 3, c8 = i & 7, s0 = r0 + c8 * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (d < D && s0 < n) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)d * d_stride + s0);
-      mask_tail(val, s0, n);
-    }
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      dst[(c8 * 8 + j) * ld<DP>() + d] =
-          SCALE ? __float2bfloat16(__bfloat162float(e[j]) * scale) : e[j];
-  }
-}
-
-// Sequence positions [r0, r0 + 64) of head-dim rows [0, DO) of a
-// head-dim-major slice, as they are: the (DO x 64) transposed tile that
-// p_by_tile reads (row stride BKP); rows >= D zero.
-template <int DO>
-__device__ __forceinline__ void load_vt(bf16* dst, const bf16* src,
-                                        long long d_stride, int r0, int n,
-                                        int D) {
-  for (int i = threadIdx.x; i < DO * 8; i += NTHREADS) {
-    const int d = i >> 3, c8 = i & 7, s0 = r0 + c8 * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (d < D && s0 < n) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)d * d_stride + s0);
-      mask_tail(val, s0, n);
-    }
-    *reinterpret_cast<uint4*>(dst + d * BKP + c8 * 8) = val;
-  }
-}
-
 // S (16 x 64) (+)= A_w (16 x W, from column 0 of a row tile of row stride
 // `lda`) . B^T, with B's 64 rows from a (64 x W) row tile: the shape of
 // every score-like product here, or one W-wide column chunk of it
@@ -271,160 +187,14 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
   }
 }
 
-// store_rows into a head-dim-major slice: column c of row r goes to
-// dst[c * d_stride + r] (two-byte stores).
-template <int DP>
-__device__ __forceinline__ void store_cols(bf16* dst, long long d_stride,
-                                           const float (&acc)[DP / 8][4],
-                                           int r0, int n, int D, int t,
-                                           float mul0, float mul1) {
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (col < D) {
-      bf16* c0 = dst + (long long)col * d_stride;
-      bf16* c1 = c0 + d_stride;
-      if (r0 < n) {
-        c0[r0] = __float2bfloat16(acc[nt][0] * mul0);
-        c1[r0] = __float2bfloat16(acc[nt][1] * mul0);
-      }
-      if (r0 + 8 < n) {
-        c0[r0 + 8] = __float2bfloat16(acc[nt][2] * mul1);
-        c1[r0 + 8] = __float2bfloat16(acc[nt][3] * mul1);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 struct Strides {  // (batch, head, seq) strides in elements
   long long b, h, s;
 };
 
 // ---------------------------------------------------------------------------
-// K5 / K9: forward with the running max, emits out and the natural-log LSE.
-// DP: padded head dim of the scores; DO: output columns per block (DP, or a
-// 256-wide slice of DP = 512); TT: head-dim-major operands and output (the
-// Strides' `s` is then the stride between head-dim rows).
-
-template <int DP, int DO, bool TT>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                 Strides qs_, Strides ks_, Strides vs_, Strides os_,
-                 float qscale) {
-  constexpr int LD = ld<DP>();
-  constexpr int NT = DO / 8;
-  constexpr int NS = DP / DO;  // output slices per q tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vt = Ks + BK * LD;
-  bf16* Vs = Vt + DO * BKP;  // row-major V slice (not used with TT)
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int slice = blockIdx.x % NS, q0 = (blockIdx.x / NS) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int d0 = slice * DO, Dv = min(D - d0, DO);
-  const bf16* qb = q + b * qs_.b + h * qs_.h;
-  const bf16* kb = k + b * ks_.b + h * ks_.h;
-  const bf16* vb = v + b * vs_.b + h * vs_.h;
-
-  if (TT)
-    load_cols<DP, true>(Qs, qb, qs_.s, q0, Sq, D, qscale);
-  else
-    load_rows<DP, true>(Qs, qb, qs_.s, q0, Sq, D, qscale);
-  const bf16* Qw = Qs + warp * 16 * LD;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows g, g + 8
-  float l0 = 0.f, l1 = 0.f;          // this lane's partial row sums
-
-  const int ntiles = (Sk + BK - 1) / BK;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    if (TT) {
-      load_cols<DP, false>(Ks, kb, ks_.s, k0, Sk, D, 1.f);
-      load_vt<DO>(Vt, vb + (long long)d0 * vs_.s, vs_.s, k0, Sk, Dv);
-    } else {
-      load_rows<DP, false>(Ks, kb, ks_.s, k0, Sk, D, 1.f);
-      load_rows<DO, false>(Vs, vb + d0, vs_.s, k0, Sk, Dv, 1.f);
-    }
-    __syncthreads();
-    if (!TT) transpose_tile<DO>(Vt, Vs);
-
-    float s[BK / 8][4];  // log2 units
-    rows_by_chunk<DP>(s, Qw, LD, Ks, false, g, t);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const int col = k0 + nt * 8 + 2 * t;
-      if (col >= Sk) s[nt][0] = s[nt][2] = NEG_INF;
-      if (col + 1 >= Sk) s[nt][1] = s[nt][3] = NEG_INF;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= a0; acc[n][1] *= a0;
-      acc[n][2] *= a1; acc[n][3] *= a1;
-    }
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m0), p1 = exp2f(s[nt][1] - m0);
-      const float p2 = exp2f(s[nt][2] - m1), p3 = exp2f(s[nt][3] - m1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    __syncthreads();  // Vt complete
-    p_by_tile<DO>(acc, pf, Vt, g, t);
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const int row0 = q0 + warp * 16 + g;
-  bf16* ob = o + b * os_.b + h * os_.h;
-  if (TT)
-    store_cols<DO>(ob + (long long)d0 * os_.s, os_.s, acc, row0, Sq, Dv, t,
-                   1.f / l0, 1.f / l1);
-  else
-    store_rows<DO>(ob + d0, os_.s, acc, row0, Sq, Dv, t, 1.f / l0, 1.f / l1);
-  if (t == 0 && slice == 0) {
-    float* lb = lse + ((long long)b * H + h) * Sq;
-    if (row0 < Sq) lb[row0] = m0 * LN2 + logf(l0);
-    if (row0 + 8 < Sq) lb[row0 + 8] = m1 * LN2 + logf(l1);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K6a: dq for one 64-row q tile, streaming K/V tiles.  DO: output columns
-// per block (DP, or a 256-wide slice of DP = 512, two blocks per q tile,
-// as the forward splits its output).  K and V tiles arrive in DO-wide
+// per block (DP, or a 256-wide slice of DP = 512, two blocks per q
+// tile).  K and V tiles arrive in DO-wide
 // column chunks through one buffer (a whole 64 x 512 K and V tile beside
 // the resident q and dO would not fit shared memory); the K chunk of the
 // block's own slice is transposed for ds0.kl.
@@ -624,11 +394,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launchers
 
-template <int DP, int DO, bool TT>
-constexpr size_t fwd_smem() {
-  return ((size_t)BQ * ld<DP>() + (size_t)BK * ld<DP>() + (size_t)DO * BKP
-          + (TT ? 0 : (size_t)BK * ld<DO>())) * sizeof(bf16);
-}
 template <int DP, int DO>
 constexpr size_t dq_smem() {
   return (2 * (size_t)BQ * ld<DP>() + (size_t)BK * ld<DO>()
@@ -647,21 +412,6 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 Strides strides3(const long long* p) { return Strides{p[0], p[1], p[2]}; }
-
-template <int DP, int DO, bool TT>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Sq, int Sk, int D,
-                       const long long* s, float qscale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DP, DO, TT>();
-  cudaError_t err = set_smem(flash_fwd_kernel<DP, DO, TT>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ * (DP / DO), H, B);
-  flash_fwd_kernel<DP, DO, TT><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Sq, Sk, D,
-      strides3(s), strides3(s + 3), strides3(s + 6), strides3(s + 9), qscale);
-  return cudaGetLastError();
-}
 
 template <int DP, int DO>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
@@ -698,57 +448,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The padded head dim: the next of the instantiated widths (a wider zero
-// pad is exact, only slower); 0 for D the kernels do not take.  Both
-// the forward and the backward take D up to 512.
-int padded_dim(int D, int max_d) {
-  if (D <= 0 || D > max_d || D % 8 != 0) return 0;
-  const int dims[] = {16, 32, 48, 64, 80, 128, 160, 256, 512};
-  for (int dp : dims)
-    if (D <= dp) return dp;
-  return 0;
-}
-
-bool bad_shape(int B, int H, int Sq, int Sk, int D, int max_d) {
-  return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || padded_dim(D, max_d) == 0;
+// What the kernels take: D a multiple of 8 in (192, 512].
+bool bad_shape(int B, int H, int Sq, int Sk, int D) {
+  return B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 192 || D > 512
+         || D % 8 != 0;
 }
 
 }  // namespace
-
-// All tensors bf16 with (batch, head, seq) strides in elements (`st`, three
-// per tensor in argument order) and a contiguous head dim; lse and delta are
-// contiguous (B, H, Sq) fp32.  D a multiple of 8, at most 512.  Each
-// returns cudaGetLastError() after its launch.
-//
-// The forward in the natural layout serves only head dims above 256 here
-// (the VAE's 512-wide head); up to 256 it is flash_fwd_sm90.cu's kernel.
-extern "C" int sdbc_flash_fwd_wide(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int H, int Sq, int Sk, int D,
-                                   const long long* st, float qscale,
-                                   void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512) || padded_dim(D, 512) != 512)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd<512, 256, false>(
-      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale,
-      static_cast<cudaStream_t>(stream));
-}
-
-// K9 for head dims above 256 (up to 256 it is flash_fwd_sm90.cu's kernel):
-// the same forward over head-dim-major (batch, head, D, S) operands and
-// output: `st` holds (batch, head, head-dim row) strides, three per tensor;
-// the sequence is contiguous, and the rows of q, k and v are 16-byte
-// aligned with a stride that is a multiple of 8.
-extern "C" int sdbc_flash_fwd_tt(const void* q, const void* k, const void* v,
-                                 void* o, void* lse, int B, int H, int Sq,
-                                 int Sk, int D, const long long* st,
-                                 float qscale, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512) || padded_dim(D, 512) != 512)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd<512, 256, true>(
-      q, k, v, o, static_cast<float*>(lse), B, H, Sq, Sk, D, st, qscale,
-      static_cast<cudaStream_t>(stream));
-}
 
 // The backward for head dims in (192, 512] (up to 192 it is
 // flash_bwd_sm90.cu's kernels; above 256 each block owns one 256-wide
@@ -761,7 +467,7 @@ extern "C" int sdbc_flash_bwd_dq_wide(const void* q, const void* k,
                                       void* dq, int B, int H, int Sq, int Sk,
                                       int D, const long long* st, float scale,
                                       float dq_mul, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512) || D <= 192)
+  if (bad_shape(B, H, Sq, Sk, D))
     return (int)cudaErrorInvalidValue;
 #define SDBC_DQ(DP, DO)                                                     \
   (int)launch_dq<DP, DO>(q, k, v, dout, static_cast<const float*>(lse),     \
@@ -779,7 +485,7 @@ extern "C" int sdbc_flash_bwd_dkv_wide(const void* q, const void* k,
                                        int Sq, int Sk, int D,
                                        const long long* st, float scale,
                                        void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D, 512) || D <= 192)
+  if (bad_shape(B, H, Sq, Sk, D))
     return (int)cudaErrorInvalidValue;
 #define SDBC_DKV(DP, DO)                                                     \
   (int)launch_dkv<DP, DO>(q, k, v, dout, static_cast<const float*>(lse),     \

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads
-// and stores, named barriers, warpgroup register reallocation and the wgmma
-// products with their shared-memory descriptors; on the host, the 4-D
-// tensor maps of (B, S, H, D) views and maps of any rank.  Used by
-// flash_fwd_sm90.cu, flash_bwd_sm90.cu and geglu_ff_sm90.cu.
+// and stores, named barriers, warpgroup register reallocation, cluster
+// barriers and distributed shared memory, and the wgmma products with their
+// shared-memory descriptors; on the host, the 4-D tensor maps of
+// (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
+// flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu and
+// geglu_ff_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -159,6 +161,44 @@ __device__ __forceinline__ void reg_dealloc() {
 }
 
 // ---------------------------------------------------------------------------
+// thread block clusters: the CTA's rank, the cluster-wide barrier and stores
+// into a peer CTA's shared memory (distributed shared memory)
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it, local or remote, are visible
+// after it, and no CTA of the cluster has exited while it waits.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this CTA's shared memory) in the
+// shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_peer_v4(uint32_t addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+__device__ __forceinline__ void st_peer_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+               ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 
 // Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
@@ -294,6 +334,7 @@ struct WgmmaSStt;
                    : "l"(a), "l"(b), "r"(scale_d));                        \
     }                                                                      \
   };
+SM90_SSTT(32, SM90_REGS16, SM90_F16, 16, 17, 18)
 SM90_SSTT(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
 SM90_SSTT(128, SM90_REGS64, SM90_F64, 64, 65, 66)
 
@@ -437,6 +478,24 @@ inline bool make_map_nd(CUtensorMap* map, const void* p, int rank,
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D (S, D, H, B) map of a head-dim-major view (`v.ss`: the stride of a
+// head-dim row, the sequence contiguous) with boxes of `cols` positions by
+// `rows` head-dim rows; rows past D and positions past S read as zeros,
+// stores past them are dropped.
+inline bool make_map_tt(CUtensorMap* map, const View& v, int B, int S, int H,
+                        int D, int rows, int cols = 64,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  auto bytes = [](long long stride, int size) {
+    return (cuuint64_t)(size == 1 ? 16 : stride * 2);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)D, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {bytes(v.ss, D), bytes(v.sh, H),
+                                 bytes(v.sb, B)};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  return make_map_nd(map, v.p, 4, dims, strides, box, swizzle);
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes`, once per device

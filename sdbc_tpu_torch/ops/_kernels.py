@@ -144,8 +144,8 @@ def load():
     llp = ctypes.POINTER(ll)
     lib.sdbc_flash_fwd_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_sm90.restype = i
-    lib.sdbc_flash_fwd_wide.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
-    lib.sdbc_flash_fwd_wide.restype = i
+    lib.sdbc_flash_fwd_wide_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fwd_wide_sm90.restype = i
     lib.sdbc_flash_bwd_dq_sm90.argtypes = [p] * 7 + [i] * 6 + [llp, f, p]
     lib.sdbc_flash_bwd_dq_sm90.restype = i
     lib.sdbc_flash_bwd_dkv_sm90.argtypes = [p] * 8 + [i] * 6 + [llp, p]
@@ -156,8 +156,9 @@ def load():
     lib.sdbc_flash_bwd_dkv_wide.restype = i
     lib.sdbc_adam8_leaves.argtypes = [p, i, ll] + [f] * 9 + [p]
     lib.sdbc_adam8_leaves.restype = i
-    lib.sdbc_flash_fwd_tt.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
-    lib.sdbc_flash_fwd_tt.restype = i
+    lib.sdbc_flash_fwd_tt_wide_sm90.argtypes = ([p] * 5 + [i] * 5
+                                                + [llp, f, p])
+    lib.sdbc_flash_fwd_tt_wide_sm90.restype = i
     lib.sdbc_flash_fwd_tt_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_tt_sm90.restype = i
     lib.sdbc_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
@@ -239,10 +240,11 @@ def flash_fwd(q, k, v, o, lse, qscale: float) -> None:
 
 
 def flash_fwd_wide(q, k, v, o, lse, qscale: float) -> None:
-    """``flash_fwd`` for head dims above 256 (the VAE's 512-wide head): the
-    ``mma.sync`` forward of ``csrc/flash_train.cu``.  Counted as a launch
-    of ``flash_fwd``: the same function."""
-    _launch_fwd("sdbc_flash_fwd_wide", q, k, v, o, lse, qscale)
+    """``flash_fwd`` for head dims in (256, 512] (the VAE's 512-wide head):
+    the TMA-fed wgmma kernel of ``csrc/flash_fwd_wide_sm90.cu``, a cluster
+    of two CTAs per 64-row q tile.  Counted as a launch of ``flash_fwd``:
+    the same function."""
+    _launch_fwd("sdbc_flash_fwd_wide_sm90", q, k, v, o, lse, qscale)
 
 
 def _launch_fwd(entry: str, q, k, v, o, lse, qscale: float) -> None:
@@ -358,10 +360,10 @@ def flash_fwd_tt(q, k, v, o, lse, sk: int, qscale: float) -> None:
 
 
 def flash_fwd_tt_wide(q, k, v, o, lse, sk: int, qscale: float) -> None:
-    """``flash_fwd_tt`` for head dims above 256 (the VAE's 512-wide head):
-    the ``mma.sync`` forward of ``csrc/flash_train.cu``.  Counted as a
-    launch of ``flash_tt``: the same function."""
-    _launch_tt("sdbc_flash_fwd_tt", q, k, v, o, lse, sk, qscale)
+    """``flash_fwd_tt`` for head dims in (256, 512] (the VAE's 512-wide
+    head): the head-dim-major variant of ``csrc/flash_fwd_wide_sm90.cu``'s
+    kernel.  Counted as a launch of ``flash_tt``: the same function."""
+    _launch_tt("sdbc_flash_fwd_tt_wide_sm90", q, k, v, o, lse, sk, qscale)
 
 
 def _launch_tt(entry: str, q, k, v, o, lse, sk: int, qscale: float) -> None:

@@ -8,10 +8,11 @@ accumulation, p rounded to v's dtype before the PV product — emitting the
 output and the natural-log LSE = m·ln2 + ln l.  ``_FlashAttention`` is the
 custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
 ``flash_attention_bwd.flash_bwd``.  On CUDA the forward runs the wgmma
-kernel of ``csrc/flash_fwd_sm90.cu`` (head dims up to 256) or the
-``mma.sync`` one of ``csrc/flash_train.cu`` (above 256), the backward the
-kernels of ``csrc/flash_bwd_sm90.cu`` (up to 192) or ``csrc/flash_train.cu``
-(above); on a CPU tensor they compute the plain versions
+kernel of ``csrc/flash_fwd_sm90.cu`` (head dims up to 256) or that of
+``csrc/flash_fwd_wide_sm90.cu`` (above 256: two consumers split the head
+dim, a cluster of two CTAs the keys), the backward the kernels of
+``csrc/flash_bwd_sm90.cu`` (up to 192) or ``csrc/flash_train.cu`` (above);
+on a CPU tensor they compute the plain versions
 ``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
 
 Both directions take head dims up to 512 (the VAE's single head, which
@@ -222,8 +223,9 @@ def bhsd_empty_like(t):
 
 
 def flash_fwd(q, k, v, scale: float):
-    """(out, lse) of the training forward: the kernel on CUDA, the plain
-    version on the CPU."""
+    """(out, lse) of the training forward: on CUDA the kernel
+    (``_kernels.flash_fwd`` up to head dim 256, ``_kernels.flash_fwd_wide``
+    above), on the CPU the plain version."""
     if _on_cpu(q):
         return flash_attention_ref(q, k, v, scale)
     _check_train_inputs(q, k, v, max_d=512)

@@ -7,10 +7,10 @@ scale·log2e in fp32 and rounded once to the input dtype, a running max in
 log2 units, p rounded to v's dtype before the PV product, the natural-log
 LSE = m·ln2 + ln l), from head-dim-major (B·H, D, S) operands built as the
 JAX package's ``to_tt`` builds them, and writes its output the same way;
-the caller gets the (B, H, Sq, D) view of it.  On CUDA that is, for head
-dims up to 256, the head-dim-major variant of K5's TMA-fed wgmma kernel
-(``csrc/flash_fwd_sm90.cu``), and above (up to 512) the K9 variant of
-``csrc/flash_train.cu``'s ``mma.sync`` template; on a CPU tensor it is
+the caller gets the (B, H, Sq, D) view of it.  On CUDA that is the
+head-dim-major variant of K5's TMA-fed wgmma kernel: for head dims up to
+256 that of ``csrc/flash_fwd_sm90.cu``, above (up to 512) that of
+``csrc/flash_fwd_wide_sm90.cu``; on a CPU tensor it is
 ``flash_attention.flash_attention_ref``, the plain version of the same
 function.  ``_FlashTT``'s backward is the training backward
 (``flash_attention_bwd.flash_bwd``) over the unscaled q and the residuals
@@ -39,8 +39,8 @@ def to_tt(x):
 def flash_fwd_tt(q, k, v, scale: float):
     """(out (B, H, Sq, D), lse (B, H, Sq) fp32) of the transposed-layout
     forward: the kernel on CUDA (head dims up to 256 the wgmma kernel of
-    ``csrc/flash_fwd_sm90.cu``, wider ones ``csrc/flash_train.cu``'s), the
-    plain version on the CPU."""
+    ``csrc/flash_fwd_sm90.cu``, wider ones ``csrc/flash_fwd_wide_sm90.cu``'s),
+    the plain version on the CPU."""
     if fa._on_cpu(q):
         return fa.flash_attention_ref(q, k, v, scale)
     fa._check_train_inputs(q, k, v, max_d=512)

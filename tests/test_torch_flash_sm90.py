@@ -1,8 +1,10 @@
-"""The cases the wgmma flash forward (``csrc/flash_fwd_sm90.cu``) can get
-wrong, held on the CPU: the plain versions of the fixed-cap attention and
-the training forward against the JAX package's Pallas kernels (interpret
-mode, as the JAX package's own tests run them) on the same numpy inputs at
-a ragged key count, and the wrappers' routing to the kernel entry points.
+"""The cases the wgmma flash forwards (``csrc/flash_fwd_sm90.cu``, and
+``csrc/flash_fwd_wide_sm90.cu`` above head dim 256) can get wrong, held on
+the CPU: the plain versions of the fixed-cap attention and the training
+forward against the JAX package's Pallas kernels (interpret mode, as the
+JAX package's own tests run them) on the same numpy inputs at a ragged key
+count and at the wide heads, and the wrappers' routing to the kernel entry
+points.
 The kernel itself meets the same cases on the card in
 ``tests/test_torch_kernels.py``.
 """
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from sdbc_tpu.ops import flash_attention as jflash
+from sdbc_tpu.ops import flash_attention_tt as jtt
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as tflash
 
@@ -95,12 +98,32 @@ def test_training_forward_plain_matches_jax_with_a_late_max():
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=LSE_ATOL)
 
 
+@pytest.mark.parametrize("layout", ["natural", "tt"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_training_forward_plain_matches_jax_at_wide_heads(layout, d):
+    """The head dims of the wide kernel (``csrc/flash_fwd_wide_sm90.cu``,
+    above 256): the plain forward against the JAX package's ``_flash_fwd``
+    and ``_flash_fwd_tt`` (interpret mode, 128-row blocks), 40 q rows over
+    70 keys, two heads."""
+    q, k, v = (_rand(seed, 1, 2, n, d)
+               for seed, n in ((20, 40), (21, 70), (22, 70)))
+    scale = d ** -0.5
+    fwd = jflash._flash_fwd if layout == "natural" else jtt._flash_fwd_tt
+    jout, jlse = fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                     block_q=128, block_kv=128)
+    out, lse = tflash.flash_attention_ref(_t(q), _t(k), _t(v), scale)
+    assert out.shape == (1, 2, 40, d) and lse.shape == (1, 2, 40)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=OUT_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=LSE_ATOL)
+
+
 @pytest.mark.parametrize("d,entry", [(8, "flash_fwd"), (40, "flash_fwd"),
                                      (160, "flash_fwd"), (256, "flash_fwd"),
                                      (512, "flash_fwd_wide")])
 def test_flash_fwd_routes_by_head_dim(monkeypatch, d, entry):
-    """Head dims up to 256 go to the wgmma kernel, wider ones to the
-    mma.sync template; both get the (B, H, S, D) views and an fp32 LSE."""
+    """Head dims up to 256 go to ``csrc/flash_fwd_sm90.cu``'s kernel, wider
+    ones to ``csrc/flash_fwd_wide_sm90.cu``'s; both get the (B, H, S, D)
+    views and an fp32 LSE."""
     calls = []
 
     def record(name):
@@ -129,9 +152,9 @@ def test_flash_fwd_routes_by_head_dim(monkeypatch, d, entry):
                                      (320, "flash_fwd_tt_wide"),
                                      (512, "flash_fwd_tt_wide")])
 def test_flash_fwd_tt_routes_by_head_dim(monkeypatch, d, entry):
-    """The transposed-layout forward: head dims up to 256 go to the wgmma
-    kernel's head-dim-major variant, wider ones to the mma.sync template.
-    Both get ``to_tt``'s (B, H, D, S8) copies and the output as the first
+    """The transposed-layout forward: head dims up to 256 go to the
+    head-dim-major variant of ``csrc/flash_fwd_sm90.cu``'s kernel, wider
+    ones to that of ``csrc/flash_fwd_wide_sm90.cu``'s.  Both get ``to_tt``'s (B, H, D, S8) copies and the output as the first
     Sq columns of a (B, H, D, Sq8) buffer (TMA's 16-byte row stride; Sq =
     140 is no multiple of 8)."""
     from sdbc_tpu_torch.ops import flash_attention_tt as ttt

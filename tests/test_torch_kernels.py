@@ -672,6 +672,69 @@ def test_flash_fwd_kernel_takes_wide_heads_on_card(hopper, qshape, sk):
     _bwd_matches_plain(q, k, v, do, scale)
 
 
+# the wide forward (csrc/flash_fwd_wide_sm90.cu, head dims above 256): each
+# instantiation (consumer 1's 64-column blocks: 1 to 4), ragged q and key
+# counts that leave the second CTA of a pair 72 keys (Sk 200), 13 (Sk 77),
+# none (Sk 64 and 30), several heads over projection-layout strides
+WIDE_D = [264, 320, 448, 512]
+WIDE_SQ_SK = [(130, 200), (100, 77), (70, 64), (64, 30)]
+
+
+def _wide_fwd(layout):
+    return ((tflash.flash_fwd, "flash_fwd") if layout == "natural"
+            else (ttt.flash_fwd_tt, "flash_tt"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["natural", "tt"])
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("sq,sk", WIDE_SQ_SK)
+def test_flash_fwd_wide_kernel_matches_plain_on_card(hopper, layout, d, sq,
+                                                     sk):
+    q, k, v = _bshd_views(hopper, (2, 3, sq, d), sk, 150)
+    scale = d ** -0.5
+    fwd, name = _wide_fwd(layout)
+    before = _kernels.launches[name]
+    out, lse = fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches[name] == before + 1
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert out.shape == ref.shape and _attn_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((1, 1, 4096, 512), 4096),
+                                       ((2, 3, 130, 512), 77),
+                                       ((1, 2, 70, 320), 64)])
+def test_flash_fwd_wide_tt_equals_natural_on_card(hopper, qshape, sk):
+    """K9's output and LSE equal K5's bit for bit at the wide heads: the two
+    layouts differ only in the operands' majors."""
+    q, k, v = _bshd_views(hopper, qshape, sk, 160)
+    scale = qshape[-1] ** -0.5
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    out_tt, lse_tt = ttt.flash_fwd_tt(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out_tt, out) and torch.equal(lse_tt, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["natural", "tt"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_fwd_wide_one_key_is_exact_on_card(hopper, layout, d):
+    """One key: p = 1 and l = 1, so every output row is v's row exactly and
+    the LSE is the logit; the second CTA of each pair has no keys, and its
+    (m = -1e30, l = 0, O = 0) must leave the result untouched."""
+    q, k, v = _bshd_views(hopper, (1, 2, 130, d), 1, 170)
+    scale = d ** -0.5
+    fwd, _ = _wide_fwd(layout)
+    out, lse = fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v.expand_as(out))
+    _, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("qshape,sk", [((1, 1, 256, 512), 256),
                                        ((1, 2, 130, 512), 200),
