@@ -95,6 +95,7 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -268,6 +269,29 @@ def host_us(fn, reps: int = 100) -> float:
     secs = time.perf_counter() - t0
     torch.cuda.synchronize()
     return secs / reps * 1e6
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Card ms per call of ``fn`` spent in kernels whose name holds
+    ``kernel``: their device time over ``n`` calls in a ``torch.profiler``
+    trace (CUPTI's kernel records), over ``n``; fails if the trace has no
+    such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(us) != n:
+        fail(f"device_ms: {len(us)} {kernel} kernels in the trace of {n} "
+             f"calls")
+    return sum(us) / n / 1e3
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -499,7 +523,8 @@ def phase_device():
 
 def phase_build():
     """Builds the kernels and checks their registers and SASS; returns the
-    8-bit AdamW kernel's instruction counts (``adam8_sass``)."""
+    8-bit AdamW kernel's instruction counts (``adam8_sass``) and the fused
+    GroupNorm's build report (``gn_build``)."""
     from sdbc_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -519,7 +544,105 @@ def phase_build():
           f"{len(spills)} spilling {spills[:4]}", flush=True)
     for name, info in sm90_ptxas(lines).items():
         print(f"[build] {name}: {info}", flush=True)
-    return sm90_sass(lib)
+    sass = sass_text(lib)
+    return {"adam8": sm90_sass(sass), "gn": gn_build(lines, sass)}
+
+
+def sass_text(lib):
+    """``cuobjdump -sass`` of the built library (None without cuobjdump)."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
+                                                     "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("[build] SASS: cuobjdump not found, not checked", flush=True)
+        return None
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+# the fused GroupNorm's instantiations gn_cluster_kernel<T, W, SILU>
+GN_KERNEL = r"gn_cluster_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E"
+# K8's shapes: the UNet's GroupNorm inputs of sampling batch 8, one ragged
+# case (label, shape, groups, eps, act)
+GN_CASES = [("64^2x320 silu", (8, 64, 64, 320), 32, 1e-5, "silu"),
+            ("32^2x640 silu", (8, 32, 32, 640), 32, 1e-5, "silu"),
+            ("16^2x1280 silu", (8, 16, 16, 1280), 32, 1e-5, "silu"),
+            ("8^2x1280 silu", (8, 8, 8, 1280), 32, 1e-5, "silu"),
+            ("64^2x320 no act", (8, 64, 64, 320), 32, 1e-6, None),
+            ("ragged 200 rows x96", (2, 200, 96), 32, 1e-5, "silu")]
+
+
+def _gn_name(m) -> str:
+    t = "bf16" if m.group(1).startswith("13") else "float"
+    return (f"gn_cluster_kernel<{t}, {m.group(2)}, "
+            f"{'true' if m.group(3) == '1' else 'false'}>")
+
+
+def gn_build(lines, sass):
+    """The fused GroupNorm's build report: ptxas's registers, spills and
+    static shared memory per instantiation; in its SASS the bulk copies
+    (UBLKCP) and any reduction or atomic (RED, ATOM*), failing on a float
+    one or on a 16-byte instantiation without bulk copies; the card's
+    ``cudaOccupancyMaxActiveClusters`` for clusters of 1 to 16 CTAs at the
+    full 512 threads and 227 KB; and the plan ``pallas_groupnorm.plan``
+    chooses at each of K8's shapes."""
+    import re
+
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.ops import pallas_groupnorm as pgn
+
+    ptxas, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(GN_KERNEL, ln)
+            cur = _gn_name(m) if m else None
+        elif cur and ("registers" in ln or "spill" in ln):
+            ptxas.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
+    ptxas = {k: "; ".join(v) for k, v in ptxas.items()}
+    counts = {}
+    for part in (sass or "").split("Function : ")[1:]:
+        m = re.match(r"\S*?" + GN_KERNEL, part)
+        if m:
+            atom = re.findall(r"\b(?:RED|ATOM|ATOMS|ATOMG)\.[\w.]*", part)
+            counts[_gn_name(m)] = dict(
+                UBLKCP=len(re.findall(r"\bUBLKCP\b", part)),
+                RED_ATOM=len(atom),
+                float_RED_ATOM=sum(bool(re.search(r"\.F(16|32|64)\b", a))
+                                   for a in atom))
+    print(f"[build] gn_cluster_kernel ptxas: {ptxas}", flush=True)
+    print(f"[build] gn_cluster_kernel SASS (UBLKCP, RED/ATOM, float "
+          f"RED/ATOM): {counts or 'not checked'}", flush=True)
+    if sass is not None:
+        if len(counts) != 8:
+            fail(f"gn_cluster_kernel: {len(counts)} of 8 instantiations in "
+                 f"the built SASS")
+        for name, n in counts.items():
+            vec = ", 8," in name or ", 4," in name
+            if n["float_RED_ATOM"] or (vec and n["UBLKCP"] == 0):
+                fail(f"{name}: SASS counts {n}")
+    occ = [_kernels.group_norm_max_clusters(torch.bfloat16, True, True, cs,
+                                            pgn.MAX_THREADS, pgn.SMEM_MAX)
+           for cs in range(1, 17)]
+    plans = {}
+    for label, shape, groups, _, act in GN_CASES:
+        n, c = shape[0], shape[-1]
+        hw = math.prod(shape[1:-1])
+        p = pgn._card_plan(n, hw, c, torch.bfloat16, groups, True,
+                           act == "silu", torch.cuda.current_device())
+        plans[label] = dict(cluster=p.cluster, threads=p.threads, lanes=p.lanes, cv=p.cv,
+                            resident=p.resident, rows=p.rows_max,
+                            smem=p.smem, waves=p.waves)
+    print(f"[build] gn_cluster_kernel max active clusters of 1..16 CTAs "
+          f"(bf16, SiLU, {pgn.MAX_THREADS} threads, {pgn.SMEM_MAX} B of "
+          f"shared memory): {occ} (16 CTAs: {occ[15]}, 8 CTAs: {occ[7]}); "
+          f"plans (bf16) {plans}", flush=True)
+    return {"ptxas": ptxas, "sass": counts, "max_clusters": occ,
+            "plans": plans}
 
 
 # the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_fwd_wide_sm90.cu,
@@ -545,27 +668,19 @@ def _sm90_name(m) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def sm90_sass(lib):
-    """Counts, in the built SASS of each wgmma kernel instantiation, the
-    wgmma products (HGMMA), TMA loads and stores (UTMALDG, UTMASTG) and
-    mma.sync products (HMMA); fails if one has no HGMMA or no UTMALDG, or
-    any HMMA, or if a transposed-layout forward (K9, ``TT``) was not
-    built, at head dims up to 256 and above.  Returns the 8-bit AdamW
-    kernel's instruction counts (``adam8_sass``)."""
+def sm90_sass(sass):
+    """Counts, in the built SASS (``sass_text``) of each wgmma kernel
+    instantiation, the wgmma products (HGMMA), TMA loads and stores
+    (UTMALDG, UTMASTG) and mma.sync products (HMMA); fails if one has no
+    HGMMA or no UTMALDG, or any HMMA, or if a transposed-layout forward
+    (K9, ``TT``) was not built, at head dims up to 256 and above.  Returns
+    the 8-bit AdamW kernel's instruction counts (``adam8_sass``)."""
     import re
-    import shutil
 
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
-                                                     "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        print("[build] SASS: cuobjdump not found, not checked", flush=True)
-        return
-    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=300)
+    if sass is None:
+        return None
     found = {}
-    for part in res.stdout.split("Function : ")[1:]:
+    for part in sass.split("Function : ")[1:]:
         m = re.match(r"\S*?" + SM90_KERNELS, part)
         if m:
             found[_sm90_name(m)] = {
@@ -586,7 +701,7 @@ def sm90_sass(lib):
     for name, n in found.items():
         if n["HGMMA"] == 0 or n["UTMALDG"] == 0 or n["HMMA"]:
             fail(f"{name}: SASS counts {n}")
-    return adam8_sass(res.stdout)
+    return adam8_sass(sass)
 
 
 def adam8_sass(sass: str) -> dict:
@@ -647,7 +762,7 @@ def sm90_ptxas(lines):
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def phase_kernels():
+def phase_kernels(gn_build_report=None):
     import torch
 
     from sdbc_tpu_torch.ops import flash_attention as fa
@@ -755,72 +870,126 @@ def phase_kernels():
                  "source": "sdbc_tpu_torch/csrc/geglu_ff_sm90.cu",
                  "replaces": "sdbc_tpu/ops/geglu_ff.py:98",
                  "max_abs_err": geglu_err, **first, "shapes": shapes})
-    return rows + [kernel_group_norm(g), kernel_int8(g)]
+    return rows + [kernel_group_norm(g, gn_build_report), kernel_int8(g)]
 
 
-def kernel_group_norm(g):
+def kernel_group_norm(g, build_report=None):
     """K8 at the UNet's GroupNorm inputs of sampling batch 8, and a ragged
-    case, against its plain version; the library call is F.group_norm
-    followed by F.silu (two calls) on the same bf16 input."""
+    case, against its plain version (every element within GN_REL_TOL·|ref|
+    + GN_ABS_TOL, two calls bit for bit equal).  Scale and bias in bf16, as
+    the bf16 UNet hands them.  Timed in alternating rounds against the
+    library (F.group_norm then F.silu on the NHWC input as a channels-last
+    view, and on a contiguous NCHW copy), back to back (the host's path
+    hidden), and the call's host µs; at the largest shape also with the
+    plan forced to clusters of 16 and of 8 CTAs, back to back."""
     import torch
     import torch.nn.functional as F
 
+    from sdbc_tpu_torch.ops import _kernels
     from sdbc_tpu_torch.ops import pallas_groupnorm as pgn
 
     dev = torch.device("cuda")
-    cases = [("64^2x320 silu", (8, 64, 64, 320), 32, 1e-5, "silu"),
-             ("32^2x640 silu", (8, 32, 32, 640), 32, 1e-5, "silu"),
-             ("16^2x1280 silu", (8, 16, 16, 1280), 32, 1e-5, "silu"),
-             ("8^2x1280 silu", (8, 8, 8, 1280), 32, 1e-5, "silu"),
-             ("64^2x320 no act", (8, 64, 64, 320), 32, 1e-6, None),
-             ("ragged 200 rows x96", (2, 200, 96), 32, 1e-5, "silu")]
-    worst, first = 0.0, None
-    for label, shape, groups, eps, act in cases:
+    worst, first, shapes, clusters = 0.0, None, [], {}
+    for label, shape, groups, eps, act in GN_CASES:
         c = shape[-1]
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).bfloat16()
-        w = torch.randn(c, generator=g, device=dev) * 0.3 + 1.0
-        b = torch.randn(c, generator=g, device=dev) * 0.2
+        w = (torch.randn(c, generator=g, device=dev) * 0.3 + 1.0).bfloat16()
+        b = (torch.randn(c, generator=g, device=dev) * 0.2).bfloat16()
         kern = lambda: pgn.fused_group_norm(x, w, b, groups, eps, act)
         plain = lambda: pgn.group_norm_fused_ref(x.float(), w, b, groups, eps,
                                                  act)
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
-        err = (out.float() - ref).abs()
-        if not (torch.isfinite(out).all()
-                and (err <= GN_REL_TOL * ref.abs() + GN_ABS_TOL).all()):
-            fail(f"gn_fused {label}: max abs err {err.max().item()}")
-        err = err.max().item()
+
+        def check(y, what):
+            err = (y.float() - ref).abs()
+            if not (torch.isfinite(y).all()
+                    and (err <= GN_REL_TOL * ref.abs() + GN_ABS_TOL).all()):
+                fail(f"gn_fused {label}{what}: max abs err "
+                     f"{err.max().item()}")
+            return err.max().item()
+        err = check(out, "")
+        if not torch.equal(out.view(torch.int16), kern().view(torch.int16)):
+            fail(f"gn_fused {label}: two calls differ")
         # the library on the same NHWC tensor as an (N, C, H, W) view in
         # channels-last layout (whatever layout work it does is in its
         # time), and on a contiguous NCHW copy, its own layout
-        wb, bb = w.bfloat16(), b.bfloat16()
         xcl = x.movedim(-1, 1)
         xnchw = xcl.contiguous()
 
         def library(xv):
             if act == "silu":
-                return lambda: F.silu(F.group_norm(xv, groups, wb, bb, eps))
-            return lambda: F.group_norm(xv, groups, wb, bb, eps)
-        ms, pms = median_ms(kern, 20), median_ms(plain, 10)
-        lms, nchw_ms = median_ms(library(xcl), 20), \
-            median_ms(library(xnchw), 20)
-        # x read and y written once (bf16), scale and bias read (fp32)
-        bms, by = bound(4.0 * x.numel() + 8.0 * c, fp32_ops=6.0 * x.numel())
+                return lambda: F.silu(F.group_norm(xv, groups, w, b, eps))
+            return lambda: F.group_norm(xv, groups, w, b, eps)
+        pms = median_ms(plain, 10)
+        ms, lms, nchw_ms = paired_ms([kern, library(xcl), library(xnchw)],
+                                     reps=20)
+        b2b, hus = back_to_back_ms(kern), host_us(kern)
+        dms = device_ms(kern, "gn_cluster_kernel")
+        # x read and y written once (bf16), scale and bias read (bf16)
+        bms, by = bound(4.0 * x.numel() + 4.0 * c, fp32_ops=6.0 * x.numel())
+        n = shape[0]
+        p = pgn._card_plan(n, x.numel() // (n * c), c, x.dtype, groups, True,
+                           act == "silu", x.device.index)
         print(f"[kernels] gn_fused {label}: max_abs_err {err:.3e} kernel "
-              f"{ms:.4f} ms plain {pms:.4f} ms F.group_norm"
+              f"{ms:.4f} ms (back to back {b2b:.4f} ms, host {hus:.1f} us a "
+              f"call, on the card {dms:.4f} ms a call) plain {pms:.4f} ms F.group_norm"
               f"{'+F.silu' if act else ''} {lms:.4f} ms (channels-last "
-              f"view; on a contiguous NCHW copy {nchw_ms:.4f} ms) bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"view; on a contiguous NCHW copy {nchw_ms:.4f} ms; kernel/"
+              f"library {ms / lms:.2f}) bound {bms:.4f} ms ({by}), "
+              f"{100 * bms / ms:.1f}% of the bound ({100 * bms / b2b:.1f}% "
+              f"back to back, {100 * bms / dms:.1f}% on the card); plan "
+              f"cluster {p.cluster} threads {p.threads} "
+              f"resident {p.resident}/{p.rows_max} rows smem {p.smem} B "
+              f"waves {p.waves}", flush=True)
         worst = max(worst, err)
+        shapes.append(dict(label=label, ms=ms, back_to_back_ms=b2b,
+                           host_us=hus, device_ms=dms, library_ms=lms,
+                           nchw_ms=nchw_ms,
+                           plain_ms=pms, bound_ms=bms,
+                           bound_share=bms / ms, b2b_bound_share=bms / b2b,
+                           cluster=p.cluster, resident=p.resident, rows=p.rows_max,
+                           waves=p.waves))
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         library_ms=lms)
+                         library_ms=lms, back_to_back_ms=b2b, host_us=hus,
+                         device_ms=dms)
+            # the cluster size the plan weighs: 16 and 8 CTAs a sample
+            y3 = torch.empty_like(x)
+            occ = pgn.card_occupancy(x.dtype, True, act == "silu",
+                                     x.device.index)
+            for cs in sorted({16, 9, 8, p.cluster}, reverse=True):
+                q = pgn.plan(n, p.hw, c, x.dtype, groups,
+                             lambda k, t, m, cs=cs: occ(k, t, m)
+                             if k == cs else 0)
+                launch = _kernels.group_norm_launch(
+                    n, p.hw, c, groups, q, eps, act == "silu", x.dtype,
+                    w.dtype, b.dtype)
+                run = lambda: _kernels.group_norm(x, w, b, y3, launch)
+                run()
+                torch.cuda.synchronize()
+                check(y3, f" at cluster {cs}")
+                held = occ(cs, q.threads, q.smem)
+                clusters[cs] = dict(
+                    back_to_back_ms=back_to_back_ms(run),
+                    device_ms=device_ms(run, "gn_cluster_kernel"),
+                    max_clusters=held, resident=q.resident, rows=q.rows_max,
+                    smem=q.smem)
+            print(f"[kernels] gn_fused {label} by cluster size (card ms a "
+                  f"call from the profiler, back to back ms, clusters the "
+                  f"card holds at once, resident/rows a CTA): " + "; ".join(
+                      f"{cs}: {v['device_ms']:.4f} ms, "
+                      f"{v['back_to_back_ms']:.4f} ms, {v['max_clusters']}, "
+                      f"{v['resident']}/{v['rows']}"
+                      for cs, v in clusters.items()), flush=True)
+            del y3
         del x, out, ref, xnchw
     return {"name": "gn_fused", "route": "cuda",
-            "source": "sdbc_tpu_torch/csrc/group_norm.cu",
+            "source": "sdbc_tpu_torch/csrc/group_norm_sm90.cu",
             "replaces": "sdbc_tpu/ops/pallas_groupnorm.py:79",
-            "max_abs_err": worst, **first}
+            "max_abs_err": worst, **first, "shapes": shapes,
+            "clusters": clusters, "build": build_report}
 
 
 def kernel_int8(g):
@@ -1953,8 +2122,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     smi = phase_device()
-    sass = phase_build()
-    rows = phase_kernels() + phase_train_kernels(sass)
+    build = phase_build()
+    rows = phase_kernels(build["gn"]) + phase_train_kernels(build["adam8"])
     phase_parity()
     # launch counts of each full-width path, from its own run (the counts
     # set to 0 just before it, read just after)

@@ -3,8 +3,8 @@
 // barriers and distributed shared memory, and the wgmma products with their
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
-// flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu and
-// geglu_ff_sm90.cu.
+// flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu,
+// geglu_ff_sm90.cu and group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -178,6 +178,16 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// The two halves of cluster_sync: a relaxed arrival (no memory ordering:
+// only "this CTA has started") and the wait for every CTA's arrival.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // The shared::cluster address of `p` (in this CTA's shared memory) in the
 // shared memory of the cluster's CTA `rank`.
 __device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
@@ -191,6 +201,11 @@ __device__ __forceinline__ void st_peer_v4(uint32_t addr, float a, float b,
                                            float c, float d) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
                ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+__device__ __forceinline__ void st_peer_f32(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a)
+               : "memory");
 }
 
 __device__ __forceinline__ void st_peer_v2(uint32_t addr, float a, float b) {

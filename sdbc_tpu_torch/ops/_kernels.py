@@ -161,8 +161,12 @@ def load():
     lib.sdbc_flash_fwd_tt_wide_sm90.restype = i
     lib.sdbc_flash_fwd_tt_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_tt_sm90.restype = i
-    lib.sdbc_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
+    lib.sdbc_group_norm.argtypes = [p] * 4 + [
+        ctypes.POINTER(GroupNormLaunch), p]
     lib.sdbc_group_norm.restype = i
+    lib.sdbc_group_norm_max_clusters.argtypes = [i] * 6 + [
+        ctypes.POINTER(i)]
+    lib.sdbc_group_norm_max_clusters.restype = i
     lib.sdbc_flash_int8.argtypes = [p] * 6 + [i] * 6 + [llp, p]
     lib.sdbc_flash_int8.restype = i
     lib.sdbc_error_string.argtypes = [i]
@@ -378,23 +382,62 @@ def _launch_tt(entry: str, q, k, v, o, lse, sk: int, qscale: float) -> None:
     launches["flash_tt"] += 1
 
 
-def group_norm(x, scale, bias, y, part, ab, num_groups: int, chunk: int,
-               eps: float, silu: bool) -> None:
-    """Launch the fused GroupNorm(+SiLU) over contiguous (N, HW, C) ``x``
-    and ``y`` (bf16 or fp32); fp32 ``scale``/``bias`` (C,), scratch
-    ``part`` (N, ceil(HW / chunk), 2, C) and ``ab`` (N, 2, C) fp32.  The
-    caller checks shapes and dtypes (``ops.pallas_groupnorm``)."""
-    lib = load()
-    n, hw, c = x.shape
-    dtype = {torch.bfloat16: 0, torch.float32: 1}[x.dtype]
-    with _device(x):
+_GN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+class GroupNormLaunch(ctypes.Structure):
+    """One fused-GroupNorm call's layout as ``sdbc_group_norm`` reads it
+    (``struct GnLaunch`` of ``csrc/group_norm_sm90.cu``): built once per
+    shape by ``group_norm_launch`` and kept by the caller."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n", "hw", "c", "groups", "cluster", "threads", "lanes", "cv",
+        "resident", "vec", "silu", "dtype", "sdtype", "bdtype")] \
+        + [("eps", ctypes.c_float)]
+
+
+def group_norm_launch(n: int, hw: int, c: int, groups: int, plan,
+                      eps: float, silu: bool, dtype, sdtype,
+                      bdtype) -> GroupNormLaunch:
+    """The layout of a call over (n, hw, c) in ``dtype`` with scale and
+    bias in ``sdtype`` / ``bdtype``, as ``plan`` (``ops.pallas_groupnorm.
+    plan``) lays it out."""
+    return GroupNormLaunch(
+        n, hw, c, groups, plan.cluster, plan.threads, plan.lanes, plan.cv,
+        plan.resident, int(plan.vec > 1), int(silu),
+        _GN_DTYPES[dtype], _GN_DTYPES[sdtype], _GN_DTYPES[bdtype], eps)
+
+
+def group_norm(x, scale, bias, y, launch: GroupNormLaunch) -> None:
+    """Launch the fused GroupNorm(+SiLU) (``csrc/group_norm_sm90.cu``) over
+    contiguous ``x`` and ``y`` (bf16 or fp32, (n, ..., c)), ``scale`` and
+    ``bias`` (c,) in bf16 or fp32, laid out as ``launch`` says: one launch,
+    one thread-block cluster per sample.  The caller checks shapes and
+    dtypes (``ops.pallas_groupnorm``)."""
+    lib = _lib or load()
+    dev = x.get_device()
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         rc = lib.sdbc_group_norm(x.data_ptr(), scale.data_ptr(),
-                                 bias.data_ptr(), y.data_ptr(),
-                                 part.data_ptr(), ab.data_ptr(), n, hw, c,
-                                 int(num_groups), int(chunk), float(eps),
-                                 int(silu), dtype, _stream(x))
+                                 bias.data_ptr(), y.data_ptr(), launch,
+                                 torch._C._cuda_getCurrentRawStream(dev))
     _check(lib, rc, "gn_fused")
     launches["gn_fused"] += 1
+
+
+def group_norm_max_clusters(dtype, vec: bool, silu: bool, cluster: int,
+                            threads: int, smem: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the GroupNorm kernel's
+    instantiation for (x ``dtype``, 16-byte path, SiLU) on the current card:
+    how many clusters of ``cluster`` CTAs of ``threads`` threads and
+    ``smem`` bytes of dynamic shared memory it holds at once."""
+    lib = load()
+    out = ctypes.c_int(0)
+    rc = lib.sdbc_group_norm_max_clusters(_GN_DTYPES[dtype], int(vec),
+                                          int(silu), cluster, threads, smem,
+                                          ctypes.byref(out))
+    _check(lib, rc, "gn_fused occupancy")
+    return out.value
 
 
 def flash_fixed_int8(qi, qs, ki, ks, v, o) -> None:

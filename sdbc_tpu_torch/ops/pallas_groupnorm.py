@@ -14,21 +14,34 @@ s1/count and var = max(s2/count − mean², 0) with count = rows·C/G,
 inv = rsqrt(var + eps); per channel a = inv·scale and b = bias − mean·a;
 y = x·a + b, SiLU if asked, cast back to x's dtype.
 
-On CUDA the forward is the kernel of ``csrc/group_norm.cu``; on a CPU tensor
-it is ``group_norm_fused_ref``.  The gradient recomputes through
+On CUDA the forward is one launch of the kernel of
+``csrc/group_norm_sm90.cu``: one thread-block cluster per sample, the
+sample's rows split over its CTAs and held in their shared memory between
+the statistics and the normalisation, the statistics reduced over
+distributed shared memory.  ``plan`` lays a call out (cluster size, threads,
+resident rows) from the card's cluster occupancy.  On a CPU tensor the
+forward is ``group_norm_fused_ref``.  The gradient recomputes through
 ``group_norm_fused_ref`` under autograd, as the JAX package's custom VJP
 does through its reference (it has no backward kernel either).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
 from sdbc_tpu_torch.ops import _kernels
 
 VMEM_BYTES_LIMIT = 6 * 1024 * 1024  # the JAX rule's per-sample fp32 budget
-CHUNK_ROWS = 64  # rows per block of the kernel's statistics and apply passes
+# the kernel's limits (csrc/group_norm_sm90.cu)
+SMEM_MAX = 232448  # dynamic shared memory a block may use (227 KB)
+MAX_THREADS = 512
+MAX_CLUSTER = 16  # the non-portable cluster size
+HEAD_BYTES = 128  # the mbarrier
+# a sample is spread over no more CTAs than leave each this many bytes
+MIN_CTA_BYTES = 8192
 
 
 def _on_cuda(x) -> bool:
@@ -68,24 +81,178 @@ def group_norm_fused_ref(x, weight, bias, num_groups: int, eps: float,
     return y.to(x.dtype).reshape(x.shape)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """How one call lays out on the card: one cluster of ``cluster`` CTAs
+    per sample, CTA r taking rows [r·hw/cluster, (r+1)·hw/cluster); in each,
+    ``threads`` threads of which ``lanes`` × ``cv`` own (row lane, vector
+    column) items of ``vec`` channels (16 bytes, or 1 channel); the first
+    ``resident`` rows of a CTA's slab held in shared memory (one bulk copy
+    on the 16-byte path); ``smem`` bytes of dynamic shared memory;
+    ``waves`` rounds of clusters a batch takes (1 when the card holds them
+    all at once)."""
+
+    hw: int
+    cluster: int
+    threads: int
+    lanes: int
+    cv: int
+    vec: int
+    resident: int
+    smem: int
+    waves: int
+
+    def row_ranges(self):
+        return [(r * self.hw // self.cluster,
+                 (r + 1) * self.hw // self.cluster)
+                for r in range(self.cluster)]
+
+    @property
+    def rows_max(self) -> int:
+        return -(-self.hw // self.cluster)
+
+    @property
+    def reread(self) -> bool:
+        """Whether rows past ``resident`` are read twice (from the L2)."""
+        return self.resident < self.rows_max
+
+
+def slab_offset(groups: int, cluster: int, lanes: int, cv: int,
+                vec: int) -> int:
+    """Bytes of the kernel's shared memory before the slab (as
+    ``csrc/group_norm_sm90.cu::slab_offset``): the mbarrier, fp32 group
+    sums (2, G), the receive buffer (cluster, 2, G) and the lane partials
+    (2, lanes, cv·vec), rounded up to 128."""
+    floats = 2 * groups + 2 * cluster * groups + 2 * lanes * cv * vec
+    return -(-(HEAD_BYTES + 4 * floats) // 128) * 128
+
+
+def plan(n: int, hw: int, c: int, dtype, groups: int = 32,
+         occupancy: Optional[Callable[[int, int, int], int]] = None,
+         aligned: bool = True) -> Plan:
+    """Lay out one call over (n, hw, c) in ``dtype`` (bf16 or fp32).
+
+    16-byte vectors when a row is whole vectors and the base ``aligned``,
+    else one channel an access.  A sample spreads over up to 16 CTAs (no
+    thinner than ``MIN_CTA_BYTES`` a CTA, at least a row each), each CTA
+    holding as many of its rows as shared memory takes.  The fewest waves
+    win (n clusters over ``occupancy(cluster, threads, smem)``, the card's
+    ``cudaOccupancyMaxActiveClusters``; None: all at once), then the
+    largest cluster.  (CTAs sized to fit two an SM, so that 16-CTA
+    clusters hold batch 8 at once, ran slower on the H100: the card packs
+    two on an SM.)"""
+    elem = {torch.bfloat16: 2, torch.float32: 4}[dtype]
+    vec = 16 // elem if aligned and (c * elem) % 16 == 0 else 1
+    nv = c // vec
+    cv = -(-nv // -(-nv // MAX_THREADS))  # column chunks of <= MAX_THREADS
+    row_bytes = c * elem
+    top = max(1, min(MAX_CLUSTER, hw, hw * row_bytes // MIN_CTA_BYTES))
+    best = None
+    for cs in range(top, 0, -1):
+        rows_max = -(-hw // cs)
+        lanes = max(1, min(rows_max, MAX_THREADS // cv))
+        threads = -(-lanes * cv // 32) * 32
+        head = slab_offset(groups, cs, lanes, cv, vec)
+        if head > SMEM_MAX:
+            continue
+        resident = min(rows_max, (SMEM_MAX - head) // row_bytes)
+        smem = head + resident * row_bytes
+        held = occupancy(cs, threads, smem) if occupancy else n
+        if held < 1:
+            continue
+        p = Plan(hw=hw, cluster=cs, threads=threads, lanes=lanes, cv=cv,
+                 vec=vec, resident=resident, smem=smem, waves=-(-n // held))
+        if p.waves == 1:
+            return p
+        if best is None or p.waves < best.waves:
+            best = p
+    if best is None:
+        raise ValueError(f"gn_fused: no layout of ({n}, {hw}, {c}) with "
+                         f"{groups} groups fits {SMEM_MAX} bytes of shared "
+                         f"memory")
+    return best
+
+
+_plans = {}
+_occupancy = {}
+
+
+def card_occupancy(dtype, aligned: bool, silu: bool, device):
+    """``occupancy`` for ``plan`` on the card ``device``: the kernel's
+    ``cudaOccupancyMaxActiveClusters`` for its instantiation, each reading
+    kept."""
+    def occupancy(cs, threads, smem):
+        key = (dtype, aligned, silu, cs, threads, smem, device)
+        if key not in _occupancy:
+            _occupancy[key] = _kernels.group_norm_max_clusters(
+                dtype, aligned, silu, cs, threads, smem)
+        return _occupancy[key]
+    return occupancy
+
+
+def _card_plan(n, hw, c, dtype, groups, aligned, silu, device) -> Plan:
+    key = (n, hw, c, dtype, groups, aligned, silu, device)
+    p = _plans.get(key)
+    if p is None:
+        # the occupancy is the card's of x (device None: no card to ask)
+        with (contextlib.nullcontext() if device is None
+              else torch.cuda.device(device)):
+            p = _plans[key] = plan(
+                n, hw, c, dtype, groups,
+                card_occupancy(dtype, aligned, silu, device), aligned)
+    return p
+
+
+def _param(t):
+    """A scale or bias as the kernel reads it: bf16 or fp32, contiguous."""
+    if t.dtype is not torch.bfloat16 and t.dtype is not torch.float32:
+        t = t.float()
+    return t.contiguous()
+
+
+_launches = {}
+
+
 def _launch(x, weight, bias, num_groups: int, eps: float, silu: bool):
+    """One launch: the layout is worked out (and checked) once per shape,
+    dtypes, groups, eps, act, alignment and card, then kept."""
+    x = x.contiguous()
+    weight, bias = _param(weight), _param(bias)
+    key = (x.shape, x.dtype, weight.shape, weight.dtype, bias.shape,
+           bias.dtype, num_groups, eps, silu, x.data_ptr() % 16 == 0,
+           x.get_device())
+    launch = _launches.get(key)
+    if launch is None:
+        launch = _launches[key] = _configure(x, weight, bias, num_groups,
+                                             eps, silu)
+    y = torch.empty_like(x)
+    _kernels.group_norm(x, weight, bias, y, launch)
+    return y
+
+
+def _configure(x, weight, bias, num_groups: int, eps: float, silu: bool):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"gn_fused kernel takes bfloat16 or float32, got "
                         f"{x.dtype}")
-    if x.dim() < 2 or x.numel() == 0 or x.shape[-1] % num_groups:
-        raise ValueError(f"gn_fused: {tuple(x.shape)} with {num_groups} "
-                         f"groups")
     n, c = x.shape[0], x.shape[-1]
-    x3 = x.contiguous().reshape(n, -1, c)
-    chunks = -(-x3.shape[1] // CHUNK_ROWS)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x3)
-    part = torch.empty((n, chunks, 2, c), **f32)
-    ab = torch.empty((n, 2, c), **f32)
-    _kernels.group_norm(x3, weight.float().contiguous(),
-                        bias.float().contiguous(), y, part, ab, num_groups,
-                        CHUNK_ROWS, eps, silu)
-    return y.reshape(x.shape)
+    if x.dim() < 2 or x.numel() == 0 or c % num_groups \
+            or weight.numel() != c or bias.numel() != c:
+        raise ValueError(f"gn_fused: {tuple(x.shape)} with {num_groups} "
+                         f"groups, scale {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    hw = x.numel() // (n * c)
+    p = _card_plan(n, hw, c, x.dtype, num_groups, x.data_ptr() % 16 == 0,
+                   silu, x.device.index)
+    return _kernels.group_norm_launch(n, hw, c, num_groups, p, eps, silu,
+                                      x.dtype, weight.dtype, bias.dtype)
+
+
+def _forward(x, weight, bias, num_groups, eps, act):
+    if x.is_cuda:
+        return _launch(x, weight, bias, num_groups, eps, act == "silu")
+    if x.device.type == "cpu":
+        return group_norm_fused_ref(x, weight, bias, num_groups, eps, act)
+    raise ValueError(f"gn_fused: no kernel for device {x.device}")
 
 
 class _FusedGroupNorm(torch.autograd.Function):
@@ -96,11 +263,7 @@ class _FusedGroupNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, num_groups, eps, act):
         ctx.save_for_backward(x, weight, bias)
         ctx.cfg = (num_groups, eps, act)
-        if x.device.type == "cpu":
-            return group_norm_fused_ref(x, weight, bias, num_groups, eps, act)
-        if x.device.type != "cuda":
-            raise ValueError(f"gn_fused: no kernel for device {x.device}")
-        return _launch(x, weight, bias, num_groups, eps, act == "silu")
+        return _forward(x, weight, bias, num_groups, eps, act)
 
     @staticmethod
     def backward(ctx, gy):
@@ -118,4 +281,7 @@ def fused_group_norm(x, weight, bias, num_groups: int = 32,
     N…C) ``x``, per-channel ``weight``/``bias``."""
     if act not in (None, "silu"):
         raise ValueError(f"unknown act {act}")
-    return _FusedGroupNorm.apply(x, weight, bias, num_groups, eps, act)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _FusedGroupNorm.apply(x, weight, bias, num_groups, eps, act)
+    return _forward(x, weight, bias, num_groups, eps, act)

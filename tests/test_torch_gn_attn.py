@@ -47,29 +47,54 @@ def _t(a, grad=False):
 # K8: fused GroupNorm(+SiLU)
 
 
-@pytest.mark.parametrize("act,eps", [(None, 1e-6), ("silu", 1e-5)])
-def test_fused_group_norm_matches_jax(act, eps):
-    """At the JAX kernel test's shape, (2, 8, 8, 32) with 8 groups."""
-    x = _rand(30, 2, 8, 8, 32, scale=2.0) + 0.5
-    scale, bias = _rand(31, 32) * 0.3 + 1.3, _rand(32, 32) * 0.2
-    jp = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+@pytest.mark.parametrize("act,eps,shape,groups,pdtype", [
+    (None, 1e-6, (2, 8, 8, 32), 8, "float32"),
+    ("silu", 1e-5, (2, 8, 8, 32), 8, "float32"),
+    # C/G = 3: groups straddle the kernel's 8-channel vectors
+    ("silu", 1e-5, (2, 10, 20, 96), 32, "float32"),
+    # scale and bias in bf16, as the bf16 UNet hands them to the kernel
+    ("silu", 1e-5, (2, 8, 8, 32), 8, "bfloat16"),
+    (None, 1e-6, (2, 10, 20, 96), 32, "bfloat16")],
+    ids=["None-1e-06", "silu-1e-05", "silu-c96-g32", "silu-bf16-params",
+         "None-c96-g32-bf16-params"])
+def test_fused_group_norm_matches_jax(act, eps, shape, groups, pdtype):
+    """At the JAX kernel test's shape, (2, 8, 8, 32) with 8 groups, at C/G
+    = 3 and with bf16 scale and bias; the same numpy inputs through the JAX
+    package's Pallas kernel in interpret mode.  x is fp32 on both sides:
+    the outputs within GN_ATOL, the gradients of x within GN_GRAD_ATOL, and
+    the bf16 gradients of scale and bias within one bf16 rounding of the
+    larger (2^-8 of it) plus GN_GRAD_ATOL, since the two packages round the
+    fp32 sums to bf16 from sums taken in other orders (at C = 96, 1e-6
+    of the fp32 ones)."""
+    c = shape[-1]
+    x = _rand(30, *shape, scale=2.0) + 0.5
+    jp = {"scale": jnp.asarray(_rand(31, c) * 0.3 + 1.3, pdtype),
+          "bias": jnp.asarray(_rand(32, c) * 0.2, pdtype)}
 
     def jloss(x, p):
-        return jnp.sum(jpgn.fused_group_norm(p, x, 8, eps, act) ** 2)
+        return jnp.sum(jpgn.fused_group_norm(p, x, groups, eps, act) ** 2)
 
-    jy = jpgn.fused_group_norm(jp, jnp.asarray(x), 8, eps, act)
+    jy = jpgn.fused_group_norm(jp, jnp.asarray(x), groups, eps, act)
     jgx, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jp)
 
-    tx, ts, tb = _t(x, True), _t(scale, True), _t(bias, True)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[pdtype]
+    tx = _t(x, True)
+    ts, tb = (torch.from_numpy(np.array(jp[k], np.float32)).to(tdt)
+              .requires_grad_(True) for k in ("scale", "bias"))
     _kernels.reset_launch_counts()
-    y = tpgn.fused_group_norm(tx, ts, tb, 8, eps, act)
+    y = tpgn.fused_group_norm(tx, ts, tb, groups, eps, act)
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
                                atol=GN_ATOL)
     (y ** 2).sum().backward()
-    for got, want in ((tx.grad, jgx), (ts.grad, jgp["scale"]),
-                      (tb.grad, jgp["bias"])):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                   atol=GN_GRAD_ATOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx),
+                               atol=GN_GRAD_ATOL)
+    # the scale and bias gradients sum over every row: ~500 at C = 96, where
+    # fp32 summation order shows at 1e-6 of them
+    rtol = 2.0 ** -8 if pdtype == "bfloat16" else 1e-6 if c == 96 else 1e-7
+    for got, want in ((ts.grad, jgp["scale"]), (tb.grad, jgp["bias"])):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=GN_GRAD_ATOL, rtol=rtol)
     assert _kernels.launches["gn_fused"] == 0  # a CPU tensor: the plain version
 
 

@@ -550,23 +550,38 @@ def test_adam8_leaves_refuses_a_misaligned_part_on_card(hopper):
     assert _kernels.launches["adam8"] == before
 
 
-# the kernels of the switches (csrc/group_norm.cu, the K9 variant of
+# the kernels of the switches (csrc/group_norm_sm90.cu, the K9 variant of
 # csrc/flash_train.cu, csrc/flash_int8.cu) and the 512-wide forward
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,groups,act,dtype", [
-    ((2, 64, 64, 320), 32, "silu", torch.bfloat16),
-    ((2, 32, 32, 640), 32, "silu", torch.bfloat16),
-    ((2, 8, 8, 1280), 32, None, torch.bfloat16),
-    ((2, 10, 20, 96), 32, "silu", torch.bfloat16),
-    ((3, 7, 5, 40), 8, None, torch.float32)])
-def test_group_norm_kernel_matches_plain_on_card(hopper, shape, groups, act,
-                                                 dtype):
-    x = (torch.from_numpy(_rand(100, *shape)) * 2 + 0.5).to(hopper, dtype)
+def _gn_inputs(dev, shape, dtype, pdtype=torch.float32, seed=100):
+    x = (torch.from_numpy(_rand(seed, *shape)) * 2 + 0.5).to(dev, dtype)
     c = shape[-1]
-    w = torch.from_numpy(_rand(101, c) * 0.3 + 1.0).to(hopper)
-    b = torch.from_numpy(_rand(102, c) * 0.2).to(hopper)
+    w = torch.from_numpy(_rand(seed + 1, c) * 0.3 + 1.0).to(dev, pdtype)
+    b = torch.from_numpy(_rand(seed + 2, c) * 0.2).to(dev, pdtype)
+    return x, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,groups,act,dtype,pdtype", [
+    ((2, 64, 64, 320), 32, "silu", torch.bfloat16, torch.float32),
+    ((2, 32, 32, 640), 32, "silu", torch.bfloat16, torch.float32),
+    ((2, 8, 8, 1280), 32, None, torch.bfloat16, torch.float32),
+    ((2, 10, 20, 96), 32, "silu", torch.bfloat16, torch.float32),
+    ((3, 7, 5, 40), 8, None, torch.float32, torch.float32),
+    # the cap's largest bf16 slice (3 MiB, 16 CTAs of 192 KiB)
+    ((1, 32, 32, 1536), 32, "silu", torch.bfloat16, torch.float32),
+    # fp32 at the 6 MiB cap: rows past shared memory read again
+    ((1, 64, 64, 384), 32, None, torch.float32, torch.float32),
+    ((8, 64, 64, 320), 32, "silu", torch.bfloat16, torch.bfloat16),
+    ((8, 16, 16, 2560), 32, "silu", torch.bfloat16, torch.bfloat16),
+    ((1, 8, 8, 1280), 32, "silu", torch.bfloat16, torch.bfloat16),
+    # rows that are not whole 16-byte vectors: the element path
+    ((2, 6, 7, 36), 4, "silu", torch.bfloat16, torch.float32),
+    ((2, 6, 7, 36), 4, None, torch.float32, torch.bfloat16)])
+def test_group_norm_kernel_matches_plain_on_card(hopper, shape, groups, act,
+                                                 dtype, pdtype):
+    x, w, b = _gn_inputs(hopper, shape, dtype, pdtype)
     before = _kernels.launches["gn_fused"]
     y = tpgn.fused_group_norm(x, w, b, groups, 1e-5, act)
     torch.cuda.synchronize()
@@ -576,6 +591,62 @@ def test_group_norm_kernel_matches_plain_on_card(hopper, shape, groups, act,
     # one rounding to the output type, plus fp32 summation order
     ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
     assert ((y.float() - ref).abs() <= ulp * ref.abs() + 1e-3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", [12.0, 60.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_silu_over_its_range_on_card(hopper, dtype, span):
+    """SiLU at every normalised value from -span to span (65536 steps),
+    where the kernel's approximate exponential and reciprocals (ex2.approx,
+    rcp.approx on even channels, Newton's on odd ones, its exponent clamped
+    below -44) meet their extremes: within one output rounding plus 1e-3 of
+    the plain version."""
+    n = 64 * 1024
+    x = torch.linspace(-1.0, 1.0, n, device=hopper).reshape(1, n // 32, 32)
+    x = x.to(dtype)
+    w = torch.full((32,), span * x.float().std(unbiased=False).item(),
+                   device=hopper)  # normalised x times w: from -span to span
+    b = torch.zeros(32, device=hopper)
+    y = tpgn.fused_group_norm(x, w, b, 1, 1e-6, "silu")
+    ref = tpgn.group_norm_fused_ref(x.float(), w, b, 1, 1e-6, "silu")
+    assert ref.min().item() < -0.05 and ref.max().item() > 0.9 * span
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-6
+    assert ((y.float() - ref).abs() <= ulp * ref.abs() + 1e-3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 64, 64, 320), torch.bfloat16), ((1, 64, 64, 384), torch.float32),
+    ((2, 10, 20, 96), torch.bfloat16)])
+def test_group_norm_kernel_is_deterministic_on_card(hopper, shape, dtype):
+    """The cluster's CTAs sum the partials in rank order: two calls give
+    the same bits (no atomics)."""
+    x, w, b = _gn_inputs(hopper, shape, dtype, seed=110)
+    y1 = tpgn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
+    y2 = tpgn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
+    assert torch.equal(y1.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32),
+                       y2.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32))
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_is_one_launch_on_card(hopper):
+    """One call is one CUDA kernel, the fused one: bf16 scale and bias are
+    read in their dtype (no cast kernel), no scratch is cleared."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b = _gn_inputs(hopper, (8, 32, 32, 640), torch.bfloat16,
+                         torch.bfloat16, seed=120)
+    tpgn.fused_group_norm(x, w, b, 32, 1e-5, "silu")  # plan and occupancy
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tpgn.fused_group_norm(x, w, b, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "gn_cluster_kernel" in kernels[0], kernels
 
 
 @pytest.mark.gpu
