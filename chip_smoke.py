@@ -23,7 +23,8 @@ Phases, in order; each prints one or more lines, and any failure raises
                   int8-QK attention (also held to 4% of exact attention);
                   the build phase prints the wgmma kernels' registers,
                   spills and SASS op counts (flash forward in both layouts
-                  up to head dim 256 and above, backward, GEGLU) and the
+                  up to head dim 256 and above, backward up to 192 and
+                  above, GEGLU) and the
                   8-bit AdamW kernel's instructions per element;
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
@@ -40,9 +41,12 @@ Phases, in order; each prints one or more lines, and any failure raises
                   head (also held to the forward's output, at 512 bit for
                   bit; timed against SDPA — its flash forward up to head
                   dim 256, its default dispatch at 512 — and the forward
-                  in alternating rounds), and the forward and the whole
-                  backward at the 512-wide head (each against SDPA's in
-                  alternating rounds, the backend named);
+                  in alternating rounds), the forward at the 512-wide head
+                  and the backward at it (the wide kernels: the whole call
+                  against the plain version and against SDPA's backward in
+                  alternating rounds, the backend named, each kernel's card
+                  time against its bound, 20 calls back to back; at 64²,
+                  32² and a ragged case);
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -271,11 +275,14 @@ def host_us(fn, reps: int = 100) -> float:
     return secs / reps * 1e6
 
 
-def device_ms(fn, kernel: str, n: int = 20) -> float:
+def device_ms(fn, kernel, n: int = 20, warm: int = 2):
     """Card ms per call of ``fn`` spent in kernels whose name holds
-    ``kernel``: their device time over ``n`` calls in a ``torch.profiler``
-    trace (CUPTI's kernel records), over ``n``; fails if the trace has no
-    such kernel."""
+    ``kernel``: their device time over the last ``n`` of ``warm + n`` calls
+    in a ``torch.profiler`` trace (CUPTI's kernel records), over ``n``.  The
+    ``warm`` calls inside the trace absorb the tracer's start, which can
+    lose a record (one of 20 once); fails unless the trace has between
+    ``n`` and ``warm + n`` such kernels (so not two a call).  Given a tuple
+    of names, a tuple of times from one trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -283,15 +290,20 @@ def device_ms(fn, kernel: str, n: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(warm + n):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if len(us) != n:
-        fail(f"device_ms: {len(us)} {kernel} kernels in the trace of {n} "
-             f"calls")
-    return sum(us) / n / 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    out = []
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        us = [e.time_range.elapsed_us() for e in events if name in e.name]
+        if not n <= len(us) <= warm + n:
+            fail(f"device_ms: {len(us)} {name} kernels in the trace of "
+                 f"{warm + n} calls")
+        out.append(sum(us[-n:]) / n / 1e3)
+    return out[0] if isinstance(kernel, str) else tuple(out)
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -542,8 +554,14 @@ def phase_build():
     print(f"[build] {lib.name} in {secs:.1f} s ({built}); ptxas: "
           f"{len(regs)} kernels, max {max(regs, default=0)} registers, "
           f"{len(spills)} spilling {spills[:4]}", flush=True)
-    for name, info in sm90_ptxas(lines).items():
+    ptxas = sm90_ptxas(lines)
+    for name, info in ptxas.items():
         print(f"[build] {name}: {info}", flush=True)
+    wide = [n for n in ptxas if n.startswith("flash_bwd_d") and "_wide" in n]
+    print(f"[build] the wide backward (csrc/flash_bwd_wide_sm90.cu): "
+          f"{len(wide)} instantiations, spilling: "
+          f"{[n for n in wide if ' 0 bytes spill stores' not in ptxas[n]]}",
+          flush=True)
     sass = sass_text(lib)
     return {"adam8": sm90_sass(sass), "gn": gn_build(lines, sass)}
 
@@ -646,14 +664,19 @@ def gn_build(lines, sass):
 
 
 # the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_fwd_wide_sm90.cu,
-# csrc/flash_bwd_sm90.cu, csrc/geglu_ff_sm90.cu): each instantiation's
-# mangled name and template arguments
+# csrc/flash_bwd_sm90.cu, csrc/flash_bwd_wide_sm90.cu,
+# csrc/geglu_ff_sm90.cu): each instantiation's mangled name and template
+# arguments
 SM90_KERNELS = (r"(flash_fwd_sm90_kernel|flash_fwd_wide_sm90_kernel|"
                 r"flash_bwd_dq_sm90_kernel|flash_bwd_dkv_sm90_kernel|"
+                r"flash_bwd_dq_wide_sm90_kernel|"
+                r"flash_bwd_dkv_wide_sm90_kernel|"
                 r"geglu_ff_sm90_kernel)ILi(\d+)E"
                 r"(?:Li(\d+)E)?((?:Lb[01]E)*)")
 SM90_KERNEL_NAMES = ("flash_fwd_sm90_kernel", "flash_fwd_wide_sm90_kernel",
                      "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+                     "flash_bwd_dq_wide_sm90_kernel",
+                     "flash_bwd_dkv_wide_sm90_kernel",
                      "geglu_ff_sm90_kernel")
 
 
@@ -1176,7 +1199,7 @@ def phase_train_kernels(adam8_sass_counts=None):
         del q, k, v, do, out, lse, ref, grads, refs, lo, ql, kl, vl
     rows = [kernel_flash_tt(g)]
     wide = kernel_flash_fwd_wide(g)
-    kernel_flash_bwd_wide(g)
+    bwd_wide = kernel_flash_bwd_wide(g)
     for name, source, replaces in (
             ("flash_fwd", "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
              "sdbc_tpu/ops/flash_attention.py:81"),
@@ -1195,11 +1218,15 @@ def phase_train_kernels(adam8_sass_counts=None):
         "false> in csrc/flash_fwd_wide_sm90.cu")
     fwd_row["d512"] = wide
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        next(r for r in rows if r["name"] == name)["serves"] = (
+        row = next(r for r in rows if r["name"] == name)
+        row["serves"] = (
             f"head dims <= {fb.SM90_MAX_D} (every main-path call): "
-            f"{name}_sm90_kernel in csrc/flash_bwd_sm90.cu; head dims above "
-            f"{fb.SM90_MAX_D} up to 512 (no path of SD-1.5): {name}_kernel<256"
-            f", 256> and <512, 256> in csrc/flash_train.cu")
+            f"{name}_sm90_kernel<DP, KS> in csrc/flash_bwd_sm90.cu; head "
+            f"dims above {fb.SM90_MAX_D} up to 512 (the VAE's 512-wide head; "
+            f"no path of SD-1.5): {name}_wide_sm90_kernel<KS> in "
+            f"csrc/flash_bwd_wide_sm90.cu, a cluster of two CTAs splitting "
+            f"the head dim")
+        row["d512"] = bwd_wide[name]
 
     # the fused 8-bit AdamW on a 3x3 1280-channel conv leaf less 1000
     # elements (a ragged last row), from a mid-training state
@@ -1535,45 +1562,98 @@ def kernel_flash_fwd_wide(g):
                 max_abs_err=max(err, lerr))
 
 
+# K6 above head dim 192 (csrc/flash_bwd_wide_sm90.cu), at the VAE's 512-wide
+# head: the 64² latent's mid-block attention, a 32² one, and a ragged case
+# with two heads (label, b, h, sq, sk, d)
+BWD_WIDE_CASES = [("VAE 64^2 d512", 1, 1, 4096, 4096, 512),
+                  ("32^2 d512", 1, 1, 1024, 1024, 512),
+                  ("ragged Sq130 Sk200 d512", 1, 2, 130, 200, 512)]
+
+
 def kernel_flash_bwd_wide(g):
-    """K6 at the VAE's 512-wide head (the ``mma.sync`` backward, two
-    256-wide column slices per tile): the whole ``flash_bwd`` call against
-    the plain backward, and timed against SDPA's backward (its default
-    backend: the flash one stops at head dim 256) in alternating rounds.
-    Off every path of SD-1.5 (both trainers encode without a gradient)."""
+    """K6 above head dim 192 (the kernels of ``csrc/flash_bwd_wide_sm90.cu``)
+    at ``BWD_WIDE_CASES``: the whole ``flash_bwd`` call against the plain
+    backward; each kernel's card time in the profiler's trace against its
+    own bound (6·D FLOPs a score for dq, 8·D for dk/dv); 20 calls back to
+    back; and the call against SDPA's backward (its default backend: the
+    flash one stops at head dim 256) in alternating rounds.  Off every path
+    of SD-1.5 (both trainers encode without a gradient).  Returns, for
+    each kernel, one dict a case."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from sdbc_tpu_torch.ops import flash_attention as fa
     from sdbc_tpu_torch.ops import flash_attention_bwd as fb
 
-    q, k, v, do = (torch.randn((1, 4096, 1, 512), generator=g, device="cuda")
-                   .bfloat16().transpose(1, 2) for _ in range(4))
-    scale = 512 ** -0.5
-    o, lse = fa.flash_attention_ref(q, k, v, scale)
-    grads = fb.flash_bwd(q, k, v, o, do, lse, scale)
-    torch.cuda.synchronize()
-    refs = fb.flash_bwd_ref(q, k, v, o, do, lse, scale)
-    errs = []
-    for name, gr, rf in zip(("dq", "dk", "dv"), grads, refs):
-        err, tol = attn_err(gr, rf)
-        if not (torch.isfinite(gr).all() and err <= tol):
-            fail(f"flash_bwd d512 {name}: max abs err {err} (tol {tol})")
-        errs.append(err)
-    pms = median_ms(lambda: fb.flash_bwd_ref(q, k, v, o, do, lse, scale), 3)
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lo = sdpa(ql, kl, vl, scale=scale)
-    call = lambda: fb.flash_bwd(q, k, v, o, do, lse, scale)
-    lib = lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
-                                      retain_graph=True)
-    ms, lms = paired_ms([call, lib])
-    bms, by = attn_bound(1, 1, 4096, 4096, 512, 5, (4096,) * 5, (4096,) * 3,
-                         4.0 * 4096)
-    print(f"[train-kernels] flash_bwd VAE 64^2 d512: err dq {errs[0]:.3e} dk "
-          f"{errs[1]:.3e} dv {errs[2]:.3e}; whole call {ms:.4f} ms, sdpa "
-          f"backward {lms:.4f} ms (call/sdpa {ms / lms:.2f}), plain "
-          f"{pms:.4f} ms, bound {bms:.4f} ms ({by}), "
-          f"{100 * bms / ms:.1f}% of the bound", flush=True)
+    out = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for label, b, h, sq, sk, d in BWD_WIDE_CASES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device="cuda")
+                       .bfloat16().transpose(1, 2) for s in (sq, sk, sk, sq))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_ref(q, k, v, scale)
+        grads = fb.flash_bwd(q, k, v, o, do, lse, scale)
+        torch.cuda.synchronize()
+        refs = fb.flash_bwd_ref(q, k, v, o, do, lse, scale)
+        errs = []
+        for name, gr, rf in zip(("dq", "dk", "dv"), grads, refs):
+            err, tol = attn_err(gr, rf)
+            if not (torch.isfinite(gr).all() and err <= tol):
+                fail(f"flash_bwd {label} {name}: max abs err {err} (tol "
+                     f"{tol})")
+            errs.append(err)
+        again = fb.flash_bwd(q, k, v, o, do, lse, scale)
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        if not same:
+            fail(f"flash_bwd {label}: two calls differ")
+        del grads, refs, again
+        pms = median_ms(lambda: fb.flash_bwd_ref(q, k, v, o, do, lse, scale),
+                        3)
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lo = sdpa(ql, kl, vl, scale=scale)
+        backend = sdpa_backend(q, k, v)
+        call = lambda: fb.flash_bwd(q, k, v, o, do, lse, scale)
+        lib = lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                          retain_graph=True)
+        ms, lms = paired_ms([call, lib])
+        b2b = back_to_back_ms(call)
+        dq_dev, dkv_dev = device_ms(call, ("flash_bwd_dq_wide_sm90_kernel",
+                                           "flash_bwd_dkv_wide_sm90_kernel"))
+        host = [host_us(f) for f in (
+            lambda: fb.prepare(q, k, o, do, lse, scale), call)]
+        lse_bytes = 8.0 * b * h * sq  # lse2 and delta, fp32
+        dq_b = attn_bound(b, h, sq, sk, d, 3, (sq, sk, sk, sq), (sq,),
+                          lse_bytes)
+        dkv_b = attn_bound(b, h, sq, sk, d, 4, (sq, sk, sk, sq), (sk, sk),
+                           lse_bytes)
+        # the whole call: five products (S, dP, dq, dk, dv) counted once
+        call_b = attn_bound(b, h, sq, sk, d, 5, (sq, sk, sk, sq, sq),
+                            (sq, sk, sk), 4.0 * b * h * sq)
+        print(f"[train-kernels] flash_bwd {label}: err dq {errs[0]:.3e} dk "
+              f"{errs[1]:.3e} dv {errs[2]:.3e}, two calls bit for bit "
+              f"{same}; card time (profiler) dq kernel {dq_dev:.4f} ms (bound "
+              f"{dq_b[0]:.4f}, {dq_b[1]}, {100 * dq_b[0] / dq_dev:.1f}%), "
+              f"dkv kernel {dkv_dev:.4f} ms (bound {dkv_b[0]:.4f}, "
+              f"{dkv_b[1]}, {100 * dkv_b[0] / dkv_dev:.1f}%)", flush=True)
+        print(f"[train-kernels] flash_bwd {label}: whole call {ms:.4f} ms, "
+              f"sdpa backward ({backend}) {lms:.4f} ms (call/sdpa "
+              f"{ms / lms:.2f}) in alternating rounds; 20 calls back to back "
+              f"{b2b:.4f} ms a call; plain {pms:.4f} ms; bound {call_b[0]:.4f}"
+              f" ms ({call_b[1]}), {100 * call_b[0] / ms:.1f}% of it "
+              f"({100 * call_b[0] / b2b:.1f}% back to back); host us per "
+              f"call: prepare {host[0]:.1f}, whole call {host[1]:.1f}",
+              flush=True)
+        common = dict(case=label, call_ms=ms, back_to_back_ms=b2b,
+                      call_bound_ms=call_b[0], library_ms=lms,
+                      library=f"sdpa backward ({backend})", plain_ms=pms,
+                      host_us=host[1], bit_equal_two_calls=same)
+        out["flash_bwd_dq"].append(dict(
+            common, ms=dq_dev, bound_ms=dq_b[0], bound_by=dq_b[1],
+            max_abs_err=errs[0]))
+        out["flash_bwd_dkv"].append(dict(
+            common, ms=dkv_dev, bound_ms=dkv_b[0], bound_by=dkv_b[1],
+            max_abs_err=max(errs[1:])))
+        del q, k, v, do, o, lse, ql, kl, vl, lo
+    return out
 
 
 def unfused_ff(y, gamma, beta, w1, b1, w2, b2):
@@ -2095,7 +2175,8 @@ def phase_train_profile(step, state, batch, gen, sps: float,
     ours = {n: round(sum(dev_us(e) for e in events if n in e.key) / 1e3, 3)
             for n in ("flash_fwd_sm90_kernel", "flash_fwd_wide_sm90_kernel",
                       "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
-                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                      "flash_bwd_dq_wide_sm90_kernel",
+                      "flash_bwd_dkv_wide_sm90_kernel",
                       "adam8_leaves_kernel")}
     # host side: operators by their own CPU time (the profiler's, which
     # inflates it) and the number of device kernels launched

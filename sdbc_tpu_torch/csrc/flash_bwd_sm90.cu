@@ -2,7 +2,7 @@
 // dq kernel and the dk/dv kernel of the training backward.
 //
 // Replaces the JAX package's Pallas kernels (via flash_bwd), for head dims
-// up to 192 (wider ones run flash_train.cu's mma.sync kernels):
+// up to 192 (wider ones run flash_bwd_wide_sm90.cu's kernels):
 //   flash_bwd_dq_sm90_kernel  <- sdbc_tpu/ops/flash_attention_bwd.py _dq_kernel
 //   flash_bwd_dkv_sm90_kernel <- sdbc_tpu/ops/flash_attention_bwd.py _dkv_kernel
 //
@@ -72,6 +72,10 @@
 
 namespace {
 
+using sm90::ex2;
+using sm90::pack_bf16;
+using sm90::swz;
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int STAGES = 2;
@@ -99,25 +103,6 @@ struct Cfg {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
   static constexpr int STEP_BYTES = 2 * ST_BYTES + VEC_BYTES;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Byte offset of (row, col) in a stack of 64-column blocks of `rows` rows,
-// 128-byte swizzle (col even: a bf16 pair never straddles a 16-byte chunk).
-__device__ __forceinline__ int swz(int row, int col, int rows) {
-  const int cb = col / CB, cc = col % CB;
-  return cb * rows * 128 + row * 128 + ((((cc >> 3) ^ row) & 7) << 4)
-         + (cc & 7) * 2;
-}
 
 // C (64 x N) = A_w (64 x 16 KS) . B^T: KS k16 steps, both K-major; A is 64
 // rows of a tile of RA rows, B a tile of N rows.

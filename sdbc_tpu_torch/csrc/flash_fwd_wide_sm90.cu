@@ -65,6 +65,10 @@
 
 namespace {
 
+using sm90::ex2;
+using sm90::pack_bf16;
+using sm90::swz;
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int NTHREADS = 256;  // two consumer warpgroups
@@ -113,17 +117,6 @@ struct Ctx {
   int k0, kend, nk;  // this CTA's keys [k0, kend) in nk tiles
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -132,14 +125,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Byte offset of (row, col) in a stack of 64-column blocks of `rows` rows,
-// 128-byte swizzle (col even: a bf16 pair never straddles a 16-byte chunk).
-__device__ __forceinline__ int swz(int row, int col, int rows) {
-  const int cb = col / CB, cc = col % CB;
-  return cb * rows * 128 + row * 128 + ((((cc >> 3) ^ row) & 7) << 4)
-         + (cc & 7) * 2;
 }
 
 // K (or, with V, V) tile j of this CTA's keys, the keys [k0 + j BK, ...),

@@ -66,6 +66,9 @@
 
 namespace {
 
+using sm90::pack_bf16;
+using sm90::swz;
+
 typedef __nv_bfloat16 bf16;
 
 constexpr int NTHREADS = 256;  // two consumer warpgroups
@@ -154,22 +157,9 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float2 bf16x2(const bf16* p) {
   const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// Byte offset of (row, col) in a stack of 64-column blocks of `rows` rows,
-// 128-byte swizzle (col even: a bf16 pair never straddles a 16-byte chunk).
-__device__ __forceinline__ int swz(int row, int col, int rows) {
-  const int cb = col / CB, cc = col % CB;
-  return cb * rows * 128 + row * 128 + ((((cc >> 3) ^ row) & 7) << 4)
-         + (cc & 7) * 2;
 }
 
 // TMA loads: W1 slab use u (chunk u / NSL, slab u % NSL), W2 chunk j;

@@ -4,7 +4,7 @@
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
 // flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu,
-// geglu_ff_sm90.cu and group_norm_sm90.cu.
+// flash_bwd_wide_sm90.cu, geglu_ff_sm90.cu and group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -23,6 +23,28 @@ namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// small arithmetic of the attention and feed-forward kernels
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of (row, col) in a stack of 64-column blocks of `rows` rows,
+// 128-byte swizzle (col even: a bf16 pair never straddles a 16-byte chunk).
+__device__ __forceinline__ int swz(int row, int col, int rows) {
+  const int cb = col / 64, cc = col % 64;
+  return cb * rows * 128 + row * 128 + ((((cc >> 3) ^ row) & 7) << 4)
+         + (cc & 7) * 2;
 }
 
 // ---------------------------------------------------------------------------
@@ -59,6 +81,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The same wait with acquire semantics at cluster scope: for a barrier whose
+// phase completes on bytes that another CTA of the cluster stored (st_async).
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
@@ -211,6 +250,19 @@ __device__ __forceinline__ void st_peer_f32(uint32_t addr, float a) {
 __device__ __forceinline__ void st_peer_v2(uint32_t addr, float a, float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
                ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// An asynchronous 16-byte store into the shared memory of a CTA of the
+// cluster (`addr`, a shared::cluster address, this CTA's own included) that
+// completes 16 bytes of transactions on the mbarrier `bar` of the same CTA:
+// no fence, the waiter on `bar` sees the data (mbar_wait_cluster).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t bar,
+                                            float a, float b, float c,
+                                            float d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
 }
 
 // ---------------------------------------------------------------------------

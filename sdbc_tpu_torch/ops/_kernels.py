@@ -150,10 +150,10 @@ def load():
     lib.sdbc_flash_bwd_dq_sm90.restype = i
     lib.sdbc_flash_bwd_dkv_sm90.argtypes = [p] * 8 + [i] * 6 + [llp, p]
     lib.sdbc_flash_bwd_dkv_sm90.restype = i
-    lib.sdbc_flash_bwd_dq_wide.argtypes = [p] * 7 + [i] * 5 + [llp, f, f, p]
-    lib.sdbc_flash_bwd_dq_wide.restype = i
-    lib.sdbc_flash_bwd_dkv_wide.argtypes = [p] * 8 + [i] * 5 + [llp, f, p]
-    lib.sdbc_flash_bwd_dkv_wide.restype = i
+    lib.sdbc_flash_bwd_dq_wide_sm90.argtypes = [p] * 7 + [i] * 6 + [llp, f, p]
+    lib.sdbc_flash_bwd_dq_wide_sm90.restype = i
+    lib.sdbc_flash_bwd_dkv_wide_sm90.argtypes = [p] * 8 + [i] * 6 + [llp, p]
+    lib.sdbc_flash_bwd_dkv_wide_sm90.restype = i
     lib.sdbc_adam8_leaves.argtypes = [p, i, ll] + [f] * 9 + [p]
     lib.sdbc_adam8_leaves.restype = i
     lib.sdbc_flash_fwd_tt_wide_sm90.argtypes = ([p] * 5 + [i] * 5
@@ -269,10 +269,25 @@ def flash_bwd_dq(qs, kl, v, do, lse2, delta, dq, dq_mul: float) -> None:
     kl = log2e·k (layouts as ``flash_fwd``); ``lse2`` and ``delta`` are
     contiguous (B, H, Sq_pad) fp32, zero past Sq, Sq_pad a multiple of 128.
     The caller prepares and checks them (``ops.flash_attention_bwd``)."""
+    _launch_bwd_dq("sdbc_flash_bwd_dq_sm90", qs, kl, v, do, lse2, delta, dq,
+                   dq_mul)
+
+
+def flash_bwd_dq_wide(qs, kl, v, do, lse2, delta, dq, dq_mul: float) -> None:
+    """``flash_bwd_dq`` for head dims in (192, 512] (the VAE's 512-wide
+    head): the TMA-fed wgmma kernel of ``csrc/flash_bwd_wide_sm90.cu``, a
+    cluster of two CTAs splitting the head dim of each 64-row q tile.  Same
+    inputs; counted as a launch of ``flash_bwd_dq``: the same function."""
+    _launch_bwd_dq("sdbc_flash_bwd_dq_wide_sm90", qs, kl, v, do, lse2, delta,
+                   dq, dq_mul)
+
+
+def _launch_bwd_dq(entry: str, qs, kl, v, do, lse2, delta, dq,
+                   dq_mul: float) -> None:
     lib = load()
     b, h, sq, d = qs.shape
     with _device(qs):
-        rc = lib.sdbc_flash_bwd_dq_sm90(
+        rc = getattr(lib, entry)(
             qs.data_ptr(), kl.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq,
             kl.shape[2], d, lse2.shape[-1], _bhs_strides(qs, kl, v, do, dq),
@@ -284,52 +299,28 @@ def flash_bwd_dq(qs, kl, v, do, lse2, delta, dq, dq_mul: float) -> None:
 def flash_bwd_dkv(qs, kl, v, do, lse2, delta, dk, dv) -> None:
     """Launch the dk/dv kernel for head dims up to 192 (inputs as
     ``flash_bwd_dq``)."""
+    _launch_bwd_dkv("sdbc_flash_bwd_dkv_sm90", qs, kl, v, do, lse2, delta, dk,
+                    dv)
+
+
+def flash_bwd_dkv_wide(qs, kl, v, do, lse2, delta, dk, dv) -> None:
+    """``flash_bwd_dkv`` for head dims in (192, 512]: the kernel of
+    ``csrc/flash_bwd_wide_sm90.cu``, a cluster of two CTAs splitting the
+    head dim of each 64-key tile; counted as a launch of
+    ``flash_bwd_dkv``."""
+    _launch_bwd_dkv("sdbc_flash_bwd_dkv_wide_sm90", qs, kl, v, do, lse2,
+                    delta, dk, dv)
+
+
+def _launch_bwd_dkv(entry: str, qs, kl, v, do, lse2, delta, dk, dv) -> None:
     lib = load()
     b, h, sq, d = qs.shape
     with _device(qs):
-        rc = lib.sdbc_flash_bwd_dkv_sm90(
+        rc = getattr(lib, entry)(
             qs.data_ptr(), kl.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, sq, kl.shape[2], d, lse2.shape[-1],
             _bhs_strides(qs, kl, v, do, dk, dv), _stream(qs))
-    _check(lib, rc, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
-
-
-def flash_bwd_dq_wide(q, k, v, do, lse, delta, dq, scale: float,
-                      dq_mul: float) -> None:
-    """``flash_bwd_dq`` for head dims above 192: the ``mma.sync`` kernel of
-    ``csrc/flash_train.cu``, which folds q and k and scales the natural-log
-    ``lse`` itself (``lse`` and ``delta`` contiguous (B, H, Sq) fp32).
-    Counted as a launch of ``flash_bwd_dq``: the same function."""
-    lib = load()
-    b, h, sq, d = q.shape
-    with _device(q):
-        rc = lib.sdbc_flash_bwd_dq_wide(q.data_ptr(), k.data_ptr(),
-                                        v.data_ptr(), do.data_ptr(),
-                                        lse.data_ptr(), delta.data_ptr(),
-                                        dq.data_ptr(), b, h, sq, k.shape[2],
-                                        d, _bhs_strides(q, k, v, do, dq),
-                                        float(scale), float(dq_mul),
-                                        _stream(q))
-    _check(lib, rc, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
-
-
-def flash_bwd_dkv_wide(q, k, v, do, lse, delta, dk, dv,
-                       scale: float) -> None:
-    """``flash_bwd_dkv`` for head dims above 192 (inputs as
-    ``flash_bwd_dq_wide``), counted as a launch of ``flash_bwd_dkv``."""
-    lib = load()
-    b, h, sq, d = q.shape
-    with _device(q):
-        rc = lib.sdbc_flash_bwd_dkv_wide(q.data_ptr(), k.data_ptr(),
-                                         v.data_ptr(), do.data_ptr(),
-                                         lse.data_ptr(), delta.data_ptr(),
-                                         dk.data_ptr(), dv.data_ptr(), b, h,
-                                         sq, k.shape[2], d,
-                                         _bhs_strides(q, k, v, do, dk, dv),
-                                         float(scale), _stream(q))
     _check(lib, rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
 

@@ -11,7 +11,8 @@ custom VJP ``_flash``: it saves (q, k, v, out, lse) and its backward is
 kernel of ``csrc/flash_fwd_sm90.cu`` (head dims up to 256) or that of
 ``csrc/flash_fwd_wide_sm90.cu`` (above 256: two consumers split the head
 dim, a cluster of two CTAs the keys), the backward the kernels of
-``csrc/flash_bwd_sm90.cu`` (up to 192) or ``csrc/flash_train.cu`` (above);
+``csrc/flash_bwd_sm90.cu`` (up to 192) or ``csrc/flash_bwd_wide_sm90.cu``
+(above: a cluster of two CTAs splits the head dim);
 on a CPU tensor they compute the plain versions
 ``flash_attention_ref`` and ``flash_attention_bwd.flash_bwd_ref``.
 

@@ -16,11 +16,11 @@ wrapper and its kernels:
   dq = (scale/log2e)·Σ ds0·kl, dk = Σ ds0ᵀ·qs, dv = Σ p̂ᵀ·dO with p̂ rounded
   to dO's dtype.
 
-On CUDA, head dims up to ``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
-``csrc/flash_bwd_sm90.cu``; wider ones (up to 512, the JAX backward pads
-any head dim) the ``mma.sync`` kernels of ``csrc/flash_train.cu``, which
-fold q and k and scale the LSE on the way into shared memory (above 256
-each block owns a 256-wide slice of the gradients' columns).  On a CPU tensor ``flash_bwd`` computes
+On CUDA both kernels take ``prepare``'s inputs: head dims up to
+``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
+``csrc/flash_bwd_sm90.cu``, wider ones (up to 512, as the JAX backward pads
+any head dim) those of ``csrc/flash_bwd_wide_sm90.cu``, where a cluster of
+two CTAs splits the head dim.  On a CPU tensor ``flash_bwd`` computes
 ``flash_bwd_ref``, the plain version of the same math;
 ``flash_bwd_prepared_ref`` is the plain version of what the kernels compute
 from ``prepare``'s padded inputs.
@@ -32,7 +32,8 @@ import torch
 from sdbc_tpu_torch.ops import _kernels
 
 LOG2E = 1.4426950408889634
-SM90_MAX_D = 192  # head dims of the wgmma kernels (csrc/flash_bwd_sm90.cu)
+# head dims of csrc/flash_bwd_sm90.cu; wider ones run flash_bwd_wide_sm90.cu
+SM90_MAX_D = 192
 Q_TILE = 128  # the dq kernel's q rows per block: lse2/delta pad to it
 
 
@@ -112,16 +113,12 @@ def flash_bwd(q, k, v, o, do, lse, scale: float):
     v, do = fa.kernel_view(v), fa.kernel_view(do)
     dq = fa.bhsd_empty_like(q)
     dk, dv = fa.bhsd_empty_like(k), fa.bhsd_empty_like(v)
+    qs, kl, lse2, delta = prepare(q, k, o, do, lse, scale)
+    ins = (fa.kernel_view(qs), fa.kernel_view(kl), v, do, lse2, delta)
     if q.shape[-1] <= SM90_MAX_D:
-        qs, kl, lse2, delta = prepare(q, k, o, do, lse, scale)
-        qs, kl = fa.kernel_view(qs), fa.kernel_view(kl)
-        _kernels.flash_bwd_dq(qs, kl, v, do, lse2, delta, dq, scale / LOG2E)
-        _kernels.flash_bwd_dkv(qs, kl, v, do, lse2, delta, dk, dv)
+        _kernels.flash_bwd_dq(*ins, dq, scale / LOG2E)
+        _kernels.flash_bwd_dkv(*ins, dk, dv)
     else:
-        q, k = fa.kernel_view(q), fa.kernel_view(k)
-        lse = lse.float().contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        _kernels.flash_bwd_dq_wide(q, k, v, do, lse, delta, dq, scale,
-                                   scale / LOG2E)
-        _kernels.flash_bwd_dkv_wide(q, k, v, do, lse, delta, dk, dv, scale)
+        _kernels.flash_bwd_dq_wide(*ins, dq, scale / LOG2E)
+        _kernels.flash_bwd_dkv_wide(*ins, dk, dv)
     return dq, dk, dv

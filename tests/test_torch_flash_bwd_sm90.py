@@ -3,9 +3,10 @@ wrong, held on the CPU: the plain backward against the JAX package's
 Pallas kernels (interpret mode, as the JAX package's own tests run them) on
 the same numpy inputs at a ragged key count with late row maxima; the
 wrapper's prepared inputs (the folds and the zero-padded lse2/delta) fed
-through the plain version of what the kernels compute; and the wrapper's
-routing to the kernel entry points by head dim.  The kernels themselves
-meet the same cases on the card in ``tests/test_torch_kernels.py``.
+through the plain version of what the kernels compute, also against the
+JAX kernels at the head dims of ``csrc/flash_bwd_wide_sm90.cu``; and the
+wrapper's routing to the kernel entry points by head dim.  The kernels
+themselves meet the same cases on the card in ``tests/test_torch_kernels.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,10 +109,11 @@ def test_prepared_inputs_give_the_plain_gradients(dtype, atol):
                                      (200, "wide"), (256, "wide"),
                                      (320, "wide"), (512, "wide")])
 def test_flash_bwd_routes_by_head_dim(monkeypatch, d, route):
-    """Head dims up to 192 go to the wgmma kernels with the folded
-    operands and the padded lse2/delta, wider ones (up to 512, as the JAX
-    backward pads any head dim) to the mma.sync template with q, k and the natural-log LSE; each launches dq once and
-    dk/dv once into (B, H, S, D) views over (B, S, H, D) memory."""
+    """Head dims up to 192 go to the kernels of ``csrc/flash_bwd_sm90.cu``,
+    wider ones (up to 512, as the JAX backward pads any head dim) to those
+    of ``csrc/flash_bwd_wide_sm90.cu``; both take the folded operands and
+    the padded lse2/delta, and each launches dq once and dk/dv once into
+    (B, H, S, D) views over (B, S, H, D) memory."""
     calls = []
 
     def record(name):
@@ -137,18 +139,38 @@ def test_flash_bwd_routes_by_head_dim(monkeypatch, d, route):
     assert dq_args[6] is dq and dkv_args[6] is dk and dkv_args[7] is dv
     for g, ref in ((dq, q), (dk, k), (dv, v)):
         assert g.shape == ref.shape and g.stride()[1] == d  # heads inner
-    if route == "sm90":
-        qs, kl, _, _, lse2, delta = dq_args[:6]
-        torch.testing.assert_close(qs, tbwd._fold(q, scale), rtol=0, atol=0)
-        torch.testing.assert_close(kl, tbwd._fold(k, tbwd.LOG2E), rtol=0,
-                                   atol=0)
-        assert lse2.shape == delta.shape == (1, 2, tbwd.Q_TILE)
-        assert dq_args[7] == pytest.approx(scale / tbwd.LOG2E)
-        assert all(a is b for a, b in zip(dkv_args[:6], dq_args[:6]))
-    else:
-        assert dq_args[0] is q and dq_args[1] is k
-        assert dq_args[4].shape == (1, 2, 64)  # the natural-log LSE
-        assert dq_args[7:] == (scale, scale / tbwd.LOG2E)
+    qs, kl, _, _, lse2, delta = dq_args[:6]
+    torch.testing.assert_close(qs, tbwd._fold(q, scale), rtol=0, atol=0)
+    torch.testing.assert_close(kl, tbwd._fold(k, tbwd.LOG2E), rtol=0, atol=0)
+    assert qs.stride() == q.stride() and kl.stride() == k.stride()
+    assert lse2.shape == delta.shape == (1, 2, tbwd.Q_TILE)
+    assert dq_args[7] == pytest.approx(scale / tbwd.LOG2E)
+    assert all(a is b for a, b in zip(dkv_args[:6], dq_args[:6]))
+
+
+@pytest.mark.parametrize("d", [200, 320, 512])
+def test_prepared_ref_matches_jax_at_wide_heads(d):
+    """What the wide kernels compute (``flash_bwd_prepared_ref`` on
+    ``prepare``'s folded operands and zero-padded lse2/delta) against the
+    JAX ``flash_bwd`` (interpret mode) at head dims that split unevenly
+    over the kernels' two CTAs, on a ragged Sq/Sk, fp32 on both sides."""
+    sq, sk = 70, 45
+    q, k, v, do = (_rand(s, 1, 2, n, d) for s, n in ((70 + d, sq),
+                                                      (71 + d, sk),
+                                                      (72 + d, sk),
+                                                      (73 + d, sq)))
+    scale = d ** -0.5
+    o, lse = tflash.flash_attention_ref(_t(q), _t(k), _t(v), scale)
+    qs, kl, lse2, delta = tbwd.prepare(_t(q), _t(k), o, _t(do), lse, scale)
+    assert lse2.shape == (1, 2, tbwd.Q_TILE)
+    got = tbwd.flash_bwd_prepared_ref(qs, kl, _t(v), _t(do), lse2, delta,
+                                      scale)
+    jg = jbwd.flash_bwd(*(jnp.asarray(a) for a in (q, k, v, o.numpy(), do,
+                                                   lse.numpy())), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, jg):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   err_msg=name)
 
 
 def test_flash_bwd_refuses_head_dims_above_512(monkeypatch):

@@ -225,7 +225,8 @@ def test_geglu_kernel_refuses_what_it_does_not_take(hopper):
         tgeglu.geglu_ff_rows(*args)
 
 
-# the training kernels (csrc/flash_train.cu, csrc/adam8bit.cu)
+# the training kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu,
+# csrc/flash_bwd_wide_sm90.cu, csrc/adam8bit.cu)
 
 TRAIN_SHAPES = [((2, 8, 1024, 80), 1024), ((1, 2, 200, 40), 300),
                 ((1, 2, 256, 160), 256), ((1, 2, 128, 8), 256),
@@ -361,7 +362,7 @@ def test_flash_bwd_kernels_head_major_on_card(hopper, qshape, sk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
 def test_flash_bwd_kernels_far_negative_lse_on_card(hopper, d):
     """Six q rows (across tiles and warps) whose every logit is far below 0
     (lse2 near -185) among ordinary rows: a zero-filled key past Sk = 300
@@ -394,7 +395,7 @@ FAR_NEGATIVE_FP64_FACTOR = 2.0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [80, 160])
+@pytest.mark.parametrize("d", [80, 160, 512])
 def test_flash_bwd_far_negative_all_rows_against_fp64_on_card(hopper, d):
     """Why the far-negative test above keeps ordinary rows among the far
     ones: when EVERY q row's logits sit near -150 (natural), the keys share
@@ -551,7 +552,7 @@ def test_adam8_leaves_refuses_a_misaligned_part_on_card(hopper):
 
 
 # the kernels of the switches (csrc/group_norm_sm90.cu, the K9 variant of
-# csrc/flash_train.cu, csrc/flash_int8.cu) and the 512-wide forward
+# csrc/flash_fwd_sm90.cu, csrc/flash_int8.cu) and the 512-wide forward
 
 
 def _gn_inputs(dev, shape, dtype, pdtype=torch.float32, seed=100):
@@ -806,19 +807,60 @@ def test_flash_fwd_wide_one_key_is_exact_on_card(hopper, layout, d):
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
+# the wide backward (csrc/flash_bwd_wide_sm90.cu): head dims that split
+# evenly and unevenly over the cluster's two CTAs (CTA 1's columns end
+# inside its column blocks at 264, 320 and 448), q and key counts no 32- or
+# 64-row tile divides
+BWD_WIDE_D = [200, 256, 264, 320, 448, 512]
+
+
+def _wide_bwd_inputs(hopper, layout, qshape, sk, seed):
+    """q, k, v, dO: (B, H, S, D) views over (B, S, H, D) memory, or
+    contiguous head-major tensors."""
+    b, h, sq, d = qshape
+    if layout == "bshd":
+        q, k, v = _bshd_views(hopper, qshape, sk, seed)
+        do = torch.from_numpy(_rand(seed + 3, b, sq, h, d)).to(
+            hopper, torch.bfloat16).transpose(1, 2)
+        return q, k, v, do
+    return [torch.from_numpy(_rand(seed + i, b, h, n, d)).to(
+        hopper, torch.bfloat16) for i, n in enumerate((sq, sk, sk, sq))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("qshape,sk", [((1, 1, 256, 512), 256),
-                                       ((1, 2, 130, 512), 200),
-                                       ((1, 1, 100, 320), 77),
-                                       ((1, 1, 70, 448), 130)])
-def test_flash_bwd_kernels_take_wide_heads_on_card(hopper, qshape, sk):
-    """The mma.sync backward above 256 (two 256-wide slices of the
-    gradients' columns per tile, K/V and q/dO streamed in 256-wide
-    chunks): every slice, ragged tiles, a head dim that leaves the second
-    slice part-empty."""
-    q, k, v = _bshd_views(hopper, qshape, sk, 132)
-    do = torch.from_numpy(_rand(133, *qshape)).to(hopper, torch.bfloat16)
-    _bwd_matches_plain(q, k, v, do, qshape[-1] ** -0.5)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("d", BWD_WIDE_D)
+@pytest.mark.parametrize("sq,sk", [(130, 200), (100, 77)])
+def test_flash_bwd_kernels_take_wide_heads_on_card(hopper, layout, d, sq,
+                                                   sk):
+    """The TMA-fed wgmma backward above 192, in both layouts: one dq and
+    one dk/dv launch, gradients as the plain backward's."""
+    q, k, v, do = _wide_bwd_inputs(hopper, layout, (1, 2, sq, d), sk, 132)
+    _bwd_matches_plain(q, k, v, do, d ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [264, 512])
+def test_flash_bwd_wide_one_key_on_card(hopper, d):
+    """One key: the dq kernel's only key tile masks 31 of its 32 keys, and
+    every q row's p is 1."""
+    q, k, v, do = _wide_bwd_inputs(hopper, "bshd", (1, 2, 70, d), 1, 142)
+    _bwd_matches_plain(q, k, v, do, d ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [200, 320, 512])
+def test_flash_bwd_wide_is_deterministic_on_card(hopper, d):
+    """Two calls give the same bits: no atomics, every sum in one order
+    (the two CTAs' score partials added the same way in both)."""
+    q, k, v, do = _wide_bwd_inputs(hopper, "bshd", (2, 2, 300, d), 333, 146)
+    scale = d ** -0.5
+    o, lse = tflash.flash_attention_ref(q, k, v, scale)
+    first = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
+    second = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
