@@ -16,15 +16,20 @@ Phases, in order; each prints one or more lines, and any failure raises
                   plain version and the one PyTorch call computing the same
                   function (where there is one): the fixed-cap attention
                   (timed against SDPA in alternating rounds, with its share
-                  of the bound), GEGLU (timed against the unfused bf16
+                  of the bound; also at the VAE's 512-wide head), GEGLU (timed against the unfused bf16
                   feed-forward in alternating rounds, with its share of
                   the bound), the fused GroupNorm (the UNet's
                   GroupNorm inputs at batch 8, one ragged case) and the
-                  int8-QK attention (also held to 4% of exact attention);
+                  int8-QK attention (also held to 4% of exact attention
+                  and two calls to the same bits, timed against K1 and
+                  SDPA in alternating rounds, with the CUDA kernels of one
+                  call — k's quantizing pre-pass and the attention kernel
+                  — counted by the profiler);
                   the build phase prints the wgmma kernels' registers,
                   spills and SASS op counts (flash forward in both layouts
                   up to head dim 256 and above, backward up to 192 and
-                  above, GEGLU) and the
+                  above, GEGLU, the int8-QK attention with its
+                  instructions per score) and the
                   8-bit AdamW kernel's instructions per element;
 4. train-kernels — the same for the training kernels at the shapes the
                   mode-C fine-tuning step gives them (flash forward, timed
@@ -47,11 +52,18 @@ Phases, in order; each prints one or more lines, and any failure raises
                   alternating rounds, the backend named, each kernel's card
                   time against its bound, 20 calls back to back; at 64²,
                   32² and a ragged case);
+   simt-kernels — the CUDA-core kernels, for what the tensor-core ones do
+                  not take, in fp32 at SD-1.5's 64² level: the fixed cap at
+                  sampling batch 8, the training forward, dq and dk/dv at
+                  the mode-C step's micro-batch 2, the fused FF at the
+                  sampling rows; each against its plain version and timed
+                  against SDPA (forward, backward) in alternating rounds;
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
                   same under SDBC_GN_FUSED=1, with exact fused GroupNorm
-                  launches;
+                  launches; then fp32 on the card, every attention and FF
+                  call on the CUDA-core kernels, with exact launches;
 6. slice        — SD-1.5 at full width (random init from seed 0, bf16),
                   512², batch 4, DDIM-50, CFG 7.5, through
                   ``SDPipeline.__call__``: a warm-up call, then a timed call
@@ -59,7 +71,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   shape implies;
    decode       — one VAE decode of a 64² latent under
                   SDBC_ATTN_IMPL=flash (one K5 launch at the 512-wide
-                  head) against the default decode on the same latent;
+                  head), then under SDBC_ATTN_IMPL=inference (one launch of
+                  the wide kernel's fixed-cap variant at that head), each
+                  against the default decode on the same latent;
 7. profile      — device time by kernel over one UNet evaluation at full
                   width, its wall time (hence the device's idle share), and
                   the wall times of the text encode and the VAE decode;
@@ -69,7 +83,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
                   kernels launched; then the same with grad_ckpt (block)
-                  under SDBC_GN_FUSED=1 and SDBC_ATTN_IMPL=flash_tt;
+                  under SDBC_GN_FUSED=1 and SDBC_ATTN_IMPL=flash_tt; then
+                  fp32 on the card (the flash forward and backward on the
+                  CUDA-core kernels, the 8-bit AdamW's launch);
 10. train       — the JAX package's bench mode C (``bench.py``): SD-1.5 at
                   full width (random init, fp32 masters, bf16 compute),
                   UNet + text encoder trained, 8-bit AdamW, 512², micro-batch
@@ -89,8 +105,8 @@ Phases, in order; each prints one or more lines, and any failure raises
 Every environment variable a phase sets is restored after it.
 
 Then a JSON line of per-kernel results (each kernel's launches on its
-path, ``MAIN_PATH``, and on every full-width path, each counted over its
-own run), the ``nvidia-smi`` line again, and the result line
+path, ``MAIN_PATH``, and on every full-width path and the tiny fp32 ones,
+each counted over its own run), the ``nvidia-smi`` line again, and the result line
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
 from __future__ import annotations
@@ -138,6 +154,11 @@ GN_REL_TOL, GN_ABS_TOL = 2.0 ** -8, 1e-3
 # int8-QK attention against exact (fp32 softmax) attention: JAX's test
 # bound, tests/test_ops.py (per-row int8 scales cost ~1-2% of the range).
 INT8_EXACT_TOL = 0.04
+# The CUDA-core kernels in fp32 against their fp32 plain versions: both in
+# fp32, summed in other orders over up to 4096 keys (exp2 and erf an ulp
+# or two apart): 1e-4 of the plain result's largest entry plus 1e-6.  In
+# bf16 (the fixed cap at head dim 512) the attention tolerance above.
+SIMT_FP32_REL_TOL, SIMT_FP32_ABS_TOL = 1e-4, 1e-6
 ADAM_P_TOL = 1e-6
 ADAM_Q_SHARE = 1e-3
 # Tiny train step, bf16 on the card vs fp32 on the CPU: the loss within 2%
@@ -195,6 +216,16 @@ def attn_err(out, ref):
     ref = ref.float()
     err = (out.float() - ref).abs().max().item()
     return err, ATTN_REL_TOL * ref.abs().max().item() + ATTN_ABS_TOL
+
+
+def simt_err(out, ref):
+    """(max abs error, tolerance) of a CUDA-core kernel's result: fp32 as
+    ``SIMT_FP32_REL_TOL`` says, bf16 as ``attn_err``."""
+    if str(out.dtype) != "torch.float32":
+        return attn_err(out, ref)
+    ref = ref.float()
+    err = (out - ref).abs().max().item()
+    return err, SIMT_FP32_REL_TOL * ref.abs().max().item() + SIMT_FP32_ABS_TOL
 
 
 def fail(msg: str) -> None:
@@ -491,7 +522,26 @@ MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_fwd": "train", "flash_bwd_dq": "train",
              "flash_bwd_dkv": "train", "adam8": "train",
              "gn_fused": "train switches", "flash_tt": "train switches",
-             "flash_fixed_int8": "train grad_ckpt block"}
+             "flash_fixed_int8": "train grad_ckpt block",
+             "flash_fixed_simt": "sampling fp32 (tiny)",
+             "geglu_ff_simt": "sampling fp32 (tiny)",
+             "flash_fwd_simt": "train fp32 (tiny)",
+             "flash_bwd_simt_dq": "train fp32 (tiny)",
+             "flash_bwd_simt_dkv": "train fp32 (tiny)"}
+# in fp32 every attention and FF call the tensor-core kernels would take
+# goes to the CUDA-core kernel of the same function
+SIMT_OF = {"flash_fixed": "flash_fixed_simt", "geglu_ff": "geglu_ff_simt",
+           "flash_fwd": "flash_fwd_simt", "flash_bwd_dq": "flash_bwd_simt_dq",
+           "flash_bwd_dkv": "flash_bwd_simt_dkv"}
+
+
+def fp32_launches(want: dict) -> dict:
+    """The launch counts of the same run in fp32: each count moved from a
+    tensor-core kernel to its CUDA-core counterpart (``SIMT_OF``)."""
+    out = dict.fromkeys(want, 0)
+    for name, n in want.items():
+        out[SIMT_OF.get(name, name)] += n
+    return out
 
 
 @contextlib.contextmanager
@@ -562,8 +612,30 @@ def phase_build():
           f"{len(wide)} instantiations, spilling: "
           f"{[n for n in wide if ' 0 bytes spill stores' not in ptxas[n]]}",
           flush=True)
+    simt = simt_ptxas(lines)
+    print(f"[build] the CUDA-core kernels (csrc/flash_simt.cu, "
+          f"csrc/geglu_ff_simt.cu): {len(simt)} instantiations; {simt}",
+          flush=True)
     sass = sass_text(lib)
-    return {"adam8": sm90_sass(sass), "gn": gn_build(lines, sass)}
+    return {"adam8": sm90_sass(sass), "gn": gn_build(lines, sass),
+            "int8": int8_build(lines, sass)}
+
+
+def simt_ptxas(lines):
+    """ptxas's registers and spills of each CUDA-core kernel instantiation
+    (``flash_simt_{fwd,dq,dkv}_kernel<T, ...>``, ``geglu_ff_simt_kernel<T>``,
+    by mangled name) from the ``-Xptxas -v`` log."""
+    import re
+
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(r"_Z\w*(?:flash_simt_\w+_kernel|geglu_ff_simt_kernel)"
+                          r"\w*", ln)
+            cur = m.group(0) if m else None
+        elif cur and ("registers" in ln or "spill" in ln):
+            out.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def sass_text(lib):
@@ -663,6 +735,74 @@ def gn_build(lines, sass):
             "plans": plans}
 
 
+# K10's instantiations flash_int8_sm90_kernel<DP, KS8, NV>; the main path's
+# (head dims 40, 80, 160)
+INT8_KERNEL = r"flash_int8_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E"
+INT8_MAIN = ("<64, 2, 48>", "<128, 3, 80>", "<192, 5, 160>")
+
+
+def int8_build(lines, sass):
+    """K10's build report: ptxas's registers and spills of each
+    ``flash_int8_sm90_kernel`` instantiation and of ``quantize_k_kernel``;
+    in each instantiation's SASS the integer and bf16 wgmma products
+    (IGMMA, HGMMA), TMA loads and stores, and any mma.sync (HMMA, IMMA),
+    failing unless all seven have IGMMA, HGMMA and UTMALDG and none HMMA or
+    IMMA; and at the main path's instantiations the instructions per score
+    (each score's code has one MUFU.EX2, so a count over the MUFU.EX2
+    count; an upper bound: q's quantization, the epilogue and the
+    producer's quantization of k are counted in)."""
+    import re
+
+    name = lambda m: (f"flash_int8_sm90_kernel<{m.group(1)}, {m.group(2)}, "
+                      f"{m.group(3)}>")
+    ptxas, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(INT8_KERNEL, ln)
+            cur = name(m) if m else (
+                "quantize_k_kernel" if "quantize_k_kernel" in ln else None)
+        elif cur and ("registers" in ln or "spill" in ln):
+            ptxas.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
+    ptxas = {k: "; ".join(v) for k, v in ptxas.items()}
+    kinds = {"fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP"),
+             "integer": ("IADD3", "IMAD", "LOP3", "SHF", "ISETP"),
+             "I2F": ("I2F", "I2FP"), "F2I": ("F2I", "F2IP"),
+             "F2FP": ("F2FP",), "LDS": ("LDS",)}
+    counts, per_score = {}, {}
+    for part in (sass or "").split("Function : ")[1:]:
+        m = re.match(r"\S*?" + INT8_KERNEL, part)
+        if not m:
+            continue
+        ops = [o for o in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+            if o != "NOP"]
+        base = [o.split(".")[0] for o in ops]
+        n = {op: base.count(op) for op in ("IGMMA", "HGMMA", "UTMALDG",
+                                           "UTMASTG", "HMMA", "IMMA")}
+        counts[name(m)] = n
+        ex2 = ops.count("MUFU.EX2")
+        if name(m).endswith(INT8_MAIN) and ex2:
+            per_score[name(m)] = dict(
+                MUFU_EX2=ex2, all=round(len(ops) / ex2, 2),
+                **{k: round(sum(b in v for b in base) / ex2, 2)
+                   for k, v in kinds.items()})
+    print(f"[build] flash_int8_sm90_kernel ptxas: {ptxas}", flush=True)
+    print(f"[build] flash_int8_sm90_kernel SASS (IGMMA, HGMMA, UTMALDG, "
+          f"UTMASTG, HMMA, IMMA): {counts or 'not checked'}", flush=True)
+    print(f"[build] flash_int8_sm90_kernel SASS instructions per score "
+          f"(over the MUFU.EX2 count; an upper bound): "
+          f"{per_score or 'not checked'}", flush=True)
+    if sass is not None:
+        if len(counts) != 7:
+            fail(f"flash_int8_sm90_kernel: {len(counts)} of 7 "
+                 f"instantiations in the built SASS")
+        for kname, n in counts.items():
+            if not (n["IGMMA"] and n["HGMMA"] and n["UTMALDG"]) \
+                    or n["HMMA"] or n["IMMA"]:
+                fail(f"{kname}: SASS counts {n}")
+    return {"ptxas": ptxas, "sass": counts, "per_score": per_score}
+
+
 # the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_fwd_wide_sm90.cu,
 # csrc/flash_bwd_sm90.cu, csrc/flash_bwd_wide_sm90.cu,
 # csrc/geglu_ff_sm90.cu): each instantiation's mangled name and template
@@ -716,7 +856,7 @@ def sm90_sass(sass):
         if kernel not in names:
             fail(f"{kernel}: not in the built SASS")
     for kernel, tt in (("flash_fwd_sm90_kernel", ", true, true>"),
-                       ("flash_fwd_wide_sm90_kernel", ", true>")):
+                       ("flash_fwd_wide_sm90_kernel", ", true, false>")):
         if not any(n.startswith(kernel + "<") and n.endswith(tt)
                    for n in found):
             fail(f"{kernel}: no transposed-layout (TT) instantiation in the "
@@ -785,7 +925,7 @@ def sm90_ptxas(lines):
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def phase_kernels(gn_build_report=None):
+def phase_kernels(gn_build_report=None, int8_build_report=None):
     import torch
 
     from sdbc_tpu_torch.ops import flash_attention as fa
@@ -848,7 +988,14 @@ def phase_kernels(gn_build_report=None):
     rows.append({"name": "flash_fixed", "route": "cuda",
                  "source": "sdbc_tpu_torch/csrc/flash_fwd_sm90.cu",
                  "replaces": "sdbc_tpu/ops/flash_attention.py:348",
-                 "max_abs_err": flash_err, **first})
+                 "max_abs_err": flash_err, **first,
+                 "serves": "head dims <= 256 (every main-path call): "
+                           "flash_fwd_sm90_kernel<DP, KS, false, false> in "
+                           "csrc/flash_fwd_sm90.cu; head dims above 256 (the "
+                           "VAE's 512-wide head under SDBC_ATTN_IMPL="
+                           "inference): flash_fwd_wide_sm90_kernel<KS1, "
+                           "false, true> in csrc/flash_fwd_wide_sm90.cu",
+                 "d512": kernel_flash_fixed_wide(g)})
 
     geglu_err, first, shapes = 0.0, None, []
     for rows_n, c in ((32768, 320), (8192, 640)):
@@ -893,7 +1040,8 @@ def phase_kernels(gn_build_report=None):
                  "source": "sdbc_tpu_torch/csrc/geglu_ff_sm90.cu",
                  "replaces": "sdbc_tpu/ops/geglu_ff.py:98",
                  "max_abs_err": geglu_err, **first, "shapes": shapes})
-    return rows + [kernel_group_norm(g, gn_build_report), kernel_int8(g)]
+    return rows + [kernel_group_norm(g, gn_build_report),
+                   kernel_int8(g, int8_build_report)]
 
 
 def kernel_group_norm(g, build_report=None):
@@ -1015,9 +1163,32 @@ def kernel_group_norm(g, build_report=None):
             "clusters": clusters, "build": build_report}
 
 
-def kernel_int8(g):
-    """K10 at the sampling attention shapes, against its plain version and
-    against exact attention; SDPA (exact, not int8) as the yardstick."""
+# K10's shapes: the sampling attention levels, head-major (batch 8 with CFG)
+INT8_CASES = ((8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160))
+
+
+def kernels_per_call(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs (a profiler
+    trace of one warm call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_int8(g, build_report=None):
+    """K10 at the sampling attention shapes against its plain version (and
+    two calls bit for bit) and exact attention; timed one call at a time in
+    alternating rounds with K1 (the bf16 fixed cap on the same head-major
+    tensors) and SDPA (exact, not int8), also 20 back to back and its host
+    µs; the CUDA kernels of one call (the pre-pass and the attention
+    kernel) from the profiler."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1025,47 +1196,68 @@ def kernel_int8(g):
     from sdbc_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    worst, first = 0.0, None
-    for b, h, s, d in ((8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160)):
+    worst, first, shapes = 0.0, None, []
+    want = ["quantize_k_kernel", "flash_int8_sm90_kernel"]
+    for b, h, s, d in INT8_CASES:
         q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev)
                    .bfloat16() for _ in range(3))
         kern = lambda: fa.flash_attention_fixed_int8(q, k, v)
         plain = lambda: fa.fixed_cap_int8_ref(q, k, v)
+        ref = plain()
+        exact = attn.plain_attention(q.float(), k.float(), v.float())
+        label = f"({b},{h},{s},{d})"
         out = kern()
         torch.cuda.synchronize()
-        ref = plain()
         err, tol = attn_err(out, ref)
-        del ref
-        exact = attn.plain_attention(q.float(), k.float(), v.float())
-        rel = ((out.float() - exact).abs().max()
-               / exact.abs().max()).item()
-        del exact
+        rel = ((out.float() - exact).abs().max() / exact.abs().max()).item()
+        same = torch.equal(out.view(torch.int16), kern().view(torch.int16))
+        names = kernels_per_call(kern)
         if not torch.isfinite(out).all() or not err <= tol \
-                or not rel < INT8_EXACT_TOL:
-            fail(f"flash_fixed_int8 ({b},{h},{s},{d}): max abs err {err} "
-                 f"(tol {tol}), vs exact {rel} (tol {INT8_EXACT_TOL})")
-        ms, pms = median_ms(kern, 20), median_ms(plain, 5)
-        lms = median_ms(lambda: sdpa(q, k, v), 20)
-        # q, k, v read and o written once (bf16); the QKᵀ in int8 and P·V
-        # in bf16 on the tensor cores, one exp2 per score
+                or not rel < INT8_EXACT_TOL or not same:
+            fail(f"flash_fixed_int8 {label}: max abs err {err} (tol {tol}), "
+                 f"vs exact {rel} (tol {INT8_EXACT_TOL}), two calls equal "
+                 f"{same}")
+        if len(names) != len(want) or not all(
+                w in n for w, n in zip(want, names)):
+            fail(f"flash_fixed_int8 {label}: kernels of one call {names}, "
+                 f"expected {want}")
+        worst = max(worst, err)
+        del out, ref, exact
+        pms = median_ms(plain, 5)
+        k1 = lambda: fa.flash_attention_fixed(q, k, v)
+        ms, k1_ms, lms = paired_ms([kern, k1, lambda: sdpa(q, k, v)],
+                                   reps=20)
+        b2b, hus = back_to_back_ms(kern), host_us(kern)
+        # q, k, v read and o written once (bf16); the QKᵀ in int8 (its
+        # time at the int8 rate, as bf16-rate FLOPs) and P·V in bf16 on the
+        # tensor cores, one exp2 per score
         ops = 2.0 * b * h * s * s * d
         bms, by = bound(8.0 * b * h * s * d,
                         ops + ops * PEAK_BF16_FLOPS / PEAK_INT8_OPS,
                         float(b * h * s * s))
-        print(f"[kernels] flash_fixed_int8 ({b},{h},{s},{d}): max_abs_err "
-              f"{err:.3e} (tol {tol:.3e}) vs exact {rel:.3e} (tol "
-              f"{INT8_EXACT_TOL}) kernel {ms:.4f} ms plain {pms:.4f} ms "
-              f"sdpa (exact, not int8) {lms:.4f} ms bound {bms:.4f} ms "
-              f"({by})", flush=True)
-        worst = max(worst, err)
+        print(f"[kernels] flash_fixed_int8 {label}: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}), vs exact {rel:.3e} (tol {INT8_EXACT_TOL}); "
+              f"two calls bit for bit; kernels a call {len(names)}",
+              flush=True)
+        print(f"[kernels] flash_fixed_int8 {label}: one call at a time, "
+              f"alternating rounds: {ms:.4f} ms, K1 (bf16 fixed cap) "
+              f"{k1_ms:.4f} ms, sdpa (exact, not int8) {lms:.4f} ms "
+              f"({ms / k1_ms:.2f}x K1, {ms / lms:.2f}x sdpa); back to back "
+              f"{b2b:.4f} ms, host {hus:.1f} us a call; plain {pms:.4f} ms; "
+              f"bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of it "
+              f"({100 * bms / b2b:.1f}% back to back)", flush=True)
+        row = dict(ms=ms, k1_ms=k1_ms, library_ms=lms, back_to_back_ms=b2b,
+                   host_us=hus, plain_ms=pms, bound_ms=bms,
+                   kernels_per_call=len(names))
+        shapes.append(dict(shape=[b, h, s, d], bound_share=bms / ms, **row))
         if first is None:
-            first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         library_ms=lms)
-        del q, k, v, out
+            first = dict(bound_by=by, **row)
+        del q, k, v
     return {"name": "flash_fixed_int8", "route": "cuda",
-            "source": "sdbc_tpu_torch/csrc/flash_int8.cu",
+            "source": "sdbc_tpu_torch/csrc/flash_int8_sm90.cu",
             "replaces": "sdbc_tpu/ops/flash_attention.py:457",
-            "max_abs_err": worst, **first}
+            "max_abs_err": worst, **first,
+            "shapes": shapes, "build": build_report}
 
 
 def phase_train_kernels(adam8_sass_counts=None):
@@ -1215,7 +1407,7 @@ def phase_train_kernels(adam8_sass_counts=None):
         "head dims <= 256 (every main-path call): flash_fwd_sm90_kernel in "
         "csrc/flash_fwd_sm90.cu; head dims above 256 (the VAE's 512-wide "
         "head under SDBC_ATTN_IMPL=flash): flash_fwd_wide_sm90_kernel<KS1, "
-        "false> in csrc/flash_fwd_wide_sm90.cu")
+        "false, false> in csrc/flash_fwd_wide_sm90.cu")
     fwd_row["d512"] = wide
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         row = next(r for r in rows if r["name"] == name)
@@ -1517,9 +1709,48 @@ def kernel_flash_tt(g):
                       "but the VAE's): flash_fwd_sm90_kernel<DP, KS, true, "
                       "true> in csrc/flash_fwd_sm90.cu; head dims above 256 "
                       "(the VAE encode's 512-wide head): "
-                      "flash_fwd_wide_sm90_kernel<KS1, true> in "
+                      "flash_fwd_wide_sm90_kernel<KS1, true, false> in "
                       "csrc/flash_fwd_wide_sm90.cu",
             "max_abs_err": worst, **first, "d512": wide}
+
+
+def kernel_flash_fixed_wide(g):
+    """The fixed cap at the VAE's 512-wide head (``SDBC_ATTN_IMPL=
+    inference``; the fixed-cap variant of ``csrc/flash_fwd_wide_sm90.cu``'s
+    kernel) over the projection layout's strides: against its plain
+    version, one launch a call, timed against SDPA's default dispatch (its
+    backend named) in alternating rounds, and 20 calls back to back."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn((1, 4096, 1, 512), generator=g, device="cuda")
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    kern = lambda: fa.flash_attention_fixed(q, k, v)
+    before = _kernels.launches["flash_fixed"]
+    out = kern()
+    torch.cuda.synchronize()
+    err, tol = attn_err(out, fa.fixed_cap_attention_ref(q, k, v))
+    if not (torch.isfinite(out).all() and err <= tol
+            and _kernels.launches["flash_fixed"] == before + 1):
+        fail(f"flash_fixed d512: max abs err {err} (tol {tol}), launches "
+             f"{_kernels.launches['flash_fixed'] - before}")
+    pms = median_ms(lambda: fa.fixed_cap_attention_ref(q, k, v), 5)
+    backend = sdpa_backend(q, k, v)
+    ms, lms = paired_ms([kern, lambda: sdpa(q, k, v)])
+    b2b = back_to_back_ms(kern)
+    bms, by = attn_bound(1, 1, 4096, 4096, 512, 2, (4096,) * 3, (4096,))
+    print(f"[kernels] flash_fixed VAE 64^2 d512: max abs err {err:.3e} (tol "
+          f"{tol:.3e}); kernel {ms:.4f} ms, sdpa ({backend}) {lms:.4f} ms "
+          f"(kernel/sdpa {ms / lms:.2f}) in alternating rounds; 20 calls "
+          f"back to back {b2b:.4f} ms a call; plain {pms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of the bound "
+          f"({100 * bms / b2b:.1f}% back to back)", flush=True)
+    return dict(ms=ms, library_ms=lms, library=f"sdpa ({backend})",
+                back_to_back_ms=b2b, plain_ms=pms, bound_ms=bms, bound_by=by,
+                max_abs_err=err)
 
 
 def kernel_flash_fwd_wide(g):
@@ -1672,9 +1903,158 @@ def _tokenizer(cfg):
     return CLIPTokenizer.fallback(cfg.clip.vocab_size)
 
 
+# the CUDA-core kernels' shapes, fp32 at SD-1.5's 64² level: the sampling
+# self-attention and FF rows at batch 8 (4 images with CFG), the mode-C
+# step's attention at micro-batch 2
+SIMT_FIXED = (8, 8, 4096, 40)
+SIMT_TRAIN = (2, 8, 4096, 40)
+SIMT_GEGLU = (32768, 320)
+
+
+def phase_simt_kernels():
+    """The CUDA-core kernels (``csrc/flash_simt.cu``,
+    ``csrc/geglu_ff_simt.cu``), each through its wrapper against its plain
+    version (``simt_err``), one launch a call, timed against the PyTorch
+    call of the same function where there is one (SDPA's default dispatch,
+    its backend named; its backward through autograd for the two backward
+    kernels) in alternating rounds.  Returns their rows of the kernels
+    line."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+    from sdbc_tpu_torch.ops import geglu_ff as gf
+
+    g = torch.Generator(device="cuda").manual_seed(5678)
+    rows = []
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    def check(name, out, ref, calls=1):
+        torch.cuda.synchronize()
+        err, tol = simt_err(out, ref)
+        if _kernels.launches[name] != calls or not (
+                torch.isfinite(out).all() and err <= tol):
+            fail(f"{name}: max abs err {err} (tol {tol}), launches "
+                 f"{_kernels.launches[name]} (expected {calls})")
+        return err
+
+    def add(name, source, replaces, label, err, ms, pms, bms, by, lms,
+            lib=None, **extra):
+        share = 100 * bms / ms
+        print(f"[simt-kernels] {name} {label}: max_abs_err {err:.3e}; kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms, "
+              + (f"{lib} {lms:.4f} ms (kernel/library {ms / lms:.2f}) in "
+                 f"alternating rounds, " if lms else "")
+              + f"bound {bms:.4f} ms ({by}), {share:.2f}% of it", flush=True)
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, max_abs_err=err, ms=ms,
+                         plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=lms, library=lib, shape=label, **extra))
+
+    # the fixed cap, heads read through the projection layout's strides
+    b, h, s, d = SIMT_FIXED
+    q, k, v = (randn(b, s, h, d).transpose(1, 2) for _ in range(3))
+    kern = lambda: fa.flash_attention_fixed(q, k, v)
+    _kernels.reset_launch_counts()
+    err = check("flash_fixed_simt", kern(), fa.fixed_cap_attention_ref(
+        q, k, v))
+    pms = median_ms(lambda: fa.fixed_cap_attention_ref(q, k, v), 3)
+    ms, lms = paired_ms([kern, lambda: sdpa(q, k, v)])
+    n_sc = float(b * h * s * s)
+    fp32_bytes = lambda n_in, n_out, extra: 4.0 * b * h * s * d * (
+        n_in + n_out) + extra
+    bms, by = bound(fp32_bytes(3, 1, 0.0), exps=n_sc,
+                    fp32_ops=4.0 * n_sc * d)
+    add("flash_fixed_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
+        "sdbc_tpu/ops/flash_attention.py:348", f"fp32 {SIMT_FIXED}", err,
+        ms, pms, bms, by, lms, f"sdpa ({sdpa_backend(q, k, v)})")
+    del q, k, v
+
+    # the training forward and backward in fp32
+    b, h, s, d = SIMT_TRAIN
+    scale = d ** -0.5
+    q, k, v, do = (randn(b, s, h, d).transpose(1, 2) for _ in range(4))
+    _kernels.reset_launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, scale)
+    err = check("flash_fwd_simt", out, ref)
+    lerr = (lse - ref_lse).abs().max().item()
+    if not lerr <= LSE_TOL:
+        fail(f"flash_fwd_simt: lse err {lerr} (tol {LSE_TOL})")
+    pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
+    ms, lms = paired_ms([lambda: fa.flash_fwd(q, k, v, scale),
+                         lambda: sdpa(q, k, v, scale=scale)])
+    n_sc = float(b * h * s * s)
+    bms, by = bound(fp32_bytes(3, 1, 4.0 * b * h * s), exps=n_sc,
+                    fp32_ops=4.0 * n_sc * d)
+    add("flash_fwd_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
+        "sdbc_tpu/ops/flash_attention.py:81", f"fp32 {SIMT_TRAIN}",
+        max(err, lerr), ms, pms, bms, by, lms,
+        f"sdpa ({sdpa_backend(q, k, v)})")
+    del out, lse
+    _kernels.reset_launch_counts()
+    grads = fb.flash_bwd(q, k, v, ref, do, ref_lse, scale)
+    refs = fb.flash_bwd_ref(q, k, v, ref, do, ref_lse, scale)
+    errs = [check(n, gr, rf) for n, gr, rf in zip(
+        ("flash_bwd_simt_dq", "flash_bwd_simt_dkv", "flash_bwd_simt_dkv"),
+        grads, refs)]
+    del grads, refs
+    qs, kl, lse2, delta = fb.prepare(q, k, ref, do, ref_lse, scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_fn = lambda: _kernels.flash_simt_bwd_dq(qs, kl, v, do, lse2, delta,
+                                               dq, scale / fb.LOG2E)
+    dkv_fn = lambda: _kernels.flash_simt_bwd_dkv(qs, kl, v, do, lse2, delta,
+                                                 dk, dv)
+    pms = median_ms(lambda: fb.flash_bwd_ref(q, k, v, ref, do, ref_lse,
+                                             scale), 3)
+    ql, kl_, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lo = sdpa(ql, kl_, vl, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(lo, (ql, kl_, vl), do,
+                                           retain_graph=True)
+    dq_ms, dkv_ms, lms = paired_ms([dq_fn, dkv_fn, sdpa_bwd])
+    lib = f"sdpa backward ({sdpa_backend(q, k, v)})"
+    lse_bytes = 8.0 * b * h * s
+    for name, kms, e, mm, n_out in (("flash_bwd_simt_dq", dq_ms, errs[0], 3,
+                                     1),
+                                    ("flash_bwd_simt_dkv", dkv_ms,
+                                     max(errs[1:]), 4, 2)):
+        bms, by = bound(fp32_bytes(4, n_out, lse_bytes), exps=n_sc,
+                        fp32_ops=2.0 * mm * n_sc * d)
+        add(name, "sdbc_tpu_torch/csrc/flash_simt.cu",
+            "sdbc_tpu/ops/flash_attention_bwd.py:"
+            + ("163" if name.endswith("dq") else "187"),
+            f"fp32 {SIMT_TRAIN}", e, kms, pms, bms, by, lms, lib)
+    del q, k, v, do, ref, ref_lse, qs, kl, dq, dk, dv, lo, ql, kl_, vl
+
+    # the fused FF in fp32
+    rows_n, c = SIMT_GEGLU
+    args = [randn(rows_n, c), 1.0 + randn(c, scale=0.2), randn(c, scale=0.1),
+            randn(c, 8 * c, scale=c ** -0.5), randn(8 * c, scale=0.05),
+            randn(4 * c, c, scale=(4 * c) ** -0.5), randn(c, scale=0.05)]
+    kern = lambda: gf.geglu_ff_rows(*args)
+    _kernels.reset_launch_counts()
+    err = check("geglu_ff_simt", kern(), gf.geglu_ff_ref(*args))
+    pms = median_ms(lambda: gf.geglu_ff_ref(*args), 5)
+    ms = median_ms(kern, 10)
+    bms, by = bound(4.0 * (2 * rows_n * c + 12 * c * c + 9 * c) + 8.0 * c,
+                    fp32_ops=24.0 * rows_n * c * c)
+    add("geglu_ff_simt", "sdbc_tpu_torch/csrc/geglu_ff_simt.cu",
+        "sdbc_tpu/ops/geglu_ff.py:98", f"fp32 {SIMT_GEGLU}", err, ms, pms,
+        bms, by, None)
+    return rows
+
+
 def phase_parity():
     """The tiny sampling slice, bf16 on the card against fp32 on the CPU:
-    with the default dispatch, then with ``SDBC_GN_FUSED=1``."""
+    with the default dispatch, then with ``SDBC_GN_FUSED=1``; then fp32 on
+    the card (the same weights), where every attention and FF call goes to
+    the CUDA-core kernel of its function (``fp32_launches``).  Returns the
+    fp32 run's launch counts."""
     import numpy as np
     import torch
 
@@ -1702,15 +2082,21 @@ def phase_parity():
     want = dict.fromkeys(_kernels.launches, 0)
     want.update({"flash_fixed": 4 * flash, "geglu_ff": 4 * geglu,
                  "flash_fwd": int(cfg.vae.block_out_channels[-1] <= 256)})
+    gpu32 = {k: copy.deepcopy(m).to("cuda") for k, m in cpu.items()}
     for label, env in (("default", {}), ("SDBC_GN_FUSED=1",
-                                         {"SDBC_GN_FUSED": "1"})):
+                                         {"SDBC_GN_FUSED": "1"}),
+                       ("fp32", {})):
         if env:  # every GroupNorm of the tiny slice is eligible
             want["gn_fused"] = 4 * gn_launches(cfg, 16) \
                 + vae_gn_launches(cfg, 16, "decode")
+        if label == "fp32":
+            want = fp32_launches(dict(want, gn_fused=0))
+        models, dt = (gpu32, torch.float32) if label == "fp32" \
+            else (gpu, torch.bfloat16)
         with environment(**env):
             _kernels.reset_launch_counts()
-            out = SDPipeline(gpu, cfg, _tokenizer(cfg), "cuda",
-                             torch.bfloat16)(prompts, **kw)
+            out = SDPipeline(models, cfg, _tokenizer(cfg), "cuda", dt)(
+                prompts, **kw)
             counts = dict(_kernels.launches)
         err = float(np.abs(out - ref).max())
         print(f"[parity] tiny 32^2 batch 2 DDIM-4 ({label}): image max abs "
@@ -1721,10 +2107,13 @@ def phase_parity():
         if not err <= PARITY_TOL:
             fail(f"tiny slice ({label}): card vs CPU max abs err {err} > "
                  f"{PARITY_TOL}")
-        if counts != want or min(want["flash_fixed"], want["geglu_ff"]) == 0 \
+        used = ("flash_fixed_simt", "geglu_ff_simt", "flash_fwd_simt") \
+            if label == "fp32" else ("flash_fixed", "geglu_ff")
+        if counts != want or min(want[k] for k in used) == 0 \
                 or (env and want["gn_fused"] == 0):
             fail(f"tiny slice ({label}) launch counts {counts}, expected "
                  f"{want}")
+    return counts
 
 
 def _slice_setup():
@@ -1788,14 +2177,17 @@ def phase_slice(cfg, pipe, smi: str):
     return counts, secs
 
 
-def phase_decode_flash(pipe):
-    """One VAE decode of a 64² latent under ``SDBC_ATTN_IMPL=flash``: the
-    mid block's 512-wide single head (4096 tokens) through K5's wide kernel
-    (one ``flash_fwd`` launch, nothing else), held to the default decode
-    (plain attention, fp32 logits) on the same latent.  Tolerance: both are
-    bf16 decodes, each about e = max|default - fp32 decode| (the fp32
-    decode of the same weights, measured here) from the exact image, so
-    two such roundings of one decode lie within 2e of each other."""
+def phase_decode(pipe, impl: str):
+    """One VAE decode of a 64² latent under ``SDBC_ATTN_IMPL=impl``, held to
+    the default decode (plain attention, fp32 logits) on the same latent.
+    The mid block's 512-wide single head (4096 tokens): under "flash" K5's
+    wide kernel (one ``flash_fwd`` launch, nothing else); under "inference"
+    the fixed cap on the same kernel's fixed-cap variant (one
+    ``flash_fixed`` launch, nothing else).  Tolerance: both are bf16
+    decodes, each
+    about e = max|default - fp32 decode| (the fp32 decode of the same
+    weights, measured here) from the exact image, so two such roundings of
+    one decode lie within 2e of each other."""
     import torch
 
     from sdbc_tpu_torch.models import vae as vae_mod
@@ -1811,30 +2203,31 @@ def phase_decode_flash(pipe):
         img = vae_mod.decode(vae, z)
         torch.cuda.synchronize()
         default_counts = dict(_kernels.launches)
-        with environment(SDBC_ATTN_IMPL="flash"):
+        with environment(SDBC_ATTN_IMPL=impl):
             _kernels.reset_launch_counts()
-            img_flash = vae_mod.decode(vae, z)
+            img_sw = vae_mod.decode(vae, z)
             torch.cuda.synchronize()
             counts = dict(_kernels.launches)
-            flash_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
+            sw_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
         default_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
         img32 = vae_mod.decode(copy.deepcopy(vae).float(), z.float())
-    err = (img_flash.float() - img.float()).abs().max().item()
+    err = (img_sw.float() - img.float()).abs().max().item()
     e32 = (img.float() - img32).abs().max().item()
-    flash32 = (img_flash.float() - img32).abs().max().item()
+    sw32 = (img_sw.float() - img32).abs().max().item()
     tol = 2 * e32
-    want = dict(none, flash_fwd=1)
-    print(f"[decode] VAE decode 64^2 latent, SDBC_ATTN_IMPL=flash vs the "
+    want = dict(none, **{"flash_fwd" if impl == "flash"
+                         else "flash_fixed": 1})
+    print(f"[decode] VAE decode 64^2 latent, SDBC_ATTN_IMPL={impl} vs the "
           f"default decode: max abs diff {err:.3e} (tol {tol:.3e}, twice the "
-          f"default bf16 decode's {e32:.3e} from the fp32 decode; the flash "
-          f"decode's {flash32:.3e}; image range "
+          f"default bf16 decode's {e32:.3e} from the fp32 decode; the "
+          f"{impl} decode's {sw32:.3e}; image range "
           f"{img32.abs().max().item():.3f}); launches {counts} (default "
-          f"decode {default_counts}); wall {flash_ms:.3f} ms (default "
+          f"decode {default_counts}); wall {sw_ms:.3f} ms (default "
           f"{default_ms:.3f} ms)", flush=True)
-    if img_flash.shape != (1, 512, 512, 3) \
-            or not torch.isfinite(img_flash).all() or not err <= tol:
-        fail(f"decode under SDBC_ATTN_IMPL=flash: shape "
-             f"{tuple(img_flash.shape)}, max abs diff {err} (tol {tol})")
+    if img_sw.shape != (1, 512, 512, 3) \
+            or not torch.isfinite(img_sw).all() or not err <= tol:
+        fail(f"decode under SDBC_ATTN_IMPL={impl}: shape "
+             f"{tuple(img_sw.shape)}, max abs diff {err} (tol {tol})")
     if counts != want or default_counts != none:
         fail(f"decode launch counts {counts} (expected {want}), default "
              f"decode {default_counts} (expected none)")
@@ -1915,10 +2308,13 @@ def _n8(state) -> int:
                for leaf in optimizer_leaves(state.trainable))
 
 
-def phase_train_parity(label: str = "default", env=None, **tcfg_kw):
-    """One optimizer step of the tiny config, bf16 on the card against fp32
-    on the CPU, from the same fp32 masters and the same injected draws,
-    under the environment ``env`` on both sides."""
+def phase_train_parity(label: str = "default", env=None,
+                       card_dtype=None, **tcfg_kw):
+    """One optimizer step of the tiny config, bf16 (or ``card_dtype``) on
+    the card against fp32 on the CPU, from the same fp32 masters and the
+    same injected draws, under the environment ``env`` on both sides.  In
+    fp32 the flash forward and backward run on their CUDA-core kernels
+    (``fp32_launches``), the 8-bit AdamW as in bf16."""
     import numpy as np
     import torch
 
@@ -1960,7 +2356,8 @@ def phase_train_parity(label: str = "default", env=None, **tcfg_kw):
 
     runs = {}
     with environment(**(env or {})):
-        for dev, dt in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        for dev, dt in (("cpu", torch.float32),
+                        ("cuda", card_dtype or torch.bfloat16)):
             state = init_train_state(copy.deepcopy(base), tcfg,
                                      compute_dtype=dt, device=dev)
             grads = micro_grads(state, dev, dt)
@@ -1986,6 +2383,8 @@ def phase_train_parity(label: str = "default", env=None, **tcfg_kw):
     worst = max(float((a - b).abs().max()) for a, b in zip(dg, dc))
     want = expected_train_launches(cfg, tcfg, 32, _n8(sg),
                                    switches=bool(env))
+    if card_dtype == torch.float32:
+        want = fp32_launches(want)
     print(f"[train-parity] tiny grad_accum 2 micro 2, 8-bit AdamW, one step "
           f"({label}): loss card {mg['loss']:.6f} cpu {mc['loss']:.6f} (rel "
           f"err {lerr:.3e}, tol {TRAIN_LOSS_RTOL}); update cosine {cos:.5f} "
@@ -2008,6 +2407,8 @@ def phase_train_parity(label: str = "default", env=None, **tcfg_kw):
         fail(f"tiny train step ({label}) launch counts {cg}, expected {want}")
     used = (("gn_fused", "flash_tt") if env else ("flash_fwd",)) \
         + ("flash_bwd_dq", "flash_bwd_dkv", "adam8")
+    if card_dtype == torch.float32:
+        used = tuple(SIMT_OF.get(k, k) for k in used)
     if min(cg[k] for k in used) == 0 or (env and cg["flash_fwd"]):
         fail(f"tiny train step ({label}) skipped a kernel: {cg}")
     return cg
@@ -2204,14 +2605,16 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     build = phase_build()
-    rows = phase_kernels(build["gn"]) + phase_train_kernels(build["adam8"])
-    phase_parity()
-    # launch counts of each full-width path, from its own run (the counts
-    # set to 0 just before it, read just after)
-    paths = {}
+    rows = phase_kernels(build["gn"], build["int8"]) \
+        + phase_train_kernels(build["adam8"]) + phase_simt_kernels()
+    # launch counts of each full-width path (and of the tiny fp32 ones),
+    # from its own run (the counts set to 0 just before it, read just after)
+    paths = {"sampling fp32 (tiny)": phase_parity()}
     cfg, pipe = _slice_setup()
     paths["sampling"], _ = phase_slice(cfg, pipe, smi)
-    paths["decode SDBC_ATTN_IMPL=flash"] = phase_decode_flash(pipe)
+    paths["decode SDBC_ATTN_IMPL=flash"] = phase_decode(pipe, "flash")
+    paths["decode SDBC_ATTN_IMPL=inference"] = phase_decode(pipe,
+                                                            "inference")
     phase_profile(pipe)
     paths["sampling SDBC_GN_FUSED=1"] = phase_switches_sampling(cfg, pipe,
                                                                 smi)
@@ -2220,6 +2623,8 @@ def main() -> int:
     phase_train_parity()
     phase_train_parity("grad_ckpt block + switches", SWITCHES,
                        grad_ckpt=True, remat_mode="block")
+    paths["train fp32 (tiny)"] = phase_train_parity(
+        "fp32", card_dtype=torch.float32)
     paths["train"], sps, peak = phase_train(smi)
     ckpt = phase_train_ckpt(smi, (sps, peak))
     paths["train grad_ckpt block"] = ckpt["block"]

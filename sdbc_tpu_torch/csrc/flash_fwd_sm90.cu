@@ -82,6 +82,8 @@ namespace {
 
 using sm90::ex2;
 using sm90::pack_bf16;
+using sm90::quad_max;
+using sm90::quad_sum;
 using sm90::swz;
 
 typedef __nv_bfloat16 bf16;
@@ -115,16 +117,6 @@ struct Cfg {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES)
                               + 1024;  // room to align the base
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // S (64 x BK) = Q_w (64 x 16 KS) . K^T: KS k16 steps, both K-major; the Q
 // tile has BQ rows.

@@ -1,11 +1,15 @@
-// Flash-attention training forward for Hopper (sm_90a) at head dims above
-// 256 (the VAE's single 512-wide head), bf16, on TMA-fed wgmma.
+// Flash-attention forwards for Hopper (sm_90a) at head dims above 256 (the
+// VAE's single 512-wide head), bf16, on TMA-fed wgmma.
 //
 // Replaces the JAX package's Pallas kernels, for head dims in (256, 512]
 // (flash_fwd_sm90.cu takes those up to 256):
 //   TT = false <- sdbc_tpu/ops/flash_attention.py _fwd_kernel (via _flash_fwd)
 //   TT = true  <- sdbc_tpu/ops/flash_attention_tt.py _fwd_tt_kernel (via
 //                 _flash_fwd_tt): head-dim-major operands and output
+//   FIXED      <- sdbc_tpu/ops/flash_attention.py _fixed_kernel_bshd,
+//                 _fixed_kernel_raw, _fixed_kernel (the fixed cap, the
+//                 VAE's head under SDBC_ATTN_IMPL=inference): no running
+//                 max, p = exp2(min(s, 60)), o = acc / max(l, 1e-37), no LSE
 //
 // Math (flash_fwd_sm90.cu's ONLINE variant): q is prescaled by scale*log2e
 // in fp32 and rounded once to bf16, so s = q.k^T (fp32 accumulate) is in
@@ -41,7 +45,8 @@
 //   each row's (m, l), into the peer's freed K ring; CTA r finalises half
 //   r.  Both halves combine the first key half's partial before the
 //   second's with explicit roundings, o = (O_0 a_0 + O_1 a_1) / l, so the
-//   result does not depend on which CTA finishes it.  CTA 0 writes the
+//   result does not depend on which CTA finishes it (the fixed cap: a_0 =
+//   a_1 = 1, l = l_0 + l_1).  CTA 0 writes the
 //   LSE.  A CTA with no keys (Sk <= 64) carries m = -1e30, l = 0 and O = 0,
 //   and the result is exactly its peer's.
 // - Shared memory: Q (64 x 512 bf16, 64 KB), K and V tiles of 32 keys in a
@@ -67,6 +72,8 @@ namespace {
 
 using sm90::ex2;
 using sm90::pack_bf16;
+using sm90::quad_max;
+using sm90::quad_sum;
 using sm90::swz;
 
 typedef __nv_bfloat16 bf16;
@@ -80,6 +87,7 @@ constexpr int CB = 64;         // columns per 128-byte-swizzled column block
 constexpr int HALF = 256;      // head-dim columns per consumer
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;
+constexpr float CAP = 60.f;  // the fixed cap's log2-space clamp
 
 constexpr int Q_BYTES = BQ * 2 * HALF * 2;
 constexpr int KV_BYTES = BK * 2 * HALF * 2;  // one K or V tile
@@ -103,7 +111,7 @@ __host__ __device__ constexpr int ncb() { return 4 + KS1 / 4; }
 struct Params {
   int H, Sq, Sk;
   float qscale;
-  float* lse;  // (B, H, Sq) fp32
+  float* lse;  // (B, H, Sq) fp32; unused by the fixed cap
 };
 
 // What the consumers share: shared memory, barriers, maps, this CTA's keys.
@@ -116,16 +124,6 @@ struct Ctx {
   int q0, h, b, rank;
   int k0, kend, nk;  // this CTA's keys [k0, kend) in nk tiles
 };
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // K (or, with V, V) tile j of this CTA's keys, the keys [k0 + j BK, ...),
 // into stage j % STAGES; tiles past the last are not issued.
@@ -166,7 +164,7 @@ __device__ __forceinline__ void release(const Ctx& x, int j) {
 }
 
 // One consumer warpgroup W: its head-dim half of the scores and of O.
-template <int KS1, bool TT, int W>
+template <int KS1, bool TT, bool FIXED, int W>
 __device__ __forceinline__ void consume(const Ctx& x) {
   constexpr int NKS = W == 0 ? HALF / 16 : KS1;  // k16 steps of S_W
   constexpr int NV = 16 * NKS;                    // columns of O_W
@@ -271,6 +269,17 @@ __device__ __forceinline__ void consume(const Ctx& x) {
         if (col + 1 >= x.kend) s[4 * n + 1] = s[4 * n + 3] = NEG_INF;
       }
     }
+    if constexpr (FIXED) {  // p = exp2(min(s, 60)); masked keys give 0
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * n + e] = ex2(fminf(s[4 * n + e], CAP));
+        l0 += s[4 * n] + s[4 * n + 1];
+        l1 += s[4 * n + 2] + s[4 * n + 3];
+      }
+      return;
+    }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
@@ -308,6 +317,7 @@ __device__ __forceinline__ void consume(const Ctx& x) {
     }
   };
   auto rescale = [&]() {
+    if constexpr (FIXED) return;  // no running max
 #pragma unroll
     for (int n = 0; n < NV / 8; ++n) {
       o[4 * n] *= a0; o[4 * n + 1] *= a0;
@@ -398,8 +408,14 @@ __device__ __forceinline__ void consume(const Ctx& x) {
     const float* ml = reinterpret_cast<const float*>(x.smem + X_OFF) + 2 * row;
     const float mf = first ? mo : ml[0], ms = first ? ml[0] : mo;
     const float lf = first ? lo : ml[1], ls = first ? ml[1] : lo;
-    const float m = fmaxf(mf, ms);
     Row r;
+    if constexpr (FIXED) {  // the halves' sums add; no max to align
+      r.af = r.as = 1.f;
+      r.inv = 1.f / fmaxf(__fadd_rn(lf, ls), 1e-37f);
+      r.lse = 0.f;
+      return r;
+    }
+    const float m = fmaxf(mf, ms);
     r.af = mf == m ? 1.f : ex2(mf - m);
     r.as = ms == m ? 1.f : ex2(ms - m);
     const float l = __fadd_rn(__fmul_rn(lf, r.af), __fmul_rn(ls, r.as));
@@ -450,7 +466,7 @@ __device__ __forceinline__ void consume(const Ctx& x) {
     }
     sm90::tma_store_commit_and_wait();
   }
-  if (W == 0 && qd == 0) {
+  if (!FIXED && W == 0 && qd == 0) {
     const int row = x.q0 + r0;
     float* lb = x.prm.lse + ((long long)x.b * x.prm.H + x.h) * x.prm.Sq;
     if (row < x.prm.Sq) lb[row] = ra.lse;
@@ -458,7 +474,7 @@ __device__ __forceinline__ void consume(const Ctx& x) {
   }
 }
 
-template <int KS1, bool TT>
+template <int KS1, bool TT, bool FIXED>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NTHREADS, 1)
 flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -520,9 +536,9 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
   if (threadIdx.x < 128)
-    consume<KS1, TT, 0>(x);
+    consume<KS1, TT, FIXED, 0>(x);
   else
-    consume<KS1, TT, 1>(x);
+    consume<KS1, TT, FIXED, 1>(x);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,7 +546,7 @@ flash_fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 using sm90::View;
 
-template <int KS1, bool TT>
+template <int KS1, bool TT, bool FIXED>
 cudaError_t launch(const View& q, const View& k, const View& v, const View& o,
                    float* lse, int B, int H, int Sq, int Sk, int D,
                    float qscale, cudaStream_t stream) {
@@ -547,19 +563,19 @@ cudaError_t launch(const View& q, const View& k, const View& v, const View& o,
                && sm90::make_map(&to, o, B, Sq, H, D, BQ);
   if (!ok) return cudaErrorInvalidValue;
   static uint64_t raised = 0;
-  cudaError_t err = sm90::raise_smem(flash_fwd_wide_sm90_kernel<KS1, TT>,
-                                     SMEM, raised);
+  cudaError_t err = sm90::raise_smem(
+      flash_fwd_wide_sm90_kernel<KS1, TT, FIXED>, SMEM, raised);
   if (err != cudaSuccess) return err;
   const Params prm{H, Sq, Sk, qscale, lse};
   dim3 grid(2 * ((Sq + BQ - 1) / BQ), H, B);  // a cluster of two per q tile
-  flash_fwd_wide_sm90_kernel<KS1, TT>
+  flash_fwd_wide_sm90_kernel<KS1, TT, FIXED>
       <<<grid, NTHREADS, SMEM, stream>>>(tq, tk, tv, to, prm);
   return cudaGetLastError();
 }
 
 // The instantiations: consumer 1's k16 steps, D - 256 rounded up to a
 // multiple of 64 columns.
-template <bool TT>
+template <bool TT, bool FIXED>
 int dispatch(const View& q, const View& k, const View& v, const View& o,
              float* lse, int B, int H, int Sq, int Sk, int D, float qscale,
              void* stream) {
@@ -569,7 +585,7 @@ int dispatch(const View& q, const View& k, const View& v, const View& o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ks1 = (D - HALF + 15) / 16;
 #define SDBC_LAUNCH(KS1) \
-  (int)launch<KS1, TT>(q, k, v, o, lse, B, H, Sq, Sk, D, qscale, s)
+  (int)launch<KS1, TT, FIXED>(q, k, v, o, lse, B, H, Sq, Sk, D, qscale, s)
   if (ks1 <= 4) return SDBC_LAUNCH(4);
   if (ks1 <= 8) return SDBC_LAUNCH(8);
   if (ks1 <= 12) return SDBC_LAUNCH(12);
@@ -592,9 +608,24 @@ extern "C" int sdbc_flash_fwd_wide_sm90(const void* q, const void* k,
   auto view = [&](const void* p, int i) {
     return View{p, st[3 * i], st[3 * i + 2], st[3 * i + 1]};
   };
-  return dispatch<false>(view(q, 0), view(k, 1), view(v, 2), view(o, 3),
-                         static_cast<float*>(lse), B, H, Sq, Sk, D, qscale,
-                         stream);
+  return dispatch<false, false>(view(q, 0), view(k, 1), view(v, 2),
+                                view(o, 3), static_cast<float*>(lse), B, H,
+                                Sq, Sk, D, qscale, stream);
+}
+
+// K1-K3 for head dims in (256, 512]: the fixed cap over q/k/v/o as in
+// sdbc_flash_fwd_wide_sm90, no LSE.
+extern "C" int sdbc_flash_fixed_wide_sm90(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int H, int Sq, int Sk, int D,
+                                          const long long* st, float qscale,
+                                          void* stream) {
+  auto view = [&](const void* p, int i) {
+    return View{p, st[3 * i], st[3 * i + 2], st[3 * i + 1]};
+  };
+  return dispatch<false, true>(view(q, 0), view(k, 1), view(v, 2),
+                               view(o, 3), nullptr, B, H, Sq, Sk, D, qscale,
+                               stream);
 }
 
 // K9 for head dims in (256, 512]: as sdbc_flash_fwd_wide_sm90 over
@@ -610,7 +641,7 @@ extern "C" int sdbc_flash_fwd_tt_wide_sm90(const void* q, const void* k,
   auto view = [&](const void* p, int i) {
     return View{p, st[3 * i], st[3 * i + 2], st[3 * i + 1]};
   };
-  return dispatch<true>(view(q, 0), view(k, 1), view(v, 2), view(o, 3),
-                        static_cast<float*>(lse), B, H, Sq, Sk, D, qscale,
-                        stream);
+  return dispatch<true, false>(view(q, 0), view(k, 1), view(v, 2), view(o, 3),
+                               static_cast<float*>(lse), B, H, Sq, Sk, D,
+                               qscale, stream);
 }

@@ -4,7 +4,8 @@
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
 // flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu,
-// flash_bwd_wide_sm90.cu, geglu_ff_sm90.cu and group_norm_sm90.cu.
+// flash_bwd_wide_sm90.cu, flash_int8_sm90.cu, geglu_ff_sm90.cu and
+// group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -37,6 +38,18 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The max and the sum over the four lanes of a quad (the threads that hold
+// one row of an m64 accumulator fragment).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Byte offset of (row, col) in a stack of 64-column blocks of `rows` rows,
@@ -308,6 +321,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Operand lists: "%0, ..., %n-1" and the matching "+f" accumulator
 // constraints, in groups of 8 registers.
@@ -466,6 +484,39 @@ SM90_SST(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
 SM90_SST(192, SM90_REGS96, SM90_F96, 96, 97, 98)
 SM90_SST(256, SM90_REGS128, SM90_F128, 128, 129, 130)
 
+// D (64 x N, s32) (+)= A (64 x 32, s8, shared, K-major) . B (32 x N, s8,
+// shared, K-major): the integer product takes both operands K-major, with
+// no transpose; a k32 step is 32 bytes, as a bf16 k16 step, so the
+// descriptors are WgmmaSS's.  scale_d = 0 overwrites D.  The s32
+// accumulator has the f32 one's fragment layout.
+template <int N>
+struct WgmmaS8;
+
+#define SM90_I8(d, o)                                                  \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]),          \
+      "+r"(d[o + 4]), "+r"(d[o + 5]), "+r"(d[o + 6]), "+r"(d[o + 7])
+#define SM90_I32(d) SM90_I8(d, 0), SM90_I8(d, 8), SM90_I8(d, 16), SM90_I8(d, 24)
+#define SM90_I64(d)                                                    \
+  SM90_I8(d, 0), SM90_I8(d, 8), SM90_I8(d, 16), SM90_I8(d, 24),        \
+      SM90_I8(d, 32), SM90_I8(d, 40), SM90_I8(d, 48), SM90_I8(d, 56)
+
+#define SM90_S8(N, REGS, FN, IA, IB, IS)                                    \
+  template <>                                                              \
+  struct WgmmaS8<N> {                                                      \
+    __device__ __forceinline__ static void run(uint32_t (&d)[N / 2],       \
+                                               uint64_t a, uint64_t b,     \
+                                               int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k32.s32.s8.s8 {" REGS "}, %" #IA ", %" #IB ", p;\n}\n"  \
+                   : FN(d)                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d));                        \
+    }                                                                      \
+  };
+SM90_S8(64, SM90_REGS32, SM90_I32, 32, 33, 34)
+SM90_S8(128, SM90_REGS64, SM90_I64, 64, 65, 66)
+
+#undef SM90_S8
 #undef SM90_SS
 #undef SM90_SST
 #undef SM90_SSTT
@@ -529,19 +580,22 @@ inline bool make_map(CUtensorMap* map, const View& v, int B, int S, int H,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A bf16 map of rank `rank` (dims and box innermost first, `strides` the
-// byte strides of dims 1..rank-1), 128-byte swizzle unless `swizzle` says
+// A map of rank `rank` (bf16 unless `dtype` says otherwise; dims and box
+// innermost first, `strides` the byte strides of dims 1..rank-1), 128-byte
+// swizzle unless `swizzle` says
 // otherwise (a box row narrower than the swizzle is not packed densely:
 // each takes a whole swizzle-wide row); reads past the bounds give zeros,
 // stores past them are dropped.
 inline bool make_map_nd(CUtensorMap* map, const void* p, int rank,
                         const cuuint64_t* dims, const cuuint64_t* strides,
                         const cuuint32_t* box,
-                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                        CUtensorMapDataType dtype =
+                            CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
+  return enc(map, dtype, rank, const_cast<void*>(p),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

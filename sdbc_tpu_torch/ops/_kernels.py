@@ -41,7 +41,9 @@ LINK_FLAGS = ARCH + ["-shared"]
 
 launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adam8": 0, "gn_fused": 0,
-            "flash_tt": 0, "flash_fixed_int8": 0}
+            "flash_tt": 0, "flash_fixed_int8": 0, "flash_fixed_simt": 0,
+            "flash_fwd_simt": 0, "flash_bwd_simt_dq": 0,
+            "flash_bwd_simt_dkv": 0, "geglu_ff_simt": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -146,6 +148,8 @@ def load():
     lib.sdbc_flash_fwd_sm90.restype = i
     lib.sdbc_flash_fwd_wide_sm90.argtypes = [p] * 5 + [i] * 5 + [llp, f, p]
     lib.sdbc_flash_fwd_wide_sm90.restype = i
+    lib.sdbc_flash_fixed_wide_sm90.argtypes = [p] * 4 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_fixed_wide_sm90.restype = i
     lib.sdbc_flash_bwd_dq_sm90.argtypes = [p] * 7 + [i] * 6 + [llp, f, p]
     lib.sdbc_flash_bwd_dq_sm90.restype = i
     lib.sdbc_flash_bwd_dkv_sm90.argtypes = [p] * 8 + [i] * 6 + [llp, p]
@@ -167,8 +171,14 @@ def load():
     lib.sdbc_group_norm_max_clusters.argtypes = [i] * 6 + [
         ctypes.POINTER(i)]
     lib.sdbc_group_norm_max_clusters.restype = i
-    lib.sdbc_flash_int8.argtypes = [p] * 6 + [i] * 6 + [llp, p]
-    lib.sdbc_flash_int8.restype = i
+    lib.sdbc_flash_int8_sm90.argtypes = [p] * 6 + [i] * 5 + [llp, f, p]
+    lib.sdbc_flash_int8_sm90.restype = i
+    lib.sdbc_flash_simt_fwd.argtypes = [p] * 5 + [i] * 7 + [llp, f, p]
+    lib.sdbc_flash_simt_fwd.restype = i
+    lib.sdbc_flash_simt_bwd.argtypes = [p] * 8 + [i] * 8 + [llp, f, p]
+    lib.sdbc_flash_simt_bwd.restype = i
+    lib.sdbc_geglu_ff_simt.argtypes = [p] * 8 + [i] * 3 + [f, p]
+    lib.sdbc_geglu_ff_simt.restype = i
     lib.sdbc_error_string.argtypes = [i]
     lib.sdbc_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -209,6 +219,24 @@ def flash_fixed(q, k, v, o, qscale: float) -> None:
         rc = lib.sdbc_flash_fixed(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   o.data_ptr(), b, h, sq, sk, d, *strides,
                                   float(qscale), _stream(q))
+    _check(lib, rc, "flash_fixed")
+    launches["flash_fixed"] += 1
+
+
+def flash_fixed_wide(q, k, v, o, qscale: float) -> None:
+    """The fixed cap for head dims in (256, 512] (the VAE's 512-wide head):
+    the fixed-cap variant of ``csrc/flash_fwd_wide_sm90.cu``'s kernel on
+    (B, H, S, D) logical views (any batch/head/seq strides that are
+    multiples of 8, contiguous head dim).  Counted as a launch of
+    ``flash_fixed``: the same function.  The caller checks shapes and
+    dtypes (``ops.flash_attention``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_fixed_wide_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq,
+            k.shape[2], d, _bhs_strides(q, k, v, o), float(qscale),
+            _stream(q))
     _check(lib, rc, "flash_fixed")
     launches["flash_fixed"] += 1
 
@@ -431,18 +459,101 @@ def group_norm_max_clusters(dtype, vec: bool, silu: bool, cluster: int,
     return out.value
 
 
-def flash_fixed_int8(qi, qs, ki, ks, v, o) -> None:
-    """Launch the int8-QK fixed-cap kernel: contiguous int8 (B, H, S, Dq)
-    ``qi``/``ki`` (the head dim zero-padded to Dq = D rounded up to 32),
-    contiguous fp32 (B, H, S) row scales, bf16 (B, H, S, D) ``v``/``o``
-    views with a contiguous head dim.  The caller checks shapes and dtypes
+def flash_fixed_int8(q, k, v, o, k8, ks, qscale: float) -> None:
+    """Launch the int8-QK fixed-cap attention (``csrc/flash_int8_sm90.cu``)
+    on bf16 (B, H, S, D) views ``q``, ``k``, ``v`` and ``o`` (any
+    batch/head/seq strides that are multiples of 8, contiguous head dim),
+    quantizing q and k inside the call: a pre-pass quantizes k into ``k8``
+    (int8, B·H·Sk·D8 elements, D8 = D rounded up to 16) and ``ks`` (fp32,
+    B·H·Skp, Skp = Sk rounded up to 128), then the attention kernel runs.
+    Two launches, each counted.  The caller checks shapes and dtypes
     (``ops.flash_attention``)."""
     lib = load()
-    b, h, sq, d = o.shape
-    with _device(v):
-        rc = lib.sdbc_flash_int8(qi.data_ptr(), qs.data_ptr(), ki.data_ptr(),
-                                 ks.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                                 h, sq, ki.shape[2], d, qi.shape[3],
-                                 _bhs_strides(v, o), _stream(v))
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_int8_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            k8.data_ptr(), ks.data_ptr(), b, h, sq, k.shape[2], d,
+            _bhs_strides(q, k, v, o), float(qscale), _stream(q))
     _check(lib, rc, "flash_fixed_int8")
-    launches["flash_fixed_int8"] += 1
+    launches["flash_fixed_int8"] += 2
+
+
+# the CUDA-core kernels (csrc/flash_simt.cu, csrc/geglu_ff_simt.cu): bf16
+# or fp32, any strides
+_SIMT_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _bhsd_strides(*tensors):
+    """All four strides of (B, H, S, D) views, as the C array the CUDA-core
+    kernels take."""
+    out = [st for t in tensors for st in t.stride()]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def flash_simt_fwd(q, k, v, o, lse, qscale: float, *, fixed: bool) -> None:
+    """Launch the CUDA-core attention forward (``csrc/flash_simt.cu``) on
+    (B, H, S, D) views of any strides, bf16 or fp32, D ≤ 512: the fixed cap
+    (``fixed``; counted as ``flash_fixed_simt``) or the training forward,
+    writing the natural-log LSE into the contiguous (B, H, Sq) fp32 ``lse``
+    (``flash_fwd_simt``).  The caller checks shapes and dtypes
+    (``ops.flash_simt``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_simt_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if fixed else lse.data_ptr(), _SIMT_DTYPES[q.dtype],
+            int(fixed), b, h, sq, k.shape[2], d, _bhsd_strides(q, k, v, o),
+            float(qscale), _stream(q))
+    name = "flash_fixed_simt" if fixed else "flash_fwd_simt"
+    _check(lib, rc, name)
+    launches[name] += 1
+
+
+def _launch_simt_bwd(name, qs, kl, v, do, lse2, delta, outs,
+                     dq_mul: float) -> None:
+    lib = load()
+    b, h, sq, d = qs.shape
+    with _device(qs):
+        rc = lib.sdbc_flash_simt_bwd(
+            qs.data_ptr(), kl.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr() if len(outs) > 1 else None,
+            _SIMT_DTYPES[qs.dtype], int(len(outs) == 1), b, h, sq,
+            kl.shape[2], d, lse2.shape[-1],
+            _bhsd_strides(qs, kl, v, do, *outs), float(dq_mul), _stream(qs))
+    _check(lib, rc, name)
+    launches[name] += 1
+
+
+def flash_simt_bwd_dq(qs, kl, v, do, lse2, delta, dq, dq_mul: float) -> None:
+    """Launch the CUDA-core dq kernel on ``flash_attention_bwd.prepare``'s
+    inputs ((B, H, S, D) views of any strides, bf16 or fp32; ``lse2`` and
+    ``delta`` contiguous (B, H, Sq_pad) fp32, zero past Sq).  The caller
+    checks them (``ops.flash_simt``)."""
+    _launch_simt_bwd("flash_bwd_simt_dq", qs, kl, v, do, lse2, delta, (dq,),
+                     dq_mul)
+
+
+def flash_simt_bwd_dkv(qs, kl, v, do, lse2, delta, dk, dv) -> None:
+    """Launch the CUDA-core dk/dv kernel (inputs as
+    ``flash_simt_bwd_dq``)."""
+    _launch_simt_bwd("flash_bwd_simt_dkv", qs, kl, v, do, lse2, delta,
+                     (dk, dv), 0.0)
+
+
+def geglu_ff_simt(y, gamma, beta, w1, b1, w2, b2, out, eps: float) -> None:
+    """Launch the CUDA-core fused GEGLU (``csrc/geglu_ff_simt.cu``) over
+    contiguous (rows, c) bf16 or fp32 rows, c ≤ 640, the weights in y's
+    dtype and the LayerNorm's in fp32.  The caller checks shapes and dtypes
+    (``ops.geglu_ff``)."""
+    lib = load()
+    rows, c = y.shape
+    with _device(y):
+        rc = lib.sdbc_geglu_ff_simt(
+            y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            _SIMT_DTYPES[y.dtype], rows, c, float(eps), _stream(y))
+    _check(lib, rc, "geglu_ff_simt")
+    launches["geglu_ff_simt"] += 1

@@ -22,6 +22,12 @@ impl:
   "flash_tt"  — the transposed-layout training flash kernel
                 (``flash_attention_tt``)
 
+The rules read no dtype and no head dim beyond the JAX package's: its
+kernels take any dtype and pad any head dim.  Each kernel entry point
+takes a CUDA tensor that its tensor-core kernel does not take (fp32, a
+head dim that is not a multiple of 8) to the CUDA-core kernel of the same
+function (``flash_simt``).
+
 ``SDBC_ATTN_IMPL`` (read at call time) overrides "auto" and "inference"; an
 unknown value raises.  With it set, ``attention_bshd_inference`` leaves the
 projection-layout kernel for the head-major dispatch.  Causal attention

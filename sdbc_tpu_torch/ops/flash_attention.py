@@ -21,6 +21,14 @@ the ``SDBC_ATTN_IMPL=flash`` override sends here), as the JAX backward
 pads any head dim; "auto" routes only up to 256, as the JAX package's
 ``_flash_eligible`` admits.
 
+The tensor-core kernels take bf16 q, k and v with a head dim that is a
+multiple of 8, up to 512 (``takes``; the int8 one up to 256); their input
+checks raise on anything else.  The JAX package's
+kernels take any dtype and pad any head dim, so every wrapper here hands
+the CUDA tensors its tensor-core kernel does not take (fp32, head dims
+that are not a multiple of 8) to the CUDA-core kernels of ``flash_simt``:
+the same function, up to head dim 512, in bf16 or fp32.
+
 Inference (fixed cap):
 
 Math (the JAX package's ``_fixed_kernel_bshd``/``_fixed_kernel_raw``/
@@ -32,8 +40,9 @@ models stay O(10)); beyond that the softmax is distorted, not clipped.
 Non-causal, no LSE, no gradient — sampling only.
 
 Both entry points run ONE CUDA kernel (``csrc/flash_fwd_sm90.cu``, the
-training forward's template without the running max) that takes (batch,
-seq, head) strides: the projection layout (B, S, H, D) and the head-major
+training forward's template without the running max; above head dim 256
+the fixed-cap variant of ``csrc/flash_fwd_wide_sm90.cu``'s) that takes
+(batch, seq, head) strides: the projection layout (B, S, H, D) and the head-major
 layout (B, H, S, D) differ only in the TMA tensor maps built from them;
 rows past S and head-dim columns past D load as zeros (the head dim is
 padded to a multiple of 64) and stores past them are dropped.  On a CPU tensor the wrappers compute
@@ -46,12 +55,30 @@ from typing import Optional
 
 import torch
 
-from sdbc_tpu_torch.ops import _kernels
+from sdbc_tpu_torch.ops import _kernels, flash_simt
 from sdbc_tpu_torch.ops.flash_attention_bwd import flash_bwd
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 CAP = 60.0  # log2-space clamp; see module docstring
+# the widest heads the tensor-core kernels take: the VAE's 512-wide head
+# (above 256 the kernels of csrc/flash_fwd_wide_sm90.cu and
+# csrc/flash_bwd_wide_sm90.cu); the int8 kernel's
+MAX_D = 512
+MAX_INT8_D = 256
+
+
+def _takes(q, k, v, max_d: int) -> bool:
+    d = q.shape[-1]
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and d <= max_d and d % 8 == 0)
+
+
+def takes(q, k, v) -> bool:
+    """The tensor-core kernels (the fixed cap, the training forward and
+    backward) take bf16 q, k and v with a head dim (the last dim) that is
+    a multiple of 8, up to ``MAX_D``; ``flash_simt`` takes the others."""
+    return _takes(q, k, v, MAX_D)
 
 
 def fixed_cap_attention_ref(q, k, v, scale: Optional[float] = None):
@@ -68,15 +95,16 @@ def fixed_cap_attention_ref(q, k, v, scale: Optional[float] = None):
     return (o / torch.clamp(l, min=1e-37)).to(dt)
 
 
-def _check_cuda_inputs(q, k, v):
-    """What the kernel takes: bf16 on one CUDA device, 4-D (B, S, H, D)
-    logical views with a contiguous head dim, D ≤ 256 and a multiple of 8,
-    16-byte aligned rows.  (Runs on every launch: each test reads a
-    tensor attribute once.)"""
+def _check_cuda_inputs(q, k, v, max_d: int = MAX_D):
+    """What the kernel takes (``takes``; the int8 one head dims up to
+    ``MAX_INT8_D``) on one CUDA device, as 4-D (B, S, H, D) logical views
+    with a contiguous head dim and 16-byte aligned rows.  (Runs on every
+    launch: each test reads a tensor attribute once.)"""
+    if not _takes(q, k, v, max_d):
+        raise ValueError(f"flash_fixed kernel takes bfloat16 q, k, v with "
+                         f"head dims ≤ {max_d} that are a multiple of 8, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}, {q.shape[-1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fixed kernel takes bfloat16, {name} is "
-                            f"{t.dtype}")
         st = t.stride()
         if len(st) != 4:
             raise ValueError(f"flash_fixed: {name} must be 4-D, got "
@@ -92,17 +120,19 @@ def _check_cuda_inputs(q, k, v):
             or k.shape[3] != d:
         raise ValueError(f"flash_fixed: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d > 256 or d % 8:
-        raise ValueError(f"flash_fixed kernel takes head dims ≤ 256 that are "
-                         f"a multiple of 8, got {d}")
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("flash_fixed: empty sequence")
 
 
 def _launch(q, k, v, o, scale: float):
-    """q/k/v/o as (B, S, H, D) logical views of any stride."""
+    """q/k/v/o as (B, S, H, D) logical views of any stride: K1's kernel up
+    to head dim 256, the wide kernel's fixed-cap variant above."""
     _check_cuda_inputs(q, k, v)
-    _kernels.flash_fixed(q, k, v, o, scale * LOG2E)
+    if q.shape[-1] <= 256:
+        _kernels.flash_fixed(q, k, v, o, scale * LOG2E)
+    else:
+        tr = lambda t: t.transpose(1, 2)
+        _kernels.flash_fixed_wide(tr(q), tr(k), tr(v), tr(o), scale * LOG2E)
     return o
 
 
@@ -119,11 +149,14 @@ def _on_cpu(t) -> bool:
 def flash_attention_fixed_bshd(q, k, v, *, scale: Optional[float] = None):
     """Fixed-cap attention over (B, S, H, D) projection-layout inputs."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    tr = lambda t: t.transpose(1, 2)
     if _on_cpu(q):
-        tr = lambda t: t.transpose(1, 2)
         return tr(fixed_cap_attention_ref(tr(q), tr(k), tr(v), scale))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    return _launch(q, k, v, o, scale)
+    if takes(q, k, v):
+        return _launch(q, k, v, o, scale)
+    flash_simt.fixed_cap(tr(q), tr(k), tr(v), tr(o), scale)
+    return o
 
 
 def logit_bound(q, k, scale: float) -> float:
@@ -149,6 +182,8 @@ def flash_attention_fixed(q, k, v, *, scale: Optional[float] = None):
     if _on_cpu(q):
         return fixed_cap_attention_ref(q, k, v, scale)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not takes(q, k, v):
+        return flash_simt.fixed_cap(q, k, v, o, scale)
     tr = lambda t: t.transpose(1, 2)
     _launch(tr(q), tr(k), tr(v), tr(o), scale)
     return o
@@ -178,17 +213,18 @@ def flash_attention_ref(q, k, v, scale: float):
     return o.to(dt), lse
 
 
-def _check_train_inputs(q, k, v, max_d: int = 256):
-    """What the training kernels take: bf16 (B, H, S, D) on one CUDA
-    device, matching batch/head/dim, D ≤ ``max_d`` (512 for the forward
-    and backward kernels, 256 for the int8 one) and a multiple of 8."""
+def _check_train_inputs(q, k, v):
+    """What the training kernels take (``takes``): (B, H, S, D) on one
+    CUDA device, matching batch/head/dim."""
+    if not takes(q, k, v):
+        raise ValueError(f"flash_attention kernel takes bfloat16 q, k, v "
+                         f"with head dims ≤ {MAX_D} that are a multiple"
+                         f" of 8, got {q.dtype}/{k.dtype}/{v.dtype}, "
+                         f"{q.shape[-1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bfloat16, {name} "
-                            f"is {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-D, got "
                              f"{tuple(t.shape)}")
@@ -197,9 +233,6 @@ def _check_train_inputs(q, k, v, max_d: int = 256):
             or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d > max_d or d % 8:
-        raise ValueError(f"flash_attention kernel takes head dims ≤ {max_d} "
-                         f"that are a multiple of 8, got {d}")
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash_attention: empty sequence")
 
@@ -226,10 +259,13 @@ def bhsd_empty_like(t):
 def flash_fwd(q, k, v, scale: float):
     """(out, lse) of the training forward: on CUDA the kernel
     (``_kernels.flash_fwd`` up to head dim 256, ``_kernels.flash_fwd_wide``
-    above), on the CPU the plain version."""
+    above, ``flash_simt.fwd`` for what neither takes), on the CPU the plain
+    version."""
     if _on_cpu(q):
         return flash_attention_ref(q, k, v, scale)
-    _check_train_inputs(q, k, v, max_d=512)
+    if not takes(q, k, v):
+        return flash_simt.fwd(q, k, v, scale)
+    _check_train_inputs(q, k, v)
     q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
     o = bhsd_empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -272,7 +308,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 # ---------------------------------------------------------------------------
 # int8 QKᵀ fixed-cap attention (the JAX package's ``_flash_fixed_fwd_int8``;
-# nothing dispatches it, in either package)
+# nothing dispatches it, in either package).  The kernel quantizes q and k
+# itself, as ``quantize_rows`` does.
 
 
 def quantize_rows(x):
@@ -303,22 +340,21 @@ def fixed_cap_int8_ref(q, k, v, scale: Optional[float] = None):
 
 
 def flash_attention_fixed_int8(q, k, v, *, scale: Optional[float] = None):
-    """int8-QK fixed-cap attention over head-major (B, H, S, D) inputs: q
-    and k quantized per row here (as the JAX wrapper does outside its
-    kernel), then the kernel of ``csrc/flash_int8.cu``; on the CPU,
-    ``fixed_cap_int8_ref``."""
+    """int8-QK fixed-cap attention over head-major (B, H, S, D) inputs (any
+    batch/head/seq strides the fixed-cap kernel takes; no copy): on CUDA
+    the kernels of ``csrc/flash_int8_sm90.cu`` — a pre-pass quantizes k,
+    the attention kernel q — on the CPU, ``fixed_cap_int8_ref``."""
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if _on_cpu(q):
         return fixed_cap_int8_ref(q, k, v, scale)
-    _check_train_inputs(q, k, v)
-    v = kernel_view(v)
-    d = q.shape[-1]
-    pad = -d % 32
-    qi, qs = quantize_rows(q)
-    ki, ks = quantize_rows(k)
-    qi = torch.nn.functional.pad(qi, (0, pad)).contiguous()
-    ki = torch.nn.functional.pad(ki, (0, pad)).contiguous()
-    qs = (qs * (scale * LOG2E))[..., 0].contiguous()
+    tr = lambda t: t.transpose(1, 2)
+    _check_cuda_inputs(tr(q), tr(k), tr(v), MAX_INT8_D)
+    b, h, _, d = q.shape
+    sk = k.shape[2]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _kernels.flash_fixed_int8(qi, qs, ki, ks[..., 0].contiguous(), v, o)
+    k8 = torch.empty((b, h, sk, -(-d // 16) * 16), dtype=torch.int8,
+                     device=q.device)
+    ks = torch.empty((b, h, -(-sk // 128) * 128), dtype=torch.float32,
+                     device=q.device)
+    _kernels.flash_fixed_int8(q, k, v, o, k8, ks, scale * LOG2E)
     return o

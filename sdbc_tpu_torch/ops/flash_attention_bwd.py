@@ -20,8 +20,11 @@ On CUDA both kernels take ``prepare``'s inputs: head dims up to
 ``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
 ``csrc/flash_bwd_sm90.cu``, wider ones (up to 512, as the JAX backward pads
 any head dim) those of ``csrc/flash_bwd_wide_sm90.cu``, where a cluster of
-two CTAs splits the head dim.  On a CPU tensor ``flash_bwd`` computes
-``flash_bwd_ref``, the plain version of the same math;
+two CTAs splits the head dim; what those do not take
+(``flash_attention.takes``: fp32, head dims that are not a multiple
+of 8) the CUDA-core kernels of ``flash_simt``.  On a CPU tensor
+``flash_bwd`` computes ``flash_bwd_ref``, the plain version of the same
+math;
 ``flash_bwd_prepared_ref`` is the plain version of what the kernels compute
 from ``prepare``'s padded inputs.
 """
@@ -102,11 +105,14 @@ def flash_bwd(q, k, v, o, do, lse, scale: float):
     CUDA, ``flash_bwd_ref`` on the CPU.  The gradients come back as
     (B, H, S, D) views over (B, S, H, D) memory, the layout the UNet's
     head split came from."""
-    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention as fa, flash_simt
 
     if fa._on_cpu(q):
         return flash_bwd_ref(q, k, v, o, do, lse, scale)
-    fa._check_train_inputs(q, k, v, max_d=512)
+    if not fa.takes(q, k, v):
+        qs, kl, lse2, delta = prepare(q, k, o, do, lse, scale)
+        return flash_simt.bwd(qs, kl, v, do, lse2, delta, scale)
+    fa._check_train_inputs(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} / o "
                          f"{tuple(o.shape)} vs q {tuple(q.shape)} {q.dtype}")

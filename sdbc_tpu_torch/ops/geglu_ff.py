@@ -3,10 +3,13 @@
 ``y + (val·gelu_erf(gate))·W2 + b2`` with ``[val, gate] = LN(y)·W1 + b1``:
 LayerNorm eps 1e-5 with fp32 statistics, the up-projection rounded to the
 compute dtype before ``+ b1``, val the first 4c columns of W1 and gate the
-last 4c.  On CUDA this is one kernel (``csrc/geglu_ff_sm90.cu``: TMA-fed
-``wgmma``, the GEGLU in registers) that keeps the 4c-wide hidden on chip;
-on a CPU tensor the wrappers compute ``geglu_ff_ref``, the plain PyTorch
-version with the same rounding points.
+last 4c.  On CUDA this is one kernel that keeps the 4c-wide hidden on
+chip: for the rows it takes (``takes``: bf16, c a multiple of 32, of 64
+above 320) ``csrc/geglu_ff_sm90.cu`` (TMA-fed ``wgmma``, the GEGLU in
+registers), for the others (fp32, other widths up to 640: the JAX
+package's kernel takes any dtype) ``csrc/geglu_ff_simt.cu`` on the CUDA
+cores; on a CPU tensor the wrappers compute ``geglu_ff_ref``, the plain
+PyTorch version with the same rounding points.
 Sampling only: no gradient.
 """
 from __future__ import annotations
@@ -34,6 +37,20 @@ def ff_fused_eligible(y) -> bool:
             and rows % min(_default_block(c), rows) == 0)
 
 
+def takes(y) -> bool:
+    """The tensor-core kernel takes bf16 rows of a width c that is a
+    multiple of 32 up to 320 or of 64 up to 640; the CUDA-core kernel takes
+    bf16 or fp32 rows of any width up to 640 (``takes_simt``)."""
+    c = y.shape[-1]
+    return (y.dtype == torch.bfloat16 and c <= _MAX_C
+            and c % (32 if c <= 320 else 64) == 0)
+
+
+def takes_simt(y) -> bool:
+    """The CUDA-core kernel takes bf16 or fp32 rows up to c = 640."""
+    return y.dtype in (torch.bfloat16, torch.float32) and y.shape[-1] <= _MAX_C
+
+
 def geglu_ff_ref(y, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
     """Plain version over (rows, c), with the kernel's rounding points."""
     dt = y.dtype
@@ -51,15 +68,23 @@ def geglu_ff_ref(y, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
     return (x + o).to(dt)
 
 
-def _check_cuda_inputs(y, gamma, beta, w1, b1, w2, b2):
+def _check_cuda_inputs(y, gamma, beta, w1, b1, w2, b2, simt: bool = False):
+    """What the tensor-core kernel takes (``takes``), or with ``simt`` the
+    CUDA-core one (``takes_simt``): contiguous rows and weights in y's
+    dtype, the LayerNorm's in fp32, on y's device."""
     rows, c = y.shape
-    want = {"y": (y, (rows, c), torch.bfloat16),
-            "gamma": (gamma, (c,), torch.float32),
+    if not (takes_simt(y) if simt else takes(y)) or rows == 0:
+        what = ("CUDA-core kernel takes bf16 or fp32 rows of c ≤ 640" if simt
+                else "tensor-core kernel takes bf16 rows of c a multiple of "
+                     "32 up to 320 or of 64 up to 640")
+        raise ValueError(f"geglu_ff {what}, got {rows} rows of c={c} in "
+                         f"{y.dtype}")
+    dt = y.dtype
+    want = {"gamma": (gamma, (c,), torch.float32),
             "beta": (beta, (c,), torch.float32),
-            "w1": (w1, (c, 8 * c), torch.bfloat16),
-            "b1": (b1, (8 * c,), torch.bfloat16),
-            "w2": (w2, (4 * c, c), torch.bfloat16),
-            "b2": (b2, (c,), torch.bfloat16)}
+            "w1": (w1, (c, 8 * c), dt), "b1": (b1, (8 * c,), dt),
+            "w2": (w2, (4 * c, c), dt), "b2": (b2, (c,), dt),
+            "y": (y, (rows, c), dt)}
     for name, (t, shape, dtype) in want.items():
         if t.device != y.device:
             raise ValueError(f"geglu_ff: {name} on {t.device}, y on "
@@ -67,13 +92,9 @@ def _check_cuda_inputs(y, gamma, beta, w1, b1, w2, b2):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"geglu_ff kernel takes {name} {shape} {dtype}, "
                              f"got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError(f"geglu_ff: {name} must be contiguous and "
-                             "32-byte aligned")
-    if rows == 0 or c % 32 or c > _MAX_C or (c > 320 and c % 64):
-        raise ValueError(f"geglu_ff kernel takes rows > 0 and c a multiple "
-                         f"of 32 up to 320 or of 64 up to {_MAX_C}, got "
-                         f"rows={rows} c={c}")
+        if not t.is_contiguous() or (not simt and t.data_ptr() % 32):
+            raise ValueError(f"geglu_ff: {name} must be contiguous (and "
+                             f"32-byte aligned for the tensor-core kernel)")
 
 
 def geglu_ff_rows(y, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
@@ -82,9 +103,11 @@ def geglu_ff_rows(y, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
         return geglu_ff_ref(y, gamma, beta, w1, b1, w2, b2, eps)
     if y.device.type != "cuda":
         raise ValueError(f"geglu_ff: no kernel for device {y.device}")
-    _check_cuda_inputs(y, gamma, beta, w1, b1, w2, b2)
+    simt = not takes(y)
+    _check_cuda_inputs(y, gamma, beta, w1, b1, w2, b2, simt)
     out = torch.empty_like(y)
-    _kernels.geglu_ff(y, gamma, beta, w1, b1, w2, b2, out, eps)
+    launch = _kernels.geglu_ff_simt if simt else _kernels.geglu_ff
+    launch(y, gamma, beta, w1, b1, w2, b2, out, eps)
     return out
 
 

@@ -195,6 +195,32 @@ def test_fixed_cap_int8_ref_masks_a_ragged_tail():
         .abs().max() > 1e-2  # the last 13 keys count
 
 
+@pytest.mark.parametrize("sq", [256, 300])
+@pytest.mark.parametrize("d", [40, 80])
+def test_int8_wrapper_hands_the_views_to_the_kernel(monkeypatch, sq, d):
+    """The CUDA path's host side, the launch replaced by a recorder: q (a
+    view of the projection layout), k and v go to the kernels as they are,
+    with no copy and no quantization in torch; the output is a contiguous
+    bf16 (B, H, Sq, D) tensor, and the pre-pass's buffers are int8
+    (B, H, Sk, D rounded up to 16) and fp32 (B, H, Sk rounded up to 128)."""
+    calls = []
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(_kernels, "flash_fixed_int8",
+                        lambda *args: calls.append(args))
+    bf = torch.bfloat16
+    q = torch.zeros(2, sq, 4, d, dtype=bf).transpose(1, 2)
+    k, v = torch.zeros(2, 4, 333, d, dtype=bf), torch.zeros(2, 4, 333, d,
+                                                             dtype=bf)
+    out = tflash.flash_attention_fixed_int8(q, k, v)
+    (cq, ck, cv, co, k8, ks, qscale), = calls
+    assert cq is q and ck is k and cv is v and co is out
+    assert out.shape == q.shape and out.dtype == bf and out.is_contiguous()
+    assert qscale == pytest.approx(d ** -0.5 * tflash.LOG2E, rel=1e-12)
+    assert k8.dtype == torch.int8 and k8.shape == (2, 4, 333, 48 if d == 40
+                                                   else 80)
+    assert ks.dtype == torch.float32 and ks.shape == (2, 4, 384)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: the same settings route to the same places in both packages
 
@@ -226,6 +252,22 @@ def routes(monkeypatch):
     monkeypatch.setattr(tattn, "plain_attention", rec(logs[0], "plain"))
     monkeypatch.setattr(jattn, "xla_attention", rec(logs[1], "plain"))
     return logs
+
+
+def _dispatch_calls(entry, qshape, sk, causal, impl):
+    """(q shape, k shape) and the two packages' calls of one route case."""
+    b, h, sq, d = qshape
+    if entry == "bshd":
+        shapes = ((b, sq, h, d), (b, sk, h, d))
+        calls = (lambda q, k: tattn.attention_bshd_inference(q, k, k),
+                 lambda q, k: jattn.attention_bshd_inference(q, k, k))
+    else:
+        shapes = ((b, h, sq, d), (b, h, sk, d))
+        calls = (lambda q, k: tattn.attention(q, k, k, causal=causal,
+                                              impl=impl),
+                 lambda q, k: jattn.attention(q, k, k, causal=causal,
+                                              impl=impl))
+    return shapes, calls
 
 
 # (env, entry, impl, (b, h, sq, d), sk, causal, expected route)
@@ -260,28 +302,114 @@ DISPATCH = [
      False, "plain"),
     ({"SDBC_ATTN_IMPL": "xla"}, "attn", "flash_tt", (1, 1, 4096, 512), 4096,
      False, "flash_tt"),
+    # the VAE's 512-wide head under "inference", head dims that are no
+    # multiple of 8: the kernels' routes in both packages (the port's
+    # wrappers then take their CUDA-core kernels, KERNEL_CHOICE below)
+    ({}, "attn", "inference", (1, 1, 4096, 512), 4096, False, "fixed"),
+    ({"SDBC_ATTN_IMPL": "inference"}, "attn", "auto", (1, 1, 4096, 512),
+     4096, False, "fixed"),
+    ({}, "bshd", "inference", (1, 1, 4096, 512), 4096, False, "fixed_bshd"),
+    ({}, "attn", "auto", (2, 8, 4096, 44), 4096, False, "flash"),
+    ({}, "bshd", "inference", (8, 8, 4096, 44), 4096, False, "fixed_bshd"),
 ]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("env,entry,impl,qshape,sk,causal,want", DISPATCH)
 def test_attention_dispatch_routes_as_jax(routes, monkeypatch, env, entry,
-                                          impl, qshape, sk, causal, want):
+                                          impl, qshape, sk, causal, want,
+                                          dtype):
+    """The rules read no dtype: fp32 and bf16 on the port's side route as
+    fp32 does on the JAX side."""
     for var, value in env.items():
         monkeypatch.setenv(var, value)
-    b, h, sq, d = qshape
-    if entry == "bshd":
-        shapes = ((b, sq, h, d), (b, sk, h, d))
-        calls = (lambda q, k: tattn.attention_bshd_inference(q, k, k),
-                 lambda q, k: jattn.attention_bshd_inference(q, k, k))
-    else:
-        shapes = ((b, h, sq, d), (b, h, sk, d))
-        calls = (lambda q, k: tattn.attention(q, k, k, causal=causal,
-                                              impl=impl),
-                 lambda q, k: jattn.attention(q, k, k, causal=causal,
-                                              impl=impl))
-    calls[0](torch.zeros(shapes[0]), torch.zeros(shapes[1]))
+    shapes, calls = _dispatch_calls(entry, qshape, sk, causal, impl)
+    dt = getattr(torch, dtype)
+    calls[0](torch.zeros(shapes[0], dtype=dt), torch.zeros(shapes[1],
+                                                           dtype=dt))
     calls[1](np.zeros(shapes[0], np.float32), np.zeros(shapes[1], np.float32))
     assert routes[0] == routes[1] == [want]
+
+
+# Each kernel entry point on a CUDA tensor (the device check stubbed, the
+# launches replaced by recorders): its tensor-core kernel for what that
+# takes (bf16, head dims a multiple of 8 up to 512; above 256 the wide
+# kernels), the CUDA-core kernel of the same function for the rest.
+# (entry, dtype, head dim, the launches of one call)
+KERNEL_CHOICE = [
+    ("fixed", "bfloat16", 40, ["flash_fixed"]),
+    ("fixed", "float32", 40, ["flash_fixed_simt"]),
+    ("fixed", "bfloat16", 512, ["flash_fixed_wide"]),
+    ("fixed", "bfloat16", 44, ["flash_fixed_simt"]),
+    ("fixed_bshd", "bfloat16", 40, ["flash_fixed"]),
+    ("fixed_bshd", "float32", 40, ["flash_fixed_simt"]),
+    ("fixed_bshd", "bfloat16", 512, ["flash_fixed_wide"]),
+    ("fwd", "bfloat16", 40, ["flash_fwd"]),
+    ("fwd", "bfloat16", 512, ["flash_fwd_wide"]),
+    ("fwd", "float32", 40, ["flash_fwd_simt"]),
+    ("fwd", "float32", 512, ["flash_fwd_simt"]),
+    ("fwd", "bfloat16", 44, ["flash_fwd_simt"]),
+    ("tt", "bfloat16", 40, ["flash_fwd_tt"]),
+    ("tt", "float32", 40, ["flash_fwd_simt"]),
+    ("bwd", "bfloat16", 40, ["flash_bwd_dq", "flash_bwd_dkv"]),
+    ("bwd", "bfloat16", 512, ["flash_bwd_dq_wide", "flash_bwd_dkv_wide"]),
+    ("bwd", "float32", 40, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
+    ("bwd", "bfloat16", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
+]
+
+_LAUNCHERS = ("flash_fixed", "flash_fixed_wide", "flash_fwd",
+              "flash_fwd_wide", "flash_fwd_tt",
+              "flash_fwd_tt_wide", "flash_bwd_dq", "flash_bwd_dkv",
+              "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "flash_simt_bwd_dq",
+              "flash_simt_bwd_dkv")
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """CUDA tensors "present" to the flash wrappers, every launcher of
+    ``_kernels`` replaced by a recorder; returns the log of launches."""
+    log = []
+    monkeypatch.setattr(tflash, "_on_cpu", lambda t: False)
+    for name in _LAUNCHERS:
+        monkeypatch.setattr(_kernels, name,
+                            lambda *a, name=name, **kw: log.append(name))
+    monkeypatch.setattr(
+        _kernels, "flash_simt_fwd", lambda *a, fixed: log.append(
+            "flash_fixed_simt" if fixed else "flash_fwd_simt"))
+    return log
+
+
+def _call_entry(entry, dtype, d):
+    from sdbc_tpu_torch.ops import flash_attention_bwd as tbwd
+
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 2, 64, d, dtype=dt)
+    if entry == "fixed":
+        return tflash.flash_attention_fixed(q, q, q)
+    if entry == "fixed_bshd":
+        return tflash.flash_attention_fixed_bshd(*(q.transpose(1, 2),) * 3)
+    if entry == "fwd":
+        return tflash.flash_fwd(q, q, q, d ** -0.5)
+    if entry == "tt":
+        return ttt.flash_fwd_tt(q, q, q, d ** -0.5)
+    return tbwd.flash_bwd(q, q, q, q, q, torch.zeros(1, 2, 64), d ** -0.5)
+
+
+@pytest.mark.parametrize("entry,dtype,d,want", KERNEL_CHOICE)
+def test_wrappers_launch_the_kernel_that_takes_the_tensors(launched, entry,
+                                                           dtype, d, want):
+    _call_entry(entry, dtype, d)
+    assert launched == want
+
+
+@pytest.mark.parametrize("entry", ["fixed", "fwd", "tt", "bwd"])
+@pytest.mark.parametrize("dtype,d,err", [("float16", 40, TypeError),
+                                         ("bfloat16", 520, ValueError)])
+def test_wrappers_refuse_what_no_kernel_takes(launched, entry, dtype, d,
+                                              err):
+    with pytest.raises(err, match="flash_simt"):
+        _call_entry(entry, dtype, d)
+    assert launched == []
 
 
 @pytest.mark.parametrize("impl", ["auto", "inference"])
@@ -364,6 +492,31 @@ def test_group_norm_unknown_act_raises_with_the_switch(monkeypatch):
     with pytest.raises(ValueError, match="unknown act"):
         tnn.group_norm(torch.zeros(1, 4, 4, 8), torch.ones(8), torch.zeros(8),
                        4, 1e-6, "gelu")
+
+
+@pytest.mark.parametrize("dtype,c,sm90", [
+    (torch.bfloat16, 320, True), (torch.float32, 320, False),
+    (torch.bfloat16, 48, False), (torch.bfloat16, 352, False),
+    (torch.bfloat16, 640, True), (torch.float32, 40, False)])
+def test_geglu_takes_the_kernel_that_takes_the_rows(dtype, c, sm90):
+    """The fused FF's eligibility is the JAX package's for every dtype; the
+    tensor-core kernel takes bf16 rows of c a multiple of 32 (of 64 above
+    320), the CUDA-core kernel (any width up to 640, bf16 or fp32) the
+    others, and the tensor-core kernel's input check refuses those."""
+    from sdbc_tpu_torch.ops import geglu_ff as tgeglu
+
+    args = _geglu_args(256, c, dtype)
+    assert tgeglu.takes(args[0]) == sm90 and tgeglu.takes_simt(args[0])
+    tgeglu._check_cuda_inputs(*args, simt=not sm90)
+    if not sm90:
+        with pytest.raises(ValueError, match="tensor-core kernel takes"):
+            tgeglu._check_cuda_inputs(*args)
+
+
+def _geglu_args(rows, c, dtype):
+    z = lambda *sh, dt=dtype: torch.zeros(sh, dtype=dt)
+    return (z(rows, c), z(c, dt=torch.float32), z(c, dt=torch.float32),
+            z(c, 8 * c), z(8 * c), z(4 * c, c), z(c))
 
 
 def test_pipeline_attn_impl_forces_plain_attention(monkeypatch):

@@ -159,12 +159,22 @@ def test_flash_kernel_near_the_cap_on_card(hopper, layout):
 
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(hopper):
-    q = torch.zeros(1, 256, 2, 40, device=hopper)
-    with pytest.raises(TypeError, match="bfloat16"):
+    """The tensor-core kernel's check refuses fp32 and a head dim that is
+    no multiple of 8; the entry point hands both to the CUDA-core kernel;
+    fp16 and head dims above 512 no kernel takes."""
+    for dt, d in ((torch.float32, 40), (torch.bfloat16, 44)):
+        q = torch.zeros(1, 256, 2, d, device=hopper, dtype=dt)
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            tflash._launch(q, q, q, torch.empty_like(q), 1.0)
+        before = dict(_kernels.launches)
         tflash.flash_attention_fixed_bshd(q, q, q)
-    q = torch.zeros(1, 256, 2, 44, device=hopper, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8|aligned"):
-        tflash.flash_attention_fixed_bshd(q, q, q)
+        assert _kernels.launches["flash_fixed_simt"] \
+            == before["flash_fixed_simt"] + 1
+        assert _kernels.launches["flash_fixed"] == before["flash_fixed"]
+    for dt, d in ((torch.float16, 40), (torch.bfloat16, 520)):
+        q = torch.zeros(1, 256, 2, d, device=hopper, dtype=dt)
+        with pytest.raises((TypeError, ValueError), match="flash_simt"):
+            tflash.flash_attention_fixed_bshd(q, q, q)
 
 
 @pytest.mark.gpu
@@ -218,11 +228,101 @@ def test_geglu_kernel_large_gates_on_card(hopper, rows, c):
 
 @pytest.mark.gpu
 def test_geglu_kernel_refuses_what_it_does_not_take(hopper):
+    """c = 48 is no multiple of 32: the tensor-core kernel's check refuses
+    it and the entry point takes the CUDA-core kernel; fp16 rows no kernel
+    takes."""
     args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(64, 48)]
     for i in (0, 3, 4, 5, 6):
         args[i] = args[i].bfloat16()
-    with pytest.raises(ValueError, match="multiple"):
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        tgeglu._check_cuda_inputs(*args)
+    before = dict(_kernels.launches)
+    tgeglu.geglu_ff_rows(*args)
+    assert _kernels.launches["geglu_ff_simt"] == before["geglu_ff_simt"] + 1
+    assert _kernels.launches["geglu_ff"] == before["geglu_ff"]
+    for i in (0, 3, 4, 5, 6):
+        args[i] = args[i].half()
+    with pytest.raises(ValueError, match="CUDA-core kernel takes"):
         tgeglu.geglu_ff_rows(*args)
+
+
+def _fp32_close(out, ref):
+    """A CUDA-core kernel in fp32 against its fp32 plain version: the two
+    sum in other orders (and exp2 and erf differ by an ulp or two)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    return err <= 1e-5 * ref.abs().max().item() + 1e-6
+
+
+def _simt_close(out, ref, dtype):
+    return _fp32_close(out, ref) if dtype == torch.float32 \
+        else _attn_close(out, ref)
+
+
+@pytest.mark.gpu
+# fp32 at the tiny UNet's and VAE's heads and a main-path head; bf16 where
+# the tensor-core kernels do not take it: the VAE's 512 head (fixed cap),
+# head dims no multiple of 8; ragged sequences
+@pytest.mark.parametrize("dtype,qshape,sk", [
+    ("float32", (2, 4, 256, 8), 256), ("float32", (1, 2, 300, 40), 333),
+    ("float32", (1, 1, 256, 64), 256), ("float32", (1, 1, 200, 512), 130),
+    ("bfloat16", (1, 1, 256, 512), 256), ("bfloat16", (1, 2, 200, 44), 77),
+    ("bfloat16", (2, 2, 100, 204), 300)])
+def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
+    """The CUDA-core kernels (csrc/flash_simt.cu) against the plain
+    versions of their functions: the fixed cap (head-major and through the
+    projection layout's strides, the same bits), the training forward (out
+    and LSE) and the backward's dq, dk, dv; each call counted."""
+    dt = getattr(torch, dtype)
+    b, h, sq, d = qshape
+    q, k, v = _bshd_views(hopper, qshape, sk, 190)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    do = torch.from_numpy(_rand(195, b, h, sq, d)).to(hopper, dt)
+    scale = d ** -0.5
+    _kernels.reset_launch_counts()
+    fixed = tflash.flash_attention_fixed(q, k, v)
+    tr = lambda t: t.transpose(1, 2)
+    fixed_bshd = tr(tflash.flash_attention_fixed_bshd(tr(q), tr(k), tr(v)))
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    grads = tbwd.flash_bwd(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    # bf16 at D = 512: the tensor-core kernels take it
+    names = ("flash_fixed", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if not tflash.takes(q, k, v):
+        names = tuple(n.replace("_bwd", "_bwd_simt") if "bwd" in n
+                      else n + "_simt" for n in names)
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {names[0]: 2, **dict.fromkeys(names[1:], 1)}
+    ref = tflash.fixed_cap_attention_ref(q, k, v)
+    assert _simt_close(fixed, ref, dt)
+    assert torch.equal(fixed, fixed_bshd)
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert _simt_close(out, ref, dt)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for g, r in zip(grads, tbwd.flash_bwd_ref(q, k, v, out, do, lse, scale)):
+        assert g.shape == r.shape and g.dtype == dt and _simt_close(g, r, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rows,c", [
+    ("float32", 512, 32), ("float32", 200, 40), ("float32", 256, 320),
+    ("float32", 77, 640), ("bfloat16", 100, 48), ("bfloat16", 64, 360)])
+def test_geglu_simt_matches_plain_on_card(hopper, dtype, rows, c):
+    """The CUDA-core fused FF (csrc/geglu_ff_simt.cu) against its plain
+    version: fp32 rows (the tiny UNet's c = 32 among them) and bf16 widths
+    the tensor-core kernel does not take."""
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(rows, c)]
+    for i in (0, 3, 4, 5, 6):
+        args[i] = args[i].to(dt)
+    before = _kernels.launches["geglu_ff_simt"]
+    out = tgeglu.geglu_ff_rows(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["geglu_ff_simt"] == before + 1
+    ref = tgeglu.geglu_ff_ref(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (1e-5 * ref.float().abs().max().item() + 1e-6
+                   if dt == torch.float32 else 5e-2)
 
 
 # the training kernels (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu,
@@ -552,7 +652,7 @@ def test_adam8_leaves_refuses_a_misaligned_part_on_card(hopper):
 
 
 # the kernels of the switches (csrc/group_norm_sm90.cu, the K9 variant of
-# csrc/flash_fwd_sm90.cu, csrc/flash_int8.cu) and the 512-wide forward
+# csrc/flash_fwd_sm90.cu, csrc/flash_int8_sm90.cu) and the 512-wide forward
 
 
 def _gn_inputs(dev, shape, dtype, pdtype=torch.float32, seed=100):
@@ -886,22 +986,225 @@ def test_flash_autograd_wide_head_on_card(hopper):
         assert g.shape == r.shape and _attn_close(g, r), name
 
 
+def _int8_inputs(hopper, qshape, sk, seed=140):
+    b, h, sq, d = qshape
+    q = torch.from_numpy(_rand(seed, *qshape)).to(hopper, torch.bfloat16)
+    k, v = (torch.from_numpy(_rand(s, b, h, sk, d)).to(hopper, torch.bfloat16)
+            for s in (seed + 1, seed + 2))
+    return q, k, v
+
+
+def _int8_close(out, q, k, v):
+    """Within ``_attn_close`` of the plain version and within 4% of the
+    largest output of exact attention (JAX's bound, tests/test_ops.py)."""
+    assert _attn_close(out, tflash.fixed_cap_int8_ref(q, k, v).float())
+    exact = tattn.plain_attention(q.float(), k.float(), v.float())
+    assert ((out.float() - exact).abs().max()
+            / exact.abs().max()).item() < 0.04
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("qshape,sk", [((2, 8, 1024, 80), 1024),
                                        ((1, 2, 512, 40), 512),
                                        ((1, 2, 200, 160), 300),
-                                       ((1, 2, 64, 16), 77)])
+                                       ((1, 2, 64, 16), 77),
+                                       ((1, 2, 200, 256), 130)])
 def test_int8_kernel_matches_plain_on_card(hopper, qshape, sk):
-    b, h, sq, d = qshape
-    q = torch.from_numpy(_rand(140, *qshape)).to(hopper, torch.bfloat16)
-    k, v = (torch.from_numpy(_rand(s, b, h, sk, d)).to(hopper, torch.bfloat16)
-            for s in (141, 142))
+    """Each call is counted exactly (the pre-pass and the attention
+    kernel: two launches); two calls give the same bits."""
+    q, k, v = _int8_inputs(hopper, qshape, sk)
     before = _kernels.launches["flash_fixed_int8"]
     out = tflash.flash_attention_fixed_int8(q, k, v)
     torch.cuda.synchronize()
-    assert _kernels.launches["flash_fixed_int8"] == before + 1
-    ref = tflash.fixed_cap_int8_ref(q, k, v).float()
-    assert _attn_close(out, ref)
-    exact = tattn.plain_attention(q.float(), k.float(), v.float())
-    assert ((out.float() - exact).abs().max()
-            / exact.abs().max()).item() < 0.04
+    assert _kernels.launches["flash_fixed_int8"] == before + 2
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _int8_close(out, q, k, v)
+    again = tflash.flash_attention_fixed_int8(q, k, v)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_int8_kernel_reads_projection_layout_views_on_card(hopper):
+    """(B, H, S, D) views of (B, S, H, D) projections go in through their
+    strides: the same bits as on contiguous copies."""
+    views = _bshd_views(hopper, (2, 4, 300, 80), 333, 150)
+    out = tflash.flash_attention_fixed_int8(*views)
+    flat = tflash.flash_attention_fixed_int8(*(t.contiguous()
+                                               for t in views))
+    assert not views[0].is_contiguous()
+    assert torch.equal(out.view(torch.int16), flat.view(torch.int16))
+    _int8_close(out, *views)
+
+
+@pytest.mark.gpu
+def test_int8_kernel_zero_rows_on_card(hopper):
+    """All-zero q and k rows take the 1e-8 absmax floor: zero int8 values,
+    a zero row of scores, finite outputs as the plain version's."""
+    q, k, v = _int8_inputs(hopper, (1, 2, 256, 40), 256, seed=160)
+    q[0, 0, 5] = 0
+    q[0, 1, 200] = 0
+    k[0, 0, 17] = 0
+    k[0, 1, 255] = 0
+    out = tflash.flash_attention_fixed_int8(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _int8_close(out, q, k, v)
+
+
+@pytest.mark.gpu
+def test_int8_kernel_launches_only_its_kernels_on_card(hopper):
+    """One call is the pre-pass and the attention kernel: no torch launch
+    quantizes, pads or copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _int8_inputs(hopper, (2, 8, 1024, 80), 1024, seed=170)
+    tflash.flash_attention_fixed_int8(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tflash.flash_attention_fixed_int8(q, k, v)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = ["quantize_k_kernel", "flash_int8_sm90_kernel"]
+    assert len(kernels) == len(want) and all(
+        w in n for w, n in zip(want, kernels)), kernels
+
+
+# fp32 and the VAE's 512-wide fixed cap on the card: what the tensor-core
+# kernels do not take goes to the CUDA-core kernels of the same functions,
+# the fixed cap above head dim 256 to the wide kernel's fixed-cap variant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qshape,sk", [((1, 1, 4096, 512), 4096),
+                                       ((2, 2, 300, 512), 333),
+                                       ((1, 2, 200, 264), 50),
+                                       ((2, 1, 64, 320), 129),
+                                       ((1, 1, 130, 448), 300)])
+def test_flash_fixed_wide_matches_plain_on_card(hopper, qshape, sk):
+    """The fixed cap above head dim 256 (csrc/flash_fwd_wide_sm90.cu's
+    FIXED variant): against its plain version, head-major and through the
+    projection layout's strides (the same bits), one ``flash_fixed``
+    launch a call, two calls the same bits; keys ≤ 64 leave the second CTA
+    of a pair none."""
+    q, k, v = _bshd_views(hopper, qshape, sk, 210)
+    before = _kernels.launches["flash_fixed"]
+    out = tflash.flash_attention_fixed(q, k, v)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fixed"] == before + 1
+    assert _attn_close(out, tflash.fixed_cap_attention_ref(q, k, v).float())
+    tr = lambda t: t.transpose(1, 2)
+    bshd = tr(tflash.flash_attention_fixed_bshd(tr(q), tr(k), tr(v)))
+    again = tflash.flash_attention_fixed(q, k, v)
+    assert torch.equal(out.view(torch.int16), bshd.view(torch.int16))
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_fp32_sampling_on_card_matches_cpu(hopper):
+    """A tiny fp32 ``SDPipeline`` call on the card against the CPU's: the
+    fixed-cap attention, the fused FF and the VAE's training-forward
+    attention on their CUDA-core kernels, no tensor-core launch."""
+    from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
+    from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig, SDPipeline,
+                                                   init_models)
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    cfg = PipelineConfig.tiny()
+    models = init_models(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    tok = CLIPTokenizer.fallback(cfg.clip.vocab_size)
+    # the same starting latents on both devices (a torch generator's draws
+    # differ between the CPU and the card)
+    kw = dict(height=32, width=32, num_inference_steps=4,
+              latents=per_sample_fixed_latents(1, (4, 16, 16), 42))
+    ref = SDPipeline(models, cfg, tok, "cpu", torch.float32)(["a cover"], **kw)
+    card = {n: m.to("cuda") for n, m in models.items()}
+    _kernels.reset_launch_counts()
+    out = SDPipeline(card, cfg, tok, "cuda", torch.float32)(["a cover"], **kw)
+    launched = {n for n, c in _kernels.launches.items() if c}
+    assert launched == {"flash_fixed_simt", "geglu_ff_simt",
+                        "flash_fwd_simt"}, _kernels.launches
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= 3e-2  # chip_smoke.PARITY_TOL
+
+
+@pytest.mark.gpu
+def test_fp32_train_step_on_card_matches_cpu(hopper):
+    """One tiny fp32 optimizer step (8-bit AdamW) on the card against the
+    CPU's from the same masters and draws: the flash attention forward and
+    backward on their CUDA-core kernels, the optimizer its one launch."""
+    import copy
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
+    from sdbc_tpu_torch.train import trainer as ttrainer
+
+    cfg = PipelineConfig.tiny()
+    tcfg = ttrainer.TrainConfig(train_text_encoder=True, train_unet=True,
+                                use_8bit_adam=True, grad_accum=2,
+                                micro_batch=2, learning_rate=1e-3,
+                                num_examples=100)
+    base = init_models(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    f32 = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32))
+    batch = {"pixel_values": f32(2, 2, 32, 32, 3) * 0.5,
+             "input_ids": torch.from_numpy(rng.integers(
+                 0, cfg.clip.vocab_size, (2, 2, cfg.clip.ctx)))}
+    draws = [{"eps": f32(2, 16, 16, 4), "noise": f32(2, 16, 16, 4),
+              "t": torch.from_numpy(rng.integers(0, 1000, (2,)))}
+             for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = ttrainer.init_train_state(copy.deepcopy(base), tcfg,
+                                          compute_dtype=torch.float32,
+                                          device=dev)
+        step = ttrainer.make_train_step(cfg, tcfg, compute_dtype=torch.float32,
+                                        device=dev)
+        _kernels.reset_launch_counts()
+        state, m = step(state, batch, draws=draws)
+        runs[dev] = (m, [p.detach().float().cpu() for p in
+                         ttrainer.trainable_params(state.trainable)],
+                     dict(_kernels.launches))
+    (mc, pc, _), (mg, pg, counts) = runs["cpu"], runs["cuda"]
+    launched = {k: v for k, v in counts.items() if v}
+    assert launched.pop("adam8") == 1
+    assert set(launched) == {"flash_fwd_simt", "flash_bwd_simt_dq",
+                             "flash_bwd_simt_dkv"}, counts
+    assert mg["finite"] and abs(mg["loss"] - mc["loss"]) <= 2e-2 * abs(
+        mc["loss"])  # chip_smoke.TRAIN_LOSS_RTOL
+    # Adam's first steps: within twice the step bound (chip_smoke's
+    # TRAIN_STEP_BOUND × lr) of each other
+    assert max(float((a - b).abs().max()) for a, b in zip(pg, pc)) \
+        <= 2.2 * tcfg.learning_rate
+
+
+@pytest.mark.gpu
+def test_vae_decode_under_inference_on_card(hopper, monkeypatch):
+    """The SD VAE's 512-wide mid-block head (256 tokens of a 16² latent)
+    under ``SDBC_ATTN_IMPL=inference``: the fixed cap at head dim 512 on the
+    wide kernel's fixed-cap variant (one launch), the image within twice
+    the default bf16 decode's distance from an fp32 decode."""
+    from sdbc_tpu_torch.models import vae as tvae
+
+    cfg = tvae.VAEConfig()
+    assert cfg.block_out_channels[-1] == 512
+    model = tvae.init(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0),
+                      dtype=torch.bfloat16)
+    z = (torch.from_numpy(_rand(180, 1, 16, 16, cfg.latent_channels))
+         / cfg.scaling_factor).to(hopper, torch.bfloat16)
+    with torch.inference_mode():
+        img = tvae.decode(model, z)
+        monkeypatch.setenv("SDBC_ATTN_IMPL", "inference")
+        _kernels.reset_launch_counts()
+        img_inf = tvae.decode(model, z)
+        torch.cuda.synchronize()
+        monkeypatch.delenv("SDBC_ATTN_IMPL")
+        img32 = tvae.decode(model.float(), z.float())
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"flash_fixed": 1}
+    assert img_inf.shape == (1, 128, 128, 3) and torch.isfinite(img_inf).all()
+    e32 = (img.float() - img32).abs().max().item()
+    assert (img_inf.float() - img.float()).abs().max().item() <= 2 * e32

@@ -210,3 +210,22 @@ def test_chip_smoke_gn_sites_match_sd15():
     for part, hw in (("decode", 64), ("encode", 512)):
         sites = cs.vae_gn_sites(sd, hw, part)
         assert sites and not any(fits(shape, g) for shape, g, _, _ in sites)
+
+
+def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
+    """In fp32 each tensor-core kernel's count of a run goes to its
+    CUDA-core counterpart (csrc/flash_simt.cu, csrc/geglu_ff_simt.cu); the
+    other kernels keep theirs."""
+    from sdbc_tpu_torch.ops import _kernels
+
+    cs = _chip_smoke()
+    want = dict.fromkeys(_kernels.launches, 0)
+    want.update(flash_fixed=12, geglu_ff=6, flash_fwd=3, flash_bwd_dq=2,
+                flash_bwd_dkv=2, adam8=1)
+    got = cs.fp32_launches(want)
+    assert set(got) == set(_kernels.launches)
+    assert {k: v for k, v in got.items() if v} == {
+        "flash_fixed_simt": 12, "geglu_ff_simt": 6, "flash_fwd_simt": 3,
+        "flash_bwd_simt_dq": 2, "flash_bwd_simt_dkv": 2, "adam8": 1}
+    assert set(cs.SIMT_OF.values()) <= set(_kernels.launches)
+    assert set(cs.MAIN_PATH) == set(_kernels.launches)
