@@ -64,6 +64,15 @@ Phases, in order; each prints one or more lines, and any failure raises
                   same under SDBC_GN_FUSED=1, with exact fused GroupNorm
                   launches; then fp32 on the card, every attention and FF
                   call on the CUDA-core kernels, with exact launches;
+   sampler-parity — every scheduler variant of ``sample`` (the ten
+                  schedulers and the Karras grid of the five σ-space ones)
+                  and each sampling option (cfg_interval, guidance rescale,
+                  clip skip, FreeU, DeepCache, token weights, img2img from
+                  an image or latents, inpainting, t_end, v-prediction on a
+                  zero-SNR trailing grid) at the tiny config, bf16 on the
+                  card against fp32 on the CPU with the same injected
+                  draws, with exact K1/K4 launches from the evaluation
+                  count of each run;
 6. slice        — SD-1.5 at full width (random init from seed 0, bf16),
                   512², batch 4, DDIM-50, CFG 7.5, through
                   ``SDPipeline.__call__``: a warm-up call, then a timed call
@@ -79,6 +88,14 @@ Phases, in order; each prints one or more lines, and any failure raises
                   the wall times of the text encode and the VAE decode;
 8. switches     — one full-width sampling call under SDBC_GN_FUSED=1, with
                   exact fused GroupNorm launches;
+   samplers     — SD-1.5 at full width through ``SDPipeline``: every
+                  scheduler variant at 10 steps (lcm at 4), DDIM-10 with
+                  cfg_interval, DeepCache, FreeU + guidance rescale + clip
+                  skip, img2img, inpainting and decode=False, each with
+                  finite results and exact K1/K4 launches from its UNet
+                  evaluations (heun 19, pndm 11, a DeepCache reuse step 5
+                  and 5); then dpm-25, the CLI's serving profile, warmed up
+                  and timed (s/call, images/s, peak memory);
 9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
@@ -105,8 +122,9 @@ Phases, in order; each prints one or more lines, and any failure raises
 Every environment variable a phase sets is restored after it.
 
 Then a JSON line of per-kernel results (each kernel's launches on its
-path, ``MAIN_PATH``, and on every full-width path and the tiny fp32 ones,
-each counted over its own run), the ``nvidia-smi`` line again, and the result line
+path, ``MAIN_PATH``, and on every path where it launched: the full-width
+ones, the tiny fp32 ones and each sampler run, each counted over its own
+run), the ``nvidia-smi`` line again, and the result line
 ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
 from __future__ import annotations
@@ -351,12 +369,23 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def transformer_launches(c: int, hw: int, rows_batch: int):
+    """(flash, geglu) launches of one spatial transformer at ``c`` channels
+    on an ``hw``² map of batch ``rows_batch``: the fixed-cap flash call
+    from 256 tokens, the fused FF where the GEGLU eligibility rule admits
+    its rows."""
+    from sdbc_tpu_torch.ops.geglu_ff import _MAX_C, _default_block
+
+    tokens = hw * hw
+    rows = rows_batch * tokens
+    return (int(tokens >= 256),
+            int(c <= _MAX_C and rows % min(_default_block(c), rows) == 0))
+
+
 def expected_launches(cfg, lat_hw: int, rows_batch: int):
     """(flash, geglu) launches per UNet evaluation: one flash call per
     spatial self-attention with ≥ 256 tokens, one fused FF per transformer
     the GEGLU eligibility rule admits."""
-    from sdbc_tpu_torch.ops.geglu_ff import _MAX_C, _default_block
-
     u = cfg.unet
     flash = geglu = 0
     levels = [(i, c, lat_hw // 2 ** i, u.layers_per_block)
@@ -368,11 +397,73 @@ def expected_launches(cfg, lat_hw: int, rows_batch: int):
              for _ in range(n)]
     sites.append((u.block_out_channels[-1], lat_hw // 2 ** mid))
     for c, hw in sites:
-        tokens = hw * hw
-        rows = rows_batch * tokens
-        flash += tokens >= 256
-        geglu += c <= _MAX_C and rows % min(_default_block(c), rows) == 0
+        f, g = transformer_launches(c, hw, rows_batch)
+        flash += f
+        geglu += g
     return flash, geglu
+
+
+def shallow_launches(cfg, lat_hw: int, rows_batch: int, cache_tail: int = 0):
+    """(flash, geglu) launches of a DeepCache reuse evaluation: the shallow
+    head (conv_in and the first ct−1 ResBlocks of down[0]) and the fresh
+    tail (the last ct ResBlocks of up[-1]), each ResBlock with its level-0
+    transformer; ct = cache_tail, 0 meaning all of up[-1]'s
+    (``unet.apply``)."""
+    u = cfg.unet
+    total = u.layers_per_block + 1
+    ct = cache_tail if 0 < cache_tail <= total else total
+    n = (2 * ct - 1) * u.cross_attn_blocks[0]
+    f, g = transformer_launches(u.block_out_channels[0], lat_hw, rows_batch)
+    return n * f, n * g
+
+
+def sampler_evals(scheduler: str, n: int, *, t_start: int = 0, t_end=None,
+                  cfg_interval=None, cache_interval: int = 0):
+    """The UNet evaluations of one ``sample`` call, in order, as the loop
+    of ``graph.sample`` makes them: "guided" (the CFG batch 2B), "cond"
+    (outside ``cfg_interval``: the cond branch alone, batch B) or "reuse"
+    (a DeepCache step on the cached trunk, batch 2B).  PNDM runs n+1
+    evaluations from index 0; LMS n from 0; Heun two a step and one for
+    its last (two when ``t_end`` truncates the grid)."""
+    t_stop = n if t_end is None else t_end
+    lo_hi = None
+    if cfg_interval is not None:
+        lo_hi = (int(round(cfg_interval[0] * n)),
+                 int(round(cfg_interval[1] * n)))
+
+    def kind(i):
+        if lo_hi is not None and not lo_hi[0] <= i < lo_hi[1]:
+            return "cond"
+        return "guided"
+
+    if scheduler == "heun":
+        evals = [kind(i) for i in range(t_start, t_stop - 1) for _ in "ab"]
+        if t_stop > t_start:
+            evals += [kind(t_stop - 1)] * (1 + (t_stop < n))
+        return evals
+    lo, hi = {"pndm": (0, n + 1), "lms": (0, n)}.get(scheduler,
+                                                      (t_start, t_stop))
+    return ["reuse" if cache_interval > 1 and (i - t_start) % cache_interval
+            else kind(i) for i in range(lo, hi)]
+
+
+def sampler_launches(cfg, lat_hw: int, b: int, evals,
+                     cache_tail: int = 0) -> dict:
+    """Kernel launches of the UNet evaluations ``evals``
+    (``sampler_evals``) at batch ``b`` images: K1 (``flash_fixed``) and K4
+    (``geglu_ff``) per evaluation, every other count 0."""
+    from sdbc_tpu_torch.ops import _kernels
+
+    want = dict.fromkeys(_kernels.launches, 0)
+    for kind in evals:
+        if kind == "reuse":
+            f, g = shallow_launches(cfg, lat_hw, 2 * b, cache_tail)
+        else:
+            f, g = expected_launches(cfg, lat_hw, b if kind == "cond"
+                                     else 2 * b)
+        want["flash_fixed"] += f
+        want["geglu_ff"] += g
+    return want
 
 
 def n_transformers(u) -> int:
@@ -941,12 +1032,17 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
 
     tr = lambda t: t.transpose(1, 2)
     # (label, layout, q shape, kv seq): the three slice levels in the
-    # projection layout, one head-major call, one ragged call
+    # projection layout at batch 8 and 4, one head-major call, one ragged
+    # call
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     flash_cases = [("bshd 64^2 d40", "bshd", (8, 4096, 8, 40), 4096),
                    ("bshd 32^2 d80", "bshd", (8, 1024, 8, 80), 1024),
                    ("bshd 16^2 d160", "bshd", (8, 256, 8, 160), 256),
+                   # batch 4: cfg_interval's cond-only evaluations
+                   ("bshd 64^2 d40 batch 4", "bshd", (4, 4096, 8, 40), 4096),
+                   ("bshd 32^2 d80 batch 4", "bshd", (4, 1024, 8, 80), 1024),
+                   ("bshd 16^2 d160 batch 4", "bshd", (4, 256, 8, 160), 256),
                    ("bhsd 32^2 d80", "bhsd", (8, 8, 1024, 80), 1024),
                    ("bshd ragged Sq200 Sk300 d40", "bshd", (2, 200, 8, 40),
                     300)]
@@ -998,7 +1094,8 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
                  "d512": kernel_flash_fixed_wide(g)})
 
     geglu_err, first, shapes = 0.0, None, []
-    for rows_n, c in ((32768, 320), (8192, 640)):
+    # batch 8 (CFG), then batch 4 (cfg_interval's cond-only evaluations)
+    for rows_n, c in ((32768, 320), (8192, 640), (16384, 320), (4096, 640)):
         y = randn(rows_n, c)
         gamma = randn(c, scale=0.1, dtype=torch.float32) + 1.0
         beta = randn(c, scale=0.1, dtype=torch.float32)
@@ -2116,6 +2213,308 @@ def phase_parity():
     return counts
 
 
+# the tiny sampler-parity runs: (label, scheduler, steps, sample options,
+# schedule overrides); every scheduler variant, then each option
+TINY_OPTIONS = [
+    ("cfg_interval", "ddim", 4, dict(cfg_interval=(0.25, 0.75)), {}),
+    ("cfg_interval heun karras", "heun", 4,
+     dict(cfg_interval=(0.3, 0.7), use_karras_sigmas=True), {}),
+    ("guidance_rescale", "dpm", 4, dict(guidance_rescale=0.7), {}),
+    ("clip_skip", "ddim", 4, dict(clip_skip=2), {}),
+    ("freeu", "ddim", 4, dict(freeu="FREEU_SD15"), {}),
+    ("cache_interval", "ddim", 4, dict(cache_interval=2), {}),
+    ("cache_interval dpm tail 1", "dpm", 4,
+     dict(cache_interval=2, cache_tail=1), {}),
+    ("token weights", "ddim", 4, dict(cond_weights="w", uncond_weights="w"),
+     {}),
+    ("init_image", "ddim", 4, dict(init_image="img", t_start=1), {}),
+    ("init_image euler_a karras", "euler_a", 4,
+     dict(init_image="img", t_start=1, use_karras_sigmas=True), {}),
+    ("inpaint ddpm", "ddpm", 4, dict(init_image="img", mask="mask",
+                                     t_start=2), {}),
+    ("init_latents dpm", "dpm", 4, dict(init_latents="lat", t_start=2), {}),
+    ("t_end euler_a", "euler_a", 4, dict(t_end=3), {}),
+    ("v_prediction zero-SNR trailing ddim", "ddim", 4, {},
+     dict(prediction_type="v_prediction", rescale_zero_snr=True,
+          timestep_spacing="trailing")),
+    ("v_prediction zero-SNR trailing unipc", "unipc", 4, {},
+     dict(prediction_type="v_prediction", rescale_zero_snr=True,
+          timestep_spacing="trailing")),
+]
+
+
+def scheduler_variants():
+    """(label, scheduler, karras) of the 15 scheduler variants of
+    ``sample``: every scheduler, and the Karras grid of each σ-space one."""
+    from sdbc_tpu_torch.diffusion.graph import KARRAS, SCHEDULERS
+
+    return ([(s, s, False) for s in SCHEDULERS]
+            + [(f"{s} karras", s, True) for s in KARRAS])
+
+
+def evals_of(scheduler: str, n: int, kw: dict):
+    """``sampler_evals`` of one call with ``sample`` options ``kw``."""
+    return sampler_evals(scheduler, n, t_start=kw.get("t_start", 0),
+                         t_end=kw.get("t_end"),
+                         cfg_interval=kw.get("cfg_interval"),
+                         cache_interval=kw.get("cache_interval", 0))
+
+
+def tiny_sampler_setup(device: str = "cuda") -> dict:
+    """The tiny config's models and inputs of ``phase_sampler_parity``:
+    random weights from seed 0 rounded to bf16, on ``device`` in bf16
+    ("card") and on the CPU in fp32 ("cpu", the same values); two prompts
+    and their negatives; the 16² start latents, the init image, the
+    inpainting mask (1 = regenerate: the left half), init latents, token
+    weights, FreeU's factors, and the injected draws, all from seed 11."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
+    from sdbc_tpu_torch.models import unet as unet_mod
+
+    cfg = PipelineConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    models = init_models(cfg, device="cpu", generator=gen)
+    # a trained CLIP's final LayerNorm has a nonzero bias; at the zero init
+    # the hidden states' mean is rounding noise, which the token weights'
+    # mean restoration would divide by (in either package)
+    with torch.no_grad():
+        models["text_encoder"].final_ln.bias.normal_(0.1, 0.1, generator=gen)
+    card = {k: copy.deepcopy(m).to(device, torch.bfloat16)
+            for k, m in models.items()}
+    cpu = {k: copy.deepcopy(m).to("cpu", torch.float32)
+           for k, m in card.items()}  # the same bf16-valued weights
+    tok = _tokenizer(cfg)
+    ids = torch.tensor(tok.batch_encode(["a book cover",
+                                         "a mystery novel cover"],
+                                        cfg.clip.ctx))
+    uids = torch.tensor(tok.batch_encode(["", "blurry"], cfg.clip.ctx))
+    g = torch.Generator().manual_seed(11)
+    lat_shape = (2, 16, 16, 4)
+    lat = torch.randn(lat_shape, generator=g)
+    mask = torch.zeros(lat_shape[:3] + (1,))
+    mask[:, :, :8] = 1.0
+    inputs = {"img": torch.rand((2, 32, 32, 3), generator=g),
+              "mask": mask, "lat": torch.randn(lat_shape, generator=g),
+              "w": 0.5 + torch.rand((2, cfg.clip.ctx), generator=g),
+              "FREEU_SD15": unet_mod.FREEU_SD15}
+    draws = {"enc": torch.randn(lat_shape, generator=g),
+             "step": [torch.randn(lat_shape, generator=g) for _ in range(5)]}
+    return dict(cfg=cfg, cpu=cpu, card=card, ids=ids, uids=uids, lat=lat,
+                inputs=inputs, draws=draws)
+
+
+def phase_sampler_parity():
+    """Every scheduler variant and each sampling option of ``sample`` at the
+    tiny config (32² image, batch 2 with CFG, 4 steps): bf16 on the card
+    against fp32 on the CPU (the same bf16-valued weights, the same
+    injected draws), within ``PARITY_TOL``, with exact launch counts (K1
+    and K4 per UNet evaluation, ``sampler_launches``; the tiny VAE's mid
+    attention on the training flash kernel once per encode and decode).
+    Returns the launch counts of the runs by label."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion import graph
+    from sdbc_tpu_torch.diffusion import schedulers as sched_mod
+    from sdbc_tpu_torch.ops import _kernels
+
+    st = tiny_sampler_setup("cuda")
+    cfg, cpu, gpu = st["cfg"], st["cpu"], st["card"]
+    ids, uids, lat = st["ids"], st["uids"], st["lat"]
+    inputs, draws = st["inputs"], st["draws"]
+    vae_flash = int(cfg.vae.block_out_channels[-1] <= 256)
+    runs = [(label, s, 4, dict(use_karras_sigmas=True) if k else {}, {})
+            for label, s, k in scheduler_variants()] + TINY_OPTIONS
+    out = {}
+    for label, scheduler, n, opts, schedule in runs:
+        rcfg = dataclasses.replace(
+            cfg, scheduler=scheduler,
+            schedule=sched_mod.ScheduleConfig(**schedule))
+        kw = {k: inputs.get(v, v) if isinstance(v, str) else v
+              for k, v in opts.items()}
+        res = {}
+        for dev, dt, mods in (("cpu", torch.float32, cpu),
+                              ("cuda", torch.bfloat16, gpu)):
+            dkw = {k: v.to(dev) if torch.is_tensor(v) else v
+                   for k, v in kw.items()}
+            _kernels.reset_launch_counts()
+            img = graph.sample(mods, ids.to(dev), uids.to(dev), lat.to(dev),
+                               7.5, cfg=rcfg, num_inference_steps=n,
+                               compute_dtype=dt, draws=draws, **dkw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res[dev] = (img.float().cpu().numpy(), dict(_kernels.launches))
+        want = sampler_launches(cfg, 16, 2, evals_of(scheduler, n, opts),
+                                opts.get("cache_tail", 0))
+        want["flash_fwd"] = vae_flash * (1 + ("init_image" in opts))
+        ref, (card, counts) = res["cpu"][0], res["cuda"]
+        err = float(np.abs(card - ref).max())
+        print(f"[sampler-parity] tiny 32^2 batch 2 {label} ({n} steps): "
+              f"image max abs err {err:.3e} (tol {PARITY_TOL}), K1 "
+              f"{counts['flash_fixed']} K4 {counts['geglu_ff']} "
+              f"(expected {want['flash_fixed']}, {want['geglu_ff']})",
+              flush=True)
+        if card.shape != (2, 32, 32, 3) or not np.isfinite(card).all():
+            fail(f"sampler-parity {label}: output {card.shape} not finite")
+        if not err <= PARITY_TOL:
+            fail(f"sampler-parity {label}: card vs CPU max abs err {err} > "
+                 f"{PARITY_TOL}")
+        if counts != want or want["flash_fixed"] == 0 \
+                or set(res["cpu"][1].values()) != {0}:
+            fail(f"sampler-parity {label}: launch counts {counts}, expected "
+                 f"{want}")
+        out[label] = counts
+    return out
+
+
+def phase_samplers(cfg, pipe, smi: str):
+    """SD-1.5 at full width through ``SDPipeline`` (the slice's random bf16
+    weights, 512², batch 4, CFG 7.5): every scheduler variant at 10 steps
+    (lcm at 4) and DDIM-10 with each option, one call each with finite
+    images of the expected shape and exact K1/K4 launches from its
+    evaluation count (a warm-up call first where a run meets new shapes:
+    the first run, cfg_interval's batch 4, FreeU's FFT, img2img's encode);
+    then DDIM-10 against its cfg_interval, cache_interval and decode=False
+    calls in alternating rounds (medians); then the serving profile, dpm
+    at 25 steps, warmed up and timed (median of 3).  Returns (launch
+    counts by path, dpm-25 s/call)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline, img2img_t_start
+    from sdbc_tpu_torch.models import unet as unet_mod
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    lat = per_sample_fixed_latents(4, (4, 64, 64), 42)
+    # a smooth synthetic cover to re-diffuse, and a mask of its left half
+    yy, xx = np.meshgrid(np.linspace(0, 1, 512), np.linspace(0, 1, 512),
+                         indexing="ij")
+    image = np.stack([yy, xx, 0.5 * (yy + xx)], -1).astype(np.float32)
+    half = np.zeros((512, 512), np.float32)
+    half[:, :256] = 1.0
+    strength = 0.6
+    # (label, scheduler, steps, call options, sampler_evals options, warm)
+    runs = [(f"{label}", s, 4 if s == "lcm" else 10,
+             dict(use_karras_sigmas=True) if k else {}, {}, i == 0)
+            for i, (label, s, k) in enumerate(scheduler_variants())]
+    options = {
+        "cfg_interval=(0.1, 0.6)": (dict(cfg_interval=(0.1, 0.6)), {}, True),
+        "cache_interval=3": (dict(cache_interval=3), {}, False),
+        "freeu + guidance_rescale=0.7 + clip_skip=2": (
+            dict(freeu=unet_mod.FREEU_SD15, guidance_rescale=0.7,
+                 clip_skip=2), {}, True),
+        f"img2img strength {strength}": (
+            dict(init_image=image, strength=strength),
+            dict(t_start=img2img_t_start(10, strength)), True),
+        "inpaint half mask": (dict(init_image=image, mask_image=half),
+                              dict(t_start=img2img_t_start(10, 0.8)), False),
+        "decode=False": (dict(decode=False), {}, False),
+    }
+    runs += [(f"ddim {k}", "ddim", 10, kw, extra, warm)
+             for k, (kw, extra, warm) in options.items()]
+    pipes = {s: SDPipeline(pipe.models, dataclasses.replace(
+        cfg, scheduler=s), pipe.tokenizer, "cuda", torch.bfloat16)
+        for s in {r[1] for r in runs}}
+
+    def caller(scheduler, n, kw):
+        return lambda: pipes[scheduler](
+            PROMPTS, height=512, width=512, num_inference_steps=n,
+            guidance_scale=7.5, latents=lat, **kw)
+
+    paths = {}
+    for label, scheduler, n, kw, extra, warm in runs:
+        call = caller(scheduler, n, kw)
+        if warm:
+            call()
+            torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_kernels.launches)
+        evals = evals_of(scheduler, n, dict(kw, **extra))
+        want = sampler_launches(cfg, 64, 4, evals)
+        print(f"[samplers] SD-1.5 512^2 batch 4 {label} ({n} steps, "
+              f"{len(evals)} UNet evaluations: {evals.count('guided')} "
+              f"guided, {evals.count('cond')} cond-only, "
+              f"{evals.count('reuse')} on the cached trunk): one call "
+              f"{secs:.3f} s, K1 {counts['flash_fixed']} K4 "
+              f"{counts['geglu_ff']} (expected {want['flash_fixed']}, "
+              f"{want['geglu_ff']})", flush=True)
+        shape = (4, 512, 512, 3) if kw.get("decode", True) else (4, 64, 64, 4)
+        if out.shape != shape or not np.isfinite(out).all():
+            fail(f"samplers {label}: output {out.shape} (expected {shape}) "
+                 f"not finite")
+        if counts != want or want["flash_fixed"] == 0:
+            fail(f"samplers {label}: launch counts {counts}, expected "
+                 f"{want}")
+        paths[f"samplers {label}"] = counts
+
+    # what each option saves against DDIM-10: host-clock medians over
+    # alternating rounds (a, b, c, d, d, c, b, a, ...), every shape warm
+    paired = {"ddim": {}, **{k: options[k][0] for k in (
+        "cfg_interval=(0.1, 0.6)", "cache_interval=3", "decode=False")}}
+    fns = [caller("ddim", 10, kw) for kw in paired.values()]
+    got = [[] for _ in fns]
+    for r in range(6):
+        for i in (range(len(fns)) if r % 2 == 0
+                  else reversed(range(len(fns)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[i]()
+            torch.cuda.synchronize()
+            got[i].append(time.perf_counter() - t0)
+    med = [statistics.median(g) for g in got]
+    print(f"[samplers] DDIM-10 512^2 batch 4, 6 alternating rounds, median "
+          f"(min-max) s/call: " + "; ".join(
+              f"{k} {m:.4f} ({min(g):.4f}-{max(g):.4f})"
+              for k, m, g in zip(paired, med, got))
+          + f"; saved a call: cfg_interval {med[0] - med[1]:.4f} s (5 "
+          f"evaluations at batch 4), cache_interval {med[0] - med[2]:.4f} "
+          f"s (6 reuse steps), decode {med[0] - med[3]:.4f} s | {smi}",
+          flush=True)
+
+    # the CLI's serving profile: dpm at 25 steps
+    call = caller("dpm", 25, {})
+    t0 = time.perf_counter()
+    call()  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for rep in range(3):
+        if rep == 0:
+            _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            counts = dict(_kernels.launches)
+    secs = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    want = sampler_launches(cfg, 64, 4, sampler_evals("dpm", 25))
+    print(f"[samplers] SD-1.5 512^2 batch 4 dpm-25 CFG 7.5 bf16: "
+          f"{secs:.3f} s/call (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in times)}), {4 / secs:.4f} "
+          f"images/s, warm-up {warm:.3f} s, peak {peak / 2 ** 30:.2f} GiB, "
+          f"K1 {counts['flash_fixed']} K4 {counts['geglu_ff']} (expected "
+          f"{want['flash_fixed']}, {want['geglu_ff']}) | {smi}", flush=True)
+    if imgs.shape != (4, 512, 512, 3) or not np.isfinite(imgs).all():
+        fail(f"dpm-25 images {imgs.shape} not finite")
+    if counts != want:
+        fail(f"dpm-25 launch counts {counts}, expected {want}")
+    paths["samplers dpm-25"] = counts
+    return paths, secs
+
+
 def _slice_setup():
     import torch
 
@@ -2235,7 +2634,8 @@ def phase_decode(pipe, impl: str):
 
 
 def phase_profile(pipe):
-    """Device time by kernel over one UNet evaluation (CFG batch 8, 64²)."""
+    """Device time by kernel over one UNet evaluation (CFG batch 8, 64²),
+    and over one at batch 4 (cfg_interval's cond-only evaluation)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2245,32 +2645,39 @@ def phase_profile(pipe):
     dev = torch.device("cuda")
     unet = pipe.models["unet"]
     g = torch.Generator(device=dev).manual_seed(7)
-    lat = torch.randn((8, 64, 64, 4), generator=g, device=dev).bfloat16()
-    ctx = torch.randn((8, 77, 768), generator=g, device=dev).bfloat16()
-    tb = torch.full((8,), 500, device=dev)
-    run = lambda: unet_mod.apply(unet, lat, tb, ctx, attn_impl="inference")
-    with torch.inference_mode():
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    # kernel-level events only: an operator's own device time repeats the
-    # time of the kernels it launched
-    events = [e for e in prof.key_averages() if dev_us(e) > 0
-              and getattr(e, "device_type", None) == DeviceType.CUDA]
-    total = sum(dev_us(e) for e in events)
+    def profiled(b):
+        """(run, kernel µs, top kernels) of one evaluation at batch b."""
+        lat = torch.randn((b, 64, 64, 4), generator=g, device=dev).bfloat16()
+        ctx = torch.randn((b, 77, 768), generator=g, device=dev).bfloat16()
+        tb = torch.full((b,), 500, device=dev)
+        run = lambda: unet_mod.apply(unet, lat, tb, ctx,
+                                     attn_impl="inference")
+        with torch.inference_mode():
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        # kernel-level events only: an operator's own device time repeats
+        # the time of the kernels it launched
+        events = [e for e in prof.key_averages() if dev_us(e) > 0
+                  and getattr(e, "device_type", None) == DeviceType.CUDA]
+        top = sorted(events, key=lambda e: -dev_us(e))[:10]
+        return (run, sum(dev_us(e) for e in events),
+                [(e.key[:60], round(dev_us(e) / 1e3, 3)) for e in top])
+
+    run, total, summary = profiled(8)
     if total == 0:
         print("[profile] UNet eval: device time not measured (profiler saw "
               "no device time)", flush=True)
         return
-    top = sorted(events, key=lambda e: -dev_us(e))[:10]
-    summary = [(e.key[:60], round(dev_us(e) / 1e3, 3)) for e in top]
+    run4, total4, summary4 = profiled(4)
     # stage wall times (host clock around synchronized work, medians)
     from sdbc_tpu_torch.diffusion import graph
     from sdbc_tpu_torch.models import vae as vae_mod
@@ -2279,6 +2686,7 @@ def phase_profile(pipe):
     ids = pipe.tokenize(PROMPTS)
     with torch.inference_mode():
         unet_ms = wall_ms(run, 5)
+        unet4_ms = wall_ms(run4, 5)
         vae_ms = wall_ms(lambda: [vae_mod.decode(pipe.models["vae"],
                                                  z[j:j + 1])
                                   for j in range(4)], 3)
@@ -2289,6 +2697,12 @@ def phase_profile(pipe):
           f"{100 * (1 - total / 1e3 / unet_ms):.1f}%); text encode (4 "
           f"prompts) {text_ms:.3f} ms; VAE decode (4 images) {vae_ms:.3f} "
           f"ms; top kernels (ms): {summary}", flush=True)
+    print(f"[profile] UNet eval (batch 4, 64^2, cfg_interval's cond-only "
+          f"evaluation): wall {unet4_ms:.3f} ms, kernels {total4 / 1e3:.3f} "
+          f"ms (device idle {100 * (1 - total4 / 1e3 / unet4_ms):.1f}%), "
+          f"{unet4_ms / unet_ms:.3f} of batch 8's wall, "
+          f"{total4 / total:.3f} of its kernel time; top kernels (ms): "
+          f"{summary4}", flush=True)
 
 
 def _train_cfg(**kw):
@@ -2610,6 +3024,8 @@ def main() -> int:
     # launch counts of each full-width path (and of the tiny fp32 ones),
     # from its own run (the counts set to 0 just before it, read just after)
     paths = {"sampling fp32 (tiny)": phase_parity()}
+    paths.update({f"sampler-parity {k} (tiny)": v
+                  for k, v in phase_sampler_parity().items()})
     cfg, pipe = _slice_setup()
     paths["sampling"], _ = phase_slice(cfg, pipe, smi)
     paths["decode SDBC_ATTN_IMPL=flash"] = phase_decode(pipe, "flash")
@@ -2618,6 +3034,8 @@ def main() -> int:
     phase_profile(pipe)
     paths["sampling SDBC_GN_FUSED=1"] = phase_switches_sampling(cfg, pipe,
                                                                 smi)
+    sampler_paths, _ = phase_samplers(cfg, pipe, smi)
+    paths.update(sampler_paths)
     del pipe
     torch.cuda.empty_cache()
     phase_train_parity()
@@ -2636,8 +3054,9 @@ def main() -> int:
     for row in rows:
         row["path"] = MAIN_PATH[row["name"]]
         row["launches"] = paths[row["path"]][row["name"]]
+        # every path where the kernel launched (0 on the others)
         row["launches_by_path"] = {p: c[row["name"]] for p, c in
-                                   paths.items()}
+                                   paths.items() if c[row["name"]]}
     print(f"[done] all phases in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

@@ -20,9 +20,10 @@ saving their matrix-product and convolution outputs (JAX's
 ``dots_saveable``) and leaving the attention calls and their projections
 outside (the flash kernels keep O(S·D) residuals already).  Downsamplers,
 upsamplers and conv_in/out are not checkpointed, as in the JAX package.
-DeepCache, ControlNet residuals, the SDXL addition embedding, FreeU and
-depth>1 transformers (refused when the model is built) are not ported yet
-and raise ``NotImplementedError``.
+FreeU (``freeu``) and the DeepCache trunk split (``return_deep``,
+``cached_deep``, ``cache_tail``) are here; ControlNet residuals, the SDXL
+addition embedding and depth>1 transformers (refused when the model is
+built) are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -313,22 +314,79 @@ def _checkpoint(fn, *args):
 
 
 # ---------------------------------------------------------------------------
+# FreeU (Si et al. 2023, arXiv:2309.11497): at sampling time, amplify the
+# backbone's low-channel half and damp the skip connections' low-frequency
+# band at the two deepest decoder stages.
+
+
+def fourier_filter(x, threshold: int, scale):
+    """Scale the centred low-frequency box of a (N, H, W, C) feature map:
+    FFT over the spatial axes, fftshift, multiply the (2·threshold)² centre
+    box by ``scale``, invert (fp32 inside, x's dtype out)."""
+    dtype = x.dtype
+    xf = torch.fft.fftn(x.float(), dim=(1, 2))
+    xf = torch.fft.fftshift(xf, dim=(1, 2))
+    h, w = x.shape[1], x.shape[2]
+    crow, ccol = h // 2, w // 2
+    mask = torch.ones((h, w), dtype=torch.float32, device=x.device)
+    mask[max(crow - threshold, 0):crow + threshold,
+         max(ccol - threshold, 0):ccol + threshold] = float(scale)
+    xf = xf * mask[None, :, :, None]
+    xf = torch.fft.ifftshift(xf, dim=(1, 2))
+    return torch.fft.ifftn(xf, dim=(1, 2)).real.to(dtype)
+
+
+def _apply_freeu(h, skip, b_scale: float, s_scale: float):
+    """One FreeU modification before a decoder concat: the first half of
+    the backbone channels times ``b`` (rounded to h's dtype first, as the
+    JAX package multiplies), the skip low-pass-scaled by ``s``.  Scales of
+    exactly 1.0 are skipped, so (1, 1, 1, 1) gives the bits of no FreeU."""
+    if b_scale != 1.0:
+        half = h.shape[-1] // 2
+        b = float(torch.tensor(b_scale, dtype=h.dtype))
+        h = torch.cat([h[..., :half] * b, h[..., half:]], dim=-1)
+    if s_scale != 1.0:
+        skip = fourier_filter(skip, 1, s_scale)
+    return h, skip
+
+
+# recommended settings of the FreeU paper / reference implementation
+FREEU_SD15 = (1.5, 1.6, 0.9, 0.2)   # (b1, b2, s1, s2)
+FREEU_SD21 = (1.4, 1.6, 0.9, 0.2)
+FREEU_SDXL = (1.3, 1.4, 0.9, 0.2)
+
+
+# ---------------------------------------------------------------------------
 # apply
 
 
-_UNPORTED = ("cached_deep", "return_deep", "control_residuals", "added_cond",
-             "freeu")
+_UNPORTED = ("control_residuals", "added_cond")
 
 
 def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
           attn_impl: str = "auto", temb_proj=None, remat: bool = False,
-          remat_mode: str = "block", **unported):
+          remat_mode: str = "block", cached_deep=None,
+          return_deep: bool = False, cache_tail: int = 0, freeu=None,
+          **unported):
     """latents (N,h,w,4), timesteps (N,), CLIP states (N,77,768) → eps (N,h,w,4).
 
     ``temb_proj``: this step's slice of a ``precompute_temb`` tree, or None
     to embed ``timesteps`` inline.  ``attn_impl``: one of
     ``ops.attention.IMPLS``.  ``remat``/``remat_mode``: gradient
-    checkpointing, "block" or "selective" (module docstring)."""
+    checkpointing, "block" or "selective" (module docstring).
+
+    DeepCache trunk caching (the JAX package's split): ``return_deep=True``
+    also returns the deep trunk's output, ``cached_deep=<that tensor>``
+    skips the trunk.  ``cache_tail`` sets the boundary: how many trailing
+    ResBlocks of the last up block run fresh on cached steps (0 = all of
+    them, plus the whole first down block; 1 = only conv_in, the last
+    ResBlock and the head).  The uncached forward is the same ops in the
+    same order for every ``cache_tail``.
+
+    ``freeu``: optional (b1, b2, s1, s2) — before each skip concat of up
+    blocks 0 and 1, the backbone's first half channels scale by b and the
+    skip's low-frequency band by s (``fourier_filter``).  Presets
+    ``FREEU_SD15/SD21/SDXL``."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"apply() got an unexpected argument {name!r}")
@@ -365,28 +423,66 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
             return _checkpoint(t, h, ctx, heads, g, attn_impl)
         return t(h, ctx, heads, g, attn_impl)
 
-    h = model.conv_in(latents)
-    skips = [h]
-    for blk, tp in zip(model.down, tp_down):
-        for j, r in enumerate(blk.resnets):
-            h = res(r, h, tp["resnets"][j])
-            if len(blk.attns):
-                h = tfm(blk.attns[j], h)
+    def resnet_j(blk, tp, j, h, skips=None):
+        h = res(blk.resnets[j], h, tp["resnets"][j])
+        if len(blk.attns):
+            h = tfm(blk.attns[j], h)
+        if skips is not None:
             skips.append(h)
+        return h
+
+    def block_down(blk, tp, h, skips, first=0):
+        for j in range(first, len(blk.resnets)):
+            h = resnet_j(blk, tp, j, h, skips)
         if hasattr(blk, "downsample"):
             h = blk.downsample(h, stride=2, padding=1)
             skips.append(h)
-    h = res(model.mid.resnet1, h, tp_mid["resnet1"])
-    h = tfm(model.mid.attn, h)
-    h = res(model.mid.resnet2, h, tp_mid["resnet2"])
-    for blk, tp in zip(model.up, tp_up):
-        for j, r in enumerate(blk.resnets):
-            h = torch.cat([h, skips.pop()], dim=-1)
-            h = res(r, h, tp["resnets"][j])
-            if len(blk.attns):
-                h = tfm(blk.attns[j], h)
-        if hasattr(blk, "upsample"):
+        return h
+
+    def block_up(blk, tp, h, skips, fu=None, js=None):
+        for j in (range(len(blk.resnets)) if js is None else js):
+            skip = skips.pop()
+            if fu is not None:
+                h, skip = _apply_freeu(h, skip, *fu)
+            h = resnet_j(blk, tp, j, torch.cat([h, skip], dim=-1))
+        if js is None and hasattr(blk, "upsample"):
             h = nn.upsample_nearest_2x(h)
             h = blk.upsample(h)
+        return h
+
+    blk0, last_up = model.down[0], model.up[-1]
+    total_tail = len(last_up.resnets)
+    ct = cache_tail if cache_tail and 0 < cache_tail <= total_tail \
+        else total_tail
+    head_resnets = ct - 1  # down[0] resnets whose skips the fresh tail pops
+
+    # shallow head: conv_in + the first (ct-1) resnets of down[0]
+    h = model.conv_in(latents)
+    shallow_skips = [h]
+    for j in range(head_resnets):
+        h = resnet_j(blk0, tp_down[0], j, h, shallow_skips)
+
+    if cached_deep is None:
+        deep_skips = []
+        d = block_down(blk0, tp_down[0], h, deep_skips, first=head_resnets)
+        for blk, tp in zip(model.down[1:], tp_down[1:]):
+            d = block_down(blk, tp, d, deep_skips)
+        d = res(model.mid.resnet1, d, tp_mid["resnet1"])
+        d = tfm(model.mid.attn, d)
+        d = res(model.mid.resnet2, d, tp_mid["resnet2"])
+        for i, (blk, tp) in enumerate(zip(model.up[:-1], tp_up[:-1])):
+            fu = None
+            if freeu is not None and i < 2:
+                fu = (freeu[0], freeu[2]) if i == 0 else (freeu[1], freeu[3])
+            d = block_up(blk, tp, d, deep_skips, fu)
+        # deep-owned leading resnets of the last up block
+        deep = block_up(last_up, tp_up[-1], d, deep_skips,
+                        js=range(total_tail - ct))
+    else:
+        deep = cached_deep
+
+    h = block_up(last_up, tp_up[-1], deep, shallow_skips,
+                 js=range(total_tail - ct, total_tail))
     h = model.norm_out(h, g, eps=1e-5, act="silu")
-    return model.conv_out(h)
+    out = model.conv_out(h)
+    return (out, deep) if return_deep else out

@@ -144,9 +144,7 @@ def test_deep_transformers_are_refused(tcfg):
                    device="cpu")
 
 
-@pytest.mark.parametrize("option", ["cached_deep", "return_deep",
-                                    "control_residuals", "added_cond",
-                                    "freeu"])
+@pytest.mark.parametrize("option", ["control_residuals", "added_cond"])
 def test_unet_unported_options_raise(tcfg, tmodels, option):
     lat, ctx = _unet_inputs(tcfg)
     with pytest.raises(NotImplementedError, match=option):

@@ -140,22 +140,14 @@ def test_nchw_latents_and_latent_padding(pipe):
         pipe._latents(np.zeros((3, 8, 8, 4), np.float32), 2, 64, 64, 0)
 
 
-@pytest.mark.parametrize("option", ["init_image", "mask", "control_image",
-                                    "cache_interval", "cfg_interval",
-                                    "freeu", "use_karras_sigmas"])
+@pytest.mark.parametrize("option", ["control_image", "masked_image",
+                                    "cond_ids2", "time_ids"])
 def test_unported_sampling_options_raise(pipe, option):
     ids = torch.zeros((1, pipe.cfg.clip.ctx), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match=option):
         tgraph.sample(pipe.models, ids, ids, torch.zeros(1, 8, 8, 4), 7.5,
                       cfg=pipe.cfg, num_inference_steps=2,
                       compute_dtype=torch.float32, **{option: 2})
-
-
-def test_other_schedulers_raise(pipe):
-    ids = torch.zeros((1, pipe.cfg.clip.ctx), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="pndm"):
-        tgraph.sample(pipe.models, ids, ids, torch.zeros(1, 8, 8, 4), 7.5,
-                      cfg=PipelineConfig.tiny("pndm"), num_inference_steps=2)
 
 
 def _imports(path):
