@@ -16,7 +16,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   plain version and the one PyTorch call computing the same
                   function (where there is one): the fixed-cap attention
                   (timed against SDPA in alternating rounds, with its share
-                  of the bound; also at the VAE's 512-wide head), GEGLU (timed against the unfused bf16
+                  of the bound; also at the VAE's 512-wide head and at
+                  hires-fix's 1024² shape (2,16384,8,40), held to the
+                  plain version on every 16th query), GEGLU (timed against the unfused bf16
                   feed-forward in alternating rounds, with its share of
                   the bound), the fused GroupNorm (the UNet's
                   GroupNorm inputs at batch 8, one ragged case) and the
@@ -96,6 +98,21 @@ Phases, in order; each prints one or more lines, and any failure raises
                   evaluations (heun 19, pndm 11, a DeepCache reuse step 5
                   and 5); then dpm-25, the CLI's serving profile, warmed up
                   and timed (s/call, images/s, peak memory);
+   generate     — the evaluation entry points at full width:
+                  ``cli.common.resolve_params_cfg`` on parsed
+                  ``cli.inference`` arguments (random SD-1.5, bf16), then
+                  ``SDPipeline.generate`` with the CLI's serving profile
+                  (dpm-25, CFG 7.5, 512²) on 4 prompts (bucket 4), 6
+                  prompts padded to bucket 8, a ``prompt_weighting`` call
+                  over two CLIP windows, and hires-fix to 1024² (latent
+                  mode, strength 0.7; K1 at (2,16384,8,40)), each timed
+                  after a warm-up with exact K1/K4 launches (the second
+                  stage's evaluations from its strength); then FID: the
+                  Inception extractor's features of the generated images
+                  on the card (strict fp32) against the CPU's
+                  (``INCEPTION_TOL``), its ms per batch of 50, and the
+                  statistics and Fréchet distances (a set against itself
+                  within ``FID_SELF_TOL`` of tr Σ); no PIL, no pandas;
 9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
@@ -466,6 +483,32 @@ def sampler_launches(cfg, lat_hw: int, b: int, evals,
     return want
 
 
+def generate_launches(cfg, n_prompts: int, steps: int, img: int,
+                      scheduler: str = "dpm", hires_scale: float = 0.0,
+                      hires_strength: float = 0.7) -> dict:
+    """K1/K4 launches of one ``SDPipeline.generate`` call of ``n_prompts``
+    at img² (``sampler_launches``): the UNet runs the batch bucket; with
+    ``hires_scale`` the first stage composes at img ÷ scale (snapped to
+    8·vae_scale px) and the second runs the evaluations left from
+    ``img2img_t_start`` of ``hires_strength`` at img²."""
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline, img2img_t_start
+
+    b = next(s for s in SDPipeline.BATCH_BUCKETS if s >= n_prompts)
+    f = cfg.vae_scale
+    if not hires_scale:
+        return sampler_launches(cfg, img // f, b,
+                                sampler_evals(scheduler, steps))
+    m = 8 * f
+    base = max(m, int(round(img / hires_scale / m)) * m)
+    first = sampler_launches(cfg, base // f, b,
+                             sampler_evals(scheduler, steps))
+    t_start = img2img_t_start(steps, hires_strength,
+                              cfg.schedule.steps_offset)
+    second = sampler_launches(cfg, img // f, b, sampler_evals(
+        scheduler, steps, t_start=t_start))
+    return {k: first[k] + second[k] for k in first}
+
+
 def n_transformers(u) -> int:
     """Spatial transformers of one UNet: each makes two attention calls."""
     levels = sum(u.cross_attn_blocks)
@@ -602,6 +645,9 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
     want["flash_bwd_dq"] = want["flash_bwd_dkv"] = accum * calls
     return want
 
+
+# K1 at the hires shape is held to its plain version on every 16th query
+HIRES_Q_STRIDE = 16
 
 SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
 # the path whose run gives each kernel's ``launches`` in the kernels line:
@@ -1045,16 +1091,24 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
                    ("bshd 16^2 d160 batch 4", "bshd", (4, 256, 8, 160), 256),
                    ("bhsd 32^2 d80", "bhsd", (8, 8, 1024, 80), 1024),
                    ("bshd ragged Sq200 Sk300 d40", "bshd", (2, 200, 8, 40),
-                    300)]
+                    300),
+                   # hires-fix's second stage: 1024², 128² latents, CFG
+                   # batch 2; the plain version on every HIRES_Q_STRIDE-th
+                   # query (its full fp32 scores would take 17 GB)
+                   ("bshd 128^2 d40 hires batch 2", "bshd",
+                    (2, 16384, 8, 40), 16384)]
     flash_err, first = 0.0, None
     for label, layout, qshape, sk in flash_cases:
         kshape = list(qshape)
         kshape[1 if layout == "bshd" else 2] = sk
         q, k, v = randn(*qshape), randn(*kshape), randn(*kshape)
+        # queries the plain version computes: attention is row-wise, so a
+        # strided slice of them is exact
+        qs = HIRES_Q_STRIDE if "hires" in label else 1
         if layout == "bshd":
             kern = lambda: fa.flash_attention_fixed_bshd(q, k, v)
             plain = lambda: tr(fa.fixed_cap_attention_ref(
-                tr(q).float(), tr(k).float(), tr(v).float()))
+                tr(q[:, ::qs]).float(), tr(k).float(), tr(v).float()))
         else:
             kern = lambda: fa.flash_attention_fixed(q, k, v)
             plain = lambda: fa.fixed_cap_attention_ref(q.float(), k.float(),
@@ -1062,7 +1116,7 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
         out = kern()
         torch.cuda.synchronize()
         ref = plain()
-        err, tol = attn_err(out, ref)
+        err, tol = attn_err(out[:, ::qs], ref)
         if not torch.isfinite(out).all() or not err <= tol:
             fail(f"flash {label}: max abs err {err} > {tol}")
         pms = median_ms(plain, 5)
@@ -1071,9 +1125,10 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
         ms, lms = paired_ms([kern, lambda: sdpa(qh, kh, vh)])
         b, h, sq, d = qh.shape
         bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,))
-        print(f"[kernels] flash_fixed {label}: max_abs_err {err:.3e} (tol "
-              f"{tol:.3e}) kernel {ms:.4f} ms plain {pms:.4f} ms sdpa {lms:.4f} ms "
-              f"bound {bms:.4f} ms ({by})", flush=True)
+        part = f" (on 1/{qs} of the queries)" if qs > 1 else ""
+        print(f"[kernels] flash_fixed {label}: max_abs_err {err:.3e}{part} "
+              f"(tol {tol:.3e}) kernel {ms:.4f} ms plain{part} {pms:.4f} ms "
+              f"sdpa {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
         print(f"[kernels] flash_fixed {label}: kernel {ms:.4f} ms, sdpa "
               f"{lms:.4f} ms (kernel/sdpa {ms / lms:.2f}), bound {bms:.4f} ms, "
               f"{100 * bms / ms:.1f}% of the bound", flush=True)
@@ -2962,6 +3017,194 @@ def phase_switches_sampling(cfg, pipe, smi: str):
     return counts
 
 
+# the Inception extractor on the card (strict fp32) against the same
+# model's features on the CPU: both fp32, different summation orders
+INCEPTION_TOL = 1e-3  # of the largest CPU feature
+# a FID of a set against itself: zero up to rounding, relative to tr Σ
+# (float64 eigh of a rank-n 2048² covariance: ~2000 zero eigenvalues at
+# ~1e-16 of the largest, each adding its square root, ~1e-8 of it)
+FID_SELF_TOL = 1e-4
+# two 77-token windows under the hash tokenizer (``_tokenizer``): 112
+# content tokens
+WEIGHTED_PROMPT = ("a (dark fantasy:1.3) novel cover, ((a lone knight)) "
+                   "before a [ruined] castle under a blood red moon, "
+                   "ravens circling the towers, ornate gold border")
+
+
+def phase_generate(smi: str):
+    """The evaluation entry points at full width, as the CLIs run them:
+    ``cli.common.resolve_params_cfg`` on parsed ``cli.inference``
+    arguments with no checkpoint (random SD-1.5 from --seed, bf16 on the
+    card), then ``SDPipeline.generate`` with the CLI's serving profile
+    (``cli.inference.profile_spec``; dpm-25, CFG 7.5, 512²): 4 template
+    prompts (bucket 4), 6 prompts padded to bucket 8 (6 images back), one
+    ``prompt_weighting`` call over two CLIP windows, and the README's
+    hires profile (1024², hires_scale 2, strength 0.7, latent mode, batch
+    1); each warmed up, then one timed call with exact K1/K4 launches.
+    Then FID: ``eval.fid.get_activations`` of the generated images (uint8,
+    resized to 299² on the card) held to the same model's CPU fp32
+    features (``INCEPTION_TOL``), the extractor's ms per batch of 50, the
+    statistics and Fréchet distances (a set against itself ≈ 0).  No PIL,
+    no pandas.  Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import common
+    from sdbc_tpu_torch.cli import inference as cli
+    from sdbc_tpu_torch.data import templates
+    from sdbc_tpu_torch.data.prompt_weights import encode_weighted
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+    from sdbc_tpu_torch.eval import fid as fid_mod
+    from sdbc_tpu_torch.models import inception as inception_mod
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.image import resize
+
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(
+        ["--scheduler", "dpm", "--num_inference_steps", "25", "--seed", "0"])
+    common.refuse_unported(args)
+    common.resolve_img_size(args)
+    models, cfg = common.resolve_params_cfg(args)
+    dtypes = {p.dtype for m in models.values() for p in m.parameters()}
+    devices = {p.device.type for m in models.values()
+               for p in m.parameters()}
+    if dtypes != {torch.bfloat16} or devices != {"cuda"}:
+        fail(f"resolve_params_cfg gave {dtypes} on {devices}")
+    pipe = SDPipeline(models, cfg,
+                      common.make_tokenizer(args, cfg.clip.vocab_size),
+                      device=args.device,
+                      compute_dtype=common.compute_dtype(args))
+    spec = cli.profile_spec(args, cfg).replace(
+        height=args.img_size, width=args.img_size,
+        num_inference_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale, seed=args.seed)
+    print(f"[generate] resolve_params_cfg (random SD-1.5, bf16) and the "
+          f"pipeline: {time.perf_counter() - t0:.3f} s", flush=True)
+    ids, _ = encode_weighted(pipe.tokenizer, WEIGHTED_PROMPT,
+                             cfg.clip.ctx, 3)
+    if ids.shape[0] != 2 * cfg.clip.ctx:
+        fail(f"the weighted prompt spans {ids.shape[0] // cfg.clip.ctx} "
+             "CLIP windows, expected 2")
+    prompts8 = [templates.TEST_TEMPLATES[i] for i in range(6)]
+    runs = [("generate bucket 4", PROMPTS, spec, {}),
+            ("generate bucket 8", prompts8, spec, {}),
+            ("generate prompt_weighting", [WEIGHTED_PROMPT, PROMPTS[0]],
+             spec.replace(prompt_weighting=True), {}),
+            ("hires 1024^2", PROMPTS[:1],
+             spec.replace(height=1024, width=1024, hires_scale=2.0,
+                          hires_strength=0.7, hires_mode="latent"),
+             dict(hires_scale=2.0, hires_strength=0.7))]
+    paths, images = {}, {}
+    for label, prompts, sp, hires in runs:
+        want = generate_launches(cfg, len(prompts), sp.num_inference_steps,
+                                 sp.height, "dpm", **hires)
+        t0 = time.perf_counter()
+        pipe.generate(prompts, sp)  # warm-up
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = pipe.generate(prompts, sp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_kernels.launches)
+        print(f"[generate] {label}: {len(prompts)} prompts, {secs:.3f} "
+              f"s/call ({len(prompts) / secs:.4f} images/s), warm-up "
+              f"{warm:.3f} s, K1 {counts['flash_fixed']} K4 "
+              f"{counts['geglu_ff']} (expected {want['flash_fixed']}, "
+              f"{want['geglu_ff']}) | {smi}", flush=True)
+        shape = (len(prompts), sp.height, sp.width, 3)
+        if imgs.shape != shape or not np.isfinite(imgs).all() \
+                or imgs.min() < 0.0 or imgs.max() > 1.0:
+            fail(f"{label}: images {imgs.shape} (expected {shape}) not "
+                 "finite in [0, 1]")
+        if counts != want or want["flash_fixed"] == 0:
+            fail(f"{label}: launch counts {counts}, expected {want}")
+        paths[label] = counts
+        images[label] = np.uint8(np.round(imgs * 255.0))
+    del pipe, models
+    torch.cuda.empty_cache()
+
+    # FID: the extractor of eval.fid.default_params (SDBC_INCEPTION_WEIGHTS
+    # unset: random weights, seed 2015) on the card and its copy on the CPU
+    icfg = inception_mod.InceptionConfig.fid()
+    model = fid_mod.default_params(icfg, device="cuda")
+    model_cpu = copy.deepcopy(model).cpu()
+    gen512 = np.concatenate([images[k] for k in (
+        "generate bucket 4", "generate bucket 8",
+        "generate prompt_weighting")])
+    n = gen512.shape[0]
+    t0 = time.perf_counter()
+    card = fid_mod.get_activations(gen512, model, batch_size=n)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = fid_mod.get_activations(gen512, model_cpu, batch_size=n)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max())
+    scale = float(np.abs(cpu).max())
+    hires_feats = fid_mod.get_activations(images["hires 1024^2"], model,
+                                          batch_size=1)
+    batch50 = torch.from_numpy(np.resize(gen512, (50,) + gen512.shape[1:]))
+    batch50 = batch50.cuda()
+    inc_ms = median_ms(lambda: inception_mod.features(model, batch50), 5)
+    # the choice features() makes: the same extractor with cuDNN's TF32
+    # convolutions (PyTorch's default), its error and time beside
+    with torch.inference_mode():
+        def tf32(u8):
+            x = resize(u8.float(), (u8.shape[0], 299, 299, 3), "bilinear")
+            x = ((x - 128.0) / 128.0).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            return model(x)
+
+        old_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_err = float(np.abs(tf32(torch.from_numpy(gen512).cuda())
+                                    .cpu().numpy() - cpu).max())
+            tf32_ms = median_ms(lambda: tf32(batch50), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = old_tf32
+    # one image's 299² pool3 path: 5.72 G multiply-adds (InceptionV3)
+    inc_bound, inc_by = bound(50 * 512 * 512 * 3 + 50 * 2048 * 4,
+                              fp32_ops=50 * 2 * 5.72e9)
+    print(f"[fid] Inception pool3 (random weights, seed 2015) on {n} "
+          f"generated 512^2 images, card (strict fp32, TF32 off) vs CPU "
+          f"fp32: max abs diff {err:.3e} of largest feature {scale:.3e} "
+          f"(rel {err / scale:.3e}, tol {INCEPTION_TOL:.0e}); card "
+          f"{card_s:.3f} s, CPU {cpu_s:.3f} s for the {n}; a batch of 50 "
+          f"(uint8 512^2 -> 299^2 on the card): {inc_ms:.3f} ms (CUDA "
+          f"events, median of 5), fp32 bound {inc_bound:.3f} ms ({inc_by}); "
+          f"with cuDNN TF32 instead: max abs diff {tf32_err:.3e} (rel "
+          f"{tf32_err / scale:.3e}), {tf32_ms:.3f} ms a batch of 50 | "
+          f"{smi}", flush=True)
+    if card.shape != (n, 2048) or not np.isfinite(card).all() \
+            or not err <= INCEPTION_TOL * scale:
+        fail(f"Inception features {card.shape}: card vs CPU {err} > "
+             f"{INCEPTION_TOL} x {scale}")
+    if hires_feats.shape != (1, 2048) or not np.isfinite(hires_feats).all():
+        fail(f"Inception features of the hires image {hires_feats.shape}")
+    mu, sigma = fid_mod.calculate_activation_statistics(gen512, model,
+                                                        batch_size=50)
+    mu_c, sigma_c = np.mean(cpu, 0), np.cov(cpu, rowvar=False)
+    self_fid = fid_mod.calculate_frechet_distance(mu, sigma, mu, sigma)
+    cross_fid = fid_mod.calculate_frechet_distance(mu, sigma, mu_c, sigma_c)
+    split = fid_mod.calculate_frechet_distance(
+        np.mean(card[:4], 0), np.cov(card[:4], rowvar=False),
+        np.mean(card[4:10], 0), np.cov(card[4:10], rowvar=False))
+    tr = float(np.trace(sigma))
+    print(f"[fid] statistics of the {n}: tr sigma {tr:.6e}; FID against "
+          f"itself {self_fid:.3e}, card vs CPU features {cross_fid:.3e}, "
+          f"bucket-4 images vs bucket-8 images {split:.6e}", flush=True)
+    if not all(np.isfinite(x) for x in (self_fid, cross_fid, split, tr)) \
+            or not abs(self_fid) <= FID_SELF_TOL * tr or not split > 0:
+        fail(f"FID: self {self_fid} (tol {FID_SELF_TOL} x {tr}), card vs "
+             f"CPU {cross_fid}, split {split}")
+    if "jax" in sys.modules or "PIL" in sys.modules \
+            or "pandas" in sys.modules:
+        fail("jax, PIL or pandas was imported")
+    return paths
+
+
 def phase_train_profile(step, state, batch, gen, sps: float,
                         label: str = "train"):
     """Device time by kernel over one mode-C optimizer step."""
@@ -3037,6 +3280,8 @@ def main() -> int:
     sampler_paths, _ = phase_samplers(cfg, pipe, smi)
     paths.update(sampler_paths)
     del pipe
+    torch.cuda.empty_cache()
+    paths.update(phase_generate(smi))
     torch.cuda.empty_cache()
     phase_train_parity()
     phase_train_parity("grad_ckpt block + switches", SWITCHES,

@@ -5,6 +5,8 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
 
 - tree path → module path: dict keys and list indices joined by ``.``;
 - leaf names: ``w``/``scale``/``table`` → ``weight``, ``b``/``bias`` → ``bias``;
+  the Inception extractor's batch-norm leaves ``beta``/``mean``/``var``/
+  ``gamma`` keep their names (``models/inception.py``);
 - conv kernels stay HWIO and linear weights (in, out);
 - CLIP's stacked ``layers`` tree (one leading layer axis per leaf) is split
   into ``layers.<i>.…``.
@@ -22,7 +24,8 @@ import torch
 from sdbc_tpu_torch.models.clip import CLIPTextModel
 
 _LEAF = {"w": "weight", "scale": "weight", "table": "weight",
-         "b": "bias", "bias": "bias"}
+         "b": "bias", "bias": "bias",
+         **{k: k for k in ("beta", "mean", "var", "gamma")}}
 
 
 def _flatten(node, prefix, out):

@@ -7,6 +7,8 @@ math) in fp32.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -28,3 +30,18 @@ def cast_floating(x, dtype):
     if isinstance(x, torch.nn.Module):
         return x.to(dtype)
     return x.to(dtype) if x.is_floating_point() else x
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """Full-precision fp32 matmuls and convolutions for the block, the
+    previous switches restored after it (``set_fp32_matmul_exact`` for one
+    call)."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    set_fp32_matmul_exact()
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
