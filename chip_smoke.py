@@ -113,6 +113,24 @@ Phases, in order; each prints one or more lines, and any failure raises
                   (``INCEPTION_TOL``), its ms per batch of 50, and the
                   statistics and Fréchet distances (a set against itself
                   within ``FID_SELF_TOL`` of tr Σ); no PIL, no pandas;
+   serve        — the daemon at full width, as ``cli.serve.main`` builds
+                  it (random SD-1.5, bf16, dpm-25, --max_batch 4, a
+                  --lora_bank adapter written by ``save_lora``), served on
+                  an ephemeral port and driven by ``urllib``: a lone
+                  request equal to ``SDPipeline.generate`` in uint8
+                  pixels, four requests coalesced into one batch of 4, a
+                  LoRA request equal to its merged pipeline's call, a
+                  per-request DDIM-10, img2img 0.6 from a ``utils/png.py``
+                  PNG, each with exact K1/K4 launches and its wall time;
+                  the 400, 404 and 503 refusals and /healthz's
+                  percentiles; the adapter copy's bytes and peak memory;
+   image-checks — ``ClipSafetyChecker`` at ViT-L/14 224² through
+                  ``SDPipeline(safety_checker=...)`` on 4 generated images
+                  (exactly image 0 flagged and blacked out, the launches
+                  of the generate call unchanged) and ``ClipScorer`` at
+                  clip-vit-large-patch14's widths, strict fp32 on the card
+                  against the CPU (``SAFETY_TOL``, ``CLIPSCORE_TOL``), each
+                  timed a batch of 4;
 9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
@@ -3205,6 +3223,404 @@ def phase_generate(smi: str):
     return paths
 
 
+# the serve phase: the daemon's requests, then the image checks.  Card fp32
+# (TF32 off) against CPU fp32 on the same images and weights, ViT-L/14 at
+# 224² (24 layers) and CLIP-L's text tower (12 layers): both sides sum in
+# other orders, ~1e-6 of a unit vector per layer; the safety checker's
+# concept and special-care scores (cosines minus thresholds) within 1e-4,
+# the CLIPScore cosines within 1e-4 (TF32 would move them by ~1e-3).  Set
+# before the phase's first chip reading.
+SAFETY_TOL = 1e-4
+CLIPSCORE_TOL = 1e-4
+SERVE_WINDOW_MS = 250
+SERVE_MAX_PENDING = 5
+
+
+def _serve_adapter(cfg, path: str) -> None:
+    """A rank-4 LoRA adapter on the UNet and the text encoder of ``cfg``
+    (shapes from a meta-device model), with a nonzero b, written by the
+    port's ``save_lora`` (scale α/r = 1)."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import init_models
+    from sdbc_tpu_torch.train import lora as lora_mod
+
+    shapes = init_models(cfg, device="meta", generator=None)
+    gen = torch.Generator().manual_seed(1)
+    lora = lora_mod.init_lora(gen, shapes, 4,
+                              components=("unet", "text_encoder"))
+    for v in lora.values():
+        v["b"] = torch.randn(v["b"].shape, generator=gen) * 0.1
+    lora_mod.save_lora(path, lora, 4, 4.0)
+
+
+def phase_serve(smi: str):
+    """``cli.serve`` at full width, as its ``main`` builds it: parsed
+    arguments (random SD-1.5 from --seed, bf16, 512², the CLI's serving
+    profile dpm-25, --max_batch 4, --lora_bank with one adapter written by
+    ``save_lora``), ``load_pipelines``, ``warmup``, ``make_app`` on a
+    ``ThreadingHTTPServer`` at an ephemeral port, and a ``urllib`` client:
+    /healthz; a lone request equal to ``SDPipeline.generate`` in uint8
+    pixels; four requests inside the batch window in one batch of 4; a
+    LoRA request (unlike the base, equal to the merged pipeline's direct
+    call); a per-request DDIM-10; img2img at strength 0.6 from a PNG of
+    ``utils/png.py``; 400, 404 and 503 refusals; /healthz with its
+    percentiles.  Each generating request with exact K1/K4 launches.
+    Returns (launch counts by path, the lone request's generate call's
+    images for the image checks: 4 prompts at bucket 4)."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import common, serve
+    from sdbc_tpu_torch.diffusion.pipeline import img2img_t_start
+    from sdbc_tpu_torch.diffusion.spec import SampleSpec
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils import png
+
+    tmp = tempfile.TemporaryDirectory()
+    adapter = os.path.join(tmp.name, "style.npz")
+    argv = ["--scheduler", "dpm", "--num_inference_steps", "25", "--seed",
+            "0", "--max_batch", "4", "--lora_bank", f"style={adapter}",
+            "--batch_window_ms", str(SERVE_WINDOW_MS), "--max_pending",
+            str(SERVE_MAX_PENDING)]
+    args = serve.build_parser().parse_args(argv)
+    common.refuse_unported(args)
+    common.resolve_img_size(args)
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    _serve_adapter(PipelineConfig.sd15("dpm"), adapter)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe, lora_pipes = serve.load_pipelines(args)
+    setup = time.perf_counter() - t0
+    serve.warmup(pipe, args)
+    cfg = pipe.cfg
+    peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    copy_bytes = serve.model_bytes(lora_pipes["style"].models,
+                                   ["unet", "text_encoder"])
+    print(f"[serve] load_pipelines (random SD-1.5 bf16 + one LoRA copy) "
+          f"{setup:.3f} s; device memory held {held / 2 ** 30:.2f} GiB "
+          f"(the adapter's copy {copy_bytes / 2 ** 30:.2f} GiB), peak "
+          f"{peak / 2 ** 30:.2f} GiB | {smi}", flush=True)
+    handler, state = serve.make_app(pipe, args, lora_pipes=lora_pipes)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(payload):
+        req = urllib.request.Request(url + "/generate",
+                                     data=json.dumps(payload).encode())
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body, code = r.read(), r.status
+        except urllib.error.HTTPError as e:
+            body, code = e.read(), e.code
+        return code, body, time.perf_counter() - t
+
+    def image(payload):
+        code, body, secs = post(payload)
+        if code != 200 or body[:8] != png.SIGNATURE:
+            fail(f"serve {payload.get('prompt')!r}: HTTP {code} "
+                 f"{body[:300]!r}")
+        return png.decode(body), secs
+
+    def healthz():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    def u8(x):
+        return np.uint8(np.round(x * 255.0))
+
+    spec = SampleSpec(height=512, width=512, num_inference_steps=25,
+                      guidance_scale=7.5)
+    paths = {}
+
+    def counted(label, want, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; they must be ``want``."""
+        _kernels.reset_launch_counts()
+        out = fn()
+        counts = dict(_kernels.launches)
+        if counts != want or want["flash_fixed"] == 0:
+            fail(f"serve {label}: launch counts {counts}, expected {want}")
+        paths[f"serve {label}"] = counts
+        return out
+
+    try:
+        h0 = healthz()
+        if not h0["ok"] or h0["lora_adapters"] != ["style"]:
+            fail(f"serve /healthz {h0}")
+        one = generate_launches(cfg, 1, 25, 512)
+        lone, lone_s = counted("lone", one, lambda: image(
+            {"prompt": PROMPTS[0], "seed": 11}))
+        direct = u8(pipe.generate([PROMPTS[0]], spec.replace(seed=11)))[0]
+        lone_diff = int(np.abs(lone.astype(np.int16) - direct).max())
+
+        b0, i0 = state["batches"], state["batched_images"]
+        four = {}
+
+        def hit(i):
+            four[i] = image({"prompt": PROMPTS[i], "seed": 100 + i})
+
+        def together():
+            threads = [threading.Thread(target=hit, args=(i,))
+                       for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return [four[i] for i in range(4)]
+
+        got4 = counted("coalesced 4", generate_launches(cfg, 4, 25, 512),
+                       together)
+        batches = (state["batches"] - b0, state["batched_images"] - i0)
+        distinct = len({bytes(img) for img, _ in got4})
+
+        (styled, lora_s) = counted("lora", one, lambda: image(
+            {"prompt": PROMPTS[0], "seed": 11, "lora": "style"}))
+        styled_direct = u8(lora_pipes["style"].generate(
+            [PROMPTS[0]], spec.replace(seed=11)))[0]
+        lora_diff = int(np.abs(styled.astype(np.int16)
+                               - styled_direct).max())
+        lora_vs_base = float(np.abs(styled.astype(np.int16)
+                                    - lone).mean())
+
+        ddim, ddim_s = counted(
+            "scheduler ddim-10", generate_launches(cfg, 1, 10, 512, "ddim"),
+            lambda: image({"prompt": PROMPTS[1], "seed": 12,
+                           "scheduler": "ddim", "num_inference_steps": 10}))
+
+        yy, xx = np.meshgrid(np.linspace(0, 1, 512), np.linspace(0, 1, 512),
+                             indexing="ij")
+        init = u8(np.stack([yy, xx, 0.5 * (yy + xx)], -1))
+        t_start = img2img_t_start(25, 0.6, cfg.schedule.steps_offset)
+        i2i, i2i_s = counted(
+            "img2img 0.6", sampler_launches(cfg, 64, 1, sampler_evals(
+                "dpm", 25, t_start=t_start)),
+            lambda: image({"prompt": PROMPTS[2], "seed": 13,
+                           "strength": 0.6, "init_image": base64.b64encode(
+                               png.encode(init)).decode()}))
+
+        bad = post({"prompt": "x", "size": 500})[0]
+        try:
+            urllib.request.urlopen(url + "/nope", timeout=60)
+            missing = 200
+        except urllib.error.HTTPError as e:
+            missing = e.code
+        codes = {}
+
+        def flood(i):
+            codes[i] = post({"prompt": "load", "seed": i,
+                             "num_inference_steps": 2})[0]
+
+        threads = [threading.Thread(target=flood, args=(i,))
+                   for i in range(SERVE_MAX_PENDING + 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        h1 = healthz()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        handler.close()
+        thread.join(timeout=30)
+    walls = {"lone": lone_s, "coalesced 4 (each)":
+             [round(s, 3) for _, s in got4], "lora": lora_s,
+             "ddim-10": ddim_s, "img2img 0.6": i2i_s}
+    print(f"[serve] requests' wall time (s, each with the "
+          f"{SERVE_WINDOW_MS} ms batch window): "
+          f"{json.dumps(walls, default=lambda v: round(v, 3))}; the four "
+          f"in {batches[0]} batch(es) of {batches[1]} images, {distinct} "
+          f"distinct; lone vs SDPipeline.generate max |diff| {lone_diff} "
+          f"(uint8); lora vs its merged pipeline {lora_diff}, vs base mean "
+          f"|diff| {lora_vs_base:.2f}; refusals: size {bad}, path "
+          f"{missing}, flood {sorted(codes.values())}; /healthz p50 "
+          f"{h1['latency_p50_s']} s p95 {h1['latency_p95_s']} s over "
+          f"{h1['requests']} requests, {h1['errors']} errors, "
+          f"rejected_overload {h1['rejected_overload']}; launches "
+          f"{ {k: (v['flash_fixed'], v['geglu_ff']) for k, v in paths.items()} } "
+          f"| {smi}", flush=True)
+    if lone_diff or lora_diff:
+        fail(f"serve: a lone request differs from SDPipeline.generate by "
+             f"{lone_diff}, the lora one from its merged pipeline by "
+             f"{lora_diff} (uint8)")
+    if batches != (1, 4) or distinct != 4:
+        fail(f"serve: four requests made {batches} (batches, images), "
+             f"{distinct} distinct images")
+    if not lora_vs_base > 0.5:
+        fail(f"serve: the adapter moved the image by {lora_vs_base}")
+    for label, img in (("ddim", ddim), ("img2img", i2i)):
+        if img.shape != (512, 512, 3):
+            fail(f"serve {label}: image {img.shape}")
+    flood_codes = sorted(codes.values())
+    if (bad, missing) != (400, 404) or flood_codes != \
+            [200] * SERVE_MAX_PENDING + [503] or \
+            h1["rejected_overload"] != 1 or h1["pending_jobs"] != 0 or \
+            h1["latency_p50_s"] is None or \
+            not h1["latency_p95_s"] >= h1["latency_p50_s"]:
+        fail(f"serve refusals: size {bad}, path {missing}, flood "
+             f"{flood_codes}; /healthz {h1}")
+    del pipe, lora_pipes, handler
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _safety_embeddings(model, images):
+    """The checker's unit image embeddings (``ClipSafetyChecker.scores``'s
+    ``emb``) of ``images`` on ``model``'s device."""
+    import torch
+
+    from sdbc_tpu_torch.models import clip as clip_mod
+    from sdbc_tpu_torch.models.safety import clip_preprocess
+    from sdbc_tpu_torch.utils.dtypes import fp32_exact
+
+    dev = model.concept_embeds.device
+    with torch.inference_mode(), fp32_exact():
+        x = clip_preprocess(images, model.vision.cfg.image_size, dev)
+        _, pooled = clip_mod.vision_apply(model.vision, x)
+        e = model.visual_projection(pooled)
+        return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+
+
+def phase_image_checks(smi: str):
+    """The image checks at full width in fp32 (TF32 off): the safety
+    checker (``CLIPVisionConfig.sd_safety``: ViT-L/14 at 224², 17 concepts,
+    3 special-care ones; random weights from seed 3, except concept 0 =
+    image 0's own projected embedding, its threshold halfway between 1 and
+    the next image's cosine to it, the other thresholds 1.5) through
+    ``SDPipeline(safety_checker=...)`` on 4 generated images (dpm-25,
+    512²): card scores against the CPU's (``SAFETY_TOL``), exactly image 0
+    flagged and blacked out, the others as the checker got them, the
+    generate call's K1/K4 launches unchanged; then ``ClipScorer`` at
+    clip-vit-large-patch14's widths (text 768 with a 768 projection,
+    ViT-L/14) on 2 of them, cosines card vs CPU (``CLIPSCORE_TOL``); each
+    tower's ms per batch of 4.  Returns the launch counts by path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
+    from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig,
+                                                   SDPipeline, init_models)
+    from sdbc_tpu_torch.diffusion.spec import SampleSpec
+    from sdbc_tpu_torch.eval.clip_score import ClipModel, ClipScorer
+    from sdbc_tpu_torch.models import clip as clip_mod
+    from sdbc_tpu_torch.models.safety import ClipSafetyChecker, SafetyModel
+    from sdbc_tpu_torch.ops import _kernels
+
+    cfg = PipelineConfig.sd15("dpm")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    models = init_models(cfg, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+    spec = SampleSpec(height=512, width=512, num_inference_steps=25,
+                      seed=21)
+    vcfg = clip_mod.CLIPVisionConfig.sd_safety()
+    cpu = SafetyModel(vcfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    # the images the checker will see: an unchecked call of the same spec
+    plain = SDPipeline(models, cfg, _tokenizer(cfg), "cuda",
+                       torch.bfloat16).generate(PROMPTS, spec)
+    emb = _safety_embeddings(cpu, plain)
+    cos0 = (emb @ emb[0]).tolist()
+    gap = 1.0 - max(cos0[1:])
+    with torch.no_grad():
+        cpu.concept_embeds[0] = emb[0]
+        cpu.concept_weights.fill_(1.5)
+        cpu.concept_weights[0] = 1.0 - gap / 2
+        cpu.special_care_weights.fill_(1.5)
+    card_model = copy.deepcopy(cpu).cuda()
+    checker = ClipSafetyChecker(card_model, vcfg)
+    cpu_checker = ClipSafetyChecker(cpu, vcfg, device="cpu")
+    seen = []
+
+    def recording(images, prompts):
+        seen.append(np.array(images, copy=True))
+        return checker(images, prompts)
+
+    pipe = SDPipeline(models, cfg, _tokenizer(cfg), "cuda", torch.bfloat16,
+                      safety_checker=recording)
+    want = generate_launches(cfg, 4, 25, 512)
+    _kernels.reset_launch_counts()
+    out = pipe.generate(PROMPTS, spec)
+    counts = dict(_kernels.launches)
+    flags = pipe.last_nsfw_flags
+    got = seen[-1]
+    card_c, card_s = checker.scores(got)
+    cpu_c, cpu_s = cpu_checker.scores(got)
+    err = max(float(np.abs(card_c - cpu_c).max()),
+              float(np.abs(card_s - cpu_s).max()))
+    x4 = torch.from_numpy(got).cuda()
+    safety_ms = median_ms(lambda: checker.scores(x4), 5)
+    decided = np.abs(cpu_c) > SAFETY_TOL
+    cpu_flags = (cpu_c > 0).any(axis=1).tolist()
+    print(f"[safety] ClipSafetyChecker ViT-L/14 224^2 (random weights, "
+          f"concept 0 = image 0's embedding; cosines to it {cos0}, "
+          f"threshold {1.0 - gap / 2:.6f}) through SDPipeline.generate on "
+          f"4 dpm-25 512^2 images: flags {flags} (CPU {cpu_flags}); card "
+          f"(strict fp32) vs CPU scores max abs diff {err:.3e} (tol "
+          f"{SAFETY_TOL:.0e}); launches K1 {counts['flash_fixed']} K4 "
+          f"{counts['geglu_ff']} (expected {want['flash_fixed']}, "
+          f"{want['geglu_ff']}); {safety_ms:.3f} ms a batch of 4 "
+          f"(uint8-range floats 512^2 -> 224^2 on the card, CUDA events, "
+          f"median of 5) | {smi}", flush=True)
+    if not err <= SAFETY_TOL:
+        fail(f"safety scores card vs CPU {err} > {SAFETY_TOL}")
+    if not gap > 2 * SAFETY_TOL:
+        fail(f"safety: image 0's embedding is within {gap} of another's: "
+             "no threshold separates it")
+    if flags != [True, False, False, False] or not np.array_equal(
+            (card_c > 0) & decided, (cpu_c > 0) & decided):
+        fail(f"safety flags {flags}, card scores {card_c[:, 0]}, CPU "
+             f"{cpu_c[:, 0]}")
+    if out.shape != (4, 512, 512, 3) or out[0].any() or \
+            not np.array_equal(out[1:], got[1:]) or not got[0].any():
+        fail("safety: image 0 not blacked out or the others changed")
+    if counts != want:
+        fail(f"safety: generate's launch counts {counts}, expected {want}")
+    paths = {"generate bucket 4 + safety checker": counts}
+    del pipe, models, card_model, checker
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(clip_mod.CLIPTextConfig.sd15(),
+                               projection_dim=768)
+    cpu_clip = ClipModel(tcfg, vcfg, device="cpu",
+                         generator=torch.Generator().manual_seed(4))
+    tok = CLIPTokenizer.fallback(tcfg.vocab_size)
+    card_scorer = ClipScorer(copy.deepcopy(cpu_clip).cuda(), tcfg, vcfg, tok)
+    cpu_scorer = ClipScorer(cpu_clip, tcfg, vcfg, tok)
+    card_cos = card_scorer.cosines(got, PROMPTS)
+    cpu_cos = cpu_scorer.cosines(got[:2], PROMPTS[:2])
+    cerr = float(np.abs(card_cos[:2] - cpu_cos).max())
+    score_ms = median_ms(lambda: card_scorer.cosines(got, PROMPTS), 5)
+    print(f"[clip_score] ClipScorer at clip-vit-large-patch14 widths "
+          f"(random weights): cosines card {card_cos.tolist()}, CPU "
+          f"{cpu_cos.tolist()} (first 2): max abs diff {cerr:.3e} (tol "
+          f"{CLIPSCORE_TOL:.0e}); {score_ms:.3f} ms a batch of 4 (both "
+          f"towers, host images in, CUDA events, median of 5) | {smi}",
+          flush=True)
+    if card_cos.shape != (4,) or not np.isfinite(card_cos).all() \
+            or not cerr <= CLIPSCORE_TOL:
+        fail(f"CLIPScore cosines card {card_cos} vs CPU {cpu_cos}")
+    if "jax" in sys.modules or "PIL" in sys.modules \
+            or "pandas" in sys.modules:
+        fail("jax, PIL or pandas was imported")
+    return paths
+
+
 def phase_train_profile(step, state, batch, gen, sps: float,
                         label: str = "train"):
     """Device time by kernel over one mode-C optimizer step."""
@@ -3283,6 +3699,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(phase_generate(smi))
     torch.cuda.empty_cache()
+    paths.update(phase_serve(smi))
+    paths.update(phase_image_checks(smi))
     phase_train_parity()
     phase_train_parity("grad_ckpt block + switches", SWITCHES,
                        grad_ckpt=True, remat_mode="block")

@@ -8,8 +8,10 @@ installed.
 Covered so far: SD-1.5 sampling with every scheduler and option of the
 JAX package's ``sample`` (``diffusion.pipeline.SDPipeline``, with
 ``generate``/``hires`` and the batch buckets), the fine-tuning step, the
-FID stack (``models.inception``, ``eval.fid``) and the evaluation CLIs
-(``python -m sdbc_tpu_torch.cli.inference``, ``.precalc_fid_stats``,
-``.fid``), on hand-written ``sm_90a`` kernels (``csrc/``) for every Pallas
-kernel of the JAX package.
+FID stack (``models.inception``, ``eval.fid``), the image checks
+(``models.safety``, ``eval.clip_score``), the serving halves of LoRA and
+textual inversion, and the CLIs (``python -m sdbc_tpu_torch.cli.inference``,
+``.serve``, ``.clip_score``, ``.precalc_fid_stats``, ``.fid``), on
+hand-written ``sm_90a`` kernels (``csrc/``) for every Pallas kernel of the
+JAX package.
 """

@@ -1,6 +1,7 @@
 """Shared CLI plumbing (counterpart of the part of ``sdbc_tpu/cli/common.py``
-that the inference, precalc_fid_stats and fid CLIs use): boolean flags,
-model resolution, tokenizer, compute dtype.
+that the inference, serve, precalc_fid_stats and fid CLIs use): boolean
+flags, model resolution with the ``--lora_path`` / ``--ti_path`` merges,
+tokenizer with placeholder tokens, compute dtype.
 
 Booleans are ``argparse.BooleanOptionalAction`` (--flag / --no-flag), not
 the reference's ``type=bool`` footgun (finetune_sd.py:27).
@@ -16,6 +17,7 @@ refused: each exits with a message naming what is missing
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -25,8 +27,6 @@ _UNPORTED_FLAGS = {
                  "item 7); use --diffusers_ckpt"),
     "wandb_artifact_run": ("", "wandb artifacts (ROADMAP Queue 1 item 7)"),
     "wandb_key": ("", "wandb artifacts (ROADMAP Queue 1 item 7)"),
-    "lora_path": ("", "LoRA (train/lora.py, ROADMAP Queue 1 item 5)"),
-    "ti_path": ("", "textual inversion (ROADMAP Queue 1 item 5)"),
     "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 9)"),
     "control_image": ("", "ControlNet (ROADMAP Queue 1 item 9)"),
     "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 9)"),
@@ -37,8 +37,6 @@ _UNPORTED_FLAGS = {
     "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 8)"),
     "refiner_ckpt": ("", "the SDXL refiner ensemble (ROADMAP Queue 1 "
                          "item 9)"),
-    "safety_checker": ("", "the safety checker and the CLIP vision tower "
-                           "(ROADMAP Queue 1 item 6)"),
     "summarize": (None, "the BART summarizer (ROADMAP Queue 1 item 9)"),
     "bart_ckpt": ("", "the BART summarizer (ROADMAP Queue 1 item 9)"),
 }
@@ -99,9 +97,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="'reference' renders byte-exact reference template "
                         "strings for apples-to-apples FID/grid comparisons")
     p.add_argument("--lora_path", type=str, default="",
-                   help="lora.npz adapter (not ported yet)")
+                   help="lora.npz adapter (train/lora.py) merged into the "
+                        "resolved base weights at load")
     p.add_argument("--ti_path", type=str, default="",
-                   help="textual-inversion embedding (not ported yet)")
+                   help="ti.npz textual-inversion embedding "
+                        "(train/textual_inversion.py) merged into the "
+                        "resolved base at load; its placeholder token "
+                        "registers on the tokenizer")
     p.add_argument("--controlnet_path", type=str, default="",
                    help="ControlNet dir (not ported yet)")
     p.add_argument("--model_family", type=str, default="sd15",
@@ -131,30 +133,76 @@ def resolve_img_size(args):
         args.img_size = 32 if getattr(args, "tiny", False) else 512
 
 
+def _collect_added_tokens(args) -> dict:
+    """The placeholder token of ``--ti_path``'s embedding, {token: ids}
+    (without it the placeholder would BPE into ordinary tokens and miss
+    the learned rows)."""
+    if not getattr(args, "ti_path", ""):
+        return {}
+    from sdbc_tpu_torch.train import textual_inversion as ti_mod
+
+    _, meta = ti_mod.load_ti(args.ti_path)
+    return ti_mod.added_tokens_entry(meta)
+
+
 def make_tokenizer(args, vocab_size: int):
     """``--tokenizer_dir``'s CLIP BPE tables, else the hash fallback over
-    ``vocab_size`` ids."""
+    the base ids; ``--ti_path``'s placeholder registered unless the dir
+    registers its own.  ``vocab_size``: the model's, which counts the
+    appended textual-inversion rows (``resolve_params_cfg``)."""
     from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
 
+    added = _collect_added_tokens(args)
     if args.tokenizer_dir:
-        return CLIPTokenizer.from_pretrained(args.tokenizer_dir)
-    return CLIPTokenizer.fallback(vocab_size)
+        tok = CLIPTokenizer.from_pretrained(args.tokenizer_dir)
+    else:
+        # the hash buckets span only the base vocab, below the placeholder
+        # ids
+        tok = CLIPTokenizer.fallback(
+            vocab_size - sum(len(v) for v in added.values()))
+    if added and not tok.added_tokens:
+        tok.added_tokens.update(added)
+    return tok
 
 
 def compute_dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
+def _merge_adapters(args, models, cfg):
+    """``--lora_path`` then ``--ti_path`` merged into copies of
+    ``models``; with TI the config's vocab counts the appended rows and
+    pools on the base vocab's last id, as the JAX CLIs do."""
+    if getattr(args, "lora_path", ""):
+        from sdbc_tpu_torch.train import lora as lora_mod
+
+        models = lora_mod.merge_file(models, args.lora_path)
+        print(f"merged LoRA adapter {args.lora_path}")
+    if getattr(args, "ti_path", ""):
+        from sdbc_tpu_torch.train import textual_inversion as ti_mod
+
+        models, meta = ti_mod.merge_file(models, args.ti_path)
+        clip = cfg.clip
+        cfg = dataclasses.replace(cfg, clip=dataclasses.replace(
+            clip, vocab_size=clip.vocab_size + len(meta["ids"]),
+            eot_id=clip.eot_id if clip.eot_id is not None
+            else clip.vocab_size - 1))
+        print(f"merged textual inversion {args.ti_path} "
+              f"({meta['token']!r})")
+    return models, cfg
+
+
 def resolve_params_cfg(args):
     """(models, cfg): ``--diffusers_ckpt``'s SD-1.x weights ported on the
     fly (shapes from its config.json files), else a fresh init (tiny or
-    SD-1.5 shapes) from ``--seed``.  The modules live on ``--device`` in the
-    compute dtype (``--bf16``).
+    SD-1.5 shapes) from ``--seed``; then ``--lora_path`` and ``--ti_path``
+    merged (``_merge_adapters``).  The modules live on ``--device`` in the
+    compute dtype (``--bf16``); the ported weights are merged in fp32
+    before the cast, a fresh init (made in the compute dtype) with its
+    deltas in fp32 and the sums rounded once.
 
     Zero-egress: there is no HF-hub branch; pretrained weights enter via
     ``--diffusers_ckpt`` (``models/port.py``)."""
-    import dataclasses
-
     from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig,
                                                    as_modules, init_models)
 
@@ -168,6 +216,7 @@ def resolve_params_cfg(args):
         cfg = pipeline_config_from_diffusers(args.diffusers_ckpt, sched)
         models = as_modules(port_diffusers_checkpoint(args.diffusers_ckpt),
                             cfg, device)
+        models, cfg = _merge_adapters(args, models, cfg)
         models = {k: m.to(dtype) for k, m in models.items()}
     else:
         cfg = PipelineConfig.tiny(sched) if args.tiny \
@@ -178,6 +227,7 @@ def resolve_params_cfg(args):
                   "models/port.py)")
         gen = torch.Generator(device=device).manual_seed(args.seed)
         models = init_models(cfg, device=device, generator=gen, dtype=dtype)
+        models, cfg = _merge_adapters(args, models, cfg)
     over = {}
     if getattr(args, "zero_snr", False):
         over["rescale_zero_snr"] = True

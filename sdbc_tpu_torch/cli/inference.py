@@ -8,6 +8,9 @@ default / calc_fid / enter_prompt, on the card unless ``--device cpu``.
   calc_fid     generate --num_imgs covers over df_test + FID vs --fid_stats_path
   enter_prompt one custom prompt → PNG (img2img, inpainting, hires-fix)
 
+``--lora_path`` / ``--ti_path`` merge an adapter or a learned embedding at
+load; ``--safety_checker`` blacks out flagged images.
+
 Every sampling-profile flag goes through one ``SampleSpec``.  Flags of
 features not ported yet exit with a message (``common.refuse_unported``).
 PIL and pandas are imported only where files are read or written.
@@ -95,7 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                      "the Karras et al. 2022 rho=7 sigma grid "
                      "(euler_a/lms/dpm/dpm_sde/heun)")
     p.add_argument("--safety_checker", type=str, default="",
-                   help="diffusers safety_checker dir (not ported yet)")
+                   help="diffusers safety_checker dir: run the CLIP-vision "
+                        "StableDiffusionSafetyChecker on decoded images "
+                        "(flagged images are blacked out; default off, as "
+                        "in the reference)")
     p.add_argument("--freeu", type=str, default="",
                    help="FreeU (arXiv:2309.11497): 'auto' picks the "
                         "family preset, or 4 comma-separated floats "
@@ -162,6 +168,20 @@ def _resolve_cfg_interval(args):
         raise SystemExit(f"--cfg_interval takes 0 <= lo <= hi <= 1, got "
                          f"{spec!r}")
     return vals
+
+
+def make_safety_checker(args):
+    """``--safety_checker``'s ``ClipSafetyChecker`` on ``--device``, or
+    None."""
+    if not args.safety_checker:
+        return None
+    from sdbc_tpu_torch.models.port import safety_checker_from_dir
+    from sdbc_tpu_torch.models.safety import ClipSafetyChecker
+
+    tree, sc_cfg = safety_checker_from_dir(args.safety_checker)
+    print(f"safety checker: {args.safety_checker} (ViT {sc_cfg.layers}x"
+          f"{sc_cfg.hidden} @ {sc_cfg.image_size})")
+    return ClipSafetyChecker(tree, sc_cfg, device=args.device)
 
 
 def profile_spec(args, cfg):
@@ -327,7 +347,8 @@ def main(argv=None):
     pipe = SDPipeline(models, cfg,
                       common.make_tokenizer(args, cfg.clip.vocab_size),
                       device=args.device,
-                      compute_dtype=common.compute_dtype(args))
+                      compute_dtype=common.compute_dtype(args),
+                      safety_checker=make_safety_checker(args))
     save_dir = os.path.join(args.save_dir, f"{args.run_id} inference")
     os.makedirs(save_dir, exist_ok=True)
     spec = profile_spec(args, cfg)

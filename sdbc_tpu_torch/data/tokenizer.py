@@ -7,7 +7,9 @@ mapping, BPE merges with an end-of-word ``</w>`` marker, ``<|startoftext|>``
 for SD-1.x).  Vocab files (``vocab.json`` + ``merges.txt``) come from a
 checkpoint directory; ``fallback`` hashes words into fixed buckets (not
 token-compatible with real CLIP) so the stack runs without downloaded files.
-Placeholder tokens (textual inversion) and ``decode`` are not ported yet.
+Placeholder tokens (textual inversion, ``add_placeholder`` or a dir's
+``added_tokens.json``) are matched verbatim before BPE and expand to their
+ids after the base vocabulary; ``decode`` inverts a BPE encoding.
 """
 from __future__ import annotations
 
@@ -79,7 +81,8 @@ class CLIPTokenizer:
 
     def __init__(self, vocab: Optional[Dict[str, int]] = None,
                  merges: Optional[List[Tuple[str, str]]] = None,
-                 vocab_size: int = 49408, pad_token: Optional[str] = None):
+                 vocab_size: int = 49408, pad_token: Optional[str] = None,
+                 added_tokens: Optional[Dict[str, List[int]]] = None):
         self.byte_encoder = _bytes_to_unicode()
         self.vocab_size = vocab_size
         if vocab is not None:
@@ -96,17 +99,63 @@ class CLIPTokenizer:
         # cross-attention
         self.pad_id = (self.encoder[pad_token] if pad_token is not None
                        else self.eot_id)
+        self.decoder = {v: k for k, v in self.encoder.items()}
         self.cache: Dict[str, str] = {}
+        # placeholder string → its ids at and above the base vocab
+        self.added_tokens: Dict[str, List[int]] = dict(added_tokens or {})
+
+    @property
+    def total_vocab(self) -> int:
+        """Base vocab + appended placeholder rows (the embedding-table
+        length a model trained with these tokens carries)."""
+        return self.vocab_size + sum(len(v)
+                                     for v in self.added_tokens.values())
+
+    def add_placeholder(self, token: str, n_vectors: int = 1) -> List[int]:
+        """Register ``token`` as ``n_vectors`` new ids appended after the
+        current vocabulary (id = total_vocab + k).  Lowercased, as the
+        prompts are; idempotent for an identical re-registration."""
+        token = token.strip().lower()
+        if not token:
+            raise ValueError("placeholder token must be non-empty")
+        if token in self.added_tokens:
+            ids = self.added_tokens[token]
+            if len(ids) != n_vectors:
+                raise ValueError(
+                    f"placeholder {token!r} already registered with "
+                    f"{len(ids)} vectors, asked for {n_vectors}")
+            return list(ids)
+        base = self.total_vocab
+        ids = list(range(base, base + n_vectors))
+        self.added_tokens[token] = ids
+        return ids
+
+    def _split_added(self, text: str):
+        """→ [(segment, ids or None)] with placeholder strings isolated,
+        longest first."""
+        segs: List[Tuple[str, Optional[List[int]]]] = [(text, None)]
+        for tok in sorted(self.added_tokens, key=len, reverse=True):
+            ids = self.added_tokens[tok]
+            out: List[Tuple[str, Optional[List[int]]]] = []
+            for seg, seg_ids in segs:
+                if seg_ids is not None:
+                    out.append((seg, seg_ids))
+                    continue
+                for i, part in enumerate(seg.split(tok)):
+                    if i:
+                        out.append((tok, ids))
+                    if part:
+                        out.append((part, None))
+            segs = out
+        return segs
 
     @classmethod
     def from_pretrained(cls, path: str) -> "CLIPTokenizer":
         """vocab.json + merges.txt from a tokenizer directory, honouring its
-        declared pad_token (special_tokens_map.json / tokenizer_config.json).
+        declared pad_token (special_tokens_map.json / tokenizer_config.json)
+        and its placeholder tokens (added_tokens.json: ours {token: [ids]},
+        HF's {token: id}).
         """
-        if os.path.exists(os.path.join(path, "added_tokens.json")):
-            raise NotImplementedError(
-                f"{path}: placeholder tokens (added_tokens.json) are not "
-                "ported yet")
         with open(os.path.join(path, "vocab.json")) as f:
             vocab = json.load(f)
         with open(os.path.join(path, "merges.txt")) as f:
@@ -129,8 +178,15 @@ class CLIPTokenizer:
                     tok = tok.get("content")
                 if isinstance(tok, str) and tok in vocab:
                     pad = tok
+        added = None
+        ap = os.path.join(path, "added_tokens.json")
+        if os.path.exists(ap):
+            with open(ap) as f:
+                raw = json.load(f)
+            added = {k: (v if isinstance(v, list) else [v])
+                     for k, v in raw.items()}
         return cls(vocab=vocab, merges=merges, vocab_size=len(vocab),
-                   pad_token=pad)
+                   pad_token=pad, added_tokens=added)
 
     @classmethod
     def fallback(cls, vocab_size: int = 49408) -> "CLIPTokenizer":
@@ -177,15 +233,21 @@ class CLIPTokenizer:
     def _token_ids(self, text: str) -> List[int]:
         text = re.sub(r"\s+", " ", text).strip().lower()
         ids: List[int] = []
-        for tok in _PAT.findall(text):
-            tok_bytes = "".join(self.byte_encoder[b]
-                                for b in tok.encode("utf-8"))
-            for piece in self._bpe(tok_bytes).split(" "):
-                if self.hash_mode:
-                    # a stable bucket that avoids the two special ids
-                    ids.append(hash_bucket(piece, self.vocab_size - 2))
-                else:
-                    ids.append(self.encoder.get(piece, self.eot_id))
+        segments = (self._split_added(text) if self.added_tokens
+                    else [(text, None)])
+        for seg, seg_ids in segments:
+            if seg_ids is not None:
+                ids.extend(seg_ids)
+                continue
+            for tok in _PAT.findall(seg):
+                tok_bytes = "".join(self.byte_encoder[b]
+                                    for b in tok.encode("utf-8"))
+                for piece in self._bpe(tok_bytes).split(" "):
+                    if self.hash_mode:
+                        # a stable bucket that avoids the two special ids
+                        ids.append(hash_bucket(piece, self.vocab_size - 2))
+                    else:
+                        ids.append(self.encoder.get(piece, self.eot_id))
         return ids
 
     def encode(self, text: str, max_length: int = 77) -> List[int]:
@@ -195,3 +257,19 @@ class CLIPTokenizer:
 
     def batch_encode(self, texts: Sequence[str], max_length: int = 77):
         return [self.encode(t, max_length) for t in texts]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Text of a BPE encoding without the special ids; a placeholder
+        renders once, at the first of its ids.  "" in hash mode (buckets
+        are not invertible)."""
+        if self.hash_mode:
+            return ""
+        added_first = {v[0]: (k + "</w>") for k, v in self.added_tokens.items()}
+        byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        text = "".join(
+            added_first.get(int(i)) or self.decoder.get(int(i), "")
+            for i in ids
+            if int(i) not in (self.bot_id, self.eot_id, self.pad_id))
+        raw = bytearray(byte_decoder[c] for c in text if c in byte_decoder)
+        return raw.decode("utf-8", errors="replace").replace("</w>",
+                                                             " ").strip()

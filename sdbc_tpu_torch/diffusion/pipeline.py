@@ -18,6 +18,7 @@ from sdbc_tpu_torch.models import clip as clip_mod
 from sdbc_tpu_torch.models import unet as unet_mod
 from sdbc_tpu_torch.models import vae as vae_mod
 from sdbc_tpu_torch.models.convert import load_jax_params
+from sdbc_tpu_torch.models.safety import apply_safety_checker
 from sdbc_tpu_torch.utils.image import resize
 
 _BUILDERS = {"text_encoder": clip_mod.init, "unet": unet_mod.init,
@@ -73,17 +74,22 @@ class SDPipeline:
     Runs on the card unless the caller passes ``device="cpu"``.
     ``attn_impl``: force the UNet's attention implementation ("xla",
     ...; ``ops.attention``) instead of the sampling dispatch "inference".
-    The scheduler is ``cfg.scheduler`` (``graph.SCHEDULERS``)."""
+    The scheduler is ``cfg.scheduler`` (``graph.SCHEDULERS``).
+    ``safety_checker``: an optional ``checker(images, prompts) -> (images,
+    flags)`` (``models/safety.py``) run on the requested decoded images
+    only; its flags are kept in ``last_nsfw_flags``."""
 
     def __init__(self, params_or_modules: dict, cfg: PipelineConfig,
                  tokenizer, device="cuda", compute_dtype=torch.bfloat16,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None, safety_checker=None):
         self.attn_impl = attn_impl or "inference"
         self.device = torch.device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
         self.models = as_modules(params_or_modules, cfg, self.device)
+        self.safety_checker = safety_checker
+        self.last_nsfw_flags = None
 
     def tokenize(self, prompts) -> torch.Tensor:
         ids = np.asarray(self.tokenizer.batch_encode(prompts,
@@ -310,7 +316,11 @@ class SDPipeline:
                      if cfg_interval is not None else None,
                      cond_weights=cond_w, uncond_weights=uncond_w,
                      generator=gen, draws=draws)
-        return out[:b].float().cpu().numpy()
+        out = out[:b].float().cpu().numpy()
+        if decode and self.safety_checker is not None:
+            out, self.last_nsfw_flags = apply_safety_checker(
+                self.safety_checker, out, prompts[:b])
+        return out
 
     def generate(self, prompts, spec):
         """Serve one ``SampleSpec`` (``diffusion/spec.py``): the hires

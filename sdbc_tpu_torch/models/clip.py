@@ -1,13 +1,21 @@
-"""CLIP text encoder (counterpart of ``sdbc_tpu/models/clip.py``).
+"""CLIP text encoder and vision tower (counterpart of
+``sdbc_tpu/models/clip.py``).
 
-12 pre-LN transformer layers, quick-GELU MLPs, causal self-attention over 77
-tokens, final LayerNorm.  The JAX package stacks the layers into one scanned
+Text: 12 pre-LN transformer layers, quick-GELU MLPs, causal self-attention
+over 77 tokens, final LayerNorm; optionally a bias-free ``text_projection``
+of the pooled output (``apply_with_pooled``).  Vision (the safety checker's
+and CLIPScore's image half, ``transformers.CLIPVisionModel``): a bias-free
+conv patch embedding, a prepended class token, learned positions, a
+pre-LayerNorm, the same layers without the causal mask, and a post-LayerNorm
+of the class token only.  The JAX package stacks the layers into one scanned
 tree; here they are a ``ModuleList`` (``layers.0.attn.q.weight`` ↔
-``["layers"]["attn"]["q"]["w"][0]``) walked by a loop.
+``["layers"]["attn"]["q"]["w"][0]``) walked by a loop.  The 77- and
+257-token attentions are plain PyTorch, as they are plain XLA there.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn as tnn
@@ -26,6 +34,12 @@ class CLIPTextConfig:
     ctx: int = 77
     eps: float = 1e-5
     act: str = "quick_gelu"
+    # CLIPTextModelWithProjection: the pooled output through a bias-free
+    # hidden → projection_dim linear; None = no projection weights
+    projection_dim: Optional[int] = None
+    # the <|endoftext|> id pooling looks for; None = vocab_size − 1 (set it
+    # when vocab_size counts appended textual-inversion rows)
+    eot_id: Optional[int] = None
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
@@ -59,7 +73,7 @@ class _Layer(tnn.Module):
         self.ln2 = nn.LayerNorm(cfg.hidden, **kw)
         self.mlp = _MLP(cfg.hidden, cfg.mlp, **kw)
 
-    def forward(self, x, cfg: CLIPTextConfig):
+    def forward(self, x, cfg, causal: bool = True):
         b, s, h = x.shape
         hd = h // cfg.heads
 
@@ -70,7 +84,7 @@ class _Layer(tnn.Module):
         q = split_heads(self.attn.q(y))
         k = split_heads(self.attn.k(y))
         v = split_heads(self.attn.v(y))
-        a = plain_attention(q, k, v, causal=True)
+        a = plain_attention(q, k, v, causal=causal)
         a = a.transpose(1, 2).reshape(b, s, h)
         x = x + self.attn.o(a)
 
@@ -91,6 +105,9 @@ class CLIPTextModel(tnn.Module):
         self.layers = tnn.ModuleList(_Layer(cfg, **kw)
                                      for _ in range(cfg.layers))
         self.final_ln = nn.LayerNorm(cfg.hidden, **kw)
+        self.text_projection = (
+            nn.Linear(cfg.hidden, cfg.projection_dim, use_bias=False, **kw)
+            if cfg.projection_dim else None)
 
 
 def init(cfg: CLIPTextConfig, *, device, generator=None,
@@ -115,3 +132,120 @@ def apply(model: CLIPTextModel, input_ids, compute_dtype=torch.float32,
     if not final_ln:
         return x
     return model.final_ln(x, cfg.eps)
+
+
+def apply_with_pooled(model: CLIPTextModel, input_ids,
+                      compute_dtype=torch.float32, skip_layers: int = 0,
+                      eot_id: Optional[int] = None):
+    """One encoder pass → (hidden, pooled).
+
+    hidden: the state ``skip_layers`` layers early, without the final
+    LayerNorm (B, ctx, hidden); pooled: the whole stack's final-LN output at
+    the FIRST ``eot_id`` position of each row, through ``text_projection``
+    when the model has one (B, projection_dim or hidden).  ``eot_id``
+    defaults to ``cfg.eot_id``, else ``cfg.vocab_size − 1``."""
+    cfg = model.cfg
+    if not 0 <= skip_layers < cfg.layers:
+        raise ValueError(f"skip_layers={skip_layers} outside [0, {cfg.layers})")
+    x = model.token_embedding(input_ids)
+    pos = model.position_embedding.weight[: input_ids.shape[1]]
+    x = (x + pos[None]).to(compute_dtype)
+    cut = cfg.layers - skip_layers
+    hidden = x
+    for i, layer in enumerate(model.layers):
+        x = layer(x, cfg)
+        if i + 1 == cut:
+            hidden = x
+    x = model.final_ln(x, cfg.eps)
+    if eot_id is None:
+        eot_id = cfg.eot_id if cfg.eot_id is not None else cfg.vocab_size - 1
+    # transformers pools at the first eos (argmax of the match mask; row 0
+    # where a row has none)
+    eot_pos = torch.argmax((input_ids == eot_id).to(torch.int32), dim=1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
+    if model.text_projection is not None:
+        pooled = model.text_projection(pooled)
+    return hidden, pooled
+
+
+# ---------------------------------------------------------------------------
+# vision tower
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden: int = 1024
+    layers: int = 24
+    heads: int = 16
+    mlp: int = 4096
+    patch: int = 14
+    image_size: int = 224
+    eps: float = 1e-5
+    act: str = "quick_gelu"
+
+    @property
+    def num_positions(self) -> int:
+        return (self.image_size // self.patch) ** 2 + 1
+
+    @staticmethod
+    def sd_safety() -> "CLIPVisionConfig":
+        """The vision tower of CompVis/stable-diffusion-safety-checker
+        (CLIP ViT-L/14 at 224²)."""
+        return CLIPVisionConfig()
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(hidden=32, layers=2, heads=4, mlp=64,
+                                patch=8, image_size=32)
+
+
+# CLIPImageProcessor constants (openai/clip-vit-large-patch14)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+class CLIPVisionModel(tnn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, *, device, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, generator=generator, dtype=dtype)
+        self.cfg = cfg
+        self.class_embedding = tnn.Parameter(nn._normal(
+            (cfg.hidden,), generator, device, dtype, 0.02))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden, cfg.patch,
+                                         use_bias=False, **kw)
+        self.position_embedding = nn.Embedding(cfg.num_positions,
+                                               cfg.hidden, **kw)
+        self.pre_ln = nn.LayerNorm(cfg.hidden, **kw)
+        self.layers = tnn.ModuleList(_Layer(cfg, **kw)
+                                     for _ in range(cfg.layers))
+        self.post_ln = nn.LayerNorm(cfg.hidden, **kw)
+
+
+def vision_init(cfg: CLIPVisionConfig, *, device, generator=None,
+                dtype=torch.float32) -> CLIPVisionModel:
+    return CLIPVisionModel(cfg, device=device, generator=generator,
+                           dtype=dtype)
+
+
+def vision_apply(model: CLIPVisionModel, pixels,
+                 compute_dtype=torch.float32):
+    """pixels: (B, S, S, 3), already CLIP-normalized → (last_hidden
+    (B, N+1, hidden) before the post-LayerNorm, pooled (B, hidden): the
+    post-LayerNorm of the class token)."""
+    cfg = model.cfg
+    if tuple(pixels.shape[1:]) != (cfg.image_size, cfg.image_size, 3):
+        raise ValueError(f"vision tower expects (B, {cfg.image_size}, "
+                         f"{cfg.image_size}, 3), got {tuple(pixels.shape)}")
+    x = model.patch_embedding(pixels.to(compute_dtype), stride=cfg.patch,
+                              padding=0)
+    b = x.shape[0]
+    x = x.reshape(b, -1, cfg.hidden)
+    cls = model.class_embedding.to(compute_dtype)[None, None].expand(
+        b, 1, cfg.hidden)
+    x = torch.cat([cls, x], dim=1)
+    x = x + model.position_embedding.weight[None].to(compute_dtype)
+    x = model.pre_ln(x, cfg.eps)
+    for layer in model.layers:
+        x = layer(x, cfg, causal=False)
+    return x, model.post_ln(x[:, 0], cfg.eps)

@@ -5,14 +5,18 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
 
 - tree path → module path: dict keys and list indices joined by ``.``;
 - leaf names: ``w``/``scale``/``table`` → ``weight``, ``b``/``bias`` → ``bias``;
-  the Inception extractor's batch-norm leaves ``beta``/``mean``/``var``/
-  ``gamma`` keep their names (``models/inception.py``);
+  any other leaf keeps its name: the Inception extractor's batch-norm
+  leaves ``beta``/``mean``/``var``/``gamma`` (``models/inception.py``), the
+  bare arrays of the CLIP vision tower (``class_embedding``) and of the
+  safety head (``concept_embeds``, ``concept_weights``,
+  ``special_care_embeds``, ``special_care_weights``, ``models/safety.py``);
 - conv kernels stay HWIO and linear weights (in, out);
-- CLIP's stacked ``layers`` tree (one leading layer axis per leaf) is split
+- a stacked ``layers`` tree (a dict, one leading layer axis per leaf: the
+  CLIP text and vision towers, wherever they sit in the tree) is split
   into ``layers.<i>.…``.
 
-Raises on any leaf without a parameter, any parameter left unset, and any
-shape that disagrees.
+Raises on any leaf without a parameter or buffer, any parameter or buffer
+left unset, and any shape that disagrees.
 
 ``load_adam8_state`` carries an 8-bit AdamW state across the same way.
 """
@@ -21,36 +25,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdbc_tpu_torch.models.clip import CLIPTextModel
-
 _LEAF = {"w": "weight", "scale": "weight", "table": "weight",
-         "b": "bias", "bias": "bias",
-         **{k: k for k in ("beta", "mean", "var", "gamma")}}
+         "b": "bias", "bias": "bias"}
 
 
 def _flatten(node, prefix, out):
     if isinstance(node, dict):
         for k, v in node.items():
-            _flatten(v, prefix + [str(k)], out)
+            if k == "layers" and isinstance(v, dict):
+                stacked = {}
+                _flatten(v, [], stacked)
+                for name, arr in stacked.items():
+                    for i in range(arr.shape[0]):
+                        out[".".join(prefix + ["layers", str(i), name])] = \
+                            arr[i]
+            else:
+                _flatten(v, prefix + [str(k)], out)
     elif isinstance(node, (list, tuple)):
         for i, v in enumerate(node):
             _flatten(v, prefix + [str(i)], out)
     else:
-        if prefix[-1] not in _LEAF:
-            raise KeyError(f"unknown leaf {'/'.join(prefix)}")
-        out[".".join(prefix[:-1] + [_LEAF[prefix[-1]]])] = np.asarray(node)
+        out[".".join(prefix[:-1] + [_LEAF.get(prefix[-1], prefix[-1])])] = \
+            np.asarray(node)
 
 
 def _flatten_jax_tree(module: torch.nn.Module, tree) -> dict:
     """Port parameter name → numpy array, per the mapping above."""
     flat = {}
-    if isinstance(module, CLIPTextModel) and "layers" in tree:
-        tree = dict(tree)
-        stacked = {}
-        _flatten(tree.pop("layers"), [], stacked)
-        for name, arr in stacked.items():
-            for i in range(arr.shape[0]):
-                flat[f"layers.{i}.{name}"] = arr[i]
     _flatten(tree, [], flat)
     return flat
 
@@ -59,7 +60,8 @@ def _flatten_jax_tree(module: torch.nn.Module, tree) -> dict:
 def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
     """Copy a JAX parameter tree into ``module`` in place; returns it."""
     flat = _flatten_jax_tree(module, tree)
-    params = dict(module.named_parameters())
+    params = {**dict(module.named_buffers()),
+              **dict(module.named_parameters())}
     extra = sorted(set(flat) - set(params))
     if extra:
         raise KeyError(f"{len(extra)} JAX leaves have no parameter in "

@@ -12,13 +12,17 @@ Conventions (the JAX module's):
     (I, O); every leaf float32;
   - CLIP's per-layer parameters stacked along a leading layer axis.
 
+Also the CLIP vision tower, diffusers' safety checker
+(``safety_checker_from_dir``, for ``models.safety``) and a transformers
+CLIPModel (``clip_model_from_dir``, for ``eval.clip_score``).
+
 Sources: ``.safetensors`` through ``read_safetensors`` (a reader of the
 format written here: the ``safetensors`` package is not needed), ``.bin``
 and ``.pth`` through ``torch.load(weights_only=True)``.  Layouts of the
 families the port has not taken (SDXL's second encoder and text-time
 embedding, SD-2's per-block heads, depth > 1 transformers) raise
-``NotImplementedError``; ControlNet, BART, the safety checker and the
-exporters wait (ROADMAP Queue 1 item 9).
+``NotImplementedError``; ControlNet, BART and the exporters wait (ROADMAP
+Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -292,13 +296,8 @@ def port_vae(sd: Dict[str, np.ndarray]) -> dict:
 # CLIP text encoder
 
 
-def port_clip_text(sd: Dict[str, np.ndarray]) -> dict:
-    """transformers CLIPTextModel state dict → the text-encoder tree."""
-    if "text_projection.weight" in sd:
-        raise NotImplementedError("CLIPTextModelWithProjection (SDXL's "
-                                  "text_encoder_2) is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
-    pfx = "text_model." if "text_model.final_layer_norm.weight" in sd else ""
+def _clip_layers(sd, pfx):
+    """The stacked tree of a CLIP encoder's ``{pfx}encoder.layers.<i>``."""
     layers = []
     i = 0
     while f"{pfx}encoder.layers.{i}.layer_norm1.weight" in sd:
@@ -318,14 +317,125 @@ def port_clip_text(sd: Dict[str, np.ndarray]) -> dict:
             },
         })
         i += 1
-    return {
+    return layers
+
+
+def port_clip_text(sd: Dict[str, np.ndarray]) -> dict:
+    """transformers CLIPTextModel state dict → the text-encoder tree, with
+    ``text_projection`` when the dict has one (CLIPTextModelWithProjection,
+    or a CLIPModel's text half)."""
+    pfx = "text_model." if "text_model.final_layer_norm.weight" in sd else ""
+    out = {
         "token_embedding": {"table": _f32(
             sd[f"{pfx}embeddings.token_embedding.weight"])},
         "position_embedding": {"table": _f32(
             sd[f"{pfx}embeddings.position_embedding.weight"])},
-        "layers": _stack(layers),
+        "layers": _stack(_clip_layers(sd, pfx)),
         "final_ln": _norm(sd, f"{pfx}final_layer_norm"),
     }
+    if "text_projection.weight" in sd:
+        out["text_projection"] = _linear(sd, "text_projection")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CLIP vision tower, safety checker, CLIPModel
+
+
+def port_clip_vision(sd: Dict[str, np.ndarray]) -> dict:
+    """transformers CLIPVisionModel state dict ("vision_model.…", or the
+    bare CLIPVisionTransformer's "embeddings.…") → the vision-tower tree."""
+    pfx = "vision_model." if "vision_model.post_layernorm.weight" in sd \
+        else ""
+    layers = _clip_layers(sd, pfx)
+    if not layers:
+        raise ValueError("no CLIP vision encoder layers found in state dict")
+    return {
+        "class_embedding": _f32(sd[f"{pfx}embeddings.class_embedding"]),
+        "patch_embedding": _conv(sd, f"{pfx}embeddings.patch_embedding"),
+        "position_embedding": {"table": _f32(
+            sd[f"{pfx}embeddings.position_embedding.weight"])},
+        "pre_ln": _norm(sd, f"{pfx}pre_layrnorm"),  # transformers' spelling
+        "layers": _stack(layers),
+        "post_ln": _norm(sd, f"{pfx}post_layernorm"),
+    }
+
+
+def _strip(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix)}
+
+
+def port_safety_checker(sd: Dict[str, np.ndarray]) -> dict:
+    """StableDiffusionSafetyChecker state dict → the ``SafetyModel`` tree:
+    the nested CLIPVisionModel ("vision_model.vision_model.…"), the visual
+    projection, the concept tables and their thresholds."""
+    return {
+        "vision": port_clip_vision(_strip(sd, "vision_model.")),
+        "visual_projection": _linear(sd, "visual_projection"),
+        "concept_embeds": _f32(sd["concept_embeds"]),
+        "concept_weights": _f32(sd["concept_embeds_weights"]),
+        "special_care_embeds": _f32(sd["special_care_embeds"]),
+        "special_care_weights": _f32(sd["special_care_embeds_weights"]),
+    }
+
+
+def _vision_config(raw: dict, base):
+    from sdbc_tpu_torch.models.clip import CLIPVisionConfig
+
+    return CLIPVisionConfig(
+        hidden=raw.get("hidden_size", base.hidden),
+        layers=raw.get("num_hidden_layers", base.layers),
+        heads=raw.get("num_attention_heads", base.heads),
+        mlp=raw.get("intermediate_size", base.mlp),
+        patch=raw.get("patch_size", base.patch),
+        image_size=raw.get("image_size", base.image_size),
+        eps=raw.get("layer_norm_eps", base.eps),
+        act=raw.get("hidden_act", base.act))
+
+
+def safety_checker_from_dir(path: str):
+    """A diffusers ``safety_checker`` dir → (tree, CLIPVisionConfig): the
+    tower's geometry from config.json's vision_config (ViT-L/14 defaults),
+    the weights ported; for ``models.safety.ClipSafetyChecker``."""
+    from sdbc_tpu_torch.models.clip import CLIPVisionConfig
+
+    vcfg = CLIPVisionConfig.sd_safety()
+    cfg_path = os.path.join(path, "config.json")
+    if os.path.exists(cfg_path):
+        vcfg = _vision_config(_read_json(cfg_path).get("vision_config", {}),
+                              vcfg)
+    return port_safety_checker(load_state_dict(path)), vcfg
+
+
+def clip_model_from_dir(path: str):
+    """A transformers CLIPModel save dir → (tree, CLIPTextConfig,
+    CLIPVisionConfig) for ``eval.clip_score.ClipScorer``: {"text" (with
+    text_projection), "vision", "visual_projection"}."""
+    from sdbc_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+
+    raw = _read_json(os.path.join(path, "config.json"))
+    tc, vc = raw.get("text_config", {}), raw.get("vision_config", {})
+    text_cfg = CLIPTextConfig(
+        vocab_size=tc.get("vocab_size", 49408),
+        hidden=tc.get("hidden_size", 512),
+        layers=tc.get("num_hidden_layers", 12),
+        heads=tc.get("num_attention_heads", 8),
+        mlp=tc.get("intermediate_size", 2048),
+        ctx=tc.get("max_position_embeddings", 77),
+        eps=tc.get("layer_norm_eps", 1e-5),
+        act=tc.get("hidden_act", "quick_gelu"),
+        projection_dim=raw.get("projection_dim", 512))
+    vision_cfg = _vision_config(vc, CLIPVisionConfig(
+        hidden=768, layers=12, heads=12, mlp=3072, patch=32))
+    sd = load_state_dict(path)
+    tree = {"text": port_clip_text(sd),
+            "vision": port_clip_vision(_strip(sd, "vision_model.")),
+            "visual_projection": _linear(sd, "visual_projection")}
+    if "text_projection" not in tree["text"]:
+        raise ValueError(f"{path}: no text_projection in state dict — not "
+                         "a CLIPModel checkpoint")
+    return tree, text_cfg, vision_cfg
 
 
 # ---------------------------------------------------------------------------
@@ -418,10 +528,10 @@ def clip_config_from_diffusers(cfg: dict):
     """transformers CLIPTextConfig json → ``models.clip.CLIPTextConfig``."""
     from sdbc_tpu_torch.models.clip import CLIPTextConfig
 
-    if "CLIPTextModelWithProjection" in (cfg.get("architectures") or []):
-        raise NotImplementedError("CLIPTextModelWithProjection (SDXL's "
-                                  "text_encoder_2) is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+    # projection_dim is in every transformers CLIP config; only
+    # CLIPTextModelWithProjection owns projection weights
+    with_proj = "CLIPTextModelWithProjection" in (cfg.get("architectures")
+                                                  or [])
     return CLIPTextConfig(
         vocab_size=cfg.get("vocab_size", 49408),
         hidden=cfg.get("hidden_size", 768),
@@ -431,6 +541,7 @@ def clip_config_from_diffusers(cfg: dict):
         ctx=cfg.get("max_position_embeddings", 77),
         eps=cfg.get("layer_norm_eps", 1e-5),
         act=cfg.get("hidden_act", "quick_gelu"),
+        projection_dim=cfg.get("projection_dim") if with_proj else None,
     )
 
 

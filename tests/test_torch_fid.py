@@ -231,11 +231,15 @@ def test_port_refuses_unported_layouts(export_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="addition_embed_type"):
         tport.unet_config_from_diffusers({"addition_embed_type":
                                           "text_time"})
-    with pytest.raises(NotImplementedError, match="WithProjection"):
-        tport.clip_config_from_diffusers(
-            {"architectures": ["CLIPTextModelWithProjection"]})
+    # a projected text encoder ports (CLIPScore's text tower), but a dir
+    # with SDXL's second encoder is refused
+    assert tport.clip_config_from_diffusers(
+        {"architectures": ["CLIPTextModelWithProjection"],
+         "projection_dim": 1280}).projection_dim == 1280
     os.makedirs(tmp_path / "text_encoder_2")
     with pytest.raises(NotImplementedError, match="text_encoder_2"):
         tport.port_diffusers_checkpoint(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="text_encoder_2"):
+        tport.pipeline_config_from_diffusers(str(tmp_path))
     with pytest.raises(FileNotFoundError):
         tport.load_state_dict(str(tmp_path / "text_encoder_2"))

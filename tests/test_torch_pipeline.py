@@ -109,9 +109,13 @@ def test_tokenizer_matches_jax_package(mode, tmp_path):
         assert tok.pad_id == ref.pad_id != tok.eot_id  # the declared "!"
     assert tok.batch_encode(PROMPTS, 16) == ref.batch_encode(PROMPTS, 16)
     if mode == "vocab":
+        # a dir's placeholder tokens register as in the JAX package
         (tmp_path / "added_tokens.json").write_text('{"<cover>": [99]}')
-        with pytest.raises(NotImplementedError, match="placeholder"):
-            CLIPTokenizer.from_pretrained(str(tmp_path))
+        ref, tok = (jtok.CLIPTokenizer.from_pretrained(str(tmp_path)),
+                    CLIPTokenizer.from_pretrained(str(tmp_path)))
+        assert tok.added_tokens == ref.added_tokens == {"<cover>": [99]}
+        texts = [p + " <cover>" for p in PROMPTS]
+        assert tok.batch_encode(texts, 16) == ref.batch_encode(texts, 16)
 
 
 def test_ddim_schedule_and_step_match_jax():
