@@ -56,16 +56,28 @@ Phases, in order; each prints one or more lines, and any failure raises
                   32² and a ragged case);
    simt-kernels — the CUDA-core kernels, for what the tensor-core ones do
                   not take, in fp32 at SD-1.5's 64² level: the fixed cap at
-                  sampling batch 8, the training forward, dq and dk/dv at
-                  the mode-C step's micro-batch 2, the fused FF at the
-                  sampling rows; each against its plain version and timed
-                  against SDPA (forward, backward) in alternating rounds;
+                  sampling batch 8, the training forward (both through
+                  ``flash_simt``'s wrappers), dq and dk/dv at the mode-C
+                  step's micro-batch 2, the fused FF at the sampling rows;
+                  each against its plain version and timed against SDPA
+                  (forward, backward) in alternating rounds;
+   tf32-kernels — the fp32 forward on 3xTF32 wgmma (every fp32 call with a
+                  head dim that is a multiple of 8 up to 256): the fixed
+                  cap at sampling batch 8 and the training forward at
+                  micro-batch 2 at the 64², 32² and 16² levels and a ragged
+                  pair, each against its plain version (the LSE within
+                  1e-5) and timed against SDPA and the CUDA-core kernel in
+                  alternating rounds, with its share of the 3xTF32 and the
+                  FFMA bound and SDPA's own error; the fp32 backward on its
+                  LSE; the build phase prints its registers, spills and
+                  HGMMA counts;
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
                   same under SDBC_GN_FUSED=1, with exact fused GroupNorm
-                  launches; then fp32 on the card, every attention and FF
-                  call on the CUDA-core kernels, with exact launches;
+                  launches; then fp32 on the card, every attention call on
+                  the 3xTF32 kernel and every FF call on the CUDA-core one,
+                  with exact launches;
    sampler-parity — every scheduler variant of ``sample`` (the ten
                   schedulers and the Karras grid of the five σ-space ones)
                   and each sampling option (cfg_interval, guidance rescale,
@@ -131,13 +143,24 @@ Phases, in order; each prints one or more lines, and any failure raises
                   clip-vit-large-patch14's widths, strict fp32 on the card
                   against the CPU (``SAFETY_TOL``, ``CLIPSCORE_TOL``), each
                   timed a batch of 4;
+   fp32-sampling — the CLIs' --no-bf16 path at full width:
+                  ``resolve_params_cfg`` on parsed ``cli.inference``
+                  arguments with --no-bf16 (random SD-1.5, fp32), then
+                  ``generate`` with DDIM-10, CFG 7.5, 512² on 4 prompts,
+                  warmed up and timed (s/call, peak memory) with exact
+                  launches (15 3xTF32 fixed-cap launches an evaluation, no
+                  CUDA-core one); then one fp32 VAE decode under
+                  SDBC_ATTN_IMPL=inference and =flash (the 512-wide head on
+                  the CUDA-core fixed cap and forward, one launch each)
+                  against the default fp32 decode;
 9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
                   kernels launched; then the same with grad_ckpt (block)
                   under SDBC_GN_FUSED=1 and SDBC_ATTN_IMPL=flash_tt; then
-                  fp32 on the card (the flash forward and backward on the
-                  CUDA-core kernels, the 8-bit AdamW's launch);
+                  fp32 on the card (the flash forward on the 3xTF32 kernel,
+                  the backward on the CUDA-core kernels, the 8-bit AdamW's
+                  launch);
 10. train       — the JAX package's bench mode C (``bench.py``): SD-1.5 at
                   full width (random init, fp32 masters, bf16 compute),
                   UNet + text encoder trained, 8-bit AdamW, 512², micro-batch
@@ -211,7 +234,11 @@ INT8_EXACT_TOL = 0.04
 # fp32, summed in other orders over up to 4096 keys (exp2 and erf an ulp
 # or two apart): 1e-4 of the plain result's largest entry plus 1e-6.  In
 # bf16 (the fixed cap at head dim 512) the attention tolerance above.
+# The 3xTF32 forward (csrc/flash_fwd_tf32_sm90.cu) is held to the same
+# bound: its split products lose ~2^-21 of each score; its LSE to 1e-5
+# (natural-log units: the logits' relative error times |s| ≲ 10).
 SIMT_FP32_REL_TOL, SIMT_FP32_ABS_TOL = 1e-4, 1e-6
+TF32_LSE_TOL = 1e-5
 ADAM_P_TOL = 1e-6
 ADAM_Q_SHARE = 1e-3
 # Tiny train step, bf16 on the card vs fp32 on the CPU: the loss within 2%
@@ -239,6 +266,7 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_EX2 = 16 * 132 * 1.83e9
 PEAK_FP32 = 67e12  # fp32 outside the tensor cores
+PEAK_TF32 = 495e12  # tf32 tensor FLOP/s
 
 
 def bound(nbytes: float, flops: float = 0.0, exps: float = 0.0,
@@ -359,6 +387,31 @@ def host_us(fn, reps: int = 100) -> float:
     return secs / reps * 1e6
 
 
+def cuda_trace(fn, calls: int, tries: int = 3):
+    """The CUDA kernel records, by start, of a ``torch.profiler`` trace
+    (CUPTI's) of ``calls`` calls of ``fn`` after one warm call.  CUPTI can
+    hand back a trace with no device record at all (seen once in a
+    one-call trace on an H100): such a trace says nothing of what ran, so
+    it is taken again, up to ``tries`` traces in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            return events
+    return []
+
+
 def device_ms(fn, kernel, n: int = 20, warm: int = 2):
     """Card ms per call of ``fn`` spent in kernels whose name holds
     ``kernel``: their device time over the last ``n`` of ``warm + n`` calls
@@ -367,19 +420,7 @@ def device_ms(fn, kernel, n: int = 20, warm: int = 2):
     lose a record (one of 20 once); fails unless the trace has between
     ``n`` and ``warm + n`` such kernels (so not two a call).  Given a tuple
     of names, a tuple of times from one trace."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(warm + n):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    events = cuda_trace(fn, warm + n)
     out = []
     for name in (kernel,) if isinstance(kernel, str) else kernel:
         us = [e.time_range.elapsed_us() for e in events if name in e.name]
@@ -670,32 +711,39 @@ HIRES_Q_STRIDE = 16
 SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
 # the path whose run gives each kernel's ``launches`` in the kernels line:
 # the sampling kernels' slice, the training kernels' step, the switches'
-# train step for the fused GroupNorm and the transposed-layout forward, and
+# train step for the fused GroupNorm and the transposed-layout forward,
 # this slice's gradient-checkpointed step for the int8-QK attention, which
-# no path of either package dispatches (each row also lists every path)
+# no path of either package dispatches, the CLI's --no-bf16 sampling call
+# for the fp32 kernels, and its fp32 VAE decodes under SDBC_ATTN_IMPL for
+# the CUDA-core forwards (the 512-wide head) (each row also lists every
+# path)
 MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_fwd": "train", "flash_bwd_dq": "train",
              "flash_bwd_dkv": "train", "adam8": "train",
              "gn_fused": "train switches", "flash_tt": "train switches",
              "flash_fixed_int8": "train grad_ckpt block",
-             "flash_fixed_simt": "sampling fp32 (tiny)",
-             "geglu_ff_simt": "sampling fp32 (tiny)",
-             "flash_fwd_simt": "train fp32 (tiny)",
+             "flash_fixed_tf32": "sampling fp32",
+             "geglu_ff_simt": "sampling fp32",
+             "flash_fwd_tf32": "train fp32 (tiny)",
+             "flash_fixed_simt": "decode fp32 SDBC_ATTN_IMPL=inference",
+             "flash_fwd_simt": "decode fp32 SDBC_ATTN_IMPL=flash",
              "flash_bwd_simt_dq": "train fp32 (tiny)",
              "flash_bwd_simt_dkv": "train fp32 (tiny)"}
-# in fp32 every attention and FF call the tensor-core kernels would take
-# goes to the CUDA-core kernel of the same function
-SIMT_OF = {"flash_fixed": "flash_fixed_simt", "geglu_ff": "geglu_ff_simt",
-           "flash_fwd": "flash_fwd_simt", "flash_bwd_dq": "flash_bwd_simt_dq",
+# in fp32 every attention and FF call the bf16 tensor-core kernels would
+# take goes to the fp32 kernel of the same function: the forwards (every
+# head dim of the tiny and SD-1.5 configs a multiple of 8 up to 256) to the
+# 3xTF32 kernel, the FF and the backward to the CUDA-core kernels
+FP32_OF = {"flash_fixed": "flash_fixed_tf32", "geglu_ff": "geglu_ff_simt",
+           "flash_fwd": "flash_fwd_tf32", "flash_bwd_dq": "flash_bwd_simt_dq",
            "flash_bwd_dkv": "flash_bwd_simt_dkv"}
 
 
 def fp32_launches(want: dict) -> dict:
     """The launch counts of the same run in fp32: each count moved from a
-    tensor-core kernel to its CUDA-core counterpart (``SIMT_OF``)."""
+    bf16 tensor-core kernel to its fp32 counterpart (``FP32_OF``)."""
     out = dict.fromkeys(want, 0)
     for name, n in want.items():
-        out[SIMT_OF.get(name, name)] += n
+        out[FP32_OF.get(name, name)] += n
     return out
 
 
@@ -773,7 +821,7 @@ def phase_build():
           flush=True)
     sass = sass_text(lib)
     return {"adam8": sm90_sass(sass), "gn": gn_build(lines, sass),
-            "int8": int8_build(lines, sass)}
+            "int8": int8_build(lines, sass), "tf32": tf32_build(lines, sass)}
 
 
 def simt_ptxas(lines):
@@ -956,6 +1004,50 @@ def int8_build(lines, sass):
                     or n["HMMA"] or n["IMMA"]:
                 fail(f"{kname}: SASS counts {n}")
     return {"ptxas": ptxas, "sass": counts, "per_score": per_score}
+
+
+# the 3xTF32 forward's instantiations flash_tf32_sm90_kernel<NV, FIXED>:
+# NV output columns (40, 64, 80, 128, 160, 192, 256), both variants
+TF32_KERNEL = r"flash_tf32_sm90_kernelILi(\d+)ELb([01])E"
+TF32_INSTANTIATIONS = 14
+
+
+def tf32_build(lines, sass):
+    """The 3xTF32 forward's build report: ptxas's registers and spills of
+    each ``flash_tf32_sm90_kernel`` instantiation and of its
+    ``split_kv_kernel`` pre-pass; in each instantiation's SASS the tf32
+    wgmma products (HGMMA), TMA loads and any mma.sync (HMMA), failing
+    unless all 14 have HGMMA and UTMALDG and none HMMA."""
+    import re
+
+    name = lambda m: (f"flash_tf32_sm90_kernel<{m.group(1)}, "
+                      f"{'true' if m.group(2) == '1' else 'false'}>")
+    ptxas, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            m = re.search(TF32_KERNEL, ln)
+            cur = name(m) if m else (
+                "split_kv_kernel" if "split_kv_kernel" in ln else None)
+        elif cur and ("registers" in ln or "spill" in ln):
+            ptxas.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
+    ptxas = {k: "; ".join(v) for k, v in ptxas.items()}
+    counts = {}
+    for part in (sass or "").split("Function : ")[1:]:
+        m = re.match(r"\S*?" + TF32_KERNEL, part)
+        if m:
+            counts[name(m)] = {op: len(re.findall(rf"\b{op}\b", part))
+                               for op in ("HGMMA", "UTMALDG", "HMMA")}
+    print(f"[build] flash_tf32_sm90_kernel ptxas: {ptxas}", flush=True)
+    print(f"[build] flash_tf32_sm90_kernel SASS (HGMMA, UTMALDG, HMMA): "
+          f"{counts or 'not checked'}", flush=True)
+    if sass is not None:
+        if len(counts) != TF32_INSTANTIATIONS:
+            fail(f"flash_tf32_sm90_kernel: {len(counts)} of "
+                 f"{TF32_INSTANTIATIONS} instantiations in the built SASS")
+        for kname, n in counts.items():
+            if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
+                fail(f"{kname}: SASS counts {n}")
+    return {"ptxas": ptxas, "sass": counts}
 
 
 # the wgmma kernels (csrc/flash_fwd_sm90.cu, csrc/flash_fwd_wide_sm90.cu,
@@ -1337,19 +1429,17 @@ def kernel_group_norm(g, build_report=None):
 INT8_CASES = ((8, 8, 4096, 40), (8, 8, 1024, 80), (8, 8, 256, 160))
 
 
-def kernels_per_call(fn):
-    """The names of the CUDA kernels one call of ``fn`` runs (a profiler
-    trace of one warm call)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+def kernels_per_call(fn, n: int = 5, warm: int = 2):
+    """The names of the CUDA kernels one call of ``fn`` runs, in order:
+    those of the last call in a profiler trace of ``warm + n`` calls, where
+    every kernel of the trace ran between ``n`` and ``warm + n`` times (the
+    ``warm`` calls absorb a record lost at the tracer's start); otherwise
+    every name of the trace, so that the caller's check shows them."""
+    names = [e.name for e in cuda_trace(fn, warm + n)]
+    kinds = set(names)
+    if all(n <= names.count(k) <= warm + n for k in kinds):
+        return names[len(names) - len(kinds):]
+    return names
 
 
 def kernel_int8(g, build_report=None):
@@ -2087,7 +2177,9 @@ def phase_simt_kernels():
     version (``simt_err``), one launch a call, timed against the PyTorch
     call of the same function where there is one (SDPA's default dispatch,
     its backend named; its backward through autograd for the two backward
-    kernels) in alternating rounds.  Returns their rows of the kernels
+    kernels) in alternating rounds.  The forwards through ``flash_simt``'s
+    wrappers: the entry points send fp32 at these head dims to the 3xTF32
+    kernel (``phase_tf32_kernels``).  Returns their rows of the kernels
     line."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -2095,6 +2187,7 @@ def phase_simt_kernels():
     from sdbc_tpu_torch.ops import _kernels
     from sdbc_tpu_torch.ops import flash_attention as fa
     from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+    from sdbc_tpu_torch.ops import flash_simt
     from sdbc_tpu_torch.ops import geglu_ff as gf
 
     g = torch.Generator(device="cuda").manual_seed(5678)
@@ -2129,7 +2222,8 @@ def phase_simt_kernels():
     # the fixed cap, heads read through the projection layout's strides
     b, h, s, d = SIMT_FIXED
     q, k, v = (randn(b, s, h, d).transpose(1, 2) for _ in range(3))
-    kern = lambda: fa.flash_attention_fixed(q, k, v)
+    o = torch.empty(q.shape, device="cuda")
+    kern = lambda: flash_simt.fixed_cap(q, k, v, o, d ** -0.5)
     _kernels.reset_launch_counts()
     err = check("flash_fixed_simt", kern(), fa.fixed_cap_attention_ref(
         q, k, v))
@@ -2143,21 +2237,21 @@ def phase_simt_kernels():
     add("flash_fixed_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
         "sdbc_tpu/ops/flash_attention.py:348", f"fp32 {SIMT_FIXED}", err,
         ms, pms, bms, by, lms, f"sdpa ({sdpa_backend(q, k, v)})")
-    del q, k, v
+    del q, k, v, o
 
     # the training forward and backward in fp32
     b, h, s, d = SIMT_TRAIN
     scale = d ** -0.5
     q, k, v, do = (randn(b, s, h, d).transpose(1, 2) for _ in range(4))
     _kernels.reset_launch_counts()
-    out, lse = fa.flash_fwd(q, k, v, scale)
+    out, lse = flash_simt.fwd(q, k, v, scale)
     ref, ref_lse = fa.flash_attention_ref(q, k, v, scale)
     err = check("flash_fwd_simt", out, ref)
     lerr = (lse - ref_lse).abs().max().item()
     if not lerr <= LSE_TOL:
         fail(f"flash_fwd_simt: lse err {lerr} (tol {LSE_TOL})")
     pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 5)
-    ms, lms = paired_ms([lambda: fa.flash_fwd(q, k, v, scale),
+    ms, lms = paired_ms([lambda: flash_simt.fwd(q, k, v, scale),
                          lambda: sdpa(q, k, v, scale=scale)])
     n_sc = float(b * h * s * s)
     bms, by = bound(fp32_bytes(3, 1, 4.0 * b * h * s), exps=n_sc,
@@ -2219,12 +2313,177 @@ def phase_simt_kernels():
     return rows
 
 
+# the 3xTF32 forward's cases: the fixed cap at sampling batch 8 in the
+# projection layout (b, s, h, d) and the training forward at the mode-C
+# step's micro-batch 2 (b, h, s, d), each at SD-1.5's 64², 32² and 16²
+# levels, then a ragged pair (b, h, sq, sk, d), head-major
+TF32_FIXED = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
+TF32_TRAIN = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160)]
+TF32_RAGGED = (2, 8, 200, 300, 40)
+
+
+def tf32_bounds(b, h, sq, sk, d, extra_bytes=0.0):
+    """((ms, by) of the 3xTF32 bound, (ms, by) of the FFMA bound) of one
+    fp32 attention forward: fp32 q, k, v read and o written once (plus
+    ``extra_bytes``); three tf32 products of 4·D FLOPs a score at 495
+    TFLOP/s, or 4·D fp32 FLOPs at 67 TFLOP/s (``bound``), one exp2 a
+    score either way."""
+    n_sc = float(b * h * sq * sk)
+    nbytes = 4.0 * b * h * d * (2 * sq + 2 * sk) + extra_bytes
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(12.0 * n_sc * d / PEAK_TF32, n_sc / PEAK_EX2)
+    tf32 = (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+    return tf32, bound(nbytes, exps=n_sc, fp32_ops=4.0 * n_sc * d)
+
+
+def phase_tf32_kernels(smi: str):
+    """The 3xTF32 fp32 forward (``csrc/flash_fwd_tf32_sm90.cu``) through
+    the entry points the UNet and the trainer call (the fixed cap through
+    the projection layout's strides, the training forward over head-major
+    views of it, the ragged pair head-major), each call against its plain
+    version (``simt_err``; the LSE within ``TF32_LSE_TOL``) with exactly
+    one launch, timed against SDPA (its default dispatch in fp32, the
+    backend named) and the CUDA-core kernel the same call took before
+    (``flash_simt``) in alternating rounds, with its share of the 3xTF32
+    and the FFMA bound and SDPA's own max error against the plain version.
+    The fp32 backward (the CUDA-core kernels) runs on the new forward's
+    LSE at the 64² and the ragged case, held as ``phase_simt_kernels``
+    holds it.  Returns the two rows of the kernels line, each with its
+    64² case and every case."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import _kernels, flash_simt
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    tr = lambda t: t.transpose(1, 2)
+    cases = {"flash_fixed_tf32": [], "flash_fwd_tf32": []}
+
+    def held(what, out, ref, counts, want):
+        torch.cuda.synchronize()
+        err, tol = simt_err(out, ref)
+        if counts != want or not (torch.isfinite(out).all() and err <= tol):
+            fail(f"{what}: max abs err {err} (tol {tol}), launches {counts} "
+                 f"(expected {want})")
+        return err
+
+    def measure(name, label, dims, q, k, v, call, err, ref_fn, sdpa_fn,
+                simt_fn, extra_bytes=0.0, **extra):
+        b, h, sq, sk, d = dims
+        sdpa_err = (sdpa_fn().float() - ref_fn()[0]).abs().max().item()
+        pms = median_ms(ref_fn, 3)
+        ms, lms, sms = paired_ms([call, sdpa_fn, simt_fn])
+        (tb, tby), (fbms, fby) = tf32_bounds(b, h, sq, sk, d, extra_bytes)
+        print(f"[tf32-kernels] {name} fp32 {label}: max_abs_err {err:.3e} "
+              f"(SDPA's {sdpa_err:.3e}); kernel {ms:.4f} ms, SDPA "
+              f"({sdpa_backend(q, k, v)}) {lms:.4f} ms (kernel/SDPA "
+              f"{ms / lms:.3f}), CUDA-core kernel {sms:.4f} ms ({sms / ms:.2f}x"
+              f" slower) in alternating rounds, plain {pms:.4f} ms; 3xTF32 "
+              f"bound {tb:.4f} ms ({tby}), {100 * tb / ms:.1f}% of it; FFMA "
+              f"bound {fbms:.4f} ms ({fby}), {100 * fbms / ms:.1f}% | {smi}",
+              flush=True)
+        cases[name].append(dict(shape=label, max_abs_err=err, ms=ms,
+                                plain_ms=pms, library_ms=lms,
+                                simt_ms=sms, sdpa_max_abs_err=sdpa_err,
+                                bound_ms=tb, bound_by=tby,
+                                ffma_bound_ms=fbms, **extra))
+
+    # the fixed cap
+    for dims in [(b, h, s, s, d) for b, s, h, d in TF32_FIXED] + [
+            TF32_RAGGED]:
+        b, h, sq, sk, d = dims
+        if dims == TF32_RAGGED:
+            q, k, v = randn(b, h, sq, d), randn(b, h, sk, d), randn(b, h, sk, d)
+            call = lambda: fa.flash_attention_fixed(q, k, v)
+            label = f"Sq {sq} Sk {sk} ({b},{h},·,{d})"
+        else:
+            qb, kb, vb = (randn(b, sq, h, d) for _ in range(3))
+            q, k, v = tr(qb), tr(kb), tr(vb)
+            call = lambda: tr(fa.flash_attention_fixed_bshd(qb, kb, vb))
+            label = f"({b},{sq},{h},{d})"
+        ref_fn = lambda: (fa.fixed_cap_attention_ref(q, k, v),)
+        _kernels.reset_launch_counts()
+        out = call()
+        counts = {n: c for n, c in _kernels.launches.items() if c}
+        err = held(f"flash_fixed_tf32 {label}", out, ref_fn()[0], counts,
+                   {"flash_fixed_tf32": 1})
+        o = torch.empty(q.shape, device="cuda")
+        measure("flash_fixed_tf32", label, dims, q, k, v, call, err, ref_fn,
+                lambda: sdpa(q, k, v),
+                lambda: flash_simt.fixed_cap(q, k, v, o, d ** -0.5))
+        del q, k, v, o, out
+
+    # the training forward, and the fp32 backward on its LSE
+    for dims in [(b, h, s, s, d) for b, h, s, d in TF32_TRAIN] + [
+            TF32_RAGGED]:
+        b, h, sq, sk, d = dims
+        scale = d ** -0.5
+        if dims == TF32_RAGGED:
+            q, k, v = randn(b, h, sq, d), randn(b, h, sk, d), randn(b, h, sk, d)
+            label = f"Sq {sq} Sk {sk} ({b},{h},·,{d})"
+        else:
+            q, k, v = (tr(randn(b, sq, h, d)) for _ in range(3))
+            label = f"({b},{h},{sq},{d})"
+        ref_fn = lambda: fa.flash_attention_ref(q, k, v, scale)
+        _kernels.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        counts = {n: c for n, c in _kernels.launches.items() if c}
+        ref, ref_lse = ref_fn()
+        err = held(f"flash_fwd_tf32 {label}", out, ref, counts,
+                   {"flash_fwd_tf32": 1})
+        lerr = (lse - ref_lse).abs().max().item()
+        if not lerr <= TF32_LSE_TOL:
+            fail(f"flash_fwd_tf32 {label}: lse err {lerr} (tol "
+                 f"{TF32_LSE_TOL})")
+        extra = dict(lse_max_abs_err=lerr)
+        if sq == 4096 or dims == TF32_RAGGED:
+            do = randn(*q.shape)
+            _kernels.reset_launch_counts()
+            grads = fb.flash_bwd(q, k, v, out, do, lse, scale)
+            counts = {n: c for n, c in _kernels.launches.items() if c}
+            want = {"flash_bwd_simt_dq": 1, "flash_bwd_simt_dkv": 1}
+            extra["bwd_max_abs_err"] = max(
+                held(f"fp32 backward on the tf32 forward's lse {label} {n}",
+                     gr, rf, counts, want)
+                for n, gr, rf in zip("dq dk dv".split(), grads,
+                                     fb.flash_bwd_ref(q, k, v, ref, do,
+                                                      ref_lse, scale)))
+            del do, grads
+        measure("flash_fwd_tf32", label, dims, q, k, v,
+                lambda: fa.flash_fwd(q, k, v, scale), max(err, lerr),
+                ref_fn, lambda: sdpa(q, k, v, scale=scale),
+                lambda: flash_simt.fwd(q, k, v, scale),
+                extra_bytes=4.0 * b * h * sq, **extra)
+        del q, k, v, out, lse, ref, ref_lse
+
+    rows = []
+    for name, replaces in (("flash_fixed_tf32",
+                            "sdbc_tpu/ops/flash_attention.py:348"),
+                           ("flash_fwd_tf32",
+                            "sdbc_tpu/ops/flash_attention.py:81")):
+        main = cases[name][0]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="sdbc_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
+            replaces=replaces, max_abs_err=max(c["max_abs_err"]
+                                               for c in cases[name]),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], library="sdpa",
+            shape=f"fp32 {main['shape']}", cases=cases[name]))
+    return rows
+
+
 def phase_parity():
     """The tiny sampling slice, bf16 on the card against fp32 on the CPU:
     with the default dispatch, then with ``SDBC_GN_FUSED=1``; then fp32 on
-    the card (the same weights), where every attention and FF call goes to
-    the CUDA-core kernel of its function (``fp32_launches``).  Returns the
-    fp32 run's launch counts."""
+    the card (the same weights), where every attention call goes to the
+    3xTF32 kernel and every FF call to the CUDA-core kernel of its function
+    (``fp32_launches``).  Returns the fp32 run's launch counts."""
     import numpy as np
     import torch
 
@@ -2277,7 +2536,7 @@ def phase_parity():
         if not err <= PARITY_TOL:
             fail(f"tiny slice ({label}): card vs CPU max abs err {err} > "
                  f"{PARITY_TOL}")
-        used = ("flash_fixed_simt", "geglu_ff_simt", "flash_fwd_simt") \
+        used = ("flash_fixed_tf32", "geglu_ff_simt", "flash_fwd_tf32") \
             if label == "fp32" else ("flash_fixed", "geglu_ff")
         if counts != want or min(want[k] for k in used) == 0 \
                 or (env and want["gn_fused"] == 0):
@@ -2706,6 +2965,125 @@ def phase_decode(pipe, impl: str):
     return counts
 
 
+# The fp32 VAE decodes under SDBC_ATTN_IMPL against the default fp32
+# decode (plain attention, the same weights and latent): fp32 on both
+# sides, the mid block's attention summed in another order (1e-4 of its
+# largest entry at most, as the kernels are held), which the decoder's
+# remaining layers carry to the image; 1e-4 of the image's largest entry.
+FP32_DECODE_REL_TOL = 1e-4
+
+
+def phase_fp32_sampling(smi: str):
+    """The CLIs' --no-bf16 sampling path at full width:
+    ``cli.common.resolve_params_cfg`` on parsed ``cli.inference`` arguments
+    with ``--no-bf16`` (random SD-1.5 from --seed, fp32 on the card), then
+    ``SDPipeline.generate`` with the profile's DDIM-10, CFG 7.5, 512² on 4
+    prompts: a warm-up call, then a timed call with finite images, its
+    wall seconds and peak memory, every self-attention call on the 3xTF32
+    kernel (15 an evaluation) and every fused FF on the CUDA-core one, no
+    other launch (``fp32_launches`` of ``generate_launches``).  Then one
+    fp32 VAE decode of a 64² latent under SDBC_ATTN_IMPL=inference and
+    =flash: the mid block's 512-wide head on the CUDA-core fixed cap and
+    forward (one launch each), held to the default fp32 decode.  Returns
+    the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import common
+    from sdbc_tpu_torch.cli import inference as cli
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+    from sdbc_tpu_torch.models import vae as vae_mod
+    from sdbc_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(
+        ["--no-bf16", "--scheduler", "ddim", "--num_inference_steps", "10",
+         "--guidance_scale", "7.5", "--seed", "0"])
+    common.refuse_unported(args)
+    common.resolve_img_size(args)
+    models, cfg = common.resolve_params_cfg(args)
+    dtypes = {p.dtype for m in models.values() for p in m.parameters()}
+    devices = {p.device.type for m in models.values()
+               for p in m.parameters()}
+    if dtypes != {torch.float32} or devices != {"cuda"} \
+            or common.compute_dtype(args) != torch.float32:
+        fail(f"resolve_params_cfg (--no-bf16) gave {dtypes} on {devices}")
+    pipe = SDPipeline(models, cfg,
+                      common.make_tokenizer(args, cfg.clip.vocab_size),
+                      device=args.device,
+                      compute_dtype=common.compute_dtype(args))
+    spec = cli.profile_spec(args, cfg).replace(
+        height=args.img_size, width=args.img_size,
+        num_inference_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale, seed=args.seed)
+    setup = time.perf_counter() - t0
+    want = fp32_launches(generate_launches(
+        cfg, len(PROMPTS), spec.num_inference_steps, spec.height, "ddim"))
+    t0 = time.perf_counter()
+    pipe.generate(PROMPTS, spec)  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    imgs = pipe.generate(PROMPTS, spec)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[fp32-sampling] --no-bf16: SD-1.5 512^2 batch 4 DDIM-10 CFG 7.5 "
+          f"fp32 (resolve_params_cfg and the pipeline {setup:.3f} s): "
+          f"{secs:.3f} s/call, {4 / secs:.4f} images/s, warm-up {warm:.3f} "
+          f"s, peak {peak / 2 ** 30:.2f} GiB, flash_fixed_tf32 "
+          f"{counts['flash_fixed_tf32']} geglu_ff_simt "
+          f"{counts['geglu_ff_simt']} flash_fixed_simt "
+          f"{counts['flash_fixed_simt']} (expected "
+          f"{want['flash_fixed_tf32']}, {want['geglu_ff_simt']}, 0) | {smi}",
+          flush=True)
+    if imgs.shape != (4, 512, 512, 3) or not np.isfinite(imgs).all():
+        fail(f"fp32 sampling images {imgs.shape} not all finite")
+    if want["flash_fixed_tf32"] != 150 or counts != want:
+        fail(f"fp32 sampling launch counts {counts}, expected {want}")
+    paths = {"sampling fp32": counts}
+
+    vae = pipe.models["vae"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    z = torch.randn((1, 64, 64, vae.cfg.latent_channels), generator=gen,
+                    device="cuda") / vae.cfg.scaling_factor
+    none = dict.fromkeys(_kernels.launches, 0)
+    with torch.inference_mode():
+        _kernels.reset_launch_counts()
+        img = vae_mod.decode(vae, z)
+        torch.cuda.synchronize()
+        default_counts = dict(_kernels.launches)
+        for impl, name in (("inference", "flash_fixed_simt"),
+                           ("flash", "flash_fwd_simt")):
+            with environment(SDBC_ATTN_IMPL=impl):
+                _kernels.reset_launch_counts()
+                img_sw = vae_mod.decode(vae, z)
+                torch.cuda.synchronize()
+                c = dict(_kernels.launches)
+                sw_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
+            err = (img_sw - img).abs().max().item()
+            tol = FP32_DECODE_REL_TOL * img.abs().max().item()
+            print(f"[fp32-sampling] fp32 VAE decode 64^2 latent, "
+                  f"SDBC_ATTN_IMPL={impl} vs the default fp32 decode: max "
+                  f"abs diff {err:.3e} (tol {tol:.3e}); launches "
+                  f"{ {k: v for k, v in c.items() if v} } (default decode "
+                  f"{ {k: v for k, v in default_counts.items() if v} }); "
+                  f"wall {sw_ms:.3f} ms", flush=True)
+            if img_sw.shape != (1, 512, 512, 3) \
+                    or not torch.isfinite(img_sw).all() or not err <= tol:
+                fail(f"fp32 decode under SDBC_ATTN_IMPL={impl}: max abs "
+                     f"diff {err} (tol {tol})")
+            if c != dict(none, **{name: 1}) or default_counts != none:
+                fail(f"fp32 decode launch counts {c}, default "
+                     f"{default_counts}")
+            paths[f"decode fp32 SDBC_ATTN_IMPL={impl}"] = c
+    del pipe, models, vae
+    return paths
+
+
 def phase_profile(pipe):
     """Device time by kernel over one UNet evaluation (CFG batch 8, 64²),
     and over one at batch 4 (cfg_interval's cond-only evaluation)."""
@@ -2800,8 +3178,9 @@ def phase_train_parity(label: str = "default", env=None,
     """One optimizer step of the tiny config, bf16 (or ``card_dtype``) on
     the card against fp32 on the CPU, from the same fp32 masters and the
     same injected draws, under the environment ``env`` on both sides.  In
-    fp32 the flash forward and backward run on their CUDA-core kernels
-    (``fp32_launches``), the 8-bit AdamW as in bf16."""
+    fp32 the flash forward runs on the 3xTF32 kernel and the backward, on
+    the forward's LSE, on the CUDA-core kernels (``fp32_launches``), the
+    8-bit AdamW as in bf16."""
     import numpy as np
     import torch
 
@@ -2895,7 +3274,7 @@ def phase_train_parity(label: str = "default", env=None,
     used = (("gn_fused", "flash_tt") if env else ("flash_fwd",)) \
         + ("flash_bwd_dq", "flash_bwd_dkv", "adam8")
     if card_dtype == torch.float32:
-        used = tuple(SIMT_OF.get(k, k) for k in used)
+        used = tuple(FP32_OF.get(k, k) for k in used)
     if min(cg[k] for k in used) == 0 or (env and cg["flash_fwd"]):
         fail(f"tiny train step ({label}) skipped a kernel: {cg}")
     return cg
@@ -3679,7 +4058,8 @@ def main() -> int:
     smi = phase_device()
     build = phase_build()
     rows = phase_kernels(build["gn"], build["int8"]) \
-        + phase_train_kernels(build["adam8"]) + phase_simt_kernels()
+        + phase_train_kernels(build["adam8"]) + phase_simt_kernels() \
+        + phase_tf32_kernels(smi)
     # launch counts of each full-width path (and of the tiny fp32 ones),
     # from its own run (the counts set to 0 just before it, read just after)
     paths = {"sampling fp32 (tiny)": phase_parity()}
@@ -3701,6 +4081,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(phase_serve(smi))
     paths.update(phase_image_checks(smi))
+    torch.cuda.empty_cache()
+    paths.update(phase_fp32_sampling(smi))
+    torch.cuda.empty_cache()
     phase_train_parity()
     phase_train_parity("grad_ckpt block + switches", SWITCHES,
                        grad_ckpt=True, remat_mode="block")

@@ -3,9 +3,9 @@
 // barriers and distributed shared memory, and the wgmma products with their
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
-// flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_bwd_sm90.cu,
-// flash_bwd_wide_sm90.cu, flash_int8_sm90.cu, geglu_ff_sm90.cu and
-// group_norm_sm90.cu.
+// flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_fwd_tf32_sm90.cu,
+// flash_bwd_sm90.cu, flash_bwd_wide_sm90.cu, flash_int8_sm90.cu,
+// geglu_ff_sm90.cu and group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -516,6 +516,74 @@ struct WgmmaS8;
 SM90_S8(64, SM90_REGS32, SM90_I32, 32, 33, 34)
 SM90_S8(128, SM90_REGS64, SM90_I64, 64, 65, 66)
 
+// tf32 products (m64nNk8): D (64 x N, fp32) (+)= A (64 x 8) . B (8 x N),
+// both operands K-major (tf32 offers no transposed read).  A k8 step is 8
+// fp32 words, 32 bytes, as a bf16 k16 step, so a 128-byte swizzled row
+// holds 32 of them and the descriptors are WgmmaSS's.  The operands are
+// read as tf32: the low 13 mantissa bits are ignored, so the callers round
+// (cvt.rna.tf32.f32) first.  WgmmaTF32SS: A from shared memory, scale_d = 0
+// overwrites D; WgmmaTF32RS: A from registers, the m16n8k8 tf32 layout of
+// each warp's 16 rows (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); g = lane / 4, t = lane % 4), accumulating.
+template <int N>
+struct WgmmaTF32SS;
+
+#define SM90_TF32SS(N, REGS, FN, IA, IB, IS)                                \
+  template <>                                                              \
+  struct WgmmaTF32SS<N> {                                                  \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               uint64_t a, uint64_t b,     \
+                                               int scale_d) {              \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k8.f32.tf32.tf32 {" REGS "}, %" #IA ", %" #IB          \
+                   ", p, 1, 1;\n}\n"                                       \
+                   : FN(d)                                                 \
+                   : "l"(a), "l"(b), "r"(scale_d));                        \
+    }                                                                      \
+  };
+SM90_TF32SS(32, SM90_REGS16, SM90_F16, 16, 17, 18)
+SM90_TF32SS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
+
+template <int N>
+struct WgmmaTF32RS;
+
+#define SM90_TF32RS(N, REGS, FN, A0, A1, A2, A3, IB, IS)                    \
+  template <>                                                              \
+  struct WgmmaTF32RS<N> {                                                  \
+    __device__ __forceinline__ static void run(float (&d)[N / 2],          \
+                                               const uint32_t (&a)[4],     \
+                                               uint64_t b) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k8.f32.tf32.tf32 {" REGS "}, {%" #A0 ", %" #A1         \
+                   ", %" #A2 ", %" #A3 "}, %" #IB ", p, 1, 1;\n}\n"        \
+                   : FN(d)                                                 \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
+                     "r"(1));                                              \
+    }                                                                      \
+  };
+#define SM90_REGS20 SM90_REGS16 ", %16, %17, %18, %19"
+#define SM90_F20(d) \
+  SM90_F16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+SM90_TF32RS(40, SM90_REGS20, SM90_F20, 20, 21, 22, 23, 24, 25)
+SM90_TF32RS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34, 35, 36, 37)
+SM90_TF32RS(80, SM90_REGS40, SM90_F40, 40, 41, 42, 43, 44, 45)
+SM90_TF32RS(128, SM90_REGS64, SM90_F64, 64, 65, 66, 67, 68, 69)
+SM90_TF32RS(160, SM90_REGS80, SM90_F80, 80, 81, 82, 83, 84, 85)
+SM90_TF32RS(192, SM90_REGS96, SM90_F96, 96, 97, 98, 99, 100, 101)
+SM90_TF32RS(256, SM90_REGS128, SM90_F128, 128, 129, 130, 131, 132, 133)
+
+// x rounded to tf32 (to nearest, ties away from zero), as an fp32 word
+// with the low 13 mantissa bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+#undef SM90_TF32SS
+#undef SM90_TF32RS
 #undef SM90_S8
 #undef SM90_SS
 #undef SM90_SST

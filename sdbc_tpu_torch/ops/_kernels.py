@@ -43,7 +43,8 @@ launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adam8": 0, "gn_fused": 0,
             "flash_tt": 0, "flash_fixed_int8": 0, "flash_fixed_simt": 0,
             "flash_fwd_simt": 0, "flash_bwd_simt_dq": 0,
-            "flash_bwd_simt_dkv": 0, "geglu_ff_simt": 0}
+            "flash_bwd_simt_dkv": 0, "geglu_ff_simt": 0,
+            "flash_fixed_tf32": 0, "flash_fwd_tf32": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -179,6 +180,8 @@ def load():
     lib.sdbc_flash_simt_bwd.restype = i
     lib.sdbc_geglu_ff_simt.argtypes = [p] * 8 + [i] * 3 + [f, p]
     lib.sdbc_geglu_ff_simt.restype = i
+    lib.sdbc_flash_tf32_sm90.argtypes = [p] * 6 + [i] * 6 + [llp, f, p]
+    lib.sdbc_flash_tf32_sm90.restype = i
     lib.sdbc_error_string.argtypes = [i]
     lib.sdbc_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -557,3 +560,29 @@ def geglu_ff_simt(y, gamma, beta, w1, b1, w2, b2, out, eps: float) -> None:
             _SIMT_DTYPES[y.dtype], rows, c, float(eps), _stream(y))
     _check(lib, rc, "geglu_ff_simt")
     launches["geglu_ff_simt"] += 1
+
+
+def flash_tf32(q, k, v, o, lse, scratch, qscale: float, *,
+               fixed: bool) -> None:
+    """Launch the fp32 attention forward on 3xTF32 ``wgmma``
+    (``csrc/flash_fwd_tf32_sm90.cu``) on fp32 (B, H, S, D) views, D a
+    multiple of 8 up to 256: q with a contiguous head dim, its other
+    strides multiples of 4 and 16-byte aligned, k and v of any strides, o
+    with a contiguous head dim and even strides; ``scratch`` a contiguous
+    fp32 buffer of ``4·B·H·Skp·D`` floats (Skp = Sk rounded up to 8) that
+    the call's split pre-pass fills before the attention kernel runs.  The
+    fixed cap (``fixed``; counted as ``flash_fixed_tf32``) or the training
+    forward, writing the natural-log LSE into the contiguous (B, H, Sq)
+    fp32 ``lse`` (``flash_fwd_tf32``); one count a call, the pre-pass
+    included.  The caller checks shapes and dtypes (``ops.flash_tf32``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_tf32_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if fixed else lse.data_ptr(), scratch.data_ptr(),
+            int(fixed), b, h, sq, k.shape[2], d, _bhsd_strides(q, k, v, o),
+            float(qscale), _stream(q))
+    name = "flash_fixed_tf32" if fixed else "flash_fwd_tf32"
+    _check(lib, rc, name)
+    launches[name] += 1

@@ -21,13 +21,17 @@ the ``SDBC_ATTN_IMPL=flash`` override sends here), as the JAX backward
 pads any head dim; "auto" routes only up to 256, as the JAX package's
 ``_flash_eligible`` admits.
 
-The tensor-core kernels take bf16 q, k and v with a head dim that is a
-multiple of 8, up to 512 (``takes``; the int8 one up to 256); their input
-checks raise on anything else.  The JAX package's
-kernels take any dtype and pad any head dim, so every wrapper here hands
-the CUDA tensors its tensor-core kernel does not take (fp32, head dims
-that are not a multiple of 8) to the CUDA-core kernels of ``flash_simt``:
-the same function, up to head dim 512, in bf16 or fp32.
+The bf16 tensor-core kernels take bf16 q, k and v with a head dim that
+is a multiple of 8, up to 512 (``takes``; the int8 one up to 256); their
+input checks raise on anything else.  The JAX package's kernels take any
+dtype and pad any head dim, so the forward wrappers choose a kernel by
+dtype and head dim alone (``route``): fp32 with a head dim that is a
+multiple of 8 up to 256 goes to the 3xTF32 kernel of ``flash_tf32``
+(``csrc/flash_fwd_tf32_sm90.cu``), everything else the bf16 kernels do not
+take (head dims that are not a multiple of 8, fp32 above 256) to the
+CUDA-core kernels of ``flash_simt``: the same function, up to head dim
+512, in bf16 or fp32.  The backward and the transposed layout hand all
+those calls to ``flash_simt``.
 
 Inference (fixed cap):
 
@@ -55,7 +59,7 @@ from typing import Optional
 
 import torch
 
-from sdbc_tpu_torch.ops import _kernels, flash_simt
+from sdbc_tpu_torch.ops import _kernels, flash_simt, flash_tf32
 from sdbc_tpu_torch.ops.flash_attention_bwd import flash_bwd
 
 LOG2E = 1.4426950408889634
@@ -75,10 +79,34 @@ def _takes(q, k, v, max_d: int) -> bool:
 
 
 def takes(q, k, v) -> bool:
-    """The tensor-core kernels (the fixed cap, the training forward and
-    backward) take bf16 q, k and v with a head dim (the last dim) that is
-    a multiple of 8, up to ``MAX_D``; ``flash_simt`` takes the others."""
+    """The bf16 tensor-core kernels (the fixed cap, the training forward
+    and backward) take bf16 q, k and v with a head dim (the last dim) that
+    is a multiple of 8, up to ``MAX_D``; ``route`` says which kernel takes
+    the others."""
     return _takes(q, k, v, MAX_D)
+
+
+def route(dtype, d: int, *, fixed: bool) -> str:
+    """The kernel a forward call on CUDA tensors of ``dtype`` (None: q, k
+    and v disagree) and head dim ``d`` runs, by the name of its launch
+    count: bf16 with ``d`` a multiple of 8 up to ``MAX_D`` → the bf16
+    tensor-core kernels (``flash_fixed``, ``flash_fwd``); fp32 with ``d``
+    a multiple of 8 up to ``flash_tf32.MAX_D`` → the 3xTF32 kernel
+    (``flash_fixed_tf32``, ``flash_fwd_tf32``); anything else → the
+    CUDA-core kernel (``flash_fixed_simt``, ``flash_fwd_simt``), which
+    raises on what it does not take either."""
+    kind = "fixed" if fixed else "fwd"
+    if d % 8 == 0:
+        if dtype == torch.bfloat16 and d <= MAX_D:
+            return f"flash_{kind}"
+        if dtype == torch.float32 and d <= flash_tf32.MAX_D:
+            return f"flash_{kind}_tf32"
+    return f"flash_{kind}_simt"
+
+
+def _route(q, k, v, fixed: bool) -> str:
+    dtype = q.dtype if q.dtype == k.dtype == v.dtype else None
+    return route(dtype, q.shape[-1], fixed=fixed)
 
 
 def fixed_cap_attention_ref(q, k, v, scale: Optional[float] = None):
@@ -153,9 +181,13 @@ def flash_attention_fixed_bshd(q, k, v, *, scale: Optional[float] = None):
     if _on_cpu(q):
         return tr(fixed_cap_attention_ref(tr(q), tr(k), tr(v), scale))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if takes(q, k, v):
+    kernel = _route(q, k, v, fixed=True)
+    if kernel == "flash_fixed":
         return _launch(q, k, v, o, scale)
-    flash_simt.fixed_cap(tr(q), tr(k), tr(v), tr(o), scale)
+    if kernel == "flash_fixed_tf32":
+        flash_tf32.fixed_cap(tr(q), tr(k), tr(v), tr(o), scale)
+    else:
+        flash_simt.fixed_cap(tr(q), tr(k), tr(v), tr(o), scale)
     return o
 
 
@@ -182,7 +214,10 @@ def flash_attention_fixed(q, k, v, *, scale: Optional[float] = None):
     if _on_cpu(q):
         return fixed_cap_attention_ref(q, k, v, scale)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if not takes(q, k, v):
+    kernel = _route(q, k, v, fixed=True)
+    if kernel == "flash_fixed_tf32":
+        return flash_tf32.fixed_cap(q, k, v, o, scale)
+    if kernel == "flash_fixed_simt":
         return flash_simt.fixed_cap(q, k, v, o, scale)
     tr = lambda t: t.transpose(1, 2)
     _launch(tr(q), tr(k), tr(v), tr(o), scale)
@@ -257,18 +292,23 @@ def bhsd_empty_like(t):
 
 
 def flash_fwd(q, k, v, scale: float):
-    """(out, lse) of the training forward: on CUDA the kernel
-    (``_kernels.flash_fwd`` up to head dim 256, ``_kernels.flash_fwd_wide``
-    above, ``flash_simt.fwd`` for what neither takes), on the CPU the plain
-    version."""
+    """(out, lse) of the training forward: on CUDA the kernel ``route``
+    names (bf16: ``_kernels.flash_fwd`` up to head dim 256,
+    ``_kernels.flash_fwd_wide`` above; fp32: ``flash_tf32.fwd``; both
+    write out in the projection layout, ``bhsd_empty_like``;
+    ``flash_simt.fwd`` for the rest), on the CPU the plain version."""
     if _on_cpu(q):
         return flash_attention_ref(q, k, v, scale)
-    if not takes(q, k, v):
+    kernel = _route(q, k, v, fixed=False)
+    if kernel == "flash_fwd_simt":
         return flash_simt.fwd(q, k, v, scale)
-    _check_train_inputs(q, k, v)
-    q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
+    if kernel == "flash_fwd":
+        _check_train_inputs(q, k, v)
+        q, k, v = kernel_view(q), kernel_view(k), kernel_view(v)
     o = bhsd_empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if kernel == "flash_fwd_tf32":
+        return flash_tf32.fwd(q, k, v, o, lse, scale)
     launch = _kernels.flash_fwd if q.shape[-1] <= 256 \
         else _kernels.flash_fwd_wide
     launch(q, k, v, o, lse, scale * LOG2E)

@@ -334,19 +334,20 @@ def test_attention_dispatch_routes_as_jax(routes, monkeypatch, env, entry,
 # Each kernel entry point on a CUDA tensor (the device check stubbed, the
 # launches replaced by recorders): its tensor-core kernel for what that
 # takes (bf16, head dims a multiple of 8 up to 512; above 256 the wide
-# kernels), the CUDA-core kernel of the same function for the rest.
+# kernels; the forwards in fp32 up to 256 the 3xTF32 kernel), the
+# CUDA-core kernel of the same function for the rest.
 # (entry, dtype, head dim, the launches of one call)
 KERNEL_CHOICE = [
     ("fixed", "bfloat16", 40, ["flash_fixed"]),
-    ("fixed", "float32", 40, ["flash_fixed_simt"]),
+    ("fixed", "float32", 40, ["flash_fixed_tf32"]),
     ("fixed", "bfloat16", 512, ["flash_fixed_wide"]),
     ("fixed", "bfloat16", 44, ["flash_fixed_simt"]),
     ("fixed_bshd", "bfloat16", 40, ["flash_fixed"]),
-    ("fixed_bshd", "float32", 40, ["flash_fixed_simt"]),
+    ("fixed_bshd", "float32", 40, ["flash_fixed_tf32"]),
     ("fixed_bshd", "bfloat16", 512, ["flash_fixed_wide"]),
     ("fwd", "bfloat16", 40, ["flash_fwd"]),
     ("fwd", "bfloat16", 512, ["flash_fwd_wide"]),
-    ("fwd", "float32", 40, ["flash_fwd_simt"]),
+    ("fwd", "float32", 40, ["flash_fwd_tf32"]),
     ("fwd", "float32", 512, ["flash_fwd_simt"]),
     ("fwd", "bfloat16", 44, ["flash_fwd_simt"]),
     ("tt", "bfloat16", 40, ["flash_fwd_tt"]),
@@ -355,6 +356,11 @@ KERNEL_CHOICE = [
     ("bwd", "bfloat16", 512, ["flash_bwd_dq_wide", "flash_bwd_dkv_wide"]),
     ("bwd", "float32", 40, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
     ("bwd", "bfloat16", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
+    ("fixed", "float32", 256, ["flash_fixed_tf32"]),
+    ("fixed", "float32", 264, ["flash_fixed_simt"]),
+    ("fixed", "float32", 44, ["flash_fixed_simt"]),
+    ("fwd", "float32", 160, ["flash_fwd_tf32"]),
+    ("fwd", "float32", 44, ["flash_fwd_simt"]),
 ]
 
 _LAUNCHERS = ("flash_fixed", "flash_fixed_wide", "flash_fwd",
@@ -376,6 +382,9 @@ def launched(monkeypatch):
     monkeypatch.setattr(
         _kernels, "flash_simt_fwd", lambda *a, fixed: log.append(
             "flash_fixed_simt" if fixed else "flash_fwd_simt"))
+    monkeypatch.setattr(
+        _kernels, "flash_tf32", lambda *a, fixed: log.append(
+            "flash_fixed_tf32" if fixed else "flash_fwd_tf32"))
     return log
 
 

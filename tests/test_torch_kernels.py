@@ -14,6 +14,8 @@ from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import attention as tattn
 from sdbc_tpu_torch.ops import flash_attention_bwd as tbwd
 from sdbc_tpu_torch.ops import flash_attention_tt as ttt
+from sdbc_tpu_torch.ops import flash_simt as tsimt
+from sdbc_tpu_torch.ops import flash_tf32 as ttf32
 from sdbc_tpu_torch.ops import geglu_ff as tgeglu
 from sdbc_tpu_torch.ops import pallas_groupnorm as tpgn
 from sdbc_tpu_torch.train import adam8bit as tadam8
@@ -160,16 +162,17 @@ def test_flash_kernel_near_the_cap_on_card(hopper, layout):
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(hopper):
     """The tensor-core kernel's check refuses fp32 and a head dim that is
-    no multiple of 8; the entry point hands both to the CUDA-core kernel;
-    fp16 and head dims above 512 no kernel takes."""
-    for dt, d in ((torch.float32, 40), (torch.bfloat16, 44)):
+    no multiple of 8; the entry point hands fp32 to the 3xTF32 kernel and
+    the odd head dim to the CUDA-core kernel; fp16 and head dims above 512
+    no kernel takes."""
+    for dt, d, name in ((torch.float32, 40, "flash_fixed_tf32"),
+                        (torch.bfloat16, 44, "flash_fixed_simt")):
         q = torch.zeros(1, 256, 2, d, device=hopper, dtype=dt)
         with pytest.raises(ValueError, match="takes bfloat16"):
             tflash._launch(q, q, q, torch.empty_like(q), 1.0)
         before = dict(_kernels.launches)
         tflash.flash_attention_fixed_bshd(q, q, q)
-        assert _kernels.launches["flash_fixed_simt"] \
-            == before["flash_fixed_simt"] + 1
+        assert _kernels.launches[name] == before[name] + 1
         assert _kernels.launches["flash_fixed"] == before["flash_fixed"]
     for dt, d in ((torch.float16, 40), (torch.bfloat16, 520)):
         q = torch.zeros(1, 256, 2, d, device=hopper, dtype=dt)
@@ -272,7 +275,11 @@ def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
     """The CUDA-core kernels (csrc/flash_simt.cu) against the plain
     versions of their functions: the fixed cap (head-major and through the
     projection layout's strides, the same bits), the training forward (out
-    and LSE) and the backward's dq, dk, dv; each call counted."""
+    and LSE) and the backward's dq, dk, dv; each call counted.  The
+    forwards through ``flash_simt``'s wrappers (the entry points send fp32
+    at head dims that are a multiple of 8 up to 256 to the 3xTF32 kernel:
+    ``test_flash_tf32_matches_plain_on_card``), the backward through its
+    entry point."""
     dt = getattr(torch, dtype)
     b, h, sq, d = qshape
     q, k, v = _bshd_views(hopper, qshape, sk, 190)
@@ -280,19 +287,20 @@ def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
     do = torch.from_numpy(_rand(195, b, h, sq, d)).to(hopper, dt)
     scale = d ** -0.5
     _kernels.reset_launch_counts()
-    fixed = tflash.flash_attention_fixed(q, k, v)
+    fixed = tsimt.fixed_cap(q, k, v, torch.empty(q.shape, device=hopper,
+                                                 dtype=dt), scale)
     tr = lambda t: t.transpose(1, 2)
-    fixed_bshd = tr(tflash.flash_attention_fixed_bshd(tr(q), tr(k), tr(v)))
-    out, lse = tflash.flash_fwd(q, k, v, scale)
+    fixed_bshd = tr(torch.empty(b, sq, h, d, device=hopper, dtype=dt))
+    tsimt.fixed_cap(q, k, v, fixed_bshd, scale)
+    out, lse = tsimt.fwd(q, k, v, scale)
     grads = tbwd.flash_bwd(q, k, v, out, do, lse, scale)
     torch.cuda.synchronize()
-    # bf16 at D = 512: the tensor-core kernels take it
-    names = ("flash_fixed", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    if not tflash.takes(q, k, v):
-        names = tuple(n.replace("_bwd", "_bwd_simt") if "bwd" in n
-                      else n + "_simt" for n in names)
+    # bf16 at D = 512: the tensor-core kernels take the backward
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if tflash.takes(q, k, v) \
+        else ("flash_bwd_simt_dq", "flash_bwd_simt_dkv")
     assert {n: c for n, c in _kernels.launches.items() if c} \
-        == {names[0]: 2, **dict.fromkeys(names[1:], 1)}
+        == {"flash_fixed_simt": 2, "flash_fwd_simt": 1,
+            **dict.fromkeys(bwd, 1)}
     ref = tflash.fixed_cap_attention_ref(q, k, v)
     assert _simt_close(fixed, ref, dt)
     assert torch.equal(fixed, fixed_bshd)
@@ -301,6 +309,102 @@ def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     for g, r in zip(grads, tbwd.flash_bwd_ref(q, k, v, out, do, lse, scale)):
         assert g.shape == r.shape and g.dtype == dt and _simt_close(g, r, dt)
+
+
+def _tf32_close(out, ref):
+    """The 3xTF32 forward in fp32 against its fp32 plain version: its split
+    products lose ~2^-21 of each score, which over 4096 keys moves the
+    outputs by up to ~3e-5 of their largest entry; 1e-4 of it plus 1e-6."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    return err <= 1e-4 * ref.abs().max().item() + 1e-6
+
+
+def _bshd_f32(hopper, qshape, sk, seed):
+    """fp32 (B, H, S, D) views over (B, S, H, D) memory (values that use
+    every mantissa bit, so the split's lo parts are not zero)."""
+    b, h, sq, d = qshape
+    return [torch.from_numpy(_rand(seed + i, b, s, h, d)).to(hopper)
+            .transpose(1, 2) for i, s in enumerate((sq, sk, sk))]
+
+
+@pytest.mark.gpu
+# the tiny configs' head dims, the main path's (40, 80, 160) at ragged
+# sequences, every instantiation's widest head, the 64² level
+@pytest.mark.parametrize("qshape,sk", [
+    ((2, 4, 256, 8), 256), ((1, 1, 256, 64), 256), ((1, 2, 300, 40), 333),
+    ((1, 2, 200, 80), 300), ((1, 2, 256, 160), 77), ((1, 1, 100, 128), 150),
+    ((1, 1, 100, 192), 150), ((1, 1, 130, 256), 200),
+    ((2, 8, 4096, 40), 4096)])
+def test_flash_tf32_matches_plain_on_card(hopper, qshape, sk):
+    """The 3xTF32 forward (csrc/flash_fwd_tf32_sm90.cu) through the entry
+    points: the fixed cap (head-major and through the projection layout's
+    strides, the same bits) and the training forward (LSE within 1e-5)
+    against the plain versions, one launch a call; the fp32 backward (the
+    CUDA-core kernels) on its output and LSE against the plain backward of
+    the plain forward's."""
+    b, h, sq, d = qshape
+    q, k, v = _bshd_f32(hopper, qshape, sk, 700)
+    do = torch.from_numpy(_rand(705, b, h, sq, d)).to(hopper)
+    scale = d ** -0.5
+    tr = lambda t: t.transpose(1, 2)
+    _kernels.reset_launch_counts()
+    fixed = tflash.flash_attention_fixed(q, k, v)
+    fixed_bshd = tr(tflash.flash_attention_fixed_bshd(tr(q), tr(k), tr(v)))
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"flash_fixed_tf32": 2, "flash_fwd_tf32": 1}
+    assert _tf32_close(fixed, tflash.fixed_cap_attention_ref(q, k, v))
+    assert torch.equal(fixed, fixed_bshd)
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert out.dtype == torch.float32 and _tf32_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    _kernels.reset_launch_counts()
+    grads = tbwd.flash_bwd(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"flash_bwd_simt_dq": 1, "flash_bwd_simt_dkv": 1}
+    for g, r in zip(grads, tbwd.flash_bwd_ref(q, k, v, ref, do, ref_lse,
+                                               scale)):
+        assert g.shape == r.shape and _tf32_close(g, r)
+
+
+@pytest.mark.gpu
+def test_flash_tf32_refuses_what_it_does_not_take_on_card(hopper):
+    """The 3xTF32 wrapper refuses bf16, head dims that are no multiple of
+    8 and head dims above 256, and its C entry a q that TMA cannot read,
+    with no launch counted; the entry points send fp32 at those head dims
+    to the CUDA-core kernels and bf16 to the bf16 kernels."""
+    tf32 = ("flash_fixed_tf32", "flash_fwd_tf32")
+    before = {n: _kernels.launches[n] for n in tf32}
+    for dt, d in ((torch.bfloat16, 40), (torch.float32, 44),
+                  (torch.float32, 264)):
+        q = torch.zeros(1, 2, 256, d, device=hopper, dtype=dt)
+        with pytest.raises(ValueError, match="flash_tf32"):
+            ttf32.fixed_cap(q, q, q, torch.empty_like(q), 1.0)
+        with pytest.raises(ValueError, match="flash_tf32"):
+            ttf32.fwd(q, q, q, torch.empty_like(q),
+                      torch.empty(1, 2, 256, device=hopper), 1.0)
+    base = torch.zeros(1, 2, 256, 41, device=hopper)
+    q = base[..., 1:]  # 4 bytes past a 16-byte boundary
+    o = torch.empty(1, 2, 256, 40, device=hopper)
+    scratch = torch.empty(4 * 2 * 256 * 40, device=hopper)
+    with pytest.raises(RuntimeError, match="flash_fixed_tf32"):
+        _kernels.flash_tf32(q, o, o, o, None, scratch, 1.0, fixed=True)
+    assert {n: _kernels.launches[n] for n in tf32} == before
+    for dt, d, names in ((torch.float32, 44, ("flash_fixed_simt",
+                                              "flash_fwd_simt")),
+                         (torch.float32, 264, ("flash_fixed_simt",
+                                               "flash_fwd_simt")),
+                         (torch.bfloat16, 40, ("flash_fixed", "flash_fwd"))):
+        q = torch.zeros(1, 2, 256, d, device=hopper, dtype=dt)
+        _kernels.reset_launch_counts()
+        tflash.flash_attention_fixed(q, q, q)
+        tflash.flash_fwd(q, q, q, 1.0)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in _kernels.launches.items() if c} \
+            == dict.fromkeys(names, 1)
 
 
 @pytest.mark.gpu
@@ -1103,8 +1207,9 @@ def test_flash_fixed_wide_matches_plain_on_card(hopper, qshape, sk):
 @pytest.mark.gpu
 def test_fp32_sampling_on_card_matches_cpu(hopper):
     """A tiny fp32 ``SDPipeline`` call on the card against the CPU's: the
-    fixed-cap attention, the fused FF and the VAE's training-forward
-    attention on their CUDA-core kernels, no tensor-core launch."""
+    fixed-cap attention and the VAE's training-forward attention on the
+    3xTF32 kernel, the fused FF on its CUDA-core kernel, no bf16
+    tensor-core launch."""
     from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
     from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig, SDPipeline,
                                                    init_models)
@@ -1123,8 +1228,8 @@ def test_fp32_sampling_on_card_matches_cpu(hopper):
     _kernels.reset_launch_counts()
     out = SDPipeline(card, cfg, tok, "cuda", torch.float32)(["a cover"], **kw)
     launched = {n for n, c in _kernels.launches.items() if c}
-    assert launched == {"flash_fixed_simt", "geglu_ff_simt",
-                        "flash_fwd_simt"}, _kernels.launches
+    assert launched == {"flash_fixed_tf32", "geglu_ff_simt",
+                        "flash_fwd_tf32"}, _kernels.launches
     assert out.shape == ref.shape and np.isfinite(out).all()
     assert np.abs(out - ref).max() <= 3e-2  # chip_smoke.PARITY_TOL
 
@@ -1132,8 +1237,9 @@ def test_fp32_sampling_on_card_matches_cpu(hopper):
 @pytest.mark.gpu
 def test_fp32_train_step_on_card_matches_cpu(hopper):
     """One tiny fp32 optimizer step (8-bit AdamW) on the card against the
-    CPU's from the same masters and draws: the flash attention forward and
-    backward on their CUDA-core kernels, the optimizer its one launch."""
+    CPU's from the same masters and draws: the flash attention forward on
+    the 3xTF32 kernel, the backward on its CUDA-core kernels, the
+    optimizer its one launch."""
     import copy
 
     from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
@@ -1170,7 +1276,7 @@ def test_fp32_train_step_on_card_matches_cpu(hopper):
     (mc, pc, _), (mg, pg, counts) = runs["cpu"], runs["cuda"]
     launched = {k: v for k, v in counts.items() if v}
     assert launched.pop("adam8") == 1
-    assert set(launched) == {"flash_fwd_simt", "flash_bwd_simt_dq",
+    assert set(launched) == {"flash_fwd_tf32", "flash_bwd_simt_dq",
                              "flash_bwd_simt_dkv"}, counts
     assert mg["finite"] and abs(mg["loss"] - mc["loss"]) <= 2e-2 * abs(
         mc["loss"])  # chip_smoke.TRAIN_LOSS_RTOL

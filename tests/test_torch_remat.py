@@ -213,9 +213,11 @@ def test_chip_smoke_gn_sites_match_sd15():
 
 
 def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
-    """In fp32 each tensor-core kernel's count of a run goes to its
-    CUDA-core counterpart (csrc/flash_simt.cu, csrc/geglu_ff_simt.cu); the
-    other kernels keep theirs."""
+    """In fp32 each bf16 tensor-core kernel's count of a run goes to its
+    fp32 counterpart: the forwards to the 3xTF32 kernel
+    (csrc/flash_fwd_tf32_sm90.cu), the FF and the backward to the CUDA-core
+    kernels (csrc/geglu_ff_simt.cu, csrc/flash_simt.cu); the other kernels
+    keep theirs."""
     from sdbc_tpu_torch.ops import _kernels
 
     cs = _chip_smoke()
@@ -225,7 +227,38 @@ def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
     got = cs.fp32_launches(want)
     assert set(got) == set(_kernels.launches)
     assert {k: v for k, v in got.items() if v} == {
-        "flash_fixed_simt": 12, "geglu_ff_simt": 6, "flash_fwd_simt": 3,
+        "flash_fixed_tf32": 12, "geglu_ff_simt": 6, "flash_fwd_tf32": 3,
         "flash_bwd_simt_dq": 2, "flash_bwd_simt_dkv": 2, "adam8": 1}
-    assert set(cs.SIMT_OF.values()) <= set(_kernels.launches)
+    assert set(cs.FP32_OF.values()) <= set(_kernels.launches)
     assert set(cs.MAIN_PATH) == set(_kernels.launches)
+
+
+@pytest.mark.parametrize("config", ["tiny", "sd15"])
+def test_chip_smoke_fp32_forwards_all_take_the_tf32_kernel(config):
+    """``FP32_OF`` sends every fp32 forward of the tiny and SD-1.5 configs
+    to the 3xTF32 kernel: each attention head dim of their UNets and VAEs
+    routes there in fp32.  The --no-bf16 DDIM-10 call at 512² and batch 4
+    launches it 15 times an evaluation, 150 in all."""
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+    from sdbc_tpu_torch.ops import flash_attention as tflash
+
+    cs = _chip_smoke()
+    cfg = getattr(PipelineConfig, config)()
+    u = cfg.unet
+    heads = [c // u.attention_heads for c in u.block_out_channels]
+    vae_head = cfg.vae.block_out_channels[-1]
+    dims = heads + ([vae_head] if config == "tiny" else [])
+    for d in dims:
+        assert tflash.route(torch.float32, d, fixed=True) \
+            == cs.FP32_OF["flash_fixed"]
+        assert tflash.route(torch.float32, d, fixed=False) \
+            == cs.FP32_OF["flash_fwd"]
+    if config == "sd15":
+        # the VAE's 512-wide head goes to the CUDA-core kernels (the fp32
+        # decode paths of the fp32-sampling phase)
+        assert tflash.route(torch.float32, vae_head, fixed=True) \
+            == "flash_fixed_simt"
+        want = cs.fp32_launches(cs.generate_launches(
+            PipelineConfig.sd15("ddim"), 4, 10, 512, "ddim"))
+        assert {k: v for k, v in want.items() if v} == {
+            "flash_fixed_tf32": 150, "geglu_ff_simt": 100}
