@@ -56,8 +56,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   32² and a ragged case);
    simt-kernels — the CUDA-core kernels, for what the tensor-core ones do
                   not take, in fp32 at SD-1.5's 64² level: the fixed cap at
-                  sampling batch 8, the training forward (both through
-                  ``flash_simt``'s wrappers), dq and dk/dv at the mode-C
+                  sampling batch 8 and the training forward (both through
+                  ``flash_simt``'s wrappers, and both at their path's shape,
+                  the VAE's 512-wide head), dq and dk/dv at the mode-C
                   step's micro-batch 2, the fused FF at the sampling rows;
                   each against its plain version and timed against SDPA
                   (forward, backward) in alternating rounds;
@@ -69,8 +70,15 @@ Phases, in order; each prints one or more lines, and any failure raises
                   1e-5) and timed against SDPA and the CUDA-core kernel in
                   alternating rounds, with its share of the 3xTF32 and the
                   FFMA bound and SDPA's own error; the fp32 backward on its
-                  LSE; the build phase prints its registers, spills and
-                  HGMMA counts;
+                  LSE; the fp32 transposed-layout forward on the same
+                  kernel; then the fp32 backward on 3xTF32 wgmma (dq with
+                  its split pre-pass, dk/dv) at the same levels and the
+                  ragged pair, each against the plain version of what it
+                  computes, the same bits twice, timed against its 3xTF32
+                  and FFMA bounds, the whole call against SDPA's fp32
+                  backward and the CUDA-core kernels in alternating
+                  rounds; the build phase prints their registers, spills
+                  and HGMMA counts;
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -158,9 +166,14 @@ Phases, in order; each prints one or more lines, and any failure raises
                   CPU with the same injected draws, all four training
                   kernels launched; then the same with grad_ckpt (block)
                   under SDBC_GN_FUSED=1 and SDBC_ATTN_IMPL=flash_tt; then
-                  fp32 on the card (the flash forward on the 3xTF32 kernel,
-                  the backward on the CUDA-core kernels, the 8-bit AdamW's
-                  launch);
+                  fp32 on the card (the flash forward and backward on the
+                  3xTF32 kernels, the 8-bit AdamW's launch);
+   train fp32   — mode C below in fp32 compute at full width (the finetune
+                  CLI's --no-bf16, TF32 off): a warm-up step, 3 timed steps
+                  with finite losses, moved parameters and exactly 60 / 60 /
+                  60 3xTF32 forward / dq / dk-dv launches and one 8-bit
+                  AdamW launch, none on the CUDA-core backward, and a
+                  profiled step;
 10. train       — the JAX package's bench mode C (``bench.py``): SD-1.5 at
                   full width (random init, fp32 masters, bf16 compute),
                   UNet + text encoder trained, 8-bit AdamW, 512², micro-batch
@@ -714,9 +727,10 @@ SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
 # train step for the fused GroupNorm and the transposed-layout forward,
 # this slice's gradient-checkpointed step for the int8-QK attention, which
 # no path of either package dispatches, the CLI's --no-bf16 sampling call
-# for the fp32 kernels, and its fp32 VAE decodes under SDBC_ATTN_IMPL for
-# the CUDA-core forwards (the 512-wide head) (each row also lists every
-# path)
+# for the fp32 fixed cap and FF, the full-width fp32 train step for the
+# fp32 training forward and backward (the CUDA-core backward launches 0
+# there), and the fp32 VAE decodes under SDBC_ATTN_IMPL for the CUDA-core
+# forwards (the 512-wide head) (each row also lists every path)
 MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_fwd": "train", "flash_bwd_dq": "train",
              "flash_bwd_dkv": "train", "adam8": "train",
@@ -724,18 +738,21 @@ MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_fixed_int8": "train grad_ckpt block",
              "flash_fixed_tf32": "sampling fp32",
              "geglu_ff_simt": "sampling fp32",
-             "flash_fwd_tf32": "train fp32 (tiny)",
+             "flash_fwd_tf32": "train fp32",
              "flash_fixed_simt": "decode fp32 SDBC_ATTN_IMPL=inference",
              "flash_fwd_simt": "decode fp32 SDBC_ATTN_IMPL=flash",
-             "flash_bwd_simt_dq": "train fp32 (tiny)",
-             "flash_bwd_simt_dkv": "train fp32 (tiny)"}
+             "flash_bwd_simt_dq": "train fp32",
+             "flash_bwd_simt_dkv": "train fp32",
+             "flash_bwd_dq_tf32": "train fp32",
+             "flash_bwd_dkv_tf32": "train fp32"}
 # in fp32 every attention and FF call the bf16 tensor-core kernels would
 # take goes to the fp32 kernel of the same function: the forwards (every
-# head dim of the tiny and SD-1.5 configs a multiple of 8 up to 256) to the
-# 3xTF32 kernel, the FF and the backward to the CUDA-core kernels
+# head dim of the tiny and SD-1.5 configs a multiple of 8 up to 256) and
+# the backward (up to 160) to the 3xTF32 kernels, the FF to the CUDA-core
+# kernel
 FP32_OF = {"flash_fixed": "flash_fixed_tf32", "geglu_ff": "geglu_ff_simt",
-           "flash_fwd": "flash_fwd_tf32", "flash_bwd_dq": "flash_bwd_simt_dq",
-           "flash_bwd_dkv": "flash_bwd_simt_dkv"}
+           "flash_fwd": "flash_fwd_tf32", "flash_bwd_dq": "flash_bwd_dq_tf32",
+           "flash_bwd_dkv": "flash_bwd_dkv_tf32"}
 
 
 def fp32_launches(want: dict) -> dict:
@@ -1010,40 +1027,63 @@ def int8_build(lines, sass):
 # NV output columns (40, 64, 80, 128, 160, 192, 256), both variants
 TF32_KERNEL = r"flash_tf32_sm90_kernelILi(\d+)ELb([01])E"
 TF32_INSTANTIATIONS = 14
+# the 3xTF32 backward's: flash_bwd_{dq,dkv}_tf32_sm90_kernel<NV>, NV 40, 80
+# and 160
+TF32_BWD_KERNEL = r"flash_bwd_(dq|dkv)_tf32_sm90_kernelILi(\d+)E"
+TF32_BWD_INSTANTIATIONS = 6
 
 
 def tf32_build(lines, sass):
-    """The 3xTF32 forward's build report: ptxas's registers and spills of
-    each ``flash_tf32_sm90_kernel`` instantiation and of its
-    ``split_kv_kernel`` pre-pass; in each instantiation's SASS the tf32
-    wgmma products (HGMMA), TMA loads and any mma.sync (HMMA), failing
-    unless all 14 have HGMMA and UTMALDG and none HMMA."""
+    """The 3xTF32 kernels' build report: ptxas's registers and spills of
+    each ``flash_tf32_sm90_kernel`` (forward) and
+    ``flash_bwd_{dq,dkv}_tf32_sm90_kernel`` (backward) instantiation and
+    of their pre-passes ``split_kv_kernel`` and ``split_bwd_kernel``; in
+    each instantiation's SASS the tf32 wgmma products (HGMMA), TMA loads
+    and any mma.sync (HMMA), failing unless all 14 forward and 6 backward
+    instantiations have HGMMA and UTMALDG and none HMMA."""
     import re
 
-    name = lambda m: (f"flash_tf32_sm90_kernel<{m.group(1)}, "
-                      f"{'true' if m.group(2) == '1' else 'false'}>")
+    def name(m):
+        if "flash_bwd_" not in m.group(0):
+            return (f"flash_tf32_sm90_kernel<{m.group(1)}, "
+                    f"{'true' if m.group(2) == '1' else 'false'}>")
+        return f"flash_bwd_{m.group(1)}_tf32_sm90_kernel<{m.group(2)}>"
+
+    def match(text, at_start=False):
+        for pat in (TF32_KERNEL, TF32_BWD_KERNEL):
+            m = (re.match(r"\S*?" + pat, text) if at_start
+                 else re.search(pat, text))
+            if m:
+                return m
+        return None
+
     ptxas, cur = {}, None
     for ln in lines:
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(TF32_KERNEL, ln)
-            cur = name(m) if m else (
-                "split_kv_kernel" if "split_kv_kernel" in ln else None)
+            m = match(ln)
+            cur = name(m) if m else next(
+                (k for k in ("split_kv_kernel", "split_bwd_kernel")
+                 if k in ln), None)
         elif cur and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
     ptxas = {k: "; ".join(v) for k, v in ptxas.items()}
     counts = {}
     for part in (sass or "").split("Function : ")[1:]:
-        m = re.match(r"\S*?" + TF32_KERNEL, part)
+        m = match(part, at_start=True)
         if m:
             counts[name(m)] = {op: len(re.findall(rf"\b{op}\b", part))
                                for op in ("HGMMA", "UTMALDG", "HMMA")}
-    print(f"[build] flash_tf32_sm90_kernel ptxas: {ptxas}", flush=True)
-    print(f"[build] flash_tf32_sm90_kernel SASS (HGMMA, UTMALDG, HMMA): "
+    print(f"[build] 3xTF32 kernels ptxas: {ptxas}", flush=True)
+    print(f"[build] 3xTF32 kernels SASS (HGMMA, UTMALDG, HMMA): "
           f"{counts or 'not checked'}", flush=True)
     if sass is not None:
-        if len(counts) != TF32_INSTANTIATIONS:
-            fail(f"flash_tf32_sm90_kernel: {len(counts)} of "
-                 f"{TF32_INSTANTIATIONS} instantiations in the built SASS")
+        n_bwd = sum(k.startswith("flash_bwd_") for k in counts)
+        if (len(counts) - n_bwd, n_bwd) != (TF32_INSTANTIATIONS,
+                                            TF32_BWD_INSTANTIATIONS):
+            fail(f"3xTF32 kernels: {len(counts) - n_bwd} of "
+                 f"{TF32_INSTANTIATIONS} forward and {n_bwd} of "
+                 f"{TF32_BWD_INSTANTIATIONS} backward instantiations in the "
+                 f"built SASS")
         for kname, n in counts.items():
             if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
                 fail(f"{kname}: SASS counts {n}")
@@ -2169,6 +2209,9 @@ def _tokenizer(cfg):
 SIMT_FIXED = (8, 8, 4096, 40)
 SIMT_TRAIN = (2, 8, 4096, 40)
 SIMT_GEGLU = (32768, 320)
+# the CUDA-core forwards' main path: the fp32 VAE decode's mid-block head
+# (one 64² latent, 512 wide) under SDBC_ATTN_IMPL=inference / flash
+SIMT_VAE = (1, 1, 4096, 512)
 
 
 def phase_simt_kernels():
@@ -2177,10 +2220,12 @@ def phase_simt_kernels():
     version (``simt_err``), one launch a call, timed against the PyTorch
     call of the same function where there is one (SDPA's default dispatch,
     its backend named; its backward through autograd for the two backward
-    kernels) in alternating rounds.  The forwards through ``flash_simt``'s
-    wrappers: the entry points send fp32 at these head dims to the 3xTF32
-    kernel (``phase_tf32_kernels``).  Returns their rows of the kernels
-    line."""
+    kernels) in alternating rounds.  The forwards and the backward through
+    ``flash_simt``'s wrappers: the entry points send fp32 at these head
+    dims to the 3xTF32 kernels (``phase_tf32_kernels``).  The forwards
+    also at their main path's shape, the fp32 VAE decode's 512-wide head
+    (``SIMT_VAE``), the row's numbers; the 40-wide case beside them.
+    Returns their rows of the kernels line."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -2234,10 +2279,48 @@ def phase_simt_kernels():
         n_in + n_out) + extra
     bms, by = bound(fp32_bytes(3, 1, 0.0), exps=n_sc,
                     fp32_ops=4.0 * n_sc * d)
-    add("flash_fixed_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
-        "sdbc_tpu/ops/flash_attention.py:348", f"fp32 {SIMT_FIXED}", err,
-        ms, pms, bms, by, lms, f"sdpa ({sdpa_backend(q, k, v)})")
+    narrow = dict(shape=f"fp32 {SIMT_FIXED}", max_abs_err=err, ms=ms,
+                  plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms)
+    print(f"[simt-kernels] flash_fixed_simt fp32 {SIMT_FIXED}: max_abs_err "
+          f"{err:.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, sdpa "
+          f"({sdpa_backend(q, k, v)}) {lms:.4f} ms (kernel/library "
+          f"{ms / lms:.2f}), bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / ms:.2f}% of it", flush=True)
     del q, k, v, o
+
+    # the forwards at the VAE's 512-wide head, head-major
+    b, h, s, d = SIMT_VAE
+    n_sc = float(b * h * s * s)
+    q, k, v = (randn(b, h, s, d) for _ in range(3))
+    o = torch.empty(q.shape, device="cuda")
+    kern = lambda: flash_simt.fixed_cap(q, k, v, o, d ** -0.5)
+    _kernels.reset_launch_counts()
+    err = check("flash_fixed_simt", kern(), fa.fixed_cap_attention_ref(
+        q, k, v))
+    pms = median_ms(lambda: fa.fixed_cap_attention_ref(q, k, v), 3)
+    ms, lms = paired_ms([kern, lambda: sdpa(q, k, v)])
+    bms, by = bound(fp32_bytes(3, 1, 0.0), exps=n_sc,
+                    fp32_ops=4.0 * n_sc * d)
+    add("flash_fixed_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
+        "sdbc_tpu/ops/flash_attention.py:348", f"fp32 {SIMT_VAE}", err,
+        ms, pms, bms, by, lms, f"sdpa ({sdpa_backend(q, k, v)})",
+        cases=[narrow])
+    scale = d ** -0.5
+    _kernels.reset_launch_counts()
+    out, lse = flash_simt.fwd(q, k, v, scale)
+    ref, ref_lse = fa.flash_attention_ref(q, k, v, scale)
+    err = check("flash_fwd_simt", out, ref)
+    lerr = (lse - ref_lse).abs().max().item()
+    if not lerr <= LSE_TOL:
+        fail(f"flash_fwd_simt {SIMT_VAE}: lse err {lerr} (tol {LSE_TOL})")
+    pms = median_ms(lambda: fa.flash_attention_ref(q, k, v, scale), 3)
+    ms, lms = paired_ms([lambda: flash_simt.fwd(q, k, v, scale),
+                         lambda: sdpa(q, k, v, scale=scale)])
+    bms, by = bound(fp32_bytes(3, 1, 4.0 * b * h * s), exps=n_sc,
+                    fp32_ops=4.0 * n_sc * d)
+    vae_fwd = dict(err=max(err, lerr), ms=ms, pms=pms, bms=bms, by=by,
+                   lms=lms, lib=f"sdpa ({sdpa_backend(q, k, v)})")
+    del q, k, v, o, out, lse, ref, ref_lse
 
     # the training forward and backward in fp32
     b, h, s, d = SIMT_TRAIN
@@ -2256,19 +2339,26 @@ def phase_simt_kernels():
     n_sc = float(b * h * s * s)
     bms, by = bound(fp32_bytes(3, 1, 4.0 * b * h * s), exps=n_sc,
                     fp32_ops=4.0 * n_sc * d)
+    narrow = dict(shape=f"fp32 {SIMT_TRAIN}", max_abs_err=max(err, lerr),
+                  ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                  library_ms=lms)
+    print(f"[simt-kernels] flash_fwd_simt fp32 {SIMT_TRAIN}: max_abs_err "
+          f"{max(err, lerr):.3e}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"SDPA {lms:.4f} ms (kernel/library {ms / lms:.2f}), bound "
+          f"{bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of it", flush=True)
     add("flash_fwd_simt", "sdbc_tpu_torch/csrc/flash_simt.cu",
-        "sdbc_tpu/ops/flash_attention.py:81", f"fp32 {SIMT_TRAIN}",
-        max(err, lerr), ms, pms, bms, by, lms,
-        f"sdpa ({sdpa_backend(q, k, v)})")
+        "sdbc_tpu/ops/flash_attention.py:81", f"fp32 {SIMT_VAE}",
+        vae_fwd["err"], vae_fwd["ms"], vae_fwd["pms"], vae_fwd["bms"],
+        vae_fwd["by"], vae_fwd["lms"], vae_fwd["lib"], cases=[narrow])
     del out, lse
+    qs, kl, lse2, delta = fb.prepare(q, k, ref, do, ref_lse, scale)
     _kernels.reset_launch_counts()
-    grads = fb.flash_bwd(q, k, v, ref, do, ref_lse, scale)
+    grads = flash_simt.bwd(qs, kl, v, do, lse2, delta, scale)
     refs = fb.flash_bwd_ref(q, k, v, ref, do, ref_lse, scale)
     errs = [check(n, gr, rf) for n, gr, rf in zip(
         ("flash_bwd_simt_dq", "flash_bwd_simt_dkv", "flash_bwd_simt_dkv"),
         grads, refs)]
     del grads, refs
-    qs, kl, lse2, delta = fb.prepare(q, k, ref, do, ref_lse, scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dq_fn = lambda: _kernels.flash_simt_bwd_dq(qs, kl, v, do, lse2, delta,
                                                dq, scale / fb.LOG2E)
@@ -2337,6 +2427,108 @@ def tf32_bounds(b, h, sq, sk, d, extra_bytes=0.0):
     return tf32, bound(nbytes, exps=n_sc, fp32_ops=4.0 * n_sc * d)
 
 
+def tf32_bwd_bounds(b, h, sq, sk, d, dkv: bool):
+    """((ms, by) of the 3xTF32 bound, (ms, by) of the FFMA bound) of one
+    fp32 backward kernel: q, k, v, dO read once with lse2 and delta, dq
+    (or dk and dv) written once; three tf32 products of 6·D (dk/dv: 8·D)
+    FLOPs a score at 495 TFLOP/s, or 6·D (8·D) fp32 FLOPs at 67 TFLOP/s,
+    one exp2 a score either way."""
+    n_sc = float(b * h * sq * sk)
+    flops = (8.0 if dkv else 6.0) * n_sc * d
+    nbytes = 4.0 * b * h * (d * (2 * sq + 2 * sk) + 2 * sq
+                            + d * (2 * sk if dkv else sq))
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    t_ops = max(3.0 * flops / PEAK_TF32, n_sc / PEAK_EX2)
+    tf32 = (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+    return tf32, bound(nbytes, exps=n_sc, fp32_ops=flops)
+
+
+def tf32_bwd_case(dims, randn, held, cases, smi: str):
+    """The 3xTF32 backward at one (b, h, sq, sk, d) through ``flash_bwd``:
+    each kernel's gradients against ``flash_bwd_prepared_ref`` on
+    ``prepare``'s inputs (``simt_err``), one launch of each, the same bits
+    from a second call; each kernel alone (the dq entry with its split
+    pre-pass, the dk/dv entry on the scratch it filled) against its 3xTF32
+    and FFMA bounds, and the whole call against SDPA's fp32 backward
+    (EFFICIENT_ATTENTION) and the CUDA-core kernels of the same call, all
+    in alternating rounds.  Appends each kernel's case to ``cases``."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from sdbc_tpu_torch.ops import _kernels, flash_simt
+    from sdbc_tpu_torch.ops import flash_attention as fa
+    from sdbc_tpu_torch.ops import flash_attention_bwd as fb
+    from sdbc_tpu_torch.ops import flash_bwd_tf32 as fbt
+
+    b, h, sq, sk, d = dims
+    scale = d ** -0.5
+    if sq == sk:  # the UNet's layout: head-major views of (B, S, H, D)
+        q, k, v, do = (randn(b, sq, h, d).transpose(1, 2) for _ in range(4))
+        label = f"({b},{h},{sq},{d})"
+    else:
+        q, do = randn(b, h, sq, d), randn(b, h, sq, d)
+        k, v = randn(b, h, sk, d), randn(b, h, sk, d)
+        label = f"Sq {sq} Sk {sk} ({b},{h},·,{d})"
+    o, lse = fa.flash_attention_ref(q, k, v, scale)
+    _kernels.reset_launch_counts()
+    grads = fb.flash_bwd(q, k, v, o, do, lse, scale)
+    counts = {n: c for n, c in _kernels.launches.items() if c}
+    qs, kl, lse2, delta = fb.prepare(q, k, o, do, lse, scale)
+    refs = fb.flash_bwd_prepared_ref(qs, kl, v, do, lse2, delta, scale)
+    want = {"flash_bwd_dq_tf32": 1, "flash_bwd_dkv_tf32": 1}
+    errs = [held(f"fp32 backward {label} {n}", gr, rf, counts, want)
+            for n, gr, rf in zip("dq dk dv".split(), grads, refs)]
+    again = fb.flash_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        fail(f"fp32 backward {label}: two calls gave different bits")
+    del again
+    scratch = torch.empty(fbt.scratch_floats(b, h, sq, sk, d),
+                          device="cuda")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_fn = lambda: _kernels.flash_bwd_dq_tf32(
+        q, k, v, do, lse2, delta, dq, scratch, scale, scale / fb.LOG2E)
+    dkv_fn = lambda: _kernels.flash_bwd_dkv_tf32(q, k, lse2, delta, dk, dv,
+                                                 scratch)
+    dq_fn()
+    call = lambda: fb.flash_bwd(q, k, v, o, do, lse, scale)
+    ql, kl_, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lo = sdpa(ql, kl_, vl, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(lo, (ql, kl_, vl), do,
+                                           retain_graph=True)
+    sdpa_err = max((x - r).abs().max().item() for x, r in zip(
+        sdpa_bwd(), fb.flash_bwd_ref(q, k, v, o, do, lse, scale)))
+    simt_fn = lambda: flash_simt.bwd(qs, kl, v, do, lse2, delta, scale)
+    pms = median_ms(lambda: fb.flash_bwd_prepared_ref(qs, kl, v, do, lse2,
+                                                      delta, scale), 3)
+    dq_ms, dkv_ms, call_ms, lms, sms = paired_ms(
+        [dq_fn, dkv_fn, call, sdpa_bwd, simt_fn])
+    print(f"[tf32-kernels] fp32 backward {label}: max_abs_err dq "
+          f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (SDPA's "
+          f"{sdpa_err:.3e}), one launch each, the same bits twice; the call "
+          f"{call_ms:.4f} ms, SDPA backward (EFFICIENT_ATTENTION) {lms:.4f} "
+          f"ms (call/SDPA {call_ms / lms:.3f}), CUDA-core kernels "
+          f"{sms:.4f} ms ({sms / call_ms:.2f}x slower) in alternating "
+          f"rounds, plain {pms:.4f} ms | {smi}", flush=True)
+    for name, ms, err, dkv in (("flash_bwd_dq_tf32", dq_ms, errs[0], False),
+                               ("flash_bwd_dkv_tf32", dkv_ms,
+                                max(errs[1:]), True)):
+        (tb, tby), (fbms, fby) = tf32_bwd_bounds(b, h, sq, sk, d, dkv)
+        print(f"[tf32-kernels] {name} fp32 {label}: kernel {ms:.4f} ms"
+              f"{' (with the split pre-pass)' if not dkv else ''}; 3xTF32 "
+              f"bound {tb:.4f} ms ({tby}), {100 * tb / ms:.1f}% of it; FFMA "
+              f"bound {fbms:.4f} ms ({fby}), {100 * fbms / ms:.1f}%",
+              flush=True)
+        cases[name].append(dict(shape=label, max_abs_err=err, ms=ms,
+                                plain_ms=pms, library_ms=lms,
+                                call_ms=call_ms, simt_call_ms=sms,
+                                sdpa_max_abs_err=sdpa_err, bound_ms=tb,
+                                bound_by=tby, ffma_bound_ms=fbms))
+
+
 def phase_tf32_kernels(smi: str):
     """The 3xTF32 fp32 forward (``csrc/flash_fwd_tf32_sm90.cu``) through
     the entry points the UNet and the trainer call (the fixed cap through
@@ -2347,10 +2539,14 @@ def phase_tf32_kernels(smi: str):
     backend named) and the CUDA-core kernel the same call took before
     (``flash_simt``) in alternating rounds, with its share of the 3xTF32
     and the FFMA bound and SDPA's own max error against the plain version.
-    The fp32 backward (the CUDA-core kernels) runs on the new forward's
-    LSE at the 64² and the ragged case, held as ``phase_simt_kernels``
-    holds it.  Returns the two rows of the kernels line, each with its
-    64² case and every case."""
+    The fp32 backward runs on the new forward's output and LSE at the 64²
+    and the ragged case (the 3xTF32 backward, one launch of each kernel);
+    at 64² the transposed-layout forward in fp32 is held and timed with its
+    launch on the same kernel.  Then the 3xTF32 backward
+    (``csrc/flash_bwd_tf32_sm90.cu``, ``tf32_bwd_case``) at the same
+    levels and the ragged pair.  Returns the four rows of the kernels line
+    (fixed cap, forward, dq, dk/dv), each with its 64² case and every
+    case."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -2358,10 +2554,13 @@ def phase_tf32_kernels(smi: str):
     from sdbc_tpu_torch.ops import flash_attention as fa
     from sdbc_tpu_torch.ops import flash_attention_bwd as fb
 
+    from sdbc_tpu_torch.ops import flash_attention_tt as ttt
+
     g = torch.Generator(device="cuda").manual_seed(4321)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     tr = lambda t: t.transpose(1, 2)
-    cases = {"flash_fixed_tf32": [], "flash_fwd_tf32": []}
+    cases = {"flash_fixed_tf32": [], "flash_fwd_tf32": [],
+             "flash_bwd_dq_tf32": [], "flash_bwd_dkv_tf32": []}
 
     def held(what, out, ref, counts, want):
         torch.cuda.synchronize()
@@ -2445,7 +2644,7 @@ def phase_tf32_kernels(smi: str):
             _kernels.reset_launch_counts()
             grads = fb.flash_bwd(q, k, v, out, do, lse, scale)
             counts = {n: c for n, c in _kernels.launches.items() if c}
-            want = {"flash_bwd_simt_dq": 1, "flash_bwd_simt_dkv": 1}
+            want = {"flash_bwd_dq_tf32": 1, "flash_bwd_dkv_tf32": 1}
             extra["bwd_max_abs_err"] = max(
                 held(f"fp32 backward on the tf32 forward's lse {label} {n}",
                      gr, rf, counts, want)
@@ -2453,6 +2652,25 @@ def phase_tf32_kernels(smi: str):
                                      fb.flash_bwd_ref(q, k, v, ref, do,
                                                       ref_lse, scale)))
             del do, grads
+        if sq == 4096:
+            # the transposed-layout forward in fp32 takes the same kernel
+            _kernels.reset_launch_counts()
+            tout, tlse = ttt.flash_fwd_tt(q, k, v, scale)
+            counts = {n: c for n, c in _kernels.launches.items() if c}
+            terr = held(f"flash_tt fp32 {label}", tout, ref, counts,
+                        {"flash_fwd_tf32": 1})
+            terr = max(terr, (tlse - ref_lse).abs().max().item())
+            tt_ms, fwd_ms = paired_ms([lambda: ttt.flash_fwd_tt(q, k, v,
+                                                                scale),
+                                       lambda: fa.flash_fwd(q, k, v, scale)])
+            print(f"[tf32-kernels] flash_tt fp32 {label}: one launch of "
+                  f"flash_fwd_tf32, max_abs_err {terr:.3e} (LSE included); "
+                  f"{tt_ms:.4f} ms a call, the natural-layout forward "
+                  f"{fwd_ms:.4f} ms in alternating rounds | {smi}",
+                  flush=True)
+            extra["flash_tt"] = dict(ms=tt_ms, fwd_ms=fwd_ms,
+                                     max_abs_err=terr)
+            del tout, tlse
         measure("flash_fwd_tf32", label, dims, q, k, v,
                 lambda: fa.flash_fwd(q, k, v, scale), max(err, lerr),
                 ref_fn, lambda: sdpa(q, k, v, scale=scale),
@@ -2460,20 +2678,31 @@ def phase_tf32_kernels(smi: str):
                 extra_bytes=4.0 * b * h * sq, **extra)
         del q, k, v, out, lse, ref, ref_lse
 
+    # the fp32 backward on 3xTF32 (csrc/flash_bwd_tf32_sm90.cu)
+    for dims in [(b, h, s, s, d) for b, h, s, d in TF32_TRAIN] + [
+            TF32_RAGGED]:
+        tf32_bwd_case(dims, randn, held, cases, smi)
+
     rows = []
-    for name, replaces in (("flash_fixed_tf32",
-                            "sdbc_tpu/ops/flash_attention.py:348"),
-                           ("flash_fwd_tf32",
-                            "sdbc_tpu/ops/flash_attention.py:81")):
+    for name, replaces, source in (
+            ("flash_fixed_tf32", "sdbc_tpu/ops/flash_attention.py:348",
+             "flash_fwd_tf32_sm90.cu"),
+            ("flash_fwd_tf32", "sdbc_tpu/ops/flash_attention.py:81",
+             "flash_fwd_tf32_sm90.cu"),
+            ("flash_bwd_dq_tf32", "sdbc_tpu/ops/flash_attention_bwd.py:163",
+             "flash_bwd_tf32_sm90.cu"),
+            ("flash_bwd_dkv_tf32", "sdbc_tpu/ops/flash_attention_bwd.py:187",
+             "flash_bwd_tf32_sm90.cu")):
         main = cases[name][0]
         rows.append(dict(
-            name=name, route="cuda",
-            source="sdbc_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
+            name=name, route="cuda", source=f"sdbc_tpu_torch/csrc/{source}",
             replaces=replaces, max_abs_err=max(c["max_abs_err"]
                                                for c in cases[name]),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], library="sdpa",
+            library_ms=main["library_ms"],
+            library=("sdpa backward (EFFICIENT_ATTENTION)"
+                     if "_bwd_" in name else "sdpa"),
             shape=f"fp32 {main['shape']}", cases=cases[name]))
     return rows
 
@@ -3281,10 +3510,13 @@ def phase_train_parity(label: str = "default", env=None,
 
 
 def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
-                profile: bool = True, **tcfg_kw):
+                profile: bool = True, compute_dtype=None, **tcfg_kw):
     """Bench mode C at full width: warm-up step, ``steps`` timed steps, with
-    ``tcfg_kw`` added to the train config and the environment ``env``;
-    returns (launches of the timed steps, median s/step, peak bytes)."""
+    ``tcfg_kw`` added to the train config and the environment ``env``, in
+    bf16 compute or ``compute_dtype`` (fp32: the finetune CLI's --no-bf16,
+    TF32 off as ``phase_device`` set it; every attention forward and
+    backward on the 3xTF32 kernels, ``fp32_launches``); returns (launches
+    of the timed steps, median s/step, peak bytes)."""
     import torch
 
     from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
@@ -3303,9 +3535,10 @@ def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    dt = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
     state = init_train_state(init_models(cfg, device="cuda", generator=gen),
-                             tcfg)
-    step = make_train_step(cfg, tcfg)
+                             tcfg, **dt)
+    step = make_train_step(cfg, tcfg, **dt)
     batch = {"pixel_values": torch.rand((accum, micro, 512, 512, 3),
                                         generator=gen, device="cuda") * 2 - 1,
              "input_ids": torch.randint(0, cfg.clip.vocab_size,
@@ -3335,14 +3568,20 @@ def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
         counts = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     n8 = _n8(state)
-    want = {k: steps * v for k, v in expected_train_launches(
-        cfg, tcfg, 512, n8, switches=bool(env)).items()}
+    want = expected_train_launches(cfg, tcfg, 512, n8, switches=bool(env))
+    if compute_dtype == torch.float32:
+        want = fp32_launches(want)
+    want = {k: steps * v for k, v in want.items()}
     flash, _ = expected_launches(cfg, 64, micro * 8)
     moved = [float((p.detach() - s0).abs().max()) for p, s0 in
              zip(watch, start)]
     sps = statistics.median(times)
     extra = "".join(f" {k}={v}" for k, v in tcfg_kw.items())
     extra += "".join(f" {k}={v}" for k, v in (env or {}).items())
+    if compute_dtype is not None:
+        extra += (f" compute {compute_dtype} (TF32 matmul "
+                  f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+                  f"{torch.backends.cudnn.allow_tf32})")
     print(f"[{label}] mode C SD-1.5 512^2 micro 2 grad_accum 4 8-bit AdamW"
           f"{extra} (UNet + text encoder, {n_train / 1e9:.3f} B trainable, "
           f"{n8} 8-bit leaves): {sps:.4f} s/step (median of {steps}: "
@@ -4030,7 +4269,11 @@ def phase_train_profile(step, state, batch, gen, sps: float,
                       "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                       "flash_bwd_dq_wide_sm90_kernel",
                       "flash_bwd_dkv_wide_sm90_kernel",
-                      "adam8_leaves_kernel")}
+                      "flash_tf32_sm90_kernel", "split_kv_kernel",
+                      "flash_bwd_dq_tf32_sm90_kernel",
+                      "flash_bwd_dkv_tf32_sm90_kernel", "split_bwd_kernel",
+                      "flash_simt", "adam8_leaves_kernel")}
+    ours = {n: t for n, t in ours.items() if t}
     # host side: operators by their own CPU time (the profiler's, which
     # inflates it) and the number of device kernels launched
     host = sorted((e for e in prof.key_averages()
@@ -4089,6 +4332,9 @@ def main() -> int:
                        grad_ckpt=True, remat_mode="block")
     paths["train fp32 (tiny)"] = phase_train_parity(
         "fp32", card_dtype=torch.float32)
+    paths["train fp32"], _, _ = phase_train(smi, label="train fp32",
+                                            compute_dtype=torch.float32)
+    torch.cuda.empty_cache()
     paths["train"], sps, peak = phase_train(smi)
     ckpt = phase_train_ckpt(smi, (sps, peak))
     paths["train grad_ckpt block"] = ckpt["block"]

@@ -4,8 +4,8 @@
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
 // flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_fwd_tf32_sm90.cu,
-// flash_bwd_sm90.cu, flash_bwd_wide_sm90.cu, flash_int8_sm90.cu,
-// geglu_ff_sm90.cu and group_norm_sm90.cu.
+// flash_bwd_sm90.cu, flash_bwd_wide_sm90.cu, flash_bwd_tf32_sm90.cu,
+// flash_int8_sm90.cu, geglu_ff_sm90.cu and group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -542,6 +542,9 @@ struct WgmmaTF32SS;
                    : "l"(a), "l"(b), "r"(scale_d));                        \
     }                                                                      \
   };
+#define SM90_REGS8 SM90_R8(0, 1, 2, 3, 4, 5, 6, 7)
+#define SM90_F8_0(d) SM90_F8(d, 0)
+SM90_TF32SS(16, SM90_REGS8, SM90_F8_0, 8, 9, 10)
 SM90_TF32SS(32, SM90_REGS16, SM90_F16, 16, 17, 18)
 SM90_TF32SS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34)
 

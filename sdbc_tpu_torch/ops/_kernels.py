@@ -44,7 +44,8 @@ launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
             "flash_tt": 0, "flash_fixed_int8": 0, "flash_fixed_simt": 0,
             "flash_fwd_simt": 0, "flash_bwd_simt_dq": 0,
             "flash_bwd_simt_dkv": 0, "geglu_ff_simt": 0,
-            "flash_fixed_tf32": 0, "flash_fwd_tf32": 0}
+            "flash_fixed_tf32": 0, "flash_fwd_tf32": 0,
+            "flash_bwd_dq_tf32": 0, "flash_bwd_dkv_tf32": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -182,6 +183,11 @@ def load():
     lib.sdbc_geglu_ff_simt.restype = i
     lib.sdbc_flash_tf32_sm90.argtypes = [p] * 6 + [i] * 6 + [llp, f, p]
     lib.sdbc_flash_tf32_sm90.restype = i
+    lib.sdbc_flash_bwd_dq_tf32_sm90.argtypes = ([p] * 8 + [i] * 6
+                                                + [llp, llp, f, f, p])
+    lib.sdbc_flash_bwd_dq_tf32_sm90.restype = i
+    lib.sdbc_flash_bwd_dkv_tf32_sm90.argtypes = [p] * 5 + [i] * 6 + [llp, p]
+    lib.sdbc_flash_bwd_dkv_tf32_sm90.restype = i
     lib.sdbc_error_string.argtypes = [i]
     lib.sdbc_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -586,3 +592,47 @@ def flash_tf32(q, k, v, o, lse, scratch, qscale: float, *,
     name = "flash_fixed_tf32" if fixed else "flash_fwd_tf32"
     _check(lib, rc, name)
     launches[name] += 1
+
+
+def flash_bwd_dq_tf32(q, k, v, do, lse2, delta, dq, scratch, scale: float,
+                      dq_mul: float) -> None:
+    """Launch the split pre-pass and the dq kernel of the fp32 backward on
+    3xTF32 ``wgmma`` (``csrc/flash_bwd_tf32_sm90.cu``) on fp32 (B, H, S, D)
+    views of any strides, D a multiple of 8 up to 160: the pre-pass folds
+    qs = scale·q and kl = log2e·k and writes every operand as hi and lo tf32
+    parts (q-side and key-side rows, and qsᵀ, dOᵀ, klᵀ) into ``scratch``, a
+    contiguous fp32 buffer of ``flash_bwd_tf32.scratch_floats`` floats;
+    then the dq kernel writes dq (a contiguous head dim, even strides).
+    ``lse2`` and ``delta`` are contiguous (B, H, Sq_pad) fp32, zero past
+    Sq, Sq_pad a multiple of 128.  Counted once as ``flash_bwd_dq_tf32``,
+    the pre-pass included.  The caller checks shapes and dtypes
+    (``ops.flash_bwd_tf32``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_bwd_dq_tf32_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            scratch.data_ptr(), b, h, sq, k.shape[2], d, lse2.shape[-1],
+            _bhsd_strides(q, k, v, do), _bhs_strides(dq), float(scale),
+            float(dq_mul), _stream(q))
+    _check(lib, rc, "flash_bwd_dq_tf32")
+    launches["flash_bwd_dq_tf32"] += 1
+
+
+def flash_bwd_dkv_tf32(q, k, lse2, delta, dk, dv, scratch) -> None:
+    """Launch the dk/dv kernel of the fp32 backward on 3xTF32 ``wgmma``
+    (``csrc/flash_bwd_tf32_sm90.cu``) on the ``scratch`` that
+    ``flash_bwd_dq_tf32`` filled for the same q, k (their shapes name the
+    call), into dk and dv (contiguous head dims, even strides).  Counted as
+    ``flash_bwd_dkv_tf32``.  The caller checks shapes and dtypes
+    (``ops.flash_bwd_tf32``)."""
+    lib = load()
+    b, h, sq, d = q.shape
+    with _device(q):
+        rc = lib.sdbc_flash_bwd_dkv_tf32_sm90(
+            lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), b, h, sq, k.shape[2], d, lse2.shape[-1],
+            _bhs_strides(dk, dv), _stream(q))
+    _check(lib, rc, "flash_bwd_dkv_tf32")
+    launches["flash_bwd_dkv_tf32"] += 1

@@ -30,8 +30,11 @@ multiple of 8 up to 256 goes to the 3xTF32 kernel of ``flash_tf32``
 (``csrc/flash_fwd_tf32_sm90.cu``), everything else the bf16 kernels do not
 take (head dims that are not a multiple of 8, fp32 above 256) to the
 CUDA-core kernels of ``flash_simt``: the same function, up to head dim
-512, in bf16 or fp32.  The backward and the transposed layout hand all
-those calls to ``flash_simt``.
+512, in bf16 or fp32.  The transposed layout routes the same way; the
+backward routes by its twin ``route_bwd``: fp32 with a head dim that is a
+multiple of 8 up to 160 to the 3xTF32 kernels of ``flash_bwd_tf32``
+(``csrc/flash_bwd_tf32_sm90.cu``), the rest the bf16 kernels do not take
+to ``flash_simt``.
 
 Inference (fixed cap):
 
@@ -59,7 +62,7 @@ from typing import Optional
 
 import torch
 
-from sdbc_tpu_torch.ops import _kernels, flash_simt, flash_tf32
+from sdbc_tpu_torch.ops import _kernels, flash_bwd_tf32, flash_simt, flash_tf32
 from sdbc_tpu_torch.ops.flash_attention_bwd import flash_bwd
 
 LOG2E = 1.4426950408889634
@@ -102,6 +105,22 @@ def route(dtype, d: int, *, fixed: bool) -> str:
         if dtype == torch.float32 and d <= flash_tf32.MAX_D:
             return f"flash_{kind}_tf32"
     return f"flash_{kind}_simt"
+
+
+def route_bwd(dtype, d: int) -> tuple:
+    """The kernels a backward call on CUDA tensors of ``dtype`` (None: q, k
+    and v disagree) and head dim ``d`` runs, by the names of their launch
+    counts (dq, dk/dv), as ``route`` names a forward's: bf16 with ``d`` a
+    multiple of 8 up to ``MAX_D`` → the bf16 tensor-core kernels; fp32 with
+    ``d`` a multiple of 8 up to ``flash_bwd_tf32.MAX_D`` → the 3xTF32
+    kernels; anything else → the CUDA-core kernels, which raise on what
+    they do not take either."""
+    if d % 8 == 0:
+        if dtype == torch.bfloat16 and d <= MAX_D:
+            return ("flash_bwd_dq", "flash_bwd_dkv")
+        if dtype == torch.float32 and d <= flash_bwd_tf32.MAX_D:
+            return ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32")
+    return ("flash_bwd_simt_dq", "flash_bwd_simt_dkv")
 
 
 def _route(q, k, v, fixed: bool) -> str:

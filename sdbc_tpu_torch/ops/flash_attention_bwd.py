@@ -20,11 +20,13 @@ On CUDA both kernels take ``prepare``'s inputs: head dims up to
 ``SM90_MAX_D`` run the TMA-fed ``wgmma`` kernels of
 ``csrc/flash_bwd_sm90.cu``, wider ones (up to 512, as the JAX backward pads
 any head dim) those of ``csrc/flash_bwd_wide_sm90.cu``, where a cluster of
-two CTAs splits the head dim; what those do not take
-(``flash_attention.takes``: fp32, head dims that are not a multiple
-of 8) the CUDA-core kernels of ``flash_simt``.  On a CPU tensor
-``flash_bwd`` computes ``flash_bwd_ref``, the plain version of the same
-math;
+two CTAs splits the head dim; fp32 with a head dim that is a multiple of
+8 up to 160 the 3xTF32 kernels of ``flash_bwd_tf32``
+(``csrc/flash_bwd_tf32_sm90.cu``, which fold qs and kl themselves); the
+rest (``flash_attention.route_bwd``: head dims that are not a multiple of
+8, fp32 above 160) the CUDA-core kernels of ``flash_simt``.  On a CPU
+tensor ``flash_bwd`` computes ``flash_bwd_ref``, the plain version of the
+same math;
 ``flash_bwd_prepared_ref`` is the plain version of what the kernels compute
 from ``prepare``'s padded inputs.
 """
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from sdbc_tpu_torch.ops import _kernels
+from sdbc_tpu_torch.ops import _kernels, flash_bwd_tf32
 
 LOG2E = 1.4426950408889634
 # head dims of csrc/flash_bwd_sm90.cu; wider ones run flash_bwd_wide_sm90.cu
@@ -66,20 +68,25 @@ def flash_bwd_ref(q, k, v, o, do, lse, scale: float):
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def prepare(q, k, o, do, lse, scale: float):
-    """The wgmma kernels' inputs, as the JAX wrapper prepares its Pallas
-    kernels': (qs, kl, lse2, delta) with qs and kl folded once (q's
-    layout), lse2 and delta contiguous (B, H, Sq_pad) fp32, zero past Sq,
-    Sq_pad a multiple of ``Q_TILE``."""
-    b, h, sq, _ = q.shape
+def prepare_vectors(o, do, lse):
+    """(lse2, delta): lse·log2e and Σ(dO∘O) in fp32, contiguous
+    (B, H, Sq_pad), zero past Sq, Sq_pad a multiple of ``Q_TILE``."""
+    b, h, sq = lse.shape
     pad = -sq % Q_TILE
     # few launches: below 64² tokens the call is host-bound (zeros only
     # where there is a pad; o promoted to fp32 exactly inside the multiply)
     vec = (torch.zeros if pad else torch.empty)(
-        (2, b, h, sq + pad), dtype=torch.float32, device=q.device)
+        (2, b, h, sq + pad), dtype=torch.float32, device=lse.device)
     torch.mul(lse, LOG2E, out=vec[0, ..., :sq])
     torch.sum(do.float() * o, dim=-1, out=vec[1, ..., :sq])
-    return _fold(q, scale), _fold(k, LOG2E), vec[0], vec[1]
+    return vec[0], vec[1]
+
+
+def prepare(q, k, o, do, lse, scale: float):
+    """The wgmma kernels' inputs, as the JAX wrapper prepares its Pallas
+    kernels': (qs, kl, lse2, delta) with qs and kl folded once (q's
+    layout) and ``prepare_vectors``' lse2 and delta."""
+    return (_fold(q, scale), _fold(k, LOG2E)) + prepare_vectors(o, do, lse)
 
 
 def flash_bwd_prepared_ref(qs, kl, v, do, lse2, delta, scale: float):
@@ -109,9 +116,14 @@ def flash_bwd(q, k, v, o, do, lse, scale: float):
 
     if fa._on_cpu(q):
         return flash_bwd_ref(q, k, v, o, do, lse, scale)
-    if not fa.takes(q, k, v):
+    dtype = q.dtype if q.dtype == k.dtype == v.dtype else None
+    kernel = fa.route_bwd(dtype, q.shape[-1])[0]
+    if kernel == "flash_bwd_simt_dq":
         qs, kl, lse2, delta = prepare(q, k, o, do, lse, scale)
         return flash_simt.bwd(qs, kl, v, do, lse2, delta, scale)
+    if kernel == "flash_bwd_dq_tf32":
+        return flash_bwd_tf32.bwd(q, k, v, do, *prepare_vectors(o, do, lse),
+                                  scale)
     fa._check_train_inputs(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} / o "

@@ -10,10 +10,11 @@ JAX package's ``to_tt`` builds them, and writes its output the same way;
 the caller gets the (B, H, Sq, D) view of it.  On CUDA that is the
 head-dim-major variant of K5's TMA-fed wgmma kernel: for head dims up to
 256 that of ``csrc/flash_fwd_sm90.cu``, above (up to 512) that of
-``csrc/flash_fwd_wide_sm90.cu``; what those do not take
-(``flash_attention.takes``: fp32, head dims that are not a multiple
-of 8) the CUDA-core forward of ``flash_simt`` on the natural layout, the
-same function; on a CPU tensor it is
+``csrc/flash_fwd_wide_sm90.cu``; what those do not take goes to the
+natural-layout forward that ``flash_attention.route`` names, the same
+function (fp32 at head dims that are a multiple of 8 up to 256 the
+3xTF32 kernel of ``flash_tf32``, the rest the CUDA-core forward of
+``flash_simt``); on a CPU tensor it is
 ``flash_attention.flash_attention_ref``, the plain version of the same
 function.  ``_FlashTT``'s backward is the training backward
 (``flash_attention_bwd.flash_bwd``) over the unscaled q and the residuals
@@ -25,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from sdbc_tpu_torch.ops import _kernels, flash_simt
+from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as fa
 from sdbc_tpu_torch.ops.flash_attention_bwd import flash_bwd
 
@@ -46,8 +47,10 @@ def flash_fwd_tt(q, k, v, scale: float):
     the plain version on the CPU."""
     if fa._on_cpu(q):
         return fa.flash_attention_ref(q, k, v, scale)
-    if not fa.takes(q, k, v):
-        return flash_simt.fwd(q, k, v, scale)
+    if fa._route(q, k, v, fixed=False) != "flash_fwd":
+        # the natural-layout forward of the same function: fp32 at head
+        # dims the 3xTF32 kernel takes, the CUDA-core kernel for the rest
+        return fa.flash_fwd(q, k, v, scale)
     fa._check_train_inputs(q, k, v)
     b, h, sq, d = q.shape
     # the output rows padded to a multiple of 8 as well: TMA's 16-byte

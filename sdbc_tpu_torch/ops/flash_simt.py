@@ -1,8 +1,9 @@
 """Flash attention on the CUDA cores (``csrc/flash_simt.cu``) for the calls
-the tensor-core kernels do not take (``flash_attention.takes`` says which
-those take): fp32 q/k/v and head dims that are not a multiple of 8.  bf16
-or fp32, head dims up to ``MAX_D``, any strides: the JAX package's kernels take any dtype
-and pad any head dim, so its dispatch sends these calls to a kernel too.
+no tensor-core kernel takes (``flash_attention.route`` and ``route_bwd``
+say which): head dims that are not a multiple of 8, fp32 forwards above
+256 and fp32 backwards above 160.  bf16 or fp32, head dims up to
+``MAX_D``, any strides: the JAX package's kernels take any dtype and pad
+any head dim, so its dispatch sends these calls to a kernel too.
 
 The same functions as the tensor-core kernels, with the same rounding
 points (``flash_attention.fixed_cap_attention_ref``,

@@ -334,8 +334,9 @@ def test_attention_dispatch_routes_as_jax(routes, monkeypatch, env, entry,
 # Each kernel entry point on a CUDA tensor (the device check stubbed, the
 # launches replaced by recorders): its tensor-core kernel for what that
 # takes (bf16, head dims a multiple of 8 up to 512; above 256 the wide
-# kernels; the forwards in fp32 up to 256 the 3xTF32 kernel), the
-# CUDA-core kernel of the same function for the rest.
+# kernels; the forwards in fp32 up to 256 and the backward in fp32 up to
+# 160 the 3xTF32 kernels), the CUDA-core kernel of the same function for
+# the rest.
 # (entry, dtype, head dim, the launches of one call)
 KERNEL_CHOICE = [
     ("fixed", "bfloat16", 40, ["flash_fixed"]),
@@ -351,10 +352,14 @@ KERNEL_CHOICE = [
     ("fwd", "float32", 512, ["flash_fwd_simt"]),
     ("fwd", "bfloat16", 44, ["flash_fwd_simt"]),
     ("tt", "bfloat16", 40, ["flash_fwd_tt"]),
-    ("tt", "float32", 40, ["flash_fwd_simt"]),
+    ("tt", "float32", 40, ["flash_fwd_tf32"]),
+    ("tt", "float32", 264, ["flash_fwd_simt"]),
     ("bwd", "bfloat16", 40, ["flash_bwd_dq", "flash_bwd_dkv"]),
     ("bwd", "bfloat16", 512, ["flash_bwd_dq_wide", "flash_bwd_dkv_wide"]),
-    ("bwd", "float32", 40, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
+    ("bwd", "float32", 40, ["flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"]),
+    ("bwd", "float32", 160, ["flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"]),
+    ("bwd", "float32", 192, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
+    ("bwd", "float32", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
     ("bwd", "bfloat16", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
     ("fixed", "float32", 256, ["flash_fixed_tf32"]),
     ("fixed", "float32", 264, ["flash_fixed_simt"]),
@@ -367,7 +372,7 @@ _LAUNCHERS = ("flash_fixed", "flash_fixed_wide", "flash_fwd",
               "flash_fwd_wide", "flash_fwd_tt",
               "flash_fwd_tt_wide", "flash_bwd_dq", "flash_bwd_dkv",
               "flash_bwd_dq_wide", "flash_bwd_dkv_wide", "flash_simt_bwd_dq",
-              "flash_simt_bwd_dkv")
+              "flash_simt_bwd_dkv", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32")
 
 
 @pytest.fixture

@@ -275,11 +275,11 @@ def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
     """The CUDA-core kernels (csrc/flash_simt.cu) against the plain
     versions of their functions: the fixed cap (head-major and through the
     projection layout's strides, the same bits), the training forward (out
-    and LSE) and the backward's dq, dk, dv; each call counted.  The
-    forwards through ``flash_simt``'s wrappers (the entry points send fp32
-    at head dims that are a multiple of 8 up to 256 to the 3xTF32 kernel:
-    ``test_flash_tf32_matches_plain_on_card``), the backward through its
-    entry point."""
+    and LSE) and the backward's dq, dk, dv; each call counted.  All
+    through ``flash_simt``'s wrappers (the entry points send fp32 at head
+    dims that are a multiple of 8 up to 256, and the backward up to 160,
+    to the 3xTF32 kernels: ``test_flash_tf32_matches_plain_on_card``,
+    ``test_flash_bwd_tf32_matches_plain_on_card``)."""
     dt = getattr(torch, dtype)
     b, h, sq, d = qshape
     q, k, v = _bshd_views(hopper, qshape, sk, 190)
@@ -293,14 +293,12 @@ def test_flash_simt_matches_plain_on_card(hopper, dtype, qshape, sk):
     fixed_bshd = tr(torch.empty(b, sq, h, d, device=hopper, dtype=dt))
     tsimt.fixed_cap(q, k, v, fixed_bshd, scale)
     out, lse = tsimt.fwd(q, k, v, scale)
-    grads = tbwd.flash_bwd(q, k, v, out, do, lse, scale)
+    grads = tsimt.bwd(*tbwd.prepare(q, k, out, do, lse, scale)[:2], v, do,
+                      *tbwd.prepare_vectors(out, do, lse), scale)
     torch.cuda.synchronize()
-    # bf16 at D = 512: the tensor-core kernels take the backward
-    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if tflash.takes(q, k, v) \
-        else ("flash_bwd_simt_dq", "flash_bwd_simt_dkv")
     assert {n: c for n, c in _kernels.launches.items() if c} \
         == {"flash_fixed_simt": 2, "flash_fwd_simt": 1,
-            **dict.fromkeys(bwd, 1)}
+            "flash_bwd_simt_dq": 1, "flash_bwd_simt_dkv": 1}
     ref = tflash.fixed_cap_attention_ref(q, k, v)
     assert _simt_close(fixed, ref, dt)
     assert torch.equal(fixed, fixed_bshd)
@@ -341,8 +339,9 @@ def test_flash_tf32_matches_plain_on_card(hopper, qshape, sk):
     points: the fixed cap (head-major and through the projection layout's
     strides, the same bits) and the training forward (LSE within 1e-5)
     against the plain versions, one launch a call; the fp32 backward (the
-    CUDA-core kernels) on its output and LSE against the plain backward of
-    the plain forward's."""
+    kernels ``flash_attention.route_bwd`` names: 3xTF32 up to head dim
+    160, the CUDA-core ones above) on its output and LSE against the plain
+    backward of the plain forward's."""
     b, h, sq, d = qshape
     q, k, v = _bshd_f32(hopper, qshape, sk, 700)
     do = torch.from_numpy(_rand(705, b, h, sq, d)).to(hopper)
@@ -364,10 +363,138 @@ def test_flash_tf32_matches_plain_on_card(hopper, qshape, sk):
     grads = tbwd.flash_bwd(q, k, v, out, do, lse, scale)
     torch.cuda.synchronize()
     assert {n: c for n, c in _kernels.launches.items() if c} \
-        == {"flash_bwd_simt_dq": 1, "flash_bwd_simt_dkv": 1}
+        == dict.fromkeys(tflash.route_bwd(torch.float32, d), 1)
     for g, r in zip(grads, tbwd.flash_bwd_ref(q, k, v, ref, do, ref_lse,
                                                scale)):
         assert g.shape == r.shape and _tf32_close(g, r)
+
+
+@pytest.mark.gpu
+# every instantiation (NV 40, 80, 160) and the head dims padded up to one
+# (8, 64, 128), ragged sequences no 16-, 32- or 64-row tile divides, fewer
+# rows than one tile, the 64² level
+@pytest.mark.parametrize("qshape,sk", [
+    ((2, 4, 256, 8), 256), ((1, 2, 300, 40), 333), ((1, 2, 200, 80), 300),
+    ((1, 2, 256, 160), 77), ((1, 1, 100, 64), 150), ((1, 1, 130, 128), 200),
+    ((1, 2, 90, 160), 130), ((1, 2, 33, 40), 20), ((2, 8, 4096, 40), 4096)])
+def test_flash_bwd_tf32_matches_plain_on_card(hopper, qshape, sk):
+    """The 3xTF32 backward (csrc/flash_bwd_tf32_sm90.cu) through
+    ``flash_bwd``, over head-major views of (B, S, H, D) memory: dq, dk, dv
+    against the plain version of what the kernels compute from
+    ``prepare``'s inputs, one launch of each kernel, the same bits from a
+    second call (no atomics)."""
+    b, h, sq, d = qshape
+    q, k, v = _bshd_f32(hopper, qshape, sk, 720)
+    do = torch.from_numpy(_rand(725, b, sq, h, d)).to(hopper).transpose(1, 2)
+    scale = d ** -0.5
+    o, lse = tflash.flash_attention_ref(q, k, v, scale)
+    _kernels.reset_launch_counts()
+    grads = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"flash_bwd_dq_tf32": 1, "flash_bwd_dkv_tf32": 1}
+    refs = tbwd.flash_bwd_prepared_ref(*tbwd.prepare(q, k, o, do, lse, scale)
+                                       [:2], v, do,
+                                       *tbwd.prepare_vectors(o, do, lse),
+                                       scale)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all() and _tf32_close(g, r), name
+    again = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+# Against an fp64 backward on far-negative inputs, the 3xTF32 backward's
+# error may be at most this multiple of the fp32 plain backward's: each of
+# the two chained products (the logits, then the gradient) keeps 2^-21 of
+# |a|·|b| where an fp32 product keeps 2^-24 (8x each), and those inputs'
+# logits reach |s| ~ 200 (log2 units), so the rounding of s itself sets the
+# error of p (the test prints each ratio; PERF.md §6 records them).
+TF32_FAR_NEGATIVE_FP64_FACTOR = 32.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("all_rows", [False, True])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_flash_bwd_tf32_far_negative_lse_on_card(hopper, d, all_rows):
+    """``test_flash_bwd_kernels_far_negative_lse_on_card`` and
+    ``test_flash_bwd_far_negative_all_rows_against_fp64_on_card`` on the
+    fp32 route: six q rows (or every row) whose every logit is far below 0
+    (lse2 near -185); a zero-filled key past Sk = 300 would give
+    p = exp2(-lse2) = inf in those rows, so only the dq kernel's mask of
+    the last key tile keeps dq finite.  Held against the fp64 gradient,
+    within ``TF32_FAR_NEGATIVE_FP64_FACTOR`` of the fp32 plain backward's
+    error on the same inputs."""
+    rows = [0, 37, 64, 101, 150, 199]
+    scale = d ** -0.5
+    u = _rand(98, d)
+    u /= np.linalg.norm(u)
+    b = 20.0
+    if all_rows:
+        q = _rand(103, 1, 2, 200, d, scale=0.1) - 150.0 / (b * scale) * u
+    else:
+        q = _rand(99, 1, 2, 200, d)
+        q[:, :, rows] = _rand(103, 1, 2, len(rows), d, scale=0.1) \
+            - 150.0 / (b * scale) * u
+    k = _rand(100, 1, 2, 300, d) + b * u
+    q, k, v, do = (torch.from_numpy(a).to(hopper)
+                   for a in (q, k, _rand(101, 1, 2, 300, d),
+                             _rand(102, 1, 2, 200, d)))
+    o, lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert lse[..., rows].max().item() * tbwd.LOG2E < -128
+    _kernels.reset_launch_counts()
+    grads = tbwd.flash_bwd(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dq_tf32"] == 1
+    plain = tbwd.flash_bwd_ref(q, k, v, o, do, lse, scale)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    p64 = torch.softmax(scale * q64 @ k64.transpose(-1, -2), dim=-1)
+    dp64 = do64 @ v64.transpose(-1, -2)
+    delta64 = (do64 * (p64 @ v64)).sum(-1, keepdim=True)
+    ds64 = p64 * (dp64 - delta64)
+    exact = (scale * ds64 @ k64, scale * ds64.transpose(-1, -2) @ q64,
+             p64.transpose(-1, -2) @ do64)
+    for name, g, r, x in zip(("dq", "dk", "dv"), grads, plain, exact):
+        assert torch.isfinite(g).all(), name
+        err = (g.double() - x).abs().max().item()
+        plain_err = (r.double() - x).abs().max().item()
+        print(f"d={d} all_rows={all_rows} {name}: 3xTF32 err {err:.3e}, "
+              f"fp32 plain err {plain_err:.3e} (ratio "
+              f"{err / plain_err:.2f})")
+        assert err <= TF32_FAR_NEGATIVE_FP64_FACTOR * plain_err, name
+
+
+@pytest.mark.gpu
+def test_flash_bwd_tf32_refuses_what_it_does_not_take_on_card(hopper):
+    """The 3xTF32 backward's wrapper refuses bf16, head dims that are no
+    multiple of 8 and head dims above 160, and its C entry a dq whose
+    strides are odd, with no launch counted; ``flash_bwd`` sends fp32 at
+    those head dims to the CUDA-core kernels."""
+    from sdbc_tpu_torch.ops import flash_bwd_tf32 as tbt
+
+    names = ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32")
+    before = {n: _kernels.launches[n] for n in names}
+    vec = torch.zeros(1, 2, 256, device=hopper)
+    for dt, d in ((torch.bfloat16, 40), (torch.float32, 44),
+                  (torch.float32, 168)):
+        q = torch.zeros(1, 2, 256, d, device=hopper, dtype=dt)
+        with pytest.raises(ValueError, match="flash_bwd_tf32"):
+            tbt.bwd(q, q, q, q, vec, vec, 1.0)
+    q = torch.zeros(1, 2, 256, 40, device=hopper)
+    dq = torch.empty(1, 2, 256, 41, device=hopper)[..., :40]
+    scratch = torch.empty(tbt.scratch_floats(1, 2, 256, 256, 40),
+                          device=hopper)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq_tf32"):
+        _kernels.flash_bwd_dq_tf32(q, q, q, q, vec, vec, dq, scratch, 1.0,
+                                   1.0)
+    assert {n: _kernels.launches[n] for n in names} == before
+    for d in (44, 168):
+        q = torch.zeros(1, 2, 64, d, device=hopper)
+        _kernels.reset_launch_counts()
+        tbwd.flash_bwd(q, q, q, q, q, torch.zeros(1, 2, 64, device=hopper),
+                       1.0)
+        assert _kernels.launches["flash_bwd_simt_dq"] == 1
+        assert _kernels.launches["flash_bwd_dq_tf32"] == 0
 
 
 @pytest.mark.gpu
@@ -1237,9 +1364,8 @@ def test_fp32_sampling_on_card_matches_cpu(hopper):
 @pytest.mark.gpu
 def test_fp32_train_step_on_card_matches_cpu(hopper):
     """One tiny fp32 optimizer step (8-bit AdamW) on the card against the
-    CPU's from the same masters and draws: the flash attention forward on
-    the 3xTF32 kernel, the backward on its CUDA-core kernels, the
-    optimizer its one launch."""
+    CPU's from the same masters and draws: the flash attention forward and
+    backward on the 3xTF32 kernels, the optimizer its one launch."""
     import copy
 
     from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
@@ -1276,8 +1402,8 @@ def test_fp32_train_step_on_card_matches_cpu(hopper):
     (mc, pc, _), (mg, pg, counts) = runs["cpu"], runs["cuda"]
     launched = {k: v for k, v in counts.items() if v}
     assert launched.pop("adam8") == 1
-    assert set(launched) == {"flash_fwd_tf32", "flash_bwd_simt_dq",
-                             "flash_bwd_simt_dkv"}, counts
+    assert set(launched) == {"flash_fwd_tf32", "flash_bwd_dq_tf32",
+                             "flash_bwd_dkv_tf32"}, counts
     assert mg["finite"] and abs(mg["loss"] - mc["loss"]) <= 2e-2 * abs(
         mc["loss"])  # chip_smoke.TRAIN_LOSS_RTOL
     # Adam's first steps: within twice the step bound (chip_smoke's

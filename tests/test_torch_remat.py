@@ -214,10 +214,10 @@ def test_chip_smoke_gn_sites_match_sd15():
 
 def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
     """In fp32 each bf16 tensor-core kernel's count of a run goes to its
-    fp32 counterpart: the forwards to the 3xTF32 kernel
-    (csrc/flash_fwd_tf32_sm90.cu), the FF and the backward to the CUDA-core
-    kernels (csrc/geglu_ff_simt.cu, csrc/flash_simt.cu); the other kernels
-    keep theirs."""
+    fp32 counterpart: the forwards and the backward to the 3xTF32 kernels
+    (csrc/flash_fwd_tf32_sm90.cu, csrc/flash_bwd_tf32_sm90.cu), the FF to
+    the CUDA-core kernel (csrc/geglu_ff_simt.cu); the other kernels keep
+    theirs."""
     from sdbc_tpu_torch.ops import _kernels
 
     cs = _chip_smoke()
@@ -228,7 +228,7 @@ def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
     assert set(got) == set(_kernels.launches)
     assert {k: v for k, v in got.items() if v} == {
         "flash_fixed_tf32": 12, "geglu_ff_simt": 6, "flash_fwd_tf32": 3,
-        "flash_bwd_simt_dq": 2, "flash_bwd_simt_dkv": 2, "adam8": 1}
+        "flash_bwd_dq_tf32": 2, "flash_bwd_dkv_tf32": 2, "adam8": 1}
     assert set(cs.FP32_OF.values()) <= set(_kernels.launches)
     assert set(cs.MAIN_PATH) == set(_kernels.launches)
 
@@ -262,3 +262,25 @@ def test_chip_smoke_fp32_forwards_all_take_the_tf32_kernel(config):
             PipelineConfig.sd15("ddim"), 4, 10, 512, "ddim"))
         assert {k: v for k, v in want.items() if v} == {
             "flash_fixed_tf32": 150, "geglu_ff_simt": 100}
+
+
+def test_chip_smoke_fp32_train_step_takes_the_tf32_backward():
+    """The train-fp32 phase's counts: every attention head dim of SD-1.5's
+    UNet routes its fp32 backward to the 3xTF32 kernels (``FP32_OF``), so
+    the mode-C step (micro-batch 2, 4 micro-batches) makes 60 forward, 60
+    dq and 60 dk/dv launches on them and one 8-bit AdamW launch, none on
+    the CUDA-core backward."""
+    from sdbc_tpu_torch.ops import flash_attention as tflash
+
+    cs = _chip_smoke()
+    sd = PipelineConfig.sd15()
+    u = sd.unet
+    for d in {c // u.attention_heads for c in u.block_out_channels}:
+        assert tflash.route_bwd(torch.float32, d) == (
+            cs.FP32_OF["flash_bwd_dq"], cs.FP32_OF["flash_bwd_dkv"])
+    tcfg = cs._train_cfg(grad_accum=4, micro_batch=2, num_examples=1000)
+    want = cs.fp32_launches(cs.expected_train_launches(sd, tcfg, 512, 289))
+    assert {k: v for k, v in want.items() if v} == {
+        "flash_fwd_tf32": 60, "flash_bwd_dq_tf32": 60,
+        "flash_bwd_dkv_tf32": 60, "adam8": 1}
+    assert cs.MAIN_PATH["flash_bwd_dq_tf32"] == "train fp32"
