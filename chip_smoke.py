@@ -57,13 +57,13 @@ Phases, in order; each prints one or more lines, and any failure raises
    simt-kernels — the CUDA-core kernels, for what the tensor-core ones do
                   not take, in fp32 at SD-1.5's 64² level: the fixed cap at
                   sampling batch 8 and the training forward (both through
-                  ``flash_simt``'s wrappers, and both at their path's shape,
-                  the VAE's 512-wide head), dq and dk/dv at the mode-C
-                  step's micro-batch 2, the fused FF at the sampling rows;
+                  ``flash_simt``'s wrappers, and both at the VAE's 512-wide
+                  head), dq and dk/dv at the mode-C step's micro-batch 2,
+                  the fused FF at the sampling rows (through its launcher);
                   each against its plain version and timed against SDPA
                   (forward, backward) in alternating rounds;
    tf32-kernels — the fp32 forward on 3xTF32 wgmma (every fp32 call with a
-                  head dim that is a multiple of 8 up to 256): the fixed
+                  head dim that is a multiple of 8 up to 512): the fixed
                   cap at sampling batch 8 and the training forward at
                   micro-batch 2 at the 64², 32² and 16² levels and a ragged
                   pair, each against its plain version (the LSE within
@@ -71,7 +71,13 @@ Phases, in order; each prints one or more lines, and any failure raises
                   alternating rounds, with its share of the 3xTF32 and the
                   FFMA bound and SDPA's own error; the fp32 backward on its
                   LSE; the fp32 transposed-layout forward on the same
-                  kernel; then the fp32 backward on 3xTF32 wgmma (dq with
+                  kernel; the wide forward (head dims 264-512) the same way
+                  at the VAE's head and a ragged pair at 264 (the
+                  transposed layout at 512 too); the 3xTF32 fused FF at the
+                  64² and 32² sampling rows against its plain version,
+                  timed against the CUDA-core FF and the unfused fp32 FF in
+                  alternating rounds with both bound shares; then the fp32
+                  backward on 3xTF32 wgmma (dq with
                   its split pre-pass, dk/dv) at the same levels and the
                   ragged pair, each against the plain version of what it
                   computes, the same bits twice, timed against its 3xTF32
@@ -84,7 +90,7 @@ Phases, in order; each prints one or more lines, and any failure raises
                   on the CPU, with both sampling kernels launched; then the
                   same under SDBC_GN_FUSED=1, with exact fused GroupNorm
                   launches; then fp32 on the card, every attention call on
-                  the 3xTF32 kernel and every FF call on the CUDA-core one,
+                  the 3xTF32 kernel and every FF call on the 3xTF32 one,
                   with exact launches;
    sampler-parity — every scheduler variant of ``sample`` (the ten
                   schedulers and the Karras grid of the five σ-space ones)
@@ -156,11 +162,12 @@ Phases, in order; each prints one or more lines, and any failure raises
                   arguments with --no-bf16 (random SD-1.5, fp32), then
                   ``generate`` with DDIM-10, CFG 7.5, 512² on 4 prompts,
                   warmed up and timed (s/call, peak memory) with exact
-                  launches (15 3xTF32 fixed-cap launches an evaluation, no
-                  CUDA-core one); then one fp32 VAE decode under
-                  SDBC_ATTN_IMPL=inference and =flash (the 512-wide head on
-                  the CUDA-core fixed cap and forward, one launch each)
-                  against the default fp32 decode;
+                  launches (15 3xTF32 fixed-cap and 10 3xTF32 FF launches
+                  an evaluation, no CUDA-core one); then one fp32 VAE
+                  decode under SDBC_ATTN_IMPL=inference and =flash (the
+                  512-wide head on the wide 3xTF32 fixed cap and forward,
+                  one launch each, with the decode's wall ms) against the
+                  default fp32 decode;
 9. train-parity — one optimizer step of the tiny config (grad_accum 2,
                   micro 2, 8-bit AdamW) bf16 on the card against fp32 on the
                   CPU with the same injected draws, all four training
@@ -400,18 +407,22 @@ def host_us(fn, reps: int = 100) -> float:
     return secs / reps * 1e6
 
 
-def cuda_trace(fn, calls: int, tries: int = 3):
+def cuda_trace(fn, calls: int, tries: int = 3, whole=None):
     """The CUDA kernel records, by start, of a ``torch.profiler`` trace
     (CUPTI's) of ``calls`` calls of ``fn`` after one warm call.  CUPTI can
     hand back a trace with no device record at all (seen once in a
-    one-call trace on an H100): such a trace says nothing of what ran, so
-    it is taken again, up to ``tries`` traces in all."""
+    one-call trace on an H100), or one that lost some of a kernel's
+    records (4 of 22 once): such a trace says nothing of what ran, so it is
+    taken again, up to ``tries`` traces in all.  ``whole(events)`` says
+    whether a trace holds every record the caller expects; the last trace
+    is returned either way, so the caller's own check decides."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    events = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -420,9 +431,9 @@ def cuda_trace(fn, calls: int, tries: int = 3):
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        if events:
+        if events and (whole is None or whole(events)):
             return events
-    return []
+    return events
 
 
 def device_ms(fn, kernel, n: int = 20, warm: int = 2):
@@ -430,12 +441,16 @@ def device_ms(fn, kernel, n: int = 20, warm: int = 2):
     ``kernel``: their device time over the last ``n`` of ``warm + n`` calls
     in a ``torch.profiler`` trace (CUPTI's kernel records), over ``n``.  The
     ``warm`` calls inside the trace absorb the tracer's start, which can
-    lose a record (one of 20 once); fails unless the trace has between
-    ``n`` and ``warm + n`` such kernels (so not two a call).  Given a tuple
-    of names, a tuple of times from one trace."""
-    events = cuda_trace(fn, warm + n)
+    lose a record (one of 20 once); a trace with fewer than ``n`` such
+    kernels lost records and is taken again (``cuda_trace``); fails unless
+    the trace has between ``n`` and ``warm + n`` such kernels (so not two
+    a call).  Given a tuple of names, a tuple of times from one trace."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    count = lambda events, name: sum(name in e.name for e in events)
+    events = cuda_trace(fn, warm + n, whole=lambda events: all(
+        n <= count(events, name) <= warm + n for name in names))
     out = []
-    for name in (kernel,) if isinstance(kernel, str) else kernel:
+    for name in names:
         us = [e.time_range.elapsed_us() for e in events if name in e.name]
         if not n <= len(us) <= warm + n:
             fail(f"device_ms: {len(us)} {name} kernels in the trace of "
@@ -728,9 +743,11 @@ SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
 # this slice's gradient-checkpointed step for the int8-QK attention, which
 # no path of either package dispatches, the CLI's --no-bf16 sampling call
 # for the fp32 fixed cap and FF, the full-width fp32 train step for the
-# fp32 training forward and backward (the CUDA-core backward launches 0
-# there), and the fp32 VAE decodes under SDBC_ATTN_IMPL for the CUDA-core
-# forwards (the 512-wide head) (each row also lists every path)
+# fp32 training forward and backward, and the fp32 VAE decodes under
+# SDBC_ATTN_IMPL for the CUDA-core forwards (the CUDA-core kernels launch
+# 0 on their paths: every fp32 call of SD-1.5 takes a 3xTF32 kernel; a row
+# of the wide 3xTF32 forward names its decode path itself) (each row also
+# lists every path)
 MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_fwd": "train", "flash_bwd_dq": "train",
              "flash_bwd_dkv": "train", "adam8": "train",
@@ -744,13 +761,14 @@ MAIN_PATH = {"flash_fixed": "sampling", "geglu_ff": "sampling",
              "flash_bwd_simt_dq": "train fp32",
              "flash_bwd_simt_dkv": "train fp32",
              "flash_bwd_dq_tf32": "train fp32",
-             "flash_bwd_dkv_tf32": "train fp32"}
+             "flash_bwd_dkv_tf32": "train fp32",
+             "geglu_ff_tf32": "sampling fp32"}
 # in fp32 every attention and FF call the bf16 tensor-core kernels would
-# take goes to the fp32 kernel of the same function: the forwards (every
-# head dim of the tiny and SD-1.5 configs a multiple of 8 up to 256) and
-# the backward (up to 160) to the 3xTF32 kernels, the FF to the CUDA-core
-# kernel
-FP32_OF = {"flash_fixed": "flash_fixed_tf32", "geglu_ff": "geglu_ff_simt",
+# take goes to the 3xTF32 kernel of the same function: the forwards (every
+# head dim of the tiny and SD-1.5 configs a multiple of 8 up to 512), the
+# backward (up to 160) and the FF (every width of both configs a multiple
+# of 32)
+FP32_OF = {"flash_fixed": "flash_fixed_tf32", "geglu_ff": "geglu_ff_tf32",
            "flash_fwd": "flash_fwd_tf32", "flash_bwd_dq": "flash_bwd_dq_tf32",
            "flash_bwd_dkv": "flash_bwd_dkv_tf32"}
 
@@ -1023,67 +1041,73 @@ def int8_build(lines, sass):
     return {"ptxas": ptxas, "sass": counts, "per_score": per_score}
 
 
-# the 3xTF32 forward's instantiations flash_tf32_sm90_kernel<NV, FIXED>:
-# NV output columns (40, 64, 80, 128, 160, 192, 256), both variants
-TF32_KERNEL = r"flash_tf32_sm90_kernelILi(\d+)ELb([01])E"
-TF32_INSTANTIATIONS = 14
-# the 3xTF32 backward's: flash_bwd_{dq,dkv}_tf32_sm90_kernel<NV>, NV 40, 80
-# and 160
-TF32_BWD_KERNEL = r"flash_bwd_(dq|dkv)_tf32_sm90_kernelILi(\d+)E"
-TF32_BWD_INSTANTIATIONS = 6
+# the 3xTF32 kernels' instantiations, by family: (mangled-name pattern,
+# template arguments → readable name, count).  The forward
+# flash_tf32_sm90_kernel<NV, FIXED>: NV output columns (40, 64, 80, 128,
+# 160, 192, 256), both variants; the wide forward
+# flash_tf32_wide_sm90_kernel<FIXED> (head dims 264-512); the backward
+# flash_bwd_{dq,dkv}_tf32_sm90_kernel<NV>, NV 40, 80 and 160; the fused FF
+# geglu_ff_tf32_sm90_kernel<CL>, clusters of one and two CTAs
+TF32_FAMILIES = {
+    "forward": (r"flash_tf32_sm90_kernelILi(\d+)ELb([01])E",
+                lambda m: f"flash_tf32_sm90_kernel<{m.group(1)}, "
+                          f"{'true' if m.group(2) == '1' else 'false'}>", 14),
+    "wide forward": (r"flash_tf32_wide_sm90_kernelILb([01])E",
+                     lambda m: f"flash_tf32_wide_sm90_kernel<"
+                               f"{'true' if m.group(1) == '1' else 'false'}>",
+                     2),
+    "backward": (r"flash_bwd_(dq|dkv)_tf32_sm90_kernelILi(\d+)E",
+                 lambda m: f"flash_bwd_{m.group(1)}_tf32_sm90_kernel<"
+                           f"{m.group(2)}>", 6),
+    "FF": (r"geglu_ff_tf32_sm90_kernelILi(\d+)E",
+           lambda m: f"geglu_ff_tf32_sm90_kernel<{m.group(1)}>", 2),
+}
+TF32_PREPASSES = ("split_kv_kernel", "split_bwd_kernel", "split_ff_kernel")
 
 
 def tf32_build(lines, sass):
     """The 3xTF32 kernels' build report: ptxas's registers and spills of
-    each ``flash_tf32_sm90_kernel`` (forward) and
-    ``flash_bwd_{dq,dkv}_tf32_sm90_kernel`` (backward) instantiation and
-    of their pre-passes ``split_kv_kernel`` and ``split_bwd_kernel``; in
-    each instantiation's SASS the tf32 wgmma products (HGMMA), TMA loads
-    and any mma.sync (HMMA), failing unless all 14 forward and 6 backward
-    instantiations have HGMMA and UTMALDG and none HMMA."""
+    each instantiation of ``TF32_FAMILIES`` (the forward, the wide forward,
+    the backward, the fused FF) and of their pre-passes
+    (``TF32_PREPASSES``); in each instantiation's SASS the tf32 wgmma
+    products (HGMMA), TMA loads and any mma.sync (HMMA), failing unless
+    every family has all its instantiations, each with HGMMA and UTMALDG
+    and no HMMA."""
     import re
 
-    def name(m):
-        if "flash_bwd_" not in m.group(0):
-            return (f"flash_tf32_sm90_kernel<{m.group(1)}, "
-                    f"{'true' if m.group(2) == '1' else 'false'}>")
-        return f"flash_bwd_{m.group(1)}_tf32_sm90_kernel<{m.group(2)}>"
-
     def match(text, at_start=False):
-        for pat in (TF32_KERNEL, TF32_BWD_KERNEL):
+        for family, (pat, name, _) in TF32_FAMILIES.items():
             m = (re.match(r"\S*?" + pat, text) if at_start
                  else re.search(pat, text))
             if m:
-                return m
+                return family, name(m)
         return None
 
     ptxas, cur = {}, None
     for ln in lines:
         if "Compiling entry function" in ln or "Function properties for" in ln:
             m = match(ln)
-            cur = name(m) if m else next(
-                (k for k in ("split_kv_kernel", "split_bwd_kernel")
-                 if k in ln), None)
+            cur = m[1] if m else next(
+                (k for k in TF32_PREPASSES if k in ln), None)
         elif cur and ("registers" in ln or "spill" in ln):
             ptxas.setdefault(cur, []).append(ln.split(":", 1)[-1].strip())
     ptxas = {k: "; ".join(v) for k, v in ptxas.items()}
-    counts = {}
+    counts, families = {}, {}
     for part in (sass or "").split("Function : ")[1:]:
         m = match(part, at_start=True)
         if m:
-            counts[name(m)] = {op: len(re.findall(rf"\b{op}\b", part))
-                               for op in ("HGMMA", "UTMALDG", "HMMA")}
+            families[m[1]] = m[0]
+            counts[m[1]] = {op: len(re.findall(rf"\b{op}\b", part))
+                            for op in ("HGMMA", "UTMALDG", "HMMA")}
     print(f"[build] 3xTF32 kernels ptxas: {ptxas}", flush=True)
     print(f"[build] 3xTF32 kernels SASS (HGMMA, UTMALDG, HMMA): "
           f"{counts or 'not checked'}", flush=True)
     if sass is not None:
-        n_bwd = sum(k.startswith("flash_bwd_") for k in counts)
-        if (len(counts) - n_bwd, n_bwd) != (TF32_INSTANTIATIONS,
-                                            TF32_BWD_INSTANTIATIONS):
-            fail(f"3xTF32 kernels: {len(counts) - n_bwd} of "
-                 f"{TF32_INSTANTIATIONS} forward and {n_bwd} of "
-                 f"{TF32_BWD_INSTANTIATIONS} backward instantiations in the "
-                 f"built SASS")
+        for family, (_, _, want) in TF32_FAMILIES.items():
+            n = sum(f == family for f in families.values())
+            if n != want:
+                fail(f"3xTF32 kernels: {n} of {want} {family} "
+                     f"instantiations in the built SASS")
         for kname, n in counts.items():
             if not (n["HGMMA"] and n["UTMALDG"]) or n["HMMA"]:
                 fail(f"{kname}: SASS counts {n}")
@@ -1475,7 +1499,11 @@ def kernels_per_call(fn, n: int = 5, warm: int = 2):
     every kernel of the trace ran between ``n`` and ``warm + n`` times (the
     ``warm`` calls absorb a record lost at the tracer's start); otherwise
     every name of the trace, so that the caller's check shows them."""
-    names = [e.name for e in cuda_trace(fn, warm + n)]
+    def whole(events):
+        names = [e.name for e in events]
+        return all(n <= names.count(k) <= warm + n for k in set(names))
+
+    names = [e.name for e in cuda_trace(fn, warm + n, whole=whole)]
     kinds = set(names)
     if all(n <= names.count(k) <= warm + n for k in kinds):
         return names[len(names) - len(kinds):]
@@ -2209,8 +2237,9 @@ def _tokenizer(cfg):
 SIMT_FIXED = (8, 8, 4096, 40)
 SIMT_TRAIN = (2, 8, 4096, 40)
 SIMT_GEGLU = (32768, 320)
-# the CUDA-core forwards' main path: the fp32 VAE decode's mid-block head
-# (one 64² latent, 512 wide) under SDBC_ATTN_IMPL=inference / flash
+# the fp32 VAE decode's mid-block head (one 64² latent, 512 wide) under
+# SDBC_ATTN_IMPL=inference / flash, the CUDA-core forwards' path before the
+# wide 3xTF32 forward took it
 SIMT_VAE = (1, 1, 4096, 512)
 
 
@@ -2390,7 +2419,12 @@ def phase_simt_kernels():
     args = [randn(rows_n, c), 1.0 + randn(c, scale=0.2), randn(c, scale=0.1),
             randn(c, 8 * c, scale=c ** -0.5), randn(8 * c, scale=0.05),
             randn(4 * c, c, scale=(4 * c) ** -0.5), randn(c, scale=0.05)]
-    kern = lambda: gf.geglu_ff_rows(*args)
+    out = torch.empty_like(args[0])
+    gf._check_cuda_inputs(*args, kernel="geglu_ff_simt")
+
+    def kern():
+        _kernels.geglu_ff_simt(*args, out, 1e-5)
+        return out
     _kernels.reset_launch_counts()
     err = check("geglu_ff_simt", kern(), gf.geglu_ff_ref(*args))
     pms = median_ms(lambda: gf.geglu_ff_ref(*args), 5)
@@ -2410,6 +2444,13 @@ def phase_simt_kernels():
 TF32_FIXED = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
 TF32_TRAIN = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160)]
 TF32_RAGGED = (2, 8, 200, 300, 40)
+# the wide 3xTF32 forward (csrc/flash_fwd_tf32_wide_sm90.cu): the fp32 VAE
+# decode's 512-wide mid-block head (b, h, sq, sk, d), head-major, and a
+# ragged pair at the narrowest head it takes
+TF32_WIDE = [(1, 1, 4096, 4096, 512), (1, 2, 200, 300, 264)]
+# the 3xTF32 FF (csrc/geglu_ff_tf32_sm90.cu): the sampling rows at SD-1.5's
+# 64² and 32² levels, batch 8 (rows, c)
+TF32_GEGLU = [(32768, 320), (8192, 640)]
 
 
 def tf32_bounds(b, h, sq, sk, d, extra_bytes=0.0):
@@ -2553,8 +2594,8 @@ def phase_tf32_kernels(smi: str):
     from sdbc_tpu_torch.ops import _kernels, flash_simt
     from sdbc_tpu_torch.ops import flash_attention as fa
     from sdbc_tpu_torch.ops import flash_attention_bwd as fb
-
     from sdbc_tpu_torch.ops import flash_attention_tt as ttt
+    from sdbc_tpu_torch.ops import geglu_ff as gf
 
     g = torch.Generator(device="cuda").manual_seed(4321)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
@@ -2571,7 +2612,7 @@ def phase_tf32_kernels(smi: str):
         return err
 
     def measure(name, label, dims, q, k, v, call, err, ref_fn, sdpa_fn,
-                simt_fn, extra_bytes=0.0, **extra):
+                simt_fn, extra_bytes=0.0, into=None, **extra):
         b, h, sq, sk, d = dims
         sdpa_err = (sdpa_fn().float() - ref_fn()[0]).abs().max().item()
         pms = median_ms(ref_fn, 3)
@@ -2585,11 +2626,10 @@ def phase_tf32_kernels(smi: str):
               f"bound {tb:.4f} ms ({tby}), {100 * tb / ms:.1f}% of it; FFMA "
               f"bound {fbms:.4f} ms ({fby}), {100 * fbms / ms:.1f}% | {smi}",
               flush=True)
-        cases[name].append(dict(shape=label, max_abs_err=err, ms=ms,
-                                plain_ms=pms, library_ms=lms,
-                                simt_ms=sms, sdpa_max_abs_err=sdpa_err,
-                                bound_ms=tb, bound_by=tby,
-                                ffma_bound_ms=fbms, **extra))
+        (cases if into is None else into)[name].append(dict(
+            shape=label, max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+            simt_ms=sms, sdpa_max_abs_err=sdpa_err, bound_ms=tb, bound_by=tby,
+            ffma_bound_ms=fbms, **extra))
 
     # the fixed cap
     for dims in [(b, h, s, s, d) for b, s, h, d in TF32_FIXED] + [
@@ -2678,6 +2718,97 @@ def phase_tf32_kernels(smi: str):
                 extra_bytes=4.0 * b * h * sq, **extra)
         del q, k, v, out, lse, ref, ref_lse
 
+    # the wide forward (head dims 264-512): the fixed cap and the training
+    # forward, head-major, each call held and timed as above; at the VAE's
+    # head also the fp32 transposed-layout forward, which takes it
+    wide = {"flash_fixed_tf32": [], "flash_fwd_tf32": []}
+    for dims in TF32_WIDE:
+        b, h, sq, sk, d = dims
+        scale = d ** -0.5
+        q, k, v = randn(b, h, sq, d), randn(b, h, sk, d), randn(b, h, sk, d)
+        label = (f"({b},{h},{sq},{d})" if sq == sk
+                 else f"Sq {sq} Sk {sk} ({b},{h},·,{d})")
+        o = torch.empty(q.shape, device="cuda")
+        ref_fn = lambda: (fa.fixed_cap_attention_ref(q, k, v),)
+        _kernels.reset_launch_counts()
+        out = fa.flash_attention_fixed(q, k, v)
+        counts = {n: c for n, c in _kernels.launches.items() if c}
+        err = held(f"flash_fixed_tf32 wide {label}", out, ref_fn()[0],
+                   counts, {"flash_fixed_tf32": 1})
+        measure("flash_fixed_tf32", label, dims, q, k, v,
+                lambda: fa.flash_attention_fixed(q, k, v), err, ref_fn,
+                lambda: sdpa(q, k, v),
+                lambda: flash_simt.fixed_cap(q, k, v, o, scale),
+                into=wide)
+        ref_fn = lambda: fa.flash_attention_ref(q, k, v, scale)
+        _kernels.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, k, v, scale)
+        counts = {n: c for n, c in _kernels.launches.items() if c}
+        ref, ref_lse = ref_fn()
+        err = held(f"flash_fwd_tf32 wide {label}", out, ref, counts,
+                   {"flash_fwd_tf32": 1})
+        lerr = (lse - ref_lse).abs().max().item()
+        if not lerr <= TF32_LSE_TOL:
+            fail(f"flash_fwd_tf32 wide {label}: lse err {lerr} (tol "
+                 f"{TF32_LSE_TOL})")
+        extra = dict(lse_max_abs_err=lerr)
+        if sq == 4096:
+            _kernels.reset_launch_counts()
+            tout, tlse = ttt.flash_fwd_tt(q, k, v, scale)
+            counts = {n: c for n, c in _kernels.launches.items() if c}
+            terr = held(f"flash_tt fp32 {label}", tout, ref, counts,
+                        {"flash_fwd_tf32": 1})
+            terr = max(terr, (tlse - ref_lse).abs().max().item())
+            tt_ms, fwd_ms = paired_ms([lambda: ttt.flash_fwd_tt(q, k, v,
+                                                                scale),
+                                       lambda: fa.flash_fwd(q, k, v, scale)])
+            print(f"[tf32-kernels] flash_tt fp32 {label}: one launch of "
+                  f"flash_fwd_tf32 (the wide kernel), max_abs_err "
+                  f"{terr:.3e} (LSE included); {tt_ms:.4f} ms a call, the "
+                  f"natural-layout forward {fwd_ms:.4f} ms in alternating "
+                  f"rounds | {smi}", flush=True)
+            extra["flash_tt"] = dict(ms=tt_ms, fwd_ms=fwd_ms,
+                                     max_abs_err=terr)
+            del tout, tlse
+        measure("flash_fwd_tf32", label, dims, q, k, v,
+                lambda: fa.flash_fwd(q, k, v, scale), max(err, lerr), ref_fn,
+                lambda: sdpa(q, k, v, scale=scale),
+                lambda: flash_simt.fwd(q, k, v, scale),
+                extra_bytes=4.0 * b * h * sq, into=wide, **extra)
+        del q, k, v, o, out, lse, ref, ref_lse
+
+    # the fused FF (csrc/geglu_ff_tf32_sm90.cu) against its plain version,
+    # timed against the CUDA-core kernel and the unfused fp32 FF
+    ff_cases = []
+    for rows_n, c in TF32_GEGLU:
+        args = [randn(rows_n, c), 1.0 + 0.2 * randn(c), 0.1 * randn(c),
+                randn(c, 8 * c) * c ** -0.5, 0.05 * randn(8 * c),
+                randn(4 * c, c) * (4 * c) ** -0.5, 0.05 * randn(c)]
+        label = f"({rows_n},{c})"
+        _kernels.reset_launch_counts()
+        out = gf.geglu_ff_rows(*args)
+        counts = {n: c_ for n, c_ in _kernels.launches.items() if c_}
+        err = held(f"geglu_ff_tf32 {label}", out, gf.geglu_ff_ref(*args),
+                   counts, {"geglu_ff_tf32": 1})
+        o2 = torch.empty_like(args[0])
+        pms = median_ms(lambda: gf.geglu_ff_ref(*args), 3)
+        ms, ums, sms = paired_ms(
+            [lambda: gf.geglu_ff_rows(*args), lambda: unfused_ff(*args),
+             lambda: _kernels.geglu_ff_simt(*args, o2, 1e-5)])
+        (tb, tby), (fbms, fby) = geglu_tf32_bounds(rows_n, c)
+        print(f"[tf32-kernels] geglu_ff_tf32 fp32 {label}: max_abs_err "
+              f"{err:.3e}; kernel {ms:.4f} ms (the split pre-pass in), the "
+              f"unfused fp32 FF {ums:.4f} ms (kernel/unfused {ms / ums:.3f}),"
+              f" CUDA-core kernel {sms:.4f} ms ({sms / ms:.2f}x slower) in "
+              f"alternating rounds, plain {pms:.4f} ms; 3xTF32 bound "
+              f"{tb:.4f} ms ({tby}), {100 * tb / ms:.1f}% of it; FFMA bound "
+              f"{fbms:.4f} ms ({fby}), {100 * fbms / ms:.1f}% | {smi}",
+              flush=True)
+        ff_cases.append(dict(shape=label, max_abs_err=err, ms=ms,
+                             plain_ms=pms, unfused_ms=ums, simt_ms=sms,
+                             bound_ms=tb, bound_by=tby, ffma_bound_ms=fbms))
+        del args, out, o2
+
     # the fp32 backward on 3xTF32 (csrc/flash_bwd_tf32_sm90.cu)
     for dims in [(b, h, s, s, d) for b, h, s, d in TF32_TRAIN] + [
             TF32_RAGGED]:
@@ -2704,15 +2835,52 @@ def phase_tf32_kernels(smi: str):
             library=("sdpa backward (EFFICIENT_ATTENTION)"
                      if "_bwd_" in name else "sdpa"),
             shape=f"fp32 {main['shape']}", cases=cases[name]))
+    # the wide forward's rows: its launches from the fp32 VAE decodes
+    for name, impl in (("flash_fixed_tf32", "inference"),
+                       ("flash_fwd_tf32", "flash")):
+        main = wide[name][0]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="sdbc_tpu_torch/csrc/flash_fwd_tf32_wide_sm90.cu",
+            replaces=("sdbc_tpu/ops/flash_attention.py:348" if "fixed" in name
+                      else "sdbc_tpu/ops/flash_attention.py:81"),
+            max_abs_err=max(c["max_abs_err"] for c in wide[name]),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], library="sdpa",
+            shape=f"fp32 {main['shape']}", cases=wide[name],
+            path=f"decode fp32 SDBC_ATTN_IMPL={impl}"))
+    main = ff_cases[0]
+    rows.append(dict(
+        name="geglu_ff_tf32", route="cuda",
+        source="sdbc_tpu_torch/csrc/geglu_ff_tf32_sm90.cu",
+        replaces="sdbc_tpu/ops/geglu_ff.py:98",
+        max_abs_err=max(c["max_abs_err"] for c in ff_cases), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        shape=f"fp32 {main['shape']}", cases=ff_cases))
     return rows
+
+
+def geglu_tf32_bounds(rows, c):
+    """((ms, by) of the 3xTF32 bound, (ms, by) of the FFMA bound) of one
+    fp32 fused FF over (rows, c): y read and the output written once with
+    the weights, biases and LayerNorm parameters (fp32); three tf32
+    products of 24·rows·c² FLOPs at 495 TFLOP/s, or 24·rows·c² fp32 FLOPs
+    at 67 TFLOP/s (``bound``)."""
+    nbytes = 4.0 * (2 * rows * c + 12 * c * c + 9 * c) + 8.0 * c
+    flops = 24.0 * rows * c * c
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, 3.0 * flops / PEAK_TF32
+    tf32 = (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+    return tf32, bound(nbytes, fp32_ops=flops)
 
 
 def phase_parity():
     """The tiny sampling slice, bf16 on the card against fp32 on the CPU:
     with the default dispatch, then with ``SDBC_GN_FUSED=1``; then fp32 on
     the card (the same weights), where every attention call goes to the
-    3xTF32 kernel and every FF call to the CUDA-core kernel of its function
-    (``fp32_launches``).  Returns the fp32 run's launch counts."""
+    3xTF32 kernel and every FF call to the 3xTF32 FF (``fp32_launches``).  Returns the fp32 run's launch counts."""
     import numpy as np
     import torch
 
@@ -2765,7 +2933,7 @@ def phase_parity():
         if not err <= PARITY_TOL:
             fail(f"tiny slice ({label}): card vs CPU max abs err {err} > "
                  f"{PARITY_TOL}")
-        used = ("flash_fixed_tf32", "geglu_ff_simt", "flash_fwd_tf32") \
+        used = ("flash_fixed_tf32", "geglu_ff_tf32", "flash_fwd_tf32") \
             if label == "fp32" else ("flash_fixed", "geglu_ff")
         if counts != want or min(want[k] for k in used) == 0 \
                 or (env and want["gn_fused"] == 0):
@@ -3209,12 +3377,13 @@ def phase_fp32_sampling(smi: str):
     ``SDPipeline.generate`` with the profile's DDIM-10, CFG 7.5, 512² on 4
     prompts: a warm-up call, then a timed call with finite images, its
     wall seconds and peak memory, every self-attention call on the 3xTF32
-    kernel (15 an evaluation) and every fused FF on the CUDA-core one, no
-    other launch (``fp32_launches`` of ``generate_launches``).  Then one
-    fp32 VAE decode of a 64² latent under SDBC_ATTN_IMPL=inference and
-    =flash: the mid block's 512-wide head on the CUDA-core fixed cap and
-    forward (one launch each), held to the default fp32 decode.  Returns
-    the launch counts by path."""
+    kernel (15 an evaluation) and every fused FF on the 3xTF32 one (10 an
+    evaluation), no other launch (``fp32_launches`` of
+    ``generate_launches``).  Then one fp32 VAE decode of a 64² latent under
+    SDBC_ATTN_IMPL=inference and =flash: the mid block's 512-wide head on
+    the wide 3xTF32 fixed cap and forward (one launch each, none on the
+    CUDA-core kernels), held to the default fp32 decode, each with its wall
+    ms.  Returns the launch counts by path."""
     import numpy as np
     import torch
 
@@ -3264,14 +3433,16 @@ def phase_fp32_sampling(smi: str):
           f"fp32 (resolve_params_cfg and the pipeline {setup:.3f} s): "
           f"{secs:.3f} s/call, {4 / secs:.4f} images/s, warm-up {warm:.3f} "
           f"s, peak {peak / 2 ** 30:.2f} GiB, flash_fixed_tf32 "
-          f"{counts['flash_fixed_tf32']} geglu_ff_simt "
-          f"{counts['geglu_ff_simt']} flash_fixed_simt "
-          f"{counts['flash_fixed_simt']} (expected "
-          f"{want['flash_fixed_tf32']}, {want['geglu_ff_simt']}, 0) | {smi}",
-          flush=True)
+          f"{counts['flash_fixed_tf32']} geglu_ff_tf32 "
+          f"{counts['geglu_ff_tf32']} flash_fixed_simt "
+          f"{counts['flash_fixed_simt']} geglu_ff_simt "
+          f"{counts['geglu_ff_simt']} (expected "
+          f"{want['flash_fixed_tf32']}, {want['geglu_ff_tf32']}, 0, 0) | "
+          f"{smi}", flush=True)
     if imgs.shape != (4, 512, 512, 3) or not np.isfinite(imgs).all():
         fail(f"fp32 sampling images {imgs.shape} not all finite")
-    if want["flash_fixed_tf32"] != 150 or counts != want:
+    if want["flash_fixed_tf32"] != 150 or want["geglu_ff_tf32"] != 100 \
+            or counts != want:
         fail(f"fp32 sampling launch counts {counts}, expected {want}")
     paths = {"sampling fp32": counts}
 
@@ -3285,8 +3456,9 @@ def phase_fp32_sampling(smi: str):
         img = vae_mod.decode(vae, z)
         torch.cuda.synchronize()
         default_counts = dict(_kernels.launches)
-        for impl, name in (("inference", "flash_fixed_simt"),
-                           ("flash", "flash_fwd_simt")):
+        default_ms = wall_ms(lambda: vae_mod.decode(vae, z), 3)
+        for impl, name in (("inference", "flash_fixed_tf32"),
+                           ("flash", "flash_fwd_tf32")):
             with environment(SDBC_ATTN_IMPL=impl):
                 _kernels.reset_launch_counts()
                 img_sw = vae_mod.decode(vae, z)
@@ -3300,7 +3472,8 @@ def phase_fp32_sampling(smi: str):
                   f"abs diff {err:.3e} (tol {tol:.3e}); launches "
                   f"{ {k: v for k, v in c.items() if v} } (default decode "
                   f"{ {k: v for k, v in default_counts.items() if v} }); "
-                  f"wall {sw_ms:.3f} ms", flush=True)
+                  f"wall {sw_ms:.3f} ms (the default decode "
+                  f"{default_ms:.3f} ms)", flush=True)
             if img_sw.shape != (1, 512, 512, 3) \
                     or not torch.isfinite(img_sw).all() or not err <= tol:
                 fail(f"fp32 decode under SDBC_ATTN_IMPL={impl}: max abs "
@@ -3407,9 +3580,8 @@ def phase_train_parity(label: str = "default", env=None,
     """One optimizer step of the tiny config, bf16 (or ``card_dtype``) on
     the card against fp32 on the CPU, from the same fp32 masters and the
     same injected draws, under the environment ``env`` on both sides.  In
-    fp32 the flash forward runs on the 3xTF32 kernel and the backward, on
-    the forward's LSE, on the CUDA-core kernels (``fp32_launches``), the
-    8-bit AdamW as in bf16."""
+    fp32 the flash forward and the backward, on the forward's LSE, run on
+    the 3xTF32 kernels (``fp32_launches``), the 8-bit AdamW as in bf16."""
     import numpy as np
     import torch
 
@@ -4344,7 +4516,7 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("jax was imported")
     for row in rows:
-        row["path"] = MAIN_PATH[row["name"]]
+        row.setdefault("path", MAIN_PATH[row["name"]])
         row["launches"] = paths[row["path"]][row["name"]]
         # every path where the kernel launched (0 on the others)
         row["launches_by_path"] = {p: c[row["name"]] for p, c in

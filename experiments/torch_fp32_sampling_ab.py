@@ -11,11 +11,15 @@ with ``--no-bf16`` (random weights from seed 0, fp32, TF32 off as
 CFG 7.5, 512² on 4 prompts: a warm-up call, ``--calls`` timed calls (host
 clock around synchronized calls), then one call under ``torch.profiler``
 for the card time of the attention kernels (those whose name holds
-``flash`` or ``split_kv``).  Prints one JSON line with the root, the
-card's name and power limit, each call's seconds, the attention kernels'
-ms and count in the profiled call, its launch counts and the peak
-memory.  Run the two checkouts in turns (A, B, B, A) in one command:
-two calls may land on two cards.
+``flash`` or ``split_kv``), of the fused FF's (``geglu`` or ``split_ff``)
+and of all kernels, with the ten longest kernels by name.  Prints one JSON
+line with the root, the card's name and power limit, each call's seconds,
+those card times and counts in the profiled call, its launch counts and
+the peak memory; ``--save F`` writes the profiled call's images to the
+.npy file F, and ``--compare A B`` (no card) prints the largest
+difference of two such files against the images' range.  Run the two
+checkouts in turns (A, B, B, A) in one command: two calls may land on two
+cards.
 """
 import argparse
 import json
@@ -36,7 +40,18 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--compare", nargs=2, default=None)
     opts = ap.parse_args()
+    if opts.compare:
+        import numpy as np
+
+        a, b = (np.load(f).astype(np.float64) for f in opts.compare)
+        print(json.dumps({"compare": opts.compare,
+                          "max_abs_diff": float(np.abs(a - b).max()),
+                          "range": float(np.abs(a).max()),
+                          "shape": list(a.shape)}), flush=True)
+        return 0
     root = os.path.abspath(opts.root)
     sys.path.insert(0, root)
     import torch
@@ -84,16 +99,28 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     _kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        pipe.generate(PROMPTS, spec)
+        imgs = pipe.generate(PROMPTS, spec)
         torch.cuda.synchronize()
-    attn = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and ("flash" in e.name or "split_kv" in e.name)]
+    if opts.save:
+        import numpy as np
+
+        np.save(opts.save, np.asarray(imgs))
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    attn = [e for e in kern if "flash" in e.name or "split_kv" in e.name]
+    ff = [e for e in kern if "geglu" in e.name or "split_ff" in e.name]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3
     print(json.dumps({
         "root": opts.root, "device": smi, "build_s": build_s,
         "s_per_call": secs, "median_s": statistics.median(secs),
-        "attention_kernel_ms": sum(e.time_range.elapsed_us()
-                                   for e in attn) / 1e3,
-        "attention_kernels": len(attn),
+        "attention_kernel_ms": ms(attn), "attention_kernels": len(attn),
+        "ff_kernel_ms": ms(ff), "ff_kernels": len(ff),
+        "all_kernel_ms": ms(kern), "kernels": len(kern),
+        "top_kernels_ms": dict(sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:10]),
         "launches": {k: v for k, v in _kernels.launches.items() if v},
         "peak_gib": peak / 2 ** 30}), flush=True)
     return 0

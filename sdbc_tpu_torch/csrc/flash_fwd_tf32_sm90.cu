@@ -394,10 +394,11 @@ struct View4 {
   long long sb, sh, ss, sd;
 };
 
-// The split pre-pass: keys [32 x, 32 x + 32) of one (batch, head).  K_hi,
-// K_lo: (B, H, Sk, D); V^T_hi, V^T_lo: (B, H, D, Skp), position c of each
-// group of 8 holding key pi(c) = (c % 4) * 2 + c / 4 of the group, zero at
-// keys past Sk.
+// The split pre-pass: keys [32 x, 32 x + 32) of one (batch, head), the head
+// dim in chunks of 256 (D up to 512: flash_fwd_tf32_wide_sm90.cu's calls
+// too).  K_hi, K_lo: (B, H, Sk, D); V^T_hi, V^T_lo: (B, H, D, Skp),
+// position c of each group of 8 holding key pi(c) = (c % 4) * 2 + c / 4 of
+// the group, zero at keys past Sk.
 __global__ void __launch_bounds__(256)
 split_kv_kernel(View4 k, View4 v, int H, int Sk, int Skp, int D, float* khi,
                 float* klo, float* vhi, float* vlo) {
@@ -406,47 +407,37 @@ split_kv_kernel(View4 k, View4 v, int H, int Sk, int Skp, int D, float* khi,
   const long long bh = (long long)b * H + h;
   const float* K = k.p + b * k.sb + h * k.sh;
   const float* V = v.p + b * v.sb + h * v.sh;
-  for (int i = threadIdx.x; i < 32 * D; i += 256) {
-    const int r = i / D, d = i % D, key = k0 + r;
-    float x = 0.f;
-    if (key < Sk) {
-      const float kx = __ldg(K + key * k.ss + d * k.sd);
-      const uint32_t hi = tf32_rna(kx);
-      const long long at = (bh * Sk + key) * D + d;
-      khi[at] = f32(hi);
-      klo[at] = f32(tf32_rna(kx - f32(hi)));
-      x = __ldg(V + key * v.ss + d * v.sd);
+  for (int d0 = 0; d0 < D; d0 += 256) {
+    const int dn = min(D - d0, 256);
+    for (int i = threadIdx.x; i < 32 * dn; i += 256) {
+      const int r = i / dn, d = d0 + i % dn, key = k0 + r;
+      float x = 0.f;
+      if (key < Sk) {
+        const float kx = __ldg(K + key * k.ss + d * k.sd);
+        const uint32_t hi = tf32_rna(kx);
+        const long long at = (bh * Sk + key) * D + d;
+        khi[at] = f32(hi);
+        klo[at] = f32(tf32_rna(kx - f32(hi)));
+        x = __ldg(V + key * v.ss + d * v.sd);
+      }
+      vs[r][d - d0] = x;
     }
-    vs[r][d] = x;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 32 * D; i += 256) {
-    const int d = i / 32, c = i % 32;
-    if (k0 + c >= Skp) continue;
-    const float x = vs[(c & ~7) | ((c & 3) * 2 + ((c >> 2) & 1))][d];
-    const uint32_t hi = tf32_rna(x);
-    const long long at = (bh * D + d) * Skp + k0 + c;
-    vhi[at] = f32(hi);
-    vlo[at] = f32(tf32_rna(x - f32(hi)));
+    __syncthreads();
+    for (int i = threadIdx.x; i < 32 * dn; i += 256) {
+      const int d = d0 + i / 32, c = i % 32;
+      if (k0 + c >= Skp) continue;
+      const float x = vs[(c & ~7) | ((c & 3) * 2 + ((c >> 2) & 1))][d - d0];
+      const uint32_t hi = tf32_rna(x);
+      const long long at = (bh * D + d) * Skp + k0 + c;
+      vhi[at] = f32(hi);
+      vlo[at] = f32(tf32_rna(x - f32(hi)));
+    }
+    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps (sm90.cuh) and launch
-
-// A 4-D fp32 map: dims and element strides of dims 1..3 innermost first,
-// boxes of 32 columns by `rows`, 128-byte swizzle.  A dimension of size 1
-// is never stepped, so its stride is replaced by a valid one.
-bool make_map_f32(CUtensorMap* map, const void* p, const cuuint64_t (&dims)[4],
-                  const long long (&st)[3], int rows) {
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)st[i] * 4;
-  const cuuint32_t box[4] = {(cuuint32_t)CB, (cuuint32_t)rows, 1, 1};
-  return sm90::make_map_nd(map, p, 4, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B,
-                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
-}
 
 struct Call {
   View4 q, k, v, o;
@@ -455,6 +446,18 @@ struct Call {
   int B, H, Sq, Sk, D;
   float qscale;
 };
+
+// The pre-pass over the keys of every (batch, head) into `scratch` (K_hi,
+// K_lo, V^T_hi, V^T_lo, each B H Skp D floats; Skp = Sk rounded up to 8).
+cudaError_t split_kv(const View4& k, const View4& v, int B, int H, int Sk,
+                     int D, float* scratch, cudaStream_t stream) {
+  const int Skp = (Sk + 7) / 8 * 8;
+  const long long n = (long long)B * H * Skp * D;
+  split_kv_kernel<<<dim3((Skp + 31) / 32, H, B), 256, 0, stream>>>(
+      k, v, H, Sk, Skp, D, scratch, scratch + n, scratch + 2 * n,
+      scratch + 3 * n);
+  return cudaGetLastError();
+}
 
 template <int NV, bool FIXED>
 cudaError_t launch(const Call& a, cudaStream_t stream) {
@@ -475,19 +478,17 @@ cudaError_t launch(const Call& a, cudaStream_t stream) {
   const long long vst[3] = {Skp, (long long)a.D * Skp,
                             (long long)a.H * a.D * Skp};
   CUtensorMap tq, tkh, tkl, tvh, tvl;
-  if (!make_map_f32(&tq, a.q.p, qdims, qst, C::BQ)
-      || !make_map_f32(&tkh, khi, kdims, kst, C::BK)
-      || !make_map_f32(&tkl, klo, kdims, kst, C::BK)
-      || !make_map_f32(&tvh, vhi, vdims, vst, NV)
-      || !make_map_f32(&tvl, vlo, vdims, vst, NV))
+  if (!sm90::make_map_f32(&tq, a.q.p, qdims, qst, C::BQ)
+      || !sm90::make_map_f32(&tkh, khi, kdims, kst, C::BK)
+      || !sm90::make_map_f32(&tkl, klo, kdims, kst, C::BK)
+      || !sm90::make_map_f32(&tvh, vhi, vdims, vst, NV)
+      || !sm90::make_map_f32(&tvl, vlo, vdims, vst, NV))
     return cudaErrorInvalidValue;
   static uint64_t raised = 0;
   cudaError_t err = sm90::raise_smem(flash_tf32_sm90_kernel<NV, FIXED>,
                                      C::SMEM, raised);
   if (err != cudaSuccess) return err;
-  split_kv_kernel<<<dim3((Skp + 31) / 32, a.H, a.B), 256, 0, stream>>>(
-      a.k, a.v, a.H, a.Sk, Skp, a.D, khi, klo, vhi, vlo);
-  err = cudaGetLastError();
+  err = split_kv(a.k, a.v, a.B, a.H, a.Sk, a.D, a.scratch, stream);
   if (err != cudaSuccess) return err;
   const Params prm{const_cast<float*>(a.o.p), a.o.sb, a.o.sh, a.o.ss, a.lse,
                    a.H, a.Sq, a.Sk, a.D, a.qscale};
@@ -509,6 +510,18 @@ int dispatch(const Call& a, cudaStream_t s) {
 }
 
 }  // namespace
+
+// The split pre-pass for flash_fwd_tf32_wide_sm90.cu (head dims up to 512):
+// k and v (B, H, Sk, D) fp32 views, `kst`/`vst` their (batch, head, seq,
+// dim) strides in elements.
+cudaError_t sdbc_tf32_split_kv(const float* k, const long long* kst,
+                               const float* v, const long long* vst, int B,
+                               int H, int Sk, int D, float* scratch,
+                               cudaStream_t stream) {
+  return split_kv(View4{k, kst[0], kst[1], kst[2], kst[3]},
+                  View4{v, vst[0], vst[1], vst[2], vst[3]}, B, H, Sk, D,
+                  scratch, stream);
+}
 
 // K1-K3 (fixed = 1) and K5 (fixed = 0) in fp32: q, k, v, o (B, H, S, D)
 // fp32 views, `st` holding each one's (batch, head, seq, dim) strides in

@@ -4,8 +4,9 @@
 // shared-memory descriptors; on the host, the 4-D tensor maps of
 // (B, S, H, D) and head-dim-major views and maps of any rank.  Used by
 // flash_fwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_fwd_tf32_sm90.cu,
-// flash_bwd_sm90.cu, flash_bwd_wide_sm90.cu, flash_bwd_tf32_sm90.cu,
-// flash_int8_sm90.cu, geglu_ff_sm90.cu and group_norm_sm90.cu.
+// flash_fwd_tf32_wide_sm90.cu, flash_bwd_sm90.cu, flash_bwd_wide_sm90.cu,
+// flash_bwd_tf32_sm90.cu, flash_int8_sm90.cu, geglu_ff_sm90.cu,
+// geglu_ff_tf32_sm90.cu and group_norm_sm90.cu.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // "column blocks", each R rows of 64 bf16 (128 bytes) in the 128-byte
@@ -569,6 +570,7 @@ struct WgmmaTF32RS;
 #define SM90_REGS20 SM90_REGS16 ", %16, %17, %18, %19"
 #define SM90_F20(d) \
   SM90_F16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+SM90_TF32RS(32, SM90_REGS16, SM90_F16, 16, 17, 18, 19, 20, 21)
 SM90_TF32RS(40, SM90_REGS20, SM90_F20, 20, 21, 22, 23, 24, 25)
 SM90_TF32RS(64, SM90_REGS32, SM90_F32_0, 32, 33, 34, 35, 36, 37)
 SM90_TF32RS(80, SM90_REGS40, SM90_F40, 40, 41, 42, 43, 44, 45)
@@ -688,6 +690,20 @@ inline bool make_map_tt(CUtensorMap* map, const View& v, int B, int S, int H,
                                  bytes(v.sb, B)};
   const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   return make_map_nd(map, v.p, 4, dims, strides, box, swizzle);
+}
+
+// A 4-D fp32 map: dims and element strides of dims 1..3 innermost first,
+// boxes of 32 columns (128 bytes) by `rows`, 128-byte swizzle.  A dimension
+// of size 1 is never stepped, so its stride is replaced by a valid one.
+inline bool make_map_f32(CUtensorMap* map, const void* p,
+                         const cuuint64_t (&dims)[4], const long long (&st)[3],
+                         int rows) {
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = dims[i + 1] == 1 ? 16 : (cuuint64_t)st[i] * 4;
+  const cuuint32_t box[4] = {32, (cuuint32_t)rows, 1, 1};
+  return make_map_nd(map, p, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // Raises a kernel's dynamic shared-memory limit to `bytes`, once per device

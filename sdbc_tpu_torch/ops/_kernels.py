@@ -45,7 +45,8 @@ launches = {"flash_fixed": 0, "geglu_ff": 0, "flash_fwd": 0,
             "flash_fwd_simt": 0, "flash_bwd_simt_dq": 0,
             "flash_bwd_simt_dkv": 0, "geglu_ff_simt": 0,
             "flash_fixed_tf32": 0, "flash_fwd_tf32": 0,
-            "flash_bwd_dq_tf32": 0, "flash_bwd_dkv_tf32": 0}
+            "flash_bwd_dq_tf32": 0, "flash_bwd_dkv_tf32": 0,
+            "geglu_ff_tf32": 0}
 
 _lib = None
 build_seconds = None  # wall time of the last build (None: reused or unbuilt)
@@ -183,6 +184,11 @@ def load():
     lib.sdbc_geglu_ff_simt.restype = i
     lib.sdbc_flash_tf32_sm90.argtypes = [p] * 6 + [i] * 6 + [llp, f, p]
     lib.sdbc_flash_tf32_sm90.restype = i
+    lib.sdbc_flash_tf32_wide_sm90.argtypes = ([p] * 6 + [i] * 6
+                                              + [llp, f, p])
+    lib.sdbc_flash_tf32_wide_sm90.restype = i
+    lib.sdbc_geglu_ff_tf32.argtypes = [p] * 9 + [i, i, f, p]
+    lib.sdbc_geglu_ff_tf32.restype = i
     lib.sdbc_flash_bwd_dq_tf32_sm90.argtypes = ([p] * 8 + [i] * 6
                                                 + [llp, llp, f, f, p])
     lib.sdbc_flash_bwd_dq_tf32_sm90.restype = i
@@ -581,10 +587,27 @@ def flash_tf32(q, k, v, o, lse, scratch, qscale: float, *,
     forward, writing the natural-log LSE into the contiguous (B, H, Sq)
     fp32 ``lse`` (``flash_fwd_tf32``); one count a call, the pre-pass
     included.  The caller checks shapes and dtypes (``ops.flash_tf32``)."""
+    _launch_tf32("sdbc_flash_tf32_sm90", q, k, v, o, lse, scratch, qscale,
+                 fixed)
+
+
+def flash_tf32_wide(q, k, v, o, lse, scratch, qscale: float, *,
+                    fixed: bool) -> None:
+    """``flash_tf32`` for head dims in (256, 512] (the VAE's 512-wide
+    head): the same pre-pass, then the kernel of
+    ``csrc/flash_fwd_tf32_wide_sm90.cu`` (a cluster of two CTAs splitting
+    the head dim of each 64-row q tile).  Same arguments; counted as
+    ``flash_fixed_tf32`` / ``flash_fwd_tf32``: the same function."""
+    _launch_tf32("sdbc_flash_tf32_wide_sm90", q, k, v, o, lse, scratch,
+                 qscale, fixed)
+
+
+def _launch_tf32(entry: str, q, k, v, o, lse, scratch, qscale: float,
+                 fixed: bool) -> None:
     lib = load()
     b, h, sq, d = q.shape
     with _device(q):
-        rc = lib.sdbc_flash_tf32_sm90(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if fixed else lse.data_ptr(), scratch.data_ptr(),
             int(fixed), b, h, sq, k.shape[2], d, _bhsd_strides(q, k, v, o),
@@ -592,6 +615,27 @@ def flash_tf32(q, k, v, o, lse, scratch, qscale: float, *,
     name = "flash_fixed_tf32" if fixed else "flash_fwd_tf32"
     _check(lib, rc, name)
     launches[name] += 1
+
+
+def geglu_ff_tf32(y, gamma, beta, w1, b1, w2, b2, out, scratch,
+                  eps: float) -> None:
+    """Launch the fp32 fused GEGLU on 3xTF32 ``wgmma``
+    (``csrc/geglu_ff_tf32_sm90.cu``) over contiguous fp32 (rows, c) rows, c
+    a multiple of 32 up to 320 or of 64 up to 640, every tensor fp32,
+    contiguous and 16-byte aligned; ``scratch`` a contiguous fp32 buffer of
+    ``24·c²`` floats that the call's split pre-pass fills (W1ᵀ and W2ᵀ as hi
+    and lo parts) before the FF kernel runs.  Counted once as
+    ``geglu_ff_tf32``, the pre-pass included.  The caller checks shapes and
+    dtypes (``ops.geglu_ff``)."""
+    lib = load()
+    rows, c = y.shape
+    with _device(y):
+        rc = lib.sdbc_geglu_ff_tf32(
+            y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), rows, c, float(eps), _stream(y))
+    _check(lib, rc, "geglu_ff_tf32")
+    launches["geglu_ff_tf32"] += 1
 
 
 def flash_bwd_dq_tf32(q, k, v, do, lse2, delta, dq, scratch, scale: float,

@@ -1,6 +1,8 @@
 """The fp32 attention forward on the tensor cores
-(``csrc/flash_fwd_tf32_sm90.cu``): the fixed cap and the training forward
-for fp32 q/k/v with a head dim that is a multiple of 8, up to ``MAX_D``.
+(``csrc/flash_fwd_tf32_sm90.cu`` up to head dim 256,
+``csrc/flash_fwd_tf32_wide_sm90.cu`` above: the VAE's 512-wide head): the
+fixed cap and the training forward for fp32 q/k/v with a head dim that is
+a multiple of 8, up to ``MAX_D``.
 Each product runs as three tf32 products of the operands' hi and lo parts
 (x = tf32(x) + tf32(x - tf32(x))), which keeps fp32's accuracy to about
 2⁻²¹ at the tensor cores' tf32 rate.
@@ -9,7 +11,9 @@ The same functions as the bf16 kernels and ``flash_simt``, with the same
 rounding points (``flash_attention.fixed_cap_attention_ref`` and
 ``flash_attention.flash_attention_ref`` are their plain versions).  One
 call launches a split pre-pass (k and v into hi and lo parts, v transposed)
-into a scratch buffer, then the attention kernel; it is counted once.  The
+into a scratch buffer, then the attention kernel (above head dim 256 a
+cluster of two CTAs a 64-row q tile, each with half the head dim); it is
+counted once.  The
 wrappers of ``flash_attention`` call these on the CUDA tensors
 ``flash_attention.route`` sends here; on a CPU tensor those wrappers
 compute the plain versions.
@@ -21,7 +25,8 @@ import torch
 from sdbc_tpu_torch.ops import _kernels
 
 LOG2E = 1.4426950408889634
-MAX_D = 256
+MAX_D = 512
+MAX_NARROW_D = 256  # csrc/flash_fwd_tf32_sm90.cu's widest head
 
 
 def takes(q, k, v) -> bool:
@@ -73,8 +78,9 @@ def _launch(q, k, v, o, lse, scale: float, fixed: bool) -> None:
     skp = -(-k.shape[2] // 8) * 8
     scratch = torch.empty(4 * b * h * skp * d, dtype=torch.float32,
                           device=q.device)
-    _kernels.flash_tf32(_q_view(q), k, v, o, lse, scratch, scale * LOG2E,
-                        fixed=fixed)
+    launch = _kernels.flash_tf32 if d <= MAX_NARROW_D \
+        else _kernels.flash_tf32_wide
+    launch(_q_view(q), k, v, o, lse, scratch, scale * LOG2E, fixed=fixed)
 
 
 def fixed_cap(q, k, v, o, scale: float):

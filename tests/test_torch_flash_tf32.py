@@ -48,7 +48,7 @@ ROUTES = [
     (F32, 8, "flash_{}_tf32"), (F32, 40, "flash_{}_tf32"),
     (F32, 44, "flash_{}_simt"), (F32, 80, "flash_{}_tf32"),
     (F32, 160, "flash_{}_tf32"), (F32, 256, "flash_{}_tf32"),
-    (F32, 264, "flash_{}_simt"), (F32, 512, "flash_{}_simt"),
+    (F32, 264, "flash_{}_tf32"), (F32, 512, "flash_{}_tf32"),
 ]
 
 
@@ -287,7 +287,7 @@ def test_fwd_wrapper_refuses_a_wrong_lse(recorded):
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40),
                                      (torch.float32, 44),
-                                     (torch.float32, 264)])
+                                     (torch.float32, 520)])
 def test_wrapper_refuses_what_the_kernel_does_not_take(recorded, dtype, d):
     q = torch.zeros(1, 1, 16, d, dtype=dtype)
     with pytest.raises(ValueError, match="flash_tf32"):

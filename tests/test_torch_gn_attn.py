@@ -334,9 +334,9 @@ def test_attention_dispatch_routes_as_jax(routes, monkeypatch, env, entry,
 # Each kernel entry point on a CUDA tensor (the device check stubbed, the
 # launches replaced by recorders): its tensor-core kernel for what that
 # takes (bf16, head dims a multiple of 8 up to 512; above 256 the wide
-# kernels; the forwards in fp32 up to 256 and the backward in fp32 up to
-# 160 the 3xTF32 kernels), the CUDA-core kernel of the same function for
-# the rest.
+# kernels; the forwards in fp32 up to 512 (above 256 the wide one) and the
+# backward in fp32 up to 160 the 3xTF32 kernels), the CUDA-core kernel of
+# the same function for the rest.
 # (entry, dtype, head dim, the launches of one call)
 KERNEL_CHOICE = [
     ("fixed", "bfloat16", 40, ["flash_fixed"]),
@@ -349,11 +349,11 @@ KERNEL_CHOICE = [
     ("fwd", "bfloat16", 40, ["flash_fwd"]),
     ("fwd", "bfloat16", 512, ["flash_fwd_wide"]),
     ("fwd", "float32", 40, ["flash_fwd_tf32"]),
-    ("fwd", "float32", 512, ["flash_fwd_simt"]),
+    ("fwd", "float32", 512, ["flash_fwd_tf32_wide"]),
     ("fwd", "bfloat16", 44, ["flash_fwd_simt"]),
     ("tt", "bfloat16", 40, ["flash_fwd_tt"]),
     ("tt", "float32", 40, ["flash_fwd_tf32"]),
-    ("tt", "float32", 264, ["flash_fwd_simt"]),
+    ("tt", "float32", 264, ["flash_fwd_tf32_wide"]),
     ("bwd", "bfloat16", 40, ["flash_bwd_dq", "flash_bwd_dkv"]),
     ("bwd", "bfloat16", 512, ["flash_bwd_dq_wide", "flash_bwd_dkv_wide"]),
     ("bwd", "float32", 40, ["flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"]),
@@ -362,7 +362,7 @@ KERNEL_CHOICE = [
     ("bwd", "float32", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
     ("bwd", "bfloat16", 44, ["flash_simt_bwd_dq", "flash_simt_bwd_dkv"]),
     ("fixed", "float32", 256, ["flash_fixed_tf32"]),
-    ("fixed", "float32", 264, ["flash_fixed_simt"]),
+    ("fixed", "float32", 264, ["flash_fixed_tf32_wide"]),
     ("fixed", "float32", 44, ["flash_fixed_simt"]),
     ("fwd", "float32", 160, ["flash_fwd_tf32"]),
     ("fwd", "float32", 44, ["flash_fwd_simt"]),
@@ -390,6 +390,9 @@ def launched(monkeypatch):
     monkeypatch.setattr(
         _kernels, "flash_tf32", lambda *a, fixed: log.append(
             "flash_fixed_tf32" if fixed else "flash_fwd_tf32"))
+    monkeypatch.setattr(
+        _kernels, "flash_tf32_wide", lambda *a, fixed: log.append(
+            "flash_fixed_tf32_wide" if fixed else "flash_fwd_tf32_wide"))
     return log
 
 
@@ -521,7 +524,8 @@ def test_geglu_takes_the_kernel_that_takes_the_rows(dtype, c, sm90):
 
     args = _geglu_args(256, c, dtype)
     assert tgeglu.takes(args[0]) == sm90 and tgeglu.takes_simt(args[0])
-    tgeglu._check_cuda_inputs(*args, simt=not sm90)
+    tgeglu._check_cuda_inputs(
+        *args, kernel="geglu_ff" if sm90 else "geglu_ff_simt")
     if not sm90:
         with pytest.raises(ValueError, match="tensor-core kernel takes"):
             tgeglu._check_cuda_inputs(*args)

@@ -500,13 +500,14 @@ def test_flash_bwd_tf32_refuses_what_it_does_not_take_on_card(hopper):
 @pytest.mark.gpu
 def test_flash_tf32_refuses_what_it_does_not_take_on_card(hopper):
     """The 3xTF32 wrapper refuses bf16, head dims that are no multiple of
-    8 and head dims above 256, and its C entry a q that TMA cannot read,
-    with no launch counted; the entry points send fp32 at those head dims
-    to the CUDA-core kernels and bf16 to the bf16 kernels."""
+    8 and head dims above 512, and its C entry a q that TMA cannot read,
+    with no launch counted; the entry points send fp32 at head dims that
+    are no multiple of 8 to the CUDA-core kernels, fp32 at 264 to the wide
+    3xTF32 kernel and bf16 to the bf16 kernels."""
     tf32 = ("flash_fixed_tf32", "flash_fwd_tf32")
     before = {n: _kernels.launches[n] for n in tf32}
     for dt, d in ((torch.bfloat16, 40), (torch.float32, 44),
-                  (torch.float32, 264)):
+                  (torch.float32, 520)):
         q = torch.zeros(1, 2, 256, d, device=hopper, dtype=dt)
         with pytest.raises(ValueError, match="flash_tf32"):
             ttf32.fixed_cap(q, q, q, torch.empty_like(q), 1.0)
@@ -522,8 +523,8 @@ def test_flash_tf32_refuses_what_it_does_not_take_on_card(hopper):
     assert {n: _kernels.launches[n] for n in tf32} == before
     for dt, d, names in ((torch.float32, 44, ("flash_fixed_simt",
                                               "flash_fwd_simt")),
-                         (torch.float32, 264, ("flash_fixed_simt",
-                                               "flash_fwd_simt")),
+                         (torch.float32, 264, ("flash_fixed_tf32",
+                                               "flash_fwd_tf32")),
                          (torch.bfloat16, 40, ("flash_fixed", "flash_fwd"))):
         q = torch.zeros(1, 2, 256, d, device=hopper, dtype=dt)
         _kernels.reset_launch_counts()
@@ -535,19 +536,143 @@ def test_flash_tf32_refuses_what_it_does_not_take_on_card(hopper):
 
 
 @pytest.mark.gpu
+# the VAE's 512-wide head, a ragged pair at the narrowest head the wide
+# kernel takes (CTA 1 holds 8 columns), a head that leaves CTA 1 one piece
+@pytest.mark.parametrize("qshape,sk", [
+    ((1, 1, 4096, 512), 4096), ((1, 2, 200, 264), 300),
+    ((2, 1, 130, 384), 77)])
+def test_flash_tf32_wide_matches_plain_on_card(hopper, qshape, sk):
+    """The wide 3xTF32 forward (csrc/flash_fwd_tf32_wide_sm90.cu) through
+    the entry points: the fixed cap (head-major and through the projection
+    layout's strides, the same bits) and the training forward (LSE within
+    1e-5) against the plain versions, one launch a call, two calls the
+    same bits; the fp32 transposed-layout forward on the same kernel."""
+    b, h, sq, d = qshape
+    q, k, v = _bshd_f32(hopper, qshape, sk, 800)
+    scale = d ** -0.5
+    tr = lambda t: t.transpose(1, 2)
+    _kernels.reset_launch_counts()
+    fixed = tflash.flash_attention_fixed(q, k, v)
+    fixed_bshd = tr(tflash.flash_attention_fixed_bshd(tr(q), tr(k), tr(v)))
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    out_tt, lse_tt = ttt.flash_fwd_tt(q, k, v, scale)
+    again, _ = tflash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"flash_fixed_tf32": 2, "flash_fwd_tf32": 3}
+    assert _tf32_close(fixed, tflash.fixed_cap_attention_ref(q, k, v))
+    assert torch.equal(fixed, fixed_bshd)
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert _tf32_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+    assert torch.equal(out, again) and torch.equal(out, out_tt) \
+        and torch.equal(lse, lse_tt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [264, 512])
+def test_flash_tf32_wide_far_negative_rows_on_card(hopper, d):
+    """Six q rows whose every logit is far below 0 (|s| ~ 216 in log2
+    units): the training forward's running max keeps them finite, and its
+    output and LSE stay within ``TF32_FAR_NEGATIVE_FP64_FACTOR`` of the
+    fp32 plain version's error from fp64 (3xTF32 keeps 2^-21 of a product
+    where fp32 keeps 2^-24)."""
+    rows = [0, 37, 64, 101, 150, 199]
+    scale = d ** -0.5
+    u = _rand(198, d)
+    u /= np.linalg.norm(u)
+    q = _rand(199, 1, 2, 200, d)
+    q[:, :, rows] = _rand(203, 1, 2, len(rows), d, scale=0.1) \
+        - 150.0 / (20.0 * scale) * u
+    k = _rand(200, 1, 2, 300, d) + 20.0 * u
+    q, k, v = (torch.from_numpy(a).to(hopper)
+               for a in (q, k, _rand(201, 1, 2, 300, d)))
+    _kernels.reset_launch_counts()
+    out, lse = tflash.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fwd_tf32"] == 1
+    ref, ref_lse = tflash.flash_attention_ref(q, k, v, scale)
+    assert ref_lse[..., rows].max().item() * tbwd.LOG2E < -128
+    s64 = scale * q.double() @ k.double().transpose(-1, -2)
+    exact = torch.softmax(s64, dim=-1) @ v.double()
+    exact_lse = torch.logsumexp(s64, dim=-1)
+    for name, got, plain, x in (("out", out, ref, exact),
+                                ("lse", lse, ref_lse, exact_lse)):
+        assert torch.isfinite(got).all(), name
+        err = (got.double() - x).abs().max().item()
+        plain_err = (plain.double() - x).abs().max().item()
+        print(f"d={d} {name}: 3xTF32 err {err:.3e}, fp32 plain err "
+              f"{plain_err:.3e}")
+        assert err <= TF32_FAR_NEGATIVE_FP64_FACTOR * plain_err, name
+
+
+@pytest.mark.gpu
+# SD-1.5's sampling rows at 64² and 32² (batch 8), a row count that no
+# 64-row tile divides, a narrow width (warpgroup 1 idle), widths past 320
+# (a cluster of two CTAs; at 384 CTA 1 holds 64 columns)
+@pytest.mark.parametrize("rows,c", [
+    (32768, 320), (8192, 640), (100, 320), (130, 96), (77, 384),
+    (64, 32)])
+def test_geglu_tf32_matches_plain_on_card(hopper, rows, c):
+    """The 3xTF32 fused FF (csrc/geglu_ff_tf32_sm90.cu) through
+    ``geglu_ff_rows``: fp32 rows against the plain version within 1e-4 of
+    its largest entry plus 1e-6, one launch a call (the split pre-pass
+    in), two calls the same bits."""
+    args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(rows, c)]
+    _kernels.reset_launch_counts()
+    out = tgeglu.geglu_ff_rows(*args)
+    again = tgeglu.geglu_ff_rows(*args)
+    torch.cuda.synchronize()
+    assert {n: c_ for n, c_ in _kernels.launches.items() if c_} \
+        == {"geglu_ff_tf32": 2}
+    ref = tgeglu.geglu_ff_ref(*args)
+    err = (out - ref).abs().max().item()
+    assert torch.isfinite(out).all() \
+        and err <= 1e-4 * ref.abs().max().item() + 1e-6
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_geglu_tf32_refuses_what_it_does_not_take_on_card(hopper):
+    """The 3xTF32 FF's check refuses bf16 rows and widths that are no
+    multiple of 32, and its C entry a width past 640 or a missing scratch,
+    with no launch counted; ``geglu_ff_rows`` sends fp32 at c = 48 to the
+    CUDA-core kernel."""
+    args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(64, 48)]
+    with pytest.raises(ValueError, match="3xTF32 kernel takes"):
+        tgeglu._check_cuda_inputs(*args, kernel="geglu_ff_tf32")
+    _kernels.reset_launch_counts()
+    tgeglu.geglu_ff_rows(*args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _kernels.launches.items() if c} \
+        == {"geglu_ff_simt": 1}
+    args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(64, 704)]
+    out = torch.empty_like(args[0])
+    with pytest.raises(RuntimeError, match="geglu_ff_tf32"):
+        _kernels.geglu_ff_tf32(*args, out,
+                               torch.empty(24 * 704 * 704, device=hopper),
+                               1e-5)
+    assert _kernels.launches["geglu_ff_tf32"] == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rows,c", [
     ("float32", 512, 32), ("float32", 200, 40), ("float32", 256, 320),
     ("float32", 77, 640), ("bfloat16", 100, 48), ("bfloat16", 64, 360)])
 def test_geglu_simt_matches_plain_on_card(hopper, dtype, rows, c):
     """The CUDA-core fused FF (csrc/geglu_ff_simt.cu) against its plain
-    version: fp32 rows (the tiny UNet's c = 32 among them) and bf16 widths
-    the tensor-core kernel does not take."""
+    version through its launcher: fp32 rows (the tiny UNet's c = 32 among
+    them; the entry point sends fp32 at widths that are a multiple of 32
+    to the 3xTF32 kernel) and bf16 widths the tensor-core kernel does not
+    take."""
     dt = getattr(torch, dtype)
     args = [torch.from_numpy(a).to(hopper) for a in _geglu_inputs(rows, c)]
     for i in (0, 3, 4, 5, 6):
         args[i] = args[i].to(dt)
+    tgeglu._check_cuda_inputs(*args, kernel="geglu_ff_simt")
     before = _kernels.launches["geglu_ff_simt"]
-    out = tgeglu.geglu_ff_rows(*args)
+    out = torch.empty_like(args[0])
+    _kernels.geglu_ff_simt(*args, out, 1e-5)
     torch.cuda.synchronize()
     assert _kernels.launches["geglu_ff_simt"] == before + 1
     ref = tgeglu.geglu_ff_ref(*args)
@@ -1335,8 +1460,8 @@ def test_flash_fixed_wide_matches_plain_on_card(hopper, qshape, sk):
 def test_fp32_sampling_on_card_matches_cpu(hopper):
     """A tiny fp32 ``SDPipeline`` call on the card against the CPU's: the
     fixed-cap attention and the VAE's training-forward attention on the
-    3xTF32 kernel, the fused FF on its CUDA-core kernel, no bf16
-    tensor-core launch."""
+    3xTF32 kernel, the fused FF on the 3xTF32 FF, no bf16 tensor-core
+    launch."""
     from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
     from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig, SDPipeline,
                                                    init_models)
@@ -1355,7 +1480,7 @@ def test_fp32_sampling_on_card_matches_cpu(hopper):
     _kernels.reset_launch_counts()
     out = SDPipeline(card, cfg, tok, "cuda", torch.float32)(["a cover"], **kw)
     launched = {n for n, c in _kernels.launches.items() if c}
-    assert launched == {"flash_fixed_tf32", "geglu_ff_simt",
+    assert launched == {"flash_fixed_tf32", "geglu_ff_tf32",
                         "flash_fwd_tf32"}, _kernels.launches
     assert out.shape == ref.shape and np.isfinite(out).all()
     assert np.abs(out - ref).max() <= 3e-2  # chip_smoke.PARITY_TOL

@@ -214,10 +214,9 @@ def test_chip_smoke_gn_sites_match_sd15():
 
 def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
     """In fp32 each bf16 tensor-core kernel's count of a run goes to its
-    fp32 counterpart: the forwards and the backward to the 3xTF32 kernels
-    (csrc/flash_fwd_tf32_sm90.cu, csrc/flash_bwd_tf32_sm90.cu), the FF to
-    the CUDA-core kernel (csrc/geglu_ff_simt.cu); the other kernels keep
-    theirs."""
+    fp32 counterpart: the forwards, the backward and the FF to the 3xTF32
+    kernels (csrc/flash_fwd_tf32_sm90.cu, csrc/flash_bwd_tf32_sm90.cu,
+    csrc/geglu_ff_tf32_sm90.cu); the other kernels keep theirs."""
     from sdbc_tpu_torch.ops import _kernels
 
     cs = _chip_smoke()
@@ -227,7 +226,7 @@ def test_chip_smoke_fp32_launches_move_to_the_cuda_core_kernels():
     got = cs.fp32_launches(want)
     assert set(got) == set(_kernels.launches)
     assert {k: v for k, v in got.items() if v} == {
-        "flash_fixed_tf32": 12, "geglu_ff_simt": 6, "flash_fwd_tf32": 3,
+        "flash_fixed_tf32": 12, "geglu_ff_tf32": 6, "flash_fwd_tf32": 3,
         "flash_bwd_dq_tf32": 2, "flash_bwd_dkv_tf32": 2, "adam8": 1}
     assert set(cs.FP32_OF.values()) <= set(_kernels.launches)
     assert set(cs.MAIN_PATH) == set(_kernels.launches)
@@ -254,14 +253,14 @@ def test_chip_smoke_fp32_forwards_all_take_the_tf32_kernel(config):
         assert tflash.route(torch.float32, d, fixed=False) \
             == cs.FP32_OF["flash_fwd"]
     if config == "sd15":
-        # the VAE's 512-wide head goes to the CUDA-core kernels (the fp32
+        # the VAE's 512-wide head goes to the wide 3xTF32 kernel (the fp32
         # decode paths of the fp32-sampling phase)
         assert tflash.route(torch.float32, vae_head, fixed=True) \
-            == "flash_fixed_simt"
+            == "flash_fixed_tf32"
         want = cs.fp32_launches(cs.generate_launches(
             PipelineConfig.sd15("ddim"), 4, 10, 512, "ddim"))
         assert {k: v for k, v in want.items() if v} == {
-            "flash_fixed_tf32": 150, "geglu_ff_simt": 100}
+            "flash_fixed_tf32": 150, "geglu_ff_tf32": 100}
 
 
 def test_chip_smoke_fp32_train_step_takes_the_tf32_backward():
