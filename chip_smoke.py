@@ -195,7 +195,27 @@ Phases, in order; each prints one or more lines, and any failure raises
 12. switches    — one mode-C step under SDBC_GN_FUSED=1 and
                   SDBC_ATTN_IMPL=flash_tt: every attention call (the VAE
                   encode's 512-wide head included) through the
-                  transposed-layout forward, none through the other.
+                  transposed-layout forward, none through the other;
+13. finetune-tiny — ``cli.finetune.main`` at the tiny config on an
+                  8-cover PNG dataset the phase writes, one optimizer step
+                  each: a full fine-tune with EMA and 8-bit AdamW, LoRA,
+                  textual inversion, prior preservation with
+                  --prior_generate, cached latents; bf16 on the card
+                  against fp32 on the CPU from one --ckpt and the same
+                  host draws (the loss, the update of each trained tree
+                  as train-parity holds them; exact launches a step where
+                  the UNet trains); then a --resume on the card whose
+                  first step sees the checkpoint's masters, moments, EMA
+                  and step bit for bit;
+14. finetune    — the CLI at full width, mode C (random SD-1.5 from seed
+                  0, bf16, remat "block" by the CLI's default) on 16 PNG
+                  covers at 512²: --epochs 1 (2 steps, a checkpoint), then
+                  --resume --epochs 2 (2 more): exact 120 / 60 / 60 / 1
+                  launches every step, finite losses, s/step beside the
+                  train phases', the loader's blocked ms, peak memory,
+                  checkpoint bytes and save / load seconds; it checks the
+                  temp dir has room for two checkpoints first and removes
+                  it after.
 
 Every environment variable a phase sets is restored after it.
 
@@ -3777,12 +3797,13 @@ def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
 def phase_train_ckpt(smi: str, no_remat):
     """Mode C with gradient checkpointing, per remat mode, beside the
     no-remat train phase of the same run (``no_remat``: its s/step and
-    peak bytes): 3 timed steps and a device-time profile of one more."""
-    out = {}
+    peak bytes): 3 timed steps and a device-time profile of one more.
+    Returns (launches, s/step) by mode."""
+    out, sps_of = {}, {}
     for mode in ("block", "selective"):
         counts, sps, peak = phase_train(smi, label=f"train-ckpt {mode}",
                                         grad_ckpt=True, remat_mode=mode)
-        out[mode] = counts
+        out[mode], sps_of[mode] = counts, sps
         print(f"[train-ckpt] remat_mode={mode}: {sps:.4f} s/step, "
               f"{8 / sps:.4f} images/s, peak {peak / 2 ** 30:.2f} GiB; "
               f"no remat: {no_remat[0]:.4f} s/step, {8 / no_remat[0]:.4f} "
@@ -3790,7 +3811,407 @@ def phase_train_ckpt(smi: str, no_remat):
     if out["block"]["flash_fwd"] != 2 * out["selective"]["flash_fwd"]:
         fail(f"train-ckpt: flash forwards block {out['block']} vs selective "
              f"{out['selective']}")
+    return out, sps_of
+
+
+# ---------------------------------------------------------------------------
+# finetune: the training CLI (cli/finetune.py) as a user runs it
+
+# the tiny card-vs-CPU runs: phase_train_parity's learning rate and
+# tolerances, one optimizer step each (4 examples, micro 2, grad_accum 2)
+FT_LR = 1e-3
+FT_TINY = {
+    "full": ["--train_unet", "--use_8bit_adam", "--ema_decay", "0.9"],
+    "lora": ["--lora_rank", "2", "--train_unet"],
+    "ti": ["--ti_token", "<sty>"],
+    "prior": ["--prior_class_prompt", "a book cover", "--prior_generate",
+              "2", "--prior_gen_steps", "2"],
+    "cache": ["--cache_latents"],
+}
+# the trained trees of each tiny run (the text encoder trains by default)
+FT_TRAINED = {"full": ("unet", "text_encoder"), "lora": ("adapter",),
+              "ti": ("adapter",), "prior": ("text_encoder",),
+              "cache": ("text_encoder",)}
+# full width: the mode-C flags; 16 examples make 2 steps an epoch
+FT_FULL = ["--train_unet", "--train_text_encoder", "--use_8bit_adam",
+           "--batch_size", "2", "--grad_acc_steps", "4", "--img_size", "512",
+           "--num_examples", "16", "--ckpts_per_epoch", "1", "--seed", "0"]
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def ft_dataset(root: str, n: int, size: int, seed: int = 0) -> str:
+    """A Goodreads-layout dataset of ``n`` random ``size``² covers written
+    as PNG bytes under the CSV's ``<id>.jpg`` names (``decode_and_prepare``
+    reads them without PIL; PIL reads them for the JAX package)."""
+    import csv
+
+    import numpy as np
+
+    from sdbc_tpu_torch.utils import png
+
+    img_dir = os.path.join(root, "images", "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(root, "df_train.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "book_authors", "book_desc", "book_title"])
+        for i in range(n):
+            w.writerow([i, f"Author {i}", f"A cover, number {i}.",
+                        f"Title {i}"])
+            with open(os.path.join(img_dir, f"{i}.jpg"), "wb") as g:
+                g.write(png.encode(rng.integers(0, 256, (size, size, 3),
+                                                dtype=np.uint8)))
+    return root
+
+
+def ft_trees(state, trees=True) -> dict:
+    """{name: {key: tensor (a CPU copy)}} of a train state: the optimizer
+    state in the JAX layout, the trained components or the adapter, the
+    EMA shadow."""
+    from sdbc_tpu_torch.train import trainer
+    from sdbc_tpu_torch.utils import checkpoint as ckpt
+
+    plain = lambda key: tuple(k for k, _ in key)
+    host = lambda t: t.detach().cpu().clone()
+    out = {"opt_state": {plain(k): host(t) for k, t in ckpt.opt_state_tree(
+        state.opt_state, state.trainable, 0.0) if not isinstance(t, str)}}
+    if "lora" in state.trainable or "ti" in state.trainable:
+        out["adapter"] = {plain(k): host(ts[0]) for k, ts in zip(
+            trainer.optimizer_leaf_keys(state.trainable),
+            trainer.optimizer_leaves(state.trainable))}
+    else:
+        for comp, m in state.trainable.items():
+            out[comp] = {plain(k): host(t) for k, t in ckpt.module_tree(m)
+                         if not isinstance(t, str)}
+    if state.ema is not None and "adapter" not in out:
+        out["ema"] = {(comp,) + plain(k): host(t)
+                      for comp, m in state.ema.items()
+                      for k, t in ckpt.module_tree(m)
+                      if not isinstance(t, str)}
     return out
+
+
+def ft_disk(path: str, name: str) -> dict:
+    """A tree of a saved checkpoint as ``ft_trees`` names it: a component,
+    the optimizer state, the EMA shadow, or the adapter of lora.npz /
+    ti.npz."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.utils import checkpoint as ckpt
+
+    if name != "adapter":
+        return {tuple(k for k, _ in key): t for key, t in
+                ckpt.read_tree(os.path.join(path, name)).items()}
+    if os.path.exists(os.path.join(path, "ti.npz")):
+        with np.load(os.path.join(path, "ti.npz")) as z:
+            return {("ti", "rows"): torch.from_numpy(z["rows"])}
+    with np.load(os.path.join(path, "lora.npz")) as z:
+        return {("lora",) + tuple(k.rsplit(".", 1)): torch.from_numpy(z[k])
+                for k in z.files if k != "__meta__"}
+
+
+@contextlib.contextmanager
+def ft_capture(trees: bool = True):
+    """Wrap ``trainer.make_train_step`` for the CLI's run: the trees of the
+    state its first step sees (``ft_trees``), its step and optimizer count,
+    each step's kernel launches (the counts' difference around the step)
+    and the last state."""
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.train import trainer
+
+    seen = {"launches": []}
+    real = trainer.make_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def wrapped(state, *args, **kwargs):
+            if "first_step" not in seen:
+                seen["first_step"] = state.step
+                seen["first_count"] = state.opt_state.inner.count
+                if trees:
+                    seen["first_trees"] = ft_trees(state)
+            torch.cuda.synchronize()
+            before = dict(_kernels.launches)
+            out = step(state, *args, **kwargs)
+            torch.cuda.synchronize()
+            seen["launches"].append({k: v - before[k] for k, v in
+                                     _kernels.launches.items()})
+            seen["last"] = out[0]
+            return out
+
+        return wrapped
+
+    trainer.make_train_step = make
+    try:
+        yield seen
+    finally:
+        trainer.make_train_step = real
+
+
+def ft_bits(a: dict, b: dict, what: str) -> None:
+    import torch
+
+    if set(a) != set(b):
+        fail(f"{what}: trees of other leaves ({sorted(set(a) ^ set(b))[:4]})")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            fail(f"{what}: {'.'.join(k)} differs")
+
+
+def ft_update_err(init: dict, final: dict, init_ref: dict, final_ref: dict):
+    """(update cosine, max |Δ − Δref|) of the trained tensors."""
+    import torch
+
+    d = [(final[k].float() - init[k].float()).flatten() for k in final]
+    r = [(final_ref[k].float() - init_ref[k].float()).flatten()
+         for k in final]
+    d, r = torch.cat(d), torch.cat(r)
+    cos = float(d @ r / (d.norm() * r.norm()))
+    return cos, float((d - r).abs().max())
+
+
+def phase_finetune_tiny():
+    """The finetune CLI at the tiny config, one optimizer step per run,
+    each configuration (``FT_TINY``) bf16 on the card against fp32 on the
+    CPU from the same --ckpt, data and host draws: the loss, and each
+    trained tree's update (final checkpoint − the first step's state) held
+    as ``phase_train_parity`` holds them; exact K5/K6a/K6b/K7 launches a
+    step where the UNet trains (full, LoRA), each training kernel launched
+    otherwise, K1/K4 under --prior_generate.  Then a --resume of the full
+    run on the card: the state its first step sees equals the saved
+    checkpoint and the first run's last state bit for bit.  Returns each
+    card run's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import finetune
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = PipelineConfig.tiny()
+    root = tempfile.mkdtemp(prefix="sdbc_ft_tiny_")
+    paths = {}
+    try:
+        data = ft_dataset(os.path.join(root, "ds"), 8, 32)
+        init = os.path.join(root, "init")
+        ckpt.save_pipeline(init, init_models(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0)),
+            cfg)
+        base = ["--tiny", "--ckpt", init, "--data_root", data,
+                "--num_examples", "4", "--batch_size", "2",
+                "--grad_acc_steps", "2", "--ckpts_per_epoch", "1",
+                "--epochs", "1", "--num_workers", "2", "--learning_rate",
+                str(FT_LR)]
+        for mode, flags in FT_TINY.items():
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(root, f"{mode}-{dev}")
+                extra = ["--device", dev] + (["--no-bf16"] if dev == "cpu"
+                                             else [])
+                if mode == "prior" and dev == "cpu":
+                    # the card's class images: both runs train on them
+                    extra += ["--prior_images_dir",
+                              os.path.join(root, "prior-cuda",
+                                           "prior_class")]
+                _kernels.reset_launch_counts()
+                with ft_capture() as seen:
+                    stats = finetune.main(base + flags + extra
+                                          + ["--output_dir", out])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                runs[dev] = (stats, seen, dict(_kernels.launches))
+            (sg, seen_g, cg), (sc, seen_c, cc) = runs["cuda"], runs["cpu"]
+            lerr = abs(sg["losses"][0] - sc["losses"][0]) / abs(sc["losses"][0])
+            errs = {}
+            for name in FT_TRAINED[mode]:
+                errs[name] = ft_update_err(
+                    seen_g["first_trees"][name], ft_disk(sg["final"], name),
+                    seen_c["first_trees"][name], ft_disk(sc["final"], name))
+            step = seen_g["launches"][0]
+            want = None
+            if mode in ("full", "lora"):
+                tcfg = _train_cfg(grad_accum=2, micro_batch=2, grad_ckpt=True,
+                                  remat_mode="block")
+                want = expected_train_launches(
+                    cfg, tcfg, 32, _n8(seen_g["last"]) if mode == "full"
+                    else 0)
+            print(f"[finetune-tiny] {mode} ({' '.join(flags)}): loss card "
+                  f"{sg['losses'][0]:.6f} cpu {sc['losses'][0]:.6f} (rel err "
+                  f"{lerr:.3e}, tol {TRAIN_LOSS_RTOL}); update (cosine, max "
+                  f"|Δ difference|) {errs} (tol {TRAIN_UPDATE_COS}, "
+                  f"{TRAIN_STEP_BOUND * FT_LR}); step launches "
+                  f"{nonzero(step)} (expected "
+                  f"{nonzero(want) if want else 'each > 0'}); run launches "
+                  f"{nonzero(cg)} (CPU {nonzero(cc)})", flush=True)
+            if not all(np.isfinite(x) for x in sg["losses"] + sc["losses"]):
+                fail(f"finetune tiny {mode}: losses not finite")
+            if not (lerr <= TRAIN_LOSS_RTOL and all(
+                    cos >= TRAIN_UPDATE_COS
+                    and worst <= TRAIN_STEP_BOUND * FT_LR
+                    for cos, worst in errs.values())):
+                fail(f"finetune tiny {mode}: card vs CPU outside tolerance")
+            if set(cc.values()) != {0}:
+                fail(f"finetune tiny {mode}: CPU launches {cc}")
+            if want is not None and step != want:
+                fail(f"finetune tiny {mode} step launches {step}, expected "
+                     f"{want}")
+            if min(step[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")) == 0 \
+                    or (mode == "full" and step["adam8"] != 1) \
+                    or (mode == "prior" and min(cg["flash_fixed"],
+                                                cg["geglu_ff"]) == 0):
+                fail(f"finetune tiny {mode} skipped a kernel: step {step}, "
+                     f"run {cg}")
+            paths[f"finetune tiny {mode}"] = cg
+            if mode == "full":
+                last = ft_trees(seen_g["last"])
+                out = os.path.join(root, "full-cuda")
+                with ft_capture() as again:
+                    finetune.main(base + flags + [
+                        "--device", "cuda", "--output_dir", out, "--epochs",
+                        "2", "--resume"])
+                if (again["first_step"], again["first_count"]) != (1, 1):
+                    fail(f"finetune resume: step {again['first_step']} "
+                         f"count {again['first_count']}, expected 1, 1")
+                for name, tree in again["first_trees"].items():
+                    ft_bits(tree, last[name], f"resume {name} vs the run")
+                    ft_bits(tree, {k: t.cpu() for k, t in
+                                   ft_disk(sg["final"], name).items()},
+                            f"resume {name} vs the checkpoint")
+                print(f"[finetune-tiny] --resume on the card: step 1, "
+                      f"optimizer count 1, {sum(map(len, last.values()))} "
+                      f"tensors of {sorted(last)} bit for bit equal to the "
+                      "checkpoint and to the saving run's last state",
+                      flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
+def ckpt_bytes_estimate(cfg) -> int:
+    """Bytes of one mode-C checkpoint: the fp32 UNet and text encoder, the
+    bf16 VAE, the 8-bit moments (two bytes an element plus two (rows, 128)
+    fp32 scales per 2048 elements)."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import init_models
+
+    m = init_models(cfg, device="meta", generator=None)
+    n = {k: sum(p.numel() for p in v.parameters()) for k, v in m.items()}
+    trained = n["unet"] + n["text_encoder"]
+    return 4 * trained + 2 * n["vae"] + 2 * trained \
+        + 2 * 128 * 4 * math.ceil(trained / 2048)
+
+
+def phase_finetune(smi: str, train_sps: dict):
+    """The finetune CLI at full width, mode C (random SD-1.5 from seed 0,
+    bf16, UNet + text encoder, 8-bit AdamW, micro 2, grad_accum 4, remat
+    "block" by the CLI's default) on 16 PNG covers at 512²: --epochs 1
+    (2 steps and a checkpoint), then --resume --epochs 2 (2 more).  Exact
+    K5/K6a/K6b/K7 launches every step, finite losses, the resumed step;
+    s/step (median after each run's warm-up step) beside the train
+    phases', the loader's blocked ms a step, peak memory, checkpoint bytes
+    and save / load seconds.  Returns the launches of the 4 steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import finetune
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    cfg = PipelineConfig.sd15()
+    root = tempfile.mkdtemp(prefix="sdbc_ft_")
+    try:
+        need = 2 * ckpt_bytes_estimate(cfg) + (1 << 30)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            fail(f"finetune: {root} has {free / 1e9:.2f} GB free, the phase "
+                 f"writes two checkpoints and a dataset of "
+                 f"{need / 1e9:.2f} GB: {(need - free) / 1e9:.2f} GB short")
+        data = ft_dataset(os.path.join(root, "ds"), 16, 512)
+        out = os.path.join(root, "out")
+        argv = FT_FULL + ["--device", "cuda", "--data_root", data,
+                          "--output_dir", out]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with ft_capture(trees=False) as seen1:
+            s1 = finetune.main(argv + ["--epochs", "1"])
+        peaks = [torch.cuda.max_memory_allocated()]
+        del seen1["last"]  # the first run's state, before the second's
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with ft_capture(trees=False) as seen2:
+            s2 = finetune.main(argv + ["--epochs", "2", "--resume"])
+        wall = time.perf_counter() - t0
+        peaks.append(torch.cuda.max_memory_allocated())
+        peak = max(peaks)
+        n8 = _n8(seen2["last"])
+        tcfg = _train_cfg(grad_accum=4, micro_batch=2, grad_ckpt=True,
+                          remat_mode="block")
+        want = expected_train_launches(cfg, tcfg, 512, n8)
+        steps = seen1["launches"] + seen2["launches"]
+        losses = s1["losses"] + s2["losses"]
+        times = s1["step_s"][1:] + s2["step_s"][1:]
+        sps = statistics.median(times)
+        waits = [1e3 * w for w in s1["loader_wait_s"][1:]
+                 + s2["loader_wait_s"][1:]]
+        saves = s1["saves"] + s2["saves"]
+        total = dict.fromkeys(steps[0], 0)
+        for c in steps:
+            for k, v in c.items():
+                total[k] += v
+        print(f"[finetune] cli.finetune mode C SD-1.5 512^2 micro 2 grad_accum "
+              f"4 8-bit AdamW remat block (CLI default), 16 PNG covers: "
+              f"{len(steps)} steps in two runs (--resume), {sps:.4f} s/step "
+              f"(median of {times}; run warm-up steps {s1['step_s'][0]:.3f}, "
+              f"{s2['step_s'][0]:.3f}); train phase {train_sps['none']:.4f}, "
+              f"train-ckpt block {train_sps['block']:.4f} s/step; loader "
+              f"blocked {statistics.mean(waits):.3f} ms a step (max "
+              f"{max(waits):.3f}; first batch {1e3 * s1['loader_wait_s'][0]:.1f}"
+              f" ms); peak {peak / 2 ** 30:.2f} GiB (runs "
+              f"{[round(p / 2 ** 30, 2) for p in peaks]}); losses "
+              f"{[round(x, 6) for x in losses]}; {wall:.1f} s for both runs"
+              f" | {smi}", flush=True)
+        print(f"[finetune] checkpoints: "
+              + "; ".join(f"{os.path.basename(v['path'])} {v['bytes'] / 1e9:.3f}"
+                          f" GB in {v['seconds']:.2f} s ({v['bytes'] / 1e9 / v['seconds']:.2f}"
+                          f" GB/s)" if v["bytes"] else
+                          f"{os.path.basename(v['path'])} final: metadata only"
+                          f" ({v['seconds']:.3f} s)" for v in saves)
+              + f"; resume load {s2['load_s']:.2f} s "
+              f"({saves[0]['bytes'] / 1e9 / s2['load_s']:.2f} GB/s of the "
+              f"trees); launches a step {[nonzero(c) for c in steps]} "
+              f"(expected {nonzero(want)}, {n8} 8-bit leaves) | {smi}",
+              flush=True)
+        if not all(np.isfinite(x) for x in losses) or len(losses) != 4:
+            fail(f"finetune: losses {losses}")
+        if (seen2["first_step"], seen2["first_count"]) != (2, 2):
+            fail(f"finetune --resume started at step {seen2['first_step']}, "
+                 f"optimizer count {seen2['first_count']}")
+        if any(c != want for c in steps):
+            fail(f"finetune launches {steps}, expected {want} a step")
+        if want["flash_fwd"] != 120 or want["adam8"] != 1:
+            fail(f"mode C with remat block implies {want}, not 120 / 60 / 60 "
+                 f"/ 1")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"finetune": total}
 
 
 def phase_switches_sampling(cfg, pipe, smi: str):
@@ -4508,11 +4929,14 @@ def main() -> int:
                                             compute_dtype=torch.float32)
     torch.cuda.empty_cache()
     paths["train"], sps, peak = phase_train(smi)
-    ckpt = phase_train_ckpt(smi, (sps, peak))
+    ckpt, ckpt_sps = phase_train_ckpt(smi, (sps, peak))
     paths["train grad_ckpt block"] = ckpt["block"]
     paths["train grad_ckpt selective"] = ckpt["selective"]
     paths["train switches"], _, _ = phase_train(
         smi, steps=1, label="switches", env=SWITCHES, profile=False)
+    torch.cuda.empty_cache()
+    paths.update(phase_finetune_tiny())
+    paths.update(phase_finetune(smi, {"none": sps, **ckpt_sps}))
     if "jax" in sys.modules:
         fail("jax was imported")
     for row in rows:

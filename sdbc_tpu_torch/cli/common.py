@@ -1,6 +1,6 @@
-"""Shared CLI plumbing (counterpart of the part of ``sdbc_tpu/cli/common.py``
-that the inference, serve, precalc_fid_stats and fid CLIs use): boolean
-flags, model resolution with the ``--lora_path`` / ``--ti_path`` merges,
+"""Shared CLI plumbing (counterpart of ``sdbc_tpu/cli/common.py`` for one
+device): boolean flags, model resolution (``--ckpt``, ``--diffusers_ckpt``
+or a fresh init) with the ``--lora_path`` / ``--ti_path`` merges,
 tokenizer with placeholder tokens, compute dtype.
 
 Booleans are ``argparse.BooleanOptionalAction`` (--flag / --no-flag), not
@@ -23,33 +23,38 @@ import torch
 
 # flag → (value meaning "not used", what it needs)
 _UNPORTED_FLAGS = {
-    "ckpt": ("", "orbax checkpoints (utils/checkpoint.py, ROADMAP Queue 1 "
-                 "item 7); use --diffusers_ckpt"),
-    "wandb_artifact_run": ("", "wandb artifacts (ROADMAP Queue 1 item 7)"),
-    "wandb_key": ("", "wandb artifacts (ROADMAP Queue 1 item 7)"),
-    "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 9)"),
-    "control_image": ("", "ControlNet (ROADMAP Queue 1 item 9)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 9)"),
+    "wandb_artifact_run": ("", "wandb artifacts (the card's machine has "
+                               "no wandb; ROADMAP Queue 1 item 8)"),
+    "wandb_key": ("", "wandb tracking (the card's machine has no wandb; "
+                      "ROADMAP Queue 1 item 8)"),
+    "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 6)"),
+    "control_image": ("", "ControlNet (ROADMAP Queue 1 item 6)"),
+    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
+    "train_controlnet": (False, "ControlNet training (ROADMAP Queue 1 "
+                                "item 6)"),
     "model_family": ("sd15", "the SD-2.x and SDXL families (ROADMAP Queue "
-                             "1 item 9)"),
-    "tp": (0, "multi-device serving (ROADMAP Queue 1 item 8)"),
-    "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 8)"),
-    "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 8)"),
+                             "1 item 6)"),
+    "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
+    "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
+    "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
     "refiner_ckpt": ("", "the SDXL refiner ensemble (ROADMAP Queue 1 "
-                         "item 9)"),
-    "summarize": (None, "the BART summarizer (ROADMAP Queue 1 item 9)"),
-    "bart_ckpt": ("", "the BART summarizer (ROADMAP Queue 1 item 9)"),
+                         "item 6)"),
+    "summarize": (None, "the BART summarizer (ROADMAP Queue 1 item 4)"),
+    "bart_ckpt": ("", "the BART summarizer (ROADMAP Queue 1 item 4)"),
 }
 
 
-def refuse_unported(args) -> None:
+def refuse_unported(args, unused=None) -> None:
     """SystemExit naming the first flag of an unported feature that is set
-    (``--no-summarize`` is allowed: it turns the summarizer off)."""
-    for name, (unused, what) in _UNPORTED_FLAGS.items():
-        value = getattr(args, name, unused)
+    (``--no-summarize`` is allowed: it turns the summarizer off).
+    ``unused``: {flag: value} for a CLI whose "not used" value differs
+    from the table's (the finetune CLI's ``--tp 1``)."""
+    for name, (off, what) in _UNPORTED_FLAGS.items():
+        off = (unused or {}).get(name, off)
+        value = getattr(args, name, off)
         if name == "summarize" and value is False:
             continue
-        if value != unused:
+        if value != off:
             raise SystemExit(f"--{name} needs {what}, which sdbc_tpu_torch "
                              "has not ported yet")
 
@@ -76,8 +81,9 @@ def resolve_device(args) -> torch.device:
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ckpt", type=str, default="",
-                   help="checkpoint dir (utils/checkpoint.py layout; not "
-                        "ported yet)")
+                   help="checkpoint dir (utils/checkpoint.py layout) "
+                        "written by sdbc_tpu_torch; a JAX-written one is "
+                        "refused")
     p.add_argument("--diffusers_ckpt", type=str, default="",
                    help="diffusers save_pretrained dir of an SD-1.x model "
                         "(ported on the fly, models/port.py)")
@@ -134,15 +140,25 @@ def resolve_img_size(args):
 
 
 def _collect_added_tokens(args) -> dict:
-    """The placeholder token of ``--ti_path``'s embedding, {token: ids}
-    (without it the placeholder would BPE into ordinary tokens and miss
-    the learned rows)."""
-    if not getattr(args, "ti_path", ""):
-        return {}
-    from sdbc_tpu_torch.train import textual_inversion as ti_mod
+    """The placeholder tokens of a ``--ckpt``'s ``added_tokens.json`` and
+    of ``--ti_path``'s embedding, {token: ids} (without them the
+    placeholder would BPE into ordinary tokens and miss the learned
+    rows)."""
+    import json
+    import os
 
-    _, meta = ti_mod.load_ti(args.ti_path)
-    return ti_mod.added_tokens_entry(meta)
+    added = {}
+    atp = os.path.join(getattr(args, "ckpt", "") or "", "added_tokens.json")
+    if getattr(args, "ckpt", "") and os.path.exists(atp):
+        with open(atp) as f:
+            added = {k: (v if isinstance(v, list) else [v])
+                     for k, v in json.load(f).items()}
+    if getattr(args, "ti_path", ""):
+        from sdbc_tpu_torch.train import textual_inversion as ti_mod
+
+        _, meta = ti_mod.load_ti(args.ti_path)
+        added.update(ti_mod.added_tokens_entry(meta))
+    return added
 
 
 def make_tokenizer(args, vocab_size: int):
@@ -192,24 +208,38 @@ def _merge_adapters(args, models, cfg):
     return models, cfg
 
 
-def resolve_params_cfg(args):
+def resolve_params_cfg(args, dtype=None):
     """(models, cfg): ``--diffusers_ckpt``'s SD-1.x weights ported on the
-    fly (shapes from its config.json files), else a fresh init (tiny or
+    fly (shapes from its config.json files), else ``--ckpt``'s checkpoint
+    (``utils/checkpoint.py``: the EMA shadow, LoRA and TI merged as saved;
+    its scheduler unless ``--scheduler``), else a fresh init (tiny or
     SD-1.5 shapes) from ``--seed``; then ``--lora_path`` and ``--ti_path``
-    merged (``_merge_adapters``).  The modules live on ``--device`` in the
-    compute dtype (``--bf16``); the ported weights are merged in fp32
-    before the cast, a fresh init (made in the compute dtype) with its
+    merged (``_merge_adapters``).  The modules live on ``--device`` in
+    ``dtype`` (default: the compute dtype, ``--bf16``; the finetune CLI
+    asks for fp32 masters); loaded weights are merged in their saved
+    dtypes before the cast, a fresh init (made in ``dtype``) with its
     deltas in fp32 and the sums rounded once.
 
     Zero-egress: there is no HF-hub branch; pretrained weights enter via
-    ``--diffusers_ckpt`` (``models/port.py``)."""
+    ``--diffusers_ckpt`` (``models/port.py``) or ``--ckpt``."""
     from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig,
                                                    as_modules, init_models)
 
     device = resolve_device(args)
-    dtype = compute_dtype(args)
+    dtype = dtype or compute_dtype(args)
     sched = args.scheduler or "ddim"
-    if args.diffusers_ckpt:
+    if getattr(args, "ckpt", "") and not args.diffusers_ckpt:
+        from sdbc_tpu_torch.utils import checkpoint as ckpt_mod
+
+        try:
+            models, cfg = ckpt_mod.load_pipeline(args.ckpt, device=device)
+        except ckpt_mod.JAXCheckpointError as e:
+            raise SystemExit(f"--ckpt {e}")
+        if args.scheduler is not None:
+            cfg = dataclasses.replace(cfg, scheduler=args.scheduler)
+        models, cfg = _merge_adapters(args, models, cfg)
+        models = {k: m.to(dtype) for k, m in models.items()}
+    elif args.diffusers_ckpt:
         from sdbc_tpu_torch.models.port import (
             pipeline_config_from_diffusers, port_diffusers_checkpoint)
 

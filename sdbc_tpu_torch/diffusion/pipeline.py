@@ -61,11 +61,11 @@ def _pad_to(arr: np.ndarray, n: int, fill: float) -> np.ndarray:
 # __call__'s arguments of features the port has not taken yet, with their
 # defaults and the ROADMAP item that brings them
 _UNPORTED_CALL = {
-    "control_image": (None, "ControlNet (ROADMAP Queue 1 item 9)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 9)"),
-    "aesthetic_score": (6.0, "the SDXL refiner (ROADMAP Queue 1 item 9)"),
+    "control_image": (None, "ControlNet (ROADMAP Queue 1 item 6)"),
+    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
+    "aesthetic_score": (6.0, "the SDXL refiner (ROADMAP Queue 1 item 6)"),
     "negative_aesthetic_score": (2.5,
-                                 "the SDXL refiner (ROADMAP Queue 1 item 9)"),
+                                 "the SDXL refiner (ROADMAP Queue 1 item 6)"),
 }
 
 

@@ -39,7 +39,7 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
     include_desc=True appends the description placeholder with the RAW
     description (the reference, inference.py:324-330); ``summarize=True``
     (a DistilBART summary instead) raises until the summarizer is ported
-    (ROADMAP Queue 1 item 9); otherwise the fixed test templates
+    (ROADMAP Queue 1 item 4); otherwise the fixed test templates
     are used as-is.  prompts_override supplies a pre-rendered (template ×
     sample) prompt list (the --prompt_bank reference path) and bypasses
     the template expansion.  name_suffix distinguishes grid files that
@@ -50,7 +50,7 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
                          "(reference assertion, inference.py:248-250)")
     if summarize:
         raise NotImplementedError("summarize: the BART summarizer is not "
-                                  "ported yet (ROADMAP Queue 1 item 9)")
+                                  "ported yet (ROADMAP Queue 1 item 4)")
     if prompts_override is not None:
         if len(prompts_override) % samples_per_prompt:
             raise ValueError("len(prompts_override) must be a multiple of "

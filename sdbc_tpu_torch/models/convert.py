@@ -18,9 +18,18 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
 Raises on any leaf without a parameter or buffer, any parameter or buffer
 left unset, and any shape that disagrees.
 
+``jax_tree_leaves`` is the inverse: a module's parameters as the JAX
+tree's (key path, tensor) leaves, the leaf name from the module that owns
+the parameter (``Linear``/``Conv2d`` → ``w``/``b``, ``GroupNorm``/
+``LayerNorm`` → ``scale``/``bias``, ``Embedding`` → ``table``) and a
+tower's ``layers.<i>.…`` stacked again.  Every numeric key of these trees
+is a list index.
+
 ``load_adam8_state`` carries an 8-bit AdamW state across the same way.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -46,7 +55,7 @@ def _flatten(node, prefix, out):
             _flatten(v, prefix + [str(i)], out)
     else:
         out[".".join(prefix[:-1] + [_LEAF.get(prefix[-1], prefix[-1])])] = \
-            np.asarray(node)
+            node if torch.is_tensor(node) else np.asarray(node)
 
 
 def _flatten_jax_tree(module: torch.nn.Module, tree) -> dict:
@@ -75,8 +84,65 @@ def load_jax_params(module: torch.nn.Module, tree) -> torch.nn.Module:
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} vs port "
                              f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
+        src = arr if torch.is_tensor(arr) else torch.from_numpy(np.array(arr))
+        p.copy_(src.to(p.dtype))
     return module
+
+
+def _jax_names(module: torch.nn.Module) -> dict:
+    """Parameter leaf name → JAX leaf name, by the owning module's class."""
+    from sdbc_tpu_torch.ops import nn
+
+    names = {}
+    for cls, leaves in ((nn.Linear, ("w", "b")), (nn.Conv2d, ("w", "b")),
+                        (nn.GroupNorm, ("scale", "bias")),
+                        (nn.LayerNorm, ("scale", "bias")),
+                        (nn.Embedding, ("table", None))):
+        if isinstance(module, cls):
+            names["weight"] = leaves[0]
+            if leaves[1]:
+                names["bias"] = leaves[1]
+    return names
+
+
+_LAYER = re.compile(r"^(.*?)layers\.(\d+)\.(.*)$")
+
+
+def jax_key(module: torch.nn.Module, name: str) -> tuple:
+    """The JAX key path of parameter ``name`` of ``module``, as
+    ((key, is_list_index), ...), with a stacked tower's layer index left
+    out (``layers.3.attn.q.weight`` → layers/attn/q/w)."""
+    owner, _, leaf = name.rpartition(".")
+    leaf = _jax_names(module.get_submodule(owner) if owner else module) \
+        .get(leaf, leaf)
+    path = (owner + "." if owner else "") + leaf
+    m = _LAYER.match(path)
+    if m:
+        path = f"{m.group(1)}layers.{m.group(3)}"
+    return tuple((k, k.isdigit()) for k in path.split("."))
+
+
+def jax_tree_leaves(module: torch.nn.Module) -> list:
+    """[(JAX key path, tensor)] of every parameter and buffer of
+    ``module``, in the module's order; a stacked tower's layers become one
+    (L, ...) tensor per name (a copy), the others are the parameters
+    themselves (detached)."""
+    stacks: dict = {}
+    order = []
+    tensors = {**dict(module.named_buffers()),
+               **dict(module.named_parameters())}
+    for name, t in tensors.items():
+        key = jax_key(module, name)
+        if key not in stacks:
+            stacks[key] = []
+            order.append(key)
+        stacks[key].append(t.detach())
+    return [(k, stacks[k][0] if len(stacks[k]) == 1 and not _stacked(k)
+             else torch.stack(stacks[k])) for k in order]
+
+
+def _stacked(key: tuple) -> bool:
+    return any(k == "layers" for k, _ in key)
 
 
 def load_adam8_state(jax_state, device="cpu"):

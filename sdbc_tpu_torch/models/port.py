@@ -21,8 +21,8 @@ format written here: the ``safetensors`` package is not needed), ``.bin``
 and ``.pth`` through ``torch.load(weights_only=True)``.  Layouts of the
 families the port has not taken (SDXL's second encoder and text-time
 embedding, SD-2's per-block heads, depth > 1 transformers) raise
-``NotImplementedError``; ControlNet, BART and the exporters wait (ROADMAP
-Queue 1 item 9).
+``NotImplementedError``; ControlNet and the exporters wait (ROADMAP
+Queue 1 item 6), BART (item 4).
 """
 from __future__ import annotations
 
@@ -163,7 +163,7 @@ def _port_transformer(sd, pfx):
     if f"{pfx}.transformer_blocks.1.norm1.weight" in sd:
         raise NotImplementedError(
             f"{pfx}: depth > 1 transformer blocks (SDXL) are not ported "
-            "yet (ROADMAP Queue 1 item 9)")
+            "yet (ROADMAP Queue 1 item 6)")
     tb = f"{pfx}.transformer_blocks.0"
     attn = lambda a: {"q": _linear(sd, f"{tb}.{a}.to_q"),
                       "k": _linear(sd, f"{tb}.{a}.to_k"),
@@ -193,7 +193,7 @@ def port_unet(sd: Dict[str, np.ndarray]) -> dict:
     if "add_embedding.linear_1.weight" in sd:
         raise NotImplementedError("the SDXL text-time embedding "
                                   "(add_embedding) is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+                                  "(ROADMAP Queue 1 item 6)")
     p = {
         "conv_in": _conv(sd, "conv_in"),
         "time_mlp": {
@@ -478,7 +478,7 @@ def unet_config_from_diffusers(cfg: dict):
         if len(set(heads)) > 1:
             raise NotImplementedError(
                 f"per-block head counts {tuple(heads)} (SD-2.x/SDXL) are "
-                "not ported yet (ROADMAP Queue 1 item 9)")
+                "not ported yet (ROADMAP Queue 1 item 6)")
         heads = heads[0]
     depth = cfg.get("transformer_layers_per_block", 1)
     if isinstance(depth, (list, tuple)):
@@ -490,7 +490,7 @@ def unet_config_from_diffusers(cfg: dict):
     if cfg.get("addition_embed_type"):
         raise NotImplementedError(
             f"addition_embed_type {cfg['addition_embed_type']!r} (SDXL) is "
-            "not ported yet (ROADMAP Queue 1 item 9)")
+            "not ported yet (ROADMAP Queue 1 item 6)")
     return UNetConfig(
         in_channels=cfg.get("in_channels", 4),
         out_channels=cfg.get("out_channels", 4),
@@ -560,7 +560,7 @@ def pipeline_config_from_diffusers(root: str, scheduler: str = "ddim"):
 
     if os.path.exists(os.path.join(root, "text_encoder_2")):
         raise NotImplementedError(f"{root} has a text_encoder_2 (SDXL): "
-                                  "not ported yet (ROADMAP Queue 1 item 9)")
+                                  "not ported yet (ROADMAP Queue 1 item 6)")
     base = PipelineConfig.sd15(scheduler)
     parts = {"unet": base.unet, "vae": base.vae, "text_encoder": base.clip}
     readers = {"unet": unet_config_from_diffusers,
@@ -587,7 +587,7 @@ def port_diffusers_checkpoint(root: str) -> dict:
     trees (for ``SDPipeline``)."""
     if os.path.isdir(os.path.join(root, "text_encoder_2")):
         raise NotImplementedError(f"{root} has a text_encoder_2 (SDXL): "
-                                  "not ported yet (ROADMAP Queue 1 item 9)")
+                                  "not ported yet (ROADMAP Queue 1 item 6)")
     params = {}
     for comp, fn in (("unet", port_unet), ("vae", port_vae),
                      ("text_encoder", port_clip_text)):

@@ -14,9 +14,12 @@ Serving merges once up front: ``apply_lora`` / ``merge_file`` return
 merged copies of the components an adapter touches (the others shared) and
 leave the base modules untouched, so a daemon serves the base next to each
 adapter.  The delta is computed in fp32 and the sum rounded once to the
-weight's dtype.  Files are the JAX package's ``sdbc_lora_v1`` ``.npz``: a
-file written by either package loads in the other.  Training with adapters
-(``TrainConfig.lora_rank``) is not ported.
+weight's dtype.  Training (``TrainConfig.lora_rank``) merges without
+copies: ``merged_weights`` gives W + scale·(a @ b) of the adapted
+projections only, in the same rounding order and differentiable in a and
+b, and the trainer puts them in place of the frozen weights for a forward
+and its backward.  Files are the JAX package's ``sdbc_lora_v1`` ``.npz``:
+a file written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -39,26 +42,26 @@ _LAYER = re.compile(r"^layers\.\d+\.")
 
 
 def _linears(models: dict) -> Dict[str, Tuple[bool, list]]:
-    """Dotted JAX path → (stacked, [weights]) for every linear (and conv,
+    """Dotted JAX path → (stacked, [modules]) for every linear (and conv,
     as the JAX package's ``_is_linear`` counts any ``{"w"}`` of rank ≥ 2)
     of the components; a CLIP tower's ``layers.<i>.…`` share one stacked
-    path, one weight per layer."""
+    path, one module per layer."""
     out: Dict[str, Tuple[bool, list]] = {}
     for comp, module in models.items():
         for name, m in module.named_modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 path = f"{comp}.{_LAYER.sub('layers.', name)}"
                 out.setdefault(path, (path != f"{comp}.{name}", []))[1] \
-                    .append(m.weight)
+                    .append(m)
     return out
 
 
 def _targets(models, components, containers, projections):
-    for path, (stacked, weights) in _linears(models).items():
+    for path, (stacked, mods) in _linears(models).items():
         parts = path.split(".")
         if parts[0] in components and parts[-1] in projections \
                 and any(c in parts[:-1] for c in containers):
-            yield path, stacked, weights
+            yield path, stacked, [m.weight for m in mods]
 
 
 def _shape(stacked: bool, weights: list) -> tuple:
@@ -101,14 +104,27 @@ def apply_lora(models: dict, lora: Dict[str, dict], scale: float) -> dict:
     touched = {k.split(".", 1)[0] for k in lora}
     out = {name: copy.deepcopy(m) if name in touched else m
            for name, m in models.items()}
-    table = _linears({k: m for k, m in out.items() if k in touched})
+    for m, w in merged_weights(
+            {k: m for k, m in out.items() if k in touched}, lora, scale):
+        m.weight.copy_(w)
+    return out
+
+
+def merged_weights(models: dict, lora: Dict[str, dict], scale: float):
+    """[(module, W + scale·(a @ b))] for every adapted projection, the
+    delta in fp32 and the sum rounded once to the weight's dtype (the JAX
+    package's ``apply_lora`` order), differentiable in a and b.  Raises if
+    an adapter path matches no linear."""
+    table = _linears(models)
     missing = sorted(set(lora) - set(table))
     if missing:
         raise ValueError(
             f"LoRA adapter paths not found in params: {missing[:5]} "
             f"(+{max(len(missing) - 5, 0)} more) — wrong component tree?")
+    out = []
     for path, ab in lora.items():
-        stacked, weights = table[path]
+        stacked, mods = table[path]
+        weights = [m.weight for m in mods]
         dev = weights[0].device
         a, b = (ab[x] if torch.is_tensor(ab[x])
                 else torch.from_numpy(np.array(ab[x])) for x in "ab")
@@ -118,8 +134,8 @@ def apply_lora(models: dict, lora: Dict[str, dict], scale: float) -> dict:
             raise ValueError(f"LoRA adapter {path}: delta "
                              f"{tuple(delta.shape)} vs weight "
                              f"{_shape(stacked, weights)}")
-        for w, d in zip(weights, delta if stacked else delta[None]):
-            w.copy_((w.float() + d).to(w.dtype))
+        for m, d in zip(mods, delta if stacked else delta[None]):
+            out.append((m, (m.weight.float() + d).to(m.weight.dtype)))
     return out
 
 

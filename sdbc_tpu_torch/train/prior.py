@@ -1,0 +1,114 @@
+"""Prior preservation (DreamBooth, arXiv:2208.12242), the data half
+(counterpart of ``sdbc_tpu/train/prior.py``): a deterministic class-image
+batcher whose batches ride alongside the instance loader
+(``augment_loader``), and the self-generation of the class set
+(``generate_class_images``, written as PNG by ``utils/png.py``: no PIL).
+The loss weighting is ``TrainConfig.prior_weight`` (train/trainer.py).
+"""
+from __future__ import annotations
+
+import os
+import random
+from typing import Iterator
+
+import numpy as np
+
+from sdbc_tpu_torch.utils.image import decode_and_prepare
+
+_IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+class PriorSet:
+    """A directory of class images + ONE class prompt, tokenized once."""
+
+    def __init__(self, class_dir: str, class_prompt: str, tokenizer,
+                 img_size: int, max_length: int = 77):
+        if not class_prompt:
+            raise ValueError("prior preservation needs a class prompt "
+                             "(e.g. 'a book cover')")
+        self.class_dir = class_dir
+        self.class_prompt = class_prompt
+        self.img_size = img_size
+        self.paths = sorted(
+            os.path.join(class_dir, f) for f in os.listdir(class_dir)
+            if f.lower().endswith(_IMG_EXTS)) \
+            if os.path.isdir(class_dir) else []
+        if not self.paths:
+            raise ValueError(f"no class images under {class_dir} — "
+                             "pre-generate them (generate_class_images / "
+                             "--prior_generate) or point at an existing set")
+        self.ids = np.asarray(tokenizer.encode(class_prompt, max_length),
+                              np.int32)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def batches(self, micro_batch: int, grad_accum: int = 1,
+                seed: int = 42) -> Iterator[dict]:
+        """Infinite deterministic stream of {"prior_pixel_values": (A, B,
+        S, S, 3), "prior_input_ids": (A, B, ctx)}: the class set cycles in
+        a seed-shuffled order reshuffled each pass."""
+        step = micro_batch * grad_accum
+        rng = random.Random(seed)
+
+        def infinite_order():
+            while True:
+                order = list(range(len(self.paths)))
+                rng.shuffle(order)
+                yield from order
+
+        it = infinite_order()
+        while True:
+            idxs = [next(it) for _ in range(step)]
+            pixels = np.stack([decode_and_prepare(self.paths[i],
+                                                  self.img_size)
+                               for i in idxs])
+            a = len(idxs) // micro_batch
+            yield {"prior_pixel_values": pixels.reshape(
+                       a, micro_batch, *pixels.shape[1:]),
+                   "prior_input_ids": np.broadcast_to(
+                       self.ids, (a, micro_batch, self.ids.shape[0])).copy()}
+
+
+def augment_loader(loader: Iterator[dict],
+                   prior_batches: Iterator[dict]) -> Iterator[dict]:
+    """Merge a prior_* batch into every instance batch."""
+    for batch in loader:
+        merged = dict(batch)
+        merged.update(next(prior_batches))
+        yield merged
+
+
+def generate_class_images(pipe, class_prompt: str, num_images: int,
+                          out_dir: str, *, img_size: int = 512,
+                          batch_size: int = 4, num_inference_steps: int = 50,
+                          guidance_scale: float = 7.5, seed: int = 0,
+                          log=print) -> int:
+    """Top up ``out_dir`` to ``num_images`` class images with the base
+    model (existing images count); returns how many were generated.  Batch
+    k draws its latents from seed ``seed + <images already made>``; images
+    are rounded to uint8 as the JAX package's ``numpy_to_pil`` rounds."""
+    from sdbc_tpu_torch.utils import png
+
+    os.makedirs(out_dir, exist_ok=True)
+    have = sum(f.lower().endswith(_IMG_EXTS) for f in os.listdir(out_dir))
+    made = 0
+    while have + made < num_images:
+        n = min(batch_size, num_images - have - made)
+        imgs = pipe([class_prompt] * n, height=img_size, width=img_size,
+                    num_inference_steps=num_inference_steps,
+                    guidance_scale=guidance_scale, seed=seed + made)
+        for im in imgs:
+            # skip taken indices so existing images are never overwritten
+            idx = have + made
+            path = os.path.join(out_dir, f"class-{idx:05d}.png")
+            while os.path.exists(path):
+                idx += 1
+                path = os.path.join(out_dir, f"class-{idx:05d}.png")
+            with open(path, "wb") as f:
+                f.write(png.encode(np.uint8(np.round(np.asarray(im)
+                                                     * 255.0))))
+            made += 1
+        log(f"prior set: generated {made} class images "
+            f"({have + made}/{num_images})")
+    return made

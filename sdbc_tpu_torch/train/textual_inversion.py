@@ -7,8 +7,9 @@ rows, cast to the table's dtype, so the placeholder ids (base vocab + k,
 copy's config counts the appended rows and keeps pooling on the true
 ``<|endoftext|>`` id.  Files are the JAX package's ``sdbc_ti_v1`` ``.npz``
 (rows, token, ids; ``rows2`` for a dual-encoder SDXL embedding, which the
-port's single-encoder models refuse).  Training the rows (``ti_vectors``)
-is not ported.
+port's single-encoder models refuse).  Training the rows is
+``TrainConfig.ti_token`` (``train/trainer.py``, which appends them to the
+frozen table for each forward and backward).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The SD-1.x fine-tuning step (counterpart of ``sdbc_tpu/train/trainer.py``),
-full fine-tune branch, on one device.
+"""The SD-1.x fine-tuning step (counterpart of ``sdbc_tpu/train/trainer.py``)
+on one device: full fine-tuning, LoRA, textual inversion, prior
+preservation and cached latents.
 
   - one step = a Python loop over the micro-batches of a
     (grad_accum, micro, ...) batch: VAE encode (no gradient; image by image
@@ -33,13 +34,40 @@ Randomness comes from an explicit ``torch.Generator`` or from injected
 offset, ``offset``): the JAX package's ``jax.random`` streams cannot be
 reproduced here, so the parity tests hand the JAX draws over.
 
-Not ported yet (``TrainConfig`` raises ``NotImplementedError``): LoRA,
-textual inversion, prior preservation, ControlNet and SDXL training;
-v-prediction waits for the SD-2 family.
+Parameter-efficient modes, as the JAX package has them:
+
+  - LoRA (``lora_rank``): every component frozen in the compute dtype;
+    the trainable tree is ``{"lora": {path: {"a", "b"}}}`` (fp32).  Each
+    micro-batch puts W + (α/r)·a @ b (``lora.merged_weights``) in place of
+    the adapted frozen weights for its forward AND its backward
+    (``merged``): under gradient checkpointing the backward recomputes the
+    forward, and must see the merged weights again, which
+    ``torch.func.functional_call`` (restoring on return) would not give.
+  - textual inversion (``ti_token``): the trainable tree is
+    ``{"ti": {"rows": (ti_vectors, hidden)}}``, appended to the frozen
+    embedding table the same way.
+  - prior preservation (``prior_weight``): each micro-batch carries
+    ``prior_pixel_values``/``prior_input_ids``; one VAE encode and one
+    UNet call on the concatenated batch, loss = instance mean +
+    prior_weight · prior mean.
+  - cached latents: a micro-batch with ``latent_mean``/``latent_logvar``
+    (``train/latent_cache.py``) samples mean + exp(½·logvar)·eps with no
+    VAE encode.
+
+The optimizer's leaves are in the JAX tree's leaf order for the adapters
+(sorted paths, then a, b) and in module order for full components
+(``optimizer_leaf_keys`` names each leaf by its JAX key path, so
+``utils/checkpoint.py`` writes the state in the JAX layout).
+
+Not ported yet (``TrainConfig`` raises ``NotImplementedError``):
+ControlNet and SDXL training; v-prediction waits for the SD-2 family.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import re
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -53,8 +81,7 @@ from sdbc_tpu_torch.models import vae as vae_mod
 from sdbc_tpu_torch.train.adam8bit import AdamW8bit, leaf_parts
 from sdbc_tpu_torch.utils.dtypes import cast_floating
 
-_UNPORTED = {"lora_rank": 0, "ti_token": "", "prior_weight": 0.0,
-             "train_controlnet": False, "dual_text_encoder": False,
+_UNPORTED = {"train_controlnet": False, "dual_text_encoder": False,
              "refiner": False}
 
 
@@ -80,10 +107,18 @@ class TrainConfig:
     min_snr_gamma: float = 0.0
     noise_offset: float = 0.0
     ema_decay: float = 0.0
-    # not ported yet: any value but the default raises
+    # LoRA: rank > 0 trains adapters of the selected components' attention
+    # projections, ΔW = (alpha/rank)·a @ b (train/lora.py)
     lora_rank: int = 0
+    lora_alpha: float = 8.0
+    # textual inversion: a non-empty token trains only ti_vectors rows
+    # appended to the CLIP table (train/textual_inversion.py)
     ti_token: str = ""
+    ti_vectors: int = 1
+    # prior preservation: > 0 weights the class batch's MSE
+    # (train/prior.py)
     prior_weight: float = 0.0
+    # not ported yet: any value but the default raises
     train_controlnet: bool = False
     dual_text_encoder: bool = False
     refiner: bool = False
@@ -97,6 +132,10 @@ class TrainConfig:
         if self.remat_mode not in ("block", "selective"):
             raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
 
+    @property
+    def lora_scale(self) -> float:
+        return self.lora_alpha / self.lora_rank
+
     def trainable_keys(self):
         keys = []
         if self.train_unet:
@@ -108,44 +147,92 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    trainable: Dict[str, torch.nn.Module]   # fp32 masters being optimised
+    # fp32 masters being optimised: {component: module}, or the adapter
+    # trees {"lora": {path: {"a", "b"}}} / {"ti": {"rows": tensor}}
+    trainable: Dict[str, Any]
     frozen: Dict[str, torch.nn.Module]      # compute-dtype frozen components
     opt_state: Any
     step: int = 0
-    ema: Optional[Dict[str, torch.nn.Module]] = None  # shadow of trainable
+    ema: Optional[Dict[str, Any]] = None    # shadow of trainable
 
 
-def trainable_params(trainable: Dict[str, torch.nn.Module]) -> List[torch.Tensor]:
-    """Every parameter of the trainable components, in a fixed order
-    (components by name, then module order)."""
-    return [p for k in sorted(trainable) for p in trainable[k].parameters()]
+_LAYER = re.compile(r"(^|\.)layers\.\d+\.")
 
 
-def optimizer_leaves(trainable: Dict[str, torch.nn.Module]) -> List[List[torch.Tensor]]:
-    """The optimizer's leaves as the JAX package's parameter tree has them,
-    each a list of parameters: one parameter, or, for the text encoder's
-    ``layers.<i>.<name>``, that name in every layer, in layer order (the
-    JAX tree stacks the layers into one array per name)."""
-    leaves = []
+def _grouped_leaves(trainable: Dict[str, Any]):
+    """{leaf id: (a parameter name or adapter key, [tensors])} of the
+    optimizer's leaves, in order: an adapter's tensors in the JAX tree's
+    order (sorted paths, then a, b); a component's parameters in module
+    order, a tower's ``layers.<i>.<name>`` gathered into one leaf of that
+    name in every layer, in layer order (the JAX tree stacks the layers
+    into one array per name)."""
+    if "lora" in trainable:
+        lora = trainable["lora"]
+        return {(path, x): ((path, x), [lora[path][x]])
+                for path in sorted(lora) for x in "ab"}
+    if "ti" in trainable:
+        return {"rows": ("rows", [trainable["ti"]["rows"]])}
+    leaves: dict = {}
     for k in sorted(trainable):
-        module = trainable[k]
-        stacks = {}
-        for name, p in module.named_parameters():
-            if isinstance(module, clip_mod.CLIPTextModel) \
-                    and name.startswith("layers."):
-                rest = name.split(".", 2)[2]
-                if rest not in stacks:
-                    stacks[rest] = []
-                    leaves.append(stacks[rest])
-                stacks[rest].append(p)
-            else:
-                leaves.append([p])
+        for name, p in trainable[k].named_parameters():
+            group = (k, _LAYER.sub(r"\1layers.", name))
+            leaves.setdefault(group, (name, []))[1].append(p)
     return leaves
 
 
+def optimizer_leaves(trainable: Dict[str, Any]) -> List[List[torch.Tensor]]:
+    """The optimizer's leaves, each a list of tensors (``_grouped_leaves``)."""
+    return [ts for _, ts in _grouped_leaves(trainable).values()]
+
+
+def optimizer_leaf_keys(trainable: Dict[str, Any]) -> list:
+    """The JAX key path of each of ``optimizer_leaves``' leaves."""
+    from sdbc_tpu_torch.models.convert import jax_key
+
+    if "lora" in trainable:
+        return [(("lora", False), (path, False), (x, False))
+                for (path, x), _ in _grouped_leaves(trainable).values()]
+    if "ti" in trainable:
+        return [(("ti", False), ("rows", False))]
+    return [((k, False),) + jax_key(trainable[k], name)
+            for (k, _), (name, _) in _grouped_leaves(trainable).items()]
+
+
+def trainable_params(trainable: Dict[str, Any]) -> List[torch.Tensor]:
+    """Every trainable tensor: the trainable components' parameters
+    (components by name, then module order), or the adapter's tensors."""
+    if "lora" in trainable or "ti" in trainable:
+        return _flat(optimizer_leaves(trainable))
+    return [p for k in sorted(trainable) for p in trainable[k].parameters()]
+
+
 def _split_params(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
-                  compute_dtype, device):
+                  compute_dtype, device, generator=None, ti_init_ids=None):
     tkeys = tcfg.trainable_keys()
+    if tcfg.ti_token or tcfg.lora_rank > 0:
+        # every component freezes; the trainable tree is the adapter
+        if tcfg.ti_token and tcfg.lora_rank > 0:
+            raise ValueError("ti_token and lora_rank are mutually exclusive")
+        if tcfg.ti_token:
+            from sdbc_tpu_torch.train import textual_inversion as ti_mod
+
+            rows = ti_mod.init_rows(
+                models["text_encoder"].token_embedding.weight.detach(),
+                tcfg.ti_vectors, init_ids=ti_init_ids)
+            trainable = {"ti": {"rows": rows.to(device).requires_grad_(True)}}
+        else:
+            from sdbc_tpu_torch.train import lora as lora_mod
+
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            lora = lora_mod.init_lora(generator, models, tcfg.lora_rank,
+                                      components=tkeys)
+            trainable = {"lora": {
+                k: {x: v.to(device, torch.float32).requires_grad_(True)
+                    for x, v in ab.items()} for k, ab in lora.items()}}
+        frozen = {k: cast_floating(m.to(device), compute_dtype)
+                  .requires_grad_(False) for k, m in models.items()}
+        return trainable, frozen
     trainable = {k: models[k].to(device, torch.float32).requires_grad_(True)
                  for k in tkeys}
     frozen = {k: cast_floating(m.to(device), compute_dtype).requires_grad_(False)
@@ -286,20 +373,26 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
 
 def init_train_state(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
                      compute_dtype=torch.bfloat16,
-                     device="cuda") -> TrainState:
+                     device="cuda", generator=None,
+                     ti_init_ids=None) -> TrainState:
     """``models``: {"text_encoder", "unet", "vae"} modules, moved to
     ``device`` in place (the trainable ones as fp32 masters, the frozen
-    ones cast to ``compute_dtype``)."""
-    if not tcfg.trainable_keys():
+    ones cast to ``compute_dtype``).  ``generator`` draws the LoRA a-init
+    (b is zero, so the adapted model is the base at step 0);
+    ``ti_init_ids``: the ids of textual inversion's initializer word."""
+    if not tcfg.trainable_keys() and not tcfg.ti_token:
         raise ValueError(
             "nothing to train: set train_unet and/or train_text_encoder")
     trainable, frozen = _split_params(models, tcfg, compute_dtype,
-                                      torch.device(device))
+                                      torch.device(device), generator,
+                                      ti_init_ids)
     opt = make_optimizer(tcfg)
     ema = None
     if tcfg.ema_decay > 0:
-        import copy
-
+        if "lora" in trainable or "ti" in trainable:
+            raise ValueError("ema_decay with lora_rank or ti_token: a "
+                             "checkpoint's ema/ overlay holds component "
+                             "trees, not adapters")
         ema = {k: copy.deepcopy(m).requires_grad_(False)
                for k, m in trainable.items()}
     return TrainState(trainable=trainable, frozen=frozen,
@@ -307,16 +400,79 @@ def init_train_state(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
                       step=0, ema=ema)
 
 
-def merged_params(state: TrainState,
+def _ema_pairs(state: TrainState):
+    """(shadow, master) parameter pairs of the EMA."""
+    return [(e, p) for k in state.ema
+            for e, p in zip(state.ema[k].parameters(),
+                            state.trainable[k].parameters())]
+
+
+@contextlib.contextmanager
+def _swapped(pairs):
+    """Each (module, tensor) pair's tensor in place of the module's
+    ``weight`` for the block (the registered parameter put back after
+    it, whatever happens inside)."""
+    saved = [(m, m._parameters["weight"]) for m, _ in pairs]
+    try:
+        for m, w in pairs:
+            m._parameters["weight"] = w
+        yield
+    finally:
+        for m, w in saved:
+            m._parameters["weight"] = w
+
+
+@contextlib.contextmanager
+def merged(trainable: Dict[str, Any], frozen: Dict[str, torch.nn.Module],
+           tcfg: TrainConfig):
+    """The {text_encoder, unet, vae} modules of a state's halves for a
+    forward and its backward: the trainable components over the frozen
+    ones; or the frozen modules with the LoRA-merged projections or the
+    extended embedding table in place, differentiable in the adapter."""
+    if "ti" in trainable:
+        emb = frozen["text_encoder"].token_embedding
+        table = emb.weight
+        rows = trainable["ti"]["rows"].to(table.dtype)
+        with _swapped([(emb, torch.cat([table, rows], dim=0))]):
+            yield frozen
+    elif "lora" in trainable:
+        from sdbc_tpu_torch.train import lora as lora_mod
+
+        with _swapped(lora_mod.merged_weights(frozen, trainable["lora"],
+                                              tcfg.lora_scale)):
+            yield frozen
+    else:
+        out = dict(frozen)
+        out.update(trainable)
+        yield out
+
+
+def merged_params(state: TrainState, tcfg: Optional[TrainConfig] = None,
                   use_ema: bool = False) -> Dict[str, torch.nn.Module]:
-    """{text_encoder, unet, vae} modules for inference or checkpointing;
-    ``use_ema`` serves the EMA shadow (raises without one)."""
+    """{text_encoder, unet, vae} modules for inference or checkpointing:
+    a LoRA state merged into copies of the touched components (needs
+    ``tcfg`` for the scale), a textual-inversion state with a copy of the
+    text encoder whose table holds the rows; ``use_ema`` serves the EMA
+    shadow (raises without one)."""
     trainable = state.trainable
     if use_ema:
         if state.ema is None:
             raise ValueError("use_ema=True on a state with no EMA shadow "
                              "(train with TrainConfig.ema_decay > 0)")
         trainable = state.ema
+    if "lora" in trainable:
+        if tcfg is None or tcfg.lora_rank <= 0:
+            raise ValueError("merged_params on a LoRA state needs the "
+                             "TrainConfig (for the alpha/rank merge scale)")
+        from sdbc_tpu_torch.train import lora as lora_mod
+
+        return lora_mod.apply_lora(dict(state.frozen), trainable["lora"],
+                                   tcfg.lora_scale)
+    if "ti" in trainable:
+        from sdbc_tpu_torch.train import textual_inversion as ti_mod
+
+        return ti_mod.merge(dict(state.frozen),
+                            trainable["ti"]["rows"].detach())
     out = dict(state.frozen)
     out.update(trainable)
     return out
@@ -337,26 +493,89 @@ def _draw(draws: dict, name: str, generator, make):
     return make(generator)
 
 
+def _prior_split(batch: dict, tcfg: TrainConfig):
+    """(batch with the class batch appended, class rows) under prior
+    preservation, else (batch, 0)."""
+    if tcfg.prior_weight <= 0:
+        return batch, 0
+    prior = {k[len("prior_"):]: v for k, v in batch.items()
+             if k.startswith("prior_")}
+    if "input_ids" not in prior or ("pixel_values" in batch
+                                    and "pixel_values" not in prior):
+        raise ValueError(
+            "prior_weight > 0 needs prior_pixel_values + prior_input_ids "
+            "in every micro-batch (train/prior.py augment_loader); cached "
+            "latents are not supported for the prior set")
+    if "latent_mean" in batch:
+        raise ValueError("prior_weight > 0 is incompatible with "
+                         "--cache_latents (the class set has no latent "
+                         "cache) — drop one of the two")
+    n = prior["input_ids"].shape[0]
+    return {k: torch.cat([v, prior[k]], dim=0) for k, v in batch.items()
+            if not k.startswith("prior_")}, n
+
+
+def _latent_shape(cfg: PipelineConfig, batch: dict, tcfg: TrainConfig) -> tuple:
+    """The latents' shape of one micro-batch (class rows included)."""
+    if "latent_mean" in batch:
+        n, h, w, c = batch["latent_mean"].shape
+    else:
+        n, h, w, _ = batch["pixel_values"].shape
+        h, w, c = h // cfg.vae_scale, w // cfg.vae_scale, cfg.latent_channels
+    if tcfg.prior_weight > 0:
+        n += batch["prior_input_ids"].shape[0]
+    return (n, h, w, c)
+
+
+def host_draws(generator: torch.Generator, cfg: PipelineConfig,
+               tcfg: TrainConfig, batch: dict) -> List[dict]:
+    """One step's draws (``diffusion_loss``'s eps, noise, offset, t per
+    micro-batch, in that order) from a CPU ``generator``: the same values
+    wherever the step runs."""
+    out = []
+    for i in range(tcfg.grad_accum):
+        shape = _latent_shape(cfg, {k: v[i] for k, v in batch.items()}, tcfg)
+        d = {"eps": torch.randn(shape, generator=generator),
+             "noise": torch.randn(shape, generator=generator)}
+        if tcfg.noise_offset > 0:
+            d["offset"] = torch.randn((shape[0], 1, 1, shape[-1]),
+                                      generator=generator)
+        d["t"] = torch.randint(0, cfg.schedule.num_train_timesteps,
+                               (shape[0],), generator=generator)
+        out.append(d)
+    return out
+
+
 def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
                    sched: sched_mod.Schedule, compute_dtype=torch.bfloat16,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[dict] = None):
     """Single-micro-batch denoising MSE (reference finetune_sd.py:460-483).
 
+    ``batch``: "pixel_values" or the cached "latent_mean"/"latent_logvar",
+    "input_ids", and under prior preservation "prior_pixel_values" /
+    "prior_input_ids" (appended to the batch; ``draws`` cover both).
     ``draws``: {"eps", "noise", "t"} (+ "offset" with noise offset) for
     this micro-batch; otherwise they come from ``generator``."""
     dt = compute_dtype
     draws = draws or {}
-    pixels = batch["pixel_values"].to(dt)            # (B, H, W, 3) in [-1,1]
-    dev = pixels.device
-    vae = models["vae"]
+    batch, prior_n = _prior_split(batch, tcfg)
+    dev = batch["input_ids"].device
+    normal = lambda shape: lambda g: torch.randn(
+        shape, generator=g, device=dev, dtype=torch.float32)
     with torch.no_grad():
-        if vae_mod.prefer_chunked_encode(*pixels.shape[:3]):
-            mean, logvar = vae_mod.encode_moments_chunked(vae, pixels)
+        if "latent_mean" in batch:
+            # cached posterior moments (train/latent_cache.py): fp32 on
+            # disk, cast back to the compute dtype
+            mean = batch["latent_mean"].to(dt)
+            logvar = batch["latent_logvar"].to(dt)
         else:
-            mean, logvar = vae_mod.encode_moments(vae, pixels)
-        normal = lambda shape: lambda g: torch.randn(
-            shape, generator=g, device=dev, dtype=torch.float32)
+            pixels = batch["pixel_values"].to(dt)    # (B, H, W, 3) in [-1,1]
+            vae = models["vae"]
+            if vae_mod.prefer_chunked_encode(*pixels.shape[:3]):
+                mean, logvar = vae_mod.encode_moments_chunked(vae, pixels)
+            else:
+                mean, logvar = vae_mod.encode_moments(vae, pixels)
         eps = _draw(draws, "eps", generator, normal(mean.shape))
         latents = vae_mod.sample(mean, logvar, eps=eps.to(dev))
         latents = (latents * cfg.vae.scaling_factor).float()
@@ -384,27 +603,37 @@ def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
         snr = a / torch.clamp(1.0 - a, min=1e-8)
         per_ex = per_ex * torch.clamp(snr, max=tcfg.min_snr_gamma) \
             / torch.clamp(snr, min=1e-8)
+    if prior_n:
+        # DreamBooth: instance mean + weighted class-prior mean
+        return (per_ex[:-prior_n].mean()
+                + tcfg.prior_weight * per_ex[-prior_n:].mean())
     return per_ex.mean()
 
 
 def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
-                    compute_dtype=torch.bfloat16, device="cuda"):
+                    compute_dtype=torch.bfloat16, device="cuda",
+                    cached_latents: bool = False):
     """The train step ``step(state, batch, generator=None, draws=None)``.
 
-    ``batch``: {"pixel_values" (grad_accum, micro, H, W, 3),
-    "input_ids" (grad_accum, micro, ctx)}; ``draws``: a list of
-    ``grad_accum`` per-micro-batch dicts (see ``diffusion_loss``).  Updates
-    ``state`` in place and returns (state, {"loss", "finite",
+    ``batch``: {"pixel_values" (grad_accum, micro, H, W, 3) or, with
+    ``cached_latents``, "latent_mean"/"latent_logvar" (grad_accum, micro,
+    h, w, c), "input_ids" (grad_accum, micro, ctx), and the prior_* keys
+    under prior preservation}; ``draws``: a list of ``grad_accum``
+    per-micro-batch dicts (see ``diffusion_loss``, ``host_draws``).
+    Updates ``state`` in place and returns (state, {"loss", "finite",
     "notfinite_count"}), the last being the cumulative count of skipped
     updates."""
     if cfg.schedule.prediction_type != "epsilon":
         raise NotImplementedError("v-prediction training is not ported")
+    if tcfg.prior_weight > 0 and cached_latents:
+        raise ValueError("prior_weight (prior preservation) is incompatible "
+                         "with cached latents — the class set has no latent "
+                         "cache; drop --cache_latents")
     device = torch.device(device)
     sched = sched_mod.make_schedule(cfg.schedule, device=device)
     opt = make_optimizer(tcfg)
 
     def step_fn(state: TrainState, batch, generator=None, draws=None):
-        models = merged_params(state)
         leaves = optimizer_leaves(state.trainable)
         params = _flat(leaves)
         for p in params:
@@ -412,10 +641,14 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
         lsum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(tcfg.grad_accum):
             mb = {k: v[i].to(device) for k, v in batch.items()}
-            loss = diffusion_loss(models, mb, cfg, tcfg, sched, compute_dtype,
-                                  generator=generator,
-                                  draws=None if draws is None else draws[i])
-            loss.backward()  # .grad sums the micro-batches' fp32 gradients
+            # the merge is redone per micro-batch: its graph goes with
+            # each backward
+            with merged(state.trainable, state.frozen, tcfg) as models:
+                loss = diffusion_loss(
+                    models, mb, cfg, tcfg, sched, compute_dtype,
+                    generator=generator,
+                    draws=None if draws is None else draws[i])
+                loss.backward()  # .grad sums the micro-batches' gradients
             lsum = lsum + loss.detach()
         with torch.no_grad():
             grads = [[torch.zeros_like(p) if p.grad is None
@@ -427,10 +660,8 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
             if tcfg.ema_decay > 0:
                 t = float(state.step + 1)
                 d = min(tcfg.ema_decay, (1.0 + t) / (10.0 + t))
-                for k in state.ema:
-                    for e, p in zip(state.ema[k].parameters(),
-                                    state.trainable[k].parameters()):
-                        e.copy_(e * d + p * (1.0 - d))
+                for e, p in _ema_pairs(state):
+                    e.copy_(e * d + p * (1.0 - d))
         state.step += 1
         return state, {"loss": float(lsum / tcfg.grad_accum),
                        "finite": state.opt_state.last_finite,

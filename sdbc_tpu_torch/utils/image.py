@@ -11,7 +11,11 @@ replication, no renormalisation), 0.30 apart on a 64²→128² latent
 upsample, so it is not used.  Bilinear goes through the same weight
 matrices, so the FID input resize (512²→299², antialiased) is JAX's too.
 
-PIL is imported only where files are read or images pasted.
+``decode_and_prepare`` picks the decoder from the file's first bytes, as
+``PIL.Image.open`` does: a PNG goes through ``utils/png.py`` (no PIL when
+it is already ``size``², where PIL's resize is the identity), anything
+else through PIL.  PIL is imported only where files are read or images
+pasted.
 """
 from __future__ import annotations
 
@@ -116,13 +120,37 @@ def resize_bicubic(img, size_hw) -> torch.Tensor:
     return resize(img, (img.shape[0], h, w, img.shape[-1]))
 
 
+def is_png(path: str) -> bool:
+    from sdbc_tpu_torch.utils import png
+
+    with open(path, "rb") as f:
+        return f.read(len(png.SIGNATURE)) == png.SIGNATURE
+
+
 def decode_and_prepare(path: str, size: int = 512) -> np.ndarray:
-    """Host-side: JPEG open -> RGB -> bicubic resize -> [-1,1] float32 HWC.
+    """Host-side: image open -> RGB -> bicubic resize -> [-1,1] float32 HWC.
 
     Mirrors CustomDataset.__getitem__ preprocessing (reference utils.py:119-146)
-    and emits NHWC, as the JAX package does.
+    and emits NHWC, as the JAX package does.  A ``size``² PNG of a kind
+    ``utils/png.py`` decodes needs no PIL.
     """
-    from PIL import Image
+    if is_png(path):
+        from sdbc_tpu_torch.utils import png
+
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            img = png.convert(png.decode(data), "RGB")
+        except png.PNGUnsupported:
+            img = None
+        if img is not None and img.shape[:2] == (size, size):
+            return img.astype(np.float32) / 127.5 - 1.0
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: decoding this image needs PIL (only "
+                          f"{size}x{size} 8-bit PNGs decode without it)"
+                          ) from e
 
     with Image.open(path) as im:
         im = im.convert("RGB").resize((size, size), Image.BICUBIC)

@@ -149,8 +149,36 @@ def test_calc_fid_and_enter_prompt_write_files(env, tmp_path, monkeypatch):
                           "--hires_scale", "2", "--init_image", init])
 
 
+def test_ckpt_flag_loads_a_port_checkpoint(env, tmp_path, tiny_params):
+    """--ckpt (accepted since the port writes checkpoints) serves the
+    weights it holds: the same image as --diffusers_ckpt of the same
+    weights; a JAX-written checkpoint exits naming the export route."""
+    import jax
+
+    from sdbc_tpu.utils import checkpoint as jckpt
+    from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig,
+                                                   as_modules)
+    from sdbc_tpu_torch.utils import checkpoint as tckpt
+
+    ck = str(tmp_path / "port_ckpt")
+    tckpt.save_pipeline(ck, as_modules(jax.tree.map(np.asarray, tiny_params),
+                                       PipelineConfig.tiny(), "cpu"),
+                        PipelineConfig.tiny())
+    base = TINY + ["--device", "cpu", "--save_dir", str(tmp_path),
+                   "--mode", "enter_prompt", "--prompt", "a cover"]
+    tinf.main(base + ["--ckpt", ck, "--run_id", "ck"])
+    tinf.main(base + ["--diffusers_ckpt", env["export"], "--run_id", "df"])
+    a = _png(tmp_path / "ck inference" / "a cover.png")
+    b = _png(tmp_path / "df inference" / "a cover.png")
+    assert np.abs(a - b).max() <= 1
+    jck = str(tmp_path / "jax_ckpt")
+    jckpt.save_pipeline(jck, tiny_params, jinf.common.resolve_params_cfg(
+        jinf.build_parser().parse_args(["--tiny"]))[1])
+    with pytest.raises(SystemExit, match="export_diffusers_checkpoint"):
+        tinf.main(base + ["--ckpt", jck])
+
+
 REFUSED = [
-    (["--ckpt", "run"], "orbax"),
     (["--wandb_artifact_run", "abc"], "wandb"),
     (["--wandb_key", "k"], "wandb"),
     (["--controlnet_path", "cn"], "ControlNet"),
@@ -196,11 +224,16 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of sdbc_tpu_torch names jax or sdbc_tpu in an import, and
     importing every one of them in a fresh interpreter loads neither (nor
-    PIL or pandas, which only file I/O imports)."""
+    PIL or pandas, which only file I/O imports, nor orbax, tensorstore or
+    zstandard)."""
     mods = list(_port_modules())
     for name in ("cli.inference", "cli.serve", "cli.clip_score",
                  "models.safety", "eval.clip_score", "train.lora",
-                 "train.textual_inversion", "utils.png"):
+                 "train.textual_inversion", "utils.png", "cli.finetune",
+                 "cli.training", "cli.preprocess", "utils.checkpoint",
+                 "utils.tracking", "utils.profiling", "data.dataset",
+                 "data.native_loader", "data.preprocess",
+                 "train.latent_cache", "train.prior"):
         assert f"sdbc_tpu_torch.{name}" in mods
     for mod in mods:
         path = os.path.join(ROOT, *mod.split(".")) + ".py"
@@ -217,7 +250,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'sdbc_tpu', 'PIL', 'pandas'))\n"
+            "('jax', 'jaxlib', 'sdbc_tpu', 'PIL', 'pandas', 'orbax', "
+            "'tensorstore', 'zstandard'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

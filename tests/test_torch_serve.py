@@ -342,11 +342,26 @@ def test_healthz_latency_percentiles(pipe):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--refiner_ckpt", "rf"], "refiner"), (["--ckpt", "run"], "orbax"),
+    (["--refiner_ckpt", "rf"], "refiner"),
+    (["--wandb_artifact_run", "run"], "wandb"),
     (["--model_family", "sdxl"], "SD-2.x and SDXL")])
 def test_serve_refuses_unported_flags(flags, what):
     with pytest.raises(SystemExit, match=f"(?s){what}.*not ported yet"):
         serve.main(BASE + flags)
+
+
+def test_serve_loads_a_port_checkpoint(pipe, tmp_path):
+    """--ckpt (a port checkpoint, utils/checkpoint.py) serves the weights
+    it holds."""
+    from sdbc_tpu_torch.utils import checkpoint as ckpt
+
+    path = str(tmp_path / "ck")
+    ckpt.save_pipeline(path, pipe.models, pipe.cfg)
+    loaded, _ = serve.load_pipelines(_args("--ckpt", path))
+    for name, m in pipe.models.items():
+        for (n, a), b in zip(m.state_dict().items(),
+                             loaded.models[name].state_dict().values()):
+            assert torch.equal(a, b), (name, n)
 
 
 @pytest.mark.parametrize("kw", [

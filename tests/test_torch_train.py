@@ -181,8 +181,8 @@ def test_nothing_to_train_rejected(np_params, tcfg_pipe):
     tcfg = ttrainer.TrainConfig(train_unet=False, train_text_encoder=False)
     with pytest.raises(ValueError, match="nothing to train"):
         _port_state(np_params, tcfg_pipe, tcfg)
-    with pytest.raises(NotImplementedError, match="lora_rank"):
-        ttrainer.TrainConfig(lora_rank=4)
+    with pytest.raises(NotImplementedError, match="train_controlnet"):
+        ttrainer.TrainConfig(train_controlnet=True)
 
 
 def test_encode_moments_chunked_matches_batched(np_params, tcfg_pipe):
