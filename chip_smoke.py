@@ -157,6 +157,28 @@ Phases, in order; each prints one or more lines, and any failure raises
                   clip-vit-large-patch14's widths, strict fp32 on the card
                   against the CPU (``SAFETY_TOL``, ``CLIPSCORE_TOL``), each
                   timed a batch of 4;
+   families     — the SD-2.x and SDXL serving paths: ``--tiny
+                  --model_family sd21``, tiny_xl and the tiny_xl →
+                  tiny_xl_refiner ensemble at batch 2 (64² for tiny_xl:
+                  256 tokens at level 1), bf16 and fp32 on the card
+                  against fp32 on the CPU within ``PARITY_TOL`` and
+                  ``FP32_PARITY_TOL``, exact
+                  launches (``family_launches``); then at full width
+                  (random weights from seed 0, bf16, batch 1, CFG 7.5,
+                  DDIM-20) SD-2.1 (v-prediction) at 768² and SDXL base at
+                  1024² (median of 3 after a warm-up, peak memory, 300 /
+                  200 and 1400 / 200 K1 / K4 a call), SDXL at 832×1216
+                  once (1400 / 0: the 7904 rows of level 1 miss K4's
+                  row block), the base → refiner ensemble at 1024²
+                  handing over at 0.8 with both models resident,
+                  ``cli.inference.main --model_family sdxl`` at 1024²
+                  DDIM-4 writing its PNG, and one lone request to
+                  ``cli.serve --model_family sdxl`` equal to ``generate``
+                  in every pixel; the phase's seconds; the kernels phase
+                  also holds K1 at head dim 64 at every shape the phase
+                  runs (``FAMILY_K1_CASES``, against SDPA-flash) and K4 at
+                  SD-2.1's rows, and the tf32-kernels phase K1′ at
+                  (2,4096,10,64);
    fp32-sampling — the CLIs' --no-bf16 path at full width:
                   ``resolve_params_cfg`` on parsed ``cli.inference``
                   arguments with --no-bf16 (random SD-1.5, fp32), then
@@ -255,6 +277,11 @@ GEGLU_TOL = 5e-2
 # Whole tiny slice, bf16 on the card vs fp32 on the CPU (same bf16-valued
 # weights): CFG 7.5 amplifies the bf16 rounding of the UNet output.
 PARITY_TOL = 3e-2
+# The same tiny runs in fp32 on the card (the 3xTF32 kernels, ~2^-21 of
+# each product; the rest fp32) vs fp32 on the CPU: images in [0, 1] agree
+# to a few 1e-6; 1e-4 catches a kernel or product that fell to bf16 or
+# TF32 (~1e-3).
+FP32_PARITY_TOL = 1e-4
 # Training kernels against their plain versions on the same bf16 inputs:
 # the attention outputs and gradients as above (the forward kernel rounds p
 # at its running max, the plain version at the row max); the LSE is fp32
@@ -493,51 +520,75 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def transformer_launches(c: int, hw: int, rows_batch: int):
-    """(flash, geglu) launches of one spatial transformer at ``c`` channels
-    on an ``hw``² map of batch ``rows_batch``: the fixed-cap flash call
-    from 256 tokens, the fused FF where the GEGLU eligibility rule admits
-    its rows."""
+def _hw(lat):
+    """(h, w) of a latent size given as one side (square) or (h, w)."""
+    return (lat, lat) if isinstance(lat, int) else tuple(lat)
+
+
+def transformer_launches(c: int, hw, rows_batch: int):
+    """(flash, geglu) launches of one transformer block at ``c`` channels
+    on an ``hw`` map (a side, or (h, w)) of batch ``rows_batch``: the
+    fixed-cap flash call from 256 tokens, the fused FF where the GEGLU
+    eligibility rule admits its rows."""
     from sdbc_tpu_torch.ops.geglu_ff import _MAX_C, _default_block
 
-    tokens = hw * hw
+    h, w = _hw(hw)
+    tokens = h * w
     rows = rows_batch * tokens
     return (int(tokens >= 256),
             int(c <= _MAX_C and rows % min(_default_block(c), rows) == 0))
 
 
-def expected_launches(cfg, lat_hw: int, rows_batch: int):
+def transformer_sites(cfg, lat):
+    """Every spatial transformer of one UNet evaluation as (channels,
+    (h, w) of its level, heads, depth): ``layers_per_block`` down and
+    ``layers_per_block`` + 1 up at each level with cross-attention, and
+    the mid one at the deepest level with that level's heads and depth
+    (as the UNet builds it).  ``lat``: the latent side, or (lat_h,
+    lat_w); a stride-2 3×3 conv with padding 1 halves a side rounding
+    up."""
+    u = cfg.unet
+    heads, depths = u.heads_per_level, u.depth_per_level
+    sizes, (h, w) = [], _hw(lat)
+    for _ in u.block_out_channels:
+        sizes.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    sites = []
+    for n in (u.layers_per_block, u.layers_per_block + 1):
+        for i, c in enumerate(u.block_out_channels):
+            if u.cross_attn_blocks[i]:
+                sites += [(c, sizes[i], heads[i], depths[i])] * n
+    last = len(u.block_out_channels) - 1
+    sites.append((u.block_out_channels[-1], sizes[last], heads[last],
+                  depths[last]))
+    return sites
+
+
+def expected_launches(cfg, lat, rows_batch: int):
     """(flash, geglu) launches per UNet evaluation: one flash call per
     spatial self-attention with ≥ 256 tokens, one fused FF per transformer
-    the GEGLU eligibility rule admits."""
-    u = cfg.unet
+    block the GEGLU eligibility rule admits; each transformer runs
+    ``depth`` blocks (``transformer_sites``).  ``lat``: the latent side,
+    or (lat_h, lat_w)."""
     flash = geglu = 0
-    levels = [(i, c, lat_hw // 2 ** i, u.layers_per_block)
-              for i, c in enumerate(u.block_out_channels)]
-    levels += [(i, c, lat_hw // 2 ** i, u.layers_per_block + 1)
-               for i, c in enumerate(u.block_out_channels)]
-    mid = len(u.block_out_channels) - 1
-    sites = [(c, hw) for i, c, hw, n in levels if u.cross_attn_blocks[i]
-             for _ in range(n)]
-    sites.append((u.block_out_channels[-1], lat_hw // 2 ** mid))
-    for c, hw in sites:
+    for c, hw, _, depth in transformer_sites(cfg, lat):
         f, g = transformer_launches(c, hw, rows_batch)
-        flash += f
-        geglu += g
+        flash += depth * f
+        geglu += depth * g
     return flash, geglu
 
 
-def shallow_launches(cfg, lat_hw: int, rows_batch: int, cache_tail: int = 0):
+def shallow_launches(cfg, lat, rows_batch: int, cache_tail: int = 0):
     """(flash, geglu) launches of a DeepCache reuse evaluation: the shallow
     head (conv_in and the first ct−1 ResBlocks of down[0]) and the fresh
     tail (the last ct ResBlocks of up[-1]), each ResBlock with its level-0
-    transformer; ct = cache_tail, 0 meaning all of up[-1]'s
-    (``unet.apply``)."""
+    transformer of that level's depth; ct = cache_tail, 0 meaning all of
+    up[-1]'s (``unet.apply``)."""
     u = cfg.unet
     total = u.layers_per_block + 1
     ct = cache_tail if 0 < cache_tail <= total else total
-    n = (2 * ct - 1) * u.cross_attn_blocks[0]
-    f, g = transformer_launches(u.block_out_channels[0], lat_hw, rows_batch)
+    n = (2 * ct - 1) * u.cross_attn_blocks[0] * u.depth_per_level[0]
+    f, g = transformer_launches(u.block_out_channels[0], lat, rows_batch)
     return n * f, n * g
 
 
@@ -571,11 +622,12 @@ def sampler_evals(scheduler: str, n: int, *, t_start: int = 0, t_end=None,
             else kind(i) for i in range(lo, hi)]
 
 
-def sampler_launches(cfg, lat_hw: int, b: int, evals,
+def sampler_launches(cfg, lat_hw, b: int, evals,
                      cache_tail: int = 0) -> dict:
     """Kernel launches of the UNet evaluations ``evals``
-    (``sampler_evals``) at batch ``b`` images: K1 (``flash_fixed``) and K4
-    (``geglu_ff``) per evaluation, every other count 0."""
+    (``sampler_evals``) at batch ``b`` images on a latent of side (or
+    (h, w)) ``lat_hw``: K1 (``flash_fixed``) and K4 (``geglu_ff``) per
+    evaluation, every other count 0."""
     from sdbc_tpu_torch.ops import _kernels
 
     want = dict.fromkeys(_kernels.launches, 0)
@@ -613,6 +665,27 @@ def generate_launches(cfg, n_prompts: int, steps: int, img: int,
                               cfg.schedule.steps_offset)
     second = sampler_launches(cfg, img // f, b, sampler_evals(
         scheduler, steps, t_start=t_start))
+    return {k: first[k] + second[k] for k in first}
+
+
+def family_launches(cfg, lat, b: int, steps: int, scheduler: str = "ddim",
+                    cfg_interval=None, cache_interval: int = 0,
+                    cache_tail: int = 0, refiner=None,
+                    handoff: float = 0.8) -> dict:
+    """K1/K4 launches of one ``SDPipeline`` call of ``b`` images (a batch
+    bucket) at latent ``lat`` (side or (h, w)) for any family, or with
+    ``refiner`` (its config) of the ``EnsemblePipeline``: the base runs
+    the evaluations up to round(steps·handoff), the refiner the rest
+    (``sampler_evals``' t_end / t_start)."""
+    if refiner is None:
+        return sampler_launches(cfg, lat, b, sampler_evals(
+            scheduler, steps, cfg_interval=cfg_interval,
+            cache_interval=cache_interval), cache_tail)
+    cut = int(round(steps * handoff))
+    first = sampler_launches(cfg, lat, b,
+                             sampler_evals(scheduler, steps, t_end=cut))
+    second = sampler_launches(refiner, lat, b,
+                              sampler_evals(scheduler, steps, t_start=cut))
     return {k: first[k] + second[k] for k in first}
 
 
@@ -742,7 +815,7 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
             gn_launches(cfg, lat, remat)
             + encodes * vae_gn_launches(cfg, img_hw, "encode"))
     else:
-        calls, _ = expected_launches(cfg, lat, micro * cfg.unet.attention_heads)
+        calls, _ = expected_launches(cfg, lat, micro)
         # the VAE's single-head mid attention meets the flash rule only
         # where its head is ≤ 256 wide (the tiny VAE, not SD-1.5's)
         low = img_hw >> (len(cfg.vae.block_out_channels) - 1)
@@ -755,6 +828,25 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
 
 # K1 at the hires shape is held to its plain version on every 16th query
 HIRES_Q_STRIDE = 16
+# K1 at the SD-2.x / SDXL head dim 64 (CFG batch 2 of one image), every
+# shape the families phase runs it at: SDXL 1024²'s 64² and 32² levels,
+# SD-2.1 768²'s 96², 48² and 24² levels, the 832×1216 portrait's ragged
+# 52×76 and 26×38 levels (no multiple of the key or query tile: the
+# zero-filled last tile), the refiner's 12- and 24-head 64² and 32² levels
+# and its 16² mid block
+FAMILY_K1_CASES = [("bshd SDXL 64^2 d64", "bshd", (2, 4096, 10, 64), 4096),
+                   ("bshd SDXL 32^2 d64", "bshd", (2, 1024, 20, 64), 1024),
+                   ("bshd SD-2.1 96^2 d64", "bshd", (2, 9216, 5, 64), 9216),
+                   ("bshd SD-2.1 48^2 d64", "bshd", (2, 2304, 10, 64), 2304),
+                   ("bshd SD-2.1 24^2 d64", "bshd", (2, 576, 20, 64), 576),
+                   ("bshd SDXL portrait 52x76 d64", "bshd",
+                    (2, 3952, 10, 64), 3952),
+                   ("bshd SDXL portrait 26x38 d64", "bshd",
+                    (2, 988, 20, 64), 988),
+                   ("bshd refiner 64^2 d64", "bshd", (2, 4096, 12, 64), 4096),
+                   ("bshd refiner 32^2 d64", "bshd", (2, 1024, 24, 64), 1024),
+                   ("bshd refiner 16^2 mid d64", "bshd", (2, 256, 24, 64),
+                    256)]
 
 SWITCHES = {"SDBC_GN_FUSED": "1", "SDBC_ATTN_IMPL": "flash_tt"}
 # the path whose run gives each kernel's ``launches`` in the kernels line:
@@ -1290,8 +1382,14 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
                    # batch 2; the plain version on every HIRES_Q_STRIDE-th
                    # query (its full fp32 scores would take 17 GB)
                    ("bshd 128^2 d40 hires batch 2", "bshd",
-                    (2, 16384, 8, 40), 16384)]
-    flash_err, first = 0.0, None
+                    (2, 16384, 8, 40), 16384)] + FAMILY_K1_CASES
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa_flash(q, k, v):
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return sdpa(q, k, v)
+
+    flash_err, first, d64 = 0.0, None, []
     for label, layout, qshape, sk in flash_cases:
         kshape = list(qshape)
         kshape[1 if layout == "bshd" else 2] = sk
@@ -1316,16 +1414,25 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
         pms = median_ms(plain, 5)
         del ref
         qh, kh, vh = (q, k, v) if layout == "bhsd" else (tr(q), tr(k), tr(v))
-        ms, lms = paired_ms([kern, lambda: sdpa(qh, kh, vh)])
+        family = "d64" in label  # SD-2.x / SDXL: against SDPA's flash
+        lib = (lambda: sdpa_flash(qh, kh, vh)) if family \
+            else (lambda: sdpa(qh, kh, vh))
+        ms, lms = paired_ms([kern, lib])
         b, h, sq, d = qh.shape
         bms, by = attn_bound(b, h, sq, sk, d, 2, (sq, sk, sk), (sq,))
         part = f" (on 1/{qs} of the queries)" if qs > 1 else ""
+        sdpa_name = "sdpa-flash" if family else "sdpa"
         print(f"[kernels] flash_fixed {label}: max_abs_err {err:.3e}{part} "
               f"(tol {tol:.3e}) kernel {ms:.4f} ms plain{part} {pms:.4f} ms "
-              f"sdpa {lms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
-        print(f"[kernels] flash_fixed {label}: kernel {ms:.4f} ms, sdpa "
-              f"{lms:.4f} ms (kernel/sdpa {ms / lms:.2f}), bound {bms:.4f} ms, "
-              f"{100 * bms / ms:.1f}% of the bound", flush=True)
+              f"{sdpa_name} {lms:.4f} ms bound {bms:.4f} ms ({by})",
+              flush=True)
+        print(f"[kernels] flash_fixed {label}: kernel {ms:.4f} ms, "
+              f"{sdpa_name} {lms:.4f} ms (kernel/sdpa {ms / lms:.2f}), bound "
+              f"{bms:.4f} ms, {100 * bms / ms:.1f}% of the bound", flush=True)
+        if family:
+            d64.append(dict(shape=label, max_abs_err=err, tol=tol, ms=ms,
+                            plain_ms=pms, sdpa_flash_ms=lms, bound_ms=bms,
+                            bound_by=by, bound_share=bms / ms))
         flash_err = max(flash_err, err)
         if first is None:
             first = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
@@ -1340,11 +1447,14 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
                            "VAE's 512-wide head under SDBC_ATTN_IMPL="
                            "inference): flash_fwd_wide_sm90_kernel<KS1, "
                            "false, true> in csrc/flash_fwd_wide_sm90.cu",
-                 "d512": kernel_flash_fixed_wide(g)})
+                 "d64": d64, "d512": kernel_flash_fixed_wide(g)})
 
     geglu_err, first, shapes = 0.0, None, []
-    # batch 8 (CFG), then batch 4 (cfg_interval's cond-only evaluations)
-    for rows_n, c in ((32768, 320), (8192, 640), (16384, 320), (4096, 640)):
+    # batch 8 (CFG), then batch 4 (cfg_interval's cond-only evaluations),
+    # then SD-2.1 768²'s 96² and 48² levels at CFG batch 2 (SDXL 1024²'s
+    # is (8192, 640))
+    for rows_n, c in ((32768, 320), (8192, 640), (16384, 320), (4096, 640),
+                      (18432, 320), (4608, 640)):
         y = randn(rows_n, c)
         gamma = randn(c, scale=0.1, dtype=torch.float32) + 1.0
         beta = randn(c, scale=0.1, dtype=torch.float32)
@@ -2461,7 +2571,9 @@ def phase_simt_kernels():
 # projection layout (b, s, h, d) and the training forward at the mode-C
 # step's micro-batch 2 (b, h, s, d), each at SD-1.5's 64², 32² and 16²
 # levels, then a ragged pair (b, h, sq, sk, d), head-major
-TF32_FIXED = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
+TF32_FIXED = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160),
+              # SDXL 1024²'s 64² level at head dim 64 (batch 2)
+              (2, 4096, 10, 64)]
 TF32_TRAIN = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160)]
 TF32_RAGGED = (2, 8, 200, 300, 40)
 # the wide 3xTF32 forward (csrc/flash_fwd_tf32_wide_sm90.cu): the fp32 VAE
@@ -2900,7 +3012,8 @@ def phase_parity():
     """The tiny sampling slice, bf16 on the card against fp32 on the CPU:
     with the default dispatch, then with ``SDBC_GN_FUSED=1``; then fp32 on
     the card (the same weights), where every attention call goes to the
-    3xTF32 kernel and every FF call to the 3xTF32 FF (``fp32_launches``).  Returns the fp32 run's launch counts."""
+    3xTF32 kernel and every FF call to the 3xTF32 FF (``fp32_launches``),
+    within ``FP32_PARITY_TOL``.  Returns the fp32 run's launch counts."""
     import numpy as np
     import torch
 
@@ -2945,14 +3058,15 @@ def phase_parity():
                 prompts, **kw)
             counts = dict(_kernels.launches)
         err = float(np.abs(out - ref).max())
+        tol = FP32_PARITY_TOL if label == "fp32" else PARITY_TOL
         print(f"[parity] tiny 32^2 batch 2 DDIM-4 ({label}): image max abs "
-              f"err {err:.3e} (tol {PARITY_TOL}), launches {counts} "
+              f"err {err:.3e} (tol {tol}), launches {counts} "
               f"(expected {want})", flush=True)
         if out.shape != (2, 32, 32, 3) or not np.isfinite(out).all():
             fail(f"tiny slice ({label}) output {out.shape} not finite")
-        if not err <= PARITY_TOL:
+        if not err <= tol:
             fail(f"tiny slice ({label}): card vs CPU max abs err {err} > "
-                 f"{PARITY_TOL}")
+                 f"{tol}")
         used = ("flash_fixed_tf32", "geglu_ff_tf32", "flash_fwd_tf32") \
             if label == "fp32" else ("flash_fixed", "geglu_ff")
         if counts != want or min(want[k] for k in used) == 0 \
@@ -4832,6 +4946,387 @@ def phase_image_checks(smi: str):
     return paths
 
 
+# the families phase: the SD-2.x and SDXL serving paths.  Full width: DDIM
+# at FAMILY_STEPS, CFG 7.5, batch 1, random weights from seed 0 (bf16);
+# the ensemble hands over at FAMILY_FRAC.  The tiny runs (card against the
+# CPU): (label, config factory name, refiner factory name or None, image
+# side); the tiny VAE downsamples 2×, so at 64² tiny_xl's level 1 holds
+# 256 tokens and both sampling kernels launch.
+FAMILY_STEPS = 20
+FAMILY_FRAC = 0.8
+# (label, --model_family at --tiny, with the tiny refiner, image side)
+FAMILY_TINY = [("sd21", "sd21", False, 32), ("sdxl", "sdxl", False, 64),
+               ("ensemble", "sdxl", True, 64)]
+FAMILY_PROMPT = ("an epic fantasy novel cover, a dragon over a castle at "
+                 "dusk")
+
+
+def _family_pipe(cfg, models, device, dtype, refiner=None):
+    """``SDPipeline`` of ``models``, or with ``refiner`` ((cfg, models))
+    the ``EnsemblePipeline`` handing over at ``FAMILY_FRAC``."""
+    from sdbc_tpu_torch.diffusion.ensemble import EnsemblePipeline
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+
+    pipe = SDPipeline(models, cfg, _tokenizer(cfg), device, dtype)
+    if refiner is None:
+        return pipe
+    rcfg, rmodels = refiner
+    return EnsemblePipeline(pipe, SDPipeline(rmodels, rcfg, _tokenizer(rcfg),
+                                             device, dtype),
+                            handoff=FAMILY_FRAC)
+
+
+def phase_families_tiny() -> dict:
+    """``--tiny --model_family sd21``, tiny_xl and the tiny_xl →
+    tiny_xl_refiner ensemble at batch 2, DDIM-4, CFG 7.5: bf16 on the card
+    against fp32 on the CPU (the same bf16-valued weights and latents)
+    within ``PARITY_TOL``, then fp32 on the card (every attention and FF
+    call on the 3xTF32 kernels) within ``FP32_PARITY_TOL``, each with exact
+    launches (``family_launches``).  Returns each run's counts."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    paths = {}
+    for label, family, ensemble, img in FAMILY_TINY:
+        cfg = PipelineConfig.family(family, tiny=True)
+        rcfg = PipelineConfig.tiny_xl_refiner() if ensemble else None
+        sets = {}
+        for seed, role, c in ((0, "base", cfg), (1, "refiner", rcfg)):
+            if c is None:
+                continue
+            models = init_models(c, device="cpu",
+                                 generator=torch.Generator().manual_seed(seed))
+            bf = {k: copy.deepcopy(m).to("cuda", torch.bfloat16)
+                  for k, m in models.items()}
+            cpu = {k: copy.deepcopy(m).to("cpu", torch.float32)
+                   for k, m in bf.items()}
+            sets[role] = {"cuda bf16": bf, "cpu": cpu,
+                       "cuda fp32": {k: copy.deepcopy(m).to("cuda")
+                                     for k, m in cpu.items()}}
+        lat = per_sample_fixed_latents(2, (4, img // 2, img // 2), 42)
+        kw = dict(height=img, width=img, num_inference_steps=4, latents=lat)
+        prompts = ["a book cover", "a mystery novel cover"]
+
+        def run(where, dtype):
+            dev = "cpu" if where == "cpu" else "cuda"
+            rf = (rcfg, sets["refiner"][where]) if rcfg else None
+            return _family_pipe(cfg, sets["base"][where], dev, dtype, rf)(
+                prompts, **kw)
+
+        ref = run("cpu", torch.float32)
+        want = dict.fromkeys(_kernels.launches, 0)
+        want.update(family_launches(cfg, img // 2, 2, 4, refiner=rcfg,
+                                    handoff=FAMILY_FRAC))
+        # the one batched decode: the tiny VAE's 64-wide single-head mid
+        # attention takes the training flash kernel (phase_parity's rule)
+        want["flash_fwd"] = int((rcfg or cfg).vae.block_out_channels[-1]
+                                <= 256)
+        for where, dtype in (("cuda bf16", torch.bfloat16),
+                             ("cuda fp32", torch.float32)):
+            expect = fp32_launches(want) if dtype == torch.float32 else want
+            _kernels.reset_launch_counts()
+            out = run(where, dtype)
+            counts = dict(_kernels.launches)
+            err = float(np.abs(out - ref).max())
+            tol = FP32_PARITY_TOL if dtype == torch.float32 else PARITY_TOL
+            print(f"[families] tiny {label} {img}^2 batch 2 DDIM-4 "
+                  f"({where} vs cpu fp32): image max abs err {err:.3e} (tol "
+                  f"{tol}), launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            if out.shape != (2, img, img, 3) or not np.isfinite(out).all():
+                fail(f"families tiny {label} ({where}) output {out.shape} "
+                     "not finite")
+            if not err <= tol:
+                fail(f"families tiny {label} ({where}): card vs CPU max abs "
+                     f"err {err} > {tol}")
+            used = [FP32_OF[k] if dtype == torch.float32 else k
+                    for k in ("flash_fixed", "geglu_ff")]
+            if counts != expect or min(expect[k] for k in used) == 0:
+                fail(f"families tiny {label} ({where}) launch counts "
+                     f"{counts}, expected {expect}")
+            fp32 = "fp32 " if dtype == torch.float32 else ""
+            paths[f"families {label} {fp32}(tiny)"] = counts
+        del sets
+    return paths
+
+
+def _family_timed(label: str, pipe, kw: dict, want: dict, smi: str,
+                  calls: int = 3, shape=None):
+    """A warm-up call (skipped for ``calls`` = 1), then ``calls`` timed
+    calls of ``pipe`` on ``FAMILY_PROMPT``, each with exactly ``want``
+    launches and finite images in [0, 1].  Returns (counts of the last,
+    median s/call, peak GiB over the timed calls)."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+
+    if calls > 1:
+        pipe([FAMILY_PROMPT], **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(calls):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = pipe([FAMILY_PROMPT], **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = dict(_kernels.launches)
+        if counts != want:
+            fail(f"families {label}: launch counts {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shape = shape or (1, kw["height"], kw["width"], 3)
+    if imgs.shape != shape or not np.isfinite(imgs).all() \
+            or imgs.min() < 0.0 or imgs.max() > 1.0:
+        fail(f"families {label}: images {imgs.shape} not finite in [0, 1]")
+    med = statistics.median(secs)
+    print(f"[families] {label}: {med:.3f} s/call (median of "
+          f"{calls}: {', '.join(f'{s:.3f}' for s in secs)}), peak "
+          f"{peak:.2f} GiB, launches K1 {counts['flash_fixed']} K4 "
+          f"{counts['geglu_ff']} a call | {smi}", flush=True)
+    return counts, med, peak
+
+
+def family_profile(label: str, pipe, lat_hw: int) -> None:
+    """Where a family's sampling call goes: one UNet evaluation at the CFG
+    batch 2 of one image as ``sample`` makes it (the hoisted time
+    projections, per sample with SDXL's text-time conditioning), its
+    device time by kernel (``torch.profiler``) against its wall time (the
+    device's idle share), and the wall times of the text encode and the
+    VAE decode of one image."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdbc_tpu_torch.diffusion import graph
+    from sdbc_tpu_torch.models import unet as unet_mod
+    from sdbc_tpu_torch.models import vae as vae_mod
+
+    cfg, models = pipe.cfg, pipe.models
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    lat = torch.randn((2, lat_hw, lat_hw, 4), generator=g,
+                      device="cuda").to(bf)
+    ctx = torch.randn((2, 77, cfg.unet.cross_attention_dim), generator=g,
+                      device="cuda").to(bf)
+    ids = pipe.tokenize([FAMILY_PROMPT])
+    added = None
+    if cfg.is_sdxl:
+        added = torch.randn((2, cfg.unet.addition_embed_dim), generator=g,
+                            device="cuda")
+    with torch.inference_mode():
+        tp = unet_mod.index_temb(unet_mod.precompute_temb(
+            models["unet"], torch.tensor([500], device="cuda"), bf,
+            added_cond=added), 0)
+        run = lambda: unet_mod.apply(models["unet"], lat, None, ctx,
+                                     attn_impl="inference", temb_proj=tp)
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        unet_ms = wall_ms(run, 5)
+        z = torch.randn((1, lat_hw, lat_hw, 4), generator=g,
+                        device="cuda").to(bf)
+        vae_ms = wall_ms(lambda: vae_mod.decode(models["vae"], z), 3)
+        if cfg.is_sdxl:
+            text = lambda: graph.encode_text_xl(models, ids, pipe.tokenize2(
+                [FAMILY_PROMPT]), cfg, bf)
+        else:
+            text = lambda: graph.encode_text(models["text_encoder"], ids,
+                                             cfg, bf)
+        text_ms = wall_ms(text, 5)
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages() if dev_us(e) > 0
+              and getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in events) / 1e3
+    top = [(e.key[:60], round(dev_us(e) / 1e3, 3))
+           for e in sorted(events, key=lambda e: -dev_us(e))[:8]]
+    kernels = (f"kernels {total:.3f} ms (device idle "
+               f"{100 * (1 - total / unet_ms):.1f}%), top kernels (ms): {top}"
+               if total else "kernels not measured (the profiler saw no "
+               "device time)")
+    print(f"[families] profile {label}: UNet eval (batch 2, {lat_hw}^2 "
+          f"latents) wall {unet_ms:.3f} ms, {kernels}; text encode "
+          f"{text_ms:.3f} ms; VAE decode (one image) {vae_ms:.3f} ms",
+          flush=True)
+
+
+def phase_families(smi: str) -> dict:
+    """The SD-2.x and SDXL serving paths on the card: the tiny runs
+    (``phase_families_tiny``); then at full width, random weights from
+    seed 0 in bf16, DDIM, CFG 7.5, batch 1: SD-2.1 (v-prediction) at 768²
+    and SDXL base at 1024², ``FAMILY_STEPS`` steps, timed (median of 3
+    after a warm-up) with exact launches (300 / 200 and 1400 / 200 K1 / K4
+    a call); SDXL at 832×1216 (a portrait cover: ragged 3952- and
+    988-token attention, K4 off) once; the base → refiner ensemble at
+    1024² handing over at ``FAMILY_FRAC`` with both models resident; then
+    the entry points: ``cli.inference.main --model_family sdxl`` at 1024²,
+    DDIM-4, writing its PNG, and one lone request to ``cli.serve
+    --model_family sdxl`` (DDIM-4) equal to the direct ``generate`` call in
+    every pixel.  Each pipeline is freed before the next.  Returns the
+    launch counts by path."""
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import common, serve
+    from sdbc_tpu_torch.cli import inference as cli_inference
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, init_models
+    from sdbc_tpu_torch.diffusion.spec import SampleSpec
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils import png
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    t_phase = time.perf_counter()
+    paths = phase_families_tiny()
+    n = FAMILY_STEPS
+
+    def models_of(cfg, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return init_models(cfg, device="cuda", generator=gen,
+                           dtype=torch.bfloat16)
+
+    def want_of(cfg, lat, steps=n, refiner=None):
+        want = dict.fromkeys(_kernels.launches, 0)
+        want.update(family_launches(cfg, lat, 1, steps, refiner=refiner,
+                                    handoff=FAMILY_FRAC))
+        return want
+
+    def kw_of(h, w, steps=n):
+        f = 8
+        return dict(height=h, width=w, num_inference_steps=steps,
+                    guidance_scale=7.5, latents=per_sample_fixed_latents(
+                        1, (4, h // f, w // f), 42))
+
+    stats = {}
+    # SD-2.1 768²
+    cfg = PipelineConfig.family("sd21")
+    pipe = _family_pipe(cfg, models_of(cfg, 0), "cuda", torch.bfloat16)
+    want = want_of(cfg, 96)
+    if (want["flash_fixed"], want["geglu_ff"]) != (300, 200):
+        fail(f"families SD-2.1 expected launches {want}")
+    paths["families sd21 768^2"], *stats["sd21"] = _family_timed(
+        f"SD-2.1 (v-prediction) 768^2 batch 1 DDIM-{n} CFG 7.5 bf16", pipe,
+        kw_of(768, 768), want, smi)
+    family_profile("SD-2.1 768^2", pipe, 96)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # SDXL base 1024², the portrait, then the ensemble
+    cfg = PipelineConfig.family("sdxl")
+    base = models_of(cfg, 0)
+    pipe = _family_pipe(cfg, base, "cuda", torch.bfloat16)
+    want = want_of(cfg, 128)
+    if (want["flash_fixed"], want["geglu_ff"]) != (1400, 200):
+        fail(f"families SDXL expected launches {want}")
+    paths["families sdxl 1024^2"], *stats["sdxl"] = _family_timed(
+        f"SDXL base 1024^2 batch 1 DDIM-{n} CFG 7.5 bf16", pipe,
+        kw_of(1024, 1024), want, smi)
+    family_profile("SDXL base 1024^2", pipe, 128)
+    want = want_of(cfg, (152, 104))
+    if (want["flash_fixed"], want["geglu_ff"]) != (1400, 0):
+        fail(f"families SDXL portrait expected launches {want}")
+    paths["families sdxl 832x1216"], *stats["portrait"] = _family_timed(
+        f"SDXL base 832x1216 (portrait) batch 1 DDIM-{n} CFG 7.5 bf16 "
+        "(one call)", pipe, kw_of(1216, 832), want, smi, calls=1)
+    rcfg = PipelineConfig.sdxl_refiner()
+    ens = _family_pipe(cfg, base, "cuda", torch.bfloat16,
+                       refiner=(rcfg, models_of(rcfg, 1)))
+    want = want_of(cfg, 128, refiner=rcfg)
+    paths["families ensemble 1024^2"], *stats["ensemble"] = _family_timed(
+        f"SDXL base -> refiner 1024^2 batch 1 DDIM-{n} handoff "
+        f"{FAMILY_FRAC} ({int(round(n * FAMILY_FRAC))} base + "
+        f"{n - int(round(n * FAMILY_FRAC))} refiner evaluations), both "
+        "resident", ens, kw_of(1024, 1024), want, smi)
+    family_profile("SDXL refiner 1024^2", ens.refiner, 128)
+    del pipe, ens, base
+    torch.cuda.empty_cache()
+
+    # cli.inference --model_family sdxl
+    tmp = tempfile.TemporaryDirectory()
+    argv = ["--model_family", "sdxl", "--mode", "enter_prompt", "--prompt",
+            FAMILY_PROMPT, "--img_size", "1024", "--num_inference_steps",
+            "4", "--seed", "0", "--save_dir", tmp.name]
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_inference.main(argv)
+    secs = time.perf_counter() - t0
+    counts = dict(_kernels.launches)
+    want = want_of(cfg, 128, steps=4)
+    path = os.path.join(tmp.name, "dev inference", f"{FAMILY_PROMPT}.png")
+    with open(path, "rb") as f:
+        img = png.decode(f.read())
+    print(f"[families] cli.inference --model_family sdxl 1024^2 DDIM-4: "
+          f"{secs:.3f} s (with the random init), wrote {img.shape} PNG, "
+          f"launches K1 {counts['flash_fixed']} K4 {counts['geglu_ff']}",
+          flush=True)
+    if counts != want or img.shape != (1024, 1024, 3):
+        fail(f"families cli.inference: launches {counts} (expected {want}),"
+             f" image {img.shape}")
+    paths["families cli.inference sdxl"] = counts
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # cli.serve --model_family sdxl: one lone request
+    args = serve.build_parser().parse_args(
+        ["--model_family", "sdxl", "--img_size", "1024",
+         "--num_inference_steps", "4", "--scheduler", "ddim", "--seed", "0",
+         "--no-warmup"])
+    common.refuse_unported(args)
+    common.resolve_img_size(args)
+    pipe, _ = serve.load_pipelines(args)
+    handler, _ = serve.make_app(pipe, args)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/generate",
+            data=json.dumps({"prompt": FAMILY_PROMPT, "seed": 7}).encode())
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = r.read()
+        secs = time.perf_counter() - t0
+        counts = dict(_kernels.launches)
+        served = png.decode(body)
+        direct = pipe.generate([FAMILY_PROMPT], SampleSpec(
+            height=1024, width=1024, num_inference_steps=4,
+            guidance_scale=7.5, seed=7))
+        direct = np.uint8(np.round(direct * 255.0))[0]
+    finally:
+        srv.shutdown()
+        handler.close()
+        srv.server_close()
+    diff = int(np.abs(served.astype(np.int16) - direct).max())
+    print(f"[families] cli.serve --model_family sdxl: a lone 1024^2 DDIM-4 "
+          f"request in {secs:.3f} s of wall, max pixel diff against "
+          f"generate {diff}, launches K1 {counts['flash_fixed']} K4 "
+          f"{counts['geglu_ff']}", flush=True)
+    if diff != 0 or counts != want:
+        fail(f"families serve: pixel diff {diff}, launches {counts} "
+             f"(expected {want})")
+    paths["families serve sdxl"] = counts
+    del pipe, handler
+    torch.cuda.empty_cache()
+    print(f"[families] phase in {time.perf_counter() - t_phase:.1f} s: "
+          + "; ".join(f"{k} {s:.3f} s/call peak {p:.2f} GiB"
+                      for k, (s, p) in stats.items()), flush=True)
+    return paths
+
+
 def phase_train_profile(step, state, batch, gen, sps: float,
                         label: str = "train"):
     """Device time by kernel over one mode-C optimizer step."""
@@ -4917,6 +5412,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(phase_serve(smi))
     paths.update(phase_image_checks(smi))
+    torch.cuda.empty_cache()
+    paths.update(phase_families(smi))
     torch.cuda.empty_cache()
     paths.update(phase_fp32_sampling(smi))
     torch.cuda.empty_cache()

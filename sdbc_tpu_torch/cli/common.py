@@ -1,7 +1,9 @@
 """Shared CLI plumbing (counterpart of ``sdbc_tpu/cli/common.py`` for one
 device): boolean flags, model resolution (``--ckpt``, ``--diffusers_ckpt``
-or a fresh init) with the ``--lora_path`` / ``--ti_path`` merges,
-tokenizer with placeholder tokens, compute dtype.
+or a fresh init of ``--model_family``) with the ``--lora_path`` /
+``--ti_path`` merges, the SDXL refiner (``resolve_refiner``), tokenizers
+with placeholder tokens (SDXL's second: ``make_tokenizer2``), compute
+dtype.
 
 Booleans are ``argparse.BooleanOptionalAction`` (--flag / --no-flag), not
 the reference's ``type=bool`` footgun (finetune_sd.py:27).
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -32,13 +35,9 @@ _UNPORTED_FLAGS = {
     "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
     "train_controlnet": (False, "ControlNet training (ROADMAP Queue 1 "
                                 "item 6)"),
-    "model_family": ("sd15", "the SD-2.x and SDXL families (ROADMAP Queue "
-                             "1 item 6)"),
     "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
     "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
     "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
-    "refiner_ckpt": ("", "the SDXL refiner ensemble (ROADMAP Queue 1 "
-                         "item 6)"),
     "summarize": (None, "the BART summarizer (ROADMAP Queue 1 item 4)"),
     "bart_ckpt": ("", "the BART summarizer (ROADMAP Queue 1 item 4)"),
 }
@@ -114,8 +113,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="ControlNet dir (not ported yet)")
     p.add_argument("--model_family", type=str, default="sd15",
                    choices=["sd15", "sd21", "sdxl"],
-                   help="architecture preset for fresh inits (only sd15 is "
-                        "ported)")
+                   help="architecture preset for FRESH inits (checkpoint / "
+                        "diffusers loads take the family from their own "
+                        "configs); composes with --tiny (toy shapes of the "
+                        "same family)")
     bool_flag(p, "zero_snr", False,
               "rescale the beta schedule to exactly zero terminal SNR "
               "(arXiv:2305.08891; v-prediction models, ddim/unipc)")
@@ -181,6 +182,44 @@ def make_tokenizer(args, vocab_size: int):
     return tok
 
 
+def make_tokenizer2(args, cfg):
+    """SDXL's second (bigG) tokenizer: the ``tokenizer_2/`` of
+    ``--diffusers_ckpt`` or ``--ckpt`` (its "!" pad differs from
+    CLIP-L's); None for single-encoder families or when no dir ships one
+    (``SDPipeline`` then uses the first, whose pad id only differs)."""
+    if cfg.clip2 is None:
+        return None
+    from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
+
+    for base in (getattr(args, "diffusers_ckpt", "") or "",
+                 getattr(args, "ckpt", "") or ""):
+        d = os.path.join(base, "tokenizer_2") if base else ""
+        if d and os.path.exists(os.path.join(d, "vocab.json")):
+            tok2 = CLIPTokenizer.from_pretrained(d)
+            # a placeholder token sits at the same ids in both (one base
+            # vocabulary)
+            added = _collect_added_tokens(args)
+            if added and not tok2.added_tokens:
+                tok2.added_tokens.update(added)
+            return tok2
+    return None
+
+
+def refuse_xl_adapters(cfg, flags: dict) -> None:
+    """SystemExit when an adapter flag (``{flag: value}``) is set on an
+    SDXL config: the port's LoRA and textual inversion name SD-1.x's
+    modules only."""
+    if not cfg.is_sdxl:
+        return
+    for name, value in flags.items():
+        if value:
+            raise SystemExit(
+                f"--{name} on an SDXL model needs LoRA / textual inversion "
+                "on SDXL, which comes with training the SD-2.x and SDXL "
+                "families (ROADMAP Queue 1 item 6); sdbc_tpu_torch has not "
+                "ported it yet")
+
+
 def compute_dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
@@ -189,6 +228,8 @@ def _merge_adapters(args, models, cfg):
     """``--lora_path`` then ``--ti_path`` merged into copies of
     ``models``; with TI the config's vocab counts the appended rows and
     pools on the base vocab's last id, as the JAX CLIs do."""
+    refuse_xl_adapters(cfg, {"lora_path": getattr(args, "lora_path", ""),
+                             "ti_path": getattr(args, "ti_path", "")})
     if getattr(args, "lora_path", ""):
         from sdbc_tpu_torch.train import lora as lora_mod
 
@@ -209,16 +250,17 @@ def _merge_adapters(args, models, cfg):
 
 
 def resolve_params_cfg(args, dtype=None):
-    """(models, cfg): ``--diffusers_ckpt``'s SD-1.x weights ported on the
-    fly (shapes from its config.json files), else ``--ckpt``'s checkpoint
+    """(models, cfg): ``--diffusers_ckpt``'s weights ported on the fly
+    (shapes from its config.json files), else ``--ckpt``'s checkpoint
     (``utils/checkpoint.py``: the EMA shadow, LoRA and TI merged as saved;
-    its scheduler unless ``--scheduler``), else a fresh init (tiny or
-    SD-1.5 shapes) from ``--seed``; then ``--lora_path`` and ``--ti_path``
-    merged (``_merge_adapters``).  The modules live on ``--device`` in
-    ``dtype`` (default: the compute dtype, ``--bf16``; the finetune CLI
-    asks for fp32 masters); loaded weights are merged in their saved
-    dtypes before the cast, a fresh init (made in ``dtype``) with its
-    deltas in fp32 and the sums rounded once.
+    its scheduler unless ``--scheduler``), else a fresh init of
+    ``--model_family`` (its tiny shapes with ``--tiny``: ``tiny_xl`` for
+    sdxl, ``tiny`` with v-prediction for sd21) from ``--seed``; then
+    ``--lora_path`` and ``--ti_path`` merged (``_merge_adapters``).  The
+    modules live on ``--device`` in ``dtype`` (default: the compute dtype,
+    ``--bf16``; the finetune CLI asks for fp32 masters); loaded weights
+    are merged in their saved dtypes before the cast, a fresh init (made
+    in ``dtype``) with its deltas in fp32 and the sums rounded once.
 
     Zero-egress: there is no HF-hub branch; pretrained weights enter via
     ``--diffusers_ckpt`` (``models/port.py``) or ``--ckpt``."""
@@ -249,12 +291,12 @@ def resolve_params_cfg(args, dtype=None):
         models, cfg = _merge_adapters(args, models, cfg)
         models = {k: m.to(dtype) for k, m in models.items()}
     else:
-        cfg = PipelineConfig.tiny(sched) if args.tiny \
-            else PipelineConfig.sd15(sched)
+        family = getattr(args, "model_family", "sd15")
+        cfg = PipelineConfig.family(family, args.tiny, sched)
         if not args.tiny:
-            print("WARNING: no --diffusers_ckpt given; using RANDOM SD-1.5 "
-                  "weights (zero-egress image — port real weights via "
-                  "models/port.py)")
+            print(f"WARNING: no --diffusers_ckpt given; using RANDOM "
+                  f"{family} weights (zero-egress image — port real "
+                  "weights via models/port.py)")
         gen = torch.Generator(device=device).manual_seed(args.seed)
         models = init_models(cfg, device=device, generator=gen, dtype=dtype)
         models, cfg = _merge_adapters(args, models, cfg)
@@ -267,3 +309,37 @@ def resolve_params_cfg(args, dtype=None):
         cfg = dataclasses.replace(
             cfg, schedule=dataclasses.replace(cfg.schedule, **over))
     return models, cfg
+
+
+def resolve_refiner(args, scheduler: str, dtype=None):
+    """``--refiner_ckpt``'s (models, cfg): a diffusers dir (found by its
+    ``unet/config.json``) or a port checkpoint, on ``--device`` in
+    ``dtype`` (default the compute dtype).  The scheduler is forced to the
+    base's: the handoff resumes mid-grid, so both stages step one grid
+    (``EnsemblePipeline`` checks the schedule too)."""
+    from sdbc_tpu_torch.diffusion.pipeline import as_modules
+
+    path = args.refiner_ckpt
+    device = resolve_device(args)
+    dtype = dtype or compute_dtype(args)
+    if os.path.exists(os.path.join(path, "unet", "config.json")):
+        from sdbc_tpu_torch.models.port import (
+            pipeline_config_from_diffusers, port_diffusers_checkpoint)
+
+        cfg = pipeline_config_from_diffusers(path, scheduler)
+        models = as_modules(port_diffusers_checkpoint(path), cfg, device)
+    else:
+        from sdbc_tpu_torch.utils import checkpoint as ckpt_mod
+
+        try:
+            models, cfg = ckpt_mod.load_pipeline(path, device=device)
+        except ckpt_mod.JAXCheckpointError as e:
+            raise SystemExit(f"--refiner_ckpt {e}")
+        cfg = dataclasses.replace(cfg, scheduler=scheduler)
+    if not cfg.refiner:
+        raise SystemExit(
+            f"--refiner_ckpt {path} is not a refiner layout (expected "
+            "text_encoder_2 WITHOUT text_encoder + a text_time addition "
+            "embedding): pass the base model via --ckpt/--diffusers_ckpt "
+            "instead")
+    return {k: m.to(dtype) for k, m in models.items()}, cfg

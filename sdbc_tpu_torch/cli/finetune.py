@@ -142,6 +142,10 @@ def _refuse(args) -> None:
     """The JAX CLI's refusals of flag combinations, then the unported
     features."""
     common.refuse_unported(args, unused={"tp": 1})
+    if args.model_family != "sd15":
+        raise SystemExit(f"--model_family {args.model_family} needs training "
+                         "the SD-2.x and SDXL families (ROADMAP Queue 1 item "
+                         "6), which sdbc_tpu_torch has not ported yet")
     use_lora, use_ti = args.lora_rank > 0, bool(args.ti_token)
     if args.prior_class_prompt and args.cache_latents:
         raise SystemExit("--prior_class_prompt is incompatible with "
@@ -263,6 +267,10 @@ def main(argv=None):
     else:
         # fp32 masters; the trainer casts the frozen components
         models, cfg = common.resolve_params_cfg(args, dtype=torch.float32)
+    if cfg.is_sdxl:
+        raise SystemExit("an SDXL checkpoint needs training the SD-2.x and "
+                         "SDXL families (ROADMAP Queue 1 item 6), which "
+                         "sdbc_tpu_torch has not ported yet")
     tok = common.make_tokenizer(args, cfg.clip.vocab_size)
     ti_ids, ti_init_ids = None, None
     if use_ti:

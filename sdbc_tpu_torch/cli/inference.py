@@ -8,12 +8,16 @@ default / calc_fid / enter_prompt, on the card unless ``--device cpu``.
   calc_fid     generate --num_imgs covers over df_test + FID vs --fid_stats_path
   enter_prompt one custom prompt → PNG (img2img, inpainting, hires-fix)
 
+``--model_family sd21|sdxl`` picks the family of a fresh init;
+``--refiner_ckpt`` (an SDXL refiner: a diffusers dir or a port checkpoint)
+serves the base → refiner ensemble, handing over at ``--refiner_frac``.
 ``--lora_path`` / ``--ti_path`` merge an adapter or a learned embedding at
-load; ``--safety_checker`` blacks out flagged images.
+load (SD-1.x); ``--safety_checker`` blacks out flagged images.
 
 Every sampling-profile flag goes through one ``SampleSpec``.  Flags of
 features not ported yet exit with a message (``common.refuse_unported``).
-PIL and pandas are imported only where files are read or written.
+PIL and pandas are imported only where files are read (enter_prompt's
+PNGs are written by ``utils/png.py``) or grids and FID images written.
 """
 from __future__ import annotations
 
@@ -66,9 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--control_image", type=str, default="",
                    help="ControlNet conditioning image (not ported yet)")
     p.add_argument("--refiner_ckpt", type=str, default="",
-                   help="SDXL refiner checkpoint (not ported yet)")
+                   help="SDXL refiner checkpoint (port layout or a diffusers "
+                        "dir): ensemble-of-expert-denoisers serving, the "
+                        "base runs the high-noise share, the refiner the "
+                        "tail (diffusion/ensemble.py)")
     p.add_argument("--refiner_frac", type=float, default=0.8,
-                   help="denoising handoff fraction for --refiner_ckpt")
+                   help="denoising handoff fraction for --refiner_ckpt "
+                        "(base runs [0, frac), refiner [frac, 1])")
     p.add_argument("--controlnet_scale", type=_scale_list, default=1.0,
                    help="ControlNet residual multiplier (not ported yet)")
     common.bool_flag(p, "prompt_weighting", False,
@@ -133,13 +141,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _resolve_freeu(args, cfg):
-    """--freeu '' → None; 'auto' → the family preset; 'b1,b2,s1,s2' → tuple."""
+    """--freeu '' → None; 'auto' → the family preset of the RESOLVED config
+    (a checkpoint overrides --model_family): SDXL, v-prediction (SD-2.1)
+    or SD-1.5; 'b1,b2,s1,s2' → tuple."""
     from sdbc_tpu_torch.models import unet as unet_mod
 
     spec = (args.freeu or "").strip()
     if not spec:
         return None
     if spec == "auto":
+        if cfg.is_sdxl:
+            return unet_mod.FREEU_SDXL
         if cfg.schedule.prediction_type == "v_prediction":
             return unet_mod.FREEU_SD21
         return unet_mod.FREEU_SD15
@@ -184,6 +196,22 @@ def make_safety_checker(args):
     return ClipSafetyChecker(tree, sc_cfg, device=args.device)
 
 
+def make_ensemble(args, pipe):
+    """``--refiner_ckpt``: the base ``pipe`` and the refiner as an
+    ``EnsemblePipeline`` handing over at ``--refiner_frac``."""
+    from sdbc_tpu_torch.diffusion.ensemble import EnsemblePipeline
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+
+    rf_models, rf_cfg = common.resolve_refiner(args, pipe.cfg.scheduler)
+    rf_pipe = SDPipeline(rf_models, rf_cfg, pipe.tokenizer,
+                         device=args.device,
+                         compute_dtype=common.compute_dtype(args),
+                         tokenizer2=common.make_tokenizer2(args, rf_cfg))
+    print(f"ensemble serving: refiner {args.refiner_ckpt} takes over at "
+          f"{args.refiner_frac:.0%} of the denoising run")
+    return EnsemblePipeline(pipe, rf_pipe, handoff=args.refiner_frac)
+
+
 def profile_spec(args, cfg):
     """The one sampling-profile ``SampleSpec`` of the flags, shared by
     every mode."""
@@ -226,6 +254,12 @@ def _enter_prompt(args, pipe, spec, save_dir):
             raise SystemExit("--hires_scale drives both stages itself and "
                              "cannot combine with --init_image (use "
                              "--strength img2img instead)")
+        from sdbc_tpu_torch.diffusion.ensemble import EnsemblePipeline
+
+        if isinstance(pipe, EnsemblePipeline):
+            raise SystemExit("--hires_scale is not wired up for "
+                             "--refiner_ckpt ensemble serving (the refiner "
+                             "already runs a tail pass)")
         spec = spec.replace(hires_scale=args.hires_scale,
                             hires_strength=args.hires_strength,
                             hires_steps=args.hires_steps,
@@ -233,13 +267,19 @@ def _enter_prompt(args, pipe, spec, save_dir):
     else:
         spec = spec.replace(init_image=init_image, strength=args.strength,
                             mask_image=mask_image)
-    pils = pipe.numpy_to_pil(pipe.generate([args.prompt], spec))
+    import numpy as np
+
+    from sdbc_tpu_torch.utils import png
+
+    imgs = pipe.generate([args.prompt], spec)
     # prompt text becomes a filename: strip path separators
     stem = re.sub(r"[/\\\0]", "_", args.prompt)[:64] or "prompt"
-    for i, im in enumerate(pils):
-        suffix = f"-{i}" if len(pils) > 1 else ""
+    for i, im in enumerate(imgs):
+        suffix = f"-{i}" if len(imgs) > 1 else ""
         out = os.path.join(save_dir, f"{stem}{suffix}.png")
-        im.save(out)
+        # numpy_to_pil's rounding, encoded by utils/png.py (no PIL)
+        with open(out, "wb") as f:
+            f.write(png.encode(np.uint8(np.round(im * 255.0))))
         print(f"saved {out}")
 
 
@@ -344,11 +384,13 @@ def main(argv=None):
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 
     models, cfg = common.resolve_params_cfg(args)
-    pipe = SDPipeline(models, cfg,
-                      common.make_tokenizer(args, cfg.clip.vocab_size),
-                      device=args.device,
+    tok = common.make_tokenizer(args, cfg.clip.vocab_size)
+    pipe = SDPipeline(models, cfg, tok, device=args.device,
                       compute_dtype=common.compute_dtype(args),
-                      safety_checker=make_safety_checker(args))
+                      safety_checker=make_safety_checker(args),
+                      tokenizer2=common.make_tokenizer2(args, cfg))
+    if args.refiner_ckpt:
+        pipe = make_ensemble(args, pipe)
     save_dir = os.path.join(args.save_dir, f"{args.run_id} inference")
     os.makedirs(save_dir, exist_ok=True)
     spec = profile_spec(args, cfg)

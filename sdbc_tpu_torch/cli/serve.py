@@ -34,8 +34,12 @@ a JPEG, or a PNG of another size or kind, goes through PIL as in the JAX
 daemon (bicubic for the image, nearest for the mask), and where PIL is not
 installed the request answers 400 naming it.
 
-The JAX daemon's SDXL refiner ensemble (--refiner_ckpt) and the other
-flags of unported features exit naming their feature.
+``--model_family sd21|sdxl`` serves a fresh init of that family (a
+checkpoint brings its own); ``--refiner_ckpt`` serves the SDXL base →
+refiner ensemble (``diffusion/ensemble.py``; no per-request scheduler, no
+hires, no --lora_bank under it).  --lora_bank, --lora_path and --ti_path
+on an SDXL model, and the flags of other unported features, exit naming
+their feature.
 """
 from __future__ import annotations
 
@@ -89,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "fractions, arXiv:2404.07724): CFG runs only on "
                         "steps in [lo,hi)")
     p.add_argument("--refiner_ckpt", type=str, default="",
-                   help="SDXL refiner dir (not ported yet)")
+                   help="SDXL refiner checkpoint/diffusers dir: serve the "
+                        "base->refiner ensemble (EnsemblePipeline)")
     p.add_argument("--refiner_frac", type=float, default=0.8)
     p.add_argument("--lora_bank", type=str, default="",
                    help="comma-separated name=path LoRA adapters served "
@@ -221,11 +226,13 @@ def make_app(pipe, args, lora_pipes=None):
 
     from sdbc_tpu_torch.cli.inference import (_resolve_cfg_interval,
                                               _resolve_freeu)
+    from sdbc_tpu_torch.diffusion.ensemble import EnsemblePipeline
     from sdbc_tpu_torch.diffusion.graph import SCHEDULERS
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
     from sdbc_tpu_torch.diffusion.spec import SampleSpec
 
     pipes = {"": pipe, **(lora_pipes or {})}
+    ensemble = isinstance(pipe, EnsemblePipeline)
     sched_views = {}
 
     def pipe_for(lora: str, scheduler: str):
@@ -238,7 +245,8 @@ def make_app(pipe, args, lora_pipes=None):
                                                  scheduler=scheduler),
                 base.tokenizer, device=base.device,
                 compute_dtype=base.compute_dtype, attn_impl=base.attn_impl,
-                safety_checker=base.safety_checker)
+                safety_checker=base.safety_checker,
+                tokenizer2=base.tokenizer2)
         return sched_views[(lora, scheduler)]
 
     jobs: "queue_mod.Queue[_Job]" = queue_mod.Queue()
@@ -411,12 +419,18 @@ def make_app(pipe, args, lora_pipes=None):
             if scheduler not in SCHEDULERS:
                 raise ValueError(f"unknown scheduler {scheduler!r}; one "
                                  f"of {list(SCHEDULERS)}")
+            if ensemble:
+                raise ValueError("per-request scheduler is not available "
+                                 "under --refiner_ckpt ensemble serving")
             if scheduler == pipes[lora].cfg.scheduler:
                 # the daemon's own scheduler: the same pipeline, so
                 # explicit-name and default requests coalesce
                 scheduler = ""
         hires = None
         if req.get("hires_scale"):
+            if ensemble:
+                raise ValueError("hires_scale is not available under "
+                                 "--refiner_ckpt ensemble serving")
             if init is not None:
                 raise ValueError("hires_scale cannot combine with "
                                  "init_image (it drives both stages "
@@ -537,16 +551,27 @@ def model_bytes(models: dict, names) -> int:
 
 def load_pipelines(args):
     """(pipe, lora_pipes) for parsed arguments, as ``main`` serves them:
-    the resolved model (``common.resolve_params_cfg``) and one pipeline per
-    ``--lora_bank`` adapter on merged copies of the components it adapts
-    (printing the bytes each copy holds)."""
+    the resolved model (``common.resolve_params_cfg``), the base →
+    refiner ``EnsemblePipeline`` with ``--refiner_ckpt``, and one pipeline
+    per ``--lora_bank`` adapter on merged copies of the components it
+    adapts (printing the bytes each copy holds)."""
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 
     models, cfg = common.resolve_params_cfg(args)
+    common.refuse_xl_adapters(cfg, {"lora_bank": args.lora_bank})
+    if args.lora_bank and args.refiner_ckpt:
+        raise SystemExit("--lora_bank cannot combine with --refiner_ckpt "
+                         "(adapters merge into the base model, not the "
+                         "ensemble)")
     tok = common.make_tokenizer(args, cfg.clip.vocab_size)
     dtype = common.compute_dtype(args)
     pipe = SDPipeline(models, cfg, tok, device=args.device,
-                      compute_dtype=dtype)
+                      compute_dtype=dtype,
+                      tokenizer2=common.make_tokenizer2(args, cfg))
+    if args.refiner_ckpt:
+        from sdbc_tpu_torch.cli.inference import make_ensemble
+
+        pipe = make_ensemble(args, pipe)
     lora_pipes = {}
     if args.lora_bank:
         from sdbc_tpu_torch.train import lora as lora_mod

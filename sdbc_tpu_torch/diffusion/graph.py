@@ -1,6 +1,8 @@
 """Classifier-free-guidance sampling (counterpart of
-``sdbc_tpu/diffusion/graph.py``): every scheduler and SD-1.x sampling
-option of the JAX package's ``sample``.
+``sdbc_tpu/diffusion/graph.py``): every scheduler and sampling option of
+the JAX package's ``sample``, for SD-1.x, SD-2.x and SDXL (the dual text
+encoder with the pooled text-time conditioning, and the refiner's
+aesthetic-score flavour).
 
 CLIP encode of both branches → the scheduler loop with the UNet on the
 CFG-doubled batch (time projections hoisted by ``unet.precompute_temb``)
@@ -25,6 +27,7 @@ from sdbc_tpu_torch.diffusion import schedulers as sched_mod
 from sdbc_tpu_torch.models import clip as clip_mod
 from sdbc_tpu_torch.models import unet as unet_mod
 from sdbc_tpu_torch.models import vae as vae_mod
+from sdbc_tpu_torch.ops import nn as nn_mod
 
 SCHEDULERS = ("ddim", "pndm", "ddpm", "lms", "dpm", "dpm_sde", "unipc",
               "lcm", "heun", "euler_a")
@@ -42,6 +45,18 @@ class PipelineConfig:
     schedule: sched_mod.ScheduleConfig
     # one of SCHEDULERS
     scheduler: str = "ddim"
+    # SDXL's second text encoder (OpenCLIP bigG with its projection): the
+    # models then hold "text_encoder_2", and the UNet takes the pooled
+    # embed through its text-time embedding
+    clip2: Optional[clip_mod.CLIPTextConfig] = None
+    # the SDXL refiner: bigG alone ("text_encoder_2"; clip = clip2 so the
+    # tokenizer plumbing is unchanged) and 5 micro-conditioning ids, the
+    # last an aesthetic score per CFG branch
+    refiner: bool = False
+
+    @property
+    def is_sdxl(self) -> bool:
+        return self.clip2 is not None
 
     @property
     def vae_scale(self) -> int:
@@ -66,20 +81,110 @@ class PipelineConfig:
                               sched_mod.ScheduleConfig.sd15(), scheduler)
 
     @staticmethod
+    def sd21(scheduler: str = "ddim",
+             prediction_type: str = "v_prediction") -> "PipelineConfig":
+        """SD-2.x: the OpenCLIP ViT-H text encoder, per-level heads,
+        v-prediction (SD-2.1 768; ``prediction_type="epsilon"`` for the
+        512 base); the SD-1.x VAE."""
+        sched = dataclasses.replace(sched_mod.ScheduleConfig.sd15(),
+                                    prediction_type=prediction_type)
+        return PipelineConfig(clip_mod.CLIPTextConfig.sd2(),
+                              unet_mod.UNetConfig.sd21(),
+                              vae_mod.VAEConfig.sd15(), sched, scheduler)
+
+    @staticmethod
+    def sdxl(scheduler: str = "ddim") -> "PipelineConfig":
+        """SDXL base: CLIP-L ⧺ bigG penultimate states (2048 wide), the
+        pooled text and size/crop ids through the text-time embedding,
+        the 3-level depth-(–, 2, 10) UNet, VAE scale 0.13025; 1024²."""
+        return PipelineConfig(clip_mod.CLIPTextConfig.sd15(),
+                              unet_mod.UNetConfig.sdxl(),
+                              vae_mod.VAEConfig.sdxl(),
+                              sched_mod.ScheduleConfig.sd15(), scheduler,
+                              clip2=clip_mod.CLIPTextConfig.sdxl_g())
+
+    @staticmethod
+    def sdxl_refiner(scheduler: str = "ddim") -> "PipelineConfig":
+        """SDXL refiner: bigG alone, aesthetic-score micro-conditioning;
+        the tail model of the base → refiner ensemble."""
+        big_g = clip_mod.CLIPTextConfig.sdxl_g()
+        return PipelineConfig(big_g, unet_mod.UNetConfig.sdxl_refiner(),
+                              vae_mod.VAEConfig.sdxl(),
+                              sched_mod.ScheduleConfig.sd15(), scheduler,
+                              clip2=big_g, refiner=True)
+
+    @staticmethod
+    def family(name: str, tiny: bool = False,
+               scheduler: str = "ddim") -> "PipelineConfig":
+        """``--model_family name``'s config; with ``tiny`` its toy shapes:
+        ``tiny_xl`` for sdxl, ``tiny`` with v-prediction for sd21."""
+        if not tiny:
+            return {"sd15": PipelineConfig.sd15, "sd21": PipelineConfig.sd21,
+                    "sdxl": PipelineConfig.sdxl}[name](scheduler)
+        if name == "sdxl":
+            return PipelineConfig.tiny_xl(scheduler)
+        cfg = PipelineConfig.tiny(scheduler)
+        if name == "sd21":  # the family's v-prediction objective
+            cfg = dataclasses.replace(cfg, schedule=dataclasses.replace(
+                cfg.schedule, prediction_type="v_prediction"))
+        return cfg
+
+    @staticmethod
     def tiny(scheduler: str = "ddim") -> "PipelineConfig":
         return PipelineConfig(clip_mod.CLIPTextConfig.tiny(),
                               unet_mod.UNetConfig.tiny(),
                               vae_mod.VAEConfig.tiny(),
                               sched_mod.ScheduleConfig.sd15(), scheduler)
 
+    @staticmethod
+    def tiny_xl(scheduler: str = "ddim") -> "PipelineConfig":
+        """Toy SDXL: every family path at test size; addition_embed_dim
+        40 = 16 (clip2 projection) + 6 × 4 (time ids)."""
+        clip2 = dataclasses.replace(clip_mod.CLIPTextConfig.tiny(),
+                                    projection_dim=16)
+        return PipelineConfig(clip_mod.CLIPTextConfig.tiny(),
+                              unet_mod.UNetConfig.tiny_xl(),
+                              vae_mod.VAEConfig.tiny(),
+                              sched_mod.ScheduleConfig.sd15(), scheduler,
+                              clip2=clip2)
+
+    @staticmethod
+    def tiny_xl_refiner(scheduler: str = "ddim") -> "PipelineConfig":
+        """Toy refiner: addition_embed_dim 36 = 16 + 5 × 4; context the
+        tiny bigG's 32."""
+        clip2 = dataclasses.replace(clip_mod.CLIPTextConfig.tiny(),
+                                    projection_dim=16)
+        u = dataclasses.replace(unet_mod.UNetConfig.tiny_xl(),
+                                cross_attention_dim=32,
+                                addition_embed_dim=36)
+        return PipelineConfig(clip2, u, vae_mod.VAEConfig.tiny(),
+                              sched_mod.ScheduleConfig.sd15(), scheduler,
+                              clip2=clip2, refiner=True)
+
+
+def model_configs(cfg: PipelineConfig) -> dict:
+    """{component: its config} of the models ``cfg`` runs: the text
+    encoder (not in a refiner), SDXL's second encoder, the UNet and the
+    VAE."""
+    out = {} if cfg.refiner else {"text_encoder": cfg.clip}
+    if cfg.is_sdxl:
+        out["text_encoder_2"] = cfg.clip2
+    out.update(unet=cfg.unet, vae=cfg.vae)
+    return out
+
+
+COMPONENT_INITS = {"text_encoder": clip_mod.init,
+                   "text_encoder_2": clip_mod.init, "unet": unet_mod.init,
+                   "vae": vae_mod.init}
+
 
 def init_models(cfg: PipelineConfig, *, device, generator,
                 dtype=torch.float32) -> dict:
-    """Random-init text encoder, UNet and VAE from one ``torch.Generator``."""
+    """Random-init the components of ``model_configs`` from one
+    ``torch.Generator``."""
     kw = dict(device=device, generator=generator, dtype=dtype)
-    return {"text_encoder": clip_mod.init(cfg.clip, **kw),
-            "unet": unet_mod.init(cfg.unet, **kw),
-            "vae": vae_mod.init(cfg.vae, **kw)}
+    return {name: COMPONENT_INITS[name](sub, **kw)
+            for name, sub in model_configs(cfg).items()}
 
 
 def encode_text(text_encoder, ids, cfg: PipelineConfig,
@@ -95,6 +200,91 @@ def encode_text(text_encoder, ids, cfg: PipelineConfig,
     emb = clip_mod.apply(text_encoder, ids.reshape(-1, ctx), compute_dtype,
                          skip_layers=max(clip_skip - 1, 0))
     return emb.reshape(b, width, emb.shape[-1])
+
+
+def encode_text_xl(models, ids, ids2, cfg: PipelineConfig,
+                   compute_dtype=torch.bfloat16, clip_skip: int = 0,
+                   weights=None, weights2=None):
+    """SDXL's dual-encoder conditioning → (context, pooled).
+
+    ids/ids2: (B, ctx·k) from the CLIP-L and the bigG tokenizer (k > 1:
+    each window encoded alone; the pooled embed from the first window).
+    The context is CLIP-L's ⧺ bigG's penultimate hidden states without the
+    final LayerNorm (the refiner: bigG's alone); ``clip_skip`` 0/1/2 mean
+    that state, 3 one layer earlier.  pooled: bigG's projected pooled
+    output of its full stack.  ``weights``/``weights2``: token weights of
+    each encoder's states, mean-restored per encoder; the pooled embed is
+    never weighted."""
+    if ids.shape[1] != ids2.shape[1]:
+        raise ValueError(
+            f"SDXL dual-encoder contexts differ: ids {ids.shape[1]} vs ids2 "
+            f"{ids2.shape[1]} tokens (the states are concatenated feature-"
+            "wise, so both tokenizers encode at one length)")
+    skip = max(clip_skip - 1, 1)
+    ctx = cfg.clip.ctx
+    b, width = ids.shape
+    if width % ctx:
+        raise ValueError(f"token ids width {width} is not a multiple of the "
+                         f"encoder context {ctx}")
+    h1 = None
+    if not cfg.refiner:
+        h1 = clip_mod.apply(models["text_encoder"], ids.reshape(-1, ctx),
+                            compute_dtype, skip_layers=skip, final_ln=False)
+        h1 = h1.reshape(b, width, h1.shape[-1])
+    h2, pooled = clip_mod.apply_with_pooled(
+        models["text_encoder_2"], ids2.reshape(-1, ctx), compute_dtype,
+        skip_layers=skip)
+    h2 = h2.reshape(b, width, h2.shape[-1])
+    pooled = pooled.reshape(b, width // ctx, -1)[:, 0]
+    if h1 is not None and weights is not None:
+        h1 = _apply_token_weights(h1, weights)
+    if weights2 is not None:
+        h2 = _apply_token_weights(h2, weights2)
+    if cfg.refiner:
+        return h2, pooled
+    return torch.cat([h1, h2], dim=-1), pooled
+
+
+def xl_added_cond(pooled, time_ids, fourier_dim: int):
+    """pooled ⧺ Fourier(time_ids): the text-time embedding's input (fp32).
+    Each id gets ``fourier_dim`` features of the timestep embedding's
+    sinusoids (diffusers add_time_proj)."""
+    b = time_ids.shape[0]
+    ft = nn_mod.timestep_embedding(time_ids.reshape(-1), fourier_dim,
+                                   dtype=torch.float32).reshape(b, -1)
+    return torch.cat([pooled.float(), ft], dim=-1)
+
+
+def xl_time_ids(cfg: PipelineConfig, lat_shape, time_ids=None,
+                aesthetic_score: float = 6.0,
+                negative_aesthetic_score: float = 2.5, device="cpu"):
+    """The uncond ⧺ cond micro-conditioning ids (2B, 6), or the refiner's
+    (2B, 5): (H, W, 0, 0) and the negative / positive aesthetic score.
+    ``time_ids`` (B, 6) default to (H, W, 0, 0, H, W) of the latents'
+    image size; a refiner derives its own and refuses them."""
+    b = lat_shape[0]
+    hh = float(lat_shape[1] * cfg.vae_scale)
+    ww = float(lat_shape[2] * cfg.vae_scale)
+    if cfg.refiner:
+        if time_ids is not None:
+            raise ValueError("refiner configs derive their own (orig, crop, "
+                             "aesthetic) time ids: use aesthetic_score/"
+                             "negative_aesthetic_score instead of time_ids")
+        base4 = torch.tensor([[hh, ww, 0.0, 0.0]],
+                             device=device).expand(b, 4)
+
+        def score(v):
+            return torch.full((b, 1), float(np.float32(v)), device=device)
+
+        return torch.cat([torch.cat([base4, score(negative_aesthetic_score)],
+                                    dim=-1),
+                          torch.cat([base4, score(aesthetic_score)], dim=-1)],
+                         dim=0)
+    if time_ids is None:
+        time_ids = torch.tensor([[hh, ww, 0.0, 0.0, hh, ww]],
+                                device=device).expand(b, 6)
+    time_ids = torch.as_tensor(time_ids, device=device).float()
+    return torch.cat([time_ids, time_ids], dim=0)
 
 
 def _apply_token_weights(emb, w):
@@ -146,14 +336,11 @@ def _scheduler_loop(lo: int, hi: int, lat, model_at, update, state=None,
     return lat
 
 
-# SD-1.x-only arguments of the JAX package's ``sample`` that are not ported:
-# the dedicated inpainting UNet (masked_image), ControlNet, the SDXL second
-# encoder and micro-conditioning, and head packing; each with its default
+# arguments of the JAX package's ``sample`` that are not ported: the
+# dedicated inpainting UNet (masked_image), ControlNet, and head packing
+# (a TPU layout hook, ROADMAP "Do not port"); each with its default
 _UNPORTED = {"masked_image": None, "control_image": None,
-             "controlnet_scale": 1.0, "cond_ids2": None, "uncond_ids2": None,
-             "time_ids": None, "cond_weights2": None,
-             "uncond_weights2": None, "aesthetic_score": 6.0,
-             "negative_aesthetic_score": 2.5, "pack_heads": None}
+             "controlnet_scale": 1.0, "pack_heads": None}
 
 
 def _refuse_unported(cfg: PipelineConfig, unported: dict) -> None:
@@ -253,11 +440,17 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
            guidance_rescale: float = 0.0, clip_skip: int = 0,
            use_karras_sigmas: bool = False, freeu=None, cfg_interval=None,
            cond_weights=None, uncond_weights=None,
+           cond_ids2=None, uncond_ids2=None, time_ids=None,
+           cond_weights2=None, uncond_weights2=None,
+           aesthetic_score: float = 6.0,
+           negative_aesthetic_score: float = 2.5,
            generator: Optional[torch.Generator] = None,
            draws: Optional[dict] = None, **unported):
     """Run the CFG sampling path of ``cfg.scheduler``.
 
-    models: {"text_encoder", "unet", "vae"} modules
+    models: the modules of ``model_configs(cfg)`` ({"text_encoder",
+      "unet", "vae"}, with "text_encoder_2" for SDXL; a refiner has no
+      "text_encoder")
     cond_ids/uncond_ids: (B, ctx·k) integer token ids on the models' device
     latents: (B, h/8, w/8, 4) NHWC initial noise (with init_image /
       init_latents: the noise added to the init latents)
@@ -281,6 +474,11 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
     t_end: stop at grid index t_end (denoising_end; pair with decode=False)
     guidance_rescale, clip_skip, use_karras_sigmas, freeu, cfg_interval,
     cond_weights/uncond_weights: as in the JAX package's ``sample``
+    cond_ids2/uncond_ids2, cond_weights2/uncond_weights2 (SDXL, cfg.clip2
+      set): the second tokenizer's ids and weights; time_ids: (B, 6)
+      micro-conditioning (orig h/w, crop top/left, target h/w; default the
+      latents' image size); aesthetic_score/negative_aesthetic_score: the
+      refiner's cond/uncond scores (``xl_time_ids``)
     Returns (B, H, W, 3) fp32 images in [0, 1], or the latents (compute
     dtype) with decode=False.
     """
@@ -313,13 +511,33 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
     def on_device(x):
         return None if x is None else torch.as_tensor(x, device=device)
 
-    te = models["text_encoder"]
-    ctx_c = encode_text(te, cond_ids, cfg, dt, clip_skip=clip_skip)
-    ctx_u = encode_text(te, uncond_ids, cfg, dt, clip_skip=clip_skip)
-    if cond_weights is not None:
-        ctx_c = _apply_token_weights(ctx_c, on_device(cond_weights))
-    if uncond_weights is not None:
-        ctx_u = _apply_token_weights(ctx_u, on_device(uncond_weights))
+    added2 = None
+    if cfg.is_sdxl:
+        if cond_ids2 is None or uncond_ids2 is None:
+            raise ValueError("SDXL configs (cfg.clip2 set) need cond_ids2/"
+                             "uncond_ids2 from the second tokenizer")
+        ctx_c, pool_c = encode_text_xl(
+            models, cond_ids, on_device(cond_ids2), cfg, dt,
+            clip_skip=clip_skip, weights=on_device(cond_weights),
+            weights2=on_device(cond_weights2))
+        ctx_u, pool_u = encode_text_xl(
+            models, uncond_ids, on_device(uncond_ids2), cfg, dt,
+            clip_skip=clip_skip, weights=on_device(uncond_weights),
+            weights2=on_device(uncond_weights2))
+        # uncond ⧺ cond rows, as the context below
+        added2 = xl_added_cond(
+            torch.cat([pool_u, pool_c], dim=0),
+            xl_time_ids(cfg, latents.shape, on_device(time_ids),
+                        aesthetic_score, negative_aesthetic_score, device),
+            cfg.unet.addition_time_embed_dim)
+    else:
+        te = models["text_encoder"]
+        ctx_c = encode_text(te, cond_ids, cfg, dt, clip_skip=clip_skip)
+        ctx_u = encode_text(te, uncond_ids, cfg, dt, clip_skip=clip_skip)
+        if cond_weights is not None:
+            ctx_c = _apply_token_weights(ctx_c, on_device(cond_weights))
+        if uncond_weights is not None:
+            ctx_u = _apply_token_weights(ctx_u, on_device(uncond_weights))
     context = torch.cat([ctx_u, ctx_c], dim=0)  # (2B, ctx, hidden)
     lat = latents.to(dt)
 
@@ -377,6 +595,10 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
         projections ``tp``; outside ``cfg_interval`` one cond-only
         evaluation at batch B."""
         if cfg_lo is not None and not cfg_lo <= i < cfg_hi:
+            if added2 is not None:
+                # the per-sample tables hold the uncond ⧺ cond rows: the
+                # cond half
+                tp = unet_mod.map_temb(lambda a: a[a.shape[0] // 2:], tp)
             return unet_mod.apply(unet, lat, None, ctx_c,
                                   attn_impl=attn_impl, temb_proj=tp,
                                   freeu=freeu).float()
@@ -433,7 +655,8 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
             lat = noised_at_sigma(sig[t_start]).to(dt)
         else:
             lat = noise_to(ts_host[t_start])
-    tproj = unet_mod.precompute_temb(unet, ts_dev, dtype=dt)
+    tproj = unet_mod.precompute_temb(unet, ts_dev, dtype=dt,
+                                     added_cond=added2)
 
     def model_at(i, lat, cache):
         tp = unet_mod.index_temb(tproj, i)

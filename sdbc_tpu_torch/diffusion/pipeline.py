@@ -1,9 +1,11 @@
 """SDPipeline — the host-side serving object (counterpart of
 ``sdbc_tpu/diffusion/pipeline.py``): tokenization (plain or weighted,
 ``data/prompt_weights.py``), batch buckets, latents, img2img / inpaint
-inputs and the SD-1.x options around ``graph.sample``; ``generate`` serves
-a ``SampleSpec`` (``diffusion/spec.py``), ``hires`` the two-stage
-hires-fix."""
+inputs and the sampling options around ``graph.sample``, for SD-1.x,
+SD-2.x and SDXL (both tokenizers, the refiner's aesthetic scores);
+``generate`` serves a ``SampleSpec`` (``diffusion/spec.py``), ``hires``
+the two-stage hires-fix.  The SDXL base → refiner ensemble is
+``diffusion/ensemble.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,28 +14,28 @@ import numpy as np
 import torch
 
 from sdbc_tpu_torch.diffusion.graph import (  # noqa: F401  (re-export)
-    PipelineConfig, img2img_t_start, init_models, preprocess_image,
-    preprocess_mask, sample)
-from sdbc_tpu_torch.models import clip as clip_mod
-from sdbc_tpu_torch.models import unet as unet_mod
-from sdbc_tpu_torch.models import vae as vae_mod
+    COMPONENT_INITS, PipelineConfig, img2img_t_start, init_models,
+    model_configs, preprocess_image, preprocess_mask, sample)
 from sdbc_tpu_torch.models.convert import load_jax_params
 from sdbc_tpu_torch.models.safety import apply_safety_checker
 from sdbc_tpu_torch.utils.image import resize
 
-_BUILDERS = {"text_encoder": clip_mod.init, "unet": unet_mod.init,
-             "vae": vae_mod.init}
-
 
 def as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
-    """Modules as given, or modules built from JAX parameter trees (nested
-    numpy, see ``models.convert``) kept in fp32 like the JAX masters."""
-    sub_cfg = {"text_encoder": cfg.clip, "unet": cfg.unet, "vae": cfg.vae}
+    """The components of ``graph.model_configs(cfg)``: modules as given, or
+    modules built from JAX parameter trees (nested numpy, see
+    ``models.convert``) kept in fp32 like the JAX masters.  Other entries
+    (a refiner tree's absent text encoder) are not taken."""
     out = {}
-    for name, build in _BUILDERS.items():
+    for name, sub in model_configs(cfg).items():
+        if name not in params_or_modules:
+            raise KeyError(f"{name} is missing: a "
+                           f"{'refiner' if cfg.refiner else 'pipeline'} "
+                           f"config runs {sorted(model_configs(cfg))}")
         value = params_or_modules[name]
         if not isinstance(value, torch.nn.Module):
-            value = load_jax_params(build(sub_cfg[name], device=device), value)
+            value = load_jax_params(
+                COMPONENT_INITS[name](sub, device=device), value)
         out[name] = value.requires_grad_(False)
     return out
 
@@ -63,9 +65,6 @@ def _pad_to(arr: np.ndarray, n: int, fill: float) -> np.ndarray:
 _UNPORTED_CALL = {
     "control_image": (None, "ControlNet (ROADMAP Queue 1 item 6)"),
     "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
-    "aesthetic_score": (6.0, "the SDXL refiner (ROADMAP Queue 1 item 6)"),
-    "negative_aesthetic_score": (2.5,
-                                 "the SDXL refiner (ROADMAP Queue 1 item 6)"),
 }
 
 
@@ -77,15 +76,22 @@ class SDPipeline:
     The scheduler is ``cfg.scheduler`` (``graph.SCHEDULERS``).
     ``safety_checker``: an optional ``checker(images, prompts) -> (images,
     flags)`` (``models/safety.py``) run on the requested decoded images
-    only; its flags are kept in ``last_nsfw_flags``."""
+    only; its flags are kept in ``last_nsfw_flags``.  ``tokenizer2``: SDXL's
+    second (bigG) tokenizer; without one the first serves both (their BPE
+    tables match; only the pad id differs, which bigG ignores past the
+    end token)."""
 
     def __init__(self, params_or_modules: dict, cfg: PipelineConfig,
                  tokenizer, device="cuda", compute_dtype=torch.bfloat16,
-                 attn_impl: Optional[str] = None, safety_checker=None):
+                 attn_impl: Optional[str] = None, safety_checker=None,
+                 tokenizer2=None):
         self.attn_impl = attn_impl or "inference"
         self.device = torch.device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.tokenizer2 = tokenizer2
+        if cfg.is_sdxl and tokenizer2 is None:
+            self.tokenizer2 = tokenizer
         self.compute_dtype = compute_dtype
         self.models = as_modules(params_or_modules, cfg, self.device)
         self.safety_checker = safety_checker
@@ -94,6 +100,12 @@ class SDPipeline:
     def tokenize(self, prompts) -> torch.Tensor:
         ids = np.asarray(self.tokenizer.batch_encode(prompts,
                                                      self.cfg.clip.ctx),
+                         np.int64)
+        return torch.from_numpy(ids).to(self.device)
+
+    def tokenize2(self, prompts) -> torch.Tensor:
+        ids = np.asarray(self.tokenizer2.batch_encode(prompts,
+                                                      self.cfg.clip2.ctx),
                          np.int64)
         return torch.from_numpy(ids).to(self.device)
 
@@ -132,20 +144,26 @@ class SDPipeline:
     def _encode_weighted(self, prompts, negative_prompt,
                          max_prompt_chunks: int):
         """Token ids and weights of both CFG branches
-        (``batch_encode_weighted``), padded to one window count."""
+        (``batch_encode_weighted``) through each tokenizer (SDXL: both),
+        all padded to one window count: [cond, cond_w, uncond, uncond_w]
+        per tokenizer."""
         from sdbc_tpu_torch.data.prompt_weights import batch_encode_weighted
 
         ctx = self.cfg.clip.ctx
-        probe = [batch_encode_weighted(self.tokenizer, t, ctx,
-                                       max_prompt_chunks)
-                 for t in (prompts, negative_prompt)]
+        toks = [self.tokenizer]
+        if self.cfg.is_sdxl:
+            toks.append(self.tokenizer2)
+        probe = [batch_encode_weighted(tok, t, ctx, max_prompt_chunks)
+                 for tok in toks for t in (prompts, negative_prompt)]
         k = max(ids.shape[1] // ctx for ids, _ in probe)
         out = []
-        for texts in (prompts, negative_prompt):
-            ids, w = batch_encode_weighted(self.tokenizer, texts, ctx,
-                                           max_prompt_chunks, min_chunks=k)
-            out += [torch.from_numpy(ids.astype(np.int64)).to(self.device),
-                    torch.from_numpy(w).to(self.device)]
+        for tok in toks:
+            for texts in (prompts, negative_prompt):
+                ids, w = batch_encode_weighted(tok, texts, ctx,
+                                               max_prompt_chunks,
+                                               min_chunks=k)
+                out += [torch.from_numpy(ids.astype(np.int64)).to(
+                    self.device), torch.from_numpy(w).to(self.device)]
         return out
 
     def __call__(self, prompts, *, height: int = 512, width: int = 512,
@@ -190,16 +208,16 @@ class SDPipeline:
         inpaints.  ``init_latents``: model-space latents (array or tensor)
         instead of an image.  ``denoising_end`` stops at round(n·end) (pair
         with decode=False); ``denoising_start`` resumes from handed-over
-        ``latents`` at round(n·start).  ``control_image``,
-        ``controlnet_scale`` and the aesthetic scores are taken so that a
-        ``SampleSpec`` expands; a value other than the default raises
-        ``NotImplementedError``.  The other options are ``graph.sample``'s.
+        ``latents`` at round(n·start).  ``aesthetic_score`` and
+        ``negative_aesthetic_score`` condition a refiner (other configs
+        ignore them, as the JAX package does).  ``control_image`` and
+        ``controlnet_scale`` are taken so that a ``SampleSpec`` expands; a
+        value other than the default raises ``NotImplementedError``.  The
+        other options are ``graph.sample``'s.
         Returns (B, H, W, 3) float32 numpy images in [0, 1], or the raw
         latents with decode=False."""
         given = {"control_image": control_image,
-                 "controlnet_scale": controlnet_scale,
-                 "aesthetic_score": aesthetic_score,
-                 "negative_aesthetic_score": negative_aesthetic_score}
+                 "controlnet_scale": controlnet_scale}
         for name, value in given.items():
             default, what = _UNPORTED_CALL[name]
             if (value is not None) if default is None else value != default:
@@ -291,13 +309,20 @@ class SDPipeline:
                     (bucket - b,) + want)], dim=0)
             t_start = img2img_t_start(num_inference_steps, strength,
                                       self.cfg.schedule.steps_offset)
+        cond2 = uncond2 = cond_w2 = uncond_w2 = None
         if prompt_weighting:
-            cond, cond_w, uncond, uncond_w = self._encode_weighted(
-                prompts, negative_prompt, max_prompt_chunks)
+            enc = self._encode_weighted(prompts, negative_prompt,
+                                        max_prompt_chunks)
+            cond, cond_w, uncond, uncond_w = enc[:4]
+            if self.cfg.is_sdxl:
+                cond2, cond_w2, uncond2, uncond_w2 = enc[4:]
         else:
             cond, uncond = self.tokenize(prompts), self.tokenize(
                 negative_prompt)
             cond_w = uncond_w = None
+            if self.cfg.is_sdxl:
+                cond2 = self.tokenize2(prompts)
+                uncond2 = self.tokenize2(negative_prompt)
         on_device = lambda a: None if a is None \
             else torch.from_numpy(a).to(self.device)
         out = sample(self.models, cond, uncond, lat,
@@ -315,6 +340,11 @@ class SDPipeline:
                      cfg_interval=tuple(float(v) for v in cfg_interval)
                      if cfg_interval is not None else None,
                      cond_weights=cond_w, uncond_weights=uncond_w,
+                     cond_ids2=cond2, uncond_ids2=uncond2,
+                     cond_weights2=cond_w2, uncond_weights2=uncond_w2,
+                     aesthetic_score=float(aesthetic_score),
+                     negative_aesthetic_score=float(
+                         negative_aesthetic_score),
                      generator=gen, draws=draws)
         out = out[:b].float().cpu().numpy()
         if decode and self.safety_checker is not None:

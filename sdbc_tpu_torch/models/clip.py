@@ -3,7 +3,9 @@
 
 Text: 12 pre-LN transformer layers, quick-GELU MLPs, causal self-attention
 over 77 tokens, final LayerNorm; optionally a bias-free ``text_projection``
-of the pooled output (``apply_with_pooled``).  Vision (the safety checker's
+of the pooled output (``apply_with_pooled``).  SD-2.x's OpenCLIP ViT-H
+tower (``sd2``) and SDXL's OpenCLIP bigG tower (``sdxl_g``) are the same
+layers at other widths with the exact-erf GELU.  Vision (the safety checker's
 and CLIPScore's image half, ``transformers.CLIPVisionModel``): a bias-free
 conv patch embedding, a prepended class token, learned positions, a
 pre-LayerNorm, the same layers without the causal mask, and a post-LayerNorm
@@ -46,9 +48,30 @@ class CLIPTextConfig:
         return CLIPTextConfig()
 
     @staticmethod
+    def sd2() -> "CLIPTextConfig":
+        """SD-2.x's text encoder: the OpenCLIP ViT-H text tower as diffusers
+        ships it (23 layers: the penultimate-layer cut is in the config),
+        hidden 1024, exact-erf GELU."""
+        return CLIPTextConfig(hidden=1024, layers=23, heads=16, mlp=4096,
+                              act="gelu")
+
+    @staticmethod
+    def sdxl_g() -> "CLIPTextConfig":
+        """SDXL's second encoder: the OpenCLIP bigG text tower (32 layers,
+        hidden 1280, exact-erf GELU) with a 1280-wide text projection, the
+        pooled conditioning's source."""
+        return CLIPTextConfig(hidden=1280, layers=32, heads=20, mlp=5120,
+                              act="gelu", projection_dim=1280)
+
+    @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(vocab_size=1000, hidden=32, layers=2, heads=4,
                               mlp=64, ctx=16)
+
+
+_ACTS = {"quick_gelu": nn.quick_gelu,
+         # transformers' "gelu" is the exact erf form
+         "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none")}
 
 
 class _Attn(tnn.Module):
@@ -89,9 +112,10 @@ class _Layer(tnn.Module):
         x = x + self.attn.o(a)
 
         y = self.mlp.fc1(self.ln2(x, cfg.eps))
-        if cfg.act != "quick_gelu":
-            raise NotImplementedError(f"CLIP act {cfg.act!r} is not ported")
-        return x + self.mlp.fc2(nn.quick_gelu(y))
+        act = _ACTS.get(cfg.act)
+        if act is None:
+            raise ValueError(f"unsupported CLIP hidden_act {cfg.act!r}")
+        return x + self.mlp.fc2(act(y))
 
 
 class CLIPTextModel(tnn.Module):

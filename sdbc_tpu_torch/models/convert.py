@@ -13,7 +13,9 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
 - conv kernels stay HWIO and linear weights (in, out);
 - a stacked ``layers`` tree (a dict, one leading layer axis per leaf: the
   CLIP text and vision towers, wherever they sit in the tree) is split
-  into ``layers.<i>.…``.
+  into ``layers.<i>.…``, and so is a stacked ``blocks`` tree (the blocks
+  of a depth > 1 UNet transformer, one leading depth axis) into
+  ``blocks.<k>.…``.
 
 Raises on any leaf without a parameter or buffer, any parameter or buffer
 left unset, and any shape that disagrees.
@@ -22,7 +24,8 @@ left unset, and any shape that disagrees.
 tree's (key path, tensor) leaves, the leaf name from the module that owns
 the parameter (``Linear``/``Conv2d`` → ``w``/``b``, ``GroupNorm``/
 ``LayerNorm`` → ``scale``/``bias``, ``Embedding`` → ``table``) and a
-tower's ``layers.<i>.…`` stacked again.  Every numeric key of these trees
+tower's ``layers.<i>.…`` (a transformer's ``blocks.<k>.…``) stacked
+again.  Every numeric key of these trees
 is a list index.
 
 ``load_adam8_state`` carries an 8-bit AdamW state across the same way.
@@ -36,18 +39,20 @@ import torch
 
 _LEAF = {"w": "weight", "scale": "weight", "table": "weight",
          "b": "bias", "bias": "bias"}
+# the trees stacked along a leading axis: CLIP's layers, a deep
+# transformer's blocks
+STACKED = ("layers", "blocks")
 
 
 def _flatten(node, prefix, out):
     if isinstance(node, dict):
         for k, v in node.items():
-            if k == "layers" and isinstance(v, dict):
+            if k in STACKED and isinstance(v, dict):
                 stacked = {}
                 _flatten(v, [], stacked)
                 for name, arr in stacked.items():
                     for i in range(arr.shape[0]):
-                        out[".".join(prefix + ["layers", str(i), name])] = \
-                            arr[i]
+                        out[".".join(prefix + [k, str(i), name])] = arr[i]
             else:
                 _flatten(v, prefix + [str(k)], out)
     elif isinstance(node, (list, tuple)):
@@ -105,20 +110,21 @@ def _jax_names(module: torch.nn.Module) -> dict:
     return names
 
 
-_LAYER = re.compile(r"^(.*?)layers\.(\d+)\.(.*)$")
+_LAYER = re.compile(r"^(.*?)\b(layers|blocks)\.(\d+)\.(.*)$")
 
 
 def jax_key(module: torch.nn.Module, name: str) -> tuple:
     """The JAX key path of parameter ``name`` of ``module``, as
-    ((key, is_list_index), ...), with a stacked tower's layer index left
-    out (``layers.3.attn.q.weight`` → layers/attn/q/w)."""
+    ((key, is_list_index), ...), with a stacked tower's layer index (a
+    deep transformer's block index) left out (``layers.3.attn.q.weight`` →
+    layers/attn/q/w)."""
     owner, _, leaf = name.rpartition(".")
     leaf = _jax_names(module.get_submodule(owner) if owner else module) \
         .get(leaf, leaf)
     path = (owner + "." if owner else "") + leaf
     m = _LAYER.match(path)
     if m:
-        path = f"{m.group(1)}layers.{m.group(3)}"
+        path = f"{m.group(1)}{m.group(2)}.{m.group(4)}"
     return tuple((k, k.isdigit()) for k in path.split("."))
 
 
@@ -137,12 +143,13 @@ def jax_tree_leaves(module: torch.nn.Module) -> list:
             stacks[key] = []
             order.append(key)
         stacks[key].append(t.detach())
-    return [(k, stacks[k][0] if len(stacks[k]) == 1 and not _stacked(k)
+    return [(k, stacks[k][0] if len(stacks[k]) == 1 and not stacked(k)
              else torch.stack(stacks[k])) for k in order]
 
 
-def _stacked(key: tuple) -> bool:
-    return any(k == "layers" for k, _ in key)
+def stacked(key: tuple) -> bool:
+    """Whether a JAX key path lies in a stacked tree (``STACKED``)."""
+    return any(k in STACKED for k, _ in key)
 
 
 def load_adam8_state(jax_state, device="cpu"):

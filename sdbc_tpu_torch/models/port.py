@@ -1,6 +1,6 @@
-"""Diffusers SD-1.x checkpoints and the pytorch-fid Inception weights into
-the port (counterpart of the SD-1.x and FID parts of
-``sdbc_tpu/models/port.py``).
+"""Diffusers checkpoints of the SD-1.x, SD-2.x and SDXL families (base and
+refiner) and the pytorch-fid Inception weights into the port (counterpart
+of the importers of ``sdbc_tpu/models/port.py``).
 
 Each ``port_*`` returns the JAX package's nested numpy parameter tree, the
 carrier of weights across the two packages: ``models.convert.
@@ -10,7 +10,9 @@ load_jax_params`` (``SDPipeline`` does it for a ``{"text_encoder", "unet",
 Conventions (the JAX module's):
   - torch conv (O, I, H, W) → HWIO (H, W, I, O); torch linear (O, I) →
     (I, O); every leaf float32;
-  - CLIP's per-layer parameters stacked along a leading layer axis.
+  - CLIP's per-layer parameters stacked along a leading layer axis, and
+    a depth > 1 transformer's blocks along a leading depth axis
+    (``"blocks"``; depth 1 keeps the flat layout).
 
 Also the CLIP vision tower, diffusers' safety checker
 (``safety_checker_from_dir``, for ``models.safety``) and a transformers
@@ -18,11 +20,8 @@ CLIPModel (``clip_model_from_dir``, for ``eval.clip_score``).
 
 Sources: ``.safetensors`` through ``read_safetensors`` (a reader of the
 format written here: the ``safetensors`` package is not needed), ``.bin``
-and ``.pth`` through ``torch.load(weights_only=True)``.  Layouts of the
-families the port has not taken (SDXL's second encoder and text-time
-embedding, SD-2's per-block heads, depth > 1 transformers) raise
-``NotImplementedError``; ControlNet and the exporters wait (ROADMAP
-Queue 1 item 6), BART (item 4).
+and ``.pth`` through ``torch.load(weights_only=True)``.  ControlNet and
+the exporters wait (ROADMAP Queue 1 item 6), BART (item 4).
 """
 from __future__ import annotations
 
@@ -159,20 +158,12 @@ def _proj_conv(sd, name):
     return _conv(sd, name)
 
 
-def _port_transformer(sd, pfx):
-    if f"{pfx}.transformer_blocks.1.norm1.weight" in sd:
-        raise NotImplementedError(
-            f"{pfx}: depth > 1 transformer blocks (SDXL) are not ported "
-            "yet (ROADMAP Queue 1 item 6)")
-    tb = f"{pfx}.transformer_blocks.0"
+def _port_basic_block(sd, tb):
     attn = lambda a: {"q": _linear(sd, f"{tb}.{a}.to_q"),
                       "k": _linear(sd, f"{tb}.{a}.to_k"),
                       "v": _linear(sd, f"{tb}.{a}.to_v"),
                       "o": _linear(sd, f"{tb}.{a}.to_out.0")}
     return {
-        "norm": _norm(sd, f"{pfx}.norm"),
-        "proj_in": _proj_conv(sd, f"{pfx}.proj_in"),
-        "proj_out": _proj_conv(sd, f"{pfx}.proj_out"),
         "ln1": _norm(sd, f"{tb}.norm1"),
         "attn1": attn("attn1"),
         "ln2": _norm(sd, f"{tb}.norm2"),
@@ -183,17 +174,31 @@ def _port_transformer(sd, pfx):
     }
 
 
+def _port_transformer(sd, pfx):
+    p = {
+        "norm": _norm(sd, f"{pfx}.norm"),
+        "proj_in": _proj_conv(sd, f"{pfx}.proj_in"),
+        "proj_out": _proj_conv(sd, f"{pfx}.proj_out"),
+    }
+    depth = 0
+    while f"{pfx}.transformer_blocks.{depth}.norm1.weight" in sd:
+        depth += 1
+    blocks = [_port_basic_block(sd, f"{pfx}.transformer_blocks.{i}")
+              for i in range(depth)]
+    if depth == 1:  # SD-1.x/2.x: the flat layout
+        p.update(blocks[0])
+    else:  # SDXL: the blocks stacked
+        p["blocks"] = _stack(blocks)
+    return p
+
+
 def port_unet(sd: Dict[str, np.ndarray]) -> dict:
-    """diffusers UNet2DConditionModel state dict (SD-1.x) → the UNet tree."""
+    """diffusers UNet2DConditionModel state dict → the UNet tree."""
     if "time_embedding.cond_proj.weight" in sd:
         raise ValueError(
             "UNet weights carry time_embedding.cond_proj (fully-distilled "
             "LCM/guidance-embedded checkpoint); unsupported — use LCM-LoRA "
             "weights merged onto a standard UNet instead")
-    if "add_embedding.linear_1.weight" in sd:
-        raise NotImplementedError("the SDXL text-time embedding "
-                                  "(add_embedding) is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     p = {
         "conv_in": _conv(sd, "conv_in"),
         "time_mlp": {
@@ -203,6 +208,9 @@ def port_unet(sd: Dict[str, np.ndarray]) -> dict:
         "norm_out": _norm(sd, "conv_norm_out"),
         "conv_out": _conv(sd, "conv_out"),
     }
+    if "add_embedding.linear_1.weight" in sd:  # SDXL's text-time embedding
+        p["add_mlp"] = {"fc1": _linear(sd, "add_embedding.linear_1"),
+                        "fc2": _linear(sd, "add_embedding.linear_2")}
 
     def block(prefix):
         blk = {"resnets": [], "attns": []}
@@ -449,8 +457,8 @@ def _read_json(path: str) -> dict:
 
 def unet_config_from_diffusers(cfg: dict):
     """diffusers UNet2DConditionModel config.json → ``models.unet.UNetConfig``
-    (SD-1.x layouts; the reference's ``load_model`` rebuilds a pipeline from
-    any save_pretrained dir, utils.py:181-230)."""
+    (the reference's ``load_model`` rebuilds a pipeline from any
+    save_pretrained dir, utils.py:181-230)."""
     from sdbc_tpu_torch.models.unet import UNetConfig
 
     down = cfg.get("down_block_types",
@@ -472,25 +480,24 @@ def unet_config_from_diffusers(cfg: dict):
             "UNet has time_cond_proj_dim (fully-distilled LCM/guidance-"
             "embedded checkpoint); unsupported — use LCM-LoRA weights "
             "merged onto a standard UNet instead")
-    # diffusers-0.7.2 passes attention_head_dim as the head COUNT
+    # diffusers-0.7.2 passes attention_head_dim as the head COUNT (SD-1.x's
+    # 8; SD-2.x's and SDXL's per-block (5, 10, 20[, 20]))
     heads = cfg.get("attention_head_dim", 8)
     if isinstance(heads, (list, tuple)):
-        if len(set(heads)) > 1:
-            raise NotImplementedError(
-                f"per-block head counts {tuple(heads)} (SD-2.x/SDXL) are "
-                "not ported yet (ROADMAP Queue 1 item 6)")
-        heads = heads[0]
+        heads = tuple(heads) if len(set(heads)) > 1 else heads[0]
     depth = cfg.get("transformer_layers_per_block", 1)
     if isinstance(depth, (list, tuple)):
-        depth = max(depth)
-    if depth != 1:
-        raise NotImplementedError(f"transformer_layers_per_block {depth} "
-                                  "(SDXL) is not ported yet (ROADMAP Queue "
-                                  "1 item 9)")
-    if cfg.get("addition_embed_type"):
-        raise NotImplementedError(
-            f"addition_embed_type {cfg['addition_embed_type']!r} (SDXL) is "
-            "not ported yet (ROADMAP Queue 1 item 6)")
+        depth = tuple(depth) if len(set(depth)) > 1 else depth[0]
+    add_type = cfg.get("addition_embed_type")
+    add_dim = None
+    if add_type == "text_time":  # SDXL's micro-conditioning
+        add_dim = cfg.get("projection_class_embeddings_input_dim")
+        if not add_dim:
+            raise ValueError("addition_embed_type=text_time needs "
+                             "projection_class_embeddings_input_dim")
+    elif add_type:
+        raise ValueError(f"unsupported addition_embed_type {add_type!r} "
+                         "(only SDXL's 'text_time' is implemented)")
     return UNetConfig(
         in_channels=cfg.get("in_channels", 4),
         out_channels=cfg.get("out_channels", 4),
@@ -501,6 +508,9 @@ def unet_config_from_diffusers(cfg: dict):
         attention_heads=heads,
         norm_groups=cfg.get("norm_num_groups", 32),
         cross_attn_blocks=cross,
+        transformer_depth=depth,
+        addition_embed_dim=add_dim,
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256),
     )
 
 
@@ -546,8 +556,10 @@ def clip_config_from_diffusers(cfg: dict):
 
 
 def pipeline_config_from_diffusers(root: str, scheduler: str = "ddim"):
-    """A ``PipelineConfig`` from a diffusers SD-1.x dir's component
-    config.json files, SD-1.5 defaults for components without one.
+    """A ``PipelineConfig`` from a diffusers dir's component config.json
+    files, SD-1.5 defaults for components without one.  A
+    ``text_encoder_2`` makes it SDXL; with no ``text_encoder`` config
+    beside it, the refiner (bigG alone, aesthetic-score ids).
 
     The schedule is the reference's HARDCODED scaled-linear 0.00085→0.012
     construction (utils.py:222-224, inference.py:386-387); only
@@ -558,9 +570,6 @@ def pipeline_config_from_diffusers(root: str, scheduler: str = "ddim"):
     from sdbc_tpu_torch.diffusion.graph import PipelineConfig
     from sdbc_tpu_torch.diffusion.schedulers import ScheduleConfig
 
-    if os.path.exists(os.path.join(root, "text_encoder_2")):
-        raise NotImplementedError(f"{root} has a text_encoder_2 (SDXL): "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
     base = PipelineConfig.sd15(scheduler)
     parts = {"unet": base.unet, "vae": base.vae, "text_encoder": base.clip}
     readers = {"unet": unet_config_from_diffusers,
@@ -570,6 +579,19 @@ def pipeline_config_from_diffusers(root: str, scheduler: str = "ddim"):
         p = os.path.join(root, comp, "config.json")
         if os.path.exists(p):
             parts[comp] = read(_read_json(p))
+    clip2, refiner = None, False
+    p = os.path.join(root, "text_encoder_2", "config.json")
+    if os.path.exists(p):  # SDXL's second encoder
+        clip2 = clip_config_from_diffusers(_read_json(p))
+        if not parts["unet"].addition_embed_dim:
+            raise ValueError(
+                f"{root} has a text_encoder_2 but its UNet config has no "
+                "text_time addition embedding: not an SDXL layout")
+        if not os.path.exists(os.path.join(root, "text_encoder",
+                                           "config.json")):
+            # the refiner: diffusers saves text_encoder as null
+            refiner = True
+            parts["text_encoder"] = clip2
     schedule = ScheduleConfig.sd15()
     p = os.path.join(root, "scheduler", "scheduler_config.json")
     if os.path.exists(p):
@@ -579,18 +601,17 @@ def pipeline_config_from_diffusers(root: str, scheduler: str = "ddim"):
                 schedule, prediction_type=sc["prediction_type"])
     return PipelineConfig(clip=parts["text_encoder"], unet=parts["unet"],
                           vae=parts["vae"], schedule=schedule,
-                          scheduler=scheduler)
+                          scheduler=scheduler, clip2=clip2, refiner=refiner)
 
 
 def port_diffusers_checkpoint(root: str) -> dict:
-    """A diffusers SD-1.x save_pretrained dir → {text_encoder, unet, vae}
-    trees (for ``SDPipeline``)."""
-    if os.path.isdir(os.path.join(root, "text_encoder_2")):
-        raise NotImplementedError(f"{root} has a text_encoder_2 (SDXL): "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
+    """A diffusers save_pretrained dir → the trees of its components
+    (unet, vae, text_encoder and SDXL's text_encoder_2; for
+    ``SDPipeline``)."""
     params = {}
     for comp, fn in (("unet", port_unet), ("vae", port_vae),
-                     ("text_encoder", port_clip_text)):
+                     ("text_encoder", port_clip_text),
+                     ("text_encoder_2", port_clip_text)):
         cdir = os.path.join(root, comp)
         if os.path.isdir(cdir):
             params[comp] = fn(load_state_dict(cdir))

@@ -1,10 +1,17 @@
-"""UNet2DCondition — SD-1.x denoiser (counterpart of ``sdbc_tpu/models/unet.py``).
+"""UNet2DCondition — the SD-1.x, SD-2.x and SDXL denoisers (counterpart of
+``sdbc_tpu/models/unet.py``).
 
 conv_in(4→320); [cos|sin] time embedding → MLP → 1280; down blocks of two
 ResBlocks (+ spatial transformer in the cross-attention blocks); mid
 ResBlock/transformer/ResBlock; up blocks of three ResBlocks on the skip
 connections; GroupNorm+SiLU head conv.  Activations are NHWC as in the JAX
 package.  Parameter names follow the JAX tree (``down.0.attns.1.attn1.q.weight``).
+
+The families: per-level head counts (``attention_heads`` a tuple, SD-2.x
+and SDXL keep head dim 64), transformers of depth > 1 (SDXL's (–, 2, 10):
+the JAX tree stacks their blocks under ``"blocks"`` with a leading depth
+axis, here ``attns.<j>.blocks.<k>.…``; depth 1 keeps the flat layout) and
+SDXL's text-time addition embedding (``add_mlp``, fed ``added_cond``).
 
 ``apply`` covers the forward with ``attn_impl`` set to "inference"
 (sampling: the fixed-cap flash kernel and the fused GEGLU kernel on CUDA),
@@ -20,16 +27,17 @@ saving their matrix-product and convolution outputs (JAX's
 ``dots_saveable``) and leaving the attention calls and their projections
 outside (the flash kernels keep O(S·D) residuals already).  Downsamplers,
 upsamplers and conv_in/out are not checkpointed, as in the JAX package.
-FreeU (``freeu``) and the DeepCache trunk split (``return_deep``,
-``cached_deep``, ``cache_tail``) are here; ControlNet residuals, the SDXL
-addition embedding and depth>1 transformers (refused when the model is
-built) are not ported yet and raise ``NotImplementedError``.
+Gradient checkpointing of depth > 1 transformers comes with the families'
+training and raises ``NotImplementedError``.  FreeU (``freeu``) and the
+DeepCache trunk split (``return_deep``, ``cached_deep``, ``cache_tail``)
+are here; ControlNet residuals are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,24 +58,94 @@ class UNetConfig:
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
-    attention_heads: int = 8
+    # an int: the same head count at every level (SD-1.x); a tuple: one
+    # per level (SD-2.x and SDXL keep head dim 64)
+    attention_heads: Union[int, Tuple[int, ...]] = 8
     norm_groups: int = 32
     cross_attn_blocks: Tuple[bool, ...] = (True, True, True, False)
-    transformer_depth: int = 1  # SD-1.x; the stacked depth>1 blocks wait
+    # transformer blocks per spatial transformer (diffusers
+    # transformer_layers_per_block): an int, or one per level (SDXL
+    # (1, 2, 10); levels without attention ignore theirs); the mid
+    # transformer takes the deepest level's
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
+    # SDXL's text-time addition embedding: ``apply`` then takes an
+    # ``added_cond`` (N, addition_embed_dim) = pooled text ⧺ Fourier
+    # features of the micro-conditioning ids, through its own 2-layer MLP
+    addition_embed_dim: Optional[int] = None
+    addition_time_embed_dim: int = 256
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def _per_level(self, value, name: str) -> Tuple[int, ...]:
+        if isinstance(value, (tuple, list)):
+            if len(value) != len(self.block_out_channels):
+                raise ValueError(
+                    f"{name} {value} must have one entry per block "
+                    f"({len(self.block_out_channels)})")
+            return tuple(value)
+        return (value,) * len(self.block_out_channels)
+
+    @property
+    def heads_per_level(self) -> Tuple[int, ...]:
+        return self._per_level(self.attention_heads, "attention_heads")
+
+    @property
+    def depth_per_level(self) -> Tuple[int, ...]:
+        return self._per_level(self.transformer_depth, "transformer_depth")
 
     @staticmethod
     def sd15() -> "UNetConfig":
         return UNetConfig()
 
     @staticmethod
+    def sd21() -> "UNetConfig":
+        """SD-2.x: head dim 64 → (5, 10, 20, 20) heads over the SD-1.x
+        widths; the OpenCLIP ViT-H context is 1024 wide."""
+        return UNetConfig(cross_attention_dim=1024,
+                          attention_heads=(5, 10, 20, 20))
+
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        """SDXL base: 3 levels, no attention at full resolution, depth
+        (–, 2, 10), (5, 10, 20) heads, a 2048-wide context (CLIP-L ⧺ bigG)
+        and the text-time embedding (1280 pooled + 6 ids × 256 = 2816)."""
+        return UNetConfig(block_out_channels=(320, 640, 1280),
+                          cross_attention_dim=2048,
+                          attention_heads=(5, 10, 20),
+                          cross_attn_blocks=(False, True, True),
+                          transformer_depth=(1, 2, 10),
+                          addition_embed_dim=2816)
+
+    @staticmethod
+    def sdxl_refiner() -> "UNetConfig":
+        """SDXL refiner: 4 levels, attention on the middle two, depth 4,
+        (6, 12, 24, 24) heads, bigG's 1280-wide context alone and a
+        text-time embedding of 1280 pooled + 5 ids × 256 = 2560."""
+        return UNetConfig(block_out_channels=(384, 768, 1536, 1536),
+                          cross_attention_dim=1280,
+                          attention_heads=(6, 12, 24, 24),
+                          cross_attn_blocks=(False, True, True, False),
+                          transformer_depth=4,
+                          addition_embed_dim=2560)
+
+    @staticmethod
     def tiny() -> "UNetConfig":
         return UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
                           cross_attention_dim=32, attention_heads=4,
                           norm_groups=8, cross_attn_blocks=(True, False))
+
+    @staticmethod
+    def tiny_xl() -> "UNetConfig":
+        """SDXL's paths at toy size: a level without attention, depth-2
+        transformers and the addition embedding (16 pooled + 6 × 4 = 40);
+        context 64 = tiny CLIP-L 32 ⧺ tiny bigG 32."""
+        return UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
+                          cross_attention_dim=64, attention_heads=4,
+                          norm_groups=8, cross_attn_blocks=(False, True),
+                          transformer_depth=(1, 2), addition_embed_dim=40,
+                          addition_time_embed_dim=4)
 
 
 # ---------------------------------------------------------------------------
@@ -126,20 +204,63 @@ class MHA(tnn.Module):
         return self.o(a.transpose(1, 2).reshape(b, s, dim))
 
 
-class Transformer(tnn.Module):
-    """Spatial transformer, depth 1 (SD-1.x): the JAX package's flat layout."""
+def _block_modules(m: tnn.Module, dim, ctx_dim, **kw) -> None:
+    """The modules of one pre-LN transformer block, set on ``m``:
+    self-attention → cross-attention → GEGLU feed-forward."""
+    m.ln1 = nn.LayerNorm(dim, **kw)
+    m.attn1 = MHA(dim, dim, **kw)
+    m.ln2 = nn.LayerNorm(dim, **kw)
+    m.attn2 = MHA(dim, ctx_dim, **kw)
+    m.ln3 = nn.LayerNorm(dim, **kw)
+    m.geglu = nn.Linear(dim, 8 * dim, **kw)
+    m.ff_out = nn.Linear(4 * dim, dim, **kw)
+
+
+class _BasicBlock(tnn.Module):
+    """One block of a depth > 1 transformer (``blocks.<k>``)."""
 
     def __init__(self, dim, ctx_dim, **kw):
         super().__init__()
+        _block_modules(self, dim, ctx_dim, **kw)
+
+
+def _attend(p, y, ctx, heads, attn_impl):
+    yn = p.ln1(y)
+    y = y + p.attn1(yn, yn, heads, attn_impl)
+    return y + p.attn2(p.ln2(y), ctx, heads, attn_impl)
+
+
+def _ff(p, y):
+    z = p.geglu(p.ln3(y))
+    val, gate = z.chunk(2, dim=-1)
+    return y + p.ff_out(val * F.gelu(gate))
+
+
+def _basic_block(p, y, ctx, heads, attn_impl):
+    y = _attend(p, y, ctx, heads, attn_impl)
+    if attn_impl == "inference" and geglu_ff_mod.ff_fused_eligible(y):
+        # LN → up-proj → GELU gate → down-proj → residual in one kernel
+        return geglu_ff_mod.geglu_ff(y, p.ln3, p.geglu, p.ff_out)
+    return _ff(p, y)
+
+
+class Transformer(tnn.Module):
+    """Spatial transformer: GroupNorm → proj_in → ``depth`` basic blocks →
+    proj_out + residual.  Depth 1 (SD-1.x/2.x) keeps the JAX package's
+    flat layout (the block's modules on the transformer itself); depth > 1
+    holds them in ``blocks``."""
+
+    def __init__(self, dim, ctx_dim, heads: int, depth: int = 1, **kw):
+        super().__init__()
+        self.heads = heads
+        self.depth = depth
         self.norm = nn.GroupNorm(dim, **kw)
         self.proj_in = nn.Conv2d(dim, dim, 1, **kw)
-        self.ln1 = nn.LayerNorm(dim, **kw)
-        self.attn1 = MHA(dim, dim, **kw)
-        self.ln2 = nn.LayerNorm(dim, **kw)
-        self.attn2 = MHA(dim, ctx_dim, **kw)
-        self.ln3 = nn.LayerNorm(dim, **kw)
-        self.geglu = nn.Linear(dim, 8 * dim, **kw)
-        self.ff_out = nn.Linear(4 * dim, dim, **kw)
+        if depth == 1:
+            _block_modules(self, dim, ctx_dim, **kw)
+        else:
+            self.blocks = tnn.ModuleList(_BasicBlock(dim, ctx_dim, **kw)
+                                         for _ in range(depth))
         self.proj_out = nn.Conv2d(dim, dim, 1, **kw)
 
     def tfm_in(self, x, groups):
@@ -147,33 +268,26 @@ class Transformer(tnn.Module):
         y = self.norm(x, groups, eps=1e-6)
         return self.proj_in(y).reshape(n, h * w, c)
 
-    def attend(self, y, ctx, heads, attn_impl):
-        yn = self.ln1(y)
-        y = y + self.attn1(yn, yn, heads, attn_impl)
-        return y + self.attn2(self.ln2(y), ctx, heads, attn_impl)
+    def attend(self, y, ctx, attn_impl):
+        return _attend(self, y, ctx, self.heads, attn_impl)
 
     def ff(self, y):
-        z = self.geglu(self.ln3(y))
-        val, gate = z.chunk(2, dim=-1)
-        return y + self.ff_out(val * F.gelu(gate))
+        return _ff(self, y)
 
     def tfm_out(self, y, x):
         return self.proj_out(y.reshape(x.shape)) + x
 
-    def forward(self, x, ctx, heads, groups, attn_impl="auto"):
-        y = self.attend(self.tfm_in(x, groups), ctx, heads, attn_impl)
-        if attn_impl == "inference" and geglu_ff_mod.ff_fused_eligible(y):
-            # LN → up-proj → GELU gate → down-proj → residual in one kernel
-            y = geglu_ff_mod.geglu_ff(y, self.ln3, self.geglu, self.ff_out)
-        else:
-            y = self.ff(y)
+    def forward(self, x, ctx, groups, attn_impl="auto"):
+        y = self.tfm_in(x, groups)
+        for blk in (self.blocks if self.depth > 1 else (self,)):
+            y = _basic_block(blk, y, ctx, self.heads, attn_impl)
         return self.tfm_out(y, x)
 
-    def forward_selective(self, x, ctx, heads, groups, attn_impl="auto"):
+    def forward_selective(self, x, ctx, groups, attn_impl="auto"):
         """``forward`` under ``remat_mode="selective"`` (the JAX package's
         ``_transformer_selective``): the same ops in the same order."""
         y = _checkpoint_dots(self.tfm_in, x, groups)
-        y = self.attend(y, ctx, heads, attn_impl)
+        y = self.attend(y, ctx, attn_impl)
         return _checkpoint_dots(self.tfm_out, _checkpoint_dots(self.ff, y), x)
 
 
@@ -185,10 +299,10 @@ class _Block(tnn.Module):
 
 
 class _Mid(tnn.Module):
-    def __init__(self, ch, ctx_dim, ted, **kw):
+    def __init__(self, ch, ctx_dim, ted, heads, depth, **kw):
         super().__init__()
         self.resnet1 = ResBlock(ch, ch, ted, **kw)
-        self.attn = Transformer(ch, ctx_dim, **kw)
+        self.attn = Transformer(ch, ctx_dim, heads, depth, **kw)
         self.resnet2 = ResBlock(ch, ch, ted, **kw)
 
 
@@ -203,16 +317,17 @@ class UNet(tnn.Module):
     def __init__(self, cfg: UNetConfig, *, device, generator=None,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.transformer_depth != 1:
-            raise NotImplementedError(
-                f"transformer_depth={cfg.transformer_depth} is not ported")
         kw = dict(device=device, generator=generator, dtype=dtype)
         self.cfg = cfg
         ch = cfg.block_out_channels
         ted = cfg.time_embed_dim
+        heads, depths = cfg.heads_per_level, cfg.depth_per_level
         # construction order = the JAX init's key order (not its stream)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, **kw)
         self.time_mlp = _TimeMLP(ch[0], ted, **kw)
+        if cfg.addition_embed_dim:
+            # SDXL's text-time embedding (diffusers add_embedding)
+            self.add_mlp = _TimeMLP(cfg.addition_embed_dim, ted, **kw)
         skip_ch = [ch[0]]
         self.down = tnn.ModuleList()
         cin = ch[0]
@@ -222,26 +337,30 @@ class UNet(tnn.Module):
                 blk.resnets.append(ResBlock(cin if j == 0 else cout, cout,
                                             ted, **kw))
                 if cfg.cross_attn_blocks[i]:
-                    blk.attns.append(Transformer(cout, cfg.cross_attention_dim,
-                                                 **kw))
+                    blk.attns.append(Transformer(
+                        cout, cfg.cross_attention_dim, heads[i], depths[i],
+                        **kw))
                 skip_ch.append(cout)
             if i < len(ch) - 1:
                 blk.downsample = nn.Conv2d(cout, cout, 3, **kw)
                 skip_ch.append(cout)
             self.down.append(blk)
             cin = cout
-        self.mid = _Mid(ch[-1], cfg.cross_attention_dim, ted, **kw)
+        self.mid = _Mid(ch[-1], cfg.cross_attention_dim, ted, heads[-1],
+                        depths[-1], **kw)
         self.up = tnn.ModuleList()
         rev_cross = list(reversed(cfg.cross_attn_blocks))
         prev = ch[-1]
         for i, cout in enumerate(reversed(ch)):
+            lvl = len(ch) - 1 - i
             blk = _Block()
             for _ in range(cfg.layers_per_block + 1):
                 skip = skip_ch.pop()
                 blk.resnets.append(ResBlock(prev + skip, cout, ted, **kw))
                 if rev_cross[i]:
-                    blk.attns.append(Transformer(cout, cfg.cross_attention_dim,
-                                                 **kw))
+                    blk.attns.append(Transformer(
+                        cout, cfg.cross_attention_dim, heads[lvl],
+                        depths[lvl], **kw))
                 prev = cout
             if i < len(ch) - 1:
                 blk.upsample = nn.Conv2d(cout, cout, 3, **kw)
@@ -265,28 +384,67 @@ def _temb_mlp(model: UNet, timesteps, dtype):
     return model.time_mlp.fc2(F.silu(model.time_mlp.fc1(temb)))
 
 
-def precompute_temb(model: UNet, timesteps, dtype=torch.bfloat16):
+def _add_embedding(model: UNet, added_cond):
+    """The text-time embedding of ``added_cond`` (N, addition_embed_dim),
+    in fp32 as the JAX package computes it."""
+    mlp = model.add_mlp
+    return mlp.fc2(F.silu(mlp.fc1(added_cond.float())))
+
+
+def _check_added_cond(cfg: UNetConfig, added_cond, where: str) -> None:
+    if (added_cond is None) != (not cfg.addition_embed_dim):
+        raise ValueError(
+            f"{where}: added_cond must be passed exactly when "
+            f"cfg.addition_embed_dim is set (got added_cond="
+            f"{'None' if added_cond is None else 'set'}, addition_embed_dim="
+            f"{cfg.addition_embed_dim})")
+
+
+def precompute_temb(model: UNet, timesteps, dtype=torch.bfloat16,
+                    added_cond=None):
     """Every ResBlock's time projection for a whole timestep grid.
 
     timesteps: (T,) → a tree mirroring the ResBlock nesting with (T, cout)
     tables; ``index_temb(tree, i)`` slices step i.  Same math as the inline
-    path, evaluated once per grid instead of once per step."""
-    st = F.silu(_temb_mlp(model, timesteps, dtype))
-    return {"down": [{"resnets": [r.temb(st) for r in blk.resnets]}
+    path, evaluated once per grid instead of once per step.
+
+    ``added_cond`` (SDXL; required exactly when ``addition_embed_dim`` is
+    set): the (N, addition_embed_dim) conditioning of the UNet batch (the
+    uncond ⧺ cond stack under CFG).  The embedding is then per sample, and
+    the tables are (T, N, 1, 1, cout): step i's slice broadcasts over the
+    (N, H, W, cout) activation."""
+    _check_added_cond(model.cfg, added_cond, "precompute_temb")
+    temb = _temb_mlp(model, timesteps, dtype)
+    if added_cond is not None:
+        aug = _add_embedding(model, added_cond)
+        temb = temb[:, None, :] + aug[None].to(temb.dtype)  # (T, N, ted)
+    st = F.silu(temb)
+
+    def proj(r):
+        out = r.temb(st)
+        return out if added_cond is None else out[:, :, None, None]
+
+    return {"down": [{"resnets": [proj(r) for r in blk.resnets]}
                      for blk in model.down],
-            "mid": {"resnet1": model.mid.resnet1.temb(st),
-                    "resnet2": model.mid.resnet2.temb(st)},
-            "up": [{"resnets": [r.temb(st) for r in blk.resnets]}
+            "mid": {"resnet1": proj(model.mid.resnet1),
+                    "resnet2": proj(model.mid.resnet2)},
+            "up": [{"resnets": [proj(r) for r in blk.resnets]}
                    for blk in model.up]}
 
 
 def index_temb(temb_proj, i):
-    """Slice step ``i``'s (cout,) vectors out of a ``precompute_temb`` tree."""
+    """Slice step ``i``'s (cout,) vectors (per-sample tables: its (N, 1, 1,
+    cout) rows) out of a ``precompute_temb`` tree."""
+    return map_temb(lambda t: t[i], temb_proj)
+
+
+def map_temb(fn, temb_proj):
+    """``fn`` applied to every table of a ``precompute_temb`` tree."""
     if isinstance(temb_proj, dict):
-        return {k: index_temb(v, i) for k, v in temb_proj.items()}
+        return {k: map_temb(fn, v) for k, v in temb_proj.items()}
     if isinstance(temb_proj, list):
-        return [index_temb(v, i) for v in temb_proj]
-    return temb_proj[i]
+        return [map_temb(fn, v) for v in temb_proj]
+    return fn(temb_proj)
 
 
 # ---------------------------------------------------------------------------
@@ -360,14 +518,14 @@ FREEU_SDXL = (1.3, 1.4, 0.9, 0.2)
 # apply
 
 
-_UNPORTED = ("control_residuals", "added_cond")
+_UNPORTED = ("control_residuals",)
 
 
 def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
           attn_impl: str = "auto", temb_proj=None, remat: bool = False,
           remat_mode: str = "block", cached_deep=None,
           return_deep: bool = False, cache_tail: int = 0, freeu=None,
-          **unported):
+          added_cond=None, **unported):
     """latents (N,h,w,4), timesteps (N,), CLIP states (N,77,768) → eps (N,h,w,4).
 
     ``temb_proj``: this step's slice of a ``precompute_temb`` tree, or None
@@ -386,7 +544,12 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
     ``freeu``: optional (b1, b2, s1, s2) — before each skip concat of up
     blocks 0 and 1, the backbone's first half channels scale by b and the
     skip's low-frequency band by s (``fourier_filter``).  Presets
-    ``FREEU_SD15/SD21/SDXL``."""
+    ``FREEU_SD15/SD21/SDXL``.
+
+    ``added_cond``: SDXL's (N, addition_embed_dim) text-time conditioning,
+    required exactly when the config sets ``addition_embed_dim`` and no
+    ``temb_proj`` is given (the hoisted tables hold it already), run
+    through ``add_mlp`` and added to the time embedding."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"apply() got an unexpected argument {name!r}")
@@ -397,12 +560,23 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
     if remat_mode not in ("block", "selective"):
         raise ValueError(f"unknown remat_mode {remat_mode!r}")
     cfg = model.cfg
+    if temb_proj is None:
+        _check_added_cond(cfg, added_cond, "apply")
+    elif added_cond is not None:
+        raise ValueError("added_cond is already in the temb_proj tables "
+                         "(precompute_temb added_cond): pass only one")
+    if remat and any(isinstance(m, Transformer) and m.depth > 1
+                     for m in model.modules()):
+        raise NotImplementedError(
+            "gradient checkpointing of depth > 1 transformers comes with "
+            "training the SD-2.x/SDXL families (ROADMAP Queue 1 item 6)")
     g = cfg.norm_groups
-    heads = cfg.attention_heads
     ctx = encoder_hidden_states
 
     if temb_proj is None:
         temb = _temb_mlp(model, timesteps, latents.dtype)
+        if added_cond is not None:
+            temb = temb + _add_embedding(model, added_cond).to(temb.dtype)
         tp_down = [{"resnets": [None] * len(b.resnets)} for b in model.down]
         tp_mid = {"resnet1": None, "resnet2": None}
         tp_up = [{"resnets": [None] * len(b.resnets)} for b in model.up]
@@ -418,10 +592,10 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
 
     def tfm(t, h):
         if remat and remat_mode == "selective":
-            return t.forward_selective(h, ctx, heads, g, attn_impl)
+            return t.forward_selective(h, ctx, g, attn_impl)
         if remat:
-            return _checkpoint(t, h, ctx, heads, g, attn_impl)
-        return t(h, ctx, heads, g, attn_impl)
+            return _checkpoint(t, h, ctx, g, attn_impl)
+        return t(h, ctx, g, attn_impl)
 
     def resnet_j(blk, tp, j, h, skips=None):
         h = res(blk.resnets[j], h, tp["resnets"][j])

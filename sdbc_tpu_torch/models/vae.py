@@ -33,6 +33,12 @@ class VAEConfig:
         return VAEConfig()
 
     @staticmethod
+    def sdxl() -> "VAEConfig":
+        """SDXL's VAE: the SD-1.x architecture with retrained weights and
+        their diffusers scaling factor."""
+        return VAEConfig(scaling_factor=0.13025)
+
+    @staticmethod
     def tiny() -> "VAEConfig":
         return VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
                          norm_groups=8)

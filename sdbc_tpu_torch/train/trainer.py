@@ -60,7 +60,8 @@ The optimizer's leaves are in the JAX tree's leaf order for the adapters
 ``utils/checkpoint.py`` writes the state in the JAX layout).
 
 Not ported yet (``TrainConfig`` raises ``NotImplementedError``):
-ControlNet and SDXL training; v-prediction waits for the SD-2 family.
+ControlNet and SDXL training; v-prediction (SD-2.x) waits for the
+families' training (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 

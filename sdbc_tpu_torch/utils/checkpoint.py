@@ -2,6 +2,7 @@
 in the JAX package's on-disk layout, one tree per component:
 
     <dir>/unet/ <dir>/vae/ <dir>/text_encoder/   (params)
+    <dir>/text_encoder_2/                         (SDXL's second encoder)
     <dir>/opt_state/                              (optional optimizer state)
     <dir>/ema/                                    (optional EMA shadow)
     <dir>/lora.npz, <dir>/ti.npz + added_tokens.json  (adapters)
@@ -40,16 +41,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sdbc_tpu_torch.diffusion.graph import PipelineConfig
+from sdbc_tpu_torch.diffusion.graph import (COMPONENT_INITS,
+                                            PipelineConfig, model_configs)
 from sdbc_tpu_torch.diffusion.schedulers import ScheduleConfig
 from sdbc_tpu_torch.models.clip import CLIPTextConfig
+from sdbc_tpu_torch.models.convert import stacked
 from sdbc_tpu_torch.models.unet import UNetConfig
 from sdbc_tpu_torch.models.vae import VAEConfig
 
-COMPONENTS = ("text_encoder", "unet", "vae")
+COMPONENTS = ("text_encoder", "text_encoder_2", "unet", "vae")
 # components the JAX package may save that the port has no model for
-_UNPORTED_COMPONENTS = {"text_encoder_2": "the SDXL family",
-                        "controlnet": "ControlNet"}
+_UNPORTED_COMPONENTS = {"controlnet": "ControlNet"}
 
 # a key path: ((key, is_list_index), ...)
 Key = Tuple[Tuple[str, bool], ...]
@@ -204,15 +206,12 @@ def load_component(flat: Dict[Key, torch.Tensor], name: str,
                    cfg: PipelineConfig, device="cpu") -> torch.nn.Module:
     """The module of component ``name`` from its tree, in the tree's dtype
     (fp32 when its leaves disagree)."""
-    from sdbc_tpu_torch.models import clip, unet, vae
     from sdbc_tpu_torch.models.convert import load_jax_params
 
-    build, sub = {"text_encoder": (clip.init, cfg.clip),
-                  "unet": (unet.init, cfg.unet),
-                  "vae": (vae.init, cfg.vae)}[name]
     dtypes = {t.dtype for t in flat.values()}
     dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-    module = build(sub, device=device, dtype=dtype)
+    module = COMPONENT_INITS[name](model_configs(cfg)[name],
+                                   device=device, dtype=dtype)
     return load_jax_params(module, nest(flat)).requires_grad_(False)
 
 
@@ -428,13 +427,9 @@ def _part_slices(trainable: dict) -> list:
     return out
 
 
-def _stacked(key: Key) -> bool:
-    return any(k == "layers" for k, _ in key)
-
-
 def _leaf_value(parts: list, key: Key) -> torch.Tensor:
     """One JAX leaf from its parts: a stacked tower's layers stacked."""
-    return torch.stack(parts) if _stacked(key) else parts[0]
+    return torch.stack(parts) if stacked(key) else parts[0]
 
 
 @torch.no_grad()
@@ -491,7 +486,7 @@ def load_opt_state(path: str, template, trainable: dict,
         for i, key in enumerate(keys):
             src = get(pre + _k(0, name) + key)
             parts = moments[sl[i]]
-            if not _stacked(key):
+            if not stacked(key):
                 fill(parts[0], src)
             else:
                 for dst, s in zip(parts, src):
@@ -503,43 +498,37 @@ def load_opt_state(path: str, template, trainable: dict,
 # config (de)serialisation
 
 
-# UNetConfig fields of the JAX package the port's SD-1.x UNet lacks, with
-# the values an SD-1.x config has (set only by the SDXL family)
-_UNET_SDXL_FIELDS = {"addition_embed_dim": None,
-                     "addition_time_embed_dim": 256}
-
-
 def config_to_json(cfg: PipelineConfig) -> dict:
-    return {"clip": dataclasses.asdict(cfg.clip),
-            "unet": {**dataclasses.asdict(cfg.unet), **_UNET_SDXL_FIELDS},
-            "vae": dataclasses.asdict(cfg.vae),
-            "schedule": dataclasses.asdict(cfg.schedule),
-            "scheduler": cfg.scheduler}
+    """The JAX package's config.json of ``cfg`` (per-level heads and depths
+    as lists, SDXL's ``clip2`` and the refiner flag when set)."""
+    out = {"clip": dataclasses.asdict(cfg.clip),
+           "unet": dataclasses.asdict(cfg.unet),
+           "vae": dataclasses.asdict(cfg.vae),
+           "schedule": dataclasses.asdict(cfg.schedule),
+           "scheduler": cfg.scheduler}
+    if cfg.clip2 is not None:
+        out["clip2"] = dataclasses.asdict(cfg.clip2)
+    if cfg.refiner:
+        out["refiner"] = True
+    return out
 
 
 def config_from_json(d: dict) -> PipelineConfig:
     def tup(x):
         return tuple(x) if isinstance(x, list) else x
 
-    for key, what in (("controlnet", "ControlNet"), ("clip2", "the SDXL "
-                                                      "family"),
-                      ("refiner", "the SDXL refiner")):
-        if d.get(key):
-            raise NotImplementedError(f"a checkpoint config with {key!r}: "
-                                      f"{what} is not ported to "
-                                      "sdbc_tpu_torch yet")
-    unet = dict(d["unet"])
-    if unet.pop("addition_embed_dim", None) is not None:
-        raise NotImplementedError("a UNet with an addition embedding (the "
-                                  "SDXL family) is not ported to "
+    if d.get("controlnet"):
+        raise NotImplementedError("a checkpoint config with 'controlnet': "
+                                  "ControlNet is not ported to "
                                   "sdbc_tpu_torch yet")
-    unet.pop("addition_time_embed_dim", None)
     return PipelineConfig(
         clip=CLIPTextConfig(**d["clip"]),
-        unet=UNetConfig(**{k: tup(v) for k, v in unet.items()}),
+        unet=UNetConfig(**{k: tup(v) for k, v in d["unet"].items()}),
         vae=VAEConfig(**{k: tup(v) for k, v in d["vae"].items()}),
         schedule=ScheduleConfig(**d["schedule"]),
-        scheduler=d.get("scheduler", "ddim"))
+        scheduler=d.get("scheduler", "ddim"),
+        clip2=CLIPTextConfig(**d["clip2"]) if d.get("clip2") else None,
+        refiner=bool(d.get("refiner", False)))
 
 
 # ---------------------------------------------------------------------------

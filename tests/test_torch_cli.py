@@ -184,11 +184,8 @@ REFUSED = [
     (["--controlnet_path", "cn"], "ControlNet"),
     (["--control_image", "c.png"], "ControlNet"),
     (["--controlnet_scale", "0.5"], "ControlNet"),
-    (["--model_family", "sd21"], "SD-2.x and SDXL"),
-    (["--model_family", "sdxl"], "SD-2.x and SDXL"),
     (["--tp", "2"], "multi-device"),
     (["--tp", "1", "--spatial"], "multi-device"),
-    (["--refiner_ckpt", "rf"], "refiner"),
     (["--summarize"], "BART"),
     (["--bart_ckpt", "bart"], "BART"),
 ]

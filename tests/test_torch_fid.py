@@ -7,6 +7,7 @@ dir written by the JAX exporter, the pytorch-fid Inception port).
 Tolerances: Inception features to 1e-4 of the largest feature; statistics
 to 1e-4 of their largest entry; FID numbers to 1e-4 relative; ported
 trees and the safetensors reader exactly; images to 1e-3."""
+import json
 import os
 
 import jax
@@ -226,20 +227,28 @@ def test_port_diffusers_checkpoint_matches_jax(export_dir):
 
 
 def test_port_refuses_unported_layouts(export_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="per-block head counts"):
-        tport.unet_config_from_diffusers({"attention_head_dim": [5, 10]})
-    with pytest.raises(NotImplementedError, match="addition_embed_type"):
+    """The layouts no family of either package has are refused; SD-2.x's
+    per-block heads and SDXL's text-time embedding are read (their parity
+    is in tests/test_torch_sdxl.py)."""
+    assert tport.unet_config_from_diffusers(
+        {"attention_head_dim": [5, 10]}).attention_heads == (5, 10)
+    with pytest.raises(ValueError, match="addition_embed_type"):
+        tport.unet_config_from_diffusers({"addition_embed_type": "text"})
+    with pytest.raises(ValueError, match="projection_class_embeddings"):
         tport.unet_config_from_diffusers({"addition_embed_type":
                                           "text_time"})
-    # a projected text encoder ports (CLIPScore's text tower), but a dir
-    # with SDXL's second encoder is refused
     assert tport.clip_config_from_diffusers(
         {"architectures": ["CLIPTextModelWithProjection"],
          "projection_dim": 1280}).projection_dim == 1280
-    os.makedirs(tmp_path / "text_encoder_2")
-    with pytest.raises(NotImplementedError, match="text_encoder_2"):
-        tport.port_diffusers_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="text_encoder_2"):
+    # a second encoder beside a UNet without the text-time embedding is
+    # no SDXL layout
+    for comp, cfg in (("unet", {}), ("text_encoder_2", {})):
+        os.makedirs(tmp_path / comp)
+        with open(tmp_path / comp / "config.json", "w") as f:
+            json.dump(cfg, f)
+    with pytest.raises(ValueError, match="not an SDXL layout"):
         tport.pipeline_config_from_diffusers(str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        tport.port_diffusers_checkpoint(str(tmp_path))
     with pytest.raises(FileNotFoundError):
         tport.load_state_dict(str(tmp_path / "text_encoder_2"))

@@ -291,10 +291,16 @@ def test_hires_and_call_refusals(pipes):
     with pytest.raises(ValueError, match="t_start-capable"):
         pndm.hires(["x"], **kw)
     for name, value in (("control_image", np.zeros((32, 32, 3))),
-                        ("controlnet_scale", 0.5), ("aesthetic_score", 5.0),
-                        ("negative_aesthetic_score", 3.0)):
+                        ("controlnet_scale", 0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe(["x"], **{name: value}, **kw)
+    # the aesthetic scores condition a refiner only; SD-1.x ignores them,
+    # as the JAX package does
+    lat = np.zeros((1, 16, 16, 4), np.float32)
+    np.testing.assert_array_equal(
+        tpipe(["x"], latents=lat, aesthetic_score=5.0,
+              negative_aesthetic_score=3.0, **kw),
+        tpipe(["x"], latents=lat, **kw))
     imgs = tpipe.numpy_to_pil(np.full((2, 4, 4, 3), 0.5, np.float32))
     assert len(imgs) == 2 and imgs[0].size == (4, 4)
 

@@ -106,7 +106,11 @@ def hopper():
     ("bshd", (1, 333, 2, 80), 333), ("bshd", (1, 300, 2, 160), 300),
     ("bhsd", (1, 2, 300, 40), 300), ("bhsd", (1, 2, 333, 80), 333),
     ("bhsd", (1, 2, 200, 160), 200), ("bshd", (1, 100, 2, 80), 130),
-    ("bhsd", (1, 2, 100, 8), 100), ("bhsd", (1, 2, 100, 256), 200)])
+    ("bhsd", (1, 2, 100, 8), 100), ("bhsd", (1, 2, 100, 256), 200),
+    # SD-2.x / SDXL's head dim 64 at the 832×1216 portrait's ragged token
+    # counts (26×38 and 52×76) and at a ragged key count
+    ("bshd", (1, 988, 4, 64), 988), ("bshd", (1, 3952, 2, 64), 3952),
+    ("bhsd", (1, 2, 333, 64), 200)])
 def test_flash_kernel_matches_plain_on_card(hopper, layout, qshape, sk):
     kshape = list(qshape)
     kshape[1 if layout == "bshd" else 2] = sk

@@ -137,16 +137,28 @@ def test_generator_init_is_seeded(tcfg):
 
 
 def test_deep_transformers_are_refused(tcfg):
+    """Depth > 1 transformers build (the SDXL layout: ``blocks.<k>``);
+    gradient checkpointing through them waits for the families' training
+    and is refused."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="transformer_depth"):
-        tunet.init(dataclasses.replace(tcfg.unet, transformer_depth=2),
-                   device="cpu")
+    cfg = dataclasses.replace(tcfg.unet, transformer_depth=2)
+    model = tunet.init(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    assert "down.0.attns.0.blocks.1.attn1.q.weight" in dict(
+        model.named_parameters())
+    lat, ctx = _unet_inputs(tcfg)
+    with pytest.raises(NotImplementedError, match="depth > 1"):
+        tunet.apply(model, lat, torch.tensor([1]), ctx, remat=True)
 
 
 @pytest.mark.parametrize("option", ["control_residuals", "added_cond"])
 def test_unet_unported_options_raise(tcfg, tmodels, option):
+    """ControlNet residuals are not ported; ``added_cond`` is (SDXL) and is
+    refused on a UNet without the text-time embedding, as in JAX."""
     lat, ctx = _unet_inputs(tcfg)
-    with pytest.raises(NotImplementedError, match=option):
+    err = NotImplementedError if option == "control_residuals" \
+        else ValueError
+    with pytest.raises(err, match=option):
         tunet.apply(tmodels["unet"], lat, torch.tensor([1]), ctx,
                     **{option: True})

@@ -144,8 +144,10 @@ def test_nchw_latents_and_latent_padding(pipe):
         pipe._latents(np.zeros((3, 8, 8, 4), np.float32), 2, 64, 64, 0)
 
 
+# SDXL's cond_ids2 / time_ids are ported (tests/test_torch_sdxl.py); a
+# single-encoder config ignores them, as the JAX package does
 @pytest.mark.parametrize("option", ["control_image", "masked_image",
-                                    "cond_ids2", "time_ids"])
+                                    "controlnet_scale", "pack_heads"])
 def test_unported_sampling_options_raise(pipe, option):
     ids = torch.zeros((1, pipe.cfg.clip.ctx), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match=option):

@@ -342,9 +342,8 @@ def test_healthz_latency_percentiles(pipe):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--refiner_ckpt", "rf"], "refiner"),
     (["--wandb_artifact_run", "run"], "wandb"),
-    (["--model_family", "sdxl"], "SD-2.x and SDXL")])
+    (["--controlnet_path", "cn"], "ControlNet")])
 def test_serve_refuses_unported_flags(flags, what):
     with pytest.raises(SystemExit, match=f"(?s){what}.*not ported yet"):
         serve.main(BASE + flags)
