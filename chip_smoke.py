@@ -53,7 +53,10 @@ Phases, in order; each prints one or more lines, and any failure raises
                   against the plain version and against SDPA's backward in
                   alternating rounds, the backend named, each kernel's card
                   time against its bound, 20 calls back to back; at 64²,
-                  32² and a ragged case);
+                  32² and a ragged case); the flash forward and both
+                  backward kernels also at the families' training shapes,
+                  head dim 64 (``FAMILY_TRAIN_CASES``: SDXL 1024² at
+                  micro-batch 1, SD-2.1 768² at micro-batch 2);
    simt-kernels — the CUDA-core kernels, for what the tensor-core ones do
                   not take, in fp32 at SD-1.5's 64² level: the fixed cap at
                   sampling batch 8 and the training forward (both through
@@ -83,8 +86,9 @@ Phases, in order; each prints one or more lines, and any failure raises
                   computes, the same bits twice, timed against its 3xTF32
                   and FFMA bounds, the whole call against SDPA's fp32
                   backward and the CUDA-core kernels in alternating
-                  rounds; the build phase prints their registers, spills
-                  and HGMMA counts;
+                  rounds (the training forward and the backward also at
+                  SDXL's (1,10,4096,64)); the build phase prints their
+                  registers, spills and HGMMA counts;
 5. parity       — the sampling slice at the tiny config (32² image, 4 DDIM
                   steps, batch 2 with CFG): bf16 on the card against fp32
                   on the CPU, with both sampling kernels launched; then the
@@ -237,7 +241,26 @@ Phases, in order; each prints one or more lines, and any failure raises
                   train phases', the loader's blocked ms, peak memory,
                   checkpoint bytes and save / load seconds; it checks the
                   temp dir has room for two checkpoints first and removes
-                  it after.
+                  it after;
+15. families-train — training SD-2.x and SDXL: one optimizer step of
+                  ``--tiny --model_family sd21``, tiny_xl, the tiny
+                  refiner, and LoRA and textual inversion on tiny_xl, bf16
+                  and fp32 on the card against fp32 on the CPU (as
+                  train-parity holds them; the fp32 loss within
+                  ``FP32_PARITY_TOL``) with exact launches; ``cli.finetune
+                  --tiny --model_family sdxl`` on the card and its
+                  bit-exact --resume; at full width (random weights from
+                  seed 0, fp32 masters of the UNet and every text encoder,
+                  bf16 compute, 8-bit AdamW, remat "block") SDXL base
+                  1024² (micro-batch 1, grad_accum 2: 280 / 140 / 140 / 1
+                  K5 / K6a / K6b / K7 a step) and SD-2.1 768² v-prediction
+                  (micro 2, grad_accum 4: 120 / 60 / 60 / 1), each a
+                  warm-up, 3 timed steps with finite losses and moved
+                  parameters, peak memory and a profiled step; K7 over the
+                  SDXL step's 8-bit leaves against its bound; then
+                  ``cli.finetune --model_family sdxl`` at 1024² on 4 PNG
+                  covers: 2 steps, the loader's blocked ms, its checkpoint's
+                  bytes and save seconds.
 
 Every environment variable a phase sets is restored after it.
 
@@ -321,6 +344,14 @@ ADAM_Q_SHARE = 1e-3
 TRAIN_LOSS_RTOL = 2e-2
 TRAIN_GRAD_RTOL = 5e-2
 HELD_GRADS = tuple(f".attn1.{w}.weight" for w in "qkvo")
+# The families' tiny steps in bf16 (tiny_xl's depth-2 transformers, the
+# refiner): the q and k projections' gradients flow through dS = P∘(dP −
+# rowsum(dO∘O)), a small difference at a near-uniform random-init softmax,
+# and the flash backward's δ from the bf16-rounded O moves them by up to
+# ~5.5% against fp32 (plain bf16 attention ~2-4%; v and o stay within
+# 1%).  They are held to half of what one lost 64-key tile of 256 gives
+# (25%); the fp32 runs hold every gradient to TRAIN_GRAD_RTOL.
+FAMILY_GRAD_RTOL = 0.125
 TRAIN_UPDATE_COS = 0.9
 TRAIN_STEP_BOUND = 2.2  # × lr: Adam's first step is ≤ lr·(1 + wd·|p|)
 
@@ -797,7 +828,9 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
     ``SWITCHES`` (the fused GroupNorm and the transposed-layout flash for
     every attention call, the VAE encode's included), else the default
     dispatch.  Under ``remat`` the GroupNorms of the checkpointed regions
-    (as recorded) run twice; only "block" recomputes the attention."""
+    (as recorded) run twice; "block" recomputes every attention,
+    "selective" that of the depth > 1 transformers (each block
+    checkpointed whole)."""
     from sdbc_tpu_torch.models.vae import prefer_chunked_encode
     from sdbc_tpu_torch.ops import _kernels
 
@@ -807,6 +840,10 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
     remat = tcfg.remat_mode if tcfg.grad_ckpt else None
     attn_again = 2 if remat == "block" else 1
     want = dict.fromkeys(_kernels.launches, 0)
+    # the forwards a "selective" backward recomputes: the deep blocks'
+    deep = sum(depth * transformer_launches(c, hw, micro)[0]
+               for c, hw, _, depth in transformer_sites(cfg, lat)
+               if depth > 1) if remat == "selective" else 0
     want["adam8"] = int(n8 > 0)  # one launch over every 8-bit leaf
     if switches:
         calls = 2 * n_transformers(cfg.unet)
@@ -821,7 +858,7 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
         low = img_hw >> (len(cfg.vae.block_out_channels) - 1)
         vae = encodes * (low * low >= 256 and cfg.vae.block_out_channels[-1]
                          <= 256)
-        want["flash_fwd"] = accum * (attn_again * calls + vae)
+        want["flash_fwd"] = accum * (attn_again * calls + deep + vae)
     want["flash_bwd_dq"] = want["flash_bwd_dkv"] = accum * calls
     return want
 
@@ -1718,10 +1755,22 @@ def kernel_int8(g, build_report=None):
             "shapes": shapes, "build": build_report}
 
 
+# the families' training at head dim 64 (label, b, h, sq, sk, d): SDXL
+# 1024² at micro-batch 1 (the 64² and 32² levels), SD-2.1 768² at
+# micro-batch 2 (96², 48², 24²; the 12² mid block stays plain)
+FAMILY_TRAIN_CASES = [("SDXL 64^2 d64", 1, 10, 4096, 4096, 64),
+                      ("SDXL 32^2 d64", 1, 20, 1024, 1024, 64),
+                      ("SD-2.1 96^2 d64", 2, 5, 9216, 9216, 64),
+                      ("SD-2.1 48^2 d64", 2, 10, 2304, 2304, 64),
+                      ("SD-2.1 24^2 d64", 2, 20, 576, 576, 64)]
+
+
 def phase_train_kernels(adam8_sass_counts=None):
     """The training kernels against their plain versions, at the shapes of
     the mode-C step (micro-batch 2, 8 heads; q/k/v as the (B, H, S, D)
-    head-split views of the projection layout the UNet hands over)."""
+    head-split views of the projection layout the UNet hands over) and of
+    the families' steps (``FAMILY_TRAIN_CASES``); each row keeps every
+    case."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1740,14 +1789,17 @@ def phase_train_kernels(adam8_sass_counts=None):
     cases = [("64^2 d40", 2, 8, 4096, 4096, 40),
              ("32^2 d80", 2, 8, 1024, 1024, 80),
              ("16^2 d160", 2, 8, 256, 256, 160),
-             ("ragged Sq200 Sk300 d40", 2, 8, 200, 300, 40)]
-    res = {n: {"err": 0.0, "first": None}
+             ("ragged Sq200 Sk300 d40", 2, 8, 200, 300, 40)] \
+        + FAMILY_TRAIN_CASES
+    res = {n: {"err": 0.0, "first": None, "cases": []}
            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    label = None
 
     def record(name, err, **kw):
         res[name]["err"] = max(res[name]["err"], err)
         if res[name]["first"] is None:
             res[name]["first"] = kw
+        res[name]["cases"].append(dict(shape=label, max_abs_err=err, **kw))
 
     for label, b, h, sq, sk, d in cases:
         q, k, v = bhsd(b, sq, h, d), bhsd(b, sk, h, d), bhsd(b, sk, h, d)
@@ -1859,7 +1911,7 @@ def phase_train_kernels(adam8_sass_counts=None):
              "sdbc_tpu/ops/flash_attention_bwd.py:187")):
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": res[name]["err"],
-                     **res[name]["first"]})
+                     **res[name]["first"], "cases": res[name]["cases"]})
     fwd_row = next(r for r in rows if r["name"] == "flash_fwd")
     fwd_row["serves"] = (
         "head dims <= 256 (every main-path call): flash_fwd_sm90_kernel in "
@@ -2574,7 +2626,10 @@ def phase_simt_kernels():
 TF32_FIXED = [(8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160),
               # SDXL 1024²'s 64² level at head dim 64 (batch 2)
               (2, 4096, 10, 64)]
-TF32_TRAIN = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160)]
+TF32_TRAIN = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160),
+              # SDXL 1024²'s 64² level in training (micro-batch 1, head
+              # dim 64)
+              (1, 10, 4096, 64)]
 TF32_RAGGED = (2, 8, 200, 300, 40)
 # the wide 3xTF32 forward (csrc/flash_fwd_tf32_wide_sm90.cu): the fp32 VAE
 # decode's 512-wide mid-block head (b, h, sq, sk, d), head-major, and a
@@ -3695,8 +3750,36 @@ def phase_profile(pipe):
 def _train_cfg(**kw):
     from sdbc_tpu_torch.train.trainer import TrainConfig
 
-    return TrainConfig(train_text_encoder=True, train_unet=True,
-                       use_8bit_adam=True, **kw)
+    return TrainConfig(**{**dict(train_text_encoder=True, train_unet=True,
+                                 use_8bit_adam=True), **kw})
+
+
+def _family_tcfg(cfg, **kw):
+    """``_train_cfg`` with the family flags of ``cfg`` (SDXL: both
+    encoders; the refiner)."""
+    return _train_cfg(dual_text_encoder=cfg.is_sdxl, refiner=cfg.refiner,
+                      **kw)
+
+
+def _train_batch(cfg, accum: int, micro: int, img: int, rng, extra_ids=0):
+    """A random (accum, micro) batch of ``img``² pixels and token ids
+    (SDXL: the second ids too) below the vocab, as numpy; with
+    ``extra_ids`` (textual inversion's placeholder ids) every prompt holds
+    them after its first token."""
+    import numpy as np
+
+    def ids():
+        out = rng.integers(0, cfg.clip.vocab_size,
+                           (accum, micro, cfg.clip.ctx))
+        out[..., 1:1 + extra_ids] = cfg.clip.vocab_size + np.arange(
+            extra_ids)
+        return out
+    out = {"pixel_values": (rng.standard_normal(
+               (accum, micro, img, img, 3)) * 0.5).astype(np.float32),
+           "input_ids": ids()}
+    if cfg.is_sdxl:
+        out["input_ids_2"] = ids()
+    return out
 
 
 def _n8(state) -> int:
@@ -3709,13 +3792,19 @@ def _n8(state) -> int:
                for leaf in optimizer_leaves(state.trainable))
 
 
-def phase_train_parity(label: str = "default", env=None,
-                       card_dtype=None, **tcfg_kw):
-    """One optimizer step of the tiny config, bf16 (or ``card_dtype``) on
-    the card against fp32 on the CPU, from the same fp32 masters and the
-    same injected draws, under the environment ``env`` on both sides.  In
-    fp32 the flash forward and the backward, on the forward's LSE, run on
-    the 3xTF32 kernels (``fp32_launches``), the 8-bit AdamW as in bf16."""
+def phase_train_parity(label: str = "default", env=None, card_dtypes=None,
+                       cfg=None, img: int = 32,
+                       grad_rtol: float = TRAIN_GRAD_RTOL, **tcfg_kw):
+    """One optimizer step of the tiny config (or ``cfg``, at ``img``²) on
+    the card in each of ``card_dtypes`` (default bf16) against fp32 on the
+    CPU (run once), from the same fp32 masters and the same injected
+    draws, under the environment ``env`` on both sides.  In fp32 the flash
+    forward and the backward, on the forward's LSE, run on the 3xTF32
+    kernels (``fp32_launches``), the 8-bit AdamW as in bf16, and the loss
+    is held to ``FP32_PARITY_TOL``.  The held gradients are the UNet's
+    self-attention projections where the UNet trains, else every nonzero
+    gradient of the adapter, each within ``grad_rtol`` in bf16 and
+    ``TRAIN_GRAD_RTOL`` in fp32.  Returns {dtype: launch counts}."""
     import numpy as np
     import torch
 
@@ -3724,95 +3813,120 @@ def phase_train_parity(label: str = "default", env=None,
     from sdbc_tpu_torch.ops import _kernels
     from sdbc_tpu_torch.train.trainer import (diffusion_loss,
                                               init_train_state,
-                                              make_train_step, merged_params,
+                                              make_train_step, merged,
+                                              optimizer_leaf_keys,
+                                              optimizer_leaves,
                                               trainable_params)
 
-    cfg = PipelineConfig.tiny()
-    tcfg = _train_cfg(grad_accum=2, micro_batch=2, learning_rate=1e-3,
-                      num_examples=100, **tcfg_kw)
+    cfg = cfg or PipelineConfig.tiny()
+    tcfg = _family_tcfg(cfg, grad_accum=2, micro_batch=2,
+                        learning_rate=1e-3, num_examples=100, **tcfg_kw)
     base = init_models(cfg, device="cpu",
                        generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(11)
     f32 = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
         np.float32))
-    batch = {"pixel_values": f32(2, 2, 32, 32, 3) * 0.5,
-             "input_ids": torch.from_numpy(rng.integers(
-                 0, cfg.clip.vocab_size, (2, 2, cfg.clip.ctx)))}
-    draws = [{"eps": f32(2, 16, 16, 4), "noise": f32(2, 16, 16, 4),
+    batch = {k: torch.from_numpy(v) for k, v in _train_batch(
+        cfg, 2, 2, img, rng, extra_ids=tcfg.ti_vectors * bool(
+            tcfg.ti_token)).items()}
+    lat = img // cfg.vae_scale
+    draws = [{"eps": f32(2, lat, lat, 4), "noise": f32(2, lat, lat, 4),
               "t": torch.from_numpy(rng.integers(0, 1000, (2,)))}
              for _ in range(2)]
+
     def micro_grads(state, dev, dt):
         """The held gradients of the first micro-batch's loss."""
-        loss = diffusion_loss(merged_params(state),
-                              {k: v[0].to(dev) for k, v in batch.items()},
-                              cfg, tcfg, make_schedule(cfg.schedule, dev), dt,
-                              draws=draws[0])
-        loss.backward()
-        out = {n: p.grad.float().cpu().clone() for n, p in
-               state.trainable["unet"].named_parameters()
-               if n.endswith(HELD_GRADS)}
+        with merged(state.trainable, state.frozen, tcfg) as models:
+            loss = diffusion_loss(
+                models, {k: v[0].to(dev) for k, v in batch.items()}, cfg,
+                tcfg, make_schedule(cfg.schedule, dev), dt, draws=draws[0])
+            loss.backward()
+        if "unet" in state.trainable:
+            out = {n: p.grad.float().cpu().clone() for n, p in
+                   state.trainable["unet"].named_parameters()
+                   if n.endswith(HELD_GRADS)}
+        else:
+            out = {".".join(k for k, _ in key): t.grad.float().cpu().clone()
+                   for key, (t,) in zip(optimizer_leaf_keys(state.trainable),
+                                        optimizer_leaves(state.trainable))
+                   if t.grad is not None and bool(t.grad.any())}
         for p in trainable_params(state.trainable):
             p.grad = None
         return out
 
-    runs = {}
+    def run(dev, dt):
+        state = init_train_state(copy.deepcopy(base), tcfg,
+                                 compute_dtype=dt, device=dev)
+        grads = micro_grads(state, dev, dt)
+        before = [p.detach().float().cpu().clone()
+                  for p in trainable_params(state.trainable)]
+        step = make_train_step(cfg, tcfg, compute_dtype=dt, device=dev)
+        _kernels.reset_launch_counts()
+        state, m = step(state, batch, draws=draws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        after = [p.detach().float().cpu()
+                 for p in trainable_params(state.trainable)]
+        return (m, [a - b for a, b in zip(after, before)], counts, state,
+                grads)
+
+    out = {}
     with environment(**(env or {})):
-        for dev, dt in (("cpu", torch.float32),
-                        ("cuda", card_dtype or torch.bfloat16)):
-            state = init_train_state(copy.deepcopy(base), tcfg,
-                                     compute_dtype=dt, device=dev)
-            grads = micro_grads(state, dev, dt)
-            before = [p.detach().float().cpu().clone()
-                      for p in trainable_params(state.trainable)]
-            step = make_train_step(cfg, tcfg, compute_dtype=dt, device=dev)
-            _kernels.reset_launch_counts()
-            state, m = step(state, batch, draws=draws)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            counts = dict(_kernels.launches)
-            after = [p.detach().float().cpu()
-                     for p in trainable_params(state.trainable)]
-            runs[dev] = (m, [a - b for a, b in zip(after, before)], counts,
-                         state, grads)
-    (mc, dc, cc, _, gc), (mg, dg, cg, sg, gg) = runs["cpu"], runs["cuda"]
-    grad_rel = {n: float((gg[n] - gc[n]).norm() / gc[n].norm()) for n in gc}
-    worst_grad = max(grad_rel, key=grad_rel.get)
-    lerr = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
-    cos = float(sum((a * b).sum() for a, b in zip(dg, dc))
-                / (sum((a * a).sum() for a in dg).sqrt()
-                   * sum((b * b).sum() for b in dc).sqrt()))
-    worst = max(float((a - b).abs().max()) for a, b in zip(dg, dc))
-    want = expected_train_launches(cfg, tcfg, 32, _n8(sg),
-                                   switches=bool(env))
-    if card_dtype == torch.float32:
-        want = fp32_launches(want)
-    print(f"[train-parity] tiny grad_accum 2 micro 2, 8-bit AdamW, one step "
-          f"({label}): loss card {mg['loss']:.6f} cpu {mc['loss']:.6f} (rel "
-          f"err {lerr:.3e}, tol {TRAIN_LOSS_RTOL}); update cosine {cos:.5f} "
-          f"(tol {TRAIN_UPDATE_COS}), max |Δ| difference {worst:.3e} "
-          f"(bound {TRAIN_STEP_BOUND * tcfg.learning_rate}); micro-batch "
-          f"gradient rel err of {len(grad_rel)} self-attention projections: "
-          f"max {grad_rel[worst_grad]:.3e} ({worst_grad}), median "
-          f"{statistics.median(grad_rel.values()):.3e} (tol "
-          f"{TRAIN_GRAD_RTOL}); launches {cg} (expected {want}; CPU {cc})",
-          flush=True)
-    if not (mg["finite"] and mc["finite"] and np.isfinite(mg["loss"])):
-        fail(f"tiny train step ({label}) not finite")
-    if not grad_rel[worst_grad] <= TRAIN_GRAD_RTOL:
-        fail(f"tiny train step ({label}): micro-batch gradients card vs CPU "
-             f"{grad_rel}")
-    if not (lerr <= TRAIN_LOSS_RTOL and cos >= TRAIN_UPDATE_COS
-            and worst <= TRAIN_STEP_BOUND * tcfg.learning_rate):
-        fail(f"tiny train step ({label}): card vs CPU outside tolerance")
-    if cg != want or set(cc.values()) != {0}:
-        fail(f"tiny train step ({label}) launch counts {cg}, expected {want}")
-    used = (("gn_fused", "flash_tt") if env else ("flash_fwd",)) \
-        + ("flash_bwd_dq", "flash_bwd_dkv", "adam8")
-    if card_dtype == torch.float32:
-        used = tuple(FP32_OF.get(k, k) for k in used)
-    if min(cg[k] for k in used) == 0 or (env and cg["flash_fwd"]):
-        fail(f"tiny train step ({label}) skipped a kernel: {cg}")
-    return cg
+        mc, dc, cc, _, gc = run("cpu", torch.float32)
+        for card_dtype in card_dtypes or (torch.bfloat16,):
+            fp32 = card_dtype == torch.float32
+            mg, dg, cg, sg, gg = run("cuda", card_dtype)
+            grad_rel = {n: float((gg[n] - gc[n]).norm() / gc[n].norm())
+                        for n in gc}
+            worst_grad = max(grad_rel, key=grad_rel.get)
+            g_tol = TRAIN_GRAD_RTOL if fp32 else grad_rtol
+            lerr = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+            loss_tol = FP32_PARITY_TOL if fp32 else TRAIN_LOSS_RTOL
+            cos = float(sum((a * b).sum() for a, b in zip(dg, dc))
+                        / (sum((a * a).sum() for a in dg).sqrt()
+                           * sum((b * b).sum() for b in dc).sqrt()))
+            worst = max(float((a - b).abs().max()) for a, b in zip(dg, dc))
+            want = expected_train_launches(cfg, tcfg, img, _n8(sg),
+                                           switches=bool(env))
+            if fp32:
+                want = fp32_launches(want)
+            what = f"{label}{', card fp32' if fp32 else ''}"
+            print(f"[train-parity] tiny grad_accum 2 micro 2, "
+                  f"{'8-bit' if tcfg.use_8bit_adam else 'fp32'} AdamW, one "
+                  f"step ({what}): loss card {mg['loss']:.6f} cpu "
+                  f"{mc['loss']:.6f} (rel err {lerr:.3e}, tol {loss_tol}); "
+                  f"update cosine {cos:.5f} (tol {TRAIN_UPDATE_COS}), max "
+                  f"|Δ| difference {worst:.3e} (bound "
+                  f"{TRAIN_STEP_BOUND * tcfg.learning_rate}); micro-batch "
+                  f"gradient rel err of {len(grad_rel)} held tensors: max "
+                  f"{grad_rel[worst_grad]:.3e} ({worst_grad}), median "
+                  f"{statistics.median(grad_rel.values()):.3e} (tol "
+                  f"{g_tol}); launches {nonzero(cg)} (expected "
+                  f"{nonzero(want)}; CPU {nonzero(cc)})", flush=True)
+            if not (mg["finite"] and mc["finite"]
+                    and np.isfinite(mg["loss"])):
+                fail(f"tiny train step ({what}) not finite")
+            if not grad_rel[worst_grad] <= g_tol:
+                fail(f"tiny train step ({what}): micro-batch gradients card "
+                     f"vs CPU {grad_rel}")
+            if not (lerr <= loss_tol and cos >= TRAIN_UPDATE_COS
+                    and worst <= TRAIN_STEP_BOUND * tcfg.learning_rate):
+                fail(f"tiny train step ({what}): card vs CPU outside "
+                     "tolerance")
+            if cg != want or set(cc.values()) != {0}:
+                fail(f"tiny train step ({what}) launch counts {cg}, "
+                     f"expected {want}")
+            used = (("gn_fused", "flash_tt") if env else ("flash_fwd",)) \
+                + ("flash_bwd_dq", "flash_bwd_dkv") \
+                + ("adam8",) * (want["adam8"] > 0)
+            if fp32:
+                used = tuple(FP32_OF.get(k, k) for k in used)
+            if min(cg[k] for k in used) == 0 or (env and cg["flash_fwd"]):
+                fail(f"tiny train step ({what}) skipped a kernel: {cg}")
+            out[card_dtype] = cg
+            del sg
+    return out
 
 
 def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
@@ -4022,7 +4136,8 @@ def ft_disk(path: str, name: str) -> dict:
                 ckpt.read_tree(os.path.join(path, name)).items()}
     if os.path.exists(os.path.join(path, "ti.npz")):
         with np.load(os.path.join(path, "ti.npz")) as z:
-            return {("ti", "rows"): torch.from_numpy(z["rows"])}
+            return {("ti", r): torch.from_numpy(z[r])
+                    for r in ("rows", "rows2") if r in z.files}
     with np.load(os.path.join(path, "lora.npz")) as z:
         return {("lora",) + tuple(k.rsplit(".", 1)): torch.from_numpy(z[k])
                 for k in z.files if k != "__meta__"}
@@ -4214,16 +4329,16 @@ def phase_finetune_tiny():
 
 
 def ckpt_bytes_estimate(cfg) -> int:
-    """Bytes of one mode-C checkpoint: the fp32 UNet and text encoder, the
-    bf16 VAE, the 8-bit moments (two bytes an element plus two (rows, 128)
-    fp32 scales per 2048 elements)."""
+    """Bytes of one checkpoint training the UNet and every text encoder:
+    their fp32 masters, the bf16 VAE, the 8-bit moments (two bytes an
+    element plus two (rows, 128) fp32 scales per 2048 elements)."""
     import torch
 
     from sdbc_tpu_torch.diffusion.pipeline import init_models
 
     m = init_models(cfg, device="meta", generator=None)
     n = {k: sum(p.numel() for p in v.parameters()) for k, v in m.items()}
-    trained = n["unet"] + n["text_encoder"]
+    trained = sum(v for k, v in n.items() if k != "vae")
     return 4 * trained + 2 * n["vae"] + 2 * trained \
         + 2 * 128 * 4 * math.ceil(trained / 2048)
 
@@ -4326,6 +4441,368 @@ def phase_finetune(smi: str, train_sps: dict):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"finetune": total}
+
+
+# ---------------------------------------------------------------------------
+# families-train: training the SD-2.x and SDXL families
+
+# the tiny card-vs-CPU steps (``phase_train_parity``): (label, config,
+# image side, train config overrides); the SDXL configs at 64² (256
+# tokens at their first attention level)
+FAMILY_TRAIN_TINY = [
+    ("sd21", "sd21", 32, {}),
+    ("sdxl", "tiny_xl", 64, {}),
+    ("refiner", "tiny_xl_refiner", 64, {}),
+    ("sdxl lora", "tiny_xl", 64, dict(lora_rank=2, lora_alpha=4.0)),
+    ("sdxl ti", "tiny_xl", 64, dict(ti_token="<sty>", ti_vectors=2,
+                                    train_unet=False,
+                                    train_text_encoder=False))]
+# the full-width steps: (label, family, image side, micro-batch,
+# grad_accum); fp32 masters of the UNet and every text encoder, bf16
+# compute, 8-bit AdamW, remat "block"
+FAMILY_TRAIN_FULL = [("sdxl 1024^2", "sdxl", 1024, 1, 2),
+                     ("sd21 768^2", "sd21", 768, 2, 4)]
+# the finetune CLI on SDXL: 1024² covers, micro-batch 1, grad_accum 2, 4
+# examples make 2 steps and a checkpoint
+FT_SDXL = ["--model_family", "sdxl", "--train_unet", "--train_text_encoder",
+           "--use_8bit_adam", "--batch_size", "1", "--grad_acc_steps", "2",
+           "--img_size", "1024", "--num_examples", "4", "--ckpts_per_epoch",
+           "1", "--epochs", "1", "--seed", "0"]
+
+
+def family_cfg(name: str):
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    if name in ("sd21", "sdxl"):
+        return PipelineConfig.family(name, tiny=False)
+    if name == "sd21 tiny":
+        return PipelineConfig.family("sd21", tiny=True)
+    return getattr(PipelineConfig, name)()
+
+
+def family_train_full(label: str, cfg, img: int, micro: int, accum: int,
+                      smi: str, steps: int = 3):
+    """One family's training at full width (random init from seed 0 on the
+    card): a warm-up step, ``steps`` timed ones with finite losses, moved
+    parameters and exact launches, then a profiled step.  Returns
+    (launches of the timed steps, median s/step, peak bytes, state)."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import init_models
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.train.trainer import (init_train_state,
+                                              make_train_step,
+                                              trainable_params)
+
+    tcfg = _family_tcfg(cfg, grad_accum=accum, micro_batch=micro,
+                        num_examples=1000, grad_ckpt=True,
+                        remat_mode="block")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(init_models(cfg, device="cuda", generator=gen),
+                             tcfg)
+    step = make_train_step(cfg, tcfg)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in _train_batch(
+        cfg, accum, micro, img, np.random.default_rng(5)).items()}
+    params = trainable_params(state.trainable)
+    watch = [params[0], params[len(params) // 2], params[-1]]
+    start = [p.detach().clone() for p in watch]
+    n_train = sum(p.numel() for p in params)
+    t0 = time.perf_counter()
+    state, m = step(state, batch, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    losses, times = [m["loss"]], []
+    _kernels.reset_launch_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        if not m["finite"]:
+            fail(f"families-train {label}: step skipped (non-finite "
+                 f"gradients), loss {m['loss']}")
+    counts = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n8 = _n8(state)
+    want = {k: steps * v for k, v in expected_train_launches(
+        cfg, tcfg, img, n8).items()}
+    moved = [float((p.detach() - s0).abs().max())
+             for p, s0 in zip(watch, start)]
+    del start
+    sps = statistics.median(times)
+    print(f"[families-train] {label} ({'v-prediction' if cfg.schedule.prediction_type == 'v_prediction' else 'eps'}) micro {micro} grad_accum {accum}, "
+          f"{', '.join(tcfg.trainable_keys())} trained ({n_train / 1e9:.3f} B "
+          f"fp32 masters), bf16 compute, 8-bit AdamW ({n8} 8-bit leaves), "
+          f"remat block: {sps:.4f} s/step (median of {steps}: "
+          f"{[round(t, 4) for t in times]}), {micro * accum / sps:.4f} "
+          f"images/s, warm-up {warm:.3f} s, peak {peak / 2 ** 30:.2f} GiB, "
+          f"losses {[round(x, 6) for x in losses]}, params moved {moved}, "
+          f"launches {nonzero(counts)} (expected {nonzero(want)}) | {smi}",
+          flush=True)
+    if not all(np.isfinite(x) for x in losses):
+        fail(f"families-train {label}: losses not finite: {losses}")
+    if not all(x > 0 for x in moved):
+        fail(f"families-train {label}: parameters did not move: {moved}")
+    if counts != want:
+        fail(f"families-train {label}: launch counts {counts}, expected "
+             f"{want}")
+    phase_train_profile(step, state, batch, gen, sps,
+                        f"families-train {label}")
+    return counts, sps, peak, state
+
+
+def kernel_adam8_family(state, label: str):
+    """K7 over a trained state's 8-bit leaves at their real sizes (the
+    stacked ones as their parts) with random gradients, in one launch:
+    the kernel alone on a table built once, against the step's bytes
+    bound; held against the plain version on the largest leaf and every
+    16th other one (copies taken before the launch)."""
+    import torch
+
+    from sdbc_tpu_torch.train import adam8bit
+    from sdbc_tpu_torch.train.trainer import optimizer_leaves
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
+    leaves = [(leaf, st) for leaf, st in zip(
+        optimizer_leaves(state.trainable), state.opt_state.inner.per_leaf)
+        if isinstance(st, adam8bit.Quant8State)]
+    with torch.no_grad():
+        grads = [[torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+                  for p in leaf] for leaf, _ in leaves]
+    sizes = [sum(p.numel() for p in leaf) for leaf, _ in leaves]
+    big = max(range(len(leaves)), key=sizes.__getitem__)
+    held = sorted({big} | set(range(0, len(leaves), 16)))
+    stack = lambda ts: ts[0].clone() if len(ts) == 1 else torch.stack(ts)
+    step = state.opt_state.inner.count + 1
+    ref = {i: (stack(leaves[i][0]), adam8bit.Quant8State(*(
+        t.clone() for t in (leaves[i][1].mq, leaves[i][1].ms,
+                            leaves[i][1].vq, leaves[i][1].vs))))
+           for i in held}
+    table = [(leaf, gr, st) for (leaf, st), gr in zip(leaves, grads)]
+    with torch.no_grad():
+        adam8bit.adam8_update_leaves(table, 1e-4, step, **kw)
+        torch.cuda.synchronize()
+        perr = serr = 0.0
+        qmax = qoff = qn = 0
+        for i, (p0, s0) in ref.items():
+            leaf, st = leaves[i]
+            adam8bit.adam8_update_ref(p0, stack(grads[i]), s0, 1e-4, step,
+                                      **kw)
+            perr = max(perr, (stack(leaf) - p0).abs().max().item())
+            for a, b in ((st.mq, s0.mq), (st.vq, s0.vq)):
+                d = (a.int() - b.int()).abs()
+                qmax = max(qmax, d.max().item())
+                qoff += int((d > 0).sum())
+                qn += d.numel()
+            serr = max(serr, *(((a - b).abs() / b.abs().clamp(min=1e-30))
+                               .max().item() for a, b in ((st.ms, s0.ms),
+                                                          (st.vs, s0.vs))))
+        del ref
+        rows = adam8bit.leaf_table(table)[1]
+        ms = median_ms(adam8_launch(table, step + 1), 10)
+    n_el = sum(sizes)
+    bms, by = adam8_bound(n_el, rows)
+    qshare = qoff / qn
+    stacked = sum(len(leaf) > 1 for leaf, _ in leaves)
+    print(f"[families-train] adam8 over the {label} step's {len(leaves)} "
+          f"8-bit leaves ({stacked} stacked; the largest "
+          f"{sizes[big]} elements), {n_el} elements in {rows} rows: held "
+          f"{len(held)} leaves, p err {perr:.3e}, int8 off-by-one share "
+          f"{qshare:.2e} (max {qmax}), scale rel err {serr:.2e}; one launch "
+          f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f}% of "
+          f"it ({16.0 * n_el / ms / 1e6:.1f} GB/s)", flush=True)
+    if not (perr <= ADAM_P_TOL and qmax <= 1 and qshare <= ADAM_Q_SHARE
+            and serr <= 1e-5):
+        fail(f"adam8 {label}: p err {perr}, int8 off-by-one share {qshare} "
+             f"(max {qmax}), scale rel err {serr}")
+    del table, grads, leaves
+    return dict(leaves=len(sizes), stacked=stacked, elements=n_el,
+                rows=rows, largest=sizes[big], ms=ms, bound_ms=bms,
+                bound_by=by, p_err=perr, int8_share=qshare)
+
+
+def family_cli_tiny():
+    """``cli.finetune --tiny --model_family sdxl`` on the card (UNet and
+    both encoders, 8-bit AdamW, EMA, remat "block" by default) at 64²:
+    one epoch of 2 steps with exact launches, then --resume for a second
+    whose first step sees the checkpoint and the first run's last state
+    bit for bit.  Returns the run's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import finetune
+    from sdbc_tpu_torch.ops import _kernels
+
+    cfg = family_cfg("tiny_xl")
+    root = tempfile.mkdtemp(prefix="sdbc_ft_xl_tiny_")
+    try:
+        data = ft_dataset(os.path.join(root, "ds"), 8, 64)
+        out = os.path.join(root, "out")
+        argv = ["--tiny", "--model_family", "sdxl", "--device", "cuda",
+                "--data_root", data, "--output_dir", out, "--img_size", "64",
+                "--num_examples", "8", "--batch_size", "2",
+                "--grad_acc_steps", "2", "--ckpts_per_epoch", "1",
+                "--num_workers", "2", "--learning_rate", str(FT_LR),
+                "--train_unet", "--use_8bit_adam", "--ema_decay", "0.9"]
+        _kernels.reset_launch_counts()
+        with ft_capture() as seen:
+            stats = finetune.main(argv + ["--epochs", "1"])
+        counts = dict(_kernels.launches)
+        want = expected_train_launches(
+            cfg, _family_tcfg(cfg, grad_accum=2, micro_batch=2,
+                              grad_ckpt=True, remat_mode="block"),
+            64, _n8(seen["last"]))
+        last = ft_trees(seen["last"])
+        with ft_capture() as again:
+            finetune.main(argv + ["--epochs", "2", "--resume"])
+        print(f"[families-train] cli.finetune --tiny --model_family sdxl 64^2 "
+              f"on the card: losses {[round(x, 6) for x in stats['losses']]}"
+              f", launches a step {[nonzero(c) for c in seen['launches']]} "
+              f"(expected {nonzero(want)}); --resume: step "
+              f"{again['first_step']}, optimizer count "
+              f"{again['first_count']}, {sum(map(len, last.values()))} "
+              f"tensors of {sorted(last)} compared", flush=True)
+        if not all(np.isfinite(x) for x in stats["losses"]):
+            fail(f"families-train tiny CLI: losses {stats['losses']}")
+        if any(c != want for c in seen["launches"]):
+            fail(f"families-train tiny CLI: launches {seen['launches']}, "
+                 f"expected {want} a step")
+        if (again["first_step"], again["first_count"]) != (2, 2):
+            fail(f"families-train tiny CLI --resume: step "
+                 f"{again['first_step']}, count {again['first_count']}")
+        for name, tree in again["first_trees"].items():
+            ft_bits(tree, last[name], f"sdxl resume {name} vs the run")
+            ft_bits(tree, {k: t.cpu() for k, t in
+                           ft_disk(stats["final"], name).items()},
+                    f"sdxl resume {name} vs the checkpoint")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def family_cli_full(smi: str):
+    """``cli.finetune --model_family sdxl`` at full width (random weights
+    from seed 0, bf16 compute, UNet and both encoders, 8-bit AdamW, remat
+    "block" by the CLI's default) on 4 PNG covers at 1024²: 2 steps with
+    exact launches and a checkpoint; s/step, the loader's blocked ms, peak
+    memory, checkpoint bytes and save seconds.  Returns the launches of
+    the 2 steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import finetune
+
+    cfg = family_cfg("sdxl")
+    root = tempfile.mkdtemp(prefix="sdbc_ft_xl_")
+    try:
+        need = ckpt_bytes_estimate(cfg) + (1 << 30)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            fail(f"families-train: {root} has {free / 1e9:.2f} GB free, the "
+                 f"SDXL checkpoint and covers take {need / 1e9:.2f} GB")
+        t0 = time.perf_counter()
+        data = ft_dataset(os.path.join(root, "ds"), 4, 1024)
+        data_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with ft_capture(trees=False) as seen:
+            stats = finetune.main(FT_SDXL + [
+                "--device", "cuda", "--data_root", data, "--output_dir",
+                os.path.join(root, "out")])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tcfg = _family_tcfg(cfg, grad_accum=2, micro_batch=1,
+                            grad_ckpt=True, remat_mode="block")
+        want = expected_train_launches(cfg, tcfg, 1024, _n8(seen["last"]))
+        del seen["last"]
+        steps = seen["launches"]
+        losses = stats["losses"]
+        waits = [1e3 * w for w in stats["loader_wait_s"]]
+        saves = stats["saves"]
+        total = dict.fromkeys(steps[0], 0)
+        for c in steps:
+            for k, v in c.items():
+                total[k] += v
+        print(f"[families-train] cli.finetune --model_family sdxl 1024^2 "
+              f"micro 1 grad_accum 2, UNet + both encoders, 8-bit AdamW, "
+              f"remat block (CLI default), 4 PNG covers (written in "
+              f"{data_s:.1f} s): steps {[round(t, 4) for t in stats['step_s']]}"
+              f" s (the first with the warm-up), loader blocked "
+              f"{[round(w, 3) for w in waits]} ms a step, peak "
+              f"{peak / 2 ** 30:.2f} GiB, losses "
+              f"{[round(x, 6) for x in losses]}, {wall:.1f} s in all; "
+              f"checkpoints: "
+              + "; ".join(f"{os.path.basename(v['path'])} "
+                          f"{v['bytes'] / 1e9:.3f} GB in {v['seconds']:.2f} "
+                          f"s ({v['bytes'] / 1e9 / v['seconds']:.2f} GB/s)"
+                          if v["bytes"] else
+                          f"{os.path.basename(v['path'])} final: metadata "
+                          f"only ({v['seconds']:.3f} s)" for v in saves)
+              + f"; launches a step {[nonzero(c) for c in steps]} (expected "
+              f"{nonzero(want)}) | {smi}", flush=True)
+        if len(losses) != 2 or not all(np.isfinite(x) for x in losses):
+            fail(f"families-train CLI: losses {losses}")
+        if any(c != want for c in steps):
+            fail(f"families-train CLI: launches {steps}, expected {want}")
+        if not saves or not saves[0]["bytes"] or not os.path.exists(
+                os.path.join(stats["final"], "text_encoder_2")):
+            fail(f"families-train CLI: no checkpoint saved ({saves})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def phase_families_train(smi: str) -> dict:
+    """Training the SD-2.x and SDXL families on the card: the tiny steps
+    (``FAMILY_TRAIN_TINY``) bf16 and fp32 on the card against fp32 on the
+    CPU; SDXL base 1024² and SD-2.1 768² (v-prediction) at full width
+    (``FAMILY_TRAIN_FULL``), with K7 over the SDXL step's 8-bit leaves;
+    the finetune CLI on tiny SDXL with a --resume, and on SDXL at 1024²
+    with its checkpoint.  Returns the launch counts by path and K7's
+    reading."""
+    import torch
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for label, name, img, kw in FAMILY_TRAIN_TINY:
+        cfg = family_cfg("sd21 tiny" if name == "sd21" else name)
+        counts = phase_train_parity(
+            f"families {label}", card_dtypes=(torch.bfloat16, torch.float32),
+            cfg=cfg, img=img, grad_rtol=FAMILY_GRAD_RTOL, **kw)
+        paths[f"families-train {label} (tiny)"] = counts[torch.bfloat16]
+        paths[f"families-train {label} fp32 (tiny)"] = counts[torch.float32]
+    paths["families-train cli sdxl (tiny)"] = family_cli_tiny()
+    adam8 = None
+    for label, name, img, micro, accum in FAMILY_TRAIN_FULL:
+        counts, _, _, state = family_train_full(
+            label, family_cfg(name), img, micro, accum, smi)
+        paths[f"families-train {label}"] = counts
+        if name == "sdxl":
+            adam8 = kernel_adam8_family(state, label)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths["families-train cli sdxl 1024^2"] = family_cli_full(smi)
+    torch.cuda.empty_cache()
+    print(f"[families-train] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths, adam8
 
 
 def phase_switches_sampling(cfg, pipe, smi: str):
@@ -5421,7 +5898,7 @@ def main() -> int:
     phase_train_parity("grad_ckpt block + switches", SWITCHES,
                        grad_ckpt=True, remat_mode="block")
     paths["train fp32 (tiny)"] = phase_train_parity(
-        "fp32", card_dtype=torch.float32)
+        "fp32", card_dtypes=(torch.float32,))[torch.float32]
     paths["train fp32"], _, _ = phase_train(smi, label="train fp32",
                                             compute_dtype=torch.float32)
     torch.cuda.empty_cache()
@@ -5434,6 +5911,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(phase_finetune_tiny())
     paths.update(phase_finetune(smi, {"none": sps, **ckpt_sps}))
+    torch.cuda.empty_cache()
+    family_paths, adam8_family = phase_families_train(smi)
+    paths.update(family_paths)
+    next(r for r in rows if r["name"] == "adam8")["sdxl_step"] = \
+        adam8_family
     if "jax" in sys.modules:
         fail("jax was imported")
     for row in rows:

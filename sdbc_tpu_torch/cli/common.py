@@ -30,11 +30,11 @@ _UNPORTED_FLAGS = {
                                "no wandb; ROADMAP Queue 1 item 8)"),
     "wandb_key": ("", "wandb tracking (the card's machine has no wandb; "
                       "ROADMAP Queue 1 item 8)"),
-    "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 6)"),
-    "control_image": ("", "ControlNet (ROADMAP Queue 1 item 6)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
+    "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 6.2)"),
+    "control_image": ("", "ControlNet (ROADMAP Queue 1 item 6.2)"),
+    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6.2)"),
     "train_controlnet": (False, "ControlNet training (ROADMAP Queue 1 "
-                                "item 6)"),
+                                "item 6.2)"),
     "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
     "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
     "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
@@ -205,31 +205,14 @@ def make_tokenizer2(args, cfg):
     return None
 
 
-def refuse_xl_adapters(cfg, flags: dict) -> None:
-    """SystemExit when an adapter flag (``{flag: value}``) is set on an
-    SDXL config: the port's LoRA and textual inversion name SD-1.x's
-    modules only."""
-    if not cfg.is_sdxl:
-        return
-    for name, value in flags.items():
-        if value:
-            raise SystemExit(
-                f"--{name} on an SDXL model needs LoRA / textual inversion "
-                "on SDXL, which comes with training the SD-2.x and SDXL "
-                "families (ROADMAP Queue 1 item 6); sdbc_tpu_torch has not "
-                "ported it yet")
-
-
 def compute_dtype(args):
     return torch.bfloat16 if args.bf16 else torch.float32
 
 
 def _merge_adapters(args, models, cfg):
     """``--lora_path`` then ``--ti_path`` merged into copies of
-    ``models``; with TI the config's vocab counts the appended rows and
-    pools on the base vocab's last id, as the JAX CLIs do."""
-    refuse_xl_adapters(cfg, {"lora_path": getattr(args, "lora_path", ""),
-                             "ti_path": getattr(args, "ti_path", "")})
+    ``models``; with TI each extended encoder's vocab counts the appended
+    rows and pools on the base vocab's last id, as the JAX CLIs do."""
     if getattr(args, "lora_path", ""):
         from sdbc_tpu_torch.train import lora as lora_mod
 
@@ -239,11 +222,7 @@ def _merge_adapters(args, models, cfg):
         from sdbc_tpu_torch.train import textual_inversion as ti_mod
 
         models, meta = ti_mod.merge_file(models, args.ti_path)
-        clip = cfg.clip
-        cfg = dataclasses.replace(cfg, clip=dataclasses.replace(
-            clip, vocab_size=clip.vocab_size + len(meta["ids"]),
-            eot_id=clip.eot_id if clip.eot_id is not None
-            else clip.vocab_size - 1))
+        cfg = ti_mod.extend_config(cfg, meta)
         print(f"merged textual inversion {args.ti_path} "
               f"({meta['token']!r})")
     return models, cfg

@@ -1,5 +1,5 @@
-"""Fine-tune SD-1.x on the Goodreads covers (counterpart of
-``sdbc_tpu/cli/finetune.py``), on one device: the card unless
+"""Fine-tune SD-1.x, SD-2.x or SDXL on the Goodreads covers (counterpart
+of ``sdbc_tpu/cli/finetune.py``), on one device: the card unless
 ``--device cpu``.
 
     python -m sdbc_tpu_torch.cli.finetune --data_root ./goodreads \\
@@ -15,8 +15,13 @@ window (--ckpts_per_epoch a epoch), a preemption checkpoint at the next
 step boundary after SIGTERM/SIGINT, and a final one
 (``utils/checkpoint.py``, the JAX package's layout); --resume continues
 the run's latest complete checkpoint (masters, optimizer moments and
-step, EMA shadow, adapters) from the start of its epoch.  ControlNet,
---tp/--fsdp, the SD-2/SDXL families and wandb exit naming what they need
+step, EMA shadow, adapters) from the start of its epoch.  The family
+comes from --model_family (a fresh init) or the checkpoint: SD-2.x trains
+on the v-prediction loss, SDXL on both encoders' ids (the second
+tokenizer from the checkpoint's ``tokenizer_2/``, else the first) with the
+text-time conditioning, the refiner on bigG alone; textual inversion on
+SDXL learns one row block per encoder at shared ids.  ControlNet,
+--tp/--fsdp and wandb exit naming what they need
 (``common.refuse_unported``).
 
 The noise, timesteps and posterior draws come from one ``torch.Generator``
@@ -142,10 +147,6 @@ def _refuse(args) -> None:
     """The JAX CLI's refusals of flag combinations, then the unported
     features."""
     common.refuse_unported(args, unused={"tp": 1})
-    if args.model_family != "sd15":
-        raise SystemExit(f"--model_family {args.model_family} needs training "
-                         "the SD-2.x and SDXL families (ROADMAP Queue 1 item "
-                         "6), which sdbc_tpu_torch has not ported yet")
     use_lora, use_ti = args.lora_rank > 0, bool(args.ti_token)
     if args.prior_class_prompt and args.cache_latents:
         raise SystemExit("--prior_class_prompt is incompatible with "
@@ -168,7 +169,7 @@ def _refuse(args) -> None:
                          "checkpoint's ema/ overlay — drop one")
 
 
-def _restore_adapters(state, resume_path, args, ti_ids):
+def _restore_adapters(state, resume_path, args, ti_ids, is_xl: bool):
     """A LoRA or TI resume: the saved adapter copied into the fresh
     state's tensors (the optimizer's leaves stay the same objects)."""
     if args.lora_rank > 0:
@@ -211,8 +212,15 @@ def _restore_adapters(state, resume_path, args, ti_ids):
                 f"checkpoint inversion is {tmeta['token']!r} ids "
                 f"{tmeta['ids']} but the CLI asked for {args.ti_token!r} "
                 f"ids {ti_ids} — match the flags or start a new run")
+        if ("rows2" in tmeta) != is_xl:
+            raise SystemExit(
+                "checkpoint inversion encoder count does not match the "
+                "model family (dual-encoder ti.npz needs SDXL and vice "
+                "versa) — start a new run")
         with torch.no_grad():
             state.trainable["ti"]["rows"].copy_(rows)
+            if is_xl:
+                state.trainable["ti"]["rows2"].copy_(tmeta["rows2"])
 
 
 def _to_torch(batch: dict) -> dict:
@@ -267,19 +275,39 @@ def main(argv=None):
     else:
         # fp32 masters; the trainer casts the frozen components
         models, cfg = common.resolve_params_cfg(args, dtype=torch.float32)
-    if cfg.is_sdxl:
-        raise SystemExit("an SDXL checkpoint needs training the SD-2.x and "
-                         "SDXL families (ROADMAP Queue 1 item 6), which "
-                         "sdbc_tpu_torch has not ported yet")
+    is_xl = cfg.is_sdxl
+    if use_ti and cfg.refiner:
+        raise SystemExit("--ti_token is not wired for the refiner flavor "
+                         "— invert on the base model instead")
     tok = common.make_tokenizer(args, cfg.clip.vocab_size)
+    tok2 = None
+    if is_xl:
+        if cfg.clip2.ctx != cfg.clip.ctx:
+            raise SystemExit("SDXL training assumes both encoders share one "
+                             f"context length (got {cfg.clip.ctx} vs "
+                             f"{cfg.clip2.ctx})")
+        # as SDPipeline falls back: the two tokenizers differ only in the
+        # pad id, which the bigG encoder ignores past the end token
+        tok2 = common.make_tokenizer2(args, cfg) or tok
     ti_ids, ti_init_ids = None, None
     if use_ti:
         ti_ids = tok.add_placeholder(args.ti_token, args.ti_vectors)
+        if is_xl and tok2 is not tok:
+            # each encoder sees the token through its own tokenizer: the
+            # ids must index the one shared block of appended rows
+            ti_ids2 = tok2.add_placeholder(args.ti_token, args.ti_vectors)
+            if ti_ids2 != ti_ids:
+                raise SystemExit(
+                    f"--ti_token registered at ids {ti_ids} in the first "
+                    f"tokenizer but {ti_ids2} in tokenizer_2 (different "
+                    "base vocabularies?) — SDXL inversion needs one "
+                    "shared id block")
         if args.ti_init_token:
             ti_init_ids = tok._token_ids(args.ti_init_token)
         print(f"textual inversion: {args.ti_token!r} -> ids {ti_ids}"
               + (f" (init from {args.ti_init_token!r})"
-                 if args.ti_init_token else ""))
+                 if args.ti_init_token else "")
+              + (" [dual-encoder]" if is_xl else ""))
 
     dcfg = DatasetConfig(
         data_root=args.data_root, img_size=args.img_size,
@@ -287,7 +315,7 @@ def main(argv=None):
         include_desc=args.include_desc, max_length=cfg.clip.ctx,
         seed=args.seed, prompt_bank=args.prompt_bank,
         style_token=args.ti_token.strip().lower() if use_ti else "")
-    ds = GoodreadsDataset(dcfg, tok)
+    ds = GoodreadsDataset(dcfg, tok, tokenizer2=tok2)
     if use_ti and len(ds):
         import random as _random
 
@@ -306,7 +334,7 @@ def main(argv=None):
             args.output_dir, "prior_class")
         if args.prior_generate:
             pipe = SDPipeline(models, cfg, tok, device=device,
-                              compute_dtype=dt)
+                              compute_dtype=dt, tokenizer2=tok2)
             made = prior_mod.generate_class_images(
                 pipe, args.prior_class_prompt, args.prior_generate,
                 prior_dir, img_size=args.img_size,
@@ -318,7 +346,8 @@ def main(argv=None):
                       f"{prior_dir}")
         prior_set = prior_mod.PriorSet(prior_dir, args.prior_class_prompt,
                                        tok, args.img_size,
-                                       max_length=cfg.clip.ctx)
+                                       max_length=cfg.clip.ctx,
+                                       tokenizer2=tok2)
         print(f"prior preservation: {len(prior_set)} class images under "
               f"{args.prior_class_prompt!r}, weight {args.prior_weight}")
 
@@ -342,7 +371,8 @@ def main(argv=None):
         lora_alpha=args.lora_alpha, ti_token=args.ti_token,
         ti_vectors=args.ti_vectors, ema_decay=args.ema_decay,
         min_snr_gamma=args.min_snr_gamma, noise_offset=args.noise_offset,
-        prior_weight=args.prior_weight if use_prior else 0.0)
+        prior_weight=args.prior_weight if use_prior else 0.0,
+        dual_text_encoder=is_xl, refiner=cfg.refiner)
 
     base_host = None
     if use_lora or use_ti:
@@ -363,7 +393,7 @@ def main(argv=None):
               "trainable parameters")
     if resume_path:
         t_load = time.perf_counter()
-        _restore_adapters(state, resume_path, args, ti_ids)
+        _restore_adapters(state, resume_path, args, ti_ids, is_xl)
         opt_state = ckpt_mod.load_opt_state(
             resume_path, state.opt_state, state.trainable,
             tcfg.max_grad_norm)
@@ -412,10 +442,14 @@ def main(argv=None):
         opt_tree = ckpt_mod.opt_state_tree(state.opt_state, state.trainable,
                                            tcfg.max_grad_norm)
         if use_ti:
+            rows = state.trainable["ti"]
+            # an SDXL embedding carries the second encoder's rows fourth
+            ti = (rows["rows"].detach().cpu(), args.ti_token.strip().lower(),
+                  ti_ids) + ((rows["rows2"].detach().cpu(),)
+                             if "rows2" in rows else ())
             nbytes = ckpt_mod.save_pipeline(
                 path, base_host, cfg, opt_state=opt_tree, metadata=metadata,
-                ti=(state.trainable["ti"]["rows"].detach().cpu(),
-                    args.ti_token.strip().lower(), ti_ids))
+                ti=ti)
         elif use_lora:
             nbytes = ckpt_mod.save_pipeline(
                 path, base_host, cfg, opt_state=opt_tree, metadata=metadata,
@@ -563,7 +597,7 @@ def main(argv=None):
 
             pipe = SDPipeline(
                 merged_params(state, tcfg, use_ema=state.ema is not None),
-                cfg, tok, device=device, compute_dtype=dt)
+                cfg, tok, device=device, compute_dtype=dt, tokenizer2=tok2)
             grid_dir = os.path.join(tracker.dir, "grids")
             _, _, path = visualize_prompts(
                 pipe, include_desc=False, img_size=args.img_size,

@@ -558,16 +558,15 @@ def load_pipelines(args):
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 
     models, cfg = common.resolve_params_cfg(args)
-    common.refuse_xl_adapters(cfg, {"lora_bank": args.lora_bank})
     if args.lora_bank and args.refiner_ckpt:
         raise SystemExit("--lora_bank cannot combine with --refiner_ckpt "
                          "(adapters merge into the base model, not the "
                          "ensemble)")
     tok = common.make_tokenizer(args, cfg.clip.vocab_size)
+    tok2 = common.make_tokenizer2(args, cfg)
     dtype = common.compute_dtype(args)
     pipe = SDPipeline(models, cfg, tok, device=args.device,
-                      compute_dtype=dtype,
-                      tokenizer2=common.make_tokenizer2(args, cfg))
+                      compute_dtype=dtype, tokenizer2=tok2)
     if args.refiner_ckpt:
         from sdbc_tpu_torch.cli.inference import make_ensemble
 
@@ -588,7 +587,8 @@ def load_pipelines(args):
             copied = [k for k in merged if merged[k] is not models[k]]
             lora_pipes[name] = SDPipeline(merged, cfg, tok,
                                           device=args.device,
-                                          compute_dtype=dtype)
+                                          compute_dtype=dtype,
+                                          tokenizer2=tok2)
             print(f"[serve] lora adapter {name!r} merged from {path}: a "
                   f"copy of {copied} holding "
                   f"{model_bytes(merged, copied)} bytes", flush=True)

@@ -113,9 +113,12 @@ class GoodreadsDataset:
     """The preprocessed Goodreads cover CSV: image paths and prompts by
     index (``make_dataloader`` decodes and batches them)."""
 
-    def __init__(self, cfg: DatasetConfig, tokenizer):
+    def __init__(self, cfg: DatasetConfig, tokenizer, tokenizer2=None):
+        """``tokenizer2``: SDXL's second (bigG) tokenizer; when set, every
+        batch also carries ``input_ids_2``, the same prompt through it."""
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.tokenizer2 = tokenizer2
         index, self.columns = read_csv(os.path.join(cfg.data_root,
                                                     cfg.csv_name))
         self.index = index
@@ -219,7 +222,9 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
                     drop_last: bool = True, latent_cache=None,
                     epoch: Optional[int] = None) -> Iterator[dict]:
     """Yield {"pixel_values": (A, B, H, W, 3) float32, "input_ids": (A, B,
-    77) int32} numpy batches; with ``latent_cache`` ((mean, logvar) arrays
+    77) int32} numpy batches (with the dataset's ``tokenizer2`` also
+    "input_ids_2", each prompt drawn once and encoded by both); with
+    ``latent_cache`` ((mean, logvar) arrays
     of ``train.latent_cache.open_latent_cache``) "latent_mean" /
     "latent_logvar" instead of pixels.  Thread-pool decode with one-batch
     look-ahead.  ``epoch`` keys the prompt draws (``set_epoch``)."""
@@ -233,9 +238,11 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
 
     def load_batch(batch_indices):
         prompts = [dataset.prompt_for(i) for i in batch_indices]
-        ids = np.stack([
-            np.asarray(dataset.tokenizer.encode(pr, dataset.cfg.max_length),
-                       np.int32) for pr in prompts])
+
+        def encode(tok):
+            return np.stack([np.asarray(tok.encode(pr, dataset.cfg.max_length),
+                                        np.int32) for pr in prompts])
+
         if latent_cache is not None:
             cmean, clogvar = latent_cache
             idx = np.asarray(batch_indices)
@@ -244,7 +251,9 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
         else:
             payload = {"pixel_values": decode_pixels(
                 dataset, batch_indices, num_workers, pool=pil_pool)}
-        payload["input_ids"] = ids
+        payload["input_ids"] = encode(dataset.tokenizer)
+        if dataset.tokenizer2 is not None:
+            payload["input_ids_2"] = encode(dataset.tokenizer2)
         a = len(batch_indices) // micro_batch
         return {k: v.reshape(a, micro_batch, *v.shape[1:])
                 for k, v in payload.items()}

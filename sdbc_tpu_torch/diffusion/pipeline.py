@@ -63,8 +63,8 @@ def _pad_to(arr: np.ndarray, n: int, fill: float) -> np.ndarray:
 # __call__'s arguments of features the port has not taken yet, with their
 # defaults and the ROADMAP item that brings them
 _UNPORTED_CALL = {
-    "control_image": (None, "ControlNet (ROADMAP Queue 1 item 6)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6)"),
+    "control_image": (None, "ControlNet (ROADMAP Queue 1 item 6.2)"),
+    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6.2)"),
 }
 
 

@@ -21,7 +21,7 @@ CLIPModel (``clip_model_from_dir``, for ``eval.clip_score``).
 Sources: ``.safetensors`` through ``read_safetensors`` (a reader of the
 format written here: the ``safetensors`` package is not needed), ``.bin``
 and ``.pth`` through ``torch.load(weights_only=True)``.  ControlNet and
-the exporters wait (ROADMAP Queue 1 item 6), BART (item 4).
+the exporters wait (ROADMAP Queue 1 items 6.2 and 6.4), BART (item 4).
 """
 from __future__ import annotations
 

@@ -25,13 +25,13 @@ the backward pass; "selective" recomputes the ResBlocks and, inside each
 transformer, only the GroupNorm/proj-in, feed-forward and proj-out regions,
 saving their matrix-product and convolution outputs (JAX's
 ``dots_saveable``) and leaving the attention calls and their projections
-outside (the flash kernels keep O(S·D) residuals already).  Downsamplers,
+outside (the flash kernels keep O(S·D) residuals already); a depth > 1
+transformer's blocks are each checkpointed whole, attention included,
+with the feed-forward inside under the same policy.  Downsamplers,
 upsamplers and conv_in/out are not checkpointed, as in the JAX package.
-Gradient checkpointing of depth > 1 transformers comes with the families'
-training and raises ``NotImplementedError``.  FreeU (``freeu``) and the
-DeepCache trunk split (``return_deep``, ``cached_deep``, ``cache_tail``)
-are here; ControlNet residuals are not ported yet and raise
-``NotImplementedError``.
+FreeU (``freeu``) and the DeepCache trunk split (``return_deep``,
+``cached_deep``, ``cache_tail``) are here; ControlNet residuals are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -268,12 +268,6 @@ class Transformer(tnn.Module):
         y = self.norm(x, groups, eps=1e-6)
         return self.proj_in(y).reshape(n, h * w, c)
 
-    def attend(self, y, ctx, attn_impl):
-        return _attend(self, y, ctx, self.heads, attn_impl)
-
-    def ff(self, y):
-        return _ff(self, y)
-
     def tfm_out(self, y, x):
         return self.proj_out(y.reshape(x.shape)) + x
 
@@ -285,10 +279,26 @@ class Transformer(tnn.Module):
 
     def forward_selective(self, x, ctx, groups, attn_impl="auto"):
         """``forward`` under ``remat_mode="selective"`` (the JAX package's
-        ``_transformer_selective``): the same ops in the same order."""
+        ``_transformer_selective``): the same ops in the same order.  At
+        depth 1 the attention stays outside the checkpoint regions; a
+        deeper transformer checkpoints each block whole, its attention
+        included, with the feed-forward inside under the dots policy (the
+        JAX package's ``jax.checkpoint(block)`` in the scan)."""
         y = _checkpoint_dots(self.tfm_in, x, groups)
-        y = self.attend(y, ctx, attn_impl)
-        return _checkpoint_dots(self.tfm_out, _checkpoint_dots(self.ff, y), x)
+        if self.depth == 1:
+            y = _selective_block(self, y, ctx, self.heads, attn_impl)
+        else:
+            for blk in self.blocks:
+                y = _checkpoint(_selective_block, blk, y, ctx, self.heads,
+                                attn_impl)
+        return _checkpoint_dots(self.tfm_out, y, x)
+
+
+def _selective_block(p, y, ctx, heads, attn_impl):
+    """One block under the selective policy: attention as it is, the
+    feed-forward checkpointed with its matrix products saved."""
+    y = _attend(p, y, ctx, heads, attn_impl)
+    return _checkpoint_dots(_ff, p, y)
 
 
 class _Block(tnn.Module):
@@ -565,11 +575,6 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
     elif added_cond is not None:
         raise ValueError("added_cond is already in the temb_proj tables "
                          "(precompute_temb added_cond): pass only one")
-    if remat and any(isinstance(m, Transformer) and m.depth > 1
-                     for m in model.modules()):
-        raise NotImplementedError(
-            "gradient checkpointing of depth > 1 transformers comes with "
-            "training the SD-2.x/SDXL families (ROADMAP Queue 1 item 6)")
     g = cfg.norm_groups
     ctx = encoder_hidden_states
 

@@ -5,10 +5,13 @@ linear, ``{"a": (..., in, r), "b": (..., r, out)}``; ΔW = scale·(a @ b) with
 scale = α / r.  ``models.convert`` maps tree paths to module paths one for
 one (leaf ``w`` → ``weight``, linear weights stay (in, out)), so
 ``"unet.down.0.attns.0.attn1.q"`` is
-``models["unet"].get_submodule("down.0.attns.0.attn1.q").weight``.  CLIP's
-stacked layers keep the JAX tree's single path and leading layer axis:
-``"text_encoder.layers.attn.q"`` holds ``a: (L, in, r)`` and
-``b: (L, r, out)``, and layer ``i`` takes ``a[i] @ b[i]``.
+``models["unet"].get_submodule("down.0.attns.0.attn1.q").weight``.  The
+JAX tree's stacked trees keep their single path and leading axis: CLIP's
+layers (``"text_encoder.layers.attn.q"``, SDXL's
+``"text_encoder_2.layers.attn.q"``) hold ``a: (L, in, r)`` and
+``b: (L, r, out)``, layer ``i`` taking ``a[i] @ b[i]``, and so do a deep
+transformer's blocks (``"unet.down.1.attns.0.blocks.attn1.q"``,
+``a: (depth, in, r)``).
 
 Serving merges once up front: ``apply_lora`` / ``merge_file`` return
 merged copies of the components an adapter touches (the others shared) and
@@ -38,20 +41,22 @@ from sdbc_tpu_torch.ops import nn
 DEFAULT_CONTAINERS = ("attn1", "attn2", "attn")
 DEFAULT_PROJECTIONS = ("q", "k", "v", "o")
 
-_LAYER = re.compile(r"^layers\.\d+\.")
+# a stacked tree's index: a tower's layers, a deep transformer's blocks
+_STACKED = re.compile(r"(^|\.)(layers|blocks)\.\d+\.")
 
 
 def _linears(models: dict) -> Dict[str, Tuple[bool, list]]:
     """Dotted JAX path → (stacked, [modules]) for every linear (and conv,
     as the JAX package's ``_is_linear`` counts any ``{"w"}`` of rank ≥ 2)
-    of the components; a CLIP tower's ``layers.<i>.…`` share one stacked
-    path, one module per layer."""
+    of the components; a CLIP tower's ``layers.<i>.…`` (a deep
+    transformer's ``blocks.<k>.…``) share one stacked path, one module per
+    layer."""
     out: Dict[str, Tuple[bool, list]] = {}
     for comp, module in models.items():
         for name, m in module.named_modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                path = f"{comp}.{_LAYER.sub('layers.', name)}"
-                out.setdefault(path, (path != f"{comp}.{name}", []))[1] \
+                flat = _STACKED.sub(r"\1\2.", name)
+                out.setdefault(f"{comp}.{flat}", (flat != name, []))[1] \
                     .append(m)
     return out
 

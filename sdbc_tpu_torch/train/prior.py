@@ -19,10 +19,11 @@ _IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
 class PriorSet:
-    """A directory of class images + ONE class prompt, tokenized once."""
+    """A directory of class images + ONE class prompt, tokenized once
+    (with SDXL's ``tokenizer2`` also by the second tokenizer)."""
 
     def __init__(self, class_dir: str, class_prompt: str, tokenizer,
-                 img_size: int, max_length: int = 77):
+                 img_size: int, max_length: int = 77, tokenizer2=None):
         if not class_prompt:
             raise ValueError("prior preservation needs a class prompt "
                              "(e.g. 'a book cover')")
@@ -39,6 +40,9 @@ class PriorSet:
                              "--prior_generate) or point at an existing set")
         self.ids = np.asarray(tokenizer.encode(class_prompt, max_length),
                               np.int32)
+        self.ids2 = (np.asarray(tokenizer2.encode(class_prompt, max_length),
+                                np.int32)
+                     if tokenizer2 is not None else None)
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -46,8 +50,9 @@ class PriorSet:
     def batches(self, micro_batch: int, grad_accum: int = 1,
                 seed: int = 42) -> Iterator[dict]:
         """Infinite deterministic stream of {"prior_pixel_values": (A, B,
-        S, S, 3), "prior_input_ids": (A, B, ctx)}: the class set cycles in
-        a seed-shuffled order reshuffled each pass."""
+        S, S, 3), "prior_input_ids": (A, B, ctx)[, "prior_input_ids_2"]}:
+        the class set cycles in a seed-shuffled order reshuffled each
+        pass."""
         step = micro_batch * grad_accum
         rng = random.Random(seed)
 
@@ -64,10 +69,14 @@ class PriorSet:
                                                   self.img_size)
                                for i in idxs])
             a = len(idxs) // micro_batch
-            yield {"prior_pixel_values": pixels.reshape(
-                       a, micro_batch, *pixels.shape[1:]),
-                   "prior_input_ids": np.broadcast_to(
-                       self.ids, (a, micro_batch, self.ids.shape[0])).copy()}
+            out = {"prior_pixel_values": pixels.reshape(
+                       a, micro_batch, *pixels.shape[1:])}
+            for key, ids in (("prior_input_ids", self.ids),
+                             ("prior_input_ids_2", self.ids2)):
+                if ids is not None:
+                    out[key] = np.broadcast_to(
+                        ids, (a, micro_batch, ids.shape[0])).copy()
+            yield out
 
 
 def augment_loader(loader: Iterator[dict],

@@ -6,10 +6,10 @@ rows, cast to the table's dtype, so the placeholder ids (base vocab + k,
 ``data/tokenizer.py`` ``add_placeholder``) look up the learned rows; the
 copy's config counts the appended rows and keeps pooling on the true
 ``<|endoftext|>`` id.  Files are the JAX package's ``sdbc_ti_v1`` ``.npz``
-(rows, token, ids; ``rows2`` for a dual-encoder SDXL embedding, which the
-port's single-encoder models refuse).  Training the rows is
+(rows, token, ids; ``rows2`` for a dual-encoder SDXL embedding, the
+second encoder's rows at the same ids).  Training the rows is
 ``TrainConfig.ti_token`` (``train/trainer.py``, which appends them to the
-frozen table for each forward and backward).
+frozen tables for each forward and backward).
 """
 from __future__ import annotations
 
@@ -129,6 +129,24 @@ def merge_file(models: dict, path: str) -> Tuple[dict, dict]:
                 f"{base2}) — the shared placeholder ids cannot index both "
                 "appended row blocks")
     return merge(models, rows, rows2=rows2), meta
+
+
+def extend_config(cfg, meta: dict):
+    """The PipelineConfig of a model ``merge_file`` extended: each encoder
+    that took rows counts them and keeps pooling on the base vocab's last
+    id."""
+    n = len(meta["ids"])
+
+    def grown(clip):
+        return dataclasses.replace(
+            clip, vocab_size=clip.vocab_size + n,
+            eot_id=clip.eot_id if clip.eot_id is not None
+            else clip.vocab_size - 1)
+
+    cfg = dataclasses.replace(cfg, clip=grown(cfg.clip))
+    if "rows2" in meta and cfg.clip2 is not None:
+        cfg = dataclasses.replace(cfg, clip2=grown(cfg.clip2))
+    return cfg
 
 
 def added_tokens_entry(meta: dict) -> Dict[str, List[int]]:

@@ -1,14 +1,21 @@
-"""The SD-1.x fine-tuning step (counterpart of ``sdbc_tpu/train/trainer.py``)
-on one device: full fine-tuning, LoRA, textual inversion, prior
-preservation and cached latents.
+"""The fine-tuning step of SD-1.x, SD-2.x and SDXL (counterpart of
+``sdbc_tpu/train/trainer.py``) on one device: full fine-tuning, LoRA,
+textual inversion, prior preservation and cached latents.
 
   - one step = a Python loop over the micro-batches of a
     (grad_accum, micro, ...) batch: VAE encode (no gradient; image by image
     at 512²-class sizes with a batch > 1), posterior sample ×
     scaling_factor in fp32, noise (+ offset noise) and a uniform timestep,
-    DDPM add_noise, CLIP encode, UNet eps-prediction, fp32 per-example MSE
-    with optional min-SNR weighting; gradients summed in fp32, divided by
-    grad_accum, then ONE optimizer update;
+    DDPM add_noise, CLIP encode, UNet eps- or v-prediction, fp32
+    per-example MSE with optional min-SNR weighting (÷ SNR for eps,
+    ÷ (SNR + 1) for v); gradients summed in fp32, divided by grad_accum,
+    then ONE optimizer update;
+  - SDXL (``cfg.clip2``; ``dual_text_encoder``): the dual-encoder context
+    and the text-time embedding of the pooled bigG output and the
+    micro-conditioning ids (S, S, 0, 0, S, S), S the image side recovered
+    from the latent grid (the refiner: (S, S, 0, 0, 6.0), bigG alone;
+    ``refiner``); each micro-batch carries ``input_ids_2`` from the second
+    tokenizer, and ``train_text_encoder`` trains both encoders;
   - trainable components (``train_unet`` / ``train_text_encoder``) are fp32
     masters; frozen ones are cast to the compute dtype;
   - the optimizer: optax's cosine decay (lr read at ``count``, before the
@@ -22,10 +29,10 @@ preservation and cached latents.
 On CUDA the UNet's spatial self-attention runs the training flash kernels
 (forward + both backward kernels) and the 8-bit optimizer runs the fused
 AdamW kernel once per leaf with ≥ ``min_8bit_size`` elements, leaves as
-the JAX tree has them (``optimizer_leaves``: the text encoder's layers
-stacked).  ``grad_ckpt`` checkpoints the UNet (``unet.apply``'s ``remat``,
-granularity ``remat_mode``: "block" or "selective"), as the reference's
-gradient checkpointing does.  PyTorch
+the JAX tree has them (``optimizer_leaves``: the text encoders' layers
+and a deep transformer's blocks stacked).  ``grad_ckpt`` checkpoints the
+UNet (``unet.apply``'s ``remat``, granularity ``remat_mode``: "block" or
+"selective"), as the reference's gradient checkpointing does.  PyTorch
 updates in place: the state's modules and moments are changed by ``step``,
 and ``init_train_state`` takes ownership of the modules it is given.
 
@@ -44,10 +51,12 @@ Parameter-efficient modes, as the JAX package has them:
     forward, and must see the merged weights again, which
     ``torch.func.functional_call`` (restoring on return) would not give.
   - textual inversion (``ti_token``): the trainable tree is
-    ``{"ti": {"rows": (ti_vectors, hidden)}}``, appended to the frozen
-    embedding table the same way.
+    ``{"ti": {"rows": (ti_vectors, hidden)}}`` (SDXL: also ``"rows2"``,
+    the second encoder's rows at the same appended ids), appended to the
+    frozen embedding tables the same way.
   - prior preservation (``prior_weight``): each micro-batch carries
-    ``prior_pixel_values``/``prior_input_ids``; one VAE encode and one
+    ``prior_pixel_values``/``prior_input_ids`` (SDXL:
+    ``prior_input_ids_2``); one VAE encode and one
     UNet call on the concatenated batch, loss = instance mean +
     prior_weight · prior mean.
   - cached latents: a micro-batch with ``latent_mean``/``latent_logvar``
@@ -60,8 +69,7 @@ The optimizer's leaves are in the JAX tree's leaf order for the adapters
 ``utils/checkpoint.py`` writes the state in the JAX layout).
 
 Not ported yet (``TrainConfig`` raises ``NotImplementedError``):
-ControlNet and SDXL training; v-prediction (SD-2.x) waits for the
-families' training (ROADMAP Queue 1 item 6).
+ControlNet training (ROADMAP Queue 1 item 6.2).
 """
 from __future__ import annotations
 
@@ -75,15 +83,13 @@ import numpy as np
 import torch
 
 from sdbc_tpu_torch.diffusion import schedulers as sched_mod
-from sdbc_tpu_torch.diffusion.graph import PipelineConfig
+from sdbc_tpu_torch.diffusion.graph import (PipelineConfig, encode_text_xl,
+                                            xl_added_cond)
 from sdbc_tpu_torch.models import clip as clip_mod
 from sdbc_tpu_torch.models import unet as unet_mod
 from sdbc_tpu_torch.models import vae as vae_mod
 from sdbc_tpu_torch.train.adam8bit import AdamW8bit, leaf_parts
 from sdbc_tpu_torch.utils.dtypes import cast_floating
-
-_UNPORTED = {"train_controlnet": False, "dual_text_encoder": False,
-             "refiner": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,17 +125,22 @@ class TrainConfig:
     # prior preservation: > 0 weights the class batch's MSE
     # (train/prior.py)
     prior_weight: float = 0.0
-    # not ported yet: any value but the default raises
+    # not ported yet: True raises
     train_controlnet: bool = False
+    # SDXL (cfg.clip2 set): train_text_encoder covers both encoders, and
+    # each batch carries input_ids_2; must agree with the PipelineConfig
+    # given to make_train_step (the finetune CLI sets it from cfg.is_sdxl)
     dual_text_encoder: bool = False
+    # the SDXL refiner (cfg.refiner): bigG alone and the aesthetic
+    # micro-conditioning; implies dual_text_encoder
     refiner: bool = False
 
     def __post_init__(self):
-        for name, default in _UNPORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r} is not "
-                    "ported to sdbc_tpu_torch yet")
+        if self.train_controlnet:
+            raise NotImplementedError(
+                "TrainConfig.train_controlnet=True: ControlNet training is "
+                "not ported to sdbc_tpu_torch yet (ROADMAP Queue 1 item "
+                "6.2)")
         if self.remat_mode not in ("block", "selective"):
             raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
 
@@ -142,7 +153,10 @@ class TrainConfig:
         if self.train_unet:
             keys.append("unet")
         if self.train_text_encoder:
-            keys.append("text_encoder")
+            if not self.refiner:  # a refiner has no first encoder
+                keys.append("text_encoder")
+            if self.dual_text_encoder:
+                keys.append("text_encoder_2")
         return tuple(keys)
 
 
@@ -157,26 +171,29 @@ class TrainState:
     ema: Optional[Dict[str, Any]] = None    # shadow of trainable
 
 
-_LAYER = re.compile(r"(^|\.)layers\.\d+\.")
+# a stacked tree's index: a tower's layers, a deep transformer's blocks
+_STACKED = re.compile(r"(^|\.)(layers|blocks)\.\d+\.")
 
 
 def _grouped_leaves(trainable: Dict[str, Any]):
     """{leaf id: (a parameter name or adapter key, [tensors])} of the
     optimizer's leaves, in order: an adapter's tensors in the JAX tree's
-    order (sorted paths, then a, b); a component's parameters in module
-    order, a tower's ``layers.<i>.<name>`` gathered into one leaf of that
-    name in every layer, in layer order (the JAX tree stacks the layers
-    into one array per name)."""
+    order (sorted paths, then a, b); the TI rows (``rows``, then SDXL's
+    ``rows2``); a component's parameters in module order, a tower's
+    ``layers.<i>.<name>`` (a deep transformer's ``blocks.<k>.<name>``)
+    gathered into one leaf of that name in every layer, in layer order
+    (the JAX tree stacks them into one array per name)."""
     if "lora" in trainable:
         lora = trainable["lora"]
         return {(path, x): ((path, x), [lora[path][x]])
                 for path in sorted(lora) for x in "ab"}
     if "ti" in trainable:
-        return {"rows": ("rows", [trainable["ti"]["rows"]])}
+        return {r: (r, [trainable["ti"][r]])
+                for r in ("rows", "rows2") if r in trainable["ti"]}
     leaves: dict = {}
     for k in sorted(trainable):
         for name, p in trainable[k].named_parameters():
-            group = (k, _LAYER.sub(r"\1layers.", name))
+            group = (k, _STACKED.sub(r"\1\2.", name))
             leaves.setdefault(group, (name, []))[1].append(p)
     return leaves
 
@@ -194,7 +211,7 @@ def optimizer_leaf_keys(trainable: Dict[str, Any]) -> list:
         return [(("lora", False), (path, False), (x, False))
                 for (path, x), _ in _grouped_leaves(trainable).values()]
     if "ti" in trainable:
-        return [(("ti", False), ("rows", False))]
+        return [(("ti", False), (r, False)) for r in _grouped_leaves(trainable)]
     return [((k, False),) + jax_key(trainable[k], name)
             for (k, _), (name, _) in _grouped_leaves(trainable).items()]
 
@@ -210,6 +227,11 @@ def trainable_params(trainable: Dict[str, Any]) -> List[torch.Tensor]:
 def _split_params(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
                   compute_dtype, device, generator=None, ti_init_ids=None):
     tkeys = tcfg.trainable_keys()
+    if tcfg.refiner and tcfg.ti_token:
+        raise ValueError(
+            "textual inversion is not wired for the refiner flavor (its "
+            "single-bigG conditioning has no base-model counterpart to "
+            "compose the token into) — invert on the base model instead")
     if tcfg.ti_token or tcfg.lora_rank > 0:
         # every component freezes; the trainable tree is the adapter
         if tcfg.ti_token and tcfg.lora_rank > 0:
@@ -217,10 +239,16 @@ def _split_params(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
         if tcfg.ti_token:
             from sdbc_tpu_torch.train import textual_inversion as ti_mod
 
-            rows = ti_mod.init_rows(
-                models["text_encoder"].token_embedding.weight.detach(),
-                tcfg.ti_vectors, init_ids=ti_init_ids)
-            trainable = {"ti": {"rows": rows.to(device).requires_grad_(True)}}
+            # SDXL: the placeholder sits at the same appended ids in both
+            # tokenizers, each encoder learns its own rows for them
+            tables = (("rows", "text_encoder"),) + (
+                (("rows2", "text_encoder_2"),) if tcfg.dual_text_encoder
+                else ())
+            trainable = {"ti": {
+                r: ti_mod.init_rows(
+                    models[comp].token_embedding.weight.detach(),
+                    tcfg.ti_vectors, init_ids=ti_init_ids)
+                .to(device).requires_grad_(True) for r, comp in tables}}
         else:
             from sdbc_tpu_torch.train import lora as lora_mod
 
@@ -431,10 +459,13 @@ def merged(trainable: Dict[str, Any], frozen: Dict[str, torch.nn.Module],
     ones; or the frozen modules with the LoRA-merged projections or the
     extended embedding table in place, differentiable in the adapter."""
     if "ti" in trainable:
-        emb = frozen["text_encoder"].token_embedding
-        table = emb.weight
-        rows = trainable["ti"]["rows"].to(table.dtype)
-        with _swapped([(emb, torch.cat([table, rows], dim=0))]):
+        pairs = []
+        for r, comp in (("rows", "text_encoder"), ("rows2", "text_encoder_2")):
+            if r in trainable["ti"]:
+                emb = frozen[comp].token_embedding
+                rows = trainable["ti"][r].to(emb.weight.dtype)
+                pairs.append((emb, torch.cat([emb.weight, rows], dim=0)))
+        with _swapped(pairs):
             yield frozen
     elif "lora" in trainable:
         from sdbc_tpu_torch.train import lora as lora_mod
@@ -472,8 +503,10 @@ def merged_params(state: TrainState, tcfg: Optional[TrainConfig] = None,
     if "ti" in trainable:
         from sdbc_tpu_torch.train import textual_inversion as ti_mod
 
+        rows2 = trainable["ti"].get("rows2")
         return ti_mod.merge(dict(state.frozen),
-                            trainable["ti"]["rows"].detach())
+                            trainable["ti"]["rows"].detach(),
+                            rows2=None if rows2 is None else rows2.detach())
     out = dict(state.frozen)
     out.update(trainable)
     return out
@@ -554,8 +587,9 @@ def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
     """Single-micro-batch denoising MSE (reference finetune_sd.py:460-483).
 
     ``batch``: "pixel_values" or the cached "latent_mean"/"latent_logvar",
-    "input_ids", and under prior preservation "prior_pixel_values" /
-    "prior_input_ids" (appended to the batch; ``draws`` cover both).
+    "input_ids" (SDXL: and "input_ids_2"), and under prior preservation
+    "prior_pixel_values" / "prior_input_ids" (SDXL: "prior_input_ids_2";
+    appended to the batch; ``draws`` cover both).
     ``draws``: {"eps", "noise", "t"} (+ "offset" with noise offset) for
     this micro-batch; otherwise they come from ``generator``."""
     dt = compute_dtype
@@ -592,23 +626,76 @@ def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
         device=dev)).to(dev, torch.int64)
     noisy = sched_mod.ddpm_add_noise(sched, latents, noise, t).to(dt)
 
-    ctx = clip_mod.apply(models["text_encoder"], batch["input_ids"],
-                         compute_dtype=dt)
+    added_cond = None
+    if cfg.is_sdxl:
+        ctx, added_cond = _xl_conditioning(models, batch, cfg, latents, dt)
+    else:
+        ctx = clip_mod.apply(models["text_encoder"], batch["input_ids"],
+                             compute_dtype=dt)
     pred = unet_mod.apply(models["unet"], noisy, t, ctx, attn_impl="auto",
-                          remat=tcfg.grad_ckpt, remat_mode=tcfg.remat_mode)
+                          remat=tcfg.grad_ckpt, remat_mode=tcfg.remat_mode,
+                          added_cond=added_cond)
+    v_pred = cfg.schedule.prediction_type == "v_prediction"
+    target = (sched_mod.velocity_target(sched, latents, noise, t) if v_pred
+              else noise)
     # fp32 MSE, mean over pixels then batch (reference :483)
-    per_ex = torch.mean((pred.float() - noise) ** 2,
+    per_ex = torch.mean((pred.float() - target) ** 2,
                         dim=tuple(range(1, pred.dim())))
     if tcfg.min_snr_gamma > 0:
+        # min(SNR, γ)/SNR for eps, min(SNR, γ)/(SNR + 1) for v
         a = sched.alphas_cumprod[t].float()
         snr = a / torch.clamp(1.0 - a, min=1e-8)
-        per_ex = per_ex * torch.clamp(snr, max=tcfg.min_snr_gamma) \
-            / torch.clamp(snr, min=1e-8)
+        denom = snr + 1.0 if v_pred else torch.clamp(snr, min=1e-8)
+        per_ex = per_ex * torch.clamp(snr, max=tcfg.min_snr_gamma) / denom
     if prior_n:
         # DreamBooth: instance mean + weighted class-prior mean
         return (per_ex[:-prior_n].mean()
                 + tcfg.prior_weight * per_ex[-prior_n:].mean())
     return per_ex.mean()
+
+
+def _xl_conditioning(models, batch, cfg: PipelineConfig, latents, dt):
+    """SDXL's (context, added_cond) of a micro-batch: the dual-encoder
+    context and the text-time embedding's input.  Training images are
+    plain resizes, so the micro-conditioning is the uncropped
+    (S, S, 0, 0, S, S), S the image side of the latent grid; the
+    refiner's is (S, S, 0, 0, 6.0), the aesthetic score the diffusers
+    fine-tuning scripts use."""
+    if "input_ids_2" not in batch:
+        raise ValueError(
+            "SDXL training (cfg.clip2 set) needs batch['input_ids_2'] "
+            "from the second tokenizer — build GoodreadsDataset with "
+            "tokenizer2 (the finetune CLI does this automatically)")
+    ctx, pooled = encode_text_xl(models, batch["input_ids"],
+                                 batch["input_ids_2"], cfg, dt)
+    s = float(latents.shape[1] * cfg.vae_scale)
+    tid = [s, s, 0.0, 0.0] + ([6.0] if cfg.refiner else [s, s])
+    time_ids = torch.tensor(tid, dtype=torch.float32,
+                            device=latents.device).expand(latents.shape[0],
+                                                          len(tid))
+    return ctx, xl_added_cond(pooled, time_ids,
+                              cfg.unet.addition_time_embed_dim)
+
+
+def _check_family(cfg: PipelineConfig, tcfg: TrainConfig) -> None:
+    """ValueError when ``tcfg``'s family flags disagree with ``cfg``: the
+    refiner flag with ``cfg.refiner``, ``dual_text_encoder`` with
+    ``cfg.is_sdxl`` (they name which encoders exist and the
+    micro-conditioning)."""
+    if tcfg.refiner != cfg.refiner:
+        raise ValueError(
+            f"TrainConfig.refiner={tcfg.refiner} but cfg.refiner="
+            f"{cfg.refiner} — set TrainConfig.refiner iff the "
+            "PipelineConfig is an SDXL refiner")
+    if tcfg.refiner and not tcfg.dual_text_encoder:
+        raise ValueError("refiner training implies dual_text_encoder=True "
+                         "(the refiner IS an SDXL-family config; its one "
+                         "encoder is text_encoder_2)")
+    if tcfg.dual_text_encoder != cfg.is_sdxl:
+        raise ValueError(
+            f"TrainConfig.dual_text_encoder={tcfg.dual_text_encoder} but "
+            f"cfg.clip2 is {'set' if cfg.is_sdxl else 'None'} — set "
+            "dual_text_encoder iff the PipelineConfig is SDXL")
 
 
 def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
@@ -618,14 +705,14 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
 
     ``batch``: {"pixel_values" (grad_accum, micro, H, W, 3) or, with
     ``cached_latents``, "latent_mean"/"latent_logvar" (grad_accum, micro,
-    h, w, c), "input_ids" (grad_accum, micro, ctx), and the prior_* keys
-    under prior preservation}; ``draws``: a list of ``grad_accum``
-    per-micro-batch dicts (see ``diffusion_loss``, ``host_draws``).
+    h, w, c), "input_ids" (grad_accum, micro, ctx) (SDXL: and
+    "input_ids_2"), and the prior_* keys under prior preservation};
+    ``draws``: a list of ``grad_accum`` per-micro-batch dicts (see
+    ``diffusion_loss``, ``host_draws``).
     Updates ``state`` in place and returns (state, {"loss", "finite",
     "notfinite_count"}), the last being the cumulative count of skipped
     updates."""
-    if cfg.schedule.prediction_type != "epsilon":
-        raise NotImplementedError("v-prediction training is not ported")
+    _check_family(cfg, tcfg)
     if tcfg.prior_weight > 0 and cached_latents:
         raise ValueError("prior_weight (prior preservation) is incompatible "
                          "with cached latents — the class set has no latent "

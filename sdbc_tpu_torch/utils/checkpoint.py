@@ -228,8 +228,9 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
     ``opt_state``: the optimizer state as ``opt_state_tree`` gives it.
     ``lora``: an adapter dict (``train/lora.py``), stored as ``lora.npz``
     beside the untouched base.  ``ema``: {component: module}, the EMA
-    shadow of the trained components.  ``ti``: (rows, token, ids), stored
-    as ``ti.npz`` and ``added_tokens.json``."""
+    shadow of the trained components.  ``ti``: (rows, token, ids) or, for
+    an SDXL embedding, (rows, token, ids, rows2), stored as ``ti.npz`` and
+    ``added_tokens.json``."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     total = 0
@@ -256,7 +257,8 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
         from sdbc_tpu_torch.train import textual_inversion as ti_mod
 
         rows, token, ids = ti[:3]
-        ti_mod.save_ti(os.path.join(path, "ti.npz"), rows, token, ids)
+        ti_mod.save_ti(os.path.join(path, "ti.npz"), rows, token, ids,
+                       rows2=ti[3] if len(ti) > 3 else None)
         with open(os.path.join(path, "added_tokens.json"), "w") as f:
             json.dump({token: list(map(int, ids))}, f, indent=2)
     save_metadata(path, metadata, cfg)
@@ -312,11 +314,7 @@ def load_pipeline(path: str, device="cpu", merge_lora: bool = True,
         from sdbc_tpu_torch.train import textual_inversion as ti_mod
 
         models, meta = ti_mod.merge_file(models, tpath)
-        clip = cfg.clip
-        cfg = dataclasses.replace(cfg, clip=dataclasses.replace(
-            clip, vocab_size=clip.vocab_size + len(meta["ids"]),
-            eot_id=clip.eot_id if clip.eot_id is not None
-            else clip.vocab_size - 1))
+        cfg = ti_mod.extend_config(cfg, meta)
     return models, cfg
 
 

@@ -137,9 +137,9 @@ def test_generator_init_is_seeded(tcfg):
 
 
 def test_deep_transformers_are_refused(tcfg):
-    """Depth > 1 transformers build (the SDXL layout: ``blocks.<k>``);
-    gradient checkpointing through them waits for the families' training
-    and is refused."""
+    """Depth > 1 transformers build (the SDXL layout: ``blocks.<k>``), and
+    gradient checkpointing through them, once refused, runs: both remat
+    modes give no remat's output and input gradient."""
     import dataclasses
 
     cfg = dataclasses.replace(tcfg.unet, transformer_depth=2)
@@ -148,8 +148,18 @@ def test_deep_transformers_are_refused(tcfg):
     assert "down.0.attns.0.blocks.1.attn1.q.weight" in dict(
         model.named_parameters())
     lat, ctx = _unet_inputs(tcfg)
-    with pytest.raises(NotImplementedError, match="depth > 1"):
-        tunet.apply(model, lat, torch.tensor([1]), ctx, remat=True)
+
+    def run(**kw):
+        x = lat.clone().requires_grad_(True)
+        out = tunet.apply(model, x, torch.tensor([1]), ctx, **kw)
+        out.square().mean().backward()
+        return out.detach(), x.grad
+
+    out, grad = run()
+    for mode in ("block", "selective"):
+        o, g = run(remat=True, remat_mode=mode)
+        torch.testing.assert_close(o, out, rtol=0, atol=0)
+        torch.testing.assert_close(g, grad, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("option", ["control_residuals", "added_cond"])

@@ -38,6 +38,7 @@ from sdbc_tpu_torch.models import port as tport
 from sdbc_tpu_torch.utils import checkpoint as tckpt
 from tests.test_torch_checkpoint import _assert_same_tree
 from tests.test_torch_families import _fields, as_np, port_init_tree, rand
+from tests.test_torch_finetune import _argv, data  # noqa: F401
 from tests.test_torch_sample_options import counted  # noqa: F401
 from tests.test_torch_samplers import jax_draws
 
@@ -394,30 +395,113 @@ def test_cli_inference_model_family_sdxl(tmp_path):
     assert os.path.exists(tmp_path / "dev inference" / "a cover.png")
 
 
+# features once refused on SDXL (the ids stay): the adapter file each
+# case's flag names
 XL_REFUSALS = [
-    ("inference", ["--lora_path", "a.npz"], "LoRA / textual inversion"),
-    ("inference", ["--ti_path", "t.npz"], "LoRA / textual inversion"),
-    ("serve", ["--lora_bank", "s=a.npz"], "LoRA / textual inversion"),
-    ("finetune", [], "training the SD-2.x and SDXL"),
+    ("inference", ["--lora_path", "a.npz"], "lora"),
+    ("inference", ["--ti_path", "t.npz"], "ti"),
+    ("serve", ["--lora_bank", "s=a.npz"], "lora"),
+    ("finetune", [], None),
 ]
+
+
+def _xl_adapter_file(kind: str, path: str) -> None:
+    """A random tiny_xl LoRA adapter over the JAX ``init_lora`` targets of
+    the UNet and both encoders, or a dual-encoder inversion of 2 rows."""
+    from sdbc_tpu.train import lora as jlora
+    from sdbc_tpu_torch.train import lora as tlora
+    from sdbc_tpu_torch.train import textual_inversion as tti
+
+    cfg = PipelineConfig.tiny_xl()
+    rng = np.random.default_rng(3)
+    if kind == "ti":
+        v = cfg.clip.vocab_size
+        tti.save_ti(path, rng.standard_normal((2, 32)).astype(np.float32),
+                    "<sty>", [v, v + 1],
+                    rows2=rng.standard_normal((2, 32)).astype(np.float32))
+        return
+    base = jlora.init_lora(jax.random.key(0), port_init_tree(cfg, 7), 2,
+                           components=("unet", "text_encoder",
+                                       "text_encoder_2"))
+    tlora.save_lora(path, {k: {x: (rng.standard_normal(v[x].shape) * 0.1)
+                               .astype(np.float32) for x in "ab"}
+                           for k, v in base.items()}, 2, 4.0)
+
+
+def _np_tree(models) -> dict:
+    return {k: tckpt.nest({key: t.detach().numpy() for key, t in
+                           tckpt.module_tree(m) if not isinstance(t, str)})
+            for k, m in models.items()}
+
+
+def _leaves(tree) -> dict:
+    return {tuple(str(getattr(q, "key", getattr(q, "idx", q)))
+                  for q in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 @pytest.mark.parametrize("case", range(len(XL_REFUSALS)),
                          ids=[f"{c} {' '.join(f)}" for c, f, _ in
                               XL_REFUSALS])
-def test_xl_training_features_refused(case):
-    """Adapters on an SDXL model and fine-tuning the families exit naming
-    the families' training (ROADMAP Queue 1 item 6)."""
-    from sdbc_tpu_torch.cli import finetune, inference, serve
+def test_xl_training_features_refused(case, tmp_path, data):
+    """Adapters on an SDXL model and fine-tuning the family, refused until
+    the families' training was ported, now run: --lora_path and --ti_path
+    merge an SDXL adapter (LoRA on the depth-2 transformers' stacked
+    blocks and on text_encoder_2; an inversion's rows2) equal to the JAX
+    ``merge_file`` on the same base and the inference CLI writes its
+    image; --lora_bank serves the adapter; the finetune CLI trains."""
+    from sdbc_tpu.train import lora as jlora
+    from sdbc_tpu.train import textual_inversion as jti
+    from sdbc_tpu_torch.cli import common, finetune, inference, serve
 
-    cli, flags, what = XL_REFUSALS[case]
-    main = {"inference": inference.main, "serve": serve.main,
-            "finetune": finetune.main}[cli]
-    base = ["--tiny", "--device", "cpu", "--model_family", "sdxl"]
+    cli, flags, kind = XL_REFUSALS[case]
+    base = ["--tiny", "--device", "cpu", "--no-bf16", "--model_family",
+            "sdxl"]
+    if cli == "finetune":
+        stats = finetune.main(_argv(data, str(tmp_path / "out"), "--epochs",
+                                    "1", "--model_family", "sdxl"))
+        assert np.isfinite(stats["losses"]).all()
+        assert {"text_encoder", "text_encoder_2"} <= set(
+            os.listdir(stats["final"]))
+        return
+    flag, value = flags
+    path = str(tmp_path / value.split("=")[-1])
+    _xl_adapter_file(kind, path)
+    arg = f"s={path}" if cli == "serve" else path
+    if cli == "serve":
+        args = serve.build_parser().parse_args(base + [flag, arg])
+        pipe, lora_pipes = serve.load_pipelines(args)
+        models, merged = pipe.models, lora_pipes["s"].models
+        assert lora_pipes["s"].tokenizer2 is not None
+    else:
+        parser = inference.build_parser()
+        models, _ = common.resolve_params_cfg(parser.parse_args(base))
+        merged, cfg = common.resolve_params_cfg(
+            parser.parse_args(base + [flag, arg]))
+    tree = _np_tree(models)
+    if kind == "ti":
+        want, _ = jti.merge_file(tree, path)
+        v = PipelineConfig.tiny_xl().clip.vocab_size
+        assert (cfg.clip.vocab_size, cfg.clip2.vocab_size) == (v + 2, v + 2)
+    else:
+        want = jlora.merge_file(tree, path)
+    want, got, before = _leaves(want), _leaves(_np_tree(merged)), \
+        _leaves(tree)
+    assert set(got) == set(want) == set(before)
+    changed = {k for k, v in before.items()
+               if v.shape != want[k].shape or not np.array_equal(v, want[k])}
+    assert any(k[0] == "text_encoder_2" for k in changed)
+    if kind == "lora":
+        assert any("blocks" in k for k in changed)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-6,
+                                   err_msg=str(k))
     if cli == "inference":
-        base += ["--mode", "enter_prompt", "--prompt", "x"]
-    with pytest.raises(SystemExit, match=f"(?s){what}.*not ported"):
-        main(base + flags)
+        inference.main(base + [flag, arg, "--mode", "enter_prompt",
+                               "--prompt", "a cover",
+                               "--num_inference_steps", "2", "--save_dir",
+                               str(tmp_path)])
+        assert os.path.exists(tmp_path / "dev inference" / "a cover.png")
 
 
 def test_serve_ensemble_lone_request_equals_generate(exports, xl_pipes,
