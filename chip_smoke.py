@@ -260,9 +260,29 @@ Phases, in order; each prints one or more lines, and any failure raises
                   SDXL step's 8-bit leaves against its bound; then
                   ``cli.finetune --model_family sdxl`` at 1024² on 4 PNG
                   covers: 2 steps, the loader's blocked ms, its checkpoint's
-                  bytes and save seconds.
+                  bytes and save seconds;
+16. controlnet  — ControlNet and the 9-channel inpainting UNet: tiny
+                  sampling with two branches (an image and a scale each)
+                  and with the inpainting UNet (the masked image's draw
+                  injected), and one tiny ControlNet optimizer step (remat
+                  "block"), bf16 and fp32 on the card against fp32 on the
+                  CPU within ``PARITY_TOL`` / ``FP32_PARITY_TOL`` and the
+                  train-parity bounds, exact launches; at full width
+                  (random weights from seed 0, bf16, the branch a
+                  ``from_unet`` copy off its zero convs) SD-1.5 + ControlNet
+                  at 512², batch 4, DDIM-20, CFG 7.5 on one edge map
+                  (median of 3 after a warm-up, peak memory, a profiled
+                  call's idle share, 420 / 280 K1 / K4 a call), the base
+                  call without the image (300 / 200), which the control
+                  must change and a zero scale must give back bit for bit;
+                  the inpainting UNet through ``SDPipeline.inpaint`` the same
+                  way (300 / 200); the branch's training step in mode C's
+                  shape (remat "block", 8-bit AdamW, the Sobel hint; 144 /
+                  60 / 60 / 1 K5 / K6a / K6b / K7 a step, a profiled step);
+                  its profiles record the device's activity alone.
 
-Every environment variable a phase sets is restored after it.
+Every phase's seconds are printed as it ends (``[time]``).  Every
+environment variable a phase sets is restored after it.
 
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, ``MAIN_PATH``, and on every path where it launched: the full-width
@@ -834,6 +854,8 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
     from sdbc_tpu_torch.models.vae import prefer_chunked_encode
     from sdbc_tpu_torch.ops import _kernels
 
+    if tcfg.train_controlnet:
+        return controlnet_train_launches(cfg, tcfg, img_hw, n8)
     lat = img_hw // cfg.vae_scale
     micro, accum = tcfg.micro_batch, tcfg.grad_accum
     encodes = micro if prefer_chunked_encode(micro, img_hw, img_hw) else 1
@@ -860,6 +882,73 @@ def expected_train_launches(cfg, tcfg, img_hw: int, n8: int,
                          <= 256)
         want["flash_fwd"] = accum * (attn_again * calls + deep + vae)
     want["flash_bwd_dq"] = want["flash_bwd_dkv"] = accum * calls
+    return want
+
+
+def unet_site_groups(cfg, lat):
+    """``transformer_sites`` split into the down path's, the up path's and
+    the mid block's (a ControlNet branch runs the first and the last)."""
+    u = cfg.unet
+    sites = transformer_sites(cfg, lat)
+    n_down = sum(u.cross_attn_blocks) * u.layers_per_block
+    n_up = sum(u.cross_attn_blocks) * (u.layers_per_block + 1)
+    return sites[:n_down], sites[n_down:n_down + n_up], sites[-1:]
+
+
+def site_launches(sites, rows_batch: int):
+    """(flash, geglu) launches of ``sites`` (``transformer_sites``' tuples)
+    at batch ``rows_batch``, each transformer ``depth`` blocks."""
+    flash = geglu = 0
+    for c, hw, _, depth in sites:
+        f, g = transformer_launches(c, hw, rows_batch)
+        flash += depth * f
+        geglu += depth * g
+    return flash, geglu
+
+
+def controlnet_sampling_launches(cfg, lat, b: int, steps: int,
+                                 branches: int = 1) -> dict:
+    """K1/K4 launches of a DDIM call of ``b`` images with ``branches``
+    ControlNet branches: each evaluation runs the base UNet and, on the
+    same CFG batch, each branch's down path and mid block."""
+    from sdbc_tpu_torch.ops import _kernels
+
+    down, up, mid = unet_site_groups(cfg, lat)
+    base = site_launches(down + up + mid, 2 * b)
+    branch = site_launches(down + mid, 2 * b)
+    want = dict.fromkeys(_kernels.launches, 0)
+    want["flash_fixed"] = steps * (base[0] + branches * branch[0])
+    want["geglu_ff"] = steps * (base[1] + branches * branch[1])
+    return want
+
+
+def controlnet_train_launches(cfg, tcfg, img_hw: int, n8: int) -> dict:
+    """Kernel launches of one ControlNet optimizer step (the base frozen):
+    per micro-batch the flash forward of every attention of the base and
+    the branch (and of the VAE encode's where its rule admits it); a
+    backward (dq, dk/dv) only where the inputs need a gradient — the
+    branch's and the base's up path, whose skips and mid output carry the
+    residuals; none in the base's down path or mid block; under "block"
+    remat those forwards once more in the backward.  One 8-bit AdamW
+    launch a step."""
+    from sdbc_tpu_torch.models.vae import prefer_chunked_encode
+    from sdbc_tpu_torch.ops import _kernels
+
+    lat = img_hw // cfg.vae_scale
+    micro, accum = tcfg.micro_batch, tcfg.grad_accum
+    down, up, mid = unet_site_groups(cfg, lat)
+    fwd = site_launches(down + up + mid, micro)[0] \
+        + site_launches(down + mid, micro)[0]
+    grad = site_launches(up, micro)[0] + site_launches(down + mid, micro)[0]
+    again = grad if tcfg.grad_ckpt and tcfg.remat_mode == "block" else 0
+    encodes = micro if prefer_chunked_encode(micro, img_hw, img_hw) else 1
+    low = img_hw >> (len(cfg.vae.block_out_channels) - 1)
+    vae = encodes * (low * low >= 256
+                     and cfg.vae.block_out_channels[-1] <= 256)
+    want = dict.fromkeys(_kernels.launches, 0)
+    want["flash_fwd"] = accum * (fwd + again + vae)
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = accum * grad
+    want["adam8"] = int(n8 > 0)
     return want
 
 
@@ -3792,6 +3881,21 @@ def _n8(state) -> int:
                for leaf in optimizer_leaves(state.trainable))
 
 
+def jitter_controlnet(cn, seed: int, scale: float = 0.05):
+    """A branch's zero output convs (and the embedder's zero conv_out)
+    moved off zero, as a trained branch is, so its residuals, and the
+    gradients through it, are not 0."""
+    import torch
+
+    g = torch.Generator(device=cn.zero_mid.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in (*cn.zero_down.parameters(), *cn.zero_mid.parameters(),
+                  *cn.cond_embedding.conv_out.parameters()):
+            p.add_(scale * torch.randn(p.shape, generator=g, device=p.device,
+                                       dtype=torch.float32).to(p.dtype))
+    return cn
+
+
 def phase_train_parity(label: str = "default", env=None, card_dtypes=None,
                        cfg=None, img: int = 32,
                        grad_rtol: float = TRAIN_GRAD_RTOL, **tcfg_kw):
@@ -3802,9 +3906,11 @@ def phase_train_parity(label: str = "default", env=None, card_dtypes=None,
     forward and the backward, on the forward's LSE, run on the 3xTF32
     kernels (``fp32_launches``), the 8-bit AdamW as in bf16, and the loss
     is held to ``FP32_PARITY_TOL``.  The held gradients are the UNet's
-    self-attention projections where the UNet trains, else every nonzero
-    gradient of the adapter, each within ``grad_rtol`` in bf16 and
-    ``TRAIN_GRAD_RTOL`` in fp32.  Returns {dtype: launch counts}."""
+    self-attention projections where the UNet trains (a ControlNet
+    branch's where it trains: ``train_controlnet``, a ``from_unet`` branch
+    off its zero convs), else every nonzero gradient of the adapter, each
+    within ``grad_rtol`` in bf16 and ``TRAIN_GRAD_RTOL`` in fp32.  Returns
+    {dtype: launch counts}."""
     import numpy as np
     import torch
 
@@ -3823,6 +3929,12 @@ def phase_train_parity(label: str = "default", env=None, card_dtypes=None,
                         learning_rate=1e-3, num_examples=100, **tcfg_kw)
     base = init_models(cfg, device="cpu",
                        generator=torch.Generator().manual_seed(0))
+    if tcfg.train_controlnet:
+        from sdbc_tpu_torch.models import controlnet as cn_mod
+
+        base["controlnet"] = jitter_controlnet(cn_mod.from_unet(
+            base["unet"], torch.Generator().manual_seed(1),
+            cfg.controlnet), 2)
     rng = np.random.default_rng(11)
     f32 = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
         np.float32))
@@ -3841,9 +3953,12 @@ def phase_train_parity(label: str = "default", env=None, card_dtypes=None,
                 models, {k: v[0].to(dev) for k, v in batch.items()}, cfg,
                 tcfg, make_schedule(cfg.schedule, dev), dt, draws=draws[0])
             loss.backward()
-        if "unet" in state.trainable:
+        held = next((k for k in ("unet", "controlnet")
+                     if k in state.trainable), None)
+        if held is not None:
+            # the self-attention projections (the branch's too)
             out = {n: p.grad.float().cpu().clone() for n, p in
-                   state.trainable["unet"].named_parameters()
+                   state.trainable[held].named_parameters()
                    if n.endswith(HELD_GRADS)}
         else:
             out = {".".join(k for k, _ in key): t.grad.float().cpu().clone()
@@ -5804,6 +5919,413 @@ def phase_families(smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# ControlNet and the dedicated inpainting UNet
+
+CN_STEPS = 20
+
+
+def cover_edges(size: int):
+    """One edge map (``controlnet.edge_hint``) of a synthetic cover layout:
+    a shaded background, a title band, a frame and a disc; (1, size, size,
+    3) in [0, 1] on the host."""
+    import torch
+
+    from sdbc_tpu_torch.models.controlnet import edge_hint
+
+    y, x = torch.meshgrid(torch.linspace(-1, 1, size),
+                          torch.linspace(-1, 1, size), indexing="ij")
+    img = 0.3 * y
+    img = torch.where((y > -0.85) & (y < -0.55), torch.full_like(y, 0.8),
+                      img)
+    img = torch.where(((x.abs() - 0.8).abs() < 0.02) & (y > -0.4),
+                      torch.full_like(y, -0.9), img)
+    img = torch.where(x ** 2 + (y - 0.3) ** 2 < 0.12, torch.full_like(y, 0.5),
+                      img)
+    px = img[None, :, :, None].expand(1, size, size, 3)
+    return edge_hint(px).numpy()
+
+
+# the port's kernels whose device ms ``profiled_idle`` sums by name
+OUR_KERNELS = ("flash_fwd_sm90_kernel", "geglu_ff_sm90_kernel",
+               "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+               "adam8_leaves_kernel")
+
+
+def profiled_idle(label: str, fn, wall_s: float) -> None:
+    """Device time of one ``fn()`` by kernel (``torch.profiler``, device
+    activity only: a whole sampling call or step holds ~50k kernels, and
+    the host's operator records would cost the phase tens of seconds)
+    against the unprofiled wall ``wall_s``: the device's idle share, and
+    the port's kernels' ms (``OUR_KERNELS``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+    events = [e for e in prof.key_averages() if dev_us(e) > 0
+              and getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in events) / 1e3
+    if not total:
+        print(f"[controlnet] profile {label}: device time not measured "
+              "(the profiler saw no device time)", flush=True)
+        return
+    top = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count)
+           for e in sorted(events, key=lambda e: -dev_us(e))[:8]]
+    ours = {n: round(sum(dev_us(e) for e in events if n in e.key) / 1e3, 3)
+            for n in OUR_KERNELS}
+    print(f"[controlnet] profile {label}: kernels {total:.1f} ms of "
+          f"{wall_s * 1e3:.1f} ms unprofiled wall (device idle "
+          f"{100 * (1 - total / (wall_s * 1e3)):.1f}%), "
+          f"{sum(e.count for e in events)} kernel launches; ours (ms) "
+          f"{ {n: t for n, t in ours.items() if t} }; top kernels (ms, "
+          f"calls): {top}", flush=True)
+
+
+def controlnet_models(cfg, device, dtype, seed: int = 0, branches: int = 1):
+    """Random base models of ``cfg`` from ``seed`` and ``branches``
+    ``from_unet`` ControlNet branches moved off their zero convs
+    (``jitter_controlnet``), in ``dtype`` on ``device``."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import init_models
+    from sdbc_tpu_torch.models import controlnet as cn_mod
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    models = init_models(cfg, device=device, generator=gen, dtype=dtype)
+    if branches:
+        cns = [jitter_controlnet(cn_mod.from_unet(
+            models["unet"], torch.Generator(device=device).manual_seed(
+                seed + 1 + i), cfg.controlnet, dtype=dtype), seed + 11 + i)
+            for i in range(branches)]
+        models["controlnet"] = cns[0] if branches == 1 else cns
+    return models
+
+
+def inpaint_config(cfg):
+    """``cfg`` with the dedicated inpainting UNet's 9-channel conv_in."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, in_channels=2 * cfg.vae.latent_channels + 1))
+
+
+def controlnet_tiny() -> dict:
+    """Tiny ControlNet sampling (two branches, one control image each, a
+    scale per branch) and tiny inpainting-UNet sampling (a rectangular
+    mask, the masked image's draw injected) at batch 2, DDIM-4: bf16 on
+    the card against fp32 on the CPU within ``PARITY_TOL``, fp32 within
+    ``FP32_PARITY_TOL``, exact launches; then one ControlNet optimizer
+    step (remat "block", the Sobel hint) as ``phase_train_parity`` holds
+    it, in bf16 and fp32.  Returns each run's counts."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, SDPipeline
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    paths = {}
+    base_cfg = PipelineConfig.tiny()
+    rng = np.random.default_rng(21)
+    img = rng.random((2, 32, 32, 3), dtype=np.float32)
+    mask = np.zeros((32, 32), np.float32)
+    mask[6:26, 4:20] = 1.0
+    g = torch.Generator().manual_seed(22)
+    masked_draw = torch.randn((2, 16, 16, 4), generator=g)
+    lat = per_sample_fixed_latents(2, (4, 16, 16), 42)
+    prompts = ["a book cover", "a mystery novel cover"]
+    runs = [("controlnet", base_cfg.with_controlnet(), 2,
+             dict(control_image=[img, img[::-1].copy()],
+                  controlnet_scale=[0.8, 1.2])),
+            ("inpaint unet", inpaint_config(base_cfg), 0,
+             dict(init_image=img, mask_image=mask,
+                  draws={"masked": masked_draw}))]
+    for label, cfg, branches, kw in runs:
+        models = controlnet_models(cfg, "cpu", torch.float32,
+                                   branches=branches)
+
+        def moved(device, dtype, source):
+            return {k: ([copy.deepcopy(m).to(device, dtype) for m in v]
+                        if isinstance(v, list)
+                        else copy.deepcopy(v).to(device, dtype))
+                    for k, v in source.items()}
+
+        bf = moved("cuda", torch.bfloat16, models)
+        cpu = moved("cpu", torch.float32, bf)  # the bf16-valued weights
+        sets = {"cuda bf16": bf, "cpu": cpu,
+                "cuda fp32": moved("cuda", torch.float32, cpu)}
+
+        def run(where, dtype):
+            dev = "cpu" if where == "cpu" else "cuda"
+            pipe = SDPipeline(sets[where], cfg, _tokenizer(cfg), dev, dtype)
+            return pipe(prompts, height=32, width=32, num_inference_steps=4,
+                        latents=lat, **kw)
+
+        ref = run("cpu", torch.float32)
+        want = controlnet_sampling_launches(cfg, 16, 2, 4, branches)
+        # the tiny VAE's mid attention on the training flash kernel: the
+        # decode, and the masked image's encode
+        want["flash_fwd"] = 1 + (label == "inpaint unet")
+        for where, dtype in (("cuda bf16", torch.bfloat16),
+                             ("cuda fp32", torch.float32)):
+            expect = fp32_launches(want) if dtype == torch.float32 else want
+            _kernels.reset_launch_counts()
+            out = run(where, dtype)
+            counts = dict(_kernels.launches)
+            err = float(np.abs(out - ref).max())
+            tol = FP32_PARITY_TOL if dtype == torch.float32 else PARITY_TOL
+            print(f"[controlnet] tiny {label} 32^2 batch 2 DDIM-4 ({where} "
+                  f"vs cpu fp32): image max abs err {err:.3e} (tol {tol}), "
+                  f"launches {nonzero(counts)}", flush=True)
+            if out.shape != (2, 32, 32, 3) or not np.isfinite(out).all():
+                fail(f"controlnet tiny {label} ({where}) output {out.shape} "
+                     "not finite")
+            if not err <= tol:
+                fail(f"controlnet tiny {label} ({where}): card vs CPU max "
+                     f"abs err {err} > {tol}")
+            used = [FP32_OF[k] if dtype == torch.float32 else k
+                    for k in ("flash_fixed", "geglu_ff")]
+            if counts != expect or min(expect[k] for k in used) == 0:
+                fail(f"controlnet tiny {label} ({where}) launch counts "
+                     f"{counts}, expected {expect}")
+            fp32 = "fp32 " if dtype == torch.float32 else ""
+            paths[f"{label} {fp32}(tiny)"] = counts
+        del sets
+    train = phase_train_parity(
+        "controlnet", card_dtypes=(torch.bfloat16, torch.float32),
+        cfg=base_cfg.with_controlnet(), train_controlnet=True,
+        train_text_encoder=False, train_unet=False, grad_ckpt=True,
+        remat_mode="block")
+    paths["controlnet train (tiny)"] = train[torch.bfloat16]
+    paths["controlnet train fp32 (tiny)"] = train[torch.float32]
+    return paths
+
+
+def _cn_timed(label: str, call, want: dict, smi: str, calls: int = 3,
+              shape=(4, 512, 512, 3)):
+    """A warm-up call, then ``calls`` timed calls, each with exactly
+    ``want`` launches and finite images in [0, 1].  Returns (images of
+    the last, counts, median s/call, peak GiB)."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.ops import _kernels
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(calls):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        imgs = call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = dict(_kernels.launches)
+        if counts != want:
+            fail(f"controlnet {label}: launch counts {counts}, expected "
+                 f"{want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if imgs.shape != shape or not np.isfinite(imgs).all() \
+            or imgs.min() < 0.0 or imgs.max() > 1.0:
+        fail(f"controlnet {label}: images {imgs.shape} not finite in [0, 1]")
+    med = statistics.median(secs)
+    print(f"[controlnet] {label}: {med:.4f} s/call (median of {calls}: "
+          f"{', '.join(f'{x:.4f}' for x in secs)}), {shape[0] / med:.4f} "
+          f"images/s, peak {peak:.2f} GiB, launches K1 "
+          f"{counts['flash_fixed']} K4 {counts['geglu_ff']} a call | {smi}",
+          flush=True)
+    return imgs, counts, med, peak
+
+
+def controlnet_sampling_full(smi: str) -> dict:
+    """SD-1.5 + ControlNet at 512² (random weights from seed 0 in bf16, a
+    ``from_unet`` branch off its zero convs), batch 4, DDIM-20, CFG 7.5,
+    one ``cover_edges`` map: timed (median of 3 after a warm-up), 420 /
+    280 K1 / K4 a call exactly, a profiled call; the base without the
+    image (300 / 200), whose image the control must change and a zero
+    ``controlnet_scale`` must give back.  Then the 9-channel inpainting
+    UNet (SD-1.5 layout, seed 0) through ``SDPipeline.inpaint`` with a
+    rectangular mask: timed the same way, 300 / 200 a call."""
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, SDPipeline
+    from sdbc_tpu_torch.ops import _kernels
+
+    bf = torch.bfloat16
+    paths = {}
+    cfg = PipelineConfig.sd15().with_controlnet()
+    pipe = SDPipeline(controlnet_models(cfg, "cuda", bf), cfg,
+                      _tokenizer(cfg), "cuda", bf)
+    edges = cover_edges(512)
+    kw = dict(height=512, width=512, num_inference_steps=CN_STEPS,
+              guidance_scale=7.5)
+    want = controlnet_sampling_launches(cfg, 64, 4, CN_STEPS)
+    base_want = controlnet_sampling_launches(cfg, 64, 4, CN_STEPS, 0)
+    if (want["flash_fixed"], want["geglu_ff"]) != (420, 280) or \
+            (base_want["flash_fixed"], base_want["geglu_ff"]) != (300, 200):
+        fail(f"controlnet: the launch rule gives {want} and {base_want}")
+    ctrl = lambda **extra: pipe(PROMPTS, control_image=edges, **kw, **extra)
+    imgs, counts, med, peak = _cn_timed("SD-1.5 + ControlNet 512^2 batch 4 "
+                                        "DDIM-20", ctrl, want, smi)
+    paths["controlnet sampling"] = counts
+    profiled_idle("SD-1.5 + ControlNet DDIM-20 call", ctrl, med)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    base = pipe(PROMPTS, **kw)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    if dict(_kernels.launches) != base_want:
+        fail(f"controlnet base call: launches {dict(_kernels.launches)}, "
+             f"expected {base_want}")
+    _kernels.reset_launch_counts()
+    zero = ctrl(controlnet_scale=0.0)
+    if dict(_kernels.launches) != want:
+        fail(f"controlnet zero scale: launches {dict(_kernels.launches)}")
+    moved = float(np.abs(imgs - base).max())
+    # zero residuals leave every skip as it was: the base's bits (the
+    # card's kernels repeat a call bit for bit)
+    zero_err = float(np.abs(zero - base).max())
+    print(f"[controlnet] base (no control image) {base_s:.4f} s/call, the "
+          f"branch {med / base_s:.3f}x of it; control vs base max abs "
+          f"{moved:.4e}; zero scale vs base {zero_err:.3e} | {smi}",
+          flush=True)
+    if not moved > 1e-2:
+        fail(f"controlnet: the control image moved the images by {moved}")
+    if zero_err != 0.0:
+        fail(f"controlnet: a zero scale is {zero_err} from the base's "
+             "images")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    icfg = inpaint_config(PipelineConfig.sd15())
+    ipipe = SDPipeline(controlnet_models(icfg, "cuda", bf, branches=0), icfg,
+                       _tokenizer(icfg), "cuda", bf)
+    image = np.clip(cover_edges(512)[0] * 0.8 + 0.1, 0.0, 1.0)
+    mask = np.zeros((512, 512), np.float32)
+    mask[96:352, 64:448] = 1.0
+    inp = lambda: ipipe.inpaint(PROMPTS, image, mask, **kw)
+    iwant = controlnet_sampling_launches(icfg, 64, 4, CN_STEPS, 0)
+    _, counts, imed, _ = _cn_timed("inpainting UNet (9 channels) 512^2 "
+                                   "batch 4 DDIM-20", inp, iwant, smi)
+    paths["inpaint unet sampling"] = counts
+    profiled_idle("inpainting UNet DDIM-20 call", inp, imed)
+    del ipipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def controlnet_train_full(smi: str, steps: int = 3) -> dict:
+    """ControlNet training at SD-1.5 512² in mode C's shape (the branch's
+    fp32 masters from ``from_unet`` off its zero convs, the base frozen in
+    bf16, micro-batch 2, grad_accum 4, 8-bit AdamW, remat "block", the
+    Sobel hint): a warm-up step, ``steps`` timed steps with finite losses,
+    a moved branch and exact launches (144 / 60 / 60 / 1 K5 / K6a / K6b /
+    K7 a step), peak memory and a profiled step."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.train.trainer import (TrainConfig, init_train_state,
+                                              make_train_step,
+                                              trainable_params)
+
+    cfg = PipelineConfig.sd15().with_controlnet()
+    accum, micro = 4, 2
+    tcfg = TrainConfig(train_controlnet=True, train_text_encoder=False,
+                       use_8bit_adam=True, grad_ckpt=True,
+                       remat_mode="block", control_hint="edges",
+                       grad_accum=accum, micro_batch=micro,
+                       num_examples=1000)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(controlnet_models(cfg, "cuda", torch.float32),
+                             tcfg)
+    step = make_train_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"pixel_values": torch.rand((accum, micro, 512, 512, 3),
+                                        generator=gen, device="cuda") * 2 - 1,
+             "input_ids": torch.randint(0, cfg.clip.vocab_size,
+                                        (accum, micro, cfg.clip.ctx),
+                                        generator=gen, device="cuda")}
+    params = trainable_params(state.trainable)
+    watch = [params[0], params[len(params) // 2], params[-1]]
+    start = [p.detach().clone() for p in watch]
+    t0 = time.perf_counter()
+    state, m = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    losses, times = [m["loss"]], []
+    _kernels.reset_launch_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        if not m["finite"]:
+            fail(f"controlnet train step skipped, loss {m['loss']}")
+    counts = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n8 = _n8(state)
+    one = controlnet_train_launches(cfg, tcfg, 512, n8)
+    if [one[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "adam8")] != [144, 60, 60, 1]:
+        fail(f"controlnet train: the launch rule gives {one}")
+    want = {k: steps * v for k, v in one.items()}
+    moved = [float((p.detach() - s0).abs().max())
+             for p, s0 in zip(watch, start)]
+    sps = statistics.median(times)
+    n_train = sum(p.numel() for p in params)
+    print(f"[controlnet] train SD-1.5 512^2 micro 2 grad_accum 4 8-bit AdamW "
+          f"remat block, hint edges (the branch, {n_train / 1e9:.3f} B "
+          f"trainable, {n8} 8-bit leaves): {sps:.4f} s/step (median of "
+          f"{steps}: {[round(t, 4) for t in times]}), {8 / sps:.4f} "
+          f"images/s, warm-up {warm:.3f} s, peak {peak / 2 ** 30:.2f} GiB, "
+          f"losses {[round(x, 6) for x in losses]}, params moved {moved}, "
+          f"launches {nonzero(counts)} (expected {nonzero(want)}) | {smi}",
+          flush=True)
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail(f"controlnet train losses not finite: {losses}")
+    if not all(x > 0 for x in moved):
+        fail(f"controlnet train: the branch did not move: {moved}")
+    if counts != want:
+        fail(f"controlnet train launch counts {counts}, expected {want}")
+    profiled_idle("ControlNet training step",
+                  lambda: step(state, batch, generator=gen), sps)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"controlnet train": counts}
+
+
+def phase_controlnet(smi: str) -> dict:
+    """ControlNet and the 9-channel inpainting UNet: the tiny runs on the
+    card against the CPU (``controlnet_tiny``), then at full width the
+    sampling calls (``controlnet_sampling_full``) and the training step
+    (``controlnet_train_full``).  Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    paths = controlnet_tiny()
+    t1 = time.perf_counter()
+    paths.update(controlnet_sampling_full(smi))
+    t2 = time.perf_counter()
+    paths.update(controlnet_train_full(smi))
+    t3 = time.perf_counter()
+    print(f"[controlnet] phase {t3 - t0:.1f} s (tiny {t1 - t0:.1f}, "
+          f"sampling {t2 - t1:.1f}, training {t3 - t2:.1f})", flush=True)
+    return paths
+
+
 def phase_train_profile(step, state, batch, gen, sps: float,
                         label: str = "train"):
     """Device time by kernel over one mode-C optimizer step."""
@@ -5863,11 +6385,22 @@ def main() -> int:
     import torch
 
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def lap(label: str) -> None:
+        """Print the seconds since the last mark (the phase budget)."""
+        now = time.perf_counter()
+        print(f"[time] {label} {now - marks[-1]:.1f} s (total "
+              f"{now - t0:.1f} s)", flush=True)
+        marks.append(now)
+
     smi = phase_device()
     build = phase_build()
+    lap("device + build")
     rows = phase_kernels(build["gn"], build["int8"]) \
         + phase_train_kernels(build["adam8"]) + phase_simt_kernels() \
         + phase_tf32_kernels(smi)
+    lap("kernel phases")
     # launch counts of each full-width path (and of the tiny fp32 ones),
     # from its own run (the counts set to 0 just before it, read just after)
     paths = {"sampling fp32 (tiny)": phase_parity()}
@@ -5885,15 +6418,19 @@ def main() -> int:
     paths.update(sampler_paths)
     del pipe
     torch.cuda.empty_cache()
+    lap("parity .. samplers")
     paths.update(phase_generate(smi))
     torch.cuda.empty_cache()
     paths.update(phase_serve(smi))
     paths.update(phase_image_checks(smi))
     torch.cuda.empty_cache()
+    lap("generate, serve, image-checks")
     paths.update(phase_families(smi))
     torch.cuda.empty_cache()
+    lap("families")
     paths.update(phase_fp32_sampling(smi))
     torch.cuda.empty_cache()
+    lap("fp32-sampling")
     phase_train_parity()
     phase_train_parity("grad_ckpt block + switches", SWITCHES,
                        grad_ckpt=True, remat_mode="block")
@@ -5909,11 +6446,17 @@ def main() -> int:
     paths["train switches"], _, _ = phase_train(
         smi, steps=1, label="switches", env=SWITCHES, profile=False)
     torch.cuda.empty_cache()
+    lap("train-parity .. switches")
     paths.update(phase_finetune_tiny())
     paths.update(phase_finetune(smi, {"none": sps, **ckpt_sps}))
     torch.cuda.empty_cache()
+    lap("finetune")
     family_paths, adam8_family = phase_families_train(smi)
     paths.update(family_paths)
+    torch.cuda.empty_cache()
+    lap("families-train")
+    paths.update(phase_controlnet(smi))
+    lap("controlnet")
     next(r for r in rows if r["name"] == "adam8")["sdxl_step"] = \
         adam8_family
     if "jax" in sys.modules:

@@ -1,7 +1,8 @@
 """Shared CLI plumbing (counterpart of ``sdbc_tpu/cli/common.py`` for one
 device): boolean flags, model resolution (``--ckpt``, ``--diffusers_ckpt``
 or a fresh init of ``--model_family``) with the ``--lora_path`` /
-``--ti_path`` merges, the SDXL refiner (``resolve_refiner``), tokenizers
+``--ti_path`` merges and the ``--controlnet_path`` branches, the SDXL
+refiner (``resolve_refiner``), tokenizers
 with placeholder tokens (SDXL's second: ``make_tokenizer2``), compute
 dtype.
 
@@ -30,11 +31,6 @@ _UNPORTED_FLAGS = {
                                "no wandb; ROADMAP Queue 1 item 8)"),
     "wandb_key": ("", "wandb tracking (the card's machine has no wandb; "
                       "ROADMAP Queue 1 item 8)"),
-    "controlnet_path": ("", "ControlNet (ROADMAP Queue 1 item 6.2)"),
-    "control_image": ("", "ControlNet (ROADMAP Queue 1 item 6.2)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6.2)"),
-    "train_controlnet": (False, "ControlNet training (ROADMAP Queue 1 "
-                                "item 6.2)"),
     "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
     "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
     "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
@@ -110,7 +106,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "resolved base at load; its placeholder token "
                         "registers on the tokenizer")
     p.add_argument("--controlnet_path", type=str, default="",
-                   help="ControlNet dir (not ported yet)")
+                   help="diffusers ControlNetModel dir (or a pipeline dir "
+                        "with controlnet/) attached to the base model "
+                        "(models/controlnet.py); comma-separated for "
+                        "multi-ControlNet (residuals sum)")
     p.add_argument("--model_family", type=str, default="sd15",
                    choices=["sd15", "sd21", "sdxl"],
                    help="architecture preset for FRESH inits (checkpoint / "
@@ -228,6 +227,44 @@ def _merge_adapters(args, models, cfg):
     return models, cfg
 
 
+def _cast(models: dict, dtype) -> dict:
+    """Every component (a list of ControlNet branches too) in ``dtype``."""
+    return {k: [m.to(dtype) for m in v] if isinstance(v, list)
+            else v.to(dtype) for k, v in models.items()}
+
+
+def _attach_controlnets(args, models, cfg, device, dtype):
+    """``--controlnet_path``'s branches (comma-separated: several, whose
+    residuals sum) attached as ``models["controlnet"]`` with the config's
+    ``controlnet``; each must have the base UNet's encoder layout
+    (compared with ``out_channels``, which a ControlNet config lacks,
+    set to the base's)."""
+    from sdbc_tpu_torch.models import controlnet as controlnet_mod
+    from sdbc_tpu_torch.models.convert import load_jax_params
+    from sdbc_tpu_torch.models.port import load_controlnet
+
+    branches, cn_cfg = [], None
+    for one in [p for p in args.controlnet_path.split(",") if p]:
+        if not os.path.isdir(one):
+            raise SystemExit(f"--controlnet_path {one}: no ControlNet "
+                             "directory there")
+        tree, cn_cfg = load_controlnet(one)
+        probe = dataclasses.replace(cn_cfg.unet,
+                                    out_channels=cfg.unet.out_channels)
+        if probe != cfg.unet:
+            raise SystemExit(
+                f"--controlnet_path {one}: its UNet layout {cn_cfg.unet} "
+                f"does not match the base model's {cfg.unet} — the "
+                "injected residual shapes would disagree")
+        cn_cfg = dataclasses.replace(cn_cfg, unet=probe)
+        branches.append(load_jax_params(controlnet_mod.init(
+            cn_cfg, device=device), tree).to(dtype).requires_grad_(False))
+        print(f"attached ControlNet {one}")
+    models = dict(models)
+    models["controlnet"] = branches[0] if len(branches) == 1 else branches
+    return models, dataclasses.replace(cfg, controlnet=cn_cfg)
+
+
 def resolve_params_cfg(args, dtype=None):
     """(models, cfg): ``--diffusers_ckpt``'s weights ported on the fly
     (shapes from its config.json files), else ``--ckpt``'s checkpoint
@@ -235,7 +272,8 @@ def resolve_params_cfg(args, dtype=None):
     its scheduler unless ``--scheduler``), else a fresh init of
     ``--model_family`` (its tiny shapes with ``--tiny``: ``tiny_xl`` for
     sdxl, ``tiny`` with v-prediction for sd21) from ``--seed``; then
-    ``--lora_path`` and ``--ti_path`` merged (``_merge_adapters``).  The
+    ``--lora_path`` and ``--ti_path`` merged (``_merge_adapters``) and
+    ``--controlnet_path``'s branches attached.  The
     modules live on ``--device`` in ``dtype`` (default: the compute dtype,
     ``--bf16``; the finetune CLI asks for fp32 masters); loaded weights
     are merged in their saved dtypes before the cast, a fresh init (made
@@ -259,7 +297,7 @@ def resolve_params_cfg(args, dtype=None):
         if args.scheduler is not None:
             cfg = dataclasses.replace(cfg, scheduler=args.scheduler)
         models, cfg = _merge_adapters(args, models, cfg)
-        models = {k: m.to(dtype) for k, m in models.items()}
+        models = _cast(models, dtype)
     elif args.diffusers_ckpt:
         from sdbc_tpu_torch.models.port import (
             pipeline_config_from_diffusers, port_diffusers_checkpoint)
@@ -268,7 +306,7 @@ def resolve_params_cfg(args, dtype=None):
         models = as_modules(port_diffusers_checkpoint(args.diffusers_ckpt),
                             cfg, device)
         models, cfg = _merge_adapters(args, models, cfg)
-        models = {k: m.to(dtype) for k, m in models.items()}
+        models = _cast(models, dtype)
     else:
         family = getattr(args, "model_family", "sd15")
         cfg = PipelineConfig.family(family, args.tiny, sched)
@@ -287,6 +325,8 @@ def resolve_params_cfg(args, dtype=None):
     if over:
         cfg = dataclasses.replace(
             cfg, schedule=dataclasses.replace(cfg.schedule, **over))
+    if getattr(args, "controlnet_path", ""):
+        models, cfg = _attach_controlnets(args, models, cfg, device, dtype)
     return models, cfg
 
 

@@ -20,8 +20,11 @@ comes from --model_family (a fresh init) or the checkpoint: SD-2.x trains
 on the v-prediction loss, SDXL on both encoders' ids (the second
 tokenizer from the checkpoint's ``tokenizer_2/``, else the first) with the
 text-time conditioning, the refiner on bigG alone; textual inversion on
-SDXL learns one row block per encoder at shared ids.  ControlNet,
---tp/--fsdp and wandb exit naming what they need
+SDXL learns one row block per encoder at shared ids.  --train_controlnet
+trains a ControlNet branch alone (--controlnet_path's, else a fresh one
+cloned from the base UNet with a generator seeded from --seed), its hint
+from each image (--control_hint); checkpoints carry the branch, and
+--resume continues it.  --tp/--fsdp and wandb exit naming what they need
 (``common.refuse_unported``).
 
 The noise, timesteps and posterior draws come from one ``torch.Generator``
@@ -71,7 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
     common.bool_flag(p, "train_unet", False)
     common.bool_flag(p, "train_text_encoder", True)
     common.bool_flag(p, "train_controlnet", False,
-                     "train a ControlNet branch (not ported: refused)")
+                     "train a ControlNet branch with the whole base "
+                     "model frozen (arXiv:2302.05543; models/controlnet.py)"
+                     ". Starts from --controlnet_path if given, else clones "
+                     "the base UNet's encoder half; the hint comes from "
+                     "each training image (--control_hint)")
     p.add_argument("--control_hint", type=str, default="edges",
                    choices=["edges", "image"],
                    help="ControlNet training hint (with --train_controlnet)")
@@ -148,6 +155,23 @@ def _refuse(args) -> None:
     features."""
     common.refuse_unported(args, unused={"tp": 1})
     use_lora, use_ti = args.lora_rank > 0, bool(args.ti_token)
+    if args.train_controlnet:
+        if use_lora or use_ti:
+            raise SystemExit("--train_controlnet is a full-branch mode; it "
+                             "cannot combine with --lora_rank/--ti_token")
+        if args.cache_latents:
+            raise SystemExit("--train_controlnet derives its conditioning "
+                             "hint from the pixel batch — incompatible with "
+                             "--cache_latents")
+        if args.train_unet:
+            raise SystemExit("--train_controlnet freezes the whole base "
+                             "model (the arXiv:2302.05543 protocol) — drop "
+                             "--train_unet")
+        if args.train_text_encoder:
+            # the reference's default-True flag: the protocol freezes it
+            print("--train_controlnet: freezing the text encoder (the base "
+                  "model stays untouched)")
+            args.train_text_encoder = False
     if args.prior_class_prompt and args.cache_latents:
         raise SystemExit("--prior_class_prompt is incompatible with "
                          "--cache_latents (the class set has no latent "
@@ -275,6 +299,18 @@ def main(argv=None):
     else:
         # fp32 masters; the trainer casts the frozen components
         models, cfg = common.resolve_params_cfg(args, dtype=torch.float32)
+    if args.train_controlnet and "controlnet" not in models:
+        # a fresh branch: the base UNet's encoder half, zero output convs
+        # (step 0 reproduces the base exactly)
+        from sdbc_tpu_torch.models import controlnet as cn_mod
+
+        if cfg.controlnet is None:
+            cfg = cfg.with_controlnet()
+        models = dict(models)
+        models["controlnet"] = cn_mod.from_unet(
+            models["unet"], torch.Generator().manual_seed(args.seed ^ 0xC0),
+            cfg.controlnet, device=device)
+        print("fresh ControlNet cloned from the base UNet encoder")
     is_xl = cfg.is_sdxl
     if use_ti and cfg.refiner:
         raise SystemExit("--ti_token is not wired for the refiner flavor "
@@ -372,6 +408,8 @@ def main(argv=None):
         ti_vectors=args.ti_vectors, ema_decay=args.ema_decay,
         min_snr_gamma=args.min_snr_gamma, noise_offset=args.noise_offset,
         prior_weight=args.prior_weight if use_prior else 0.0,
+        train_controlnet=args.train_controlnet,
+        control_hint=args.control_hint,
         dual_text_encoder=is_xl, refiner=cfg.refiner)
 
     base_host = None

@@ -13,6 +13,10 @@ default / calc_fid / enter_prompt, on the card unless ``--device cpu``.
 serves the base → refiner ensemble, handing over at ``--refiner_frac``.
 ``--lora_path`` / ``--ti_path`` merge an adapter or a learned embedding at
 load (SD-1.x); ``--safety_checker`` blacks out flagged images.
+``--controlnet_path`` attaches ControlNet branches (comma-separated),
+which enter_prompt drives with ``--control_image`` (one image per branch)
+and ``--controlnet_scale``; a ``--ckpt`` of an inpainting UNet
+(``in_channels`` 9) inpaints ``--init_image`` under ``--mask_image``.
 
 Every sampling-profile flag goes through one ``SampleSpec``.  Flags of
 features not ported yet exit with a message (``common.refuse_unported``).
@@ -68,7 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strength", type=float, default=0.8,
                    help="img2img strength in (0,1]")
     p.add_argument("--control_image", type=str, default="",
-                   help="ControlNet conditioning image (not ported yet)")
+                   help="enter_prompt mode: ControlNet conditioning image "
+                        "(edges, depth, ...) for --controlnet_path; "
+                        "comma-separated for multi-ControlNet (one per "
+                        "branch)")
     p.add_argument("--refiner_ckpt", type=str, default="",
                    help="SDXL refiner checkpoint (port layout or a diffusers "
                         "dir): ensemble-of-expert-denoisers serving, the "
@@ -78,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="denoising handoff fraction for --refiner_ckpt "
                         "(base runs [0, frac), refiner [frac, 1])")
     p.add_argument("--controlnet_scale", type=_scale_list, default=1.0,
-                   help="ControlNet residual multiplier (not ported yet)")
+                   help="ControlNet residual multiplier; comma-separated "
+                        "for one scale per branch")
     common.bool_flag(p, "prompt_weighting", False,
                      "the prompt-emphasis syntax ('(word:1.3)', '((up))', "
                      "'[down]') and long prompts over several CLIP windows")
@@ -230,7 +238,7 @@ def _enter_prompt(args, pipe, spec, save_dir):
         raise SystemExit("--prompt is required with --mode enter_prompt")
     if args.mask_image and not args.init_image:
         raise SystemExit("--mask_image (inpainting) requires --init_image")
-    init_image = mask_image = None
+    init_image = mask_image = control_image = None
     if args.init_image:
         from PIL import Image
 
@@ -241,12 +249,23 @@ def _enter_prompt(args, pipe, spec, save_dir):
             if not os.path.exists(args.mask_image):
                 raise SystemExit(f"--mask_image {args.mask_image} not found")
             mask_image = Image.open(args.mask_image)
+    if args.control_image:
+        from PIL import Image
+
+        paths = [c for c in args.control_image.split(",") if c]
+        for one in paths:
+            if not os.path.exists(one):
+                raise SystemExit(f"--control_image {one} not found")
+        # comma-separated: one image per --controlnet_path branch
+        control_image = ([Image.open(one) for one in paths]
+                         if len(paths) > 1 else Image.open(paths[0]))
     spec = spec.replace(
         height=args.img_size, width=args.img_size,
         num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, seed=args.seed,
         negative_prompt=args.negative_prompt or None,
         num_images_per_prompt=args.samples_per_prompt,
+        control_image=control_image, controlnet_scale=args.controlnet_scale,
         prompt_weighting=args.prompt_weighting,
         max_prompt_chunks=args.max_prompt_chunks)
     if args.hires_scale:
@@ -381,9 +400,16 @@ def main(argv=None):
     common.resolve_img_size(args)
     if args.samples_per_prompt is None:
         args.samples_per_prompt = 1 if args.mode == "enter_prompt" else 2
+    if args.controlnet_scale != 1.0 and not args.control_image:
+        raise SystemExit("--controlnet_scale scales the residuals of a "
+                         "ControlNet's --control_image, and none is given")
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 
     models, cfg = common.resolve_params_cfg(args)
+    if args.control_image and cfg.controlnet is None:
+        raise SystemExit("--control_image needs a ControlNet: pass "
+                         "--controlnet_path or a --ckpt from a "
+                         "--train_controlnet run")
     tok = common.make_tokenizer(args, cfg.clip.vocab_size)
     pipe = SDPipeline(models, cfg, tok, device=args.device,
                       compute_dtype=common.compute_dtype(args),

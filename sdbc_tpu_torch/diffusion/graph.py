@@ -2,7 +2,9 @@
 ``sdbc_tpu/diffusion/graph.py``): every scheduler and sampling option of
 the JAX package's ``sample``, for SD-1.x, SD-2.x and SDXL (the dual text
 encoder with the pooled text-time conditioning, and the refiner's
-aesthetic-score flavour).
+aesthetic-score flavour), with ControlNet branches (``control_image``,
+one branch or several) and the dedicated inpainting UNet
+(``masked_image``).
 
 CLIP encode of both branches → the scheduler loop with the UNet on the
 CFG-doubled batch (time projections hoisted by ``unet.precompute_temb``)
@@ -25,6 +27,7 @@ import torch
 
 from sdbc_tpu_torch.diffusion import schedulers as sched_mod
 from sdbc_tpu_torch.models import clip as clip_mod
+from sdbc_tpu_torch.models import controlnet as controlnet_mod
 from sdbc_tpu_torch.models import unet as unet_mod
 from sdbc_tpu_torch.models import vae as vae_mod
 from sdbc_tpu_torch.ops import nn as nn_mod
@@ -53,6 +56,9 @@ class PipelineConfig:
     # tokenizer plumbing is unchanged) and 5 micro-conditioning ids, the
     # last an aesthetic score per CFG branch
     refiner: bool = False
+    # the ControlNet branch's config (``with_controlnet``): the models
+    # then hold "controlnet", one branch or a list (multi-ControlNet)
+    controlnet: Optional[controlnet_mod.ControlNetConfig] = None
 
     @property
     def is_sdxl(self) -> bool:
@@ -69,9 +75,21 @@ class PipelineConfig:
 
     @property
     def is_inpaint_unet(self) -> bool:
-        """A dedicated inpainting UNet (conv_in takes latent ⧺ mask ⧺
-        masked-image latent = 2·C+1 channels); not ported."""
+        """A dedicated inpainting UNet (the runwayml/sd-inpainting
+        layout): conv_in takes latent ⧺ mask ⧺ masked-image latent = 2·C+1
+        channels, and a mask goes to the channel concat of ``sample``'s
+        ``masked_image`` instead of the per-step blend."""
         return self.unet.in_channels == 2 * self.vae.latent_channels + 1
+
+    def with_controlnet(self) -> "PipelineConfig":
+        """This config with the matching ControlNet branch: the base UNet's
+        encoder layout and the embedder ramp of the VAE's down-factor
+        (``controlnet.conditioning_ramp``)."""
+        cn = controlnet_mod.ControlNetConfig(
+            unet=self.unet,
+            conditioning_channels=controlnet_mod.conditioning_ramp(
+                self.vae_scale))
+        return dataclasses.replace(self, controlnet=cn)
 
     @staticmethod
     def sd15(scheduler: str = "ddim") -> "PipelineConfig":
@@ -336,30 +354,23 @@ def _scheduler_loop(lo: int, hi: int, lat, model_at, update, state=None,
     return lat
 
 
-# arguments of the JAX package's ``sample`` that are not ported: the
-# dedicated inpainting UNet (masked_image), ControlNet, and head packing
-# (a TPU layout hook, ROADMAP "Do not port"); each with its default
-_UNPORTED = {"masked_image": None, "control_image": None,
-             "controlnet_scale": 1.0, "pack_heads": None}
+# an argument of the JAX package's ``sample`` that is not ported: head
+# packing (a TPU layout hook, ROADMAP "Do not port"), with its default
+_UNPORTED = {"pack_heads": None}
 
 
-def _refuse_unported(cfg: PipelineConfig, unported: dict) -> None:
+def _refuse_unported(unported: dict) -> None:
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"sample() got an unexpected argument {name!r}")
-        default = _UNPORTED[name]
-        if value is not None and value is not False and not (
-                default is not None and value == default):
+        if value is not None and value is not False:
             raise NotImplementedError(f"sample({name}=...) is not ported")
-    if cfg.is_inpaint_unet:
-        raise NotImplementedError("the dedicated inpainting UNet "
-                                  f"(in_channels={cfg.unet.in_channels}) is "
-                                  "not ported")
 
 
 def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
                    init_image, init_latents, t_start, t_end, mask,
-                   use_karras_sigmas, cfg_interval):
+                   use_karras_sigmas, cfg_interval, masked_image=None,
+                   control_image=None, has_controlnet=False):
     """The JAX package's refusals of option combinations, with its
     exception types.  Returns (cfg_lo, cfg_hi): the guided step range of
     ``cfg_interval`` (None without it)."""
@@ -370,14 +381,40 @@ def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
     if cached and sch not in ("ddim", "dpm"):
         raise ValueError("cache_interval (DeepCache fast mode) is implemented "
                          "for the ddim and dpm schedulers only")
+    blend_mask = mask is not None and masked_image is None
     if (init_image is not None or init_latents is not None or t_start
-            or mask is not None) and sch in ("pndm", "lms"):
+            or blend_mask) and sch in ("pndm", "lms"):
         raise ValueError("img2img/inpaint (init_image/t_start/mask) is not "
                          "implemented for pndm and lms — their multistep "
                          "warm-up does not truncate cleanly at t_start")
     if init_latents is not None and init_image is not None:
         raise ValueError("init_latents (latent-space img2img) and init_image "
                          "(pixel-space img2img) are mutually exclusive")
+    if init_latents is not None and masked_image is not None:
+        raise ValueError("init_latents cannot combine with masked_image (the "
+                         "dedicated inpainting UNet is a full denoise from "
+                         "pure noise)")
+    if masked_image is not None:
+        if not cfg.is_inpaint_unet:
+            raise ValueError(
+                f"masked_image is the channel-concat inpainting protocol — "
+                f"it needs an inpainting UNet (in_channels == "
+                f"{2 * cfg.latent_channels + 1}, got {cfg.unet.in_channels})")
+        if mask is None:
+            raise ValueError("masked_image requires mask")
+        if init_image is not None or t_start:
+            raise ValueError("masked_image starts from pure noise — "
+                             "init_image/t_start (the re-noising protocol) "
+                             "cannot combine with it")
+        if cached:
+            raise ValueError("masked_image cannot combine with "
+                             "cache_interval — the cached trunk is shaped "
+                             "for the plain latent input")
+    elif cfg.is_inpaint_unet:
+        raise ValueError("this config is a dedicated inpainting UNet "
+                         f"(in_channels={cfg.unet.in_channels}): every call "
+                         "must pass masked_image + mask (plain text-to-image "
+                         "is undefined for its conv_in)")
     if cfg.schedule.timestep_spacing == "trailing" and sch == "pndm":
         raise ValueError("timestep_spacing='trailing' is not implemented "
                          "for pndm (its warm-up re-runs the second grid "
@@ -388,11 +425,11 @@ def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
             "the eps-parameterised steps divide by alpha=0 and the "
             "sigma-space samplers' terminal sigma is infinite — use the ddim "
             "or unipc schedulers")
-    if mask is not None and sch == "unipc":
+    if blend_mask and sch == "unipc":
         raise ValueError("inpainting (mask) is not implemented for unipc — "
                          "the per-step blend invalidates the corrector's "
                          "last_sample")
-    if mask is not None and init_image is None and init_latents is None:
+    if blend_mask and init_image is None and init_latents is None:
         raise ValueError("mask (inpainting) requires init_image")
     if use_karras_sigmas and sch not in KARRAS:
         raise ValueError("use_karras_sigmas applies to the sigma-space "
@@ -408,6 +445,11 @@ def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
             raise ValueError("cfg_interval cannot combine with "
                              "cache_interval — the DeepCache trunk cache is "
                              "shaped for the 2B CFG batch")
+        if control_image is not None:
+            raise ValueError("cfg_interval cannot combine with "
+                             "control_image — the hoisted ControlNet "
+                             "conditioning embeddings are built for the 2B "
+                             "CFG batch")
         if sch == "pndm":
             raise ValueError("cfg_interval is not implemented for pndm — its "
                              "warm-up grid is longer than "
@@ -426,6 +468,15 @@ def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
         if mask is not None:
             raise ValueError("t_end cannot combine with mask (a truncated "
                              "run would hand off a half-blended composite)")
+    if control_image is not None:
+        if not has_controlnet or cfg.controlnet is None:
+            raise ValueError("control_image needs models['controlnet'] and "
+                             "cfg.controlnet (PipelineConfig.with_controlnet)")
+        if cached:
+            raise ValueError("control_image cannot combine with "
+                             "cache_interval — the ControlNet residuals land "
+                             "inside the cached trunk (a reused trunk would "
+                             "silently freeze the conditioning)")
     return cfg_lo, cfg_hi
 
 
@@ -443,7 +494,8 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
            cond_ids2=None, uncond_ids2=None, time_ids=None,
            cond_weights2=None, uncond_weights2=None,
            aesthetic_score: float = 6.0,
-           negative_aesthetic_score: float = 2.5,
+           negative_aesthetic_score: float = 2.5, masked_image=None,
+           control_image=None, controlnet_scale=1.0,
            generator: Optional[torch.Generator] = None,
            draws: Optional[dict] = None, **unported):
     """Run the CFG sampling path of ``cfg.scheduler``.
@@ -460,7 +512,7 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
     draws: injected standard-normal draws instead of the generator's:
       {"step": one latent-shaped draw per loop index i (a list or a dict;
       used up by every step of a stochastic scheduler, the last one too),
-      "enc": init_image's posterior ε}
+      "enc": init_image's posterior ε, "masked": masked_image's}
     attn_impl: the UNet's attention dispatch ("inference" = the fixed-cap
       kernel; "xla" forces plain attention; see ``ops.attention``)
     cache_interval / cache_tail: DeepCache (ddim and dpm) — the UNet's deep
@@ -479,15 +531,27 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
       micro-conditioning (orig h/w, crop top/left, target h/w; default the
       latents' image size); aesthetic_score/negative_aesthetic_score: the
       refiner's cond/uncond scores (``xl_time_ids``)
+    masked_image: (B, H, W, 3) in [0, 1] — the dedicated inpainting UNet
+      (``cfg.is_inpaint_unet``): its VAE latent (one posterior draw) and
+      ``mask`` are concatenated to the latents, [latents, mask,
+      masked-image latents], on every UNet call of both CFG halves; a full
+      denoise from ``latents``, no blend, no re-noising
+    control_image: (B, H, W, 3) in [0, 1], or a list of them, one per
+      branch of ``models["controlnet"]`` (one module or a list); each
+      branch's conditioning embedding is computed once a call on the CFG
+      batch and its residuals, times ``controlnet_scale`` (a float, or
+      one per branch), summed into the UNet's skips every step
     Returns (B, H, W, 3) fp32 images in [0, 1], or the latents (compute
     dtype) with decode=False.
     """
-    _refuse_unported(cfg, unported)
+    _refuse_unported(unported)
     n = num_inference_steps
     cfg_lo, cfg_hi = _check_options(
         cfg, n, cache_interval=cache_interval, init_image=init_image,
         init_latents=init_latents, t_start=t_start, t_end=t_end, mask=mask,
-        use_karras_sigmas=use_karras_sigmas, cfg_interval=cfg_interval)
+        use_karras_sigmas=use_karras_sigmas, cfg_interval=cfg_interval,
+        masked_image=masked_image, control_image=control_image,
+        has_controlnet="controlnet" in models)
     if cond_ids.shape[1] != uncond_ids.shape[1]:
         raise ValueError(f"cond/uncond token widths differ "
                          f"({cond_ids.shape[1]} vs {uncond_ids.shape[1]})")
@@ -564,8 +628,57 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
         a = 1.0 / (1.0 + s.float() ** 2)
         return torch.sqrt(a) * orig_lat + torch.sqrt(1.0 - a) * noise0
 
+    inpaint_extra = None
+    if masked_image is not None:
+        # the inpainting UNet's extra input channels, computed once: the
+        # mask and the masked image's latent (its own posterior draw)
+        mm, mlv = vae_mod.encode_moments(
+            models["vae"], on_device(masked_image).to(dt) * 2.0 - 1.0)
+        eps = draws.get("masked")
+        eps = randn(mm.shape, "masked") if eps is None else on_device(eps)
+        mlat = (vae_mod.sample(mm, mlv, eps=eps).float()
+                * cfg.vae.scaling_factor)
+        inpaint_extra = torch.cat([on_device(mask).float(), mlat],
+                                  dim=-1).to(dt)
+
+    cns = cond_embs = cscales = None
+    if control_image is not None:
+        # the conditioning embeddings depend on the images alone: once a
+        # call, on the CFG batch; one image and one scale per branch
+        cns = controlnet_mod.branches(models["controlnet"])
+        imgs = controlnet_mod.branches(control_image)
+        if len(imgs) != len(cns):
+            raise ValueError(
+                f"{len(imgs)} control images for {len(cns)} ControlNet "
+                "branches — pass exactly one image per branch")
+        scales = (list(controlnet_scale)
+                  if isinstance(controlnet_scale, (list, tuple))
+                  else [controlnet_scale] * len(cns))
+        if len(scales) != len(cns):
+            raise ValueError(
+                f"{len(scales)} controlnet scales for {len(cns)} branches "
+                "— pass one scale, or one per branch")
+        cond_embs = [controlnet_mod.embed_cond(
+            cn, torch.cat([on_device(img)] * 2, dim=0).to(dt))
+            for cn, img in zip(cns, imgs)]
+        cscales = [torch.tensor(float(sc), dtype=torch.float32,
+                                device=device) for sc in scales]
+
+    def control_residuals(lat2, ctps):
+        """The branches' summed residuals at this step (``ctps``: each
+        branch's slice of the hoisted time projections)."""
+        total = None
+        for cn, ce, sc, cp in zip(cns, cond_embs, cscales, ctps):
+            r = controlnet_mod.apply(cn, lat2, None, context, ce,
+                                     conditioning_scale=sc,
+                                     attn_impl=attn_impl, temb_proj=cp)
+            total = r if total is None else (
+                tuple(a + b for a, b in zip(total[0], r[0])),
+                total[1] + r[1])
+        return total
+
     blend = blend_sigma = None
-    if mask is not None:
+    if mask is not None and masked_image is None:
         keep = 1.0 - on_device(mask).float()
 
         def _blend(lat_next, noised):
@@ -592,19 +705,29 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
 
     def model_out(lat, tp, i):
         """The guided model output at ``lat`` with step ``i``'s time
-        projections ``tp``; outside ``cfg_interval`` one cond-only
-        evaluation at batch B."""
+        projections ``tp`` (the branches' under "ctrl"); outside
+        ``cfg_interval`` one cond-only evaluation at batch B."""
         if cfg_lo is not None and not cfg_lo <= i < cfg_hi:
             if added2 is not None:
                 # the per-sample tables hold the uncond ⧺ cond rows: the
                 # cond half
                 tp = unet_mod.map_temb(lambda a: a[a.shape[0] // 2:], tp)
+            if inpaint_extra is not None:
+                lat = torch.cat([lat, inpaint_extra], dim=-1)
             return unet_mod.apply(unet, lat, None, ctx_c,
                                   attn_impl=attn_impl, temb_proj=tp,
                                   freeu=freeu).float()
-        out = unet_mod.apply(unet, torch.cat([lat, lat], dim=0), None,
-                             context, attn_impl=attn_impl, temb_proj=tp,
-                             freeu=freeu)
+        lat2 = torch.cat([lat, lat], dim=0)
+        if inpaint_extra is not None:
+            lat2 = torch.cat([lat2, torch.cat([inpaint_extra] * 2, dim=0)],
+                             dim=-1)
+        residuals = None
+        if cns is not None:
+            tp = dict(tp)
+            residuals = control_residuals(lat2, tp.pop("ctrl"))
+        out = unet_mod.apply(unet, lat2, None, context, attn_impl=attn_impl,
+                             temb_proj=tp, freeu=freeu,
+                             control_residuals=residuals)
         return combine(out)
 
     def model_out_cached(lat, tp, i, cache):
@@ -657,6 +780,12 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
             lat = noise_to(ts_host[t_start])
     tproj = unet_mod.precompute_temb(unet, ts_dev, dtype=dt,
                                      added_cond=added2)
+    if cns is not None:
+        # the branches' tables ride under "ctrl" (index_temb slices them
+        # with the UNet's), on the same grid: continuous timesteps on the
+        # Karras σ grid
+        tproj["ctrl"] = [controlnet_mod.precompute_temb(
+            cn, ts_dev, dtype=dt, added_cond=added2) for cn in cns]
 
     def model_at(i, lat, cache):
         tp = unet_mod.index_temb(tproj, i)

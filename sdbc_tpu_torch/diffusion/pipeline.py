@@ -1,7 +1,8 @@
 """SDPipeline — the host-side serving object (counterpart of
 ``sdbc_tpu/diffusion/pipeline.py``): tokenization (plain or weighted,
 ``data/prompt_weights.py``), batch buckets, latents, img2img / inpaint
-inputs and the sampling options around ``graph.sample``, for SD-1.x,
+inputs (the dedicated inpainting UNet's masked image too), ControlNet
+images and the sampling options around ``graph.sample``, for SD-1.x,
 SD-2.x and SDXL (both tokenizers, the refiner's aesthetic scores);
 ``generate`` serves a ``SampleSpec`` (``diffusion/spec.py``), ``hires``
 the two-stage hires-fix.  The SDXL base → refiner ensemble is
@@ -16,6 +17,7 @@ import torch
 from sdbc_tpu_torch.diffusion.graph import (  # noqa: F401  (re-export)
     COMPONENT_INITS, PipelineConfig, img2img_t_start, init_models,
     model_configs, preprocess_image, preprocess_mask, sample)
+from sdbc_tpu_torch.models import controlnet as controlnet_mod
 from sdbc_tpu_torch.models.convert import load_jax_params
 from sdbc_tpu_torch.models.safety import apply_safety_checker
 from sdbc_tpu_torch.utils.image import resize
@@ -24,9 +26,19 @@ from sdbc_tpu_torch.utils.image import resize
 def as_modules(params_or_modules: dict, cfg: PipelineConfig, device) -> dict:
     """The components of ``graph.model_configs(cfg)``: modules as given, or
     modules built from JAX parameter trees (nested numpy, see
-    ``models.convert``) kept in fp32 like the JAX masters.  Other entries
-    (a refiner tree's absent text encoder) are not taken."""
+    ``models.convert``) kept in fp32 like the JAX masters; with
+    ``cfg.controlnet`` also a "controlnet" entry, one branch or a list.
+    Other entries (a refiner tree's absent text encoder) are not
+    taken."""
     out = {}
+    if cfg.controlnet is not None and "controlnet" in params_or_modules:
+        value = params_or_modules["controlnet"]
+        cns = [m if isinstance(m, torch.nn.Module) else load_jax_params(
+            controlnet_mod.init(cfg.controlnet, device=device), m)
+            for m in controlnet_mod.branches(value)]
+        cns = [m.requires_grad_(False) for m in cns]
+        out["controlnet"] = cns if isinstance(value, (list, tuple)) \
+            else cns[0]
     for name, sub in model_configs(cfg).items():
         if name not in params_or_modules:
             raise KeyError(f"{name} is missing: a "
@@ -58,14 +70,6 @@ def _pad_to(arr: np.ndarray, n: int, fill: float) -> np.ndarray:
         return arr
     pad = np.full((n - arr.shape[0],) + arr.shape[1:], fill, np.float32)
     return np.concatenate([arr, pad], axis=0)
-
-
-# __call__'s arguments of features the port has not taken yet, with their
-# defaults and the ROADMAP item that brings them
-_UNPORTED_CALL = {
-    "control_image": (None, "ControlNet (ROADMAP Queue 1 item 6.2)"),
-    "controlnet_scale": (1.0, "ControlNet (ROADMAP Queue 1 item 6.2)"),
-}
 
 
 class SDPipeline:
@@ -210,18 +214,16 @@ class SDPipeline:
         with decode=False); ``denoising_start`` resumes from handed-over
         ``latents`` at round(n·start).  ``aesthetic_score`` and
         ``negative_aesthetic_score`` condition a refiner (other configs
-        ignore them, as the JAX package does).  ``control_image`` and
-        ``controlnet_scale`` are taken so that a ``SampleSpec`` expands; a
-        value other than the default raises ``NotImplementedError``.  The
-        other options are ``graph.sample``'s.
+        ignore them, as the JAX package does).  With an inpainting UNet
+        (``cfg.is_inpaint_unet``) ``init_image`` + ``mask_image`` go to the
+        channel concat instead: the mask binarised at 0.5, masked pixels
+        set to 0.5, a full denoise from the noise.  ``control_image``: a
+        PIL image or array for the pipeline's ControlNet (one repeated
+        over the batch, or one per image), or a list, one per branch;
+        ``controlnet_scale`` a float or one per branch.  The other options
+        are ``graph.sample``'s.
         Returns (B, H, W, 3) float32 numpy images in [0, 1], or the raw
         latents with decode=False."""
-        given = {"control_image": control_image,
-                 "controlnet_scale": controlnet_scale}
-        for name, value in given.items():
-            default, what = _UNPORTED_CALL[name]
-            if (value is not None) if default is None else value != default:
-                raise NotImplementedError(f"{name}: {what} is not ported yet")
         if isinstance(prompts, str):
             prompts = [prompts]
         if cfg_interval is not None and len(tuple(cfg_interval)) != 2:
@@ -280,18 +282,36 @@ class SDPipeline:
                 raise ValueError(f"denoising_start must be in [0, 1), got "
                                  f"{denoising_start}")
             t_start = int(round(num_inference_steps * denoising_start))
-        img_arr = mask_arr = lat_init = None
+        img_arr = mask_arr = lat_init = masked_arr = None
         f = self.cfg.vae_scale
         if init_image is not None:
             img_arr = _pad_to(_per_image(
                 preprocess_image(init_image, height, width), b,
                 "init images"), bucket, 0.0)
-            t_start = img2img_t_start(num_inference_steps, strength,
-                                      self.cfg.schedule.steps_offset)
+            if mask_image is not None and self.cfg.is_inpaint_unet:
+                # the image conditions the UNet through its masked VAE
+                # latent: masked pixels set to 0.5 (diffusers' 0 in
+                # [-1, 1]) under the pixel mask binarised at 0.5
+                pm = _pad_to(_per_image(
+                    preprocess_mask(mask_image, height, width), b, "masks"),
+                    img_arr.shape[0], 1.0)
+                pm = (pm >= 0.5).astype(np.float32)
+                masked_arr = img_arr * (1.0 - pm) + 0.5 * pm
+                img_arr = None  # no re-noising
+            else:
+                t_start = img2img_t_start(num_inference_steps, strength,
+                                          self.cfg.schedule.steps_offset)
             if mask_image is not None:
                 mask_arr = _pad_to(_per_image(
                     preprocess_mask(mask_image, height // f, width // f), b,
                     "masks"), bucket, 1.0)
+                if masked_arr is not None:
+                    mask_arr = (mask_arr >= 0.5).astype(np.float32)
+        elif self.cfg.is_inpaint_unet:
+            raise ValueError("this checkpoint is a dedicated inpainting "
+                             "UNet (conv_in takes mask + masked-image "
+                             "channels): pass init_image + mask_image — "
+                             "plain text-to-image is undefined for it")
         if init_latents is not None:
             lat_init = (init_latents if torch.is_tensor(init_latents)
                         else torch.from_numpy(np.array(init_latents,
@@ -309,6 +329,17 @@ class SDPipeline:
                     (bucket - b,) + want)], dim=0)
             t_start = img2img_t_start(num_inference_steps, strength,
                                       self.cfg.schedule.steps_offset)
+        ctrl = None
+        if control_image is not None:
+            def prep_ctrl(img):
+                return torch.from_numpy(_pad_to(_per_image(
+                    preprocess_image(img, height, width), b,
+                    "control images"), bucket, 0.0)).to(self.device)
+
+            # a list: one image per branch (multi-ControlNet)
+            ctrl = ([prep_ctrl(c) for c in control_image]
+                    if isinstance(control_image, (list, tuple))
+                    else prep_ctrl(control_image))
         cond2 = uncond2 = cond_w2 = uncond_w2 = None
         if prompt_weighting:
             enc = self._encode_weighted(prompts, negative_prompt,
@@ -345,6 +376,8 @@ class SDPipeline:
                      aesthetic_score=float(aesthetic_score),
                      negative_aesthetic_score=float(
                          negative_aesthetic_score),
+                     masked_image=on_device(masked_arr), control_image=ctrl,
+                     controlnet_scale=controlnet_scale,
                      generator=gen, draws=draws)
         out = out[:b].float().cpu().numpy()
         if decode and self.safety_checker is not None:

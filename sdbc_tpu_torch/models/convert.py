@@ -15,7 +15,8 @@ The caller hands over the JAX tree as nested dicts/lists of numpy arrays
   CLIP text and vision towers, wherever they sit in the tree) is split
   into ``layers.<i>.…``, and so is a stacked ``blocks`` tree (the blocks
   of a depth > 1 UNet transformer, one leading depth axis) into
-  ``blocks.<k>.…``.
+  ``blocks.<k>.…``; a ``blocks`` list (the ControlNet conditioning
+  embedder's convs, ``blocks.<k>.weight``) is a list like any other.
 
 Raises on any leaf without a parameter or buffer, any parameter or buffer
 left unset, and any shape that disagrees.
@@ -42,12 +43,18 @@ _LEAF = {"w": "weight", "scale": "weight", "table": "weight",
 # the trees stacked along a leading axis: CLIP's layers, a deep
 # transformer's blocks
 STACKED = ("layers", "blocks")
+# a stacked tree's index in a parameter name: one followed by a submodule
+# and a leaf (``layers.3.attn.q.weight``), not by a leaf alone (the
+# embedder's ``cond_embedding.blocks.0.weight``, a plain list)
+STACKED_INDEX = re.compile(r"(^|\.)(layers|blocks)\.\d+\.(?=[^.]+\.)")
 
 
 def _flatten(node, prefix, out):
     if isinstance(node, dict):
         for k, v in node.items():
-            if k in STACKED and isinstance(v, dict):
+            # a list read back as a dict of indices is no stacked tree
+            if k in STACKED and isinstance(v, dict) \
+                    and not all(str(i).isdigit() for i in v):
                 stacked = {}
                 _flatten(v, [], stacked)
                 for name, arr in stacked.items():
@@ -110,7 +117,7 @@ def _jax_names(module: torch.nn.Module) -> dict:
     return names
 
 
-_LAYER = re.compile(r"^(.*?)\b(layers|blocks)\.(\d+)\.(.*)$")
+_LAYER = re.compile(r"^(.*?)\b(layers|blocks)\.(\d+)\.([^.]+\..*)$")
 
 
 def jax_key(module: torch.nn.Module, name: str) -> tuple:
@@ -148,8 +155,10 @@ def jax_tree_leaves(module: torch.nn.Module) -> list:
 
 
 def stacked(key: tuple) -> bool:
-    """Whether a JAX key path lies in a stacked tree (``STACKED``)."""
-    return any(k in STACKED for k, _ in key)
+    """Whether a JAX key path lies in a stacked tree (``STACKED``, not
+    followed by a list index)."""
+    return any(k in STACKED and not nxt[1]
+               for (k, _), nxt in zip(key, key[1:]))
 
 
 def load_adam8_state(jax_state, device="cpu"):

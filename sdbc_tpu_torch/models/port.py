@@ -14,14 +14,17 @@ Conventions (the JAX module's):
     a depth > 1 transformer's blocks along a leading depth axis
     (``"blocks"``; depth 1 keeps the flat layout).
 
-Also the CLIP vision tower, diffusers' safety checker
-(``safety_checker_from_dir``, for ``models.safety``) and a transformers
-CLIPModel (``clip_model_from_dir``, for ``eval.clip_score``).
+Also a diffusers ControlNetModel (``load_controlnet``, for
+``models.controlnet``; SD-1.x and SDXL layouts), the CLIP vision tower,
+diffusers' safety checker (``safety_checker_from_dir``, for
+``models.safety``) and a transformers CLIPModel (``clip_model_from_dir``,
+for ``eval.clip_score``).  The dedicated inpainting UNet is a UNet whose
+config says ``in_channels`` 9.
 
 Sources: ``.safetensors`` through ``read_safetensors`` (a reader of the
 format written here: the ``safetensors`` package is not needed), ``.bin``
-and ``.pth`` through ``torch.load(weights_only=True)``.  ControlNet and
-the exporters wait (ROADMAP Queue 1 items 6.2 and 6.4), BART (item 4).
+and ``.pth`` through ``torch.load(weights_only=True)``.  The exporters
+wait (ROADMAP Queue 1 item 6.4), BART (item 4).
 """
 from __future__ import annotations
 
@@ -212,32 +215,71 @@ def port_unet(sd: Dict[str, np.ndarray]) -> dict:
         p["add_mlp"] = {"fc1": _linear(sd, "add_embedding.linear_1"),
                         "fc2": _linear(sd, "add_embedding.linear_2")}
 
-    def block(prefix):
-        blk = {"resnets": [], "attns": []}
-        j = 0
-        while f"{prefix}.resnets.{j}.norm1.weight" in sd:
-            blk["resnets"].append(_port_resnet(sd, f"{prefix}.resnets.{j}"))
-            if f"{prefix}.attentions.{j}.proj_in.weight" in sd:
-                blk["attns"].append(
-                    _port_transformer(sd, f"{prefix}.attentions.{j}"))
-            j += 1
-        if f"{prefix}.downsamplers.0.conv.weight" in sd:
-            blk["downsample"] = _conv(sd, f"{prefix}.downsamplers.0.conv")
-        if f"{prefix}.upsamplers.0.conv.weight" in sd:
-            blk["upsample"] = _conv(sd, f"{prefix}.upsamplers.0.conv")
-        return blk
-
     for side, key in (("down", "down_blocks"), ("up", "up_blocks")):
-        p[side] = []
-        i = 0
-        while f"{key}.{i}.resnets.0.norm1.weight" in sd:
-            p[side].append(block(f"{key}.{i}"))
-            i += 1
-    p["mid"] = {
-        "resnet1": _port_resnet(sd, "mid_block.resnets.0"),
-        "attn": _port_transformer(sd, "mid_block.attentions.0"),
-        "resnet2": _port_resnet(sd, "mid_block.resnets.1"),
-    }
+        p[side] = _port_blocks(sd, key)
+    p["mid"] = _port_mid(sd)
+    return p
+
+
+def _port_block(sd, prefix):
+    blk = {"resnets": [], "attns": []}
+    j = 0
+    while f"{prefix}.resnets.{j}.norm1.weight" in sd:
+        blk["resnets"].append(_port_resnet(sd, f"{prefix}.resnets.{j}"))
+        if f"{prefix}.attentions.{j}.proj_in.weight" in sd:
+            blk["attns"].append(
+                _port_transformer(sd, f"{prefix}.attentions.{j}"))
+        j += 1
+    if f"{prefix}.downsamplers.0.conv.weight" in sd:
+        blk["downsample"] = _conv(sd, f"{prefix}.downsamplers.0.conv")
+    if f"{prefix}.upsamplers.0.conv.weight" in sd:
+        blk["upsample"] = _conv(sd, f"{prefix}.upsamplers.0.conv")
+    return blk
+
+
+def _port_blocks(sd, key):
+    out, i = [], 0
+    while f"{key}.{i}.resnets.0.norm1.weight" in sd:
+        out.append(_port_block(sd, f"{key}.{i}"))
+        i += 1
+    return out
+
+
+def _port_mid(sd):
+    return {"resnet1": _port_resnet(sd, "mid_block.resnets.0"),
+            "attn": _port_transformer(sd, "mid_block.attentions.0"),
+            "resnet2": _port_resnet(sd, "mid_block.resnets.1")}
+
+
+def _indexed(sd, name: str) -> list:
+    """``_conv`` of ``name.0``, ``name.1``, … while they exist."""
+    out, j = [], 0
+    while f"{name}.{j}.weight" in sd:
+        out.append(_conv(sd, f"{name}.{j}"))
+        j += 1
+    return out
+
+
+def port_controlnet(sd: Dict[str, np.ndarray]) -> dict:
+    """diffusers ControlNetModel state dict → the ``models.controlnet``
+    tree (JAX ``port.py:210-260``): the encoder half under the UNet's
+    names, ``controlnet_cond_embedding.{conv_in,blocks.N,conv_out}`` and
+    the zero convs ``controlnet_down_blocks.N`` / ``controlnet_mid_block``
+    (SDXL's ``add_embedding`` too)."""
+    p = {"conv_in": _conv(sd, "conv_in"),
+         "time_mlp": {"fc1": _linear(sd, "time_embedding.linear_1"),
+                      "fc2": _linear(sd, "time_embedding.linear_2")}}
+    if "add_embedding.linear_1.weight" in sd:  # SDXL ControlNet
+        p["add_mlp"] = {"fc1": _linear(sd, "add_embedding.linear_1"),
+                        "fc2": _linear(sd, "add_embedding.linear_2")}
+    p["down"] = _port_blocks(sd, "down_blocks")
+    p["mid"] = _port_mid(sd)
+    p["cond_embedding"] = {
+        "conv_in": _conv(sd, "controlnet_cond_embedding.conv_in"),
+        "blocks": _indexed(sd, "controlnet_cond_embedding.blocks"),
+        "conv_out": _conv(sd, "controlnet_cond_embedding.conv_out")}
+    p["zero_down"] = _indexed(sd, "controlnet_down_blocks")
+    p["zero_mid"] = _conv(sd, "controlnet_mid_block")
     return p
 
 
@@ -512,6 +554,51 @@ def unet_config_from_diffusers(cfg: dict):
         addition_embed_dim=add_dim,
         addition_time_embed_dim=cfg.get("addition_time_embed_dim", 256),
     )
+
+
+def controlnet_config_from_diffusers(cfg: dict, unet_cfg=None):
+    """diffusers ControlNetModel config.json → ``ControlNetConfig`` (JAX
+    ``port.py:263-299``).  The ControlNet config carries the encoder's
+    fields itself (no up blocks, no out_channels: both synthesised for
+    ``unet_config_from_diffusers``, which takes the SDXL fields too);
+    ``unet_cfg`` overrides it with the base's.  A conditioning channel
+    order other than "rgb" is refused."""
+    from sdbc_tpu_torch.models.controlnet import ControlNetConfig
+
+    if unet_cfg is None:
+        down = cfg.get("down_block_types",
+                       ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"])
+        for t in down:
+            if t not in ("CrossAttnDownBlock2D", "DownBlock2D"):
+                raise ValueError(f"unsupported ControlNet block type {t!r}")
+        mirror = ["CrossAttnUpBlock2D" if t == "CrossAttnDownBlock2D"
+                  else "UpBlock2D" for t in reversed(down)]
+        unet_cfg = unet_config_from_diffusers(
+            {**cfg, "down_block_types": list(down), "up_block_types": mirror,
+             "out_channels": cfg.get("out_channels", 4)})
+    order = cfg.get("controlnet_conditioning_channel_order", "rgb")
+    if order != "rgb":
+        raise ValueError(f"conditioning channel order {order!r} unsupported "
+                         "(pre-swap the control image instead)")
+    return ControlNetConfig(
+        unet=unet_cfg,
+        conditioning_channels=tuple(
+            cfg.get("conditioning_embedding_out_channels",
+                    (16, 32, 96, 256))))
+
+
+def load_controlnet(path: str):
+    """A diffusers ControlNetModel dir → (tree, ``ControlNetConfig``).
+    ``path``: the model dir or a pipeline dir with a ``controlnet/``
+    subfolder (the layout diffusers' StableDiffusionControlNetPipeline
+    saves)."""
+    sub = os.path.join(path, "controlnet")
+    if os.path.isdir(sub):
+        path = sub
+    cfg_path = os.path.join(path, "config.json")
+    cfg_json = _read_json(cfg_path) if os.path.exists(cfg_path) else {}
+    return (port_controlnet(load_state_dict(path)),
+            controlnet_config_from_diffusers(cfg_json))
 
 
 def vae_config_from_diffusers(cfg: dict):

@@ -29,9 +29,9 @@ outside (the flash kernels keep O(S·D) residuals already); a depth > 1
 transformer's blocks are each checkpointed whole, attention included,
 with the feed-forward inside under the same policy.  Downsamplers,
 upsamplers and conv_in/out are not checkpointed, as in the JAX package.
-FreeU (``freeu``) and the DeepCache trunk split (``return_deep``,
-``cached_deep``, ``cache_tail``) are here; ControlNet residuals are not
-ported yet and raise ``NotImplementedError``.
+FreeU (``freeu``), the DeepCache trunk split (``return_deep``,
+``cached_deep``, ``cache_tail``) and ControlNet's residuals
+(``control_residuals``, ``models/controlnet.py``) are here.
 """
 from __future__ import annotations
 
@@ -323,6 +323,43 @@ class _TimeMLP(tnn.Module):
         self.fc2 = nn.Linear(ted, ted, **kw)
 
 
+def skip_channels(cfg: UNetConfig) -> list:
+    """The channels of every skip tensor of the down path, in append
+    order: conv_in's, one per down-block ResBlock, one per downsample."""
+    ch = cfg.block_out_channels
+    out = [ch[0]]
+    for i, cout in enumerate(ch):
+        out += [cout] * cfg.layers_per_block
+        if i < len(ch) - 1:
+            out.append(cout)
+    return out
+
+
+def down_blocks(cfg: UNetConfig, **kw):
+    """(the down blocks of ``cfg``, their skip channels): ResBlocks (with
+    a spatial transformer at the cross-attention levels) and a stride-2
+    downsample below the deepest level.  Shared by the UNet and the
+    ControlNet branch, whose encoder half is the UNet's."""
+    ch, ted = cfg.block_out_channels, cfg.time_embed_dim
+    heads, depths = cfg.heads_per_level, cfg.depth_per_level
+    down = tnn.ModuleList()
+    cin = ch[0]
+    for i, cout in enumerate(ch):
+        blk = _Block()
+        for j in range(cfg.layers_per_block):
+            blk.resnets.append(ResBlock(cin if j == 0 else cout, cout, ted,
+                                        **kw))
+            if cfg.cross_attn_blocks[i]:
+                blk.attns.append(Transformer(
+                    cout, cfg.cross_attention_dim, heads[i], depths[i],
+                    **kw))
+        if i < len(ch) - 1:
+            blk.downsample = nn.Conv2d(cout, cout, 3, **kw)
+        down.append(blk)
+        cin = cout
+    return down, skip_channels(cfg)
+
+
 class UNet(tnn.Module):
     def __init__(self, cfg: UNetConfig, *, device, generator=None,
                  dtype=torch.float32):
@@ -338,24 +375,7 @@ class UNet(tnn.Module):
         if cfg.addition_embed_dim:
             # SDXL's text-time embedding (diffusers add_embedding)
             self.add_mlp = _TimeMLP(cfg.addition_embed_dim, ted, **kw)
-        skip_ch = [ch[0]]
-        self.down = tnn.ModuleList()
-        cin = ch[0]
-        for i, cout in enumerate(ch):
-            blk = _Block()
-            for j in range(cfg.layers_per_block):
-                blk.resnets.append(ResBlock(cin if j == 0 else cout, cout,
-                                            ted, **kw))
-                if cfg.cross_attn_blocks[i]:
-                    blk.attns.append(Transformer(
-                        cout, cfg.cross_attention_dim, heads[i], depths[i],
-                        **kw))
-                skip_ch.append(cout)
-            if i < len(ch) - 1:
-                blk.downsample = nn.Conv2d(cout, cout, 3, **kw)
-                skip_ch.append(cout)
-            self.down.append(blk)
-            cin = cout
+        self.down, skip_ch = down_blocks(cfg, **kw)
         self.mid = _Mid(ch[-1], cfg.cross_attention_dim, ted, heads[-1],
                         depths[-1], **kw)
         self.up = tnn.ModuleList()
@@ -388,13 +408,15 @@ def init(cfg: UNetConfig, *, device, generator=None,
 # time-embedding hoist
 
 
-def _temb_mlp(model: UNet, timesteps, dtype):
-    temb = nn.timestep_embedding(timesteps, model.cfg.block_out_channels[0],
-                                 dtype=dtype)
+def _temb_mlp(model, timesteps, dtype):
+    """The time embedding of a UNet or a ControlNet branch (its UNet
+    config under ``cfg.unet``)."""
+    c0 = getattr(model.cfg, "unet", model.cfg).block_out_channels[0]
+    temb = nn.timestep_embedding(timesteps, c0, dtype=dtype)
     return model.time_mlp.fc2(F.silu(model.time_mlp.fc1(temb)))
 
 
-def _add_embedding(model: UNet, added_cond):
+def _add_embedding(model, added_cond):
     """The text-time embedding of ``added_cond`` (N, addition_embed_dim),
     in fp32 as the JAX package computes it."""
     mlp = model.add_mlp
@@ -528,14 +550,11 @@ FREEU_SDXL = (1.3, 1.4, 0.9, 0.2)
 # apply
 
 
-_UNPORTED = ("control_residuals",)
-
-
 def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
           attn_impl: str = "auto", temb_proj=None, remat: bool = False,
           remat_mode: str = "block", cached_deep=None,
           return_deep: bool = False, cache_tail: int = 0, freeu=None,
-          added_cond=None, **unported):
+          added_cond=None, control_residuals=None):
     """latents (N,h,w,4), timesteps (N,), CLIP states (N,77,768) → eps (N,h,w,4).
 
     ``temb_proj``: this step's slice of a ``precompute_temb`` tree, or None
@@ -559,12 +578,14 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
     ``added_cond``: SDXL's (N, addition_embed_dim) text-time conditioning,
     required exactly when the config sets ``addition_embed_dim`` and no
     ``temb_proj`` is given (the hoisted tables hold it already), run
-    through ``add_mlp`` and added to the time embedding."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"apply() got an unexpected argument {name!r}")
-        if value not in (None, False):
-            raise NotImplementedError(f"unet.apply({name}=...) is not ported")
+    through ``add_mlp`` and added to the time embedding.
+
+    ``control_residuals``: (down residuals, mid residual) of
+    ``controlnet.apply`` (the JAX package's ``unet.py:734-857``).  Each
+    down residual is added to the skip tensor it indexes when that skip is
+    saved, not to the activation that flows on; the mid residual to the
+    mid block's output.  Refused with the DeepCache split (the residuals
+    land inside the cached trunk)."""
     if attn_impl not in IMPLS:
         raise ValueError(f"unknown attention impl {attn_impl!r}")
     if remat_mode not in ("block", "selective"):
@@ -575,6 +596,17 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
     elif added_cond is not None:
         raise ValueError("added_cond is already in the temb_proj tables "
                          "(precompute_temb added_cond): pass only one")
+    if control_residuals is not None:
+        if cached_deep is not None or return_deep:
+            raise ValueError("control_residuals cannot combine with "
+                             "DeepCache trunk caching (the residuals land "
+                             "inside the trunk)")
+        want = len(skip_channels(cfg))
+        if len(control_residuals[0]) != want:
+            raise ValueError(
+                f"control_residuals: {len(control_residuals[0])} down "
+                f"residuals for {want} skip tensors (the ControlNet and "
+                "UNet configs disagree)")
     g = cfg.norm_groups
     ctx = encoder_hidden_states
 
@@ -602,12 +634,23 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
             return _checkpoint(t, h, ctx, g, attn_impl)
         return t(h, ctx, g, attn_impl)
 
+    # the skips' running index: the append order (conv_in, each down
+    # ResBlock, each downsample) is the residuals' order on every branch
+    # of the DeepCache split
+    n_saved = [0]
+
+    def save(skips, h):
+        if control_residuals is not None:
+            h = h + control_residuals[0][n_saved[0]].to(h.dtype)
+            n_saved[0] += 1
+        skips.append(h)
+
     def resnet_j(blk, tp, j, h, skips=None):
         h = res(blk.resnets[j], h, tp["resnets"][j])
         if len(blk.attns):
             h = tfm(blk.attns[j], h)
         if skips is not None:
-            skips.append(h)
+            save(skips, h)
         return h
 
     def block_down(blk, tp, h, skips, first=0):
@@ -615,7 +658,7 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
             h = resnet_j(blk, tp, j, h, skips)
         if hasattr(blk, "downsample"):
             h = blk.downsample(h, stride=2, padding=1)
-            skips.append(h)
+            save(skips, h)
         return h
 
     def block_up(blk, tp, h, skips, fu=None, js=None):
@@ -637,7 +680,8 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
 
     # shallow head: conv_in + the first (ct-1) resnets of down[0]
     h = model.conv_in(latents)
-    shallow_skips = [h]
+    shallow_skips = []
+    save(shallow_skips, h)
     for j in range(head_resnets):
         h = resnet_j(blk0, tp_down[0], j, h, shallow_skips)
 
@@ -649,6 +693,8 @@ def apply(model: UNet, latents, timesteps, encoder_hidden_states, *,
         d = res(model.mid.resnet1, d, tp_mid["resnet1"])
         d = tfm(model.mid.attn, d)
         d = res(model.mid.resnet2, d, tp_mid["resnet2"])
+        if control_residuals is not None:
+            d = d + control_residuals[1].to(d.dtype)
         for i, (blk, tp) in enumerate(zip(model.up[:-1], tp_up[:-1])):
             fu = None
             if freeu is not None and i < 2:

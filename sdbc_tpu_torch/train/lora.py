@@ -28,22 +28,18 @@ from __future__ import annotations
 
 import copy
 import json
-import re
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sdbc_tpu_torch.models.convert import STACKED_INDEX
 from sdbc_tpu_torch.ops import nn
 
 # the UNet's self/cross attention ("attn1"/"attn2") and CLIP's ("attn"):
 # the diffusers LoRA convention (attention projections only)
 DEFAULT_CONTAINERS = ("attn1", "attn2", "attn")
 DEFAULT_PROJECTIONS = ("q", "k", "v", "o")
-
-# a stacked tree's index: a tower's layers, a deep transformer's blocks
-_STACKED = re.compile(r"(^|\.)(layers|blocks)\.\d+\.")
-
 
 def _linears(models: dict) -> Dict[str, Tuple[bool, list]]:
     """Dotted JAX path → (stacked, [modules]) for every linear (and conv,
@@ -55,7 +51,7 @@ def _linears(models: dict) -> Dict[str, Tuple[bool, list]]:
     for comp, module in models.items():
         for name, m in module.named_modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                flat = _STACKED.sub(r"\1\2.", name)
+                flat = STACKED_INDEX.sub(r"\1\2.", name)
                 out.setdefault(f"{comp}.{flat}", (flat != name, []))[1] \
                     .append(m)
     return out

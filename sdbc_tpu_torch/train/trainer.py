@@ -1,6 +1,7 @@
 """The fine-tuning step of SD-1.x, SD-2.x and SDXL (counterpart of
 ``sdbc_tpu/train/trainer.py``) on one device: full fine-tuning, LoRA,
-textual inversion, prior preservation and cached latents.
+textual inversion, prior preservation, cached latents and ControlNet
+training.
 
   - one step = a Python loop over the micro-batches of a
     (grad_accum, micro, ...) batch: VAE encode (no gradient; image by image
@@ -62,21 +63,25 @@ Parameter-efficient modes, as the JAX package has them:
   - cached latents: a micro-batch with ``latent_mean``/``latent_logvar``
     (``train/latent_cache.py``) samples mean + exp(½·logvar)·eps with no
     VAE encode.
+  - ControlNet (``train_controlnet``, arXiv:2302.05543): the one branch
+    ``models["controlnet"]`` trains (fp32 masters), every base component
+    frozen in the compute dtype.  The hint comes from the micro-batch's
+    pixels (``control_hint``: "edges" the Sobel magnitude, "image" the
+    image), then ``embed_cond``, the branch's forward (checkpointed by
+    ``grad_ckpt``) and the base UNet with its residuals.  The residuals
+    enter the base's skips and mid output only, so autograd's backward
+    runs through the branch and the base's up path.
 
 The optimizer's leaves are in the JAX tree's leaf order for the adapters
 (sorted paths, then a, b) and in module order for full components
 (``optimizer_leaf_keys`` names each leaf by its JAX key path, so
 ``utils/checkpoint.py`` writes the state in the JAX layout).
-
-Not ported yet (``TrainConfig`` raises ``NotImplementedError``):
-ControlNet training (ROADMAP Queue 1 item 6.2).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import dataclasses
-import re
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -86,6 +91,8 @@ from sdbc_tpu_torch.diffusion import schedulers as sched_mod
 from sdbc_tpu_torch.diffusion.graph import (PipelineConfig, encode_text_xl,
                                             xl_added_cond)
 from sdbc_tpu_torch.models import clip as clip_mod
+from sdbc_tpu_torch.models import controlnet as cn_mod
+from sdbc_tpu_torch.models.convert import STACKED_INDEX
 from sdbc_tpu_torch.models import unet as unet_mod
 from sdbc_tpu_torch.models import vae as vae_mod
 from sdbc_tpu_torch.train.adam8bit import AdamW8bit, leaf_parts
@@ -125,8 +132,10 @@ class TrainConfig:
     # prior preservation: > 0 weights the class batch's MSE
     # (train/prior.py)
     prior_weight: float = 0.0
-    # not ported yet: True raises
+    # ControlNet: train only the branch models["controlnet"] (needs
+    # cfg.controlnet), the base frozen; the hint from the pixel batch
     train_controlnet: bool = False
+    control_hint: str = "edges"        # "edges" (Sobel) | "image"
     # SDXL (cfg.clip2 set): train_text_encoder covers both encoders, and
     # each batch carries input_ids_2; must agree with the PipelineConfig
     # given to make_train_step (the finetune CLI sets it from cfg.is_sdxl)
@@ -136,11 +145,6 @@ class TrainConfig:
     refiner: bool = False
 
     def __post_init__(self):
-        if self.train_controlnet:
-            raise NotImplementedError(
-                "TrainConfig.train_controlnet=True: ControlNet training is "
-                "not ported to sdbc_tpu_torch yet (ROADMAP Queue 1 item "
-                "6.2)")
         if self.remat_mode not in ("block", "selective"):
             raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
 
@@ -149,6 +153,9 @@ class TrainConfig:
         return self.lora_alpha / self.lora_rank
 
     def trainable_keys(self):
+        if self.train_controlnet:
+            # the paper's protocol: every base component stays frozen
+            return ("controlnet",)
         keys = []
         if self.train_unet:
             keys.append("unet")
@@ -171,10 +178,6 @@ class TrainState:
     ema: Optional[Dict[str, Any]] = None    # shadow of trainable
 
 
-# a stacked tree's index: a tower's layers, a deep transformer's blocks
-_STACKED = re.compile(r"(^|\.)(layers|blocks)\.\d+\.")
-
-
 def _grouped_leaves(trainable: Dict[str, Any]):
     """{leaf id: (a parameter name or adapter key, [tensors])} of the
     optimizer's leaves, in order: an adapter's tensors in the JAX tree's
@@ -193,7 +196,7 @@ def _grouped_leaves(trainable: Dict[str, Any]):
     leaves: dict = {}
     for k in sorted(trainable):
         for name, p in trainable[k].named_parameters():
-            group = (k, _STACKED.sub(r"\1\2.", name))
+            group = (k, STACKED_INDEX.sub(r"\1\2.", name))
             leaves.setdefault(group, (name, []))[1].append(p)
     return leaves
 
@@ -232,6 +235,26 @@ def _split_params(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
             "textual inversion is not wired for the refiner flavor (its "
             "single-bigG conditioning has no base-model counterpart to "
             "compose the token into) — invert on the base model instead")
+    if tcfg.train_controlnet:
+        if tcfg.lora_rank > 0 or tcfg.ti_token:
+            raise ValueError("train_controlnet is a full-branch mode; it "
+                             "cannot combine with lora_rank/ti_token")
+        if tcfg.train_unet or tcfg.train_text_encoder:
+            raise ValueError(
+                "train_controlnet freezes the whole base model (the "
+                "arXiv:2302.05543 protocol) — unset train_unet/"
+                "train_text_encoder rather than having them silently ignored")
+        if "controlnet" not in models:
+            raise ValueError(
+                "train_controlnet needs models['controlnet'] — attach one "
+                "with models.controlnet.from_unet(models['unet'], ...) or "
+                "port a checkpoint (models/port.load_controlnet)")
+        if isinstance(models["controlnet"], (list, tuple)):
+            raise ValueError(
+                "train_controlnet trains ONE branch (multi-ControlNet is a "
+                "serving composition — residuals sum at sampling time); "
+                "train branches separately and attach them together with "
+                "a comma-separated --controlnet_path")
     if tcfg.ti_token or tcfg.lora_rank > 0:
         # every component freezes; the trainable tree is the adapter
         if tcfg.ti_token and tcfg.lora_rank > 0:
@@ -632,9 +655,24 @@ def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
     else:
         ctx = clip_mod.apply(models["text_encoder"], batch["input_ids"],
                              compute_dtype=dt)
+    control = None
+    if tcfg.train_controlnet:
+        if cfg.controlnet is None:
+            raise ValueError("train_controlnet needs cfg.controlnet "
+                             "(PipelineConfig.with_controlnet)")
+        if "pixel_values" not in batch:
+            raise ValueError("train_controlnet derives its conditioning "
+                             "hint from the pixel batch — incompatible "
+                             "with cached latents")
+        cn = models["controlnet"]
+        hint = cn_mod.training_hint(batch["pixel_values"], tcfg.control_hint)
+        control = cn_mod.apply(cn, noisy, t, ctx,
+                               cn_mod.embed_cond(cn, hint.to(dt)),
+                               remat=tcfg.grad_ckpt, attn_impl="auto",
+                               added_cond=added_cond)
     pred = unet_mod.apply(models["unet"], noisy, t, ctx, attn_impl="auto",
                           remat=tcfg.grad_ckpt, remat_mode=tcfg.remat_mode,
-                          added_cond=added_cond)
+                          added_cond=added_cond, control_residuals=control)
     v_pred = cfg.schedule.prediction_type == "v_prediction"
     target = (sched_mod.velocity_target(sched, latents, noise, t) if v_pred
               else noise)

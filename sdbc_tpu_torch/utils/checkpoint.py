@@ -3,6 +3,8 @@ in the JAX package's on-disk layout, one tree per component:
 
     <dir>/unet/ <dir>/vae/ <dir>/text_encoder/   (params)
     <dir>/text_encoder_2/                         (SDXL's second encoder)
+    <dir>/controlnet/                             (a ControlNet branch, or
+                                                   a list of branches)
     <dir>/opt_state/                              (optional optimizer state)
     <dir>/ema/                                    (optional EMA shadow)
     <dir>/lora.npz, <dir>/ti.npz + added_tokens.json  (adapters)
@@ -45,13 +47,14 @@ from sdbc_tpu_torch.diffusion.graph import (COMPONENT_INITS,
                                             PipelineConfig, model_configs)
 from sdbc_tpu_torch.diffusion.schedulers import ScheduleConfig
 from sdbc_tpu_torch.models.clip import CLIPTextConfig
+from sdbc_tpu_torch.models.controlnet import ControlNetConfig
 from sdbc_tpu_torch.models.convert import stacked
 from sdbc_tpu_torch.models.unet import UNetConfig
 from sdbc_tpu_torch.models.vae import VAEConfig
 
-COMPONENTS = ("text_encoder", "text_encoder_2", "unet", "vae")
-# components the JAX package may save that the port has no model for
-_UNPORTED_COMPONENTS = {"controlnet": "ControlNet"}
+# "controlnet" only in a ControlNet run's checkpoints: save and load skip
+# an absent component
+COMPONENTS = ("text_encoder", "text_encoder_2", "unet", "vae", "controlnet")
 
 # a key path: ((key, is_list_index), ...)
 Key = Tuple[Tuple[str, bool], ...]
@@ -202,16 +205,39 @@ def sort_key(key: Key) -> tuple:
     return tuple((0, int(k), "") if seq else (1, 0, k) for k, seq in key)
 
 
+def component_tree(value) -> list:
+    """``module_tree`` of a component: a module, or a list of ControlNet
+    branches (each one's leaves under its list index)."""
+    if isinstance(value, (list, tuple)):
+        return [(((str(i), True),) + k, t) for i, m in enumerate(value)
+                for k, t in module_tree(m)]
+    return module_tree(value)
+
+
 def load_component(flat: Dict[Key, torch.Tensor], name: str,
-                   cfg: PipelineConfig, device="cpu") -> torch.nn.Module:
+                   cfg: PipelineConfig, device="cpu"):
     """The module of component ``name`` from its tree, in the tree's dtype
-    (fp32 when its leaves disagree)."""
+    (fp32 when its leaves disagree); a "controlnet" tree saved as a list
+    gives a list of branches."""
+    from sdbc_tpu_torch.models import controlnet as controlnet_mod
     from sdbc_tpu_torch.models.convert import load_jax_params
 
+    if name == "controlnet":
+        if cfg.controlnet is None:
+            raise ValueError("a controlnet/ tree needs the config's "
+                             "'controlnet' entry")
+        if all(key[0][1] for key in flat):   # a list of branches
+            parts: Dict[str, dict] = {}
+            for key, t in flat.items():
+                parts.setdefault(key[0][0], {})[key[1:]] = t
+            return [load_component(parts[str(i)], name, cfg, device)
+                    for i in range(len(parts))]
+        init, sub = controlnet_mod.init, cfg.controlnet
+    else:
+        init, sub = COMPONENT_INITS[name], model_configs(cfg)[name]
     dtypes = {t.dtype for t in flat.values()}
     dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
-    module = COMPONENT_INITS[name](model_configs(cfg)[name],
-                                   device=device, dtype=dtype)
+    module = init(sub, device=device, dtype=dtype)
     return load_jax_params(module, nest(flat)).requires_grad_(False)
 
 
@@ -222,8 +248,8 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
                   lora_alpha: float = 0.0,
                   ema: Optional[dict] = None,
                   ti: Optional[tuple] = None) -> int:
-    """Save ``models`` ({component: module}) in their dtypes; returns the
-    bytes of the trees written.
+    """Save ``models`` ({component: module}; "controlnet" may be a list
+    of branches) in their dtypes; returns the bytes of the trees written.
 
     ``opt_state``: the optimizer state as ``opt_state_tree`` gives it.
     ``lora``: an adapter dict (``train/lora.py``), stored as ``lora.npz``
@@ -237,7 +263,7 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
     for comp in COMPONENTS:
         if comp in models:
             total += write_tree(os.path.join(path, comp),
-                                module_tree(models[comp]))
+                                component_tree(models[comp]))
     if opt_state is not None:
         total += write_tree(os.path.join(path, "opt_state"), opt_state)
     if ema is not None:
@@ -289,10 +315,6 @@ def load_pipeline(path: str, device="cpu", merge_lora: bool = True,
     for comp in (*COMPONENTS, "ema", "opt_state"):
         if os.path.isdir(os.path.join(path, comp)):
             _refuse_jax_written(os.path.join(path, comp))
-    for comp, what in _UNPORTED_COMPONENTS.items():
-        if os.path.isdir(os.path.join(path, comp)):
-            raise NotImplementedError(f"{path}/{comp}: {what} is not "
-                                      "ported to sdbc_tpu_torch yet")
     with open(os.path.join(path, "config.json")) as f:
         cfg = config_from_json(json.load(f))
     models = {}
@@ -498,12 +520,17 @@ def load_opt_state(path: str, template, trainable: dict,
 
 def config_to_json(cfg: PipelineConfig) -> dict:
     """The JAX package's config.json of ``cfg`` (per-level heads and depths
-    as lists, SDXL's ``clip2`` and the refiner flag when set)."""
+    as lists; the ControlNet ramp, SDXL's ``clip2`` and the refiner flag
+    when set)."""
     out = {"clip": dataclasses.asdict(cfg.clip),
            "unet": dataclasses.asdict(cfg.unet),
            "vae": dataclasses.asdict(cfg.vae),
            "schedule": dataclasses.asdict(cfg.schedule),
            "scheduler": cfg.scheduler}
+    if cfg.controlnet is not None:
+        # the branch's encoder layout is the base UNet's: only the ramp
+        out["controlnet"] = {"conditioning_channels":
+                             list(cfg.controlnet.conditioning_channels)}
     if cfg.clip2 is not None:
         out["clip2"] = dataclasses.asdict(cfg.clip2)
     if cfg.refiner:
@@ -515,18 +542,20 @@ def config_from_json(d: dict) -> PipelineConfig:
     def tup(x):
         return tuple(x) if isinstance(x, list) else x
 
-    if d.get("controlnet"):
-        raise NotImplementedError("a checkpoint config with 'controlnet': "
-                                  "ControlNet is not ported to "
-                                  "sdbc_tpu_torch yet")
+    unet_cfg = UNetConfig(**{k: tup(v) for k, v in d["unet"].items()})
+    controlnet = None
+    if "controlnet" in d:
+        controlnet = ControlNetConfig(
+            unet=unet_cfg, conditioning_channels=tup(
+                d["controlnet"]["conditioning_channels"]))
     return PipelineConfig(
         clip=CLIPTextConfig(**d["clip"]),
-        unet=UNetConfig(**{k: tup(v) for k, v in d["unet"].items()}),
+        unet=unet_cfg,
         vae=VAEConfig(**{k: tup(v) for k, v in d["vae"].items()}),
         schedule=ScheduleConfig(**d["schedule"]),
         scheduler=d.get("scheduler", "ddim"),
         clip2=CLIPTextConfig(**d["clip2"]) if d.get("clip2") else None,
-        refiner=bool(d.get("refiner", False)))
+        refiner=bool(d.get("refiner", False)), controlnet=controlnet)
 
 
 # ---------------------------------------------------------------------------

@@ -178,23 +178,27 @@ def test_ckpt_flag_loads_a_port_checkpoint(env, tmp_path, tiny_params):
         tinf.main(base + ["--ckpt", jck])
 
 
+# each case: the flags and the message they exit with; the ControlNet
+# flags are ported (tests/test_torch_controlnet.py) and keep their cases
+# for the refusals left to them: a missing dir, an image without a
+# branch, a scale without an image
 REFUSED = [
-    (["--wandb_artifact_run", "abc"], "wandb"),
-    (["--wandb_key", "k"], "wandb"),
-    (["--controlnet_path", "cn"], "ControlNet"),
-    (["--control_image", "c.png"], "ControlNet"),
-    (["--controlnet_scale", "0.5"], "ControlNet"),
-    (["--tp", "2"], "multi-device"),
-    (["--tp", "1", "--spatial"], "multi-device"),
-    (["--summarize"], "BART"),
-    (["--bart_ckpt", "bart"], "BART"),
+    (["--wandb_artifact_run", "abc"], "wandb.*not ported yet"),
+    (["--wandb_key", "k"], "wandb.*not ported yet"),
+    (["--controlnet_path", "cn"], "--controlnet_path cn: no ControlNet"),
+    (["--control_image", "c.png"], "--control_image needs a ControlNet"),
+    (["--controlnet_scale", "0.5"], "--controlnet_scale .* ControlNet"),
+    (["--tp", "2"], "multi-device.*not ported yet"),
+    (["--tp", "1", "--spatial"], "multi-device.*not ported yet"),
+    (["--summarize"], "BART.*not ported yet"),
+    (["--bart_ckpt", "bart"], "BART.*not ported yet"),
 ]
 
 
 @pytest.mark.parametrize("flags,what", REFUSED,
                          ids=[" ".join(f) for f, _ in REFUSED])
 def test_unported_flags_exit_with_their_feature(flags, what):
-    with pytest.raises(SystemExit, match=f"(?s){what}.*not ported yet"):
+    with pytest.raises(SystemExit, match=f"(?s){what}"):
         tinf.main(["--tiny", "--device", "cpu", "--mode", "enter_prompt",
                    "--prompt", "x"] + flags)
 

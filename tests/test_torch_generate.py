@@ -290,10 +290,13 @@ def test_hires_and_call_refusals(pipes):
         compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="t_start-capable"):
         pndm.hires(["x"], **kw)
-    for name, value in (("control_image", np.zeros((32, 32, 3))),
-                        ("controlnet_scale", 0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe(["x"], **{name: value}, **kw)
+    # a control image needs a ControlNet; a scale alone changes nothing
+    with pytest.raises(ValueError, match="controlnet"):
+        tpipe(["x"], control_image=np.zeros((32, 32, 3)), **kw)
+    lat0 = np.zeros((1, 16, 16, 4), np.float32)
+    np.testing.assert_array_equal(
+        tpipe(["x"], latents=lat0, controlnet_scale=0.5, **kw),
+        tpipe(["x"], latents=lat0, **kw))
     # the aesthetic scores condition a refiner only; SD-1.x ignores them,
     # as the JAX package does
     lat = np.zeros((1, 16, 16, 4), np.float32)

@@ -164,11 +164,11 @@ def test_deep_transformers_are_refused(tcfg):
 
 @pytest.mark.parametrize("option", ["control_residuals", "added_cond"])
 def test_unet_unported_options_raise(tcfg, tmodels, option):
-    """ControlNet residuals are not ported; ``added_cond`` is (SDXL) and is
-    refused on a UNet without the text-time embedding, as in JAX."""
+    """Both options are ported (ControlNet, SDXL) and refuse what JAX
+    refuses: residuals of another count than the skips, ``added_cond`` on
+    a UNet without the text-time embedding."""
     lat, ctx = _unet_inputs(tcfg)
-    err = NotImplementedError if option == "control_residuals" \
-        else ValueError
-    with pytest.raises(err, match=option):
+    value = ((lat,), lat) if option == "control_residuals" else True
+    with pytest.raises(ValueError, match=option):
         tunet.apply(tmodels["unet"], lat, torch.tensor([1]), ctx,
-                    **{option: True})
+                    **{option: value})

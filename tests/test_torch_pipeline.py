@@ -145,15 +145,29 @@ def test_nchw_latents_and_latent_padding(pipe):
 
 
 # SDXL's cond_ids2 / time_ids are ported (tests/test_torch_sdxl.py); a
-# single-encoder config ignores them, as the JAX package does
+# single-encoder config ignores them, as the JAX package does.  Of the
+# others only pack_heads is unported: ControlNet and the inpainting UNet
+# (tests/test_torch_controlnet.py, tests/test_torch_inpaint_unet.py)
+# refuse a config without their model, and a scale without a control
+# image changes nothing
 @pytest.mark.parametrize("option", ["control_image", "masked_image",
                                     "controlnet_scale", "pack_heads"])
 def test_unported_sampling_options_raise(pipe, option):
     ids = torch.zeros((1, pipe.cfg.clip.ctx), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=option):
-        tgraph.sample(pipe.models, ids, ids, torch.zeros(1, 8, 8, 4), 7.5,
-                      cfg=pipe.cfg, num_inference_steps=2,
-                      compute_dtype=torch.float32, **{option: 2})
+    kw = dict(cfg=pipe.cfg, num_inference_steps=2,
+              compute_dtype=torch.float32)
+    lat = torch.zeros(1, 8, 8, 4)
+    if option == "controlnet_scale":
+        torch.testing.assert_close(
+            tgraph.sample(pipe.models, ids, ids, lat, 7.5, **kw,
+                          controlnet_scale=2),
+            tgraph.sample(pipe.models, ids, ids, lat, 7.5, **kw),
+            rtol=0, atol=0)
+        return
+    err = NotImplementedError if option == "pack_heads" else ValueError
+    with pytest.raises(err, match=option):
+        tgraph.sample(pipe.models, ids, ids, lat, 7.5, **kw,
+                      **{option: 2})
 
 
 def _imports(path):

@@ -181,8 +181,12 @@ def test_nothing_to_train_rejected(np_params, tcfg_pipe):
     tcfg = ttrainer.TrainConfig(train_unet=False, train_text_encoder=False)
     with pytest.raises(ValueError, match="nothing to train"):
         _port_state(np_params, tcfg_pipe, tcfg)
-    with pytest.raises(NotImplementedError, match="train_controlnet"):
-        ttrainer.TrainConfig(train_controlnet=True)
+    # ControlNet training is ported (tests/test_torch_controlnet.py): it
+    # needs a branch to train
+    tcfg = ttrainer.TrainConfig(train_controlnet=True,
+                                train_text_encoder=False)
+    with pytest.raises(ValueError, match="train_controlnet needs"):
+        _port_state(np_params, tcfg_pipe, tcfg)
 
 
 def test_encode_moments_chunked_matches_batched(np_params, tcfg_pipe):
