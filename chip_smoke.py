@@ -10,11 +10,13 @@ Phases, in order; each prints one or more lines, and any failure raises
 2. build        — compile ``sdbc_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
                   (one nvcc per source, all started together);
 3. kernels      — each sampling kernel against its plain PyTorch version on
-                  the card, at the shapes SD-1.5 512² batch-4 sampling gives
-                  it (bf16 inputs; the plain version in fp32 on the same
-                  bf16 values), with CUDA-event medians of the kernel, the
-                  plain version and the one PyTorch call computing the same
-                  function (where there is one): the fixed-cap attention
+                  the card, at the shapes SD-1.5 512² sampling gives it at
+                  4 images and at 1 (CFG batch 8 and 2; 4 in
+                  cfg_interval's cond-only evaluations; bf16 inputs; the
+                  plain version in fp32 on the same bf16 values), with
+                  CUDA-event medians of the kernel, the plain version and
+                  the one PyTorch call computing the same function (where
+                  there is one): the fixed-cap attention
                   (timed against SDPA in alternating rounds, with its share
                   of the bound; also at the VAE's 512-wide head and at
                   hires-fix's 1024² shape (2,16384,8,40), held to the
@@ -128,6 +130,25 @@ Phases, in order; each prints one or more lines, and any failure raises
                   evaluations (heun 19, pndm 11, a DeepCache reuse step 5
                   and 5); then dpm-25, the CLI's serving profile, warmed up
                   and timed (s/call, images/s, peak memory);
+   export       — the slice's pipeline exported to a diffusers directory
+                  (``pipeline_trees``, ``export_diffusers_checkpoint``:
+                  fp32 safetensors by the port's own writer) and read back
+                  through ``resolve_params_cfg --diffusers_ckpt``: every
+                  weight bit for bit, DDIM-10 batch 1 from both pipelines
+                  no further apart than two source calls, exact K1/K4
+                  launches, bytes, write and read seconds and GB/s;
+   summarize    — ``cli.inference`` in its default mode with --summarize
+                  --bart_ckpt (a DistilBART-CNN-12-6-wide dir of random
+                  weights in transformers' names, a byte-level vocabulary
+                  covering every id, a df_test.csv of 150–300-word
+                  descriptions): the (F,F), (T,T), (F,T) grids at DDIM-4
+                  with exact K1/K4 launches, the summaries in the (T,T)
+                  prompts, ms per description, and one description's
+                  summary ids on the card against strict fp32 on the CPU
+                  (a mismatch passes only after a near-tie: a candidate gap
+                  below the largest score difference), that difference
+                  within a bound the same search with TF32 products
+                  exceeds;
    generate     — the evaluation entry points at full width:
                   ``cli.common.resolve_params_cfg`` on parsed
                   ``cli.inference`` arguments (random SD-1.5, bf16), then
@@ -1051,6 +1072,14 @@ def phase_device():
     # logits of plain attention); the bf16 slice is unaffected otherwise
     set_fp32_matmul_exact()
     smi = smi_line()
+    import importlib.util
+
+    # what the machine offers beside torch: PIL decodes input images,
+    # pandas reads and writes the preprocessing CSVs, matplotlib draws the
+    # titled grids (without it ``eval.visualize.save_grid`` tiles a PNG)
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "pandas", "matplotlib", "regex")}
+    print(f"[device] importable: {have}", flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} cap {cap} "
           f"count {torch.cuda.device_count()} torch {torch.__version__} "
           f"cuda {torch.version.cuda} tf32 matmul "
@@ -1490,7 +1519,7 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
 
     tr = lambda t: t.transpose(1, 2)
     # (label, layout, q shape, kv seq): the three slice levels in the
-    # projection layout at batch 8 and 4, one head-major call, one ragged
+    # projection layout at batch 8, 4 and 2, one head-major call, one ragged
     # call
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -1501,6 +1530,12 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
                    ("bshd 64^2 d40 batch 4", "bshd", (4, 4096, 8, 40), 4096),
                    ("bshd 32^2 d80 batch 4", "bshd", (4, 1024, 8, 80), 1024),
                    ("bshd 16^2 d160 batch 4", "bshd", (4, 256, 8, 160), 256),
+                   # batch 2: one image with CFG (the export phase's
+                   # DDIM-10 and the summarize grids' last call of one
+                   # template)
+                   ("bshd 64^2 d40 batch 2", "bshd", (2, 4096, 8, 40), 4096),
+                   ("bshd 32^2 d80 batch 2", "bshd", (2, 1024, 8, 80), 1024),
+                   ("bshd 16^2 d160 batch 2", "bshd", (2, 256, 8, 160), 256),
                    ("bhsd 32^2 d80", "bhsd", (8, 8, 1024, 80), 1024),
                    ("bshd ragged Sq200 Sk300 d40", "bshd", (2, 200, 8, 40),
                     300),
@@ -1578,9 +1613,9 @@ def phase_kernels(gn_build_report=None, int8_build_report=None):
     geglu_err, first, shapes = 0.0, None, []
     # batch 8 (CFG), then batch 4 (cfg_interval's cond-only evaluations),
     # then SD-2.1 768²'s 96² and 48² levels at CFG batch 2 (SDXL 1024²'s
-    # is (8192, 640))
+    # is (8192, 640)), then SD-1.5's at batch 2 (one image with CFG)
     for rows_n, c in ((32768, 320), (8192, 640), (16384, 320), (4096, 640),
-                      (18432, 320), (4608, 640)):
+                      (18432, 320), (4608, 640), (8192, 320), (2048, 640)):
         y = randn(rows_n, c)
         gamma = randn(c, scale=0.1, dtype=torch.float32) + 1.0
         beta = randn(c, scale=0.1, dtype=torch.float32)
@@ -4133,7 +4168,8 @@ def phase_train(smi: str, steps: int = 3, label: str = "train", env=None,
     if counts != want:
         fail(f"{label} launch counts {counts}, expected {want}")
     if profile:
-        phase_train_profile(step, state, batch, gen, sps, label)
+        phase_train_profile(step, state, batch, gen, sps, label,
+                            host=label == "train")
     return counts, sps, peak
 
 
@@ -6327,14 +6363,17 @@ def phase_controlnet(smi: str) -> dict:
 
 
 def phase_train_profile(step, state, batch, gen, sps: float,
-                        label: str = "train"):
-    """Device time by kernel over one mode-C optimizer step."""
+                        label: str = "train", host: bool = False):
+    """Device time by kernel over one mode-C optimizer step; with
+    ``host``, also the host's operators by their own CPU time (their
+    records cost ~45 s of the card's host for one step, so only the SD-1.5
+    step takes them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         step(state, batch, generator=gen)
         torch.cuda.synchronize()
 
@@ -6342,7 +6381,8 @@ def phase_train_profile(step, state, batch, gen, sps: float,
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0
+    averages = prof.key_averages()
+    events = [e for e in averages if dev_us(e) > 0
               and getattr(e, "device_type", None) == DeviceType.CUDA]
     total = sum(dev_us(e) for e in events) / 1e3
     if total == 0:
@@ -6361,20 +6401,445 @@ def phase_train_profile(step, state, batch, gen, sps: float,
                       "flash_bwd_dkv_tf32_sm90_kernel", "split_bwd_kernel",
                       "flash_simt", "adam8_leaves_kernel")}
     ours = {n: t for n, t in ours.items() if t}
-    # host side: operators by their own CPU time (the profiler's, which
-    # inflates it) and the number of device kernels launched
-    host = sorted((e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) != DeviceType.CUDA),
-                  key=lambda e: -e.self_cpu_time_total)[:8]
-    host_summary = [(e.key[:40], round(e.self_cpu_time_total / 1e3, 1),
-                     e.count) for e in host]
     n_kernels = sum(e.count for e in events)
-    print(f"[train-profile] {label}, one step: kernels {total:.1f} ms of "
-          f"{sps * 1e3:.1f} ms unprofiled wall (device idle "
-          f"{100 * (1 - total / (sps * 1e3)):.1f}%), {n_kernels} kernel "
-          f"launches; ours (ms) {ours}; top kernels (ms, calls): {summary}; "
-          f"top host operators (self CPU ms, calls): {host_summary}",
+    line = (f"[train-profile] {label}, one step: kernels {total:.1f} ms of "
+            f"{sps * 1e3:.1f} ms unprofiled wall (device idle "
+            f"{100 * (1 - total / (sps * 1e3)):.1f}%), {n_kernels} kernel "
+            f"launches; ours (ms) {ours}; top kernels (ms, calls): "
+            f"{summary}")
+    if host:
+        # operators by their own CPU time (the profiler's, which inflates
+        # it)
+        ops = sorted((e for e in averages
+                      if getattr(e, "device_type", None) != DeviceType.CUDA),
+                     key=lambda e: -e.self_cpu_time_total)[:8]
+        ops = [(e.key[:40], round(e.self_cpu_time_total / 1e3, 1), e.count)
+               for e in ops]
+        line += f"; top host operators (self CPU ms, calls): {ops}"
+    print(line, flush=True)
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(root) for f in names)
+
+
+EXPORT_STEPS = 10
+
+
+def phase_export(cfg, pipe, smi: str) -> dict:
+    """The slice's SD-1.5 pipeline (random bf16 weights from seed 0)
+    exported to a diffusers directory and read back, as a user would:
+    ``models.port.pipeline_trees`` and ``export_diffusers_checkpoint``
+    (fp32 safetensors by ``write_safetensors``) into a temporary
+    directory, then ``cli.common.resolve_params_cfg`` of ``cli.inference
+    --diffusers_ckpt`` (``port_diffusers_checkpoint``,
+    ``pipeline_config_from_diffusers``, bf16 on the card).  Every weight
+    must come back bit for bit (bf16 → fp32 → bf16 is exact) and the
+    config equal; DDIM-10, batch 1, CFG 7.5, 512² from injected latents
+    through both pipelines: the re-imported image may differ from the
+    source's by no more than two source calls differ from each other, and
+    both calls launch K1/K4 150 / 100 times.  Prints the bytes written,
+    the write and read seconds and GB/s; the directory is removed after.
+    Returns the re-imported call's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import common
+    from sdbc_tpu_torch.cli import inference as cli
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+    from sdbc_tpu_torch.models import port
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    root = tempfile.mkdtemp(prefix="sdbc_export_")
+    try:
+        need = 4 * sum(p.numel() for m in pipe.models.values()
+                       for p in m.parameters()) + (1 << 30)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            fail(f"export: {root} has {free / 1e9:.2f} GB free, the fp32 "
+                 f"export needs {need / 1e9:.2f} GB")
+        out = os.path.join(root, "sd15")
+        t0 = time.perf_counter()
+        trees = port.pipeline_trees(pipe)
+        t1 = time.perf_counter()
+        port.export_diffusers_checkpoint(trees, cfg, out)
+        t2 = time.perf_counter()
+        del trees
+        nbytes = dir_bytes(out)
+        args = cli.build_parser().parse_args(["--diffusers_ckpt", out])
+        models, cfg2 = common.resolve_params_cfg(args)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        files = sorted(os.path.relpath(os.path.join(d, f), out)
+                       for d, _, names in os.walk(out) for f in names)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[export] SD-1.5 (random bf16 from seed 0) → diffusers dir: "
+          f"{nbytes} bytes in {len(files)} files {files}; trees off the "
+          f"card {t1 - t0:.3f} s, export + write {t2 - t1:.3f} s "
+          f"({nbytes / (t2 - t1) / 1e9:.3f} GB/s), read back to bf16 on "
+          f"the card {t3 - t2:.3f} s ({nbytes / (t3 - t2) / 1e9:.3f} GB/s) "
+          f"| {smi}", flush=True)
+    for name in ("unet", "vae", "text_encoder"):
+        if getattr(cfg2, {"text_encoder": "clip"}.get(name, name)) != \
+                getattr(cfg, {"text_encoder": "clip"}.get(name, name)):
+            fail(f"export: the {name} config read back differs")
+        src, back = pipe.models[name].state_dict(), models[name].state_dict()
+        if list(src) != list(back):
+            fail(f"export: {name}'s parameters read back differ in name")
+        bad = [k for k in src if src[k].dtype != back[k].dtype
+               or not torch.equal(src[k], back[k])]
+        if bad:
+            fail(f"export: {len(bad)} {name} weights are not bit-equal "
+                 f"after the round trip: {bad[:4]}")
+    if cfg2.schedule != cfg.schedule or cfg2.scheduler != cfg.scheduler:
+        fail(f"export: schedule {cfg2.schedule}/{cfg2.scheduler} read back")
+    back = SDPipeline(models, cfg2, pipe.tokenizer, "cuda", torch.bfloat16)
+    kw = dict(height=512, width=512, num_inference_steps=EXPORT_STEPS,
+              guidance_scale=7.5,
+              latents=per_sample_fixed_latents(1, (4, 64, 64), 7))
+    want = generate_launches(cfg, 1, EXPORT_STEPS, 512, "ddim")
+    runs = {}
+    for label, p in (("source", pipe), ("source again", pipe),
+                     ("re-imported", back)):
+        _kernels.reset_launch_counts()
+        runs[label] = p(PROMPTS[:1], **kw)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        if counts != want:
+            fail(f"export: {label} call launched {nonzero(counts)}, "
+                 f"expected {nonzero(want)}")
+    a = runs["source"]
+    if a.shape != (1, 512, 512, 3) or not np.isfinite(a).all():
+        fail(f"export: images {a.shape} not all finite")
+    self_diff = float(np.abs(a - runs["source again"]).max())
+    diff = float(np.abs(a - runs["re-imported"]).max())
+    print(f"[export] DDIM-{EXPORT_STEPS} batch 1 CFG 7.5 512^2: the "
+          f"re-imported pipeline's image differs by {diff:.3e} from the "
+          f"source's (two source calls: {self_diff:.3e}); K1/K4 "
+          f"{want['flash_fixed']}/{want['geglu_ff']} each call | {smi}",
           flush=True)
+    if diff > self_diff:
+        fail(f"export: re-imported image off by {diff:.3e} > the source's "
+             f"own {self_diff:.3e}")
+    del back, models
+    return counts
+
+
+# DistilBART-CNN-12-6's config.json: the shapes of BartConfig.distilbart_cnn
+BART_CONFIG = {"architectures": ["BartForConditionalGeneration"],
+               "model_type": "bart", "vocab_size": 50264, "d_model": 1024,
+               "encoder_layers": 12, "decoder_layers": 6,
+               "encoder_attention_heads": 16, "decoder_attention_heads": 16,
+               "encoder_ffn_dim": 4096, "decoder_ffn_dim": 4096,
+               "max_position_embeddings": 1024, "activation_function": "gelu",
+               "scale_embedding": False, "pad_token_id": 1,
+               "bos_token_id": 0, "eos_token_id": 2,
+               "decoder_start_token_id": 2, "forced_bos_token_id": 0,
+               "forced_eos_token_id": 2}
+
+
+def bart_transformers_sd(model) -> dict:
+    """A ``models.bart`` module's weights under transformers'
+    ``BartForConditionalGeneration`` names, linear weights (out, in) as
+    transposed views (``write_safetensors`` writes their logical order)."""
+    import torch
+
+    sd = {"model.shared.weight": model.shared_embedding.weight,
+          "final_logits_bias": torch.zeros(1, model.cfg.vocab_size)}
+    for side in ("encoder", "decoder"):
+        sd[f"model.{side}.embed_positions.weight"] = getattr(
+            model, side[:3] + "_pos").weight
+        ln = getattr(model, side[:3] + "_ln_emb")
+        sd[f"model.{side}.layernorm_embedding.weight"] = ln.weight
+        sd[f"model.{side}.layernorm_embedding.bias"] = ln.bias
+        for i, layer in enumerate(getattr(model, side)):
+            pfx = f"model.{side}.layers.{i}"
+            attns = [("self_attn", "self_attn", "self_ln")]
+            if side == "decoder":
+                attns.append(("encoder_attn", "cross_attn", "cross_ln"))
+            parts = [(f"{pfx}.fc1", layer.fc1), (f"{pfx}.fc2", layer.fc2),
+                     (f"{pfx}.final_layer_norm", layer.final_ln)]
+            for theirs, ours, ln_name in attns:
+                a = getattr(layer, ours)
+                parts += [(f"{pfx}.{theirs}.{q}_proj", getattr(a, q))
+                          for q in "qkv"]
+                parts += [(f"{pfx}.{theirs}.out_proj", a.o),
+                          (f"{pfx}.{theirs}_layer_norm",
+                           getattr(layer, ln_name))]
+            for name, m in parts:
+                w = m.weight.detach().cpu()
+                sd[f"{name}.weight"] = w.T if w.ndim == 2 else w
+                sd[f"{name}.bias"] = m.bias.detach().cpu()
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def write_byte_bpe(root: str, vocab_size: int) -> None:
+    """A byte-level BPE vocabulary of ``vocab_size`` ids: the four specials,
+    the 256 byte characters, then merges of printable ASCII (the space as
+    its marker "Ġ"): every pair, then pairs extended by one character,
+    until every id a model of that vocabulary can emit decodes to text
+    (all but the 128 lone high bytes to ASCII); merges.txt in rank
+    order."""
+    from sdbc_tpu_torch.data.tokenizer import _bytes_to_unicode
+
+    to_char = _bytes_to_unicode()
+    ascii_ = [to_char[b] for b in range(32, 127)]
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in to_char.values():
+        vocab[c] = len(vocab)
+    merges = []
+    for firsts in (ascii_, [a + b for a in ascii_ for b in ascii_]):
+        for a in firsts:
+            for b in ascii_:
+                if len(vocab) == vocab_size:
+                    break
+                vocab[a + b] = len(vocab)
+                merges.append(f"{a} {b}")
+    with open(os.path.join(root, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(root, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+DESC_WORDS = ("the a of and to in her his their young old city sea war "
+              "secret family love night dark house journey kingdom stolen "
+              "letter detective murder village winter summer island queen "
+              "soldier painter café fiancée naïve “quiet” 'last' river storm "
+              "ship mountain forest child mother father brother sister "
+              "friend enemy truth lies memory promise betrayal escape "
+              "return dream crown sword magic ancient forgotten hidden "
+              "dangerous beautiful broken lost found must before after "
+              "when while until because finds learns discovers hides "
+              "fights loves leaves").split()
+
+
+def goodreads_rows(n: int, seed: int = 0):
+    """``n`` df_test rows whose descriptions are 150–300 words of
+    Goodreads-like text (commas, quotes, a newline, accented words)."""
+    import random
+
+    rng = random.Random(seed)
+    rows = []
+    for i in range(n):
+        words = [rng.choice(DESC_WORDS)
+                 for _ in range(150 + (150 * i) // max(1, n - 1))]
+        for j in range(9, len(words), 11):
+            words[j] += rng.choice([",", ".", ";", ":"])
+        words[len(words) // 2] += "\n"
+        desc = " ".join(words).replace("\n ", "\n")
+        rows.append((1000 + i, f"Author {i}, Jr.", desc[0].upper()
+                     + desc[1:] + ".", f'The "{words[3]}" of {words[5]}'))
+    return rows
+
+
+SUMMARIZE_STEPS = 4
+SUMMARIZE_ROWS = 3
+# the largest candidate-score difference of the card's strict fp32 beam
+# search from the CPU's over the steps the beams agree: between the strict
+# readings and the same search with TF32 products, the control (on an H100
+# 80GB HBM3 at 700 W: strict 8.6e-06 and 1.5e-05, TF32 2.0e-02)
+SUMMARY_SCORE_TOL = 1e-4
+
+
+def phase_summarize(smi: str) -> dict:
+    """``cli.inference`` in its default mode with ``--summarize
+    --bart_ckpt``, as the CLI runs it (random SD-1.5 from --seed, bf16 on
+    the card): (summarize, include_desc) = (F,F), (T,T), (F,T) over the 13
+    test templates, one sample a template (--samples_per_prompt 1, the
+    CLI's batch 4), DDIM-4 (``SUMMARIZE_STEPS``, to keep the phase within
+    its budget), on a df_test.csv of ``SUMMARIZE_ROWS`` rows with 150–300
+    word descriptions.  The --bart_ckpt dir: DistilBART-CNN-12-6 at full
+    width (d 1024, 12 + 6 layers, 16 heads, FFN 4096, vocab 50264), random
+    weights from seed 0 written in transformers' names by
+    ``write_safetensors``, its config.json and a byte-level vocabulary
+    covering every id (``write_byte_bpe``).  Exact K1/K4 launches of the
+    grids; the (T,T) prompts hold the card summarizer's summaries; the
+    card's summary ids of one description equal those of the same weights
+    in strict fp32 on the CPU, or differ only after a step whose smallest
+    candidate gap is below the largest score difference (a near-tie); that
+    difference stays within ``SUMMARY_SCORE_TOL``, which the same search
+    with TF32 products on the card (the control) exceeds; ms per
+    description (encode + beam) on the card.  Returns the CLI run's launch
+    counts."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import inference as cli
+    from sdbc_tpu_torch.data import templates
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+    from sdbc_tpu_torch.eval import visualize
+    from sdbc_tpu_torch.models import bart
+    from sdbc_tpu_torch.models.port import write_safetensors
+    from sdbc_tpu_torch.ops import _kernels
+
+    root = tempfile.mkdtemp(prefix="sdbc_summarize_")
+    real = visualize.visualize_prompts
+    try:
+        t0 = time.perf_counter()
+        bcfg = bart.BartConfig.distilbart_cnn()
+        model = bart.init(bcfg, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        ckpt = os.path.join(root, "distilbart")
+        os.makedirs(ckpt)
+        nbytes = write_safetensors(bart_transformers_sd(model),
+                                   os.path.join(ckpt, "model.safetensors"))
+        del model
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(BART_CONFIG, f)
+        write_byte_bpe(ckpt, bcfg.vocab_size)
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        rows = goodreads_rows(SUMMARIZE_ROWS)
+        with open(os.path.join(data, "df_test.csv"), "w", newline="",
+                  encoding="utf-8") as f:
+            w = csv.writer(f)
+            w.writerow(["", "book_authors", "book_desc", "book_title"])
+            w.writerows([(i, a, d, t) for i, a, d, t in rows])
+        t1 = time.perf_counter()
+        seen = []
+
+        def spy(*a, **kw):
+            out = real(*a, **kw)
+            seen.append((kw["summarize"], kw["include_desc"], out[1],
+                         kw["summarizer"]))
+            return out
+
+        visualize.visualize_prompts = spy
+        argv = ["--mode", "default", "--summarize", "--bart_ckpt", ckpt,
+                "--data_root", data, "--device", "cuda", "--seed", "0",
+                "--samples_per_prompt", "1", "--num_inference_steps",
+                str(SUMMARIZE_STEPS), "--save_dir", os.path.join(root, "out")]
+        _kernels.reset_launch_counts()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        t2 = time.perf_counter()
+        visualize.visualize_prompts = real
+        grids = sorted(f for f in os.listdir(
+            os.path.join(root, "out", "dev inference")) if f.endswith(".png"))
+        if [s[:2] for s in seen] != [(False, False), (True, True),
+                                     (False, True)]:
+            fail(f"summarize: grid configs {[s[:2] for s in seen]}")
+        summ = seen[1][3]  # the CLI's summarizer
+        descs = [d for _, _, d, _ in rows]
+        summ.ids(descs[0])  # warm-up
+        ms, summaries = [], []
+        for d in descs:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            ids = summ.ids(d)
+            ms.append((time.perf_counter() - s0) * 1e3)
+            summaries.append(summ.tok.decode(ids.tolist()))
+        card_trace, tf32_trace = [], []
+        card_ids = summ.ids(descs[0], trace=card_trace)
+        strict = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:  # the control: the same search with TF32 products
+            bart.beam_search(summ.model, np.asarray(summ.tok.encode(
+                descs[0], summ.input_max), np.int64)[None],
+                num_beams=summ.num_beams, trace=tf32_trace)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = strict
+        t3 = time.perf_counter()
+        cpu_model = bart.init(bcfg, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   summ.model.state_dict().items()})
+        cpu = bart.Summarizer(cpu_model, summ.tok)
+        cpu_trace = []
+        cpu_ids = cpu.ids(descs[0], trace=cpu_trace)
+        t4 = time.perf_counter()
+    finally:
+        visualize.visualize_prompts = real
+        shutil.rmtree(root, ignore_errors=True)
+    n_tok = [sum(i != bcfg.pad_id for i in summ.tok.encode(d))
+             for d in descs]
+    print(f"[summarize] the --bart_ckpt dir (DistilBART-CNN-12-6 widths, "
+          f"random from seed 0; {nbytes} bytes of fp32 weights), df_test "
+          f"({SUMMARIZE_ROWS} rows, {[len(d.split()) for d in descs]} words, "
+          f"{n_tok} tokens) written in {t1 - t0:.3f} s; cli.inference "
+          f"--mode default --summarize DDIM-{SUMMARIZE_STEPS}: "
+          f"{t2 - t1:.3f} s, grids {grids} | {smi}", flush=True)
+    cfg = PipelineConfig.sd15()
+    n = len(templates.TEST_TEMPLATES)
+    want = dict.fromkeys(_kernels.launches, 0)
+    for _ in range(3):
+        for lo in range(0, n, 4):
+            got = generate_launches(cfg, min(4, n - lo), SUMMARIZE_STEPS,
+                                    512, "ddim")
+            want = {k: want[k] + got[k] for k in want}
+    print(f"[summarize] launches {nonzero(counts)} (expected "
+          f"{nonzero(want)}) | {smi}", flush=True)
+    if counts != want:
+        fail(f"summarize: the grids launched {nonzero(counts)}, expected "
+             f"{nonzero(want)}")
+    tt = seen[1][2]
+    missing = [i for i, p in enumerate(tt)
+               if summaries[min(i, len(descs) - 1)] not in p]
+    if len(tt) != n or missing or not all(summaries):
+        fail(f"summarize: (T,T) prompts {missing} lack their summary "
+             f"({summaries})")
+    print(f"[summarize] card summaries {summaries}; (T,T) prompt 0 "
+          f"{tt[0]!r}; ms per description (encode + {summ.num_beams} beams "
+          f"× ≤ 15 steps) {[round(m, 1) for m in ms]}, median "
+          f"{statistics.median(ms):.1f} | {smi}", flush=True)
+    diff, gaps, first = beam_divergence(card_trace, cpu_trace,
+                                        summ.num_beams)
+    ctl, ctl_gaps, _ = beam_divergence(tf32_trace, cpu_trace,
+                                       summ.num_beams)
+    same = np.array_equal(card_ids, cpu_ids)
+    print(f"[summarize] card ids {card_ids.tolist()} vs CPU strict fp32 "
+          f"{cpu_ids.tolist()} ({t4 - t3:.1f} s on the CPU): "
+          f"{'equal' if same else 'DIFFER'}; largest score difference "
+          f"{diff:.3e} over the {len(gaps)} steps the beams agree (tol "
+          f"{SUMMARY_SCORE_TOL:.1e}; with TF32 products {ctl:.3e} over "
+          f"{len(ctl_gaps)}), smallest candidate gap {min(gaps):.3e} (per "
+          f"step {[f'{g:.2e}' for g in gaps]}), first diverging step "
+          f"{first} | {smi}", flush=True)
+    if not diff <= SUMMARY_SCORE_TOL:
+        fail(f"summarize: the card's strict fp32 scores differ from the "
+             f"CPU's by {diff:.3e} > {SUMMARY_SCORE_TOL:.1e}")
+    if not ctl > SUMMARY_SCORE_TOL:
+        fail(f"summarize: TF32 products differ from the CPU's scores by "
+             f"only {ctl:.3e}: {SUMMARY_SCORE_TOL:.1e} cannot tell them "
+             f"from strict fp32")
+    if not same:
+        at = gaps[first - 1] if first else min(gaps)
+        if not at < diff:
+            fail(f"summarize: card ids differ from the CPU's with a gap "
+                 f"{at:.3e} ≥ the score difference {diff:.3e}")
+    return counts
+
+
+def beam_divergence(trace_a, trace_b, beams: int):
+    """Two ``beam_search`` traces of one input: (the largest difference of
+    the candidate scores over the steps whose beams agree, each such
+    step's smallest gap between adjacent candidates among trace_b's top
+    2·beams + 1, the first step whose beams differ or None)."""
+    import numpy as np
+
+    diff, gaps = 0.0, []
+    for step, ((beams_a, flat_a), (beams_b, flat_b)) in enumerate(
+            zip(trace_a, trace_b)):
+        if not np.array_equal(beams_a, beams_b):
+            return diff, gaps, step
+        live = flat_b > -1e8
+        diff = max(diff, float(np.abs(flat_a - flat_b)[live].max()))
+        top = np.sort(flat_b[live])[::-1][: 2 * beams + 1]
+        # a step with one live candidate (the forced <s>) chooses nothing
+        gaps.append(float(np.min(top[:-1] - top[1:])) if top.size > 1
+                    else math.inf)
+    first = None if len(trace_a) == len(trace_b) else len(gaps)
+    return diff, gaps, first
 
 
 def main() -> int:
@@ -6416,9 +6881,15 @@ def main() -> int:
                                                                 smi)
     sampler_paths, _ = phase_samplers(cfg, pipe, smi)
     paths.update(sampler_paths)
-    del pipe
-    torch.cuda.empty_cache()
     lap("parity .. samplers")
+    paths["export"] = phase_export(cfg, pipe, smi)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("export")
+    paths["summarize"] = phase_summarize(smi)
+    torch.cuda.empty_cache()
+    lap("summarize")
     paths.update(phase_generate(smi))
     torch.cuda.empty_cache()
     paths.update(phase_serve(smi))

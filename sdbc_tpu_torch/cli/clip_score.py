@@ -11,7 +11,8 @@ text, prints the mean and writes a per-image CSV next to the images.
 
 --clip_ckpt is a transformers CLIPModel save dir (both towers and the two
 projections).  Without it a random tiny CLIP runs the plumbing and says so.
-pandas and PIL are imported only to read the csv and the images.
+The csv is read without pandas (``data.dataset.read_csv_rows``); PIL is
+imported only to read the images.
 """
 from __future__ import annotations
 
@@ -68,21 +69,25 @@ def _scorer(args, device):
 
 
 def main(argv=None):
-    import pandas as pd
     from PIL import Image
+
+    from sdbc_tpu_torch.data.dataset import read_csv_rows
 
     args = build_parser().parse_args(argv)
     scorer = _scorer(args, common.resolve_device(args))
 
-    df = pd.read_csv(os.path.join(args.data_root, args.csv_name),
-                     index_col=0)
+    # the first row of each index value, as df.loc finds it
+    rows = {}
+    for idx, row in read_csv_rows(os.path.join(args.data_root,
+                                               args.csv_name)):
+        rows.setdefault(idx, row)
     files = sorted(f for f in os.listdir(args.images_dir)
                    if f.lower().endswith((".jpg", ".jpeg", ".png")))
     pairs = []
     for f in files:
         stem = os.path.splitext(f)[0]
         try:
-            row = df.loc[int(stem)]
+            row = rows[int(stem)]
         except (ValueError, KeyError):
             continue
         pairs.append((f, f"{row['book_title']} by {row['book_authors']}"))

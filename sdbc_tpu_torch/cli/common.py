@@ -34,22 +34,16 @@ _UNPORTED_FLAGS = {
     "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
     "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
     "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
-    "summarize": (None, "the BART summarizer (ROADMAP Queue 1 item 4)"),
-    "bart_ckpt": ("", "the BART summarizer (ROADMAP Queue 1 item 4)"),
 }
 
 
 def refuse_unported(args, unused=None) -> None:
-    """SystemExit naming the first flag of an unported feature that is set
-    (``--no-summarize`` is allowed: it turns the summarizer off).
+    """SystemExit naming the first flag of an unported feature that is set.
     ``unused``: {flag: value} for a CLI whose "not used" value differs
     from the table's (the finetune CLI's ``--tp 1``)."""
     for name, (off, what) in _UNPORTED_FLAGS.items():
         off = (unused or {}).get(name, off)
-        value = getattr(args, name, off)
-        if name == "summarize" and value is False:
-            continue
-        if value != off:
+        if getattr(args, name, off) != off:
             raise SystemExit(f"--{name} needs {what}, which sdbc_tpu_torch "
                              "has not ported yet")
 

@@ -17,11 +17,15 @@ load (SD-1.x); ``--safety_checker`` blacks out flagged images.
 which enter_prompt drives with ``--control_image`` (one image per branch)
 and ``--controlnet_scale``; a ``--ckpt`` of an inpainting UNet
 (``in_channels`` 9) inpaints ``--init_image`` under ``--mask_image``.
+The default mode's (summarize, include_desc) = (T,T) grid summarizes
+df_test's descriptions with ``--bart_ckpt``'s DistilBART
+(``models/bart.py``) on ``--device``.
 
 Every sampling-profile flag goes through one ``SampleSpec``.  Flags of
 features not ported yet exit with a message (``common.refuse_unported``).
-PIL and pandas are imported only where files are read (enter_prompt's
-PNGs are written by ``utils/png.py``) or grids and FID images written.
+df_test.csv is read without pandas (``data.dataset.read_csv_rows``); PIL
+is imported only where input images are read (enter_prompt's PNGs are
+written by ``utils/png.py``) or FID images written.
 """
 from __future__ import annotations
 
@@ -97,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "enter_prompt defaults 1)")
     p.add_argument("--wandb_key", type=str, default="")
     p.add_argument("--bart_ckpt", type=str, default="",
-                   help="BART dir for --summarize (not ported yet)")
+                   help="transformers BART dir (DistilBART-CNN: weights, "
+                        "vocab.json, merges.txt) for --summarize")
     p.add_argument("--hires_scale", type=float, default=0.0,
                    help="enter_prompt mode: hires-fix — compose at "
                         "img_size/scale, upscale, finish with a strength-"
@@ -136,10 +141,14 @@ def build_parser() -> argparse.ArgumentParser:
     common.bool_flag(p, "spatial", False,
                      "row-sharded serving (not ported yet)")
     common.bool_flag(p, "batch_generate", True)
+    # tri-state: unset → the default mode renders the summarize grid when
+    # its inputs are there and skips it otherwise; --summarize forces it
+    # (missing inputs are an error); --no-summarize drops it
     p.add_argument("--summarize", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="summarize book descriptions (not ported yet; "
-                        "--no-summarize is accepted)")
+                   help="summarize book descriptions into prompts (needs "
+                        "--bart_ckpt; the default mode renders it when its "
+                        "inputs are there, reference inference.py:463-466)")
     p.add_argument("--include_desc", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="append book descriptions to prompts (needs "
@@ -188,6 +197,28 @@ def _resolve_cfg_interval(args):
         raise SystemExit(f"--cfg_interval takes 0 <= lo <= hi <= 1, got "
                          f"{spec!r}")
     return vals
+
+
+def build_summarizer(args):
+    """``--bart_ckpt``'s DistilBART as a ``models.bart.Summarizer`` on
+    ``--device`` in fp32 (DistilBART-CNN-12-6's config, as the JAX CLI
+    fixes it), with the dir's byte-level BPE tables (checked before the
+    weights are read)."""
+    from sdbc_tpu_torch.data.bart_tokenizer import BartTokenizer
+    from sdbc_tpu_torch.models import bart
+    from sdbc_tpu_torch.models.convert import load_jax_params
+    from sdbc_tpu_torch.models.port import load_state_dict, port_bart
+
+    for fname in ("vocab.json", "merges.txt"):
+        if not os.path.exists(os.path.join(args.bart_ckpt, fname)):
+            raise SystemExit(f"--summarize needs vocab.json + merges.txt in "
+                             f"{args.bart_ckpt} (missing {fname})")
+    model = load_jax_params(
+        bart.init(bart.BartConfig.distilbart_cnn(),
+                  device=common.resolve_device(args)),
+        port_bart(load_state_dict(args.bart_ckpt))).requires_grad_(False)
+    return bart.Summarizer(model, BartTokenizer.from_pretrained(
+        args.bart_ckpt))
 
 
 def make_safety_checker(args):
@@ -303,9 +334,9 @@ def _enter_prompt(args, pipe, spec, save_dir):
 
 
 def _calc_fid(args, pipe, spec, save_dir):
-    import pandas as pd
     import torch
 
+    from sdbc_tpu_torch.data.dataset import read_csv_rows
     from sdbc_tpu_torch.eval.fid import calculate_fid_given_paths
     from sdbc_tpu_torch.eval.generate import get_fid_images
     from sdbc_tpu_torch.models.inception import InceptionConfig
@@ -314,9 +345,8 @@ def _calc_fid(args, pipe, spec, save_dir):
     if not os.path.exists(args.fid_stats_path):
         raise SystemExit(f"{args.fid_stats_path} not found — run python -m "
                          "sdbc_tpu_torch.cli.precalc_fid_stats first")
-    df_test = pd.read_csv(os.path.join(args.data_root, "df_test.csv"),
-                          index_col=0)
-    get_fid_images(pipe, save_dir, df_test, num_imgs=args.num_imgs,
+    rows = read_csv_rows(os.path.join(args.data_root, "df_test.csv"))
+    get_fid_images(pipe, save_dir, rows, num_imgs=args.num_imgs,
                    batch_size=args.batch_size, img_size=args.img_size,
                    inference_steps=args.num_inference_steps,
                    guidance_scale=args.guidance_scale, seed=args.seed,
@@ -340,26 +370,42 @@ def _default_grids(args, pipe, spec, save_dir):
         json.dump(vars(args), f, indent=2, default=str)
     test_csv = os.path.join(args.data_root, "df_test.csv")
     want_desc = args.include_desc is not False
+    want_sum = args.summarize is not False and args.include_desc is not False
     if args.include_desc and not os.path.exists(test_csv):
         raise SystemExit(f"--include_desc needs {test_csv}")
+    # an explicit --summarize forces the config: missing inputs are an
+    # error, not a skip
+    if args.summarize and not args.bart_ckpt:
+        raise SystemExit("--summarize needs --bart_ckpt")
+    if args.summarize and args.include_desc is False:
+        raise SystemExit("--summarize summarizes book descriptions; it "
+                         "cannot combine with --no-include_desc")
+    if args.summarize and not os.path.exists(test_csv):
+        raise SystemExit(f"--summarize needs {test_csv} (source of the "
+                         "descriptions)")
     have_desc = want_desc and os.path.exists(test_csv)
+    have_sum = want_sum and bool(args.bart_ckpt) and have_desc
     if args.prompt_bank == "reference" and not os.path.exists(test_csv):
         # the reference grid interpolates (author, title) df_test rows
         raise SystemExit(f"--prompt_bank reference needs {test_csv}")
-    descriptions, df_test = None, None
+    summarizer, descriptions, rows = None, None, None
     if have_desc or args.prompt_bank == "reference":
-        import pandas as pd
+        from sdbc_tpu_torch.data.dataset import read_csv_rows
 
-        df_test = pd.read_csv(test_csv, index_col=0)
+        rows = read_csv_rows(test_csv)
         n_desc = max(16, args.samples_per_prompt)
-        descriptions = [str(d) for d in df_test["book_desc"].head(n_desc)]
+        descriptions = [str(r["book_desc"]) for _, r in rows[:n_desc]]
+    if have_sum:
+        summarizer = build_summarizer(args)
     # the reference's default mode renders (summarize, include_desc) =
-    # (F,F), (T,T), (F,T) (inference.py:458-471); the summarizer is not
-    # ported, so (T,T) is skipped with a log
+    # (F,F), (T,T), (F,T) (inference.py:458-471); a config whose inputs
+    # are missing is skipped with a log
     configs = [(False, False)]
-    if args.summarize is not False and want_desc:
-        print("skipping summarize grid config (the BART summarizer is not "
-              "ported yet)")
+    if have_sum:
+        configs.append((True, True))
+    elif want_sum:
+        print("skipping summarize grid config (needs --bart_ckpt and "
+              "df_test.csv)")
     if have_desc:
         configs.append((False, True))
     elif want_desc:
@@ -371,17 +417,21 @@ def _default_grids(args, pipe, spec, save_dir):
 
             from sdbc_tpu_torch.data import templates as tmpl
 
-            head = df_test.head(args.samples_per_prompt)
-            rows = [(str(r["book_authors"]), str(r["book_title"]))
-                    for _, r in head.iterrows()]
-            descs = (descriptions[:args.samples_per_prompt] if include_desc
-                     else None)
+            head = rows[:args.samples_per_prompt]
+            pairs = [(str(r["book_authors"]), str(r["book_title"]))
+                     for _, r in head]
+            descs = None
+            if summarize:
+                descs = [summarizer(d, max_length=15)
+                         for d in descriptions[:args.samples_per_prompt]]
+            elif include_desc:
+                descs = descriptions[:args.samples_per_prompt]
             prompts_override = tmpl.reference_grid_prompts(
-                rows, args.samples_per_prompt, include_desc=include_desc,
+                pairs, args.samples_per_prompt, include_desc=include_desc,
                 descriptions=descs, rng=_random.Random(args.seed))
         _, _, path = visualize_prompts(
             pipe, summarize=summarize, include_desc=include_desc,
-            descriptions=descriptions,
+            summarizer=summarizer, descriptions=descriptions,
             samples_per_prompt=args.samples_per_prompt,
             img_size=args.img_size, inference_steps=args.num_inference_steps,
             guidance_scale=args.guidance_scale,

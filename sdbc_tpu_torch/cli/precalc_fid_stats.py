@@ -37,16 +37,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     common.resolve_img_size(args)
     device = common.resolve_device(args)
-    import pandas as pd
-
+    from sdbc_tpu_torch.data.dataset import read_csv
     from sdbc_tpu_torch.eval.fid import (activation_statistics_from_files,
                                          default_params)
     from sdbc_tpu_torch.models.inception import InceptionConfig
 
-    df = pd.read_csv(os.path.join(args.data_root, args.csv_name), index_col=0)
+    index, _ = read_csv(os.path.join(args.data_root, args.csv_name))
     image_dir = os.path.join(args.data_root, "images", "images")
     files = [os.path.join(image_dir, f"{idx}.jpg")
-             for idx in df.index[: args.num_imgs]]
+             for idx in index[: args.num_imgs]]
     files = [f for f in files if os.path.exists(f)]
     print(f"computing FID stats over {len(files)} images")
 

@@ -91,6 +91,15 @@ def read_csv(path: str):
                      if j > 0}
 
 
+def read_csv_rows(path: str) -> list:
+    """``read_csv``'s table as [(index value, {column: value})] in file
+    order: ``pd.read_csv(path, index_col=0).iterrows()`` without
+    pandas."""
+    index, cols = read_csv(path)
+    return [(idx, {name: col[i] for name, col in cols.items()})
+            for i, idx in enumerate(index)]
+
+
 @dataclasses.dataclass
 class DatasetConfig:
     data_root: str = "./"

@@ -20,12 +20,14 @@ import numpy as np
 from sdbc_tpu_torch.data import templates
 
 
-def get_fid_images(pipeline, save_dir: str, df_test, *, num_imgs: int = 4000,
+def get_fid_images(pipeline, save_dir: str, rows, *, num_imgs: int = 4000,
                    batch_size: int = 4, img_size: int = 512,
                    inference_steps: int = 50, guidance_scale: float = 7.5,
                    seed: int = 42, verbose: bool = True,
                    prompt_bank: str = "native", spec=None) -> int:
     """Generate up to num_imgs covers; returns the number generated this call.
+    ``rows``: df_test's rows as [(index value, {column: value})]
+    (``data.dataset.read_csv_rows``).
 
     Raises RuntimeError if any batch failed: a partial image set would
     silently bias the downstream FID (the caller scores whatever is in
@@ -50,18 +52,17 @@ def get_fid_images(pipeline, save_dir: str, df_test, *, num_imgs: int = 4000,
         num_inference_steps=inference_steps,
         guidance_scale=guidance_scale)
 
-    rows = list(df_test.index)[: num_imgs]
-    todo = [idx for idx in rows
+    todo = [(idx, row) for idx, row in rows[: num_imgs]
             if not os.path.exists(os.path.join(save_dir, f"{idx}.jpg"))]
     generated = 0
     failed = []
     from PIL import Image
 
     for start in range(0, len(todo), batch_size):
-        batch_ids = todo[start:start + batch_size]
+        batch = todo[start:start + batch_size]
+        batch_ids = [idx for idx, _ in batch]
         prompts = []
-        for idx in batch_ids:
-            row = df_test.loc[idx]
+        for _, row in batch:
             author = str(row.get("book_authors", ""))
             title = str(row.get("book_title", ""))
             if prompt_bank == "reference":

@@ -21,7 +21,9 @@ from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
 
 def visualize_prompts(pipeline, *, summarize: bool = False,
                       include_desc: bool = False,
+                      summarizer=None,
                       descriptions: Optional[List[str]] = None,
+                      max_length: int = 15,
                       samples_per_prompt: int = 2,
                       img_size: int = 512,
                       inference_steps: int = 50,
@@ -36,11 +38,11 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
     """Generate the qualitative-eval grid; returns (images, prompts, path)
     — path is None when save_dir is unset.
 
-    include_desc=True appends the description placeholder with the RAW
-    description (the reference, inference.py:324-330); ``summarize=True``
-    (a DistilBART summary instead) raises until the summarizer is ported
-    (ROADMAP Queue 1 item 4); otherwise the fixed test templates
-    are used as-is.  prompts_override supplies a pre-rendered (template ×
+    include_desc=True appends the description placeholder: with the
+    description's ``summarizer`` summary (at most ``max_length`` tokens)
+    when summarize=True, the RAW description otherwise (the reference,
+    inference.py:324-330); otherwise the fixed test templates are used
+    as-is.  prompts_override supplies a pre-rendered (template ×
     sample) prompt list (the --prompt_bank reference path) and bypasses
     the template expansion.  name_suffix distinguishes grid files that
     share a flag configuration (e.g. different prompt banks).
@@ -48,9 +50,6 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
     if summarize and not include_desc:
         raise ValueError("summarize requires include_desc "
                          "(reference assertion, inference.py:248-250)")
-    if summarize:
-        raise NotImplementedError("summarize: the BART summarizer is not "
-                                  "ported yet (ROADMAP Queue 1 item 4)")
     if prompts_override is not None:
         if len(prompts_override) % samples_per_prompt:
             raise ValueError("len(prompts_override) must be a multiple of "
@@ -67,10 +66,14 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
             # ragged-batch artifact — the 77-token pad makes batching fine)
             if not descriptions:
                 raise ValueError("include_desc=True needs descriptions")
+            if summarize and summarizer is None:
+                raise ValueError("summarize=True needs a summarizer")
             placeholders = templates.padded_placeholders(len(prompts_base))
             descs = list(descriptions[: len(prompts_base)])
             while len(descs) < len(prompts_base):
                 descs.append(descs[-1])
+            if summarize:
+                descs = [summarizer(d, max_length=max_length) for d in descs]
             prompts_base = [ph.format(summary=s)
                             for ph, s in zip(placeholders, descs)]
 
@@ -111,9 +114,16 @@ def visualize_prompts(pipeline, *, summarize: bool = False,
 
 def save_grid(images: np.ndarray, prompts: List[str], path: str,
               rows: int, cols: int) -> None:
-    """Matplotlib grid with prompt titles (reference inference.py:282-375)."""
-    import matplotlib
+    """Matplotlib grid with prompt titles (reference inference.py:282-375).
 
+    Where matplotlib is not installed (the card's machine), the images are
+    tiled rows × cols into a PNG by ``utils/png.py`` and the prompts, one
+    a line in grid order, written beside it as ``<path stem>.txt``."""
+    try:
+        import matplotlib
+    except ImportError:
+        _save_tiles(images, prompts, path, rows, cols)
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -130,3 +140,22 @@ def save_grid(images: np.ndarray, prompts: List[str], path: str,
     fig.tight_layout()
     fig.savefig(path, dpi=100)
     plt.close(fig)
+
+
+def _save_tiles(images: np.ndarray, prompts: List[str], path: str,
+                rows: int, cols: int) -> None:
+    from sdbc_tpu_torch.utils import png
+
+    n, h, w, c = images.shape
+    grid = np.zeros((rows * h, cols * w, c), np.uint8)
+    for i in range(min(n, rows * cols)):
+        r, col = divmod(i, cols)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = np.uint8(
+            np.round(np.clip(images[i], 0, 1) * 255.0))
+    with open(path, "wb") as f:
+        f.write(png.encode(grid))
+    with open(os.path.splitext(path)[0] + ".txt", "w",
+              encoding="utf-8") as f:
+        f.writelines(p.replace("\n", " ") + "\n" for p in prompts)
+    print(f"matplotlib is not installed: {path} holds the images without "
+          "titles, the prompts are beside it (.txt)")

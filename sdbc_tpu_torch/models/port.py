@@ -23,8 +23,16 @@ config says ``in_channels`` 9.
 
 Sources: ``.safetensors`` through ``read_safetensors`` (a reader of the
 format written here: the ``safetensors`` package is not needed), ``.bin``
-and ``.pth`` through ``torch.load(weights_only=True)``.  The exporters
-wait (ROADMAP Queue 1 item 6.4), BART (item 4).
+and ``.pth`` through ``torch.load(weights_only=True)``.
+
+The other direction (``sdbc_tpu/models/port.py:622-968``): ``export_*``
+turn trees in the JAX layout back into diffusers-named state dicts, and
+``export_diffusers_checkpoint`` writes a ``save_pretrained`` directory
+with ``write_safetensors`` (the format's writer, in the logical order of
+every array, views included); ``pipeline_trees`` gives an
+``SDPipeline``'s trees, so a model the port trained can be exported.
+``port_bart`` takes a transformers ``BartForConditionalGeneration``
+state dict to ``models.bart``'s tree.
 """
 from __future__ import annotations
 
@@ -71,6 +79,44 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
                              "this reader does not take")
         out[name] = arr.reshape(shape)
     return out
+
+
+_ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(tensors: Dict[str, np.ndarray], path: str) -> int:
+    """Write {name: numpy array} (the dtypes of ``_ST_DTYPES``) as a
+    ``.safetensors`` file, the layout ``read_safetensors`` reads: the
+    header JSON padded with spaces to a multiple of 8 bytes, then each
+    array's C-ordered little-endian bytes in the order of dtype width
+    (widest first) and name, as the ``safetensors`` package orders them.
+    A view (a transpose) is written in its logical order, not as its
+    buffer lies.  Returns the bytes written."""
+    arrays = {}
+    for name, value in tensors.items():
+        arr = np.asarray(value)
+        if arr.dtype.newbyteorder("=") not in _ST_NAMES:
+            raise ValueError(f"{name}: dtype {arr.dtype} has no safetensors "
+                             "name this writer takes")
+        arrays[name] = np.asarray(arr, arr.dtype.newbyteorder("<"),
+                                  order="C")
+    order = sorted(arrays, key=lambda n: (-arrays[n].dtype.itemsize, n))
+    header, offset = {}, 0
+    for name in order:
+        arr = arrays[name]
+        header[name] = {"dtype": _ST_NAMES[arr.dtype.newbyteorder("=")],
+                        "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in order:
+            if arrays[name].nbytes:
+                f.write(memoryview(arrays[name].reshape(-1)).cast("B"))
+    return 8 + len(raw) + offset
 
 
 def load_state_dict(component_dir: str) -> Dict[str, np.ndarray]:
@@ -705,6 +751,421 @@ def port_diffusers_checkpoint(root: str) -> dict:
     if not params:
         raise FileNotFoundError(f"no portable components under {root}")
     return params
+
+
+# ---------------------------------------------------------------------------
+# export (trees in the JAX layout → diffusers-named state dicts)
+
+
+def _exp_conv(out, name, p):
+    # ascontiguousarray: a transposed view's buffer is not its logical
+    # order (write_safetensors copies anyway; the dict stays plain)
+    out[f"{name}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))
+    if "b" in p:
+        out[f"{name}.bias"] = np.asarray(p["b"])
+
+
+def _exp_linear(out, name, p):
+    out[f"{name}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(p["w"]), (1, 0)))
+    if "b" in p:
+        out[f"{name}.bias"] = np.asarray(p["b"])
+
+
+def _exp_norm(out, name, p):
+    out[f"{name}.weight"] = np.asarray(p["scale"])
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _exp_resnet(out, pfx, p):
+    _exp_norm(out, f"{pfx}.norm1", p["norm1"])
+    _exp_conv(out, f"{pfx}.conv1", p["conv1"])
+    _exp_norm(out, f"{pfx}.norm2", p["norm2"])
+    _exp_conv(out, f"{pfx}.conv2", p["conv2"])
+    if "temb" in p:
+        _exp_linear(out, f"{pfx}.time_emb_proj", p["temb"])
+    if "shortcut" in p:
+        _exp_conv(out, f"{pfx}.conv_shortcut", p["shortcut"])
+
+
+def _exp_basic_block(out, tb, p):
+    _exp_norm(out, f"{tb}.norm1", p["ln1"])
+    _exp_norm(out, f"{tb}.norm2", p["ln2"])
+    _exp_norm(out, f"{tb}.norm3", p["ln3"])
+    for attn in ("attn1", "attn2"):
+        _exp_linear(out, f"{tb}.{attn}.to_q", p[attn]["q"])
+        _exp_linear(out, f"{tb}.{attn}.to_k", p[attn]["k"])
+        _exp_linear(out, f"{tb}.{attn}.to_v", p[attn]["v"])
+        _exp_linear(out, f"{tb}.{attn}.to_out.0", p[attn]["o"])
+    _exp_linear(out, f"{tb}.ff.net.0.proj", p["geglu"])
+    _exp_linear(out, f"{tb}.ff.net.2", p["ff_out"])
+
+
+def _exp_proj_linear(out, name, p):
+    """A (1,1,in,out) conv kernel as the 2-D (out,in) linear of SDXL's
+    ``use_linear_projection`` layout."""
+    out[f"{name}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(p["w"])[0, 0], (1, 0)))
+    if "b" in p:
+        out[f"{name}.bias"] = np.asarray(p["b"])
+
+
+def _index(tree, i: int):
+    """Entry ``i`` along the leading axis of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _exp_transformer(out, pfx, p):
+    _exp_norm(out, f"{pfx}.norm", p["norm"])
+    if "blocks" in p:
+        # depth > 1, the SDXL convention: linear proj_in/out, the blocks
+        # unstacked
+        _exp_proj_linear(out, f"{pfx}.proj_in", p["proj_in"])
+        _exp_proj_linear(out, f"{pfx}.proj_out", p["proj_out"])
+        depth = np.asarray(p["blocks"]["ln1"]["scale"]).shape[0]
+        for i in range(depth):
+            _exp_basic_block(out, f"{pfx}.transformer_blocks.{i}",
+                             _index(p["blocks"], i))
+        return
+    _exp_conv(out, f"{pfx}.proj_in", p["proj_in"])
+    _exp_basic_block(out, f"{pfx}.transformer_blocks.0", p)
+    _exp_conv(out, f"{pfx}.proj_out", p["proj_out"])
+
+
+def _exp_embeddings(out, params):
+    """conv_in, the time MLP and SDXL's text-time ``add_mlp``."""
+    _exp_conv(out, "conv_in", params["conv_in"])
+    _exp_linear(out, "time_embedding.linear_1", params["time_mlp"]["fc1"])
+    _exp_linear(out, "time_embedding.linear_2", params["time_mlp"]["fc2"])
+    if "add_mlp" in params:
+        _exp_linear(out, "add_embedding.linear_1", params["add_mlp"]["fc1"])
+        _exp_linear(out, "add_embedding.linear_2", params["add_mlp"]["fc2"])
+
+
+def _exp_block(out, prefix, blk):
+    for j, r in enumerate(blk["resnets"]):
+        _exp_resnet(out, f"{prefix}.resnets.{j}", r)
+    for j, a in enumerate(blk.get("attns", ())):
+        _exp_transformer(out, f"{prefix}.attentions.{j}", a)
+    if "downsample" in blk:
+        _exp_conv(out, f"{prefix}.downsamplers.0.conv", blk["downsample"])
+    if "upsample" in blk:
+        _exp_conv(out, f"{prefix}.upsamplers.0.conv", blk["upsample"])
+
+
+def _exp_mid(out, mid):
+    _exp_resnet(out, "mid_block.resnets.0", mid["resnet1"])
+    _exp_transformer(out, "mid_block.attentions.0", mid["attn"])
+    _exp_resnet(out, "mid_block.resnets.1", mid["resnet2"])
+
+
+def export_unet(params: dict) -> Dict[str, np.ndarray]:
+    """The UNet tree → a diffusers UNet2DConditionModel state dict (the
+    inverse of ``port_unet``)."""
+    out: Dict[str, np.ndarray] = {}
+    _exp_embeddings(out, params)
+    _exp_norm(out, "conv_norm_out", params["norm_out"])
+    _exp_conv(out, "conv_out", params["conv_out"])
+    for side, key in (("down", "down_blocks"), ("up", "up_blocks")):
+        for i, blk in enumerate(params[side]):
+            _exp_block(out, f"{key}.{i}", blk)
+    _exp_mid(out, params["mid"])
+    return out
+
+
+def export_controlnet(params: dict) -> Dict[str, np.ndarray]:
+    """The ``models.controlnet`` tree → a diffusers ControlNetModel state
+    dict (the inverse of ``port_controlnet``)."""
+    out: Dict[str, np.ndarray] = {}
+    _exp_embeddings(out, params)
+    for i, blk in enumerate(params["down"]):
+        _exp_block(out, f"down_blocks.{i}", blk)
+    _exp_mid(out, params["mid"])
+    ce = params["cond_embedding"]
+    _exp_conv(out, "controlnet_cond_embedding.conv_in", ce["conv_in"])
+    for j, c in enumerate(ce["blocks"]):
+        _exp_conv(out, f"controlnet_cond_embedding.blocks.{j}", c)
+    _exp_conv(out, "controlnet_cond_embedding.conv_out", ce["conv_out"])
+    for j, z in enumerate(params["zero_down"]):
+        _exp_conv(out, f"controlnet_down_blocks.{j}", z)
+    _exp_conv(out, "controlnet_mid_block", params["zero_mid"])
+    return out
+
+
+def export_vae(params: dict) -> Dict[str, np.ndarray]:
+    """The VAE tree → a diffusers AutoencoderKL state dict (new-style
+    attention names)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def coder(side, c, blocks_key, updown):
+        _exp_conv(out, f"{side}.conv_in", c["conv_in"])
+        mid, pfx = c["mid"], f"{side}.mid_block"
+        _exp_resnet(out, f"{pfx}.resnets.0", mid["resnet1"])
+        _exp_norm(out, f"{pfx}.attentions.0.group_norm", mid["attn"]["norm"])
+        for ours, theirs in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                             ("o", "to_out.0")):
+            _exp_linear(out, f"{pfx}.attentions.0.{theirs}",
+                        mid["attn"][ours])
+        _exp_resnet(out, f"{pfx}.resnets.1", mid["resnet2"])
+        _exp_norm(out, f"{side}.conv_norm_out", c["norm_out"])
+        _exp_conv(out, f"{side}.conv_out", c["conv_out"])
+        for i, blk in enumerate(c[updown]):
+            _exp_block(out, f"{side}.{blocks_key}.{i}", blk)
+
+    coder("encoder", params["encoder"], "down_blocks", "down")
+    coder("decoder", params["decoder"], "up_blocks", "up")
+    _exp_conv(out, "quant_conv", params["quant_conv"])
+    _exp_conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def export_clip_text(params: dict) -> Dict[str, np.ndarray]:
+    """The text-encoder tree → a transformers CLIPTextModel state dict
+    (``text_projection`` too: CLIPTextModelWithProjection)."""
+    out: Dict[str, np.ndarray] = {}
+    pfx = "text_model."
+    out[f"{pfx}embeddings.token_embedding.weight"] = np.asarray(
+        params["token_embedding"]["table"])
+    out[f"{pfx}embeddings.position_embedding.weight"] = np.asarray(
+        params["position_embedding"]["table"])
+    _exp_norm(out, f"{pfx}final_layer_norm", params["final_ln"])
+    for i in range(np.asarray(params["layers"]["ln1"]["scale"]).shape[0]):
+        layer = _index(params["layers"], i)
+        lp = f"{pfx}encoder.layers.{i}"
+        _exp_norm(out, f"{lp}.layer_norm1", layer["ln1"])
+        _exp_norm(out, f"{lp}.layer_norm2", layer["ln2"])
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
+                             ("v", "v_proj"), ("o", "out_proj")):
+            _exp_linear(out, f"{lp}.self_attn.{theirs}",
+                        layer["attn"][ours])
+        _exp_linear(out, f"{lp}.mlp.fc1", layer["mlp"]["fc1"])
+        _exp_linear(out, f"{lp}.mlp.fc2", layer["mlp"]["fc2"])
+    if "text_projection" in params:
+        _exp_linear(out, "text_projection", params["text_projection"])
+    return out
+
+
+def _unet_config_to_diffusers(c) -> dict:
+    """A ``UNetConfig`` as diffusers 0.7.2's config.json, as the JAX
+    package writes it (head COUNTS as ``attention_head_dim``, the
+    constructor's quirk ``unet_config_from_diffusers`` reads back)."""
+    heads, depth = c.attention_heads, c.transformer_depth
+    out = {
+        "_class_name": "UNet2DConditionModel",
+        "_diffusers_version": "0.7.2",
+        "in_channels": c.in_channels,
+        "out_channels": c.out_channels,
+        "block_out_channels": list(c.block_out_channels),
+        "layers_per_block": c.layers_per_block,
+        "cross_attention_dim": c.cross_attention_dim,
+        "attention_head_dim": (list(heads) if isinstance(heads, (tuple, list))
+                               else heads),
+        "norm_num_groups": c.norm_groups,
+        "down_block_types": ["CrossAttnDownBlock2D" if x else "DownBlock2D"
+                             for x in c.cross_attn_blocks],
+        "up_block_types": ["CrossAttnUpBlock2D" if x else "UpBlock2D"
+                           for x in reversed(c.cross_attn_blocks)],
+        "act_fn": "silu",
+        "sample_size": 64,
+    }
+    if max(depth if isinstance(depth, (tuple, list)) else (depth,)) > 1:
+        out["transformer_layers_per_block"] = (
+            list(depth) if isinstance(depth, (tuple, list)) else depth)
+        out["use_linear_projection"] = True  # the layout _exp_proj_linear writes
+    if c.addition_embed_dim:
+        out["addition_embed_type"] = "text_time"
+        out["projection_class_embeddings_input_dim"] = c.addition_embed_dim
+        out["addition_time_embed_dim"] = c.addition_time_embed_dim
+        out["sample_size"] = 128
+    return out
+
+
+def _vae_config_to_diffusers(c) -> dict:
+    n = len(c.block_out_channels)
+    return {
+        "_class_name": "AutoencoderKL",
+        "_diffusers_version": "0.7.2",
+        "in_channels": c.in_channels,
+        "out_channels": c.in_channels,
+        "latent_channels": c.latent_channels,
+        "block_out_channels": list(c.block_out_channels),
+        "layers_per_block": c.layers_per_block,
+        "norm_num_groups": c.norm_groups,
+        "scaling_factor": c.scaling_factor,
+        "down_block_types": ["DownEncoderBlock2D"] * n,
+        "up_block_types": ["UpDecoderBlock2D"] * n,
+        "act_fn": "silu",
+    }
+
+
+def _clip_config_to_diffusers(c) -> dict:
+    out = {
+        "architectures": ["CLIPTextModelWithProjection" if c.projection_dim
+                          else "CLIPTextModel"],
+        "model_type": "clip_text_model",
+        "vocab_size": c.vocab_size,
+        "hidden_size": c.hidden,
+        "num_hidden_layers": c.layers,
+        "num_attention_heads": c.heads,
+        "intermediate_size": c.mlp,
+        "max_position_embeddings": c.ctx,
+        "layer_norm_eps": c.eps,
+        "hidden_act": c.act,
+    }
+    if c.projection_dim:
+        out["projection_dim"] = c.projection_dim
+    return out
+
+
+def _write_json(path: str, obj: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def export_diffusers_checkpoint(params: dict, cfg, out_dir: str) -> str:
+    """Write a diffusers ``save_pretrained`` directory of ``params`` (trees
+    in the JAX layout: ``port_diffusers_checkpoint``'s, or
+    ``pipeline_trees``') described by ``cfg`` (a ``PipelineConfig``).
+
+    Each component in ``params`` becomes ``<comp>/*.safetensors`` (fp32:
+    the JAX writer's safetensors-numpy has no bf16) and ``config.json``;
+    ``scheduler/scheduler_config.json`` records the reference's PNDM
+    construction and ``prediction_type``; ``model_index.json`` names the
+    pipeline class.  The same files and JSON as the JAX package's
+    ``export_diffusers_checkpoint`` (``_diffusers_version`` "0.7.2" for
+    every family, as it writes); read back by
+    ``port_diffusers_checkpoint`` and ``pipeline_config_from_diffusers``.
+    Returns ``out_dir``."""
+    layout = {
+        "unet": (export_unet, _unet_config_to_diffusers(cfg.unet),
+                 "diffusion_pytorch_model.safetensors"),
+        "vae": (export_vae, _vae_config_to_diffusers(cfg.vae),
+                "diffusion_pytorch_model.safetensors"),
+        "text_encoder": (export_clip_text,
+                         _clip_config_to_diffusers(cfg.clip),
+                         "model.safetensors"),
+    }
+    if cfg.clip2 is not None:  # SDXL's second encoder
+        layout["text_encoder_2"] = (export_clip_text,
+                                    _clip_config_to_diffusers(cfg.clip2),
+                                    "model.safetensors")
+    index = {"_class_name": ("StableDiffusionXLImg2ImgPipeline" if cfg.refiner
+                             else "StableDiffusionXLPipeline"
+                             if cfg.clip2 is not None
+                             else "StableDiffusionPipeline"),
+             "_diffusers_version": "0.7.2",
+             "scheduler": ["diffusers", "PNDMScheduler"],
+             "safety_checker": [None, None],
+             "feature_extractor": [None, None]}
+    for comp, (exp, cjson, fname) in layout.items():
+        if comp not in params:
+            continue
+        cdir = os.path.join(out_dir, comp)
+        os.makedirs(cdir, exist_ok=True)
+        write_safetensors({k: np.asarray(v, np.float32)
+                           for k, v in exp(params[comp]).items()},
+                          os.path.join(cdir, fname))
+        _write_json(os.path.join(cdir, "config.json"), cjson)
+        index[comp] = (["transformers", cjson["architectures"][0]]
+                       if comp.startswith("text_encoder")
+                       else ["diffusers", cjson["_class_name"]])
+    sdir = os.path.join(out_dir, "scheduler")
+    os.makedirs(sdir, exist_ok=True)
+    s = cfg.schedule
+    _write_json(os.path.join(sdir, "scheduler_config.json"), {
+        "_class_name": "PNDMScheduler", "_diffusers_version": "0.7.2",
+        "num_train_timesteps": s.num_train_timesteps,
+        "beta_start": s.beta_start, "beta_end": s.beta_end,
+        "beta_schedule": s.beta_schedule, "skip_prk_steps": True,
+        "set_alpha_to_one": s.set_alpha_to_one,
+        "steps_offset": s.steps_offset,
+        "prediction_type": s.prediction_type})
+    _write_json(os.path.join(out_dir, "model_index.json"), index)
+    return out_dir
+
+
+def module_jax_tree(module) -> dict:
+    """A module's parameters as its tree in the JAX layout: nested dicts
+    and lists of fp32 numpy copies on the host (stacked CLIP layers and
+    deep-transformer blocks, the empty lists of blocks without
+    attention)."""
+    import torch
+
+    from sdbc_tpu_torch.utils.checkpoint import EMPTY_LIST, module_tree
+
+    root: dict = {}
+    for key, t in module_tree(module):
+        node = root
+        for k, _ in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1][0]] = ([] if isinstance(t, str) and t == EMPTY_LIST
+                            else t.detach().to("cpu", torch.float32,
+                                               copy=True).numpy())
+
+    def lists(node):
+        if isinstance(node, dict):
+            if node and all(k.isdigit() for k in node):
+                return [lists(node[str(i)]) for i in range(len(node))]
+            return {k: lists(v) for k, v in node.items()}
+        return node
+
+    return lists(root)
+
+
+def pipeline_trees(pipe) -> dict:
+    """The trees of an ``SDPipeline``'s components (or of a dict of its
+    modules), in the JAX layout, for ``export_diffusers_checkpoint``;
+    ControlNet branches are left out (``export_controlnet`` takes a
+    branch's ``module_jax_tree``)."""
+    models = getattr(pipe, "models", pipe)
+    return {name: module_jax_tree(m) for name, m in models.items()
+            if name != "controlnet"}
+
+
+# ---------------------------------------------------------------------------
+# BART (the summarizer)
+
+
+def port_bart(sd: Dict[str, np.ndarray]) -> dict:
+    """transformers ``BartForConditionalGeneration`` state dict →
+    ``models.bart``'s tree; ``final_logits_bias`` is not read (the JAX
+    package's ``port_bart`` ignores it too)."""
+    def attn(pfx):
+        return {"q": _linear(sd, f"{pfx}.q_proj"),
+                "k": _linear(sd, f"{pfx}.k_proj"),
+                "v": _linear(sd, f"{pfx}.v_proj"),
+                "o": _linear(sd, f"{pfx}.out_proj")}
+
+    def layer(pfx, cross):
+        p = {"self_attn": attn(f"{pfx}.self_attn"),
+             "self_ln": _norm(sd, f"{pfx}.self_attn_layer_norm"),
+             "fc1": _linear(sd, f"{pfx}.fc1"),
+             "fc2": _linear(sd, f"{pfx}.fc2"),
+             "final_ln": _norm(sd, f"{pfx}.final_layer_norm")}
+        if cross:
+            p["cross_attn"] = attn(f"{pfx}.encoder_attn")
+            p["cross_ln"] = _norm(sd, f"{pfx}.encoder_attn_layer_norm")
+        return p
+
+    def layers(side, cross):
+        out, i = [], 0
+        while f"model.{side}.layers.{i}.self_attn.q_proj.weight" in sd:
+            out.append(layer(f"model.{side}.layers.{i}", cross))
+            i += 1
+        return out
+
+    return {
+        "shared_embedding": {"table": _f32(sd["model.shared.weight"])},
+        "enc_pos": {"table": _f32(sd["model.encoder.embed_positions.weight"])},
+        "dec_pos": {"table": _f32(sd["model.decoder.embed_positions.weight"])},
+        "enc_ln_emb": _norm(sd, "model.encoder.layernorm_embedding"),
+        "dec_ln_emb": _norm(sd, "model.decoder.layernorm_embedding"),
+        "encoder": layers("encoder", cross=False),
+        "decoder": layers("decoder", cross=True),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,137 @@ def test_ckpt_flag_loads_a_port_checkpoint(env, tmp_path, tiny_params):
         tinf.main(base + ["--ckpt", jck])
 
 
+def _bart_dir(root) -> str:
+    """A tiny DistilBART-layout dir: transformers-named weights of
+    ``BartConfig.tiny()`` written by ``write_safetensors`` and a byte-level
+    vocabulary covering its 128 ids."""
+    from sdbc_tpu_torch.models import bart as tbart
+    from sdbc_tpu_torch.models.port import write_safetensors
+    from tests.test_torch_bart import bart_state_dict, write_vocab
+
+    root.mkdir()
+    write_safetensors(bart_state_dict(tbart.BartConfig.tiny(), seed=2),
+                      str(root / "model.safetensors"))
+    return write_vocab(root)
+
+
+def test_default_mode_summarize_grid_matches_jax(env, tmp_path,
+                                                 monkeypatch):
+    """--mode default --summarize --bart_ckpt on a df_test.csv: both CLIs
+    render (summarize, include_desc) = (F,F), (T,T), (F,T) in that order,
+    with the same prompts (the (T,T) ones holding the DistilBART
+    summaries) and the (T,T) grid within 1/255.  Both CLIs build the
+    summarizer with DistilBART-CNN's config whatever the dir holds: each is
+    given the tiny one here."""
+    import random
+
+    from sdbc_tpu.eval import visualize as jvis
+    from sdbc_tpu.models import bart as jbart
+    from sdbc_tpu_torch.data.dataset import read_csv_rows
+    from sdbc_tpu_torch.eval import visualize as tvis
+    from sdbc_tpu_torch.models import bart as tbart
+
+    bart = _bart_dir(tmp_path / "bart")
+    for mod in (jbart, tbart):
+        monkeypatch.setattr(mod.BartConfig, "distilbart_cnn",
+                            staticmethod(mod.BartConfig.tiny))
+    runs = {}
+    for name, main, vis, extra in (
+            ("jax", jinf.main, jvis, []),
+            ("port", tinf.main, tvis, ["--device", "cpu"])):
+        seen = []
+        real = vis.visualize_prompts
+
+        def spy(*a, _real=real, _seen=seen, **kw):
+            out = _real(*a, **kw)
+            _seen.append((kw["summarize"], kw["include_desc"], out[1]))
+            return out
+
+        monkeypatch.setattr(vis, "visualize_prompts", spy)
+        random.seed(0)  # the placeholders past the tenth template
+        save = tmp_path / f"grid_{name}"
+        main(TINY + extra + ["--mode", "default",
+                             "--diffusers_ckpt", env["export"],
+                             "--data_root", env["data"], "--summarize",
+                             "--bart_ckpt", bart, "--samples_per_prompt",
+                             "1", "--batch_size", "16",
+                             "--save_dir", str(save)])
+        runs[name] = (seen, _png(save / "dev inference" /
+                                 "summerize=True,include_desc=True.png"))
+    (jseen, jgrid), (tseen, tgrid) = runs["jax"], runs["port"]
+    assert [c[:2] for c in tseen] == [(False, False), (True, True),
+                                      (False, True)]
+    assert tseen == jseen
+    summarizer = tinf.build_summarizer(tinf.build_parser().parse_args(
+        ["--device", "cpu", "--bart_ckpt", bart]))
+    descs = [str(r["book_desc"]) for _, r in read_csv_rows(os.path.join(
+        env["data"], "df_test.csv"))]
+    summaries = [summarizer(d) for d in descs]
+    assert all(summaries) and summaries != descs
+    assert len(tseen[1][2]) == 13
+    for i, prompt in enumerate(tseen[1][2]):  # descriptions padded to 13
+        assert summaries[min(i, len(descs) - 1)] in prompt
+    assert tgrid.shape == jgrid.shape
+    assert np.abs(tgrid - jgrid).max() <= 1
+
+
+# the summarize grid's refusals, the JAX CLI's: each case the flags past
+# --mode default, whether df_test.csv is there, and the message
+SUMMARIZE_ERRORS = [
+    (["--summarize"], True, "--summarize needs --bart_ckpt"),
+    (["--summarize", "--bart_ckpt", "BART", "--no-include_desc"], True,
+     "cannot combine with --no-include_desc"),
+    (["--summarize", "--bart_ckpt", "BART"], False,
+     "--summarize needs .*df_test.csv"),
+    (["--summarize", "--bart_ckpt", "EMPTY"], True,
+     "vocab.json \\+ merges.txt"),
+]
+
+
+@pytest.mark.parametrize("flags,with_csv,what", SUMMARIZE_ERRORS,
+                         ids=["no-bart", "no-desc", "no-csv", "no-vocab"])
+def test_summarize_errors_match_jax(env, tmp_path, flags, with_csv, what):
+    (tmp_path / "empty").mkdir()
+    bart = env["root"] / "bart_errors"
+    bart.mkdir(exist_ok=True)
+    flags = [str(bart) if f == "BART" else str(tmp_path / "empty")
+             if f == "EMPTY" else f for f in flags]
+    data = env["data"] if with_csv else str(tmp_path / "empty")
+    for main, extra in ((jinf.main, []), (tinf.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match=what):
+            main(TINY + extra + ["--mode", "default", "--data_root", data,
+                                 "--diffusers_ckpt", env["export"],
+                                 "--save_dir", str(tmp_path)] + flags)
+
+
+def test_csv_rows_read_as_pandas_reads_them(tmp_path):
+    """``read_csv_rows`` against ``pd.read_csv(index_col=0).iterrows()`` on
+    Goodreads-like descriptions: quoted commas, quotes, newlines,
+    non-ASCII text and an empty field."""
+    import pandas as pd
+
+    from sdbc_tpu_torch.data.dataset import read_csv_rows
+
+    df = pd.DataFrame({
+        "book_authors": ["Zoë Brontë", "J. R. R. Tolkien", "", "O'Brien"],
+        "book_desc": ['A "hero", a sword, and a quest.\nPart two: home.',
+                      "Épopée — « roman » en 3 tomes;\r\nfin", None,
+                      "Tabs\tand, commas,, and \"quotes\"\n\n"],
+        "book_title": ["Wuthering, Heights", "The Hobbit", "NA", "42"]},
+        index=[17, 3, 8, 250])
+    path = tmp_path / "df_test.csv"
+    df.to_csv(path)
+    want = [(idx, dict(row)) for idx, row in
+            pd.read_csv(path, index_col=0).iterrows()]
+    got = read_csv_rows(str(path))
+    assert [i for i, _ in got] == [i for i, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert list(a) == list(b)
+        assert [str(v) for v in a.values()] == [str(v) for v in b.values()]
+        assert [isinstance(v, str) for v in a.values()] == \
+            [isinstance(v, str) for v in b.values()]
+
+
 # each case: the flags and the message they exit with; the ControlNet
 # flags are ported (tests/test_torch_controlnet.py) and keep their cases
 # for the refusals left to them: a missing dir, an image without a
@@ -190,8 +321,6 @@ REFUSED = [
     (["--controlnet_scale", "0.5"], "--controlnet_scale .* ControlNet"),
     (["--tp", "2"], "multi-device.*not ported yet"),
     (["--tp", "1", "--spatial"], "multi-device.*not ported yet"),
-    (["--summarize"], "BART.*not ported yet"),
-    (["--bart_ckpt", "bart"], "BART.*not ported yet"),
 ]
 
 
@@ -234,7 +363,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "cli.training", "cli.preprocess", "utils.checkpoint",
                  "utils.tracking", "utils.profiling", "data.dataset",
                  "data.native_loader", "data.preprocess",
-                 "train.latent_cache", "train.prior"):
+                 "train.latent_cache", "train.prior", "models.bart",
+                 "data.bart_tokenizer"):
         assert f"sdbc_tpu_torch.{name}" in mods
     for mod in mods:
         path = os.path.join(ROOT, *mod.split(".")) + ".py"

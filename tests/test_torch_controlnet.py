@@ -37,7 +37,6 @@ from sdbc_tpu_torch.models import unet as tunet
 from sdbc_tpu_torch.models.convert import _flatten_jax_tree, load_jax_params
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.utils import checkpoint as tckpt
-from sdbc_tpu_torch.utils.checkpoint import EMPTY_LIST, module_tree
 from tests.test_torch_finetune import (_argv, _assert_bits, _disk,
                                        _state_trees, capture, data)
 
@@ -64,22 +63,7 @@ def jittered(tree, seed: int, scale: float = 0.02):
 def tree_of(module) -> dict:
     """The JAX-layout tree (nested dicts and lists of numpy) of a port
     module."""
-    tree: dict = {}
-    for key, t in module_tree(module):
-        node = tree
-        for k, _ in key[:-1]:
-            node = node.setdefault(k, {})
-        node[key[-1][0]] = [] if isinstance(t, str) and t == EMPTY_LIST \
-            else t.detach().numpy().copy()
-
-    def lists(node):
-        if isinstance(node, dict):
-            if node and all(k.isdigit() for k in node):
-                return [lists(node[str(i)]) for i in range(len(node))]
-            return {k: lists(v) for k, v in node.items()}
-        return node
-
-    return lists(tree)
+    return tport.module_jax_tree(module)
 
 
 def rand(shape, seed: int, scale: float = 1.0):

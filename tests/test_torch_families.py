@@ -59,28 +59,12 @@ def port_init_tree(cfg, seed: int) -> dict:
     random init of ``cfg``'s components, jittered: the JAX package's init
     runs op by op on the CPU, which takes tens of seconds at tiny_xl."""
     from sdbc_tpu_torch.diffusion.pipeline import init_models
-    from sdbc_tpu_torch.utils.checkpoint import EMPTY_LIST, module_tree
+    from sdbc_tpu_torch.models.port import module_jax_tree
 
     models = init_models(cfg, device="cpu",
                          generator=torch.Generator().manual_seed(seed))
-    tree = {}
-    for name, m in models.items():
-        root = tree.setdefault(name, {})
-        for key, t in module_tree(m):
-            node = root
-            for k, _ in key[:-1]:
-                node = node.setdefault(k, {})
-            node[key[-1][0]] = [] if isinstance(t, str) and t == EMPTY_LIST \
-                else t.numpy()
-
-    def lists(node, seq=False):
-        if isinstance(node, dict):
-            if node and all(k.isdigit() for k in node):
-                return [lists(node[str(i)]) for i in range(len(node))]
-            return {k: lists(v) for k, v in node.items()}
-        return node
-
-    return jittered(lists(tree), seed + 1)
+    return jittered({name: module_jax_tree(m) for name, m in models.items()},
+                    seed + 1)
 
 
 def as_np(tree):
