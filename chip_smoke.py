@@ -300,7 +300,30 @@ Phases, in order; each prints one or more lines, and any failure raises
                   way (300 / 200); the branch's training step in mode C's
                   shape (remat "block", 8-bit AdamW, the Sobel hint; 144 /
                   60 / 60 / 1 K5 / K6a / K6b / K7 a step, a profiled step);
-                  its profiles record the device's activity alone.
+                  its profiles record the device's activity alone;
+17. parallel    — ``sdbc_tpu_torch.parallel`` (``phase_parallel``): (a)
+                  NCCL with a world of 1 on a TCP store: mode C through
+                  the data-parallel path (a 1×1 mesh) bit for bit against
+                  the bare step on the same batch and draws, 60 / 60 /
+                  60 / 1 K5 / K6a / K6b / K7 launches, nothing staged
+                  through the host; (b) two ranks of this script
+                  (``--parallel-rank``, each with its own timeout)
+                  sharing the card over gloo: DP mode C (micro-batch
+                  1 + 1) and FSDP (fp32 AdamW, grad_accum 1) against the
+                  one-process steps (loss, the update of every trained
+                  leaf at a stride against ``PAR_UPDATE_COS``, which a
+                  control without the data-group mean must fail, the two
+                  ranks' parameters bit for bit, each rank's moments and
+                  peak against one process's), TP and DP sampling at
+                  512², batch 4, CFG 7.5, DDIM-10 against the fp32 image
+                  (``PAR_IMG_C`` × the one-process call's own bf16
+                  rounding; K1 150 a rank, K4 0 under TP), and the tiny
+                  config's TP and DP
+                  calls in fp32 within ``FP32_PARITY_TOL`` of the rank's
+                  one-process call; each step's s/step, each call's
+                  s/call and each rank's peak GiB and host-staged
+                  collectives.  A correctness run: two ranks on one card
+                  show no speed-up.
 
 Every phase's seconds are printed as it ends (``[time]``).  Every
 environment variable a phase sets is restored after it.
@@ -6842,6 +6865,536 @@ def beam_divergence(trace_a, trace_b, beams: int):
     return diff, gaps, first
 
 
+# ---------------------------------------------------------------------------
+# parallel: the port's data, FSDP and tensor parallelism on the one card
+
+# (b)'s two ranks against the one-process result.  The DP and FSDP steps
+# compute each micro-batch's rows in two halves (batch 1 instead of 2), so
+# cuBLAS and the flash kernels run other shapes and the gradient mean sums
+# in another order: bf16 rounding of every activation.  The loss is held
+# to train-parity's TRAIN_LOSS_RTOL; the update (compared on every trained
+# leaf at a fixed stride, PAR_SAMPLE elements a leaf at most) by its
+# cosine with the one-process update, whose limit PAR_UPDATE_COS lies
+# between the sound runs' readings and a control's: the DP step with the
+# data-group mean left out (each rank's update from its own rows), which
+# must read below it.  Read on the card (H100, 700 W): DP 0.99671, FSDP
+# 0.99614, the control 0.55552 / 0.60516; the limit leaves 1 − cos at
+# 0.05, ~13× the sound runs' and ~8× below the control's.  Both ranks must
+# hold the same parameters, bit for bit.
+PAR_SAMPLE = 65536
+PAR_UPDATE_COS = 0.95
+# TP and DP sampling against the exact (fp32) image of the one-process
+# call on the same (bf16-valued) weights.  TP sums bf16 partial products
+# over the model group (each rank's half of a contraction rounded to bf16,
+# then the sum rounded again), DP runs batch 2 instead of 4 (other cuBLAS
+# tiles): either call is another bf16 evaluation of the same function,
+# with the one-process call's own distance from fp32 as its yardstick,
+# g = max |bf16 − fp32| and its mean ḡ, measured in the run.  Each call is
+# held to PAR_IMG_C·g in the max and PAR_IMG_C·ḡ in the mean, c taken from
+# the readings (H100, 700 W): TP 0.945·g and 1.029·ḡ, DP 0.867·g and
+# 0.995·ḡ (g = 2.103e-02, ḡ = 2.188e-03); the max, one pixel of 3.1M, is
+# the noisier.  That the partitioned function is exact is held in fp32
+# at the tiny config on the card: TP and DP against the rank's own
+# one-process call within FP32_PARITY_TOL.
+PAR_IMG_C = 1.25
+PAR_TIMEOUT = 420   # seconds a rank may take for all its tasks
+
+
+def _par_mode_c(**kw):
+    """Mode C's config, one batch and the host draws (seeded: the same in
+    every process)."""
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+    from sdbc_tpu_torch.train.trainer import host_draws
+
+    cfg = PipelineConfig.sd15()
+    accum, micro = kw.pop("accum", 4), 2
+    tcfg = _train_cfg(grad_accum=accum, micro_batch=micro,
+                      num_examples=1000, **kw)
+    g = torch.Generator().manual_seed(23)
+    batch = {"pixel_values": torch.rand((accum, micro, 512, 512, 3),
+                                        generator=g) * 2 - 1,
+             "input_ids": torch.randint(0, cfg.clip.vocab_size,
+                                        (accum, micro, cfg.clip.ctx),
+                                        generator=g)}
+    return cfg, tcfg, batch, host_draws(g, cfg, tcfg, batch)
+
+
+def _par_state(cfg, tcfg):
+    import torch
+
+    from sdbc_tpu_torch.diffusion.pipeline import init_models
+    from sdbc_tpu_torch.train.trainer import init_train_state
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return init_train_state(init_models(cfg, device="cuda", generator=gen),
+                            tcfg)
+
+
+def _par_samples(state, full=None) -> dict:
+    """{parameter name: every PAR_SAMPLE-th-ish element, fp32 on the
+    host} of the trained components; ``full`` gathers a shard first."""
+    out = {}
+    for comp in sorted(state.trainable):
+        for n, p in state.trainable[comp].named_parameters():
+            t = p.detach() if full is None else full(p)
+            if t is None:
+                continue
+            flat = t.float().flatten()
+            out[f"{comp}.{n}"] = flat[::max(1, flat.numel() // PAR_SAMPLE)
+                                      ].cpu()
+    return out
+
+
+def _par_update_err(init: dict, final: dict, ref_final: dict):
+    """(update cosine, max |Δ − Δref|) over the sampled elements."""
+    import torch
+
+    d = torch.cat([final[k] - init[k] for k in init]).double()
+    r = torch.cat([ref_final[k] - init[k] for k in init]).double()
+    return (float(d @ r / (d.norm() * r.norm())),
+            float((d - r).abs().max()))
+
+
+def _par_step(step, state, batch, draws, steps: int = 2):
+    """``steps`` steps (the first a warm-up), their seconds and losses."""
+    import torch
+
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        if not m["finite"]:
+            fail(f"parallel step skipped (non-finite), loss {m['loss']}")
+    return times, losses
+
+
+def _par_sample_kw(cfg):
+    from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+
+    return dict(height=512, width=512, num_inference_steps=10,
+                guidance_scale=7.5,
+                latents=per_sample_fixed_latents(4, (4, 64, 64), 42))
+
+
+def parallel_rank(task_dir: str) -> int:
+    """One rank of (b): two processes share the one card over gloo
+    (``torch.distributed`` with its TCP rendezvous; NCCL refuses two
+    ranks on one device).  Runs DP mode C, the FSDP step, TP sampling and
+    DP sampling; writes what the parent compares to ``task_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline, init_models
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.mesh import (MeshConfig,
+                                              host_local_batch_indices,
+                                              make_mesh)
+    from sdbc_tpu_torch.parallel.shard import full_tensor
+    from sdbc_tpu_torch.train.trainer import (make_train_step,
+                                              shard_train_state)
+
+    from sdbc_tpu_torch.utils.dtypes import set_fp32_matmul_exact
+
+    rank = int(os.environ["SDBC_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    set_fp32_matmul_exact()   # as phase_device sets the parent
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['COORDINATOR_ADDRESS']}",
+        rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    dp = make_mesh(MeshConfig(data=2), device="cuda")
+    tp = make_mesh(MeshConfig(model=2), device="cuda")
+    out = {}
+
+    def rows(batch, mesh):
+        return {k: v[:, torch.from_numpy(host_local_batch_indices(
+            v.shape[1], mesh))] for k, v in batch.items()}
+
+    from sdbc_tpu_torch.train import trainer
+
+    mean_over_data = trainer._mean_over_data
+    for name, kw, shard in (("dp", {}, None),
+                            ("dp_control", {}, None),
+                            ("fsdp", dict(use_8bit_adam=False, accum=1),
+                             dict(fsdp=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comm.reset_staged()
+        cfg, tcfg, batch, draws = _par_mode_c(**kw)
+        state = _par_state(cfg, tcfg)
+        if shard:
+            shard_train_state(state, dp, **shard)
+        step = make_train_step(cfg, tcfg, mesh=dp, dp_size=2)
+        local = rows(batch, dp)
+        # the control: each rank steps on its own rows' gradient, the
+        # data-group mean left out, to show what the bounds tell apart
+        trainer._mean_over_data = (mean_over_data if name != "dp_control"
+                                   else lambda grads, params, mesh: None)
+        try:
+            times, losses = _par_step(step, state, local, draws, steps=1)
+        finally:
+            trainer._mean_over_data = mean_over_data
+        # every rank gathers the full values: the ranks' replicas compared
+        full = None if not shard else (
+            lambda p: full_tensor(p, dst=None))
+        samples = _par_samples(state, full)
+        if name == "dp_control":
+            out[name] = {"loss": losses[0], "samples": samples}
+            del state, step
+            continue
+        mom = (sum(t.numel() for t in state.opt_state.inner.mu
+                   + state.opt_state.inner.nu) * 4 if shard else 0)
+        # a second step, timed (launch counts of that step)
+        _kernels.reset_launch_counts()
+        t2, l2 = _par_step(step, state, local, draws, steps=1)
+        out[name] = {"loss": losses[0], "samples": samples,
+                     "s_step": t2[0], "first_s": times[0],
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": dict(_kernels.launches),
+                     "staged": dict(comm.STAGED), "moment_bytes": mom}
+        del state, step
+    for name, mesh in (("tp_sample", tp), ("dp_sample", dp)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comm.reset_staged()
+        cfg, _, _, _ = _par_mode_c()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        models = init_models(cfg, device="cuda", generator=gen,
+                             dtype=torch.bfloat16)
+        pipe = SDPipeline(models, cfg, _tokenizer(cfg), "cuda",
+                          torch.bfloat16, mesh=mesh)
+        # one call, no warm-up: the kernels are built and the gloo
+        # all-reduces of the activations dominate the call
+        _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = pipe(PROMPTS, **_par_sample_kw(cfg))
+        torch.cuda.synchronize()
+        out[name] = {"imgs": imgs, "s_call": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "launches": dict(_kernels.launches),
+                     "staged": dict(comm.STAGED)}
+        del pipe, models
+    # the partitioned functions exact in fp32: the tiny config (64², batch
+    # 4, DDIM-4, CFG 7.5) against this rank's own one-process call
+    from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
+
+    tiny = PipelineConfig.tiny()
+    models = init_models(tiny, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    tkw = dict(height=64, width=64, num_inference_steps=4,
+               guidance_scale=7.5, seed=5)
+    one = SDPipeline(models, tiny, _tokenizer(tiny), "cuda",
+                     torch.float32)(PROMPTS, **tkw)
+    for name, mesh in (("tp_tiny_fp32", tp), ("dp_tiny_fp32", dp)):
+        import copy as _copy
+
+        got = SDPipeline({k: _copy.deepcopy(m) for k, m in models.items()},
+                         tiny, _tokenizer(tiny), "cuda", torch.float32,
+                         mesh=mesh)(PROMPTS, **tkw)
+        out[name] = float(abs(got - one).max())
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    torch.save(out, os.path.join(task_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(task_dir: str, n: int = 2):
+    """``n`` rank processes of this script, each with its own timeout;
+    past it every one of them is killed and the phase fails."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for i in range(n):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   SDBC_NUM_PROCESSES=str(n), SDBC_PROCESS_ID=str(i),
+                   LOCAL_RANK="0")
+        # each rank's output to a file: a pipe left unread while waiting
+        # for the other rank could block it inside a collective
+        logs.append(os.path.join(task_dir, f"rank{i}.log"))
+        with open(logs[-1], "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--parallel-rank", task_dir], env=env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True))
+    t0 = time.perf_counter()
+    for p in procs:
+        left = PAR_TIMEOUT - (time.perf_counter() - t0)
+        try:
+            p.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(q.pid, signal.SIGKILL)
+            for q in procs:
+                q.wait()
+            fail(f"parallel ranks timed out after {PAR_TIMEOUT} s")
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        with open(log, errors="replace") as f:
+            text = f.read()
+        if p.returncode != 0:
+            fail(f"parallel rank {i} exited {p.returncode}:\n{text[-6000:]}")
+
+
+def phase_parallel(smi: str) -> dict:
+    """(a) NCCL, world of 1 (a TCP store on a free port): mode C through
+    the DP path (a 1×1 mesh) bit for bit against the bare step on the
+    same batch and draws, 60 / 60 / 60 / 1 K5 / K6a / K6b / K7 launches,
+    nothing staged through the host.  (b) Two ranks on the card over gloo
+    (``parallel_rank``): DP mode C (micro-batch 1 + 1) and FSDP (fp32
+    AdamW) against the one-process steps, TP and DP sampling (512², batch
+    4, CFG 7.5, DDIM-10) against the one-process image, with their
+    launches, s/step or s/call and each rank's peak GiB."""
+    import datetime
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline, init_models
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from sdbc_tpu_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    paths = {}
+    # (a) -----------------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True,
+                          timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    old_det = torch.backends.cudnn.deterministic
+    # bit for bit needs the same convolution algorithms in both steps
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(MeshConfig(), device="cuda")
+        cfg, tcfg, batch, draws = _par_mode_c()
+        bare = _par_state(cfg, tcfg)
+        init = _par_samples(bare)
+        tb, lb = _par_step(make_train_step(cfg, tcfg), bare, batch, draws,
+                           steps=1)
+        ref8 = _par_samples(bare)
+        ref8_params = [p.detach().clone() for p in
+                       bare.trainable["unet"].parameters()] + [
+            p.detach().clone() for p in
+            bare.trainable["text_encoder"].parameters()]
+        del bare
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.reset_staged()
+        state = _par_state(cfg, tcfg)
+        step = make_train_step(cfg, tcfg, mesh=mesh)
+        _kernels.reset_launch_counts()
+        td, ld = _par_step(step, state, batch, draws, steps=1)
+        counts_a = dict(_kernels.launches)
+        got = [p.detach() for p in state.trainable["unet"].parameters()] \
+            + [p.detach() for p in
+               state.trainable["text_encoder"].parameters()]
+        same = sum(bool(torch.equal(a, b)) for a, b in zip(got, ref8_params))
+        t2, _ = _par_step(step, state, batch, draws, steps=1)
+        staged_a = dict(comm.STAGED)
+        del state, step, got, ref8_params
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+        dist.destroy_process_group()
+    want = dict.fromkeys(_kernels.launches, 0)
+    want.update(flash_fwd=60, flash_bwd_dq=60, flash_bwd_dkv=60, adam8=1)
+    print(f"[parallel] (a) NCCL world 1, mode C through the DP path (1x1 "
+          f"mesh) vs the bare step: loss {ld[0]!r} vs {lb[0]!r}, "
+          f"{same}/{len(ref8)} trained tensors bit-equal, first step "
+          f"{td[0]:.4f} s (bare {tb[0]:.4f} s), next {t2[0]:.4f} s/step, "
+          f"launches {nonzero(counts_a)}, host-staged {staged_a} | {smi}",
+          flush=True)
+    if ld[0] != lb[0] or same != len(ref8):
+        fail(f"parallel (a): the world-1 DP step differs from the bare "
+             f"step (loss {ld[0]!r} vs {lb[0]!r}, {same}/{len(ref8)} "
+             "tensors equal)")
+    if counts_a != want:
+        fail(f"parallel (a) launches {counts_a}, expected {want}")
+    if any(staged_a.values()):
+        fail(f"parallel (a): NCCL staged through the host: {staged_a}")
+    paths["parallel dp world-1"] = counts_a
+    # the one-process references of (b) ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32, tcfg32, batch32, draws32 = _par_mode_c(use_8bit_adam=False,
+                                                  accum=1)
+    one32 = _par_state(cfg32, tcfg32)
+    init32 = _par_samples(one32)
+    t32, l32 = _par_step(make_train_step(cfg32, tcfg32), one32, batch32,
+                         draws32, steps=1)
+    ref32 = _par_samples(one32)
+    peak32 = torch.cuda.max_memory_allocated()
+    mom32 = sum(t.numel() for t in one32.opt_state.inner.mu
+                + one32.opt_state.inner.nu) * 4
+    del one32
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    models = init_models(cfg, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+    kw = _par_sample_kw(cfg)
+    pipe = SDPipeline(models, cfg, _tokenizer(cfg), "cuda", torch.bfloat16)
+    pipe(PROMPTS, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img1 = pipe(PROMPTS, **kw)
+    torch.cuda.synchronize()
+    s_one = time.perf_counter() - t0
+    pipe32 = SDPipeline({k: m.float() for k, m in models.items()}, cfg,
+                        _tokenizer(cfg), "cuda", torch.float32)
+    img32 = pipe32(PROMPTS, **kw)
+    del pipe, pipe32, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_gap = float(np.abs(img1 - img32).max())
+    bf16_mean = float(np.abs(img1 - img32).mean())
+    # (b) ------------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as task_dir:
+        _spawn_ranks(task_dir)
+        ranks = [torch.load(os.path.join(task_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    flash_dp, geglu_dp = expected_launches(cfg, 64, 4)
+    flash_tp, _ = expected_launches(cfg, 64, 8)
+    dp0, fs0 = ranks[0]["dp"], ranks[0]["fsdp"]
+    cos, worst = _par_update_err(init, dp0["samples"], ref8)
+    cos32, worst32 = _par_update_err(init32, fs0["samples"], ref32)
+    cos_ctl = [_par_update_err(init, res["dp_control"]["samples"], ref8)[0]
+               for res in ranks]
+    lr = tcfg.learning_rate
+    bad = []
+    for r, res in enumerate(ranks):
+        for name in ("dp", "fsdp"):
+            x = res[name]
+            print(f"[parallel] (b) rank {r} {name} mode C (micro 1 a rank, "
+                  f"{'8-bit' if name == 'dp' else 'fp32'} AdamW, grad_accum "
+                  f"{4 if name == 'dp' else 1}): {x['s_step']:.4f} s/step "
+                  f"(first {x['first_s']:.4f} s), peak "
+                  f"{x['peak'] / 2 ** 30:.2f} GiB, moments "
+                  f"{x['moment_bytes'] / 2 ** 30:.3f} GiB, loss "
+                  f"{x['loss']!r}, launches {nonzero(x['launches'])}, "
+                  f"host-staged {x['staged']} | {smi}", flush=True)
+        for name in ("tp_sample", "dp_sample"):
+            x = res[name]
+            if x["imgs"].shape != img1.shape:
+                bad.append(f"{name} rank {r}: shape {x['imgs'].shape}")
+                continue
+            d32 = np.abs(x["imgs"] - img32)
+            err, mean = float(d32.max()), float(d32.mean())
+            d1 = np.abs(x["imgs"] - img1)
+            print(f"[parallel] (b) rank {r} {name} SD-1.5 512^2 batch 4 "
+                  f"DDIM-10 CFG 7.5 bf16: {x['s_call']:.4f} s/call (one "
+                  f"call; one process {s_one:.4f}), peak "
+                  f"{x['peak'] / 2 ** 30:.2f} GiB, |img - fp32| max "
+                  f"{err:.3e} = {err / bf16_gap:.3f}·g, mean {mean:.3e} = "
+                  f"{mean / bf16_mean:.3f}·ḡ (bound {PAR_IMG_C}·g, "
+                  f"{PAR_IMG_C}·ḡ; the one-process call's g = {bf16_gap:.3e},"
+                  f" ḡ = {bf16_mean:.3e}), |img - one-process bf16| max "
+                  f"{float(d1.max()):.3e} mean {float(d1.mean()):.3e}, "
+                  f"launches {nonzero(x['launches'])}, host-staged "
+                  f"{x['staged']} | {smi}", flush=True)
+            if err > PAR_IMG_C * bf16_gap or mean > PAR_IMG_C * bf16_mean:
+                bad.append(f"{name} rank {r}: |img - fp32| max {err:.3e} "
+                           f"mean {mean:.3e} (bounds "
+                           f"{PAR_IMG_C * bf16_gap:.3e}, "
+                           f"{PAR_IMG_C * bf16_mean:.3e})")
+        print(f"[parallel] (b) rank {r} tiny fp32 64^2 batch 4 DDIM-4 CFG "
+              f"7.5 against the rank's one-process call: TP max |d| "
+              f"{res['tp_tiny_fp32']:.3e}, DP {res['dp_tiny_fp32']:.3e} "
+              f"(tol {FP32_PARITY_TOL})", flush=True)
+        for name in ("tp_tiny_fp32", "dp_tiny_fp32"):
+            if res[name] > FP32_PARITY_TOL:
+                bad.append(f"{name} rank {r}: {res[name]:.3e}")
+    print(f"[parallel] (b) DP vs one process: loss {dp0['loss']!r} vs "
+          f"{lb[0]!r} (rtol {TRAIN_LOSS_RTOL}), update cosine {cos:.5f} "
+          f"(bound {PAR_UPDATE_COS}; the control without the data-group "
+          f"mean: rank 0 {cos_ctl[0]:.5f}, rank 1 {cos_ctl[1]:.5f}), max "
+          f"|dDelta| {worst:.3e} ({worst / lr:.3f}·lr); FSDP vs one process "
+          f"(fp32 AdamW, {t32[0]:.4f} s/step, peak {peak32 / 2 ** 30:.2f} "
+          f"GiB, moments {mom32 / 2 ** 30:.3f} GiB): loss {fs0['loss']!r} "
+          f"vs {l32[0]!r}, cosine {cos32:.5f}, max |dDelta| {worst32:.3e} "
+          f"({worst32 / lr:.3f}·lr) | {smi}", flush=True)
+    if abs(dp0["loss"] - lb[0]) > TRAIN_LOSS_RTOL * abs(lb[0]) \
+            or cos < PAR_UPDATE_COS:
+        bad.append("DP mode C outside its bounds")
+    if abs(fs0["loss"] - l32[0]) > TRAIN_LOSS_RTOL * abs(l32[0]) \
+            or cos32 < PAR_UPDATE_COS:
+        bad.append("FSDP step outside its bounds")
+    if max(cos_ctl) >= PAR_UPDATE_COS:
+        bad.append(f"the control without the data-group mean reads cosine "
+                   f"{max(cos_ctl):.5f}, within the bound {PAR_UPDATE_COS}:"
+                   " the bound cannot tell it apart")
+    for name in ("dp", "fsdp"):
+        a, b = (res[name]["samples"] for res in ranks)
+        same = sum(bool(torch.equal(a[k], b[k])) for k in a)
+        print(f"[parallel] (b) {name}: the two ranks' parameters bit-equal "
+              f"in {same}/{len(a)} trained tensors (sampled)", flush=True)
+        if a.keys() != b.keys() or same != len(a):
+            bad.append(f"{name}: the ranks hold different parameters "
+                       f"({same}/{len(a)} tensors equal)")
+    for r, res in enumerate(ranks):
+        if res["dp"]["loss"] != dp0["loss"]:
+            bad.append(f"DP: rank {r}'s loss differs from rank 0's")
+        f = res["fsdp"]
+        # sharded leaves (≥ 4096 elements) hold all but ~0.1% of the
+        # elements: each rank's moments are about half of one process's
+        if f["moment_bytes"] > 0.55 * mom32 or f["peak"] >= peak32:
+            bad.append(f"FSDP rank {r}: moments {f['moment_bytes']} B "
+                       f"(one process {mom32}), peak {f['peak']} (one "
+                       f"process {peak32}): not sharded")
+        want_dp = dict.fromkeys(_kernels.launches, 0)
+        want_dp.update(flash_fwd=60, flash_bwd_dq=60, flash_bwd_dkv=60,
+                       adam8=1)
+        want_fs = dict(want_dp, flash_fwd=15, flash_bwd_dq=15,
+                       flash_bwd_dkv=15, adam8=0)
+        want_tp = dict.fromkeys(_kernels.launches, 0)
+        want_tp["flash_fixed"] = 10 * flash_tp
+        want_dps = dict(want_tp, flash_fixed=10 * flash_dp,
+                        geglu_ff=10 * geglu_dp)
+        for name, w in (("dp", want_dp), ("fsdp", want_fs),
+                        ("tp_sample", want_tp), ("dp_sample", want_dps)):
+            if res[name]["launches"] != w:
+                bad.append(f"{name} rank {r} launches "
+                           f"{res[name]['launches']}, expected {w}")
+            if not any(res[name]["staged"].values()) \
+                    and name in ("fsdp", "dp_sample"):
+                bad.append(f"{name} rank {r}: gloo on CUDA tensors staged "
+                           "nothing")
+    if bad:
+        fail("parallel: " + "; ".join(bad))
+    for name in ("dp", "fsdp", "tp_sample", "dp_sample"):
+        paths[f"parallel {name} (rank 0)"] = ranks[0][name]["launches"]
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s | {smi}",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     if not (ROOT / "sdbc_tpu_torch").is_dir():
         fail(f"run from a checkout of the repo: no sdbc_tpu_torch/ beside "
@@ -6928,6 +7481,9 @@ def main() -> int:
     lap("families-train")
     paths.update(phase_controlnet(smi))
     lap("controlnet")
+    paths.update(phase_parallel(smi))
+    torch.cuda.empty_cache()
+    lap("parallel")
     next(r for r in rows if r["name"] == "adam8")["sdxl_step"] = \
         adam8_family
     if "jax" in sys.modules:
@@ -6949,4 +7505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

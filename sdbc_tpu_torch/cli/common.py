@@ -20,8 +20,10 @@ refused: each exits with a message naming what is missing
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
+import socket
 
 import torch
 
@@ -31,10 +33,113 @@ _UNPORTED_FLAGS = {
                                "no wandb; ROADMAP Queue 1 item 8)"),
     "wandb_key": ("", "wandb tracking (the card's machine has no wandb; "
                       "ROADMAP Queue 1 item 8)"),
-    "tp": (0, "multi-device serving (ROADMAP Queue 1 item 5)"),
-    "fsdp": (0, "multi-device training (ROADMAP Queue 1 item 5)"),
-    "spatial": (False, "multi-device serving (ROADMAP Queue 1 item 5)"),
+    "spatial": (False, "row-sharded serving (ROADMAP Queue 1 item 5.2)"),
 }
+
+
+def maybe_init_distributed(args=None):
+    """Join the process group when the environment says so (the JAX
+    package's launcher contract); untouched single-process runs return
+    None.  Two wire-ups:
+
+      - a launcher (``python -m torch.distributed.run``): SDBC_MULTIHOST=1
+        and the launcher's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT /
+        LOCAL_RANK;
+      - explicit: COORDINATOR_ADDRESS (host:port of rank 0) with
+        SDBC_NUM_PROCESSES and SDBC_PROCESS_ID (and LOCAL_RANK, default the
+        process id modulo the cards).
+
+    The backend follows ``args.device``: NCCL for ``cuda``, each rank on
+    ``cuda:LOCAL_RANK`` (``args.device`` is set to it), gloo for ``cpu``.
+    Returns (rank, world size)."""
+    coord = os.environ.get("COORDINATOR_ADDRESS")
+    if not (os.environ.get("SDBC_MULTIHOST") == "1" or coord):
+        return None
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # idempotent
+        return dist.get_rank(), dist.get_world_size()
+    if coord:
+        need = [v for v in ("SDBC_NUM_PROCESSES", "SDBC_PROCESS_ID")
+                if v not in os.environ]
+        if need:
+            raise SystemExit(f"COORDINATOR_ADDRESS={coord} is set but "
+                             f"{' and '.join(need)} "
+                             f"{'is' if len(need) == 1 else 'are'} not: the "
+                             "explicit wire-up needs COORDINATOR_ADDRESS, "
+                             "SDBC_NUM_PROCESSES and SDBC_PROCESS_ID")
+        rank = int(os.environ["SDBC_PROCESS_ID"])
+        world = int(os.environ["SDBC_NUM_PROCESSES"])
+        init = f"tcp://{coord}"
+    else:
+        need = [v for v in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                            "MASTER_PORT") if v not in os.environ]
+        if need:
+            raise SystemExit(f"SDBC_MULTIHOST=1 needs the launcher's "
+                             f"{', '.join(need)} (python -m "
+                             "torch.distributed.run sets them)")
+        rank = int(os.environ["RANK"])
+        world = int(os.environ["WORLD_SIZE"])
+        init = "env://"
+    device = torch.device(getattr(args, "device", "cuda") if args is not None
+                          else "cuda")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device is available "
+                             "(pass --device cpu for gloo on the CPU)")
+        local = int(os.environ.get("LOCAL_RANK",
+                                   rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        if args is not None:
+            args.device = f"cuda:{local}"
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world)
+    return rank, world
+
+
+@contextlib.contextmanager
+def distributed(args, tp: int, want_mesh: bool):
+    """The CLI's mesh, or None: join the process group the environment
+    names (``maybe_init_distributed``), then lay a (data, model=tp) mesh
+    over its ranks.  A one-process run that asks for one (--tp, --fsdp)
+    gets a world-1 group on a free local port, destroyed on exit."""
+    import torch.distributed as dist
+
+    joined = maybe_init_distributed(args)
+    if not (joined or want_mesh):
+        yield None
+        return
+    from sdbc_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    mcfg = MeshConfig(model=max(int(tp), 1))
+    try:
+        mcfg.resolve(dist.get_world_size() if joined else 1)
+    except ValueError as e:
+        raise SystemExit(f"--tp {tp}: {e}")
+    own = not dist.is_initialized()
+    if own:
+        dev = resolve_device(args)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+    try:
+        yield make_mesh(mcfg, device=resolve_device(args))
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def is_root() -> bool:
+    """Rank 0, or a single-process run: the one that prints and writes."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def refuse_unported(args, unused=None) -> None:

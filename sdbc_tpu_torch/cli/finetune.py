@@ -1,10 +1,23 @@
 """Fine-tune SD-1.x, SD-2.x or SDXL on the Goodreads covers (counterpart
-of ``sdbc_tpu/cli/finetune.py``), on one device: the card unless
-``--device cpu``.
+of ``sdbc_tpu/cli/finetune.py``), on the card unless ``--device cpu``,
+one process per card.
 
     python -m sdbc_tpu_torch.cli.finetune --data_root ./goodreads \\
         --num_examples 12000 --train_text_encoder --no-train_unet \\
         --epochs 12 --grad_acc_steps 16
+
+On N cards, one process each (``cli.common.maybe_init_distributed``):
+
+    SDBC_MULTIHOST=1 python -m torch.distributed.run --nproc_per_node N \\
+        -m sdbc_tpu_torch.cli.finetune ... [--tp k] [--fsdp]
+
+or COORDINATOR_ADDRESS=host:port SDBC_NUM_PROCESSES=N SDBC_PROCESS_ID=i
+per process.  The ranks form a (data, model = --tp) mesh: --batch_size is
+per data rank, each rank loads its rows of the global micro-batch and the
+gradients are averaged over the data group; --tp cuts the UNet and text
+encoders Megatron-style, --fsdp shards parameters and AdamW moments
+(ZeRO-3).  Rank 0 alone prints, logs, renders grids and writes
+checkpoints (the sharded leaves gathered to it one at a time).
 
 The JAX CLI's flags and refusals: full fine-tuning (EMA, min-SNR, offset
 noise, 8-bit AdamW, gradient checkpointing, on by default with
@@ -24,7 +37,7 @@ SDXL learns one row block per encoder at shared ids.  --train_controlnet
 trains a ControlNet branch alone (--controlnet_path's, else a fresh one
 cloned from the base UNet with a generator seeded from --seed), its hint
 from each image (--control_hint); checkpoints carry the branch, and
---resume continues it.  --tp/--fsdp and wandb exit naming what they need
+--resume continues it.  wandb exits naming what it needs
 (``common.refuse_unported``).
 
 The noise, timesteps and posterior draws come from one ``torch.Generator``
@@ -134,9 +147,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "ResBlocks/transformers; 'selective' keeps the "
                         "attention outside the checkpoint regions")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported: > 1 refused)")
-    common.bool_flag(p, "fsdp", False, "ZeRO-3 sharding (not ported: "
-                                       "refused)")
+                   help="tensor-parallel size: the ranks form a (data x "
+                        "model=tp) mesh and the UNet and text encoders "
+                        "are cut Megatron-style over `model` "
+                        "(parallel/specs.py)")
+    common.bool_flag(p, "fsdp", False,
+                     "ZeRO-3: shard parameters and AdamW moments over the "
+                     "`data` axis (parallel/specs.py fsdp_specs); each "
+                     "shard is gathered at use and its gradient "
+                     "reduce-scattered")
     common.bool_flag(p, "include_desc", False)
     common.bool_flag(p, "cache_latents", False,
                      "precompute VAE posterior moments once per dataset "
@@ -154,11 +173,21 @@ def _refuse(args) -> None:
     """The JAX CLI's refusals of flag combinations, then the unported
     features."""
     common.refuse_unported(args, unused={"tp": 1})
+    sharded = args.tp > 1 or args.fsdp
+    if sharded and args.use_8bit_adam:
+        raise SystemExit("--use_8bit_adam cannot combine with --fsdp/--tp: "
+                         "the fused int8 update kernel is not partitionable "
+                         "over sharded state (FSDP alone already shards the "
+                         "fp32 moments)")
     use_lora, use_ti = args.lora_rank > 0, bool(args.ti_token)
     if args.train_controlnet:
         if use_lora or use_ti:
             raise SystemExit("--train_controlnet is a full-branch mode; it "
                              "cannot combine with --lora_rank/--ti_token")
+        if sharded:
+            raise SystemExit("--train_controlnet with --tp/--fsdp is not "
+                             "wired up (the spec walkers don't cover the "
+                             "branch tree) — use plain data parallelism")
         if args.cache_latents:
             raise SystemExit("--train_controlnet derives its conditioning "
                              "hint from the pixel batch — incompatible with "
@@ -187,10 +216,19 @@ def _refuse(args) -> None:
         raise SystemExit("--ema_decay cannot combine with --ti_token: the "
                          "checkpoint's ema/ overlay holds component trees, "
                          "not embedding rows")
+    if use_ti and sharded:
+        raise SystemExit("--ti_token trains a handful of embedding rows; "
+                         "TP/FSDP buy nothing and the spec walkers don't "
+                         "cover the rows tree — use plain data parallelism")
     if use_lora and args.ema_decay > 0:
         raise SystemExit("--ema_decay cannot combine with --lora_rank: an "
                          "adapter shadow has no component slot in the "
                          "checkpoint's ema/ overlay — drop one")
+    if use_lora and sharded:
+        raise SystemExit("--lora_rank trains <1% of the parameters; "
+                         "sharding the base weights buys nothing and the "
+                         "TP/FSDP spec walkers don't cover adapter trees — "
+                         "use plain data parallelism (adapters replicate)")
 
 
 def _restore_adapters(state, resume_path, args, ti_ids, is_xl: bool):
@@ -259,7 +297,19 @@ def main(argv=None):
     _refuse(args)
     use_lora, use_ti = args.lora_rank > 0, bool(args.ti_token)
     use_prior = bool(args.prior_class_prompt)
+    with common.distributed(args, args.tp, args.tp > 1 or args.fsdp) as mesh:
+        return _main(args, mesh, use_lora, use_ti, use_prior)
+
+
+def _main(args, mesh, use_lora, use_ti, use_prior):
+    if args.prior_generate and mesh is not None \
+            and torch.distributed.get_world_size() > 1:
+        raise SystemExit("--prior_generate is single-host only — "
+                         "pre-generate the class set once and point every "
+                         "host at --prior_images_dir")
     device = common.resolve_device(args)
+    root = common.is_root()
+    log = print if root else (lambda *a, **k: None)
     from sdbc_tpu_torch.data.dataset import (DatasetConfig, GoodreadsDataset,
                                              make_dataloader)
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
@@ -282,7 +332,7 @@ def main(argv=None):
     if resume_path:
         import dataclasses
 
-        print(f"resuming from {resume_path}")
+        log(f"resuming from {resume_path}")
         t_load = time.perf_counter()
         # the raw masters (never the EMA overlay) and, for an adapter run,
         # the raw base: the adapter and the shadow restore separately
@@ -310,7 +360,7 @@ def main(argv=None):
         models["controlnet"] = cn_mod.from_unet(
             models["unet"], torch.Generator().manual_seed(args.seed ^ 0xC0),
             cfg.controlnet, device=device)
-        print("fresh ControlNet cloned from the base UNet encoder")
+        log("fresh ControlNet cloned from the base UNet encoder")
     is_xl = cfg.is_sdxl
     if use_ti and cfg.refiner:
         raise SystemExit("--ti_token is not wired for the refiner flavor "
@@ -340,7 +390,7 @@ def main(argv=None):
                     "shared id block")
         if args.ti_init_token:
             ti_init_ids = tok._token_ids(args.ti_init_token)
-        print(f"textual inversion: {args.ti_token!r} -> ids {ti_ids}"
+        log(f"textual inversion: {args.ti_token!r} -> ids {ti_ids}"
               + (f" (init from {args.ti_init_token!r})"
                  if args.ti_init_token else "")
               + (" [dual-encoder]" if is_xl else ""))
@@ -357,7 +407,7 @@ def main(argv=None):
 
         probe = ds.prompt_for(0, rng=_random.Random(0))
         if not set(ti_ids) <= set(tok.encode(probe, cfg.clip.ctx)):
-            print(f"WARNING: sample prompt truncates the {args.ti_token!r} "
+            log(f"WARNING: sample prompt truncates the {args.ti_token!r} "
                   f"placeholder out of the {cfg.clip.ctx}-token context "
                   f"(prompt: {probe!r}); such examples contribute no "
                   "inversion gradient")
@@ -378,21 +428,41 @@ def main(argv=None):
                 num_inference_steps=args.prior_gen_steps, seed=args.seed)
             del pipe
             if made:
-                print(f"prior set: {made} class images generated into "
+                log(f"prior set: {made} class images generated into "
                       f"{prior_dir}")
         prior_set = prior_mod.PriorSet(prior_dir, args.prior_class_prompt,
                                        tok, args.img_size,
                                        max_length=cfg.clip.ctx,
                                        tokenizer2=tok2)
-        print(f"prior preservation: {len(prior_set)} class images under "
+        log(f"prior preservation: {len(prior_set)} class images under "
               f"{args.prior_class_prompt!r}, weight {args.prior_weight}")
 
-    global_batch = args.batch_size * args.grad_acc_steps
+    dp, tp_exclude = 1, ()
+    if mesh is not None:
+        from sdbc_tpu_torch.parallel import specs as spec_mod
+        from sdbc_tpu_torch.parallel.mesh import mesh_shape
+
+        dp = mesh_shape(mesh)["data"]
+        if args.tp > 1:
+            try:
+                tp_exclude = spec_mod.validate_tp(cfg, args.tp)
+            except ValueError as e:
+                raise SystemExit(f"--tp {args.tp}: {e}")
+            if tp_exclude:
+                log(f"TP{args.tp}: replicating {', '.join(tp_exclude)} "
+                    "(head count not divisible; the UNet still shards)")
+    micro_global = args.batch_size * dp
+    global_batch = micro_global * args.grad_acc_steps
     if len(ds) < global_batch:
+        if mesh is None:
+            raise SystemExit(
+                f"dataset has {len(ds)} examples but one optimizer step "
+                f"consumes {global_batch} (batch_size {args.batch_size} x "
+                f"grad_acc {args.grad_acc_steps}) — lower them or add data")
         raise SystemExit(
             f"dataset has {len(ds)} examples but one optimizer step consumes "
-            f"{global_batch} (batch_size {args.batch_size} x grad_acc "
-            f"{args.grad_acc_steps}) — lower them or add data")
+            f"{global_batch} (batch_size {args.batch_size} x {dp} devices x "
+            f"grad_acc {args.grad_acc_steps}) — lower them or add data")
     steps_per_epoch = len(ds) // global_batch
     total_steps = steps_per_epoch * args.epochs
 
@@ -420,12 +490,12 @@ def main(argv=None):
     state = init_train_state(
         models, tcfg, compute_dtype=dt, device=device,
         generator=torch.Generator().manual_seed(args.seed ^ 0x10A),
-        ti_init_ids=ti_init_ids)
+        ti_init_ids=ti_init_ids, dp_size=dp)
     del models
     if use_lora:
         from sdbc_tpu_torch.train import lora as lora_mod
 
-        print(f"LoRA rank {args.lora_rank} alpha {args.lora_alpha}: "
+        log(f"LoRA rank {args.lora_rank} alpha {args.lora_alpha}: "
               f"{len(state.trainable['lora'])} adapted projections, "
               f"{lora_mod.count_params(state.trainable['lora']):,} "
               "trainable parameters")
@@ -440,7 +510,7 @@ def main(argv=None):
             state.step = int(resume_meta.get("step", 0))
         if args.ema_decay > 0:
             if ckpt_mod.load_ema(resume_path, template=state.ema) is None:
-                print("resume: checkpoint has no ema/ — EMA shadow starts "
+                log("resume: checkpoint has no ema/ — EMA shadow starts "
                       "from the restored masters")
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -456,8 +526,17 @@ def main(argv=None):
             num_workers=args.num_workers)
         latents_mm = lc.open_latent_cache(cache_path)
 
+    if args.tp > 1 or args.fsdp:
+        # every rank read the full trees above; each keeps its shard
+        trainer_mod.shard_train_state(state, mesh, tp=args.tp > 1,
+                                      fsdp=args.fsdp, exclude=tp_exclude)
+    elif mesh is not None:
+        from sdbc_tpu_torch.parallel.mesh import replicate_tree
+
+        replicate_tree([state.trainable, state.frozen, state.ema], mesh)
     step_fn = make_train_step(cfg, tcfg, compute_dtype=dt, device=device,
-                              cached_latents=latents_mm is not None)
+                              cached_latents=latents_mm is not None,
+                              mesh=mesh, dp_size=dp)
     stats = {"losses": [], "step_s": [], "loader_wait_s": [], "saves": [],
              "steps_per_epoch": steps_per_epoch, "load_s": load_s}
 
@@ -478,7 +557,7 @@ def main(argv=None):
                                    "seconds": time.perf_counter() - t0})
             return
         opt_tree = ckpt_mod.opt_state_tree(state.opt_state, state.trainable,
-                                           tcfg.max_grad_norm)
+                                           tcfg.max_grad_norm, lazy=True)
         if use_ti:
             rows = state.trainable["ti"]
             # an SDXL embedding carries the second encoder's rows fourth
@@ -502,9 +581,10 @@ def main(argv=None):
         stats["saves"].append({"path": path, "bytes": nbytes,
                                "seconds": time.perf_counter() - t0})
 
-    tracker = Tracker(args.output_dir, args.run_id,
-                      config={**vars(args), "total_steps": total_steps,
-                              "dp": 1})
+    tracker = (Tracker(args.output_dir, args.run_id,
+                       config={**vars(args), "total_steps": total_steps,
+                               "dp": dp})
+               if root else _NoTracker())
     gen = torch.Generator().manual_seed(args.seed)
     best_mean_loss = float(resume_meta.get("best_mean_loss", np.inf))
     gstep = int(resume_meta.get("step", 0))
@@ -514,34 +594,37 @@ def main(argv=None):
     preempted = {"flag": False}
 
     def _on_term(signum, frame):
-        print(f"signal {signum}: checkpointing at next step boundary")
+        log(f"signal {signum}: checkpointing at next step boundary")
         preempted["flag"] = True
 
     old_handlers = {sig: signal.signal(sig, _on_term)
                     for sig in (signal.SIGTERM, signal.SIGINT)}
     profiler = None
     run_steps = 0
-    timer = StepTimer(global_batch, n_chips=1, warmup=1)
+    timer = StepTimer(global_batch, n_chips=(
+        1 if mesh is None else torch.distributed.get_world_size()), warmup=1)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     try:
         # a mid-epoch resume restarts that epoch's loader from its start
         start_epoch = min(gstep // steps_per_epoch, args.epochs)
         if start_epoch:
-            print(f"resume: continuing at epoch {start_epoch}/{args.epochs} "
+            log(f"resume: continuing at epoch {start_epoch}/{args.epochs} "
                   f"(step {gstep})")
         for epoch in range(start_epoch, args.epochs):
-            loader = make_dataloader(ds, micro_batch=args.batch_size,
+            # with a mesh each rank loads its rows of the global batch
+            loader = make_dataloader(ds, micro_batch=micro_global,
                                      grad_accum=args.grad_acc_steps,
                                      seed=args.seed + epoch,
                                      num_workers=args.num_workers,
-                                     latent_cache=latents_mm, epoch=epoch)
+                                     latent_cache=latents_mm, epoch=epoch,
+                                     mesh=mesh)
             if prior_set is not None:
                 from sdbc_tpu_torch.train.prior import augment_loader
 
                 loader = augment_loader(loader, prior_set.batches(
-                    args.prior_batch_size or args.batch_size,
-                    args.grad_acc_steps, seed=args.seed + epoch))
+                    (args.prior_batch_size or args.batch_size) * dp,
+                    args.grad_acc_steps, seed=args.seed + epoch, mesh=mesh))
             running, running_n = 0.0, 0
             t0 = time.perf_counter()
             it = iter(loader)
@@ -551,7 +634,8 @@ def main(argv=None):
                 if batch is None:
                     break
                 stats["loader_wait_s"].append(time.perf_counter() - tw)
-                if args.profile_dir and run_steps == 2 and profiler is None:
+                if root and args.profile_dir and run_steps == 2 \
+                        and profiler is None:
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + (
@@ -560,8 +644,13 @@ def main(argv=None):
                     profiler = profile(activities=acts)
                     profiler.__enter__()
                 batch = _to_torch(batch)
-                draws = trainer_mod.host_draws(gen, cfg, tcfg, batch)
-                state, metrics = step_fn(state, batch, draws=draws)
+                if mesh is None:
+                    draws = trainer_mod.host_draws(gen, cfg, tcfg, batch)
+                    state, metrics = step_fn(state, batch, draws=draws)
+                else:
+                    # the global batch's draws from the one host stream,
+                    # each rank keeping its rows
+                    state, metrics = step_fn(state, batch, generator=gen)
                 loss = float(metrics["loss"])
                 sync()
                 gstep += 1
@@ -585,7 +674,7 @@ def main(argv=None):
                 warn = "" if metrics.get("finite", True) else \
                     f"  [non-finite update SKIPPED; {skipped} total]"
                 rate = f" ({imgs_per_s:.2f} img/s)" if warm else " (warm-up)"
-                print(f"epoch {epoch} step {gstep} loss {loss:.4f}"
+                log(f"epoch {epoch} step {gstep} loss {loss:.4f}"
                       f"{rate}{warn}", flush=True)
 
                 if gstep % ckpt_every == 0:
@@ -597,7 +686,7 @@ def main(argv=None):
                         best_mean_loss = mean_loss
                         path = ckpt_mod.new_checkpoint_path(
                             args.output_dir, args.run_id, gstep)
-                        print(f"new best mean loss {mean_loss:.4f}; saving "
+                        log(f"new best mean loss {mean_loss:.4f}; saving "
                               f"{path}")
                         save_ckpt(path, metadata={
                             "step": gstep, "epoch": epoch,
@@ -605,6 +694,10 @@ def main(argv=None):
                             "mean_loss": mean_loss})
                         tracker.log_artifact(path)
 
+                if mesh is not None:
+                    # one decision for every rank (a signal may reach one)
+                    preempted["flag"] = bool(_any_rank(preempted["flag"],
+                                                       mesh))
                 if preempted["flag"]:
                     if profiler is not None:
                         _stop_profile(profiler, args.profile_dir)
@@ -615,7 +708,7 @@ def main(argv=None):
                         "step": gstep, "epoch": epoch,
                         "best_mean_loss": best_mean_loss,
                         "preempted": True})
-                    print(f"preemption checkpoint saved: {path}")
+                    log(f"preemption checkpoint saved: {path}")
                     tracker.finish()
                     stats.update(step_s=list(timer.times), final=path,
                                  preempted=True)
@@ -628,26 +721,50 @@ def main(argv=None):
         save_ckpt(final, metadata={"step": gstep, "epoch": args.epochs,
                                    "best_mean_loss": best_mean_loss,
                                    "final": True})
-        print(f"saved final checkpoint: {final}")
+        log(f"saved final checkpoint: {final}")
 
         if args.final_grids:
             from sdbc_tpu_torch.eval.visualize import visualize_prompts
 
-            pipe = SDPipeline(
-                merged_params(state, tcfg, use_ema=state.ema is not None),
-                cfg, tok, device=device, compute_dtype=dt, tokenizer2=tok2)
+            served = merged_params(state, tcfg, use_ema=state.ema is not None)
+            if args.tp > 1 or args.fsdp:
+                from sdbc_tpu_torch.parallel.shard import gathered_copies
+
+                served = gathered_copies(served)
+        if args.final_grids and root:
+            pipe = SDPipeline(served, cfg, tok, device=device,
+                              compute_dtype=dt, tokenizer2=tok2)
             grid_dir = os.path.join(tracker.dir, "grids")
             _, _, path = visualize_prompts(
                 pipe, include_desc=False, img_size=args.img_size,
                 inference_steps=50 if not args.tiny else 4,
                 save_dir=grid_dir, seed=args.seed)
-            print(f"grid saved: {path}")
+            log(f"grid saved: {path}")
         tracker.finish()
         stats.update(step_s=list(timer.times), final=final, preempted=False)
         return stats
     finally:
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)
+
+
+class _NoTracker:
+    """The tracker of a rank other than 0: rank 0 alone logs."""
+
+    dir = ""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    log_artifact = finish = log
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.mesh import mesh_device
+
+    return comm.all_reduce_scalars([float(flag)], None,
+                                   device=mesh_device(mesh))[0] > 0
 
 
 def _stop_profile(profiler, out_dir: str) -> None:

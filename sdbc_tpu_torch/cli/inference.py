@@ -137,9 +137,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DeepCache: trailing ResNets run fresh on cached "
                         "steps (0 = conservative default)")
     p.add_argument("--tp", type=int, default=0,
-                   help="multi-device serving (not ported yet)")
+                   help="multi-device serving: 0 = one device (default); "
+                        ">=1 lays a (data x model=tp) mesh over the ranks "
+                        "(one process per card, cli/common.py "
+                        "maybe_init_distributed), shards the batch over "
+                        "`data` and, for tp>1, the weights Megatron-style "
+                        "over `model` (parallel/specs.py)")
     common.bool_flag(p, "spatial", False,
-                     "row-sharded serving (not ported yet)")
+                     "row-sharded serving (not ported yet: ROADMAP Queue "
+                     "1 item 5.2)")
     common.bool_flag(p, "batch_generate", True)
     # tri-state: unset → the default mode renders the summarize grid when
     # its inputs are there and skips it otherwise; --summarize forces it
@@ -322,6 +328,8 @@ def _enter_prompt(args, pipe, spec, save_dir):
     from sdbc_tpu_torch.utils import png
 
     imgs = pipe.generate([args.prompt], spec)
+    if not common.is_root():
+        return
     # prompt text becomes a filename: strip path separators
     stem = re.sub(r"[/\\\0]", "_", args.prompt)[:64] or "prompt"
     for i, im in enumerate(imgs):
@@ -350,7 +358,10 @@ def _calc_fid(args, pipe, spec, save_dir):
                    batch_size=args.batch_size, img_size=args.img_size,
                    inference_steps=args.num_inference_steps,
                    guidance_scale=args.guidance_scale, seed=args.seed,
-                   prompt_bank=args.prompt_bank, spec=spec)
+                   prompt_bank=args.prompt_bank, spec=spec,
+                   save=common.is_root())
+    if not common.is_root():
+        return
     icfg = InceptionConfig.tiny() if args.tiny else InceptionConfig.fid()
     fid = calculate_fid_given_paths((save_dir, args.fid_stats_path),
                                     cfg=icfg, image_size=args.img_size,
@@ -366,8 +377,10 @@ def _calc_fid(args, pipe, spec, save_dir):
 def _default_grids(args, pipe, spec, save_dir):
     from sdbc_tpu_torch.eval.visualize import visualize_prompts
 
-    with open(os.path.join(save_dir, "hyperparams.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    root = common.is_root()
+    if root:
+        with open(os.path.join(save_dir, "hyperparams.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
     test_csv = os.path.join(args.data_root, "df_test.csv")
     want_desc = args.include_desc is not False
     want_sum = args.summarize is not False and args.include_desc is not False
@@ -436,12 +449,13 @@ def _default_grids(args, pipe, spec, save_dir):
             img_size=args.img_size, inference_steps=args.num_inference_steps,
             guidance_scale=args.guidance_scale,
             batch_generate=args.batch_generate, batch_size=args.batch_size,
-            save_dir=save_dir, seed=args.seed,
+            save_dir=save_dir if root else None, seed=args.seed,
             prompts_override=prompts_override, spec=spec,
             # keep native- and reference-bank grids apart in one save_dir
             name_suffix=("" if args.prompt_bank == "native"
                          else f",bank={args.prompt_bank}"))
-        print(f"grid saved: {path}")
+        if root:
+            print(f"grid saved: {path}")
 
 
 def main(argv=None):
@@ -453,6 +467,13 @@ def main(argv=None):
     if args.controlnet_scale != 1.0 and not args.control_image:
         raise SystemExit("--controlnet_scale scales the residuals of a "
                          "ControlNet's --control_image, and none is given")
+    with common.distributed(args, args.tp, args.tp >= 1) as mesh:
+        _main(args, mesh)
+
+
+def _main(args, mesh):
+    """Every rank runs the same calls (the pipeline's collectives); rank 0
+    alone writes."""
     from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 
     models, cfg = common.resolve_params_cfg(args)
@@ -464,11 +485,13 @@ def main(argv=None):
     pipe = SDPipeline(models, cfg, tok, device=args.device,
                       compute_dtype=common.compute_dtype(args),
                       safety_checker=make_safety_checker(args),
-                      tokenizer2=common.make_tokenizer2(args, cfg))
+                      tokenizer2=common.make_tokenizer2(args, cfg),
+                      mesh=mesh)
     if args.refiner_ckpt:
         pipe = make_ensemble(args, pipe)
     save_dir = os.path.join(args.save_dir, f"{args.run_id} inference")
-    os.makedirs(save_dir, exist_ok=True)
+    if common.is_root():
+        os.makedirs(save_dir, exist_ok=True)
     spec = profile_spec(args, cfg)
     if args.mode == "enter_prompt":
         _enter_prompt(args, pipe, spec, save_dir)

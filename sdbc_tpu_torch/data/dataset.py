@@ -229,14 +229,21 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
                     grad_accum: int = 1, shuffle: bool = True,
                     seed: int = 42, num_workers: int = 4,
                     drop_last: bool = True, latent_cache=None,
-                    epoch: Optional[int] = None) -> Iterator[dict]:
+                    epoch: Optional[int] = None, mesh=None
+                    ) -> Iterator[dict]:
     """Yield {"pixel_values": (A, B, H, W, 3) float32, "input_ids": (A, B,
     77) int32} numpy batches (with the dataset's ``tokenizer2`` also
     "input_ids_2", each prompt drawn once and encoded by both); with
     ``latent_cache`` ((mean, logvar) arrays
     of ``train.latent_cache.open_latent_cache``) "latent_mean" /
     "latent_logvar" instead of pixels.  Thread-pool decode with one-batch
-    look-ahead.  ``epoch`` keys the prompt draws (``set_epoch``)."""
+    look-ahead.  ``epoch`` keys the prompt draws (``set_epoch``).
+
+    With ``mesh`` (``parallel.make_mesh``), ``micro_batch`` stays the
+    GLOBAL micro-batch and each rank loads only its rows of it
+    (``host_local_batch_indices``): the same order and, with ``epoch``,
+    the same per-index prompt draws as the one-process loader, B being
+    the rank's share."""
     dataset.set_epoch(epoch)
     step = micro_batch * grad_accum
     order = list(range(len(dataset)))
@@ -244,8 +251,18 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
     if shuffle:
         rng.shuffle(order)
     n_batches = len(order) // step if drop_last else -(-len(order) // step)
+    local_sel, mb = None, micro_batch
+    if mesh is not None:
+        from sdbc_tpu_torch.parallel.mesh import host_local_batch_indices
+
+        local_micro = host_local_batch_indices(micro_batch, mesh)
+        local_sel = np.concatenate(
+            [a * micro_batch + local_micro for a in range(grad_accum)])
+        mb = len(local_micro)
 
     def load_batch(batch_indices):
+        if local_sel is not None:
+            batch_indices = [batch_indices[i] for i in local_sel]
         prompts = [dataset.prompt_for(i) for i in batch_indices]
 
         def encode(tok):
@@ -263,8 +280,8 @@ def make_dataloader(dataset: GoodreadsDataset, micro_batch: int,
         payload["input_ids"] = encode(dataset.tokenizer)
         if dataset.tokenizer2 is not None:
             payload["input_ids_2"] = encode(dataset.tokenizer2)
-        a = len(batch_indices) // micro_batch
-        return {k: v.reshape(a, micro_batch, *v.shape[1:])
+        a = len(batch_indices) // mb
+        return {k: v.reshape(a, mb, *v.shape[1:])
                 for k, v in payload.items()}
 
     def pad_to_step(idxs):

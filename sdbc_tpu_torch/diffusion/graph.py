@@ -480,6 +480,21 @@ def _check_options(cfg: PipelineConfig, n: int, *, cache_interval,
     return cfg_lo, cfg_hi
 
 
+def _rows_of_draws(draws: dict, idx) -> dict:
+    """Injected global draws cut to rows ``idx``."""
+    idx = np.asarray(idx)
+    cut = lambda x: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                                    else x)[torch.from_numpy(idx)]
+    out = {}
+    for k, v in draws.items():
+        if k == "step":
+            out[k] = ({i: cut(x) for i, x in v.items()}
+                      if isinstance(v, dict) else [cut(x) for x in v])
+        else:
+            out[k] = cut(v)
+    return out
+
+
 @torch.inference_mode()
 def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
            cfg: PipelineConfig, num_inference_steps: int = 50,
@@ -497,7 +512,7 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
            negative_aesthetic_score: float = 2.5, masked_image=None,
            control_image=None, controlnet_scale=1.0,
            generator: Optional[torch.Generator] = None,
-           draws: Optional[dict] = None, **unported):
+           draws: Optional[dict] = None, rows=None, **unported):
     """Run the CFG sampling path of ``cfg.scheduler``.
 
     models: the modules of ``model_configs(cfg)`` ({"text_encoder",
@@ -513,6 +528,10 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
       {"step": one latent-shaped draw per loop index i (a list or a dict;
       used up by every step of a stochastic scheduler, the last one too),
       "enc": init_image's posterior ε, "masked": masked_image's}
+    rows: (row indices, global batch) when the batch inputs are one data
+      rank's rows of a global batch (``SDPipeline(mesh=)``): every draw,
+      the generator's or an injected one, is the global batch's, cut to
+      these rows
     attn_impl: the UNet's attention dispatch ("inference" = the fixed-cap
       kernel; "xla" forces plain attention; see ``ops.attention``)
     cache_interval / cache_tail: DeepCache (ddim and dpm) — the UNet's deep
@@ -556,6 +575,8 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
         raise ValueError(f"cond/uncond token widths differ "
                          f"({cond_ids.shape[1]} vs {uncond_ids.shape[1]})")
     draws = draws or {}
+    if rows is not None:
+        draws = _rows_of_draws(draws, rows[0])
     sch = cfg.scheduler
     pt = cfg.schedule.prediction_type
     device = latents.device
@@ -569,6 +590,11 @@ def sample(models: dict, cond_ids, uncond_ids, latents, guidance_scale, *,
         if generator is None:
             raise ValueError(f"scheduler {sch!r} / init_image needs a "
                              f"torch.Generator or injected {name!r} draws")
+        if rows is not None:
+            full = torch.randn((rows[1],) + tuple(shape[1:]),
+                               generator=generator, device=device,
+                               dtype=torch.float32)
+            return full[torch.from_numpy(np.asarray(rows[0])).to(device)]
         return torch.randn(tuple(shape), generator=generator, device=device,
                            dtype=torch.float32)
 

@@ -83,12 +83,28 @@ class SDPipeline:
     only; its flags are kept in ``last_nsfw_flags``.  ``tokenizer2``: SDXL's
     second (bigG) tokenizer; without one the first serves both (their BPE
     tables match; only the pad id differs, which bigG ignores past the
-    end token)."""
+    end token).
+
+    ``mesh`` (``parallel.make_mesh``): serving over several ranks, every
+    rank calling the pipeline alike.  The batch bucket rounds up to a
+    multiple of the data axis; each data rank samples its rows of the
+    global batch from the global draws (the latents and every stochastic
+    draw are drawn for the whole batch on every rank, then cut) and the
+    images are gathered over the data group, so every rank returns the
+    global result.  A ``model`` axis > 1 cuts the weights Megatron-style
+    (``parallel.specs.tp_specs`` with ``validate_tp``'s exclusions): each
+    rank computes with its heads and channels.  The weights are first
+    broadcast from rank 0; modules given are broadcast and cut in place.
+    ``spatial`` (row sharding) is not ported."""
 
     def __init__(self, params_or_modules: dict, cfg: PipelineConfig,
                  tokenizer, device="cuda", compute_dtype=torch.bfloat16,
                  attn_impl: Optional[str] = None, safety_checker=None,
-                 tokenizer2=None):
+                 tokenizer2=None, mesh=None, spatial: bool = False):
+        if spatial:
+            raise ValueError("spatial=True (latent rows sharded over the "
+                             "data axis) is not ported yet: ROADMAP Queue "
+                             "1 item 5.2")
         self.attn_impl = attn_impl or "inference"
         self.device = torch.device(device)
         self.cfg = cfg
@@ -98,6 +114,19 @@ class SDPipeline:
             self.tokenizer2 = tokenizer
         self.compute_dtype = compute_dtype
         self.models = as_modules(params_or_modules, cfg, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            from sdbc_tpu_torch.parallel import shard as shard_mod
+            from sdbc_tpu_torch.parallel import specs as spec_mod
+            from sdbc_tpu_torch.parallel.mesh import (mesh_shape,
+                                                      replicate_tree)
+
+            replicate_tree(self.models, mesh)
+            m = mesh_shape(mesh)["model"]
+            if m > 1:
+                shard_mod.shard_modules(
+                    self.models, mesh, tp=True,
+                    exclude=spec_mod.validate_tp(cfg, m))
         self.safety_checker = safety_checker
         self.last_nsfw_flags = None
 
@@ -258,6 +287,12 @@ class SDPipeline:
         # pad a ragged batch up to a bucket: a few batch shapes instead of
         # one per batch size
         bucket = next((s for s in self.BATCH_BUCKETS if s >= b), b)
+        if self.mesh is not None:
+            # a multiple of the data axis: the batch always shards
+            from sdbc_tpu_torch.parallel.mesh import mesh_shape
+
+            n = mesh_shape(self.mesh)["data"]
+            bucket = -(-bucket // n) * n
         prompts = list(prompts) + [""] * (bucket - b)
         negative_prompt = list(negative_prompt) + [""] * (bucket - b)
         if denoising_start is not None and latents is None:
@@ -356,6 +391,24 @@ class SDPipeline:
                 uncond2 = self.tokenize2(negative_prompt)
         on_device = lambda a: None if a is None \
             else torch.from_numpy(a).to(self.device)
+        rows = None
+        if self.mesh is not None:
+            # this rank's rows of every batch input; the draws inside
+            # ``sample`` are cut the same way
+            from sdbc_tpu_torch.parallel.mesh import host_local_batch_indices
+
+            idx = host_local_batch_indices(bucket, self.mesh)
+            rows = (idx, bucket)
+            cut = lambda a: None if a is None else (
+                [cut(x) for x in a] if isinstance(a, list)
+                else a[torch.from_numpy(idx).to(a.device)]
+                if torch.is_tensor(a) else a[idx])
+            cond, uncond, lat, lat_init, ctrl = map(
+                cut, (cond, uncond, lat, lat_init, ctrl))
+            cond_w, uncond_w, cond2, uncond2, cond_w2, uncond_w2 = map(
+                cut, (cond_w, uncond_w, cond2, uncond2, cond_w2, uncond_w2))
+            img_arr, mask_arr, masked_arr = map(
+                cut, (img_arr, mask_arr, masked_arr))
         out = sample(self.models, cond, uncond, lat,
                      float(guidance_scale), cfg=self.cfg,
                      num_inference_steps=num_inference_steps,
@@ -378,7 +431,12 @@ class SDPipeline:
                          negative_aesthetic_score),
                      masked_image=on_device(masked_arr), control_image=ctrl,
                      controlnet_scale=controlnet_scale,
-                     generator=gen, draws=draws)
+                     generator=gen, draws=draws, rows=rows)
+        if self.mesh is not None:
+            from sdbc_tpu_torch.parallel import comm
+
+            out = comm.all_gather(out.contiguous(),
+                                  self.mesh.get_group("data"), dim=0)
         out = out[:b].float().cpu().numpy()
         if decode and self.safety_checker is not None:
             out, self.last_nsfw_flags = apply_safety_checker(

@@ -24,7 +24,8 @@ def get_fid_images(pipeline, save_dir: str, rows, *, num_imgs: int = 4000,
                    batch_size: int = 4, img_size: int = 512,
                    inference_steps: int = 50, guidance_scale: float = 7.5,
                    seed: int = 42, verbose: bool = True,
-                   prompt_bank: str = "native", spec=None) -> int:
+                   prompt_bank: str = "native", spec=None,
+                   save: bool = True) -> int:
     """Generate up to num_imgs covers; returns the number generated this call.
     ``rows``: df_test's rows as [(index value, {column: value})]
     (``data.dataset.read_csv_rows``).
@@ -32,10 +33,16 @@ def get_fid_images(pipeline, save_dir: str, rows, *, num_imgs: int = 4000,
     Raises RuntimeError if any batch failed: a partial image set would
     silently bias the downstream FID (the caller scores whatever is in
     save_dir).  Re-running resumes and retries only the missing rows.
+
+    ``save=False``: the calls of a rank other than the first of a sharded
+    pipeline, which writes nothing; it reads ``save_dir`` to resume as the
+    first rank does, so resuming needs a folder the ranks share.
     """
-    os.makedirs(save_dir, exist_ok=True)
+    if save:
+        os.makedirs(save_dir, exist_ok=True)
     # count .jpg only — calc_fid writes fid_score.txt into the same dir
-    already = len([f for f in os.listdir(save_dir) if f.endswith(".jpg")])
+    already = len([f for f in os.listdir(save_dir) if f.endswith(".jpg")]
+                  if os.path.isdir(save_dir) else [])
     if verbose and already:
         print(f"resuming: {already} images already in {save_dir}")
     rng = random.Random(seed + already)
@@ -75,6 +82,8 @@ def get_fid_images(pipeline, save_dir: str, rows, *, num_imgs: int = 4000,
         try:
             imgs = pipeline.generate(prompts, base_spec.replace(
                 seed=seed + start))
+            if not save:
+                imgs = ()
             for idx, img in zip(batch_ids, imgs):
                 arr = np.uint8(np.round(np.clip(img, 0, 1) * 255.0))
                 # atomic write: a SIGKILL mid-save must not leave a

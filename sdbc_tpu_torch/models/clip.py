@@ -24,6 +24,7 @@ from torch import nn as tnn
 
 from sdbc_tpu_torch.ops import nn
 from sdbc_tpu_torch.ops.attention import plain_attention
+from sdbc_tpu_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,25 +98,45 @@ class _Layer(tnn.Module):
         self.mlp = _MLP(cfg.hidden, cfg.mlp, **kw)
 
     def forward(self, x, cfg, causal: bool = True):
+        # tensor parallelism (``parallel.shard``): q/k/v and fc1 hold this
+        # rank's columns (its heads), o and fc2 the matching rows, whose
+        # partial products are all-reduced before their biases
+        tpa = getattr(self.attn, "tp", None)
+        tpm = getattr(self.mlp, "tp", None)
         b, s, h = x.shape
+        heads = cfg.heads if tpa is None else cfg.heads // tpa.size
         hd = h // cfg.heads
 
         def split_heads(t):
-            return t.reshape(b, s, cfg.heads, hd).transpose(1, 2)
+            return t.reshape(b, s, heads, hd).transpose(1, 2)
 
         y = self.ln1(x, cfg.eps)
+        if tpa is not None:
+            y = comm.copy_to(y, tpa)
         q = split_heads(self.attn.q(y))
         k = split_heads(self.attn.k(y))
         v = split_heads(self.attn.v(y))
         a = plain_attention(q, k, v, causal=causal)
-        a = a.transpose(1, 2).reshape(b, s, h)
-        x = x + self.attn.o(a)
+        a = a.transpose(1, 2).reshape(b, s, heads * hd)
+        x = x + _row(self.attn.o, a, tpa)
 
-        y = self.mlp.fc1(self.ln2(x, cfg.eps))
+        y = self.ln2(x, cfg.eps)
+        if tpm is not None:
+            y = comm.copy_to(y, tpm)
+        y = self.mlp.fc1(y)
         act = _ACTS.get(cfg.act)
         if act is None:
             raise ValueError(f"unsupported CLIP hidden_act {cfg.act!r}")
-        return x + self.mlp.fc2(act(y))
+        return x + _row(self.mlp.fc2, act(y), tpm)
+
+
+def _row(lin, x, tp):
+    """``lin(x)``; for a row-sharded ``lin`` the partial products summed
+    over the model group, then the bias."""
+    if tp is None:
+        return lin(x)
+    return comm.reduce_from(nn.linear(x, lin.weight), tp) \
+        + lin.bias.to(x.dtype)
 
 
 class CLIPTextModel(tnn.Module):

@@ -135,11 +135,11 @@ def jax_key(module: torch.nn.Module, name: str) -> tuple:
     return tuple((k, k.isdigit()) for k in path.split("."))
 
 
-def jax_tree_leaves(module: torch.nn.Module) -> list:
-    """[(JAX key path, tensor)] of every parameter and buffer of
-    ``module``, in the module's order; a stacked tower's layers become one
-    (L, ...) tensor per name (a copy), the others are the parameters
-    themselves (detached)."""
+def jax_tree_parts(module: torch.nn.Module) -> list:
+    """[(JAX key path, [tensors])] of every parameter and buffer of
+    ``module``, in the module's order: a stacked tower's layers listed
+    under their one key, any other leaf alone (the tensors themselves,
+    not detached)."""
     stacks: dict = {}
     order = []
     tensors = {**dict(module.named_buffers()),
@@ -149,9 +149,18 @@ def jax_tree_leaves(module: torch.nn.Module) -> list:
         if key not in stacks:
             stacks[key] = []
             order.append(key)
-        stacks[key].append(t.detach())
-    return [(k, stacks[k][0] if len(stacks[k]) == 1 and not stacked(k)
-             else torch.stack(stacks[k])) for k in order]
+        stacks[key].append(t)
+    return [(k, stacks[k]) for k in order]
+
+
+def jax_tree_leaves(module: torch.nn.Module) -> list:
+    """[(JAX key path, tensor)] of every parameter and buffer of
+    ``module``, in the module's order; a stacked tower's layers become one
+    (L, ...) tensor per name (a copy), the others are the parameters
+    themselves (detached)."""
+    return [(k, ts[0].detach() if len(ts) == 1 and not stacked(k)
+             else torch.stack([t.detach() for t in ts]))
+            for k, ts in jax_tree_parts(module)]
 
 
 def stacked(key: tuple) -> bool:

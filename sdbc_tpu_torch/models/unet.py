@@ -49,6 +49,7 @@ from sdbc_tpu_torch.ops import geglu_ff as geglu_ff_mod
 from sdbc_tpu_torch.ops import nn
 from sdbc_tpu_torch.ops.attention import (IMPLS, attention,
                                           attention_bshd_inference)
+from sdbc_tpu_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,14 +164,28 @@ class ResBlock(tnn.Module):
         self.shortcut = nn.Conv2d(cin, cout, 1, **kw) if cin != cout else None
 
     def forward(self, x, temb, groups, tproj=None):
+        # tensor parallelism (``parallel.shard``): conv1/temb hold this
+        # rank's output channels, norm2 their groups, conv2 the matching
+        # input rows; its partial sums are all-reduced before the bias
+        tp = getattr(self, "tp", None)
         # UNet norm eps 1e-5 (the transformer GroupNorm keeps 1e-6)
         h = self.norm1(x, groups, eps=1e-5, act="silu")
+        if tp is not None:
+            h = comm.copy_to(h, tp)
         h = self.conv1(h)
         if tproj is None:
-            tproj = self.temb(F.silu(temb))[:, None, None, :]
+            st = F.silu(temb)
+            if tp is not None:
+                st = comm.copy_to(st, tp)
+            tproj = self.temb(st)[:, None, None, :]
         h = h + tproj.to(h.dtype)
-        h = self.norm2(h, groups, eps=1e-5, act="silu")
-        h = self.conv2(h)
+        h = self.norm2(h, groups if tp is None else groups // tp.size,
+                       eps=1e-5, act="silu")
+        if tp is None:
+            h = self.conv2(h)
+        else:
+            h = comm.reduce_from(nn.conv2d(h, self.conv2.weight), tp) \
+                + self.conv2.bias.to(h.dtype)
         if self.shortcut is not None:
             x = self.shortcut(x)
         return x + h
@@ -185,8 +200,18 @@ class MHA(tnn.Module):
         self.o = nn.Linear(dim, dim, **kw)
 
     def forward(self, x, ctx, heads, impl="auto"):
+        # tensor parallelism: q/k/v hold this rank's heads (columns), o
+        # the matching rows; the partial products are all-reduced before
+        # o's bias
+        tp = getattr(self, "tp", None)
+        if tp is not None:
+            same = ctx is x
+            x = comm.copy_to(x, tp)
+            ctx = x if same else comm.copy_to(ctx, tp)
+            heads //= tp.size
         b, s, dim = x.shape
-        hd = dim // heads
+        hd = dim // heads if tp is None else dim // (heads * tp.size)
+        dim = heads * hd                 # this rank's heads × head dim
         if impl == "inference":
             # projection layout (b, s, h, d): the kernel reads the heads
             # through its strides, no head split/merge copies
@@ -194,14 +219,17 @@ class MHA(tnn.Module):
             k4 = self.k(ctx).reshape(b, -1, heads, hd)
             v4 = self.v(ctx).reshape(b, -1, heads, hd)
             a = attention_bshd_inference(q4, k4, v4).reshape(b, s, dim)
+        else:
+            def split(t):
+                return t.reshape(b, -1, heads, hd).transpose(1, 2)
+
+            a = attention(split(self.q(x)), split(self.k(ctx)),
+                          split(self.v(ctx)), impl=impl)
+            a = a.transpose(1, 2).reshape(b, s, dim)
+        if tp is None:
             return self.o(a)
-
-        def split(t):
-            return t.reshape(b, -1, heads, hd).transpose(1, 2)
-
-        a = attention(split(self.q(x)), split(self.k(ctx)), split(self.v(ctx)),
-                      impl=impl)
-        return self.o(a.transpose(1, 2).reshape(b, s, dim))
+        return comm.reduce_from(nn.linear(a, self.o.weight), tp) \
+            + self.o.bias.to(a.dtype)
 
 
 def _block_modules(m: tnn.Module, dim, ctx_dim, **kw) -> None:
@@ -231,14 +259,30 @@ def _attend(p, y, ctx, heads, attn_impl):
 
 
 def _ff(p, y):
-    z = p.geglu(p.ln3(y))
+    tp = getattr(p, "ff_tp", None)
+    if tp is None:
+        z = p.geglu(p.ln3(y))
+        val, gate = z.chunk(2, dim=-1)
+        return y + p.ff_out(val * F.gelu(gate))
+    # tensor parallelism: the up-projection holds this rank's rows (the
+    # contraction), so the sum over ranks comes BEFORE the bias and the
+    # gate; ff_out holds this rank's output columns, and the block's
+    # output leaves channel-sharded (``Transformer`` gathers it or hands
+    # it to the row-sharded proj_out)
+    yn = comm.scatter_to(p.ln3(y), tp)
+    z = comm.reduce_from(torch.matmul(yn, p.geglu.weight.to(yn.dtype)), tp) \
+        + p.geglu.bias.to(yn.dtype)
     val, gate = z.chunk(2, dim=-1)
-    return y + p.ff_out(val * F.gelu(gate))
+    h = comm.copy_to(val * F.gelu(gate), tp)
+    return comm.scatter_to(y, tp) + p.ff_out(h)
 
 
 def _basic_block(p, y, ctx, heads, attn_impl):
     y = _attend(p, y, ctx, heads, attn_impl)
-    if attn_impl == "inference" and geglu_ff_mod.ff_fused_eligible(y):
+    # the fused kernel needs the whole up-projection before its gate: under
+    # tensor parallelism the unfused FF runs, as in the JAX package
+    if attn_impl == "inference" and getattr(p, "ff_tp", None) is None \
+            and geglu_ff_mod.ff_fused_eligible(y):
         # LN → up-proj → GELU gate → down-proj → residual in one kernel
         return geglu_ff_mod.geglu_ff(y, p.ln3, p.geglu, p.ff_out)
     return _ff(p, y)
@@ -268,13 +312,33 @@ class Transformer(tnn.Module):
         y = self.norm(x, groups, eps=1e-6)
         return self.proj_in(y).reshape(n, h * w, c)
 
+    def _ff_tp(self):
+        blk = self.blocks[0] if self.depth > 1 else self
+        return getattr(blk, "ff_tp", None)
+
+    def _between(self, y, k: int):
+        """Block ``k``'s output for the next block: under tensor
+        parallelism the channel-sharded output gathered."""
+        tp = self._ff_tp()
+        return y if tp is None or k == self.depth - 1 \
+            else comm.gather_from(y, tp)
+
     def tfm_out(self, y, x):
-        return self.proj_out(y.reshape(x.shape)) + x
+        tp, ptp = self._ff_tp(), getattr(self, "proj_tp", None)
+        if tp is not None and ptp is None:
+            y = comm.gather_from(y, tp)
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        if ptp is None:
+            return self.proj_out(y) + x
+        # row-sharded proj_out on the channel-sharded block output
+        return comm.reduce_from(nn.conv2d(y, self.proj_out.weight), ptp) \
+            + self.proj_out.bias.to(y.dtype) + x
 
     def forward(self, x, ctx, groups, attn_impl="auto"):
         y = self.tfm_in(x, groups)
-        for blk in (self.blocks if self.depth > 1 else (self,)):
-            y = _basic_block(blk, y, ctx, self.heads, attn_impl)
+        for k, blk in enumerate(self.blocks if self.depth > 1 else (self,)):
+            y = self._between(_basic_block(blk, y, ctx, self.heads,
+                                           attn_impl), k)
         return self.tfm_out(y, x)
 
     def forward_selective(self, x, ctx, groups, attn_impl="auto"):
@@ -288,9 +352,9 @@ class Transformer(tnn.Module):
         if self.depth == 1:
             y = _selective_block(self, y, ctx, self.heads, attn_impl)
         else:
-            for blk in self.blocks:
-                y = _checkpoint(_selective_block, blk, y, ctx, self.heads,
-                                attn_impl)
+            for k, blk in enumerate(self.blocks):
+                y = self._between(_checkpoint(
+                    _selective_block, blk, y, ctx, self.heads, attn_impl), k)
         return _checkpoint_dots(self.tfm_out, y, x)
 
 

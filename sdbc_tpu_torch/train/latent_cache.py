@@ -107,10 +107,34 @@ def build_latent_cache(dataset, vae, compute_dtype, batch: int = 8,
                        verbose: bool = True) -> str:
     """Encode every dataset image once; returns the cache directory.
     Idempotent: a directory with a matching meta.json is reused.  Built in
-    a private tmp dir, then renamed into place."""
-    from sdbc_tpu_torch.data.dataset import decode_pixels
+    a private tmp dir, then renamed into place.  Under
+    ``torch.distributed`` (a shared filesystem) rank 0 builds it and the
+    other ranks wait for it at a barrier."""
+    import torch.distributed as dist
+
+    from sdbc_tpu_torch.parallel import comm
 
     path, meta = cache_dir_for(dataset, vae, compute_dtype, root)
+    if dist.is_initialized():
+        if dist.get_rank() == 0:
+            try:
+                _build(dataset, vae, compute_dtype, batch, path, meta,
+                       num_workers, verbose)
+            finally:
+                comm.barrier()
+            return path
+        comm.barrier()
+        if not _hit_dir(path, meta):
+            raise RuntimeError(f"rank 0 built no latent cache at {path}")
+        return path
+    return _build(dataset, vae, compute_dtype, batch, path, meta,
+                  num_workers, verbose)
+
+
+def _build(dataset, vae, compute_dtype, batch, path, meta, num_workers,
+           verbose) -> str:
+    from sdbc_tpu_torch.data.dataset import decode_pixels
+
     if _hit_dir(path, meta):
         if verbose:
             print(f"latent cache hit: {path}")

@@ -48,13 +48,22 @@ class PriorSet:
         return len(self.paths)
 
     def batches(self, micro_batch: int, grad_accum: int = 1,
-                seed: int = 42) -> Iterator[dict]:
+                seed: int = 42, mesh=None) -> Iterator[dict]:
         """Infinite deterministic stream of {"prior_pixel_values": (A, B,
         S, S, 3), "prior_input_ids": (A, B, ctx)[, "prior_input_ids_2"]}:
         the class set cycles in a seed-shuffled order reshuffled each
-        pass."""
+        pass.  With ``mesh``, ``micro_batch`` is the global one and each
+        rank decodes only its rows, as ``data/dataset.make_dataloader``."""
         step = micro_batch * grad_accum
         rng = random.Random(seed)
+        local_sel = None
+        if mesh is not None:
+            from sdbc_tpu_torch.parallel.mesh import host_local_batch_indices
+
+            local_micro = host_local_batch_indices(micro_batch, mesh)
+            local_sel = np.concatenate(
+                [a * micro_batch + local_micro for a in range(grad_accum)])
+            micro_batch = len(local_micro)
 
         def infinite_order():
             while True:
@@ -65,6 +74,8 @@ class PriorSet:
         it = infinite_order()
         while True:
             idxs = [next(it) for _ in range(step)]
+            if local_sel is not None:
+                idxs = [idxs[i] for i in local_sel]
             pixels = np.stack([decode_and_prepare(self.paths[i],
                                                   self.img_size)
                                for i in idxs])

@@ -338,9 +338,11 @@ class AdamW:
         self.weight_decay = weight_decay
 
     def init(self, params) -> AdamState:
+        from sdbc_tpu_torch.parallel.shard import mark_like
+
         params = _flat(params)
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+        z = lambda p: mark_like(torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device), p)
         return AdamState(0, [z(p) for p in params], [z(p) for p in params])
 
     @torch.no_grad()
@@ -372,18 +374,23 @@ class Optimizer:
     """clip-by-global-norm (optional) → AdamW, under optax's
     ``apply_if_finite``: non-finite gradients skip the update."""
 
-    def __init__(self, inner, max_grad_norm: float = 0.0):
+    def __init__(self, inner, max_grad_norm: float = 0.0, mesh=None):
         self.inner = inner
         self.max_grad_norm = max_grad_norm
+        self.mesh = mesh
 
     def init(self, params) -> OptState:
         return OptState(inner=self.inner.init(params))
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params) -> OptState:
-        """``grads`` and ``params``: lists of leaves (``optimizer_leaves``)."""
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in _flat(grads)]).all())
+        """``grads`` and ``params``: lists of leaves (``optimizer_leaves``).
+        Under a mesh the finite flag and the global norm are reduced over
+        the ranks, so every rank takes the same decision."""
+        flags = [torch.isfinite(g).all() for g in _flat(grads)]
+        finite = bool(torch.stack(flags).all()) if flags else True
+        if self.mesh is not None:
+            finite = _all_finite(finite, self.mesh)
         state.last_finite = finite
         if not finite:
             state.notfinite_count += 1
@@ -391,8 +398,11 @@ class Optimizer:
             return state
         state.notfinite_count = 0
         if self.max_grad_norm > 0:
-            norm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                  for g in _flat(grads)))
+            norm = (torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                   for g in _flat(grads)))
+                    if self.mesh is None
+                    else _sharded_norm(_flat(grads), _flat(params),
+                                       self.mesh))
             if not bool(norm < self.max_grad_norm):
                 grads = [[g / norm * self.max_grad_norm
                           for g in leaf_parts(leaf)] for leaf in grads]
@@ -400,10 +410,49 @@ class Optimizer:
         return state
 
 
-def make_optimizer(tcfg: TrainConfig) -> Optimizer:
-    # the reference's opt-in scale_lr: lr × grad_accum × batch size (one
-    # device)
-    scale = tcfg.grad_accum * tcfg.micro_batch if tcfg.lr_scale_by_dp else 1
+def _all_finite(finite: bool, mesh) -> bool:
+    """Whether every rank's gradients are finite."""
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.mesh import mesh_device
+
+    bad = comm.all_reduce_scalars([0.0 if finite else 1.0], None,
+                                  device=mesh_device(mesh))
+    return bad[0] == 0.0
+
+
+def _sharded_norm(grads, params, mesh):
+    """The global norm of gradients some of which are shards: each
+    tensor's squares summed over the groups its parameter is sharded
+    over (``model`` for TP, ``data`` for FSDP), replicated ones once."""
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.shard import info
+
+    acc = {}
+    for g, p in zip(grads, params):
+        i = info(p)
+        key = (i is not None and i.tp is not None,
+               i is not None and i.fsdp is not None)
+        acc[key] = acc.get(key, 0.0) + torch.sum(g.float() ** 2)
+    dev = grads[0].device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for (on_model, on_data) in ((False, False), (True, False),
+                                (False, True), (True, True)):
+        x = torch.as_tensor(acc.get((on_model, on_data), 0.0),
+                            dtype=torch.float32, device=dev).clone()
+        if on_model:
+            comm.all_reduce_(x, mesh.get_group("model"))
+        if on_data:
+            comm.all_reduce_(x, mesh.get_group("data"))
+        total = total + x
+    return torch.sqrt(total)
+
+
+def make_optimizer(tcfg: TrainConfig, dp_size: int = 1,
+                   mesh=None) -> Optimizer:
+    # the reference's opt-in scale_lr: lr × grad_accum × batch size ×
+    # data-parallel ranks
+    scale = (tcfg.grad_accum * tcfg.micro_batch * dp_size
+             if tcfg.lr_scale_by_dp else 1)
     lr = tcfg.learning_rate * scale
     if lr > 0:
         schedule = cosine_decay_schedule(lr, max(tcfg.num_examples, 1),
@@ -416,7 +465,7 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
     else:
         inner = AdamW(schedule, b1=0.9, b2=0.999, eps=1e-8,
                       weight_decay=tcfg.weight_decay)
-    return Optimizer(inner, tcfg.max_grad_norm)
+    return Optimizer(inner, tcfg.max_grad_norm, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -426,19 +475,21 @@ def make_optimizer(tcfg: TrainConfig) -> Optimizer:
 def init_train_state(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
                      compute_dtype=torch.bfloat16,
                      device="cuda", generator=None,
-                     ti_init_ids=None) -> TrainState:
+                     ti_init_ids=None, dp_size: int = 1) -> TrainState:
     """``models``: {"text_encoder", "unet", "vae"} modules, moved to
     ``device`` in place (the trainable ones as fp32 masters, the frozen
     ones cast to ``compute_dtype``).  ``generator`` draws the LoRA a-init
     (b is zero, so the adapted model is the base at step 0);
-    ``ti_init_ids``: the ids of textual inversion's initializer word."""
+    ``ti_init_ids``: the ids of textual inversion's initializer word;
+    ``dp_size``: data-parallel ranks (``lr_scale_by_dp``).  TP/FSDP cut
+    the state afterwards (``shard_train_state``)."""
     if not tcfg.trainable_keys() and not tcfg.ti_token:
         raise ValueError(
             "nothing to train: set train_unet and/or train_text_encoder")
     trainable, frozen = _split_params(models, tcfg, compute_dtype,
                                       torch.device(device), generator,
                                       ti_init_ids)
-    opt = make_optimizer(tcfg)
+    opt = make_optimizer(tcfg, dp_size)
     ema = None
     if tcfg.ema_decay > 0:
         if "lora" in trainable or "ti" in trainable:
@@ -450,6 +501,41 @@ def init_train_state(models: Dict[str, torch.nn.Module], tcfg: TrainConfig,
     return TrainState(trainable=trainable, frozen=frozen,
                       opt_state=opt.init(optimizer_leaves(trainable)),
                       step=0, ema=ema)
+
+
+def shard_train_state(state: TrainState, mesh, *, tp: bool = False,
+                      fsdp: bool = False, exclude: tuple = (),
+                      min_size: int = 2 ** 12) -> dict:
+    """Cut a full-component state to this rank's part in place: the
+    trainable and frozen components and the EMA shadow by the JAX
+    package's ``tp_specs`` (``exclude``: from ``validate_tp``) and/or
+    ``fsdp_specs``, and the fp32 AdamW moments as their parameters.  Call
+    it after any resume restore (every rank reads the full trees and keeps
+    its shard).  Returns the {path: spec} applied."""
+    from sdbc_tpu_torch.parallel import shard as shard_mod
+    from sdbc_tpu_torch.parallel.specs import _reject_int8_state
+
+    if "lora" in state.trainable or "ti" in state.trainable:
+        raise ValueError("TP/FSDP shard full components; the adapter "
+                         "modes (LoRA, textual inversion) use plain data "
+                         "parallelism")
+    if tp or fsdp:
+        _reject_int8_state(state.opt_state, "fsdp_specs" if fsdp
+                           else "tp_specs")
+    params_before = _flat(optimizer_leaves(state.trainable))
+    models = {**state.frozen, **state.trainable}
+    specs = shard_mod.shard_modules(models, mesh, tp=tp, fsdp=fsdp,
+                                    exclude=exclude, min_size=min_size)
+    if state.ema is not None:
+        shard_mod.shard_modules(state.ema, mesh, specs=specs)
+    inner = state.opt_state.inner
+    if isinstance(inner, AdamState):
+        for i, p in enumerate(params_before):
+            for moments in (inner.mu, inner.nu):
+                moments[i] = shard_mod.mark_like(
+                    shard_mod.shard_like(moments[i], p).contiguous()
+                    .clone(), p)
+    return specs
 
 
 def _ema_pairs(state: TrainState):
@@ -589,18 +675,72 @@ def host_draws(generator: torch.Generator, cfg: PipelineConfig,
     """One step's draws (``diffusion_loss``'s eps, noise, offset, t per
     micro-batch, in that order) from a CPU ``generator``: the same values
     wherever the step runs."""
-    out = []
-    for i in range(tcfg.grad_accum):
-        shape = _latent_shape(cfg, {k: v[i] for k, v in batch.items()}, tcfg)
-        d = {"eps": torch.randn(shape, generator=generator),
-             "noise": torch.randn(shape, generator=generator)}
-        if tcfg.noise_offset > 0:
-            d["offset"] = torch.randn((shape[0], 1, 1, shape[-1]),
-                                      generator=generator)
-        d["t"] = torch.randint(0, cfg.schedule.num_train_timesteps,
-                               (shape[0],), generator=generator)
-        out.append(d)
-    return out
+    return [_draw_set(generator, _latent_shape(
+                cfg, {k: v[i] for k, v in batch.items()}, tcfg), cfg, tcfg)
+            for i in range(tcfg.grad_accum)]
+
+
+def _draw_set(generator: torch.Generator, shape: tuple, cfg: PipelineConfig,
+              tcfg: TrainConfig) -> dict:
+    """One micro-batch's draws for latents of ``shape``, in
+    ``diffusion_loss``'s order, on the generator's device."""
+    dev = generator.device
+    d = {"eps": torch.randn(shape, generator=generator, device=dev),
+         "noise": torch.randn(shape, generator=generator, device=dev)}
+    if tcfg.noise_offset > 0:
+        d["offset"] = torch.randn((shape[0], 1, 1, shape[-1]),
+                                  generator=generator, device=dev)
+    d["t"] = torch.randint(0, cfg.schedule.num_train_timesteps,
+                           (shape[0],), generator=generator, device=dev)
+    return d
+
+
+def _local_draws(draws: Optional[dict], generator, mb: dict,
+                 cfg: PipelineConfig, tcfg: TrainConfig, mesh) -> dict:
+    """This rank's rows of a micro-batch's GLOBAL draws: the injected
+    ones, else the global batch's drawn from ``generator`` (the one
+    stream every rank draws alike).  ``mb`` holds the rank's rows; the
+    global micro-batch is the data ranks' rows in order (with prior
+    preservation: every rank's instance rows, then every rank's class
+    rows, as the one-process batch has them)."""
+    from sdbc_tpu_torch.parallel.mesh import (host_local_batch_indices,
+                                              mesh_shape)
+
+    n = mesh_shape(mesh)["data"]
+    inst = mb["input_ids"].shape[0] * n
+    rows = [host_local_batch_indices(inst, mesh)]
+    if tcfg.prior_weight > 0:
+        rows.append(inst + host_local_batch_indices(
+            mb["prior_input_ids"].shape[0] * n, mesh))
+    rows = np.concatenate(rows)
+    if draws is None:
+        if generator is None:
+            raise ValueError("the data-parallel step needs a "
+                             "torch.Generator or injected global draws")
+        local = _latent_shape(cfg, mb, tcfg)
+        draws = _draw_set(generator, (local[0] * n,) + local[1:], cfg, tcfg)
+    return {k: v[torch.from_numpy(rows).to(v.device)]
+            for k, v in draws.items()}
+
+
+def _mean_over_data(grads, params, mesh) -> None:
+    """The data-parallel gradient mean: an FSDP shard's gradient was
+    summed over the data group by its reduce-scatter (or reduce) in the
+    backward pass and only divides; the others take the bucketed mean
+    all-reduce."""
+    from sdbc_tpu_torch.parallel import comm
+    from sdbc_tpu_torch.parallel.mesh import mesh_shape
+    from sdbc_tpu_torch.parallel.shard import info
+
+    n = mesh_shape(mesh)["data"]
+    plain = []
+    for g, p in zip(grads, params):
+        i = info(p)
+        if i is not None and i.fsdp is not None:
+            g.div_(n)
+        else:
+            plain.append(g)
+    comm.all_reduce_mean_(plain, mesh.get_group("data"))
 
 
 def diffusion_loss(models, batch, cfg: PipelineConfig, tcfg: TrainConfig,
@@ -738,7 +878,8 @@ def _check_family(cfg: PipelineConfig, tcfg: TrainConfig) -> None:
 
 def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
                     compute_dtype=torch.bfloat16, device="cuda",
-                    cached_latents: bool = False):
+                    cached_latents: bool = False, mesh=None,
+                    dp_size: int = 1):
     """The train step ``step(state, batch, generator=None, draws=None)``.
 
     ``batch``: {"pixel_values" (grad_accum, micro, H, W, 3) or, with
@@ -749,7 +890,20 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
     ``diffusion_loss``, ``host_draws``).
     Updates ``state`` in place and returns (state, {"loss", "finite",
     "notfinite_count"}), the last being the cumulative count of skipped
-    updates."""
+    updates.
+
+    ``mesh`` (``parallel.make_mesh``): the data-parallel step.  ``batch``
+    holds this rank's rows of the global micro-batches
+    (``make_dataloader(mesh=)``); ``draws`` are the GLOBAL draws, or the
+    generator draws the global batch's alike on every rank, and each rank
+    keeps its rows.  After the micro-batches' backward passes the
+    gradients are averaged over the data group, the loss too, and the
+    finite flag and the clipping norm are reduced over every rank: the
+    step equals the one-process step on the global batch.  A state cut
+    by ``shard_train_state`` runs FSDP (shards gathered at use, gradients
+    reduce-scattered) and/or tensor parallelism (each rank computing with
+    its slice) through the same step.  ``dp_size``: the data ranks, for
+    ``lr_scale_by_dp``."""
     _check_family(cfg, tcfg)
     if tcfg.prior_weight > 0 and cached_latents:
         raise ValueError("prior_weight (prior preservation) is incompatible "
@@ -757,7 +911,7 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
                          "cache; drop --cache_latents")
     device = torch.device(device)
     sched = sched_mod.make_schedule(cfg.schedule, device=device)
-    opt = make_optimizer(tcfg)
+    opt = make_optimizer(tcfg, dp_size, mesh=mesh)
 
     def step_fn(state: TrainState, batch, generator=None, draws=None):
         leaves = optimizer_leaves(state.trainable)
@@ -767,19 +921,28 @@ def make_train_step(cfg: PipelineConfig, tcfg: TrainConfig,
         lsum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(tcfg.grad_accum):
             mb = {k: v[i].to(device) for k, v in batch.items()}
+            d = None if draws is None else draws[i]
+            if mesh is not None:
+                d = _local_draws(d, generator, mb, cfg, tcfg, mesh)
             # the merge is redone per micro-batch: its graph goes with
             # each backward
             with merged(state.trainable, state.frozen, tcfg) as models:
                 loss = diffusion_loss(
                     models, mb, cfg, tcfg, sched, compute_dtype,
-                    generator=generator,
-                    draws=None if draws is None else draws[i])
+                    generator=generator, draws=d)
                 loss.backward()  # .grad sums the micro-batches' gradients
             lsum = lsum + loss.detach()
         with torch.no_grad():
             grads = [[torch.zeros_like(p) if p.grad is None
                       else p.grad.div_(tcfg.grad_accum) for p in leaf]
                      for leaf in leaves]
+            if mesh is not None:
+                from sdbc_tpu_torch.parallel import comm
+
+                _mean_over_data(_flat(grads), params, mesh)
+                lsum = lsum.reshape(1)
+                comm.all_reduce_mean_([lsum], mesh.get_group("data"))
+                lsum = lsum.reshape(())
             state.opt_state = opt.update(grads, state.opt_state, leaves)
             for p in params:
                 p.grad = None

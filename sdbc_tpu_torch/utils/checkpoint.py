@@ -84,11 +84,48 @@ def _leaf_dir(key: Key) -> str:
 EMPTY_STATE, EMPTY_LIST = "None", "List"
 
 
+class Stacked(list):
+    """A stacked tower's leaf as its layers' tensors, stacked when
+    written (after any gather: ``write_tree``)."""
+
+
+def _root() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    from sdbc_tpu_torch.parallel import comm
+
+    comm.barrier()
+
+
+def _full(t):
+    """A leaf's full value on rank 0 (None on the others): a sharded
+    tensor (``parallel.shard``) gathered, one leaf at a time, every rank
+    taking part; a ``Stacked`` leaf's layers gathered, then stacked."""
+    import torch.distributed as dist
+
+    if isinstance(t, Stacked):
+        parts = [_full(x) for x in t]
+        return None if parts[0] is None else torch.stack(parts)
+    if not dist.is_initialized():
+        return t.detach()
+    from sdbc_tpu_torch.parallel.shard import full_tensor
+
+    return full_tensor(t, dst=0)
+
+
 def write_tree(path: str, leaves: list) -> int:
-    """Write ``leaves`` ((key path, tensor or ``EMPTY_STATE`` /
-    ``EMPTY_LIST``), in the JAX flatten order) as one tree under ``path``.
-    Returns the bytes written."""
-    os.makedirs(path, exist_ok=True)
+    """Write ``leaves`` ((key path, tensor, ``Stacked`` or
+    ``EMPTY_STATE`` / ``EMPTY_LIST``), in the JAX flatten order) as one
+    tree under ``path``.  Returns the bytes written.  Under
+    ``torch.distributed`` every rank calls it alike: sharded leaves are
+    gathered to rank 0 one at a time, and rank 0 alone writes."""
+    root = _root()
+    if root:
+        os.makedirs(path, exist_ok=True)
     meta, total = {}, 0
     for key, t in leaves:
         km = [{"key": k, "key_type": 1 if seq else 2} for k, seq in key]
@@ -97,7 +134,9 @@ def write_tree(path: str, leaves: list) -> int:
             meta[name] = {"key_metadata": km, "value_metadata": {
                 "value_type": t, "skip_deserialize": True}}
             continue
-        t = t.detach()
+        t = _full(t)
+        if not root:
+            continue
         if t.dtype not in _ZARR_DTYPE:
             raise TypeError(f"{_leaf_dir(key)}: no zarr dtype for {t.dtype}")
         shape = list(t.shape)
@@ -118,6 +157,8 @@ def write_tree(path: str, leaves: list) -> int:
         host.numpy().tofile(os.path.join(d, ".".join("0" * len(shape))
                                          or "0"))
         total += host.numel() * host.element_size()
+    if not root:
+        return 0
     with open(os.path.join(path, "_METADATA"), "w") as f:
         json.dump({"tree_metadata": meta, "use_ocdbt": False,
                    "use_zarr3": False,
@@ -186,17 +227,24 @@ def nest(flat: Dict[Key, torch.Tensor]) -> dict:
 # components
 
 
-def module_tree(module: torch.nn.Module) -> list:
+def module_tree(module: torch.nn.Module, lazy: bool = False) -> list:
     """[(key path, tensor or EMPTY_LIST)] of a component, in the JAX
     flatten order: its parameters (``jax_tree_leaves``) and the empty
-    lists of its tree (an empty ``ModuleList``)."""
-    from sdbc_tpu_torch.models.convert import jax_tree_leaves
+    lists of its tree (an empty ``ModuleList``); ``lazy`` leaves a
+    stacked leaf ``Stacked`` for ``write_tree`` to gather and stack."""
+    from sdbc_tpu_torch.models.convert import jax_tree_parts, stacked
 
     empty = [(tuple((k, k.isdigit()) for k in name.split(".")), EMPTY_LIST)
              for name, m in module.named_modules()
              if isinstance(m, torch.nn.ModuleList) and len(m) == 0]
-    return sorted(jax_tree_leaves(module) + empty,
-                  key=lambda kv: sort_key(kv[0]))
+    # lazy: the parameters themselves (their shard marks are read when
+    # written), not detached copies
+    leaves = [(k, (Stacked(ts) if lazy else torch.stack(
+                   [t.detach() for t in ts]))
+               if len(ts) > 1 or stacked(k) else
+               (ts[0] if lazy else ts[0].detach()))
+              for k, ts in jax_tree_parts(module)]
+    return sorted(leaves + empty, key=lambda kv: sort_key(kv[0]))
 
 
 def sort_key(key: Key) -> tuple:
@@ -205,13 +253,13 @@ def sort_key(key: Key) -> tuple:
     return tuple((0, int(k), "") if seq else (1, 0, k) for k, seq in key)
 
 
-def component_tree(value) -> list:
+def component_tree(value, lazy: bool = False) -> list:
     """``module_tree`` of a component: a module, or a list of ControlNet
     branches (each one's leaves under its list index)."""
     if isinstance(value, (list, tuple)):
         return [(((str(i), True),) + k, t) for i, m in enumerate(value)
-                for k, t in module_tree(m)]
-    return module_tree(value)
+                for k, t in module_tree(m, lazy)]
+    return module_tree(value, lazy)
 
 
 def load_component(flat: Dict[Key, torch.Tensor], name: str,
@@ -256,14 +304,21 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
     beside the untouched base.  ``ema``: {component: module}, the EMA
     shadow of the trained components.  ``ti``: (rows, token, ids) or, for
     an SDXL embedding, (rows, token, ids, rows2), stored as ``ti.npz`` and
-    ``added_tokens.json``."""
+    ``added_tokens.json``.
+
+    Under ``torch.distributed`` every rank calls it alike: sharded leaves
+    are gathered to rank 0 one leaf at a time and rank 0 writes; the
+    others wait at a barrier, and ``config.json`` is written after
+    everyone's data."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
+    root = _root()
+    if root:
+        os.makedirs(path, exist_ok=True)
     total = 0
     for comp in COMPONENTS:
         if comp in models:
             total += write_tree(os.path.join(path, comp),
-                                component_tree(models[comp]))
+                                component_tree(models[comp], lazy=True))
     if opt_state is not None:
         total += write_tree(os.path.join(path, "opt_state"), opt_state)
     if ema is not None:
@@ -272,8 +327,12 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
             raise ValueError(f"ema tree may only hold component subtrees "
                              f"{COMPONENTS}, got extra keys {sorted(bad)}")
         leaves = [(((comp, False),) + k, t) for comp in sorted(ema)
-                  for k, t in module_tree(ema[comp])]
+                  for k, t in module_tree(ema[comp], lazy=True)]
         total += write_tree(os.path.join(path, "ema"), leaves)
+    if not root:
+        _barrier()   # rank 0's adapters and metadata
+        _barrier()
+        return total
     if lora is not None:
         from sdbc_tpu_torch.train import lora as lora_mod
 
@@ -287,7 +346,9 @@ def save_pipeline(path: str, models: dict, cfg: PipelineConfig,
                        rows2=ti[3] if len(ti) > 3 else None)
         with open(os.path.join(path, "added_tokens.json"), "w") as f:
             json.dump({token: list(map(int, ids))}, f, indent=2)
+    _barrier()
     save_metadata(path, metadata, cfg)
+    _barrier()
     return total
 
 
@@ -295,7 +356,9 @@ def save_metadata(path: str, metadata: Optional[dict],
                   cfg: PipelineConfig) -> None:
     """``metadata.json``, then ``config.json``: the completeness marker
     comes last.  Alone, it rewrites the metadata of a checkpoint whose
-    trees hold the current state already."""
+    trees hold the current state already.  Rank 0 alone writes."""
+    if not _root():
+        return
     with open(os.path.join(path, "metadata.json"), "w") as f:
         json.dump(metadata or {}, f, indent=2, default=float)
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -390,8 +453,8 @@ def _adam_prefix(max_grad_norm: float):
     return [], _k("inner_state", 0)
 
 
-def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float
-                   ) -> list:
+def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float,
+                   lazy: bool = False) -> list:
     """The port's ``trainer.OptState`` as the JAX optax tree's leaves, in
     its flatten order: the 8-bit moments per leaf in the JAX tree's leaf
     order, each (rows,) scale broadcast to the JAX (rows, 128); the fp32
@@ -423,11 +486,11 @@ def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float
     sl = _part_slices(trainable)
     out.append((pre + _k(0, "count"), i32(inner.count)))
     for name, moments in (("mu", inner.mu), ("nu", inner.nu)):
-        tree = [(keys[i], _leaf_value(moments[sl[i]], keys[i]))
+        tree = [(keys[i], _leaf_value(moments[sl[i]], keys[i], lazy))
                 for i in order]
         tree += [(((c, False),) + k, t) for c, m in trainable.items()
                  if isinstance(m, torch.nn.Module)
-                 for k, t in module_tree(m) if isinstance(t, str)]
+                 for k, t in module_tree(m, lazy=True) if isinstance(t, str)]
         out += [(pre + _k(0, name) + k, t)
                 for k, t in sorted(tree, key=lambda kv: sort_key(kv[0]))]
     out += [(pre + _k(1), EMPTY_STATE),
@@ -447,9 +510,12 @@ def _part_slices(trainable: dict) -> list:
     return out
 
 
-def _leaf_value(parts: list, key: Key) -> torch.Tensor:
-    """One JAX leaf from its parts: a stacked tower's layers stacked."""
-    return torch.stack(parts) if stacked(key) else parts[0]
+def _leaf_value(parts: list, key: Key, lazy: bool = False):
+    """One JAX leaf from its parts: a stacked tower's layers stacked
+    (``lazy``: when written)."""
+    if not stacked(key):
+        return parts[0]
+    return Stacked(parts) if lazy else torch.stack(parts)
 
 
 @torch.no_grad()

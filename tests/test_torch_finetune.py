@@ -327,8 +327,12 @@ def test_cli_modes_end_to_end(tmp_path, data, capture, mode, extra):
 REFUSED = [
     ("--train_controlnet", ["--train_controlnet", "--lora_rank", "2"],
      "--train_controlnet is a full-branch mode"),
-    ("--tp 2", ["--tp", "2"], "multi-device.*not ported yet"),
-    ("--fsdp", ["--fsdp"], "multi-device.*not ported yet"),
+    # --tp and --fsdp are ported (tests/test_torch_parallel*.py): one
+    # process has no model axis of 2, and FSDP keeps the JAX refusal of
+    # the 8-bit moments
+    ("--tp 2", ["--tp", "2"], r"--tp 2: mesh 0x2 != 1 devices"),
+    ("--fsdp", ["--fsdp", "--use_8bit_adam"],
+     "--use_8bit_adam cannot combine with --fsdp/--tp"),
     ("--model_family sdxl", ["--model_family", "sdxl", "--train_controlnet",
                              "--train_unet"],
      "--train_controlnet freezes the whole base model"),
