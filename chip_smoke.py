@@ -263,6 +263,23 @@ Phases, in order; each prints one or more lines, and any failure raises
                   checkpoint bytes and save / load seconds; it checks the
                   temp dir has room for two checkpoints first and removes
                   it after;
+   jax-ckpt     — a checkpoint the JAX package's ``save_pipeline`` wrote
+                  (``tests/data/jax_ckpt_tiny``: OCDBT, zstd chunks, one a
+                  shard of an 8-device mesh; 8-bit AdamW, an EMA shadow)
+                  copied into a run directory and read with the port's own
+                  OCDBT reader and zstd decoder (built with g++ at first
+                  use): ``load_pipeline(device="cuda")`` and ``load_ema``
+                  against the JAX tree's digests (SHA-256, dtype, shape of
+                  every leaf); ``cli.inference --ckpt`` DDIM-4 at 32² (a
+                  finite image, K1/K4 as ``family_launches`` counts them,
+                  the decode's one K5 as on the tiny paths);
+                  ``cli.finetune --resume`` for one step (the step, the
+                  8-bit codes and scales, the text encoder and the EMA
+                  its first step sees equal to the digests, a finite loss,
+                  the training kernels launched); the loader's read rate
+                  on the host (``read_tree`` of the fixture's trees, MB/s
+                  decoded, 50 rounds) and the load's seconds, with the
+                  card's name and power limit;
 15. families-train — training SD-2.x and SDXL: one optimizer step of
                   ``--tiny --model_family sd21``, tiny_xl, the tiny
                   refiner, and LoRA and textual inversion on tiny_xl, bf16
@@ -4517,6 +4534,212 @@ def ckpt_bytes_estimate(cfg) -> int:
         + 2 * 128 * 4 * math.ceil(trained / 2048)
 
 
+JAX_CKPT = ROOT / "tests" / "data" / "jax_ckpt_tiny"
+JAX_CKPT_PROMPT = "a gothic novel cover"
+JAX_CKPT_ROUNDS = 50
+
+
+def _digest_check(flat: dict, want: dict, what: str) -> None:
+    """Leaves ({dotted path: tensor}, any device) against a tree of the
+    fixture's ``digests.json``: SHA-256 of the bytes, dtype and shape."""
+    import hashlib
+
+    import torch
+
+    if set(flat) != set(want):
+        fail(f"jax-ckpt {what}: leaves differ from the digests "
+             f"({sorted(set(flat) ^ set(want))[:4]})")
+    for k, w in want.items():
+        t = flat[k].detach().contiguous().cpu()
+        raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+        digest = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+        dtype = str(t.dtype).replace("torch.", "")
+        if (digest, dtype, list(t.shape)) != (w["sha256"], w["dtype"],
+                                              w["shape"]):
+            fail(f"jax-ckpt {what} {k}: {dtype} {list(t.shape)} sha256 "
+                 f"{digest[:12]}, expected {w['dtype']} {w['shape']} "
+                 f"{w['sha256'][:12]}")
+
+
+def phase_jax_ckpt(smi: str) -> dict:
+    """A checkpoint the JAX package wrote (``tests/data/jax_ckpt_tiny``:
+    ``experiments/make_jax_ckpt_fixture.py``, 8-bit AdamW, an EMA shadow,
+    leaves sharded over an 8-device mesh one chunk a shard), read with the
+    port's own OCDBT reader and zstd decoder, copied into a run directory:
+    ``load_pipeline(device="cuda")`` and ``load_ema`` held to the digests
+    the JAX tree gave before the save; a DDIM-4 call through the inference
+    CLI's ``--ckpt`` (a finite image, K1/K4 as ``family_launches`` counts
+    them, the decode's K5 as the tiny paths count it); one step resumed
+    through the finetune CLI's ``--resume`` (the step continues from
+    ``metadata.json``, the optimizer state, the trained text encoder and
+    the EMA the step sees equal the digests, the loss finite).  Times the
+    loader's read of the fixture's trees on the host (``read_tree``, the
+    chunks decoded by ``zstd.decompress_many``; ``JAX_CKPT_ROUNDS`` rounds,
+    MB/s of decoded bytes) and the load.  Returns the two runs' launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sdbc_tpu_torch.cli import finetune
+    from sdbc_tpu_torch.cli import inference as cli
+    from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
+    from sdbc_tpu_torch.ops import _kernels
+    from sdbc_tpu_torch.utils import checkpoint as ckpt
+    from sdbc_tpu_torch.utils import png, zarr, zstd
+    from sdbc_tpu_torch.utils.ocdbt import OcdbtStore
+
+    with open(JAX_CKPT / "digests.json") as f:
+        digests = json.load(f)
+    with open(JAX_CKPT / "metadata.json") as f:
+        step = json.load(f)["step"]
+    with open(JAX_CKPT / "fixture.json") as f:
+        train = json.load(f)["train"]
+    plain = lambda key: ".".join(k for k, _ in key)
+    root = tempfile.mkdtemp(prefix="sdbc_jax_ckpt_")
+    paths = {}
+    try:
+        run = os.path.join(root, "out", "runs", "jax", f"ckpt-{step}")
+        shutil.copytree(JAX_CKPT, run)
+        t0 = time.perf_counter()
+        zstd.load()
+        build_s = time.perf_counter() - t0
+
+        # the loader's own read on the host: read_tree of every tree (its
+        # OCDBT store, chunk reads, zstd.decompress_many, crops)
+        trees = [os.path.join(run, comp) for comp in digests]
+        nbytes = sum(t.numel() * t.element_size() for tree in trees
+                     for t in ckpt.read_tree(tree).values())
+        frames = 0
+        for tree in trees:
+            store = OcdbtStore(tree)
+            for name in {k.rsplit("/", 1)[0] for k in store.keys()
+                         if k.endswith("/.zarray")}:
+                arr = zarr.parse_zarray(name, store.read(f"{name}/.zarray"))
+                frames += arr.zstd * sum(arr.chunk_key(i) in store
+                                         for i in arr.grid())
+        t0 = time.perf_counter()
+        for _ in range(JAX_CKPT_ROUNDS):
+            for tree in trees:
+                ckpt.read_tree(tree)
+        dec_s = (time.perf_counter() - t0) / JAX_CKPT_ROUNDS
+        mbs = nbytes / dec_s / 1e6
+
+        # load_pipeline / load_ema on the card against the digests
+        loads = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models, cfg = ckpt.load_pipeline(run, device="cuda",
+                                             use_ema=False)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t0)
+        for comp, module in models.items():
+            if next(module.parameters()).device.type != "cuda":
+                fail(f"jax-ckpt: {comp} not on the card")
+            _digest_check({plain(k): t for k, t in ckpt.module_tree(module)
+                           if not isinstance(t, str)}, digests[comp], comp)
+        ema = ckpt.load_ema(run, device="cuda", cfg=cfg)
+        _digest_check({plain(((c, False),) + k): t for c, m in ema.items()
+                       for k, t in ckpt.module_tree(m)
+                       if not isinstance(t, str)}, digests["ema"], "ema")
+        del models, ema
+        print(f"[jax-ckpt] {smi}: read_tree of {len(trees)} trees, "
+              f"{frames} zstd chunks, {nbytes} bytes decoded in "
+              f"{dec_s * 1e3:.3f} ms a round "
+              f"({mbs:.1f} MB/s, {JAX_CKPT_ROUNDS} rounds, "
+              f"{os.cpu_count()} host cores); load_pipeline(device=cuda) "
+              f"{' '.join(f'{x:.4f}' for x in loads)} s (first, repeats; "
+              f"decoder build {build_s:.2f} s); every leaf of "
+              f"{sorted(digests)} equal to the JAX tree's digests",
+              flush=True)
+
+        # cli.inference --ckpt: DDIM-4 from the JAX checkpoint
+        images = []
+        real = SDPipeline.generate
+
+        def generate(self, *a, **kw):
+            out = real(self, *a, **kw)
+            images.append(np.asarray(out))
+            return out
+
+        img = 32
+        argv = ["--ckpt", run, "--mode", "enter_prompt", "--prompt",
+                JAX_CKPT_PROMPT, "--img_size", str(img),
+                "--num_inference_steps", "4", "--scheduler", "ddim",
+                "--seed", "0", "--save_dir", os.path.join(root, "images")]
+        SDPipeline.generate = generate
+        try:
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(_kernels.launches)
+        finally:
+            SDPipeline.generate = real
+        want = dict.fromkeys(_kernels.launches, 0)
+        want.update(family_launches(
+            cfg, img // 2 ** (len(cfg.vae.block_out_channels) - 1), 1, 4))
+        # the one decode: the VAE's single-head mid attention (16 wide,
+        # 16² tokens) takes the training flash kernel, as on the tiny paths
+        want["flash_fwd"] = int(cfg.vae.block_out_channels[-1] <= 256)
+        pngs = [os.path.join(d, f) for d, _, fs in os.walk(
+            os.path.join(root, "images")) for f in fs if f.endswith(".png")]
+        with open(pngs[0], "rb") as f:
+            shape = png.decode(f.read()).shape
+        finite = bool(images) and all(np.isfinite(x).all() for x in images)
+        print(f"[jax-ckpt] cli.inference --ckpt (the JAX run's checkpoint) "
+              f"{img}^2 DDIM-4: {secs:.3f} s, image {shape} finite "
+              f"{finite}, launches {nonzero(counts)} (expected "
+              f"{nonzero(want)})", flush=True)
+        if not finite or shape != (img, img, 3) or counts != want \
+                or min(want["flash_fixed"], want["geglu_ff"]) == 0:
+            fail(f"jax-ckpt cli.inference: launches {counts} (expected "
+                 f"{want}), image {shape}, finite {finite}")
+        paths["jax-ckpt cli.inference"] = counts
+
+        # cli.finetune --resume: one step from the JAX run
+        data = ft_dataset(os.path.join(root, "ds"), 2, img)
+        flags = ["--data_root", data, "--output_dir",
+                 os.path.join(root, "out"), "--run_id", "jax", "--resume",
+                 "--device", "cuda", "--img_size", str(img),
+                 "--num_examples", "2", "--batch_size",
+                 "2", "--grad_acc_steps", "1", "--epochs", str(step + 1),
+                 "--ckpts_per_epoch", "1", "--num_workers", "1",
+                 "--learning_rate", str(train["learning_rate"]),
+                 "--ema_decay", str(train["ema_decay"]), "--use_8bit_adam",
+                 "--no-train_unet", "--train_text_encoder"]
+        _kernels.reset_launch_counts()
+        with ft_capture() as seen:
+            stats = finetune.main(flags)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        first = seen["first_trees"]
+        for name in ("opt_state", "text_encoder", "ema"):
+            _digest_check({".".join(k): t for k, t in first[name].items()},
+                          digests[name], f"resumed {name}")
+        losses = stats["losses"]
+        print(f"[jax-ckpt] cli.finetune --resume from the JAX run: the first "
+              f"step sees step {seen['first_step']} (metadata {step}), "
+              f"optimizer count {seen['first_count']}, the 8-bit codes and "
+              f"scales, fp32 moments, text encoder and EMA equal to the "
+              f"digests; loss {losses}, load {stats['load_s']:.3f} s, "
+              f"launches {nonzero(counts)}", flush=True)
+        if seen["first_step"] != step or len(losses) != 1 \
+                or not np.isfinite(losses[0]) or counts["adam8"] != 1 \
+                or min(counts["flash_fwd"], counts["flash_bwd_dq"],
+                       counts["flash_bwd_dkv"]) == 0:
+            fail(f"jax-ckpt resume: step {seen['first_step']} (expected "
+                 f"{step}), losses {losses}, launches {nonzero(counts)}")
+        paths["jax-ckpt cli.finetune --resume"] = counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def phase_finetune(smi: str, train_sps: dict):
     """The finetune CLI at full width, mode C (random SD-1.5 from seed 0,
     bf16, UNet + text encoder, 8-bit AdamW, micro 2, grad_accum 4, remat
@@ -7475,6 +7698,9 @@ def main() -> int:
     paths.update(phase_finetune(smi, {"none": sps, **ckpt_sps}))
     torch.cuda.empty_cache()
     lap("finetune")
+    paths.update(phase_jax_ckpt(smi))
+    torch.cuda.empty_cache()
+    lap("jax-ckpt")
     family_paths, adam8_family = phase_families_train(smi)
     paths.update(family_paths)
     torch.cuda.empty_cache()

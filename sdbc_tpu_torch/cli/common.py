@@ -176,8 +176,8 @@ def resolve_device(args) -> torch.device:
 def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ckpt", type=str, default="",
                    help="checkpoint dir (utils/checkpoint.py layout) "
-                        "written by sdbc_tpu_torch; a JAX-written one is "
-                        "refused")
+                        "written by sdbc_tpu_torch or by sdbc_tpu's "
+                        "save_pipeline")
     p.add_argument("--diffusers_ckpt", type=str, default="",
                    help="diffusers save_pretrained dir of an SD-1.x model "
                         "(ported on the fly, models/port.py)")
@@ -389,10 +389,7 @@ def resolve_params_cfg(args, dtype=None):
     if getattr(args, "ckpt", "") and not args.diffusers_ckpt:
         from sdbc_tpu_torch.utils import checkpoint as ckpt_mod
 
-        try:
-            models, cfg = ckpt_mod.load_pipeline(args.ckpt, device=device)
-        except ckpt_mod.JAXCheckpointError as e:
-            raise SystemExit(f"--ckpt {e}")
+        models, cfg = ckpt_mod.load_pipeline(args.ckpt, device=device)
         if args.scheduler is not None:
             cfg = dataclasses.replace(cfg, scheduler=args.scheduler)
         models, cfg = _merge_adapters(args, models, cfg)
@@ -449,10 +446,7 @@ def resolve_refiner(args, scheduler: str, dtype=None):
     else:
         from sdbc_tpu_torch.utils import checkpoint as ckpt_mod
 
-        try:
-            models, cfg = ckpt_mod.load_pipeline(path, device=device)
-        except ckpt_mod.JAXCheckpointError as e:
-            raise SystemExit(f"--refiner_ckpt {e}")
+        models, cfg = ckpt_mod.load_pipeline(path, device=device)
         cfg = dataclasses.replace(cfg, scheduler=scheduler)
     if not cfg.refiner:
         raise SystemExit(

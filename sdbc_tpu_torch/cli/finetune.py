@@ -336,12 +336,9 @@ def _main(args, mesh, use_lora, use_ti, use_prior):
         t_load = time.perf_counter()
         # the raw masters (never the EMA overlay) and, for an adapter run,
         # the raw base: the adapter and the shadow restore separately
-        try:
-            models, cfg = ckpt_mod.load_pipeline(
-                resume_path, device=device, merge_lora=not use_lora,
-                merge_ti=not use_ti, use_ema=False)
-        except ckpt_mod.JAXCheckpointError as e:
-            raise SystemExit(f"--resume: {e}")
+        models, cfg = ckpt_mod.load_pipeline(
+            resume_path, device=device, merge_lora=not use_lora,
+            merge_ti=not use_ti, use_ema=False)
         if args.scheduler is not None:
             cfg = dataclasses.replace(cfg, scheduler=args.scheduler)
         resume_meta = ckpt_mod.load_metadata(resume_path)

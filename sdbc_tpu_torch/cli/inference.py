@@ -9,7 +9,7 @@ default / calc_fid / enter_prompt, on the card unless ``--device cpu``.
   enter_prompt one custom prompt → PNG (img2img, inpainting, hires-fix)
 
 ``--model_family sd21|sdxl`` picks the family of a fresh init;
-``--refiner_ckpt`` (an SDXL refiner: a diffusers dir or a port checkpoint)
+``--refiner_ckpt`` (an SDXL refiner: a diffusers dir or a checkpoint)
 serves the base → refiner ensemble, handing over at ``--refiner_frac``.
 ``--lora_path`` / ``--ti_path`` merge an adapter or a learned embedding at
 load (SD-1.x); ``--safety_checker`` blacks out flagged images.
@@ -81,8 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "comma-separated for multi-ControlNet (one per "
                         "branch)")
     p.add_argument("--refiner_ckpt", type=str, default="",
-                   help="SDXL refiner checkpoint (port layout or a diffusers "
-                        "dir): ensemble-of-expert-denoisers serving, the "
+                   help="SDXL refiner checkpoint (either package's "
+                        "checkpoint or a diffusers dir): ensemble-of-expert-denoisers serving, the "
                         "base runs the high-noise share, the refiner the "
                         "tail (diffusion/ensemble.py)")
     p.add_argument("--refiner_frac", type=float, default=0.8,

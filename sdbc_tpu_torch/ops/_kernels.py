@@ -87,18 +87,26 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
+    with build_lock():
+        if lib.exists():  # another process built it while we waited
+            return lib
+        t0 = time.perf_counter()
+        _compile_and_link(_nvcc(), lib)
+        build_seconds = time.perf_counter() - t0
+    return lib
+
+
+@contextlib.contextmanager
+def build_lock():
+    """Holds ``BUILD_DIR/build.lock``, so that concurrent processes (test
+    workers, ranks) build a library once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if lib.exists():  # another process built it while we waited
-                return lib
-            t0 = time.perf_counter()
-            _compile_and_link(_nvcc(), lib)
-            build_seconds = time.perf_counter() - t0
+            yield
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return lib
 
 
 def _compile_and_link(nvcc: str, lib: Path) -> None:

@@ -11,24 +11,24 @@ in the JAX package's on-disk layout, one tree per component:
     <dir>/metadata.json                           (step, best loss, ...)
     <dir>/config.json                             (written last)
 
-Each tree is what orbax's ``StandardCheckpointer`` restores when it is
-written without OCDBT: a ``_METADATA`` file naming every leaf by its key
-path (dict keys and list indices, ``"use_ocdbt": false, "use_zarr3":
-false``) and, per leaf, a directory named by the path joined with ``.``
-holding a zarr-v2 ``.zarray`` (``"compressor": null``) and one raw chunk
-``0.0…``.  Leaves are named by the JAX tree (``models/convert.py``
-``jax_tree_leaves``) and keep their dtypes: under bf16 a full fine-tune's
-frozen components are the compute-dtype copies, as the JAX package saves
-them.  ``opt_state/`` is the JAX optax tree (``apply_if_finite`` over the
-optional clip and AdamW or the 8-bit AdamW), so the JAX package's
-``load_pipeline`` and ``load_opt_state(path, opt.init(...))`` restore what
-the port saves.  No orbax, tensorstore or zstd is needed on either side
-of the port's own reads.
+Each tree is what orbax's ``StandardCheckpointer`` restores: a
+``_METADATA`` file naming every leaf by its key path (dict keys and list
+indices) and, per leaf, a zarr-v2 array named by the path joined with
+``.``.  The port writes a tree without OCDBT (``"use_ocdbt": false,
+"use_zarr3": false``): per leaf a directory holding its ``.zarray``
+(``"compressor": null``) and one raw chunk ``0.0…``.  Leaves are named by
+the JAX tree (``models/convert.py`` ``jax_tree_leaves``) and keep their
+dtypes: under bf16 a full fine-tune's frozen components are the
+compute-dtype copies, as the JAX package saves them.  ``opt_state/`` is the
+JAX optax tree (``apply_if_finite`` over the optional clip and AdamW or the
+8-bit AdamW), so the JAX package's ``load_pipeline`` and
+``load_opt_state(path, opt.init(...))`` restore what the port saves.
 
-The other direction is not taken: the JAX package writes OCDBT with zstd
-frames, which this module cannot read; ``load_pipeline`` refuses such a
-directory and names the route (the JAX package's
-``models/port.py::export_diffusers_checkpoint``, then ``--diffusers_ckpt``).
+The readers also take what the JAX package's ``save_pipeline`` writes:
+OCDBT trees (``"use_ocdbt": true``, ``utils/ocdbt.py``) whose chunks are
+zstd frames (``utils/zstd.py``, the port's own decoder), one chunk a shard
+for a leaf saved under a mesh (``utils/zarr.py``).  A zarr3 tree is
+refused; the JAX package writes zarr v2.
 
 ``config.json`` is written last: it marks a complete checkpoint, and
 ``latest_checkpoint`` skips a directory without it (a save cut by a kill).
@@ -40,7 +40,6 @@ import json
 import os
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from sdbc_tpu_torch.diffusion.graph import (COMPONENT_INITS,
@@ -51,6 +50,8 @@ from sdbc_tpu_torch.models.controlnet import ControlNetConfig
 from sdbc_tpu_torch.models.convert import stacked
 from sdbc_tpu_torch.models.unet import UNetConfig
 from sdbc_tpu_torch.models.vae import VAEConfig
+from sdbc_tpu_torch.utils import zarr
+from sdbc_tpu_torch.utils.ocdbt import OcdbtStore
 
 # "controlnet" only in a ControlNet run's checkpoints: save and load skip
 # an absent component
@@ -63,13 +64,8 @@ _ZARR_DTYPE = {torch.float32: "<f4", torch.float16: "<f2",
                torch.bfloat16: "bfloat16", torch.int8: "|i1",
                torch.int32: "<i4", torch.int64: "<i8", torch.bool: "|b1",
                torch.uint8: "|u1"}
-_TORCH_DTYPE = {v: k for k, v in _ZARR_DTYPE.items()}
-_NUMPY_OF = {"bfloat16": np.int16}   # read as raw 16-bit words
-
-
-class JAXCheckpointError(ValueError):
-    """A checkpoint written by the JAX package (OCDBT + zstd)."""
-
+# the value types of orbax's leaves that hold an array
+_LEAF_TYPES = ("jax.Array", "np.ndarray", "scalar")
 
 # ---------------------------------------------------------------------------
 # one tree on disk
@@ -167,47 +163,33 @@ def write_tree(path: str, leaves: list) -> int:
     return total
 
 
-def _refuse_jax_written(path: str) -> None:
-    if os.path.exists(os.path.join(path, "manifest.ocdbt")):
-        raise JAXCheckpointError(
-            f"{path} was written by the JAX package (OCDBT with zstd "
-            "frames), which sdbc_tpu_torch cannot read yet: export it with "
-            "the JAX package's models/port.py::export_diffusers_checkpoint "
-            "and load the export with --diffusers_ckpt")
-
-
 def read_tree(path: str) -> Dict[Key, torch.Tensor]:
-    """{key path: tensor} of a tree ``write_tree`` wrote (empty states
-    left out), each tensor in its saved dtype on the host."""
-    _refuse_jax_written(path)
+    """{key path: tensor} of a tree orbax's ``StandardCheckpointer`` wrote:
+    by the JAX package (OCDBT, zstd chunks) or by ``write_tree`` (a
+    directory a leaf).  Empty states are left out; each tensor is in its
+    saved dtype on the host (a scalar leaf 0-d)."""
     with open(os.path.join(path, "_METADATA")) as f:
         meta = json.load(f)
-    if meta.get("use_ocdbt") or meta.get("use_zarr3"):
-        _refuse_jax_written(os.path.dirname(path))
-        raise JAXCheckpointError(f"{path}: an OCDBT or zarr3 tree, which "
-                                 "sdbc_tpu_torch cannot read")
-    out = {}
+    if meta.get("use_zarr3"):
+        raise zarr.ZarrError(f"{path}: a zarr3 tree (\"use_zarr3\": true); "
+                             "sdbc_tpu_torch reads zarr v2, which the JAX "
+                             "package writes")
+    names = {}
     for entry in meta["tree_metadata"].values():
-        if entry["value_metadata"].get("skip_deserialize"):
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize"):
             continue
         key = tuple((k["key"], k["key_type"] == 1)
                     for k in entry["key_metadata"])
-        d = os.path.join(path, _leaf_dir(key))
-        with open(os.path.join(d, ".zarray")) as f:
-            za = json.load(f)
-        if za.get("compressor") is not None or za["chunks"] != za["shape"]:
-            raise JAXCheckpointError(
-                f"{d}: a compressed or chunked zarr array, which "
-                "sdbc_tpu_torch cannot read")
-        dt = _TORCH_DTYPE[za["dtype"]]
-        shape = za["shape"]
-        raw = np.fromfile(os.path.join(d, ".".join("0" * len(shape)) or "0"),
-                          dtype=_NUMPY_OF.get(za["dtype"], za["dtype"]))
-        t = torch.from_numpy(raw.reshape(shape))
-        if dt == torch.bfloat16:
-            t = t.view(torch.bfloat16)
-        out[key] = t
-    return out
+        if value.get("value_type") not in _LEAF_TYPES:
+            raise ValueError(f"{path}: leaf {_leaf_dir(key)} has value_type "
+                             f"{value.get('value_type')!r}, not one of "
+                             f"{_LEAF_TYPES}")
+        names[key] = _leaf_dir(key)
+    store = (OcdbtStore(path) if meta.get("use_ocdbt")
+             else zarr.DirStore(path))
+    arrays = zarr.read_arrays(store, list(names.values()))
+    return {key: arrays[name] for key, name in names.items()}
 
 
 def nest(flat: Dict[Key, torch.Tensor]) -> dict:
@@ -374,10 +356,6 @@ def load_pipeline(path: str, device="cpu", merge_lora: bool = True,
     loads.  The optimizer state goes into a train state through
     ``load_opt_state``."""
     path = os.path.abspath(path)
-    _refuse_jax_written(path)
-    for comp in (*COMPONENTS, "ema", "opt_state"):
-        if os.path.isdir(os.path.join(path, comp)):
-            _refuse_jax_written(os.path.join(path, comp))
     with open(os.path.join(path, "config.json")) as f:
         cfg = config_from_json(json.load(f))
     models = {}
@@ -474,6 +452,7 @@ def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float,
     inner = opt_state.inner
     if isinstance(inner, adam8bit.Adam8State):
         out.append((pre + _k("count"), i32(inner.count)))
+        one = _one_layer_towers(trainable, keys)
         for j, i in enumerate(order):
             st, lp = inner.per_leaf[i], pre + _k("per_leaf", j)
             if isinstance(st, adam8bit.Quant8State):
@@ -481,7 +460,9 @@ def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float,
                 out += [(lp + _k("mq"), st.mq), (lp + _k("ms"), wide(st.ms)),
                         (lp + _k("vq"), st.vq), (lp + _k("vs"), wide(st.vs))]
             else:
-                out += [(lp + _k("m"), st.m), (lp + _k("v"), st.v)]
+                lift = (lambda t: t[None]) if one[i] else (lambda t: t)
+                out += [(lp + _k("m"), lift(st.m)),
+                        (lp + _k("v"), lift(st.v))]
         return out
     sl = _part_slices(trainable)
     out.append((pre + _k(0, "count"), i32(inner.count)))
@@ -496,6 +477,16 @@ def opt_state_tree(opt_state, trainable: dict, max_grad_norm: float,
     out += [(pre + _k(1), EMPTY_STATE),
             (pre + _k(2, "count"), i32(inner.count))]
     return out
+
+
+def _one_layer_towers(trainable: dict, keys: list) -> List[bool]:
+    """Per optimizer leaf: a stacked tower's leaf of one layer, whose fp32
+    moments the 8-bit optimizer keeps as the layer's shape and the JAX
+    tree stacked, with a leading axis of 1."""
+    from sdbc_tpu_torch.train.trainer import optimizer_leaves
+
+    return [len(parts) == 1 and stacked(key)
+            for parts, key in zip(optimizer_leaves(trainable), keys)]
 
 
 def _part_slices(trainable: dict) -> list:
@@ -555,6 +546,14 @@ def load_opt_state(path: str, template, trainable: dict,
     inner = template.inner
     if isinstance(inner, adam8bit.Adam8State):
         inner.count = int(get(pre + _k("count")))
+        one = _one_layer_towers(trainable, keys)
+
+        def drop(src, dst):
+            # (1, …) as the JAX tree stacks it; the layer's own shape as
+            # the port's checkpoints of earlier versions hold it
+            return src[0] if tuple(src.shape) == (1,) + tuple(dst.shape) \
+                else src
+
         for j, i in enumerate(order):
             st, lp = inner.per_leaf[i], pre + _k("per_leaf", j)
             if isinstance(st, adam8bit.Quant8State):
@@ -563,8 +562,9 @@ def load_opt_state(path: str, template, trainable: dict,
                 fill(st.vq, get(lp + _k("vq")))
                 fill(st.vs, get(lp + _k("vs"))[:, 0])
             else:
-                fill(st.m, get(lp + _k("m")))
-                fill(st.v, get(lp + _k("v")))
+                for name, dst in (("m", st.m), ("v", st.v)):
+                    src = get(lp + _k(name))
+                    fill(dst, drop(src, dst) if one[i] else src)
         return template
     inner.count = int(get(pre + _k(0, "count")))
     sl = _part_slices(trainable)

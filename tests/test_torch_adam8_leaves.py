@@ -14,6 +14,7 @@ import torch
 
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.train import adam8bit as tadam8
+from tests.torch_threads import one_thread  # noqa: F401
 
 KW = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
 MIN8 = 4096  # min_8bit_size, below the reference's 16384: tiny leaves

@@ -32,6 +32,7 @@ from sdbc_tpu_torch.diffusion.pipeline import SDPipeline, as_modules
 from sdbc_tpu_torch.models.convert import _flatten_jax_tree
 from sdbc_tpu_torch.train import lora as tlora
 from sdbc_tpu_torch.train import textual_inversion as tti
+from tests.torch_threads import one_thread  # noqa: F401
 
 MERGE_RTOL = 1e-6
 IMAGE_ATOL = 1e-3

@@ -21,6 +21,7 @@ from sdbc_tpu_torch.data.tokenizer import _bytes_to_unicode
 from sdbc_tpu_torch.models import bart as tbart
 from sdbc_tpu_torch.models import port as tport
 from sdbc_tpu_torch.models.convert import load_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 LOGIT_ATOL = 1e-5
 MERGES = [("b", "o"), ("o", "k"), ("bo", "ok"), ("Ġ", "b"), ("Ġ", "o"),

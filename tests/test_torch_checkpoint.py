@@ -3,7 +3,7 @@ the JAX package's ``sdbc_tpu/utils/checkpoint.py`` on the CPU, at the tiny
 config: what the port saves, the JAX ``load_pipeline`` and
 ``load_opt_state`` restore to exactly the tree the JAX package's own save
 gives (dtypes included, every leaf bit for bit); the port reads its own
-trees back bit for bit and refuses a JAX-written (OCDBT) one."""
+trees back bit for bit (JAX-written ones: test_torch_jax_checkpoint.py)."""
 import dataclasses
 import json
 import os
@@ -26,6 +26,7 @@ from sdbc_tpu_torch.train import adam8bit as tadam8
 from sdbc_tpu_torch.train import lora as tlora
 from sdbc_tpu_torch.train import trainer as ttrainer
 from sdbc_tpu_torch.utils import checkpoint as tckpt
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _np(tree):
@@ -269,14 +270,6 @@ def test_latest_checkpoint_skips_incomplete(tmp_path, np_params):
     assert jckpt.latest_checkpoint(out, "r") == \
         tckpt.latest_checkpoint(out, "r")
     assert tckpt.latest_checkpoint(out, "other") is None
-
-
-def test_jax_written_checkpoint_is_refused(tmp_path, tiny_params):
-    path = str(tmp_path / "jax")
-    jckpt.save_pipeline(path, tiny_params, JCfg.tiny())
-    with pytest.raises(tckpt.JAXCheckpointError,
-                       match="export_diffusers_checkpoint.*--diffusers_ckpt"):
-        tckpt.load_pipeline(path)
 
 
 def test_lora_training_merge_matches_serving_merge(np_params):

@@ -28,19 +28,12 @@ from sdbc_tpu_torch.cli import inference as tinf
 from sdbc_tpu_torch.cli import precalc_fid_stats as tpf
 from sdbc_tpu_torch.models import inception as tinc
 from tests.data_fixtures import build_fake_dataset
+from tests.torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAT_RTOL = 1e-4
 FID_RTOL = 1e-4
 TINY = ["--tiny", "--no-bf16", "--num_inference_steps", "3"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -150,9 +143,9 @@ def test_calc_fid_and_enter_prompt_write_files(env, tmp_path, monkeypatch):
 
 
 def test_ckpt_flag_loads_a_port_checkpoint(env, tmp_path, tiny_params):
-    """--ckpt (accepted since the port writes checkpoints) serves the
-    weights it holds: the same image as --diffusers_ckpt of the same
-    weights; a JAX-written checkpoint exits naming the export route."""
+    """--ckpt serves the weights it holds: the same image as
+    --diffusers_ckpt of the same weights; a checkpoint the JAX package
+    wrote of them serves the port checkpoint's image."""
     import jax
 
     from sdbc_tpu.utils import checkpoint as jckpt
@@ -174,8 +167,8 @@ def test_ckpt_flag_loads_a_port_checkpoint(env, tmp_path, tiny_params):
     jck = str(tmp_path / "jax_ckpt")
     jckpt.save_pipeline(jck, tiny_params, jinf.common.resolve_params_cfg(
         jinf.build_parser().parse_args(["--tiny"]))[1])
-    with pytest.raises(SystemExit, match="export_diffusers_checkpoint"):
-        tinf.main(base + ["--ckpt", jck])
+    tinf.main(base + ["--ckpt", jck, "--run_id", "jk"])
+    assert np.array_equal(_png(tmp_path / "jk inference" / "a cover.png"), a)
 
 
 def _bart_dir(root) -> str:

@@ -36,6 +36,7 @@ from sdbc_tpu_torch.models import port as tport
 from sdbc_tpu_torch.models import safety as tsafety
 from sdbc_tpu_torch.models.convert import load_jax_params
 from tests.data_fixtures import build_fake_dataset
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOWER_TOL = 1e-4
 PREP_TOL = 1e-5

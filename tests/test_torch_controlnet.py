@@ -39,17 +39,10 @@ from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.utils import checkpoint as tckpt
 from tests.test_torch_finetune import (_argv, _assert_bits, _disk,
                                        _state_trees, capture, data)
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODEL_ATOL = 1e-4
 IMAGE_ATOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jittered(tree, seed: int, scale: float = 0.02):

@@ -27,6 +27,7 @@ from sdbc_tpu_torch.train import prior as tprior
 from sdbc_tpu_torch.utils import png
 from sdbc_tpu_torch.utils import tracking as ttracking
 from tests.data_fixtures import build_fake_dataset
+from tests.torch_threads import one_thread  # noqa: F401
 
 LATENT_ATOL = 1e-4
 IMG = 32

@@ -23,6 +23,7 @@ from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
 from sdbc_tpu_torch.models import controlnet as tcn
 from sdbc_tpu_torch.models import port as tport
 from sdbc_tpu_torch.models.unet import UNetConfig
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _sd21_tiny():

@@ -32,17 +32,10 @@ from sdbc_tpu_torch.models import port as tport
 from sdbc_tpu_torch.models import unet as tunet
 from sdbc_tpu_torch.models import vae as tvae
 from sdbc_tpu_torch.models.convert import load_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODEL_ATOL = 1e-4
 IMAGE_ATOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jittered(tree, seed: int):

@@ -27,6 +27,7 @@ from sdbc_tpu_torch.eval import fid as tfid
 from sdbc_tpu_torch.models import inception as tinc
 from sdbc_tpu_torch.models import port as tport
 from tests.test_inception_port import _synthesize_state_dict
+from tests.torch_threads import one_thread  # noqa: F401
 
 FEAT_RTOL = 1e-4
 STAT_RTOL = 1e-4
@@ -34,14 +35,6 @@ FID_RTOL = 1e-4
 ATOL = 1e-3
 CFG = jinc.InceptionConfig.tiny()
 TCFG = tinc.InceptionConfig.tiny()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -29,18 +29,11 @@ from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, as_modules
 from sdbc_tpu_torch.train import trainer as ttrainer
 from sdbc_tpu_torch.utils import checkpoint as tckpt
 from tests.data_fixtures import build_fake_dataset
+from tests.torch_threads import one_thread  # noqa: F401
 
 ACCUM, MICRO, PRIOR, HW = 1, 2, 1, 32
 LR = 2e-5
 LOSS_RTOL, MU_RTOL, MU_ATOL, PARAM_ATOL = 1e-5, 1e-4, 1e-7, 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

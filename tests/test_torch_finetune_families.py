@@ -42,16 +42,9 @@ from tests.test_torch_finetune import (  # noqa: F401
     LOSS_RTOL, LR, MU_ATOL, MU_RTOL, PARAM_ATOL, _argv, _assert_bits,
     _disk, _jax_draws, _keyed, _state_trees, capture, data)
 from tests.test_torch_train_families import jax_keyed
+from tests.torch_threads import one_thread  # noqa: F401
 
 ACCUM, MICRO, PRIOR, HW = 1, 2, 1, 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

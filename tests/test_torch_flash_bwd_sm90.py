@@ -17,6 +17,7 @@ from sdbc_tpu.ops import flash_attention_bwd as jbwd
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import flash_attention_bwd as tbwd
+from tests.torch_threads import one_thread  # noqa: F401
 
 SQ, SK = 200, 300  # neither a multiple of the kernels' 32-, 64- or 128-row tiles
 GRAD_ATOL = 2e-4  # fp32 on both sides: tests/test_torch_train_ops.py's bound

@@ -24,6 +24,7 @@ from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import flash_attention_bwd as tbwd
 from sdbc_tpu_torch.ops import flash_attention_tt as ttt
 from sdbc_tpu_torch.ops import flash_bwd_tf32
+from tests.torch_threads import one_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
 # The kernels' bound on the card (chip_smoke.SIMT_FP32_REL_TOL /

@@ -17,6 +17,7 @@ from sdbc_tpu.ops import flash_attention as jflash
 from sdbc_tpu.ops import flash_attention_tt as jtt
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as tflash
+from tests.torch_threads import one_thread  # noqa: F401
 
 SK = 300  # not a multiple of the kernel's 64- or 128-key tiles
 # fp32 on both sides, summation order only.  Near the cap the logits reach

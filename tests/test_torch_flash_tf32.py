@@ -18,6 +18,7 @@ from sdbc_tpu.ops import flash_attention as jflash
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import flash_tf32
+from tests.torch_threads import one_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453

@@ -20,6 +20,7 @@ import torch
 from sdbc_tpu.ops import geglu_ff as jgeglu
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import geglu_ff as tgeglu
+from tests.torch_threads import one_thread  # noqa: F401
 
 # The emulation against the JAX kernel's fp32: 1e-4 of the largest output
 # entry plus 1e-6 (the split products lose ~2^-21 of |a|.|b|, the sums run

@@ -35,6 +35,7 @@ from sdbc_tpu_torch.utils.image import resize
 from tests.test_torch_remat import _chip_smoke
 from tests.test_torch_sample_options import counted  # noqa: F401
 from tests.test_torch_samplers import jax_draws
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-3
 RESIZE_RTOL = 1e-5
@@ -43,16 +44,6 @@ WEIGHTED = ["a ((big)) cat:", "(gothic:1.3) novel [cover]",
             "unbalanced (open and ] close", r"escaped \(literal\) text",
             "a (very:0.5) long prompt " + "with many words " * 12,
             "", "plain prompt"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the module (tiny tensors; the tier-1 run's
-    workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("text", WEIGHTED)

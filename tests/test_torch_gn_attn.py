@@ -28,6 +28,7 @@ from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import flash_attention_tt as ttt
 from sdbc_tpu_torch.ops import nn as tnn
 from sdbc_tpu_torch.ops import pallas_groupnorm as tpgn
+from tests.torch_threads import one_thread  # noqa: F401
 
 # fp32 on both sides: summation order only
 GN_ATOL, GN_GRAD_ATOL = 1e-5, 1e-4

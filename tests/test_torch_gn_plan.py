@@ -12,6 +12,7 @@ import torch
 
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import pallas_groupnorm as tpgn
+from tests.torch_threads import one_thread  # noqa: F401
 
 # (hw, c) of the UNet's 57 eligible GroupNorm sites per evaluation
 UNET_SHAPES = [(64 * 64, 320), (32 * 32, 320), (32 * 32, 640),

@@ -29,18 +29,11 @@ from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig, SDPipeline,
 from sdbc_tpu_torch.models import port as tport
 from tests.test_torch_controlnet import jittered, rand, tree_of
 from tests.test_torch_samplers import jax_draws
+from tests.torch_threads import one_thread  # noqa: F401
 
 IMAGE_ATOL = 1e-3
 PROMPTS = ["a gothic novel cover", "a cookbook cover"]
 LAT = (2, 16, 16, 4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def inpaint_cfg(cls):

@@ -14,6 +14,7 @@ from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, as_modules
 from sdbc_tpu_torch.models import unet as tunet
 from sdbc_tpu_torch.models import vae as tvae
 from tests import diffusers_mirror as mirror
+from tests.torch_threads import one_thread  # noqa: F401
 
 RTOL = ATOL = 1e-4  # tests/test_numpy_mirror.py
 

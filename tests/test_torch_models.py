@@ -14,6 +14,7 @@ from sdbc_tpu_torch.models import clip as tclip
 from sdbc_tpu_torch.models import unet as tunet
 from sdbc_tpu_torch.models import vae as tvae
 from sdbc_tpu_torch.models.convert import load_jax_params
+from tests.torch_threads import one_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
                        "tiny_goldens.npz")

@@ -21,6 +21,7 @@ from sdbc_tpu_torch.ops import attention as tattn
 from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.ops import geglu_ff as tgeglu
 from sdbc_tpu_torch.ops import nn as tnn
+from tests.torch_threads import one_thread  # noqa: F401
 
 # fp32 tolerances of tests/test_ops.py for the kernels they mirror
 FLASH_TOL = dict(atol=2e-5, rtol=2e-5)

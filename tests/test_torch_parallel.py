@@ -25,6 +25,7 @@ from sdbc_tpu.parallel import mesh as jmesh
 from sdbc_tpu.parallel import specs as jspecs
 from sdbc_tpu_torch.parallel import mesh as tmesh
 from sdbc_tpu_torch.parallel import specs as tspecs
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import pytest
 
 from sdbc_tpu_torch.models.convert import _flatten_jax_tree
 from tests.torch_parallel_harness import Ranks, assert_tree_close
+from tests.torch_threads import one_thread  # noqa: F401
 
 FT_LR = 1e-3
 

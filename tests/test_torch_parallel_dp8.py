@@ -19,6 +19,7 @@ from tests.torch_parallel_harness import (GLOBAL_MICRO, LR,
                                           assert_tree_close, jax_train,
                                           launch_worker, tiny_trees,
                                           train_inputs, worker_results)
+from tests.torch_threads import one_thread  # noqa: F401
 
 CASES = {
     "dp8": dict(tcfg=dict(train_unet=True, train_text_encoder=True,

@@ -20,6 +20,7 @@ import pytest
 from sdbc_tpu.parallel import mesh as jmesh
 from tests.torch_parallel_harness import (HW, launch_worker, tiny_trees,
                                           worker_results)
+from tests.torch_threads import one_thread  # noqa: F401
 
 SAMPLE = dict(prompts=["a gothic novel cover", "a cookbook cover",
                        "a space opera", "a quiet memoir"],

@@ -21,6 +21,7 @@ from tests.torch_parallel_harness import (GLOBAL_MICRO, LR,
                                           assert_tree_close, jax_train,
                                           launch_worker, tiny_trees,
                                           train_inputs, worker_results)
+from tests.torch_threads import one_thread  # noqa: F401
 
 CASES = {
     # Megatron-style TP on a (data 1, model 2) mesh, with clipping: the

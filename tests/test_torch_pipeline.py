@@ -20,6 +20,7 @@ from sdbc_tpu_torch.diffusion import schedulers as tsched
 from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, SDPipeline
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.utils.prng import per_sample_fixed_latents
+from tests.torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(ROOT, "tests", "goldens", "tiny_goldens.npz")

@@ -13,6 +13,7 @@ from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig
 from sdbc_tpu_torch.models import unet as tunet
 from sdbc_tpu_torch.models.convert import _flatten_jax_tree, load_jax_params
 from sdbc_tpu_torch.train import trainer as ttrainer
+from tests.torch_threads import one_thread  # noqa: F401
 
 GRAD_ATOL = 1e-4  # fp32, JAX vs the port: summation order only
 SELF_ATOL = 1e-6  # the port with and without checkpointing

@@ -20,6 +20,7 @@ from sdbc_tpu_torch.diffusion.pipeline import (PipelineConfig, SDPipeline,
 from sdbc_tpu_torch.models import unet as tunet
 from tests.test_torch_samplers import (ATOL, LAT_SHAPE, ids, latents,  # noqa
                                        models, one_thread, run_both)
+from tests.torch_threads import one_thread  # noqa: F401
 
 IMG_SHAPE = (2, 32, 32, 3)
 

@@ -15,23 +15,13 @@ from sdbc_tpu_torch.data.tokenizer import CLIPTokenizer
 from sdbc_tpu_torch.diffusion import graph as tgraph
 from sdbc_tpu_torch.diffusion.pipeline import PipelineConfig, as_modules
 from sdbc_tpu_torch.ops import _kernels
+from tests.torch_threads import one_thread  # noqa: F401
 
 # the pipeline tolerance of tests/test_torch_pipeline.py
 ATOL = 1e-3
 PROMPTS = ["a gothic novel cover", "a cookbook cover"]
 NEGATIVE = ["blurry", ""]
 LAT_SHAPE = (2, 16, 16, 4)  # the tiny VAE (scale 2): a 32² image
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for the module: tiny tensors gain little from
-    more (0.19 s against 0.13 s for a 4-step heun alone), and the tier-1
-    run's six workers on the host's cores spin each other's thread pools."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_draws(key, lat_shape, lo: int, hi: int, enc_shape=None):

@@ -13,6 +13,7 @@ import torch
 
 from sdbc_tpu.diffusion import schedulers as js
 from sdbc_tpu_torch.diffusion import schedulers as ts
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 SHAPE = (2, 4, 4, 4)

@@ -41,19 +41,12 @@ from tests.test_torch_families import _fields, as_np, port_init_tree, rand
 from tests.test_torch_finetune import _argv, data  # noqa: F401
 from tests.test_torch_sample_options import counted  # noqa: F401
 from tests.test_torch_samplers import jax_draws
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODEL_ATOL = 1e-4
 IMAGE_ATOL = 1e-3
 PROMPTS = ["a gothic novel cover", "a cookbook cover"]
 LAT = (2, 16, 16, 4)  # the tiny VAE (scale 2): a 32² image
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -541,6 +541,7 @@ import numpy as np, torch
 from sdbc_tpu_torch.cli import common, serve
 from sdbc_tpu_torch.diffusion.pipeline import SDPipeline
 from sdbc_tpu_torch.utils import png
+from tests.torch_threads import one_thread  # noqa: F401
 
 args = serve.build_parser().parse_args(sys.argv[2:])
 common.resolve_img_size(args)

@@ -22,6 +22,7 @@ from sdbc_tpu_torch.models.convert import _flatten_jax_tree
 from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.train import adam8bit as tadam8
 from sdbc_tpu_torch.train import trainer as ttrainer
+from tests.torch_threads import one_thread  # noqa: F401
 
 GRAD_ACCUM, MICRO, HW = 2, 2, 32
 LR, STEPS = 1e-3, 2

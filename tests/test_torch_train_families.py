@@ -34,16 +34,9 @@ from tests.test_torch_train import (GRAD_ACCUM, LOSS_RTOL, MAX_NOISY_SHARE,
                                     MICRO, NOISE_ONLY, PARAM_ATOL, STEPS,
                                     _assert_params_match, _batch,
                                     _jax_draws)
+from tests.torch_threads import one_thread  # noqa: F401
 
 LR = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_keyed(tree) -> dict:

@@ -20,6 +20,7 @@ from sdbc_tpu_torch.ops import _kernels
 from sdbc_tpu_torch.ops import attention as tattn
 from sdbc_tpu_torch.ops import flash_attention as tflash
 from sdbc_tpu_torch.train import adam8bit as tadam8
+from tests.torch_threads import one_thread  # noqa: F401
 
 # fp32: summation order only (the JAX forward's own test uses 2e-5)
 OUT_ATOL, LSE_ATOL = 2e-5, 1e-5
